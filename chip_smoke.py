@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its main
-path, AES-128-CTR over one 256 MiB buffer with the bench chain, and holds
-every kernel of that path against its plain torch version on the card.
-Phases, in order; any failure raises and the exit code is not 0:
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its two
+paths, AES-128-CTR over one 256 MiB buffer with the bench chain and the
+ECB/CBC/CFB128 block-mode path over the same size, and holds every kernel of
+those paths against its plain torch version on the card. Phases, in order;
+any failure raises and the exit code is not 0:
 
-1. the card's name and power limit; build the kernels, print ``ptxas -v``;
-2. kernel vs plain version: every counter wrap, nr 10/12/14, ragged N and
-   16 MiB random (mismatching words must be 0);
-3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume;
-4. the main path: ``bench.run`` at 256 MiB, iters 5, reps 3, with every
-   launch count set to 0 just before and read just after; the digest must
-   be 0xa612a647, the reference's digest for this chain;
-5. per kernel at the main path's 256 MiB shape: kernel vs plain version,
-   time per launch (CUDA events), the plain version's time, the least time
-   the card could take (the bytes the function moves over the HBM rate or
-   the operations it needs over the integer rate, the larger), the launches
-   of 4, the kernel's own SASS instruction count beside the operations, and
-   the rest of a chain step (the digest sum).
+1. the card's name and power limit; build the kernels (one ``nvcc`` per
+   source, in parallel), print ``ptxas -v`` per kernel;
+2. kernel vs plain version: ``ctr_gen`` at every counter wrap, and both ECB
+   kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20} (mismatching
+   words must be 0);
+3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
+   F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
+   the card, whose engine must be the CUDA one;
+4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
+   must be 0xa612a647, the reference's digest for this chain;
+5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
+   kernel equal to its plain version), the parallel CBC and CFB128 decrypts
+   (equal to their plain versions), the sequential CBC and CFB128 encrypts of
+   the first 4,096 recovered blocks (they give back the input), and
+   ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks;
+6. the hex CLI on the card decrypts the F.1.2 vector;
+7. per kernel at the paths' 256 MiB shape: time per launch (CUDA events),
+   the plain version's time, the least time the card could take (the bytes
+   the function moves over the HBM rate or the operations it needs over the
+   integer rate, the larger), the kernel's own SASS instruction count beside
+   the operations; the sequential encrypt's time per block.
 
+Phases 4 and 5 each run with every launch count set to 0 just before and
+read just after: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
@@ -49,6 +60,32 @@ BP_SBOX_GATES = 115
 #: XORs of one column's MixColumns, the fewest known (Maximov, "AES
 #: MixColumn with 92 XOR gates", IACR ePrint 2019/833).
 MIXCOLUMN_XORS = 92
+BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
+SEQ_BLOCKS = 4096
+SP800_PT = ("6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
+            "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
+SP800_IV = "000102030405060708090a0b0c0d0e0f"
+#: NIST SP800-38A F.1.1/3/5 and F.2.1/3/5: key, ECB ciphertext, CBC ciphertext.
+SP800_ECB_CBC = {
+    128: ("2b7e151628aed2a6abf7158809cf4f3c",
+          "3ad77bb40d7a3660a89ecaf32466ef97f5d3d58503b9699de785895a96fdbaaf"
+          "43b1cd7f598ece23881b00e3ed0306887b0c785e27e8ad3f8223207104725dd4",
+          "7649abac8119b246cee98e9b12e9197d5086cb9b507219ee95db113a917678b2"
+          "73bed6b8e3c1743b7116e69e222295163ff1caa1681fac09120eca307586e1a7"),
+    192: ("8e73b0f7da0e6452c810f32b809079e562f8ead2522c6b7b",
+          "bd334f1d6e45f25ff712a214571fa5cc974104846d0ad3ad7734ecb3ecee4eef"
+          "ef7afd2270e2e60adce0ba2face6444e9a4b41ba738d6c72fb16691603c18e0e",
+          "4f021db243bc633d7178183a9fa071e8b4d9ada9ad7dedf4e5e738763f69145a"
+          "571b242012fb7ae07fa9baac3df102e008b0e27988598881d920a9e64f5615cd"),
+    256: ("603deb1015ca71be2b73aef0857d77811f352c073b6108d72d9810a30914dff4",
+          "f3eed1bdb5d2a03c064b5a7e3db181f8591ccb10d410ed26dc5ba74a31362870"
+          "b6ed21b99ca6f4f9f153e7b1beafed1d23304b7a39f9f3ff067d8d8f9e24ecc7",
+          "f58c4c04d6e5f1ba779eabfb5f7bfbd69cfc4e967edb808d679f777bc6702c7d"
+          "39f23369a9d9bacfa530e26304231461b2eb05e2c39be9fcda6c19078c6a9d1b"),
+}
+#: NIST SP800-38A F.3.13, CFB128-AES128 encrypt.
+SP800_CFB128 = ("3b3fd92eb72dad20333449f8e83cfb4ac8a64537a0b3a93fcde3cdad9f1ce58b"
+                "26751f67a3cbb140b1808cf187a4f4dfc04b05357c5d1c0eeac4c66f9ff7f2e6")
 WRAP_NONCES = [
     "000102030405060708090a0bfffffffb",   # 32-bit carry after 5 blocks
     "0001020304050607fffffffffffffff9",   # 64-bit carry after 7 blocks
@@ -100,15 +137,41 @@ def ctr_ops_per_group(nr: int) -> tuple[float, dict]:
     return sum(gates.values()) / 2 + shifts, {**gates, "shifts": shifts}
 
 
-def sass_int_ops_per_thread(text: str, nr: int) -> tuple[int, dict]:
-    """Integer instructions one thread of ctr_gen_kernel<nr> executes, read
+def ecb_ops_per_group(nr: int, decrypt: bool) -> tuple[float, dict]:
+    """Integer operations ECB needs for one group of 32 blocks in bit planes,
+    by ``ctr_ops_per_group``'s rule (two-input gates / 2 for LOP3 fusion,
+    shifts one each, NOTs folded, moves and address arithmetic not counted):
+    16 nr S-boxes, nr - 1 MixColumns or InvMixColumns of four columns, nr + 1
+    AddRoundKeys of 128 XORs and eight 32x32 transposes (four in, four out).
+
+    Both directions count the same. Encrypt S-boxes are Boyar-Peralta's 115
+    gates. The inverse S-box is credited with the same 115: the decrypt
+    kernel runs that core conjugated by the inverse affine map, and A^-1 on
+    either side (linear) and the 0x05 constant (NOTs) fold into the core's
+    top and bottom linear layers; the kernel's own 32 extra XORs are not
+    counted. InvMixColumns is credited with MixColumns' 92 XORs, a
+    deliberately low figure: its matrix is the denser of the two, and the
+    bound must not count work the function may not need. The kernel's own
+    form (the forward 92 after a 58-XOR pre-transform) is not counted."""
+    gates = {
+        "sbox": 16 * nr * BP_SBOX_GATES,
+        "inv_mixcolumns" if decrypt else "mixcolumns": 4 * (nr - 1) * MIXCOLUMN_XORS,
+        "addroundkey": 128 * (nr + 1),
+        "transpose": 8 * 5 * 16 * 4,
+    }
+    shifts = 8 * 5 * 16 * 2
+    return sum(gates.values()) / 2 + shifts, {**gates, "shifts": shifts}
+
+
+def sass_int_ops_per_thread(text: str, kernel: str, nr: int) -> tuple[int, dict]:
+    """Integer instructions one thread of ``kernel``<nr> executes, read
     from the compiled SASS (``cuobjdump -sass``): the straight-line code
     counts once, the round loop's body (the one backward branch) nr - 1
     times. Returns the count and the opcode histogram of that stream."""
     funcs = re.split(r"\n\s*Function : ", text)
-    body = [f for f in funcs if f.startswith(f"_ZN") and f"ctr_gen_kernelILi{nr}E" in f.split("\n", 1)[0]]
+    body = [f for f in funcs if f.startswith("_ZN") and f"{kernel}ILi{nr}E" in f.split("\n", 1)[0]]
     if len(body) != 1:
-        raise RuntimeError(f"expected one SASS function for nr={nr}, found {len(body)}")
+        raise RuntimeError(f"expected one SASS function {kernel}<{nr}>, found {len(body)}")
     ins = [(int(a, 16), t.strip()) for a, t in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body[0])]
     back = []
@@ -145,23 +208,33 @@ def main() -> int:
 
     from our_tree_tpu_torch import bench
     from our_tree_tpu_torch.models import aes
-    from our_tree_tpu_torch.ops import cuda_aes
-    from our_tree_tpu_torch.ops.keyschedule import expand_key_enc
+    from our_tree_tpu_torch.ops import bitslice, cuda_aes
+    from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
     from our_tree_tpu_torch.runtime import cuda_build
     from our_tree_tpu_torch.utils import packing
 
     dev = torch.device("cuda")
     card = smi("name,power.limit")
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    wrappers = {"ctr_gen": cuda_aes.ctr_crypt_words_fused,
+                "ecb_encrypt": cuda_aes.encrypt_words,
+                "ecb_decrypt": cuda_aes.decrypt_words}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     # 1. Build.
     t0 = time.perf_counter()
     lib_path = str(cuda_build.library_path())
     cuda_build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)}")
-    for line in cuda_build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
+    ptxas = cuda_build.ptxas_kernels()
+    for name, info in sorted(ptxas.items()):
+        log(f"ptxas: {name}: {info}")
 
     def events_ms(fn, reps):
         fn()
@@ -174,43 +247,67 @@ def main() -> int:
         stop.synchronize()
         return start.elapsed_time(stop) / reps
 
+    def random_words(n, seed):
+        return torch.randint(-2**31, 2**31, (n, 4), dtype=torch.int32, device=dev,
+                             generator=torch.Generator(dev).manual_seed(seed))
+
     def tensors(n, key, hexnonce, seed):
         nr, rk = expand_key_enc(key)
         ctr = packing.np_bytes_to_words(np.frombuffer(bytes.fromhex(hexnonce), np.uint8)).byteswap()
-        w = torch.randint(-2**31, 2**31, (n, 4), dtype=torch.int32, device=dev,
-                          generator=torch.Generator(dev).manual_seed(seed))
-        return w, packing.words_tensor(ctr, dev), packing.words_tensor(rk, dev), nr
+        return random_words(n, seed), packing.words_tensor(ctr, dev), packing.words_tensor(rk, dev), nr
+
+    def diff(got, want):
+        """(mismatching words, largest absolute difference of the u32 values)."""
+        torch.cuda.synchronize()
+        d = (got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)
+        return int((got != want).sum()), int(d.abs().max()) if d.numel() else 0
 
     def compare(w, ctr, rk, nr):
-        got = cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr)
-        want = cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr)
-        torch.cuda.synchronize()
-        diff = (got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)
-        return int((got != want).sum()), int(diff.abs().max()) if diff.numel() else 0
+        return diff(cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr),
+                    cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr))
 
-    # 2. Kernel vs plain version on the card.
+    def schedules(key):
+        nr, rk = expand_key_enc(key)
+        return nr, packing.words_tensor(rk, dev), packing.words_tensor(expand_key_dec(key)[1], dev)
+
+    # 2. Kernels vs plain versions on the card.
     mismatches = 0
     cases = 0
     for bits in (128, 192, 256):
+        key = np.random.default_rng(bits).integers(0, 256, bits // 8, dtype=np.uint8).tobytes()
         for hexnonce in WRAP_NONCES:
             for n in (1, 31, 33, 1000, 1 << 20):
                 if n == 1 << 20 and hexnonce != WRAP_NONCES[1]:
                     continue  # 16 MiB once per key size, across a 64-bit carry
-                key = np.random.default_rng(bits).integers(0, 256, bits // 8, dtype=np.uint8)
-                m, _ = compare(*tensors(n, key.tobytes(), hexnonce, seed=n + bits))
+                m, _ = compare(*tensors(n, key, hexnonce, seed=n + bits))
                 mismatches += m
                 cases += 1
                 if m:
-                    log(f"MISMATCH bits={bits} nonce={hexnonce} n={n}: {m} words")
-    log(f"kernel vs plain: {cases} cases, {mismatches} mismatching words")
+                    log(f"MISMATCH ctr_gen bits={bits} nonce={hexnonce} n={n}: {m} words")
+    log(f"ctr_gen vs plain: {cases} cases, {mismatches} mismatching words")
     if mismatches:
-        raise SystemExit("kernel disagrees with its plain version")
+        raise SystemExit("ctr_gen disagrees with its plain version")
+    ecb_mismatches = {"ecb_encrypt": 0, "ecb_decrypt": 0}
+    for bits in (128, 192, 256):
+        nr, rk, rk_dec = schedules(np.random.default_rng(bits).integers(
+            0, 256, bits // 8, dtype=np.uint8).tobytes())
+        for n in (1, 31, 33, 1000, 1 << 20):
+            w = random_words(n, seed=3 * n + bits)
+            for name, kernel, plain, sched in (
+                    ("ecb_encrypt", cuda_aes.encrypt_words, bitslice.encrypt_words, rk),
+                    ("ecb_decrypt", cuda_aes.decrypt_words, bitslice.decrypt_words, rk_dec)):
+                m, _ = diff(kernel(w, sched, nr), plain(w, sched, nr))
+                ecb_mismatches[name] += m
+                if m:
+                    log(f"MISMATCH {name} bits={bits} n={n}: {m} words")
+    log(f"ECB kernels vs plain: 15 cases each, mismatching words {ecb_mismatches}")
+    if any(ecb_mismatches.values()):
+        raise SystemExit("an ECB kernel disagrees with its plain version")
 
-    # 3. KAT and chunked resume through the AES context on the card.
+    # 3. KATs and chunked resume through the AES context on the card.
     kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
     ctr0 = np.frombuffer(bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"), np.uint8)
-    pt = bytes.fromhex("6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
-                       "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
+    pt = bytes.fromhex(SP800_PT)
     ct = ("874d6191b620e3261bef6864990db6ce9806f66b7970fdff8617187bb9fffdff"
           "5ae4df3edbd5d35e5b4f09020db03eab1e031dda2fbe03d1792170a0f3009cee")
     ctx = aes.AES(kat_key)
@@ -232,63 +329,188 @@ def main() -> int:
             and np.array_equal(state[1], cpu[2]) and np.array_equal(state[2], cpu[3])):
         raise SystemExit("chunked crypt_ctr on the card differs from one shot on the CPU")
     log("chunked crypt_ctr resume (1, 15, 16, 17, 1000003 bytes): equal to CPU one-shot")
+    iv = np.frombuffer(bytes.fromhex(SP800_IV), np.uint8)
+    for bits, (key_hex, ecb_hex, cbc_hex) in SP800_ECB_CBC.items():
+        kctx = aes.AES(bytes.fromhex(key_hex))
+        if kctx.engine != aes.CUDA_ENGINE:
+            raise SystemExit(f"AES-{bits} on the card resolved to {kctx.engine}")
+        checks = [
+            kctx.crypt_ecb(aes.AES_ENCRYPT, pt).tobytes().hex() == ecb_hex,
+            kctx.crypt_ecb(aes.AES_DECRYPT, bytes.fromhex(ecb_hex)).tobytes().hex() == SP800_PT,
+            kctx.crypt_cbc(aes.AES_ENCRYPT, iv, pt)[0].tobytes().hex() == cbc_hex,
+            kctx.crypt_cbc(aes.AES_DECRYPT, iv, bytes.fromhex(cbc_hex))[0].tobytes().hex() == SP800_PT,
+        ]
+        if bits == 128:
+            checks += [
+                ctx.crypt_cfb128(aes.AES_ENCRYPT, 0, iv, pt)[0].tobytes().hex() == SP800_CFB128,
+                ctx.crypt_cfb128(aes.AES_DECRYPT, 0, iv,
+                                 bytes.fromhex(SP800_CFB128))[0].tobytes().hex() == SP800_PT,
+            ]
+        if not all(checks):
+            raise SystemExit(f"NIST SP800-38A KAT failed for AES-{bits}: {checks}")
+    log("NIST SP800-38A F.1 and F.2 (ECB, CBC; 128/192/256, both directions) and F.3.13 "
+        "(CFB128-AES128, both directions) through AES on the card: pass")
 
-    # 4. The main path, counted.
-    cuda_aes.ctr_crypt_words_fused.launches = 0
+    # 4. The CTR main path, counted.
+    reset_counts()
     line = bench.run(device=dev, nbytes=MAIN_BYTES, iters=5, reps=3)
-    launches = cuda_aes.ctr_crypt_words_fused.launches
+    ctr_counts = counts()
     log(json.dumps(line))
     if f"digest={MAIN_DIGEST:#010x}" not in line["metric"]:
         raise SystemExit(f"main path digest is not {MAIN_DIGEST:#010x}: {line['metric']}")
-    if launches <= 0:
-        raise SystemExit("the main path launched no ctr_gen kernel")
-    log(f"main path: {line['value']} GB/s median (min {line['value_min']}, max "
-        f"{line['value_max']}, {line['reps']} reps), ctr_gen launches {launches}; card: {card}")
+    if ctr_counts["ctr_gen"] <= 0:
+        raise SystemExit("the CTR main path launched no ctr_gen kernel")
+    log(f"CTR main path: {line['value']} GB/s median (min {line['value_min']}, max "
+        f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}; card: {card}")
 
-    # 5. The kernel at the main path's shape: time, plain time, bound.
-    w, ctr, rk, nr = tensors(MAIN_BYTES // 16, bench.KEY, WRAP_NONCES[4], seed=1337)
-    m, max_err = compare(w, ctr, rk, nr)
-    if m:
-        raise SystemExit(f"kernel vs plain at the main shape: {m} mismatching words")
-    ms = events_ms(lambda: cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr), 20)
-    plain_ms = events_ms(lambda: cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr), 2)
-    groups = (w.shape[0] + 31) // 32
-    fn_ops, parts = ctr_ops_per_group(nr)
-    sass_ops, hist = sass_int_ops_per_thread(sass(lib_path), nr)
+    # 5. The block-mode path at 256 MiB, counted.
+    nr, rk, rk_dec = schedules(bench.KEY)
+    host = np.random.default_rng(bench.SEED).integers(0, 256, MAIN_BYTES, dtype=np.uint8)
+    words = packing.words_tensor(packing.np_bytes_to_words(host), dev).reshape(-1, 4)
+    ivw = packing.words_tensor(packing.np_bytes_to_words(
+        np.frombuffer(bytes.fromhex(BLOCK_IV), np.uint8)), dev)
+    eng = aes.CUDA_ENGINE
+    reset_counts()
+    t0 = time.perf_counter()
+    ecb_ct = aes.ecb_encrypt_words(words, rk, nr, eng)
+    ecb_pt = aes.ecb_decrypt_words(ecb_ct, rk_dec, nr, eng)
+    cbc_pt, cbc_iv = aes.cbc_decrypt_words(words, ivw, rk_dec, nr, eng)
+    cfb_pt, cfb_iv = aes.cfb128_decrypt_words(words, ivw, rk, nr, eng)
+    cbc_re, _ = aes.cbc_encrypt_words(cbc_pt[:SEQ_BLOCKS], ivw, rk, nr, eng)
+    cfb_re, _ = aes.cfb128_encrypt_words(cfb_pt[:SEQ_BLOCKS], ivw, rk, nr, eng)
+    streams = words[:SEQ_BLOCKS * 64].reshape(SEQ_BLOCKS, 64, 4)
+    stream_ivs = words[-SEQ_BLOCKS:].contiguous()
+    batch_ct, batch_iv = aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    block_counts = counts()
+    log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}")
+    if block_counts["ecb_encrypt"] <= 0 or block_counts["ecb_decrypt"] <= 0:
+        raise SystemExit(f"the block-mode path did not launch both ECB kernels: {block_counts}")
+    checks = {
+        "ecb round trip": bool(torch.equal(ecb_pt, words)),
+        "ecb_encrypt == plain": diff(ecb_ct, bitslice.encrypt_words(words, rk, nr))[0] == 0,
+        "ecb_decrypt == plain": diff(ecb_pt, bitslice.decrypt_words(ecb_ct, rk_dec, nr))[0] == 0,
+        "cbc_decrypt == plain": diff(cbc_pt, aes.cbc_decrypt_words(
+            words, ivw, rk_dec, nr, aes.PLAIN_ENGINE)[0])[0] == 0,
+        "cfb128_decrypt == plain": diff(cfb_pt, aes.cfb128_decrypt_words(
+            words, ivw, rk, nr, aes.PLAIN_ENGINE)[0])[0] == 0,
+        "decrypt ivs": bool(torch.equal(cbc_iv, words[-1]) and torch.equal(cfb_iv, words[-1])),
+        f"cbc_encrypt of {SEQ_BLOCKS} recovered blocks": bool(torch.equal(cbc_re, words[:SEQ_BLOCKS])),
+        f"cfb128_encrypt of {SEQ_BLOCKS} recovered blocks": bool(torch.equal(cfb_re, words[:SEQ_BLOCKS])),
+    }
+    # The batch's streams decrypt back in one ECB call: P = D(C) ^ C_prev.
+    prev = torch.cat([stream_ivs[:, None], batch_ct[:, :-1]], dim=1)
+    back = cuda_aes.decrypt_words(batch_ct.reshape(-1, 4), rk_dec, nr).reshape(batch_ct.shape) ^ prev
+    checks[f"cbc_encrypt_words_batch {SEQ_BLOCKS} x 64"] = bool(
+        torch.equal(back, streams) and torch.equal(batch_iv, batch_ct[:, -1]))
+    log(f"block-mode checks: {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"block-mode path check failed: {checks}")
+
+    # 6. The hex CLI on the card: F.1.2, ECB-AES128 decrypt.
+    key_hex, ecb_hex, _ = SP800_ECB_CBC[128]
+    res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.harness.decrypt", key_hex,
+                          ecb_hex[:32]], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0 or res.stdout.strip() != SP800_PT[:32]:
+        raise SystemExit(f"CLI on the card: rc {res.returncode}, out {res.stdout!r}, "
+                         f"err {res.stderr[-2000:]!r}")
+    log(f"CLI on the card: decrypt F.1.2 block 1 -> {res.stdout.strip()}: pass")
+
+    # 7. Each kernel at the paths' 256 MiB shape: time, plain time, bound.
+    sass_text = sass(lib_path)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_ops_per_ms = sm_count * INT_OPS_PER_CLK_PER_SM * clock_mhz * 1e3
-    ops_ms = groups * fn_ops / int_ops_per_ms
-    sass_ms = groups * sass_ops / int_ops_per_ms
-    bytes_ms = (2 * w.numel() * 4 + 4 * 4 + rk.numel() * 4) / HBM_BYTES_PER_S * 1e3
-    log(f"ctr_gen at {MAIN_BYTES >> 20} MiB: {ms:.4f} ms/launch "
-        f"({MAIN_BYTES / ms / 1e6:.2f} GB/s), plain {plain_ms:.2f} ms; card: {card}")
-    log(f"bound: {fn_ops} operations per group of 32 blocks ({parts}) x {groups} groups / "
-        f"({sm_count} SMs x {INT_OPS_PER_CLK_PER_SM}/clk x {clock_mhz:.0f} MHz) = "
-        f"{ops_ms:.4f} ms; bytes {bytes_ms:.4f} ms; kernel at "
-        f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
-    log(f"kernel's own stream: {sass_ops} SASS integer instructions per thread, "
-        f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the integer rate, "
-        f"kernel at {100 * sass_ms / ms:.1f} % of that); top opcodes {list(hist.items())[:8]}")
-    out = cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr)
+    kernels = []
+
+    def measure(name, source, replaces, kernel_fn, plain_fn, got, want, fn_ops, parts,
+                nbytes, launches):
+        m, max_err = diff(got, want)
+        if m:
+            raise SystemExit(f"{name} vs plain at the path's shape: {m} mismatching words")
+        ms = events_ms(kernel_fn, 20)
+        plain_ms = events_ms(plain_fn, 2)
+        groups = MAIN_BYTES // 16 // 32
+        sass_ops, hist = sass_int_ops_per_thread(sass_text, f"{name}_kernel", nr)
+        ops_ms = groups * fn_ops / int_ops_per_ms
+        sass_ms = groups * sass_ops / int_ops_per_ms
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        regs = ptxas.get(f"{name}_kernel<{nr}>", {})
+        log(f"{name} at {MAIN_BYTES >> 20} MiB: {ms:.4f} ms/launch "
+            f"({MAIN_BYTES / ms / 1e6:.2f} GB/s), plain {plain_ms:.2f} ms; ptxas {regs}; card: {card}")
+        log(f"{name} bound: {fn_ops} operations per group of 32 blocks ({parts}) x {groups} groups / "
+            f"({sm_count} SMs x {INT_OPS_PER_CLK_PER_SM}/clk x {clock_mhz:.0f} MHz) = "
+            f"{ops_ms:.4f} ms; bytes {bytes_ms:.4f} ms; kernel at "
+            f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+        log(f"{name} own stream: {sass_ops} SASS integer instructions per thread, "
+            f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the integer rate, "
+            f"kernel at {100 * sass_ms / ms:.1f} % of that); top opcodes {list(hist.items())[:8]}")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "mismatches": m,
+            "max_abs_err": max_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "ops_per_group": fn_ops,
+            "sass_instructions_per_group": sass_ops,
+        })
+
+    w, ctr, rk_ctr, nr = tensors(MAIN_BYTES // 16, bench.KEY, WRAP_NONCES[4], seed=1337)
+    measure("ctr_gen", "our_tree_tpu_torch/csrc/ctr_gen.cu", "our_tree_tpu/ops/pallas_aes.py:601",
+            lambda: cuda_aes.ctr_crypt_words_fused(w, ctr, rk_ctr, nr),
+            lambda: cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk_ctr, nr),
+            cuda_aes.ctr_crypt_words_fused(w, ctr, rk_ctr, nr),
+            cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk_ctr, nr),
+            *ctr_ops_per_group(nr), 2 * w.numel() * 4 + 4 * 4 + rk_ctr.numel() * 4,
+            ctr_counts["ctr_gen"])
+    out = cuda_aes.ctr_crypt_words_fused(w, ctr, rk_ctr, nr)
     sum_ms = events_ms(lambda: bench.u32_sum(out), 10)
     log(f"chain step besides the kernel: digest sum {sum_ms:.4f} ms at {MAIN_BYTES >> 20} MiB")
-    kernels = [{
-        "name": "ctr_gen",
-        "route": "cuda",
-        "source": "our_tree_tpu_torch/csrc/ctr_gen.cu",
-        "replaces": "our_tree_tpu/ops/pallas_aes.py:601",
-        "launches": launches,
-        "mismatches": m,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "ops_per_group": fn_ops,
-        "sass_instructions_per_group": sass_ops,
-    }]
+    del w, out
+    ecb_bytes = 2 * words.numel() * 4 + rk.numel() * 4
+    measure("ecb_encrypt", "our_tree_tpu_torch/csrc/ecb.cu", "our_tree_tpu/ops/pallas_aes.py:259",
+            lambda: cuda_aes.encrypt_words(words, rk, nr),
+            lambda: bitslice.encrypt_words(words, rk, nr),
+            ecb_ct, bitslice.encrypt_words(words, rk, nr),
+            *ecb_ops_per_group(nr, decrypt=False), ecb_bytes, block_counts["ecb_encrypt"])
+    measure("ecb_decrypt", "our_tree_tpu_torch/csrc/ecb.cu", "our_tree_tpu/ops/pallas_aes.py:259",
+            lambda: cuda_aes.decrypt_words(ecb_ct, rk_dec, nr),
+            lambda: bitslice.decrypt_words(ecb_ct, rk_dec, nr),
+            ecb_pt, bitslice.decrypt_words(ecb_ct, rk_dec, nr),
+            *ecb_ops_per_group(nr, decrypt=True), ecb_bytes, block_counts["ecb_decrypt"])
+    first = cbc_pt[:SEQ_BLOCKS].contiguous()
+    for mode, fn in (("cbc_encrypt", aes.cbc_encrypt_words), ("cfb128_encrypt", aes.cfb128_encrypt_words)):
+        seq_ms = events_ms(lambda: fn(first, ivw, rk, nr, eng), 2)
+        log(f"{mode}_words, {SEQ_BLOCKS} blocks in sequence: {seq_ms:.3f} ms, "
+            f"{1e3 * seq_ms / SEQ_BLOCKS:.2f} us per block; card: {card}")
+    # One step's parts: the host's time to issue 200 one-block launches (no
+    # sync) against the card's time for them (events); the larger bounds.
+    one = first[:1]
+    cuda_aes.encrypt_words(one, rk, nr)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        cuda_aes.encrypt_words(one, rk, nr)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    stop.record()
+    stop.synchronize()
+    card_us = start.elapsed_time(stop) / 200 * 1e3
+    log(f"one-block ecb_encrypt launch: host issue {host_us:.2f} us, card {card_us:.2f} us "
+        f"per launch ({'card' if card_us > 1.1 * host_us else 'host'}-bound); card: {card}")
+    batch_ms = events_ms(lambda: aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng), 2)
+    log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks: {batch_ms:.3f} ms, "
+        f"{1e3 * batch_ms / 64:.2f} us per step of {SEQ_BLOCKS} blocks; card: {card}")
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,7 +24,8 @@
 //   * four 32x32 bit transposes turn the keystream planes back into words,
 //     which are XORed with the data and stored. Blocks past n are masked.
 // Constant time: no load address depends on key or data, only on the block
-// index, the round and the word number. The arithmetic is in ctr_gen.cuh.
+// index, the round and the word number. The arithmetic is in ctr_gen.cuh
+// (counter synthesis) and aes_bitslice.cuh (rounds, transposes).
 
 #include <cstdint>
 #include <cuda_runtime.h>

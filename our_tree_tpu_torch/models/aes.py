@@ -1,15 +1,23 @@
-"""AES context and CTR mode on the card (the CTR half of
-``our_tree_tpu.models.aes``).
+"""AES context and block modes on the card (``our_tree_tpu.models.aes``).
 
 Words are (N, 4) or flat (4N,) ``torch.int32`` tensors holding u32 LE
 block words. The counter is 4 big-endian u32 words (word 3 least
 significant), and block i of a call uses counter0 + i, wrapping mod 2^128,
 as the reference C ``aes_crypt_ctr`` does.
 
-Engines: ``"cuda-ctr-gen-bp"`` is the hand-written CUDA kernel
-(``ops/cuda_aes.py``); ``"bitslice"`` is its plain torch version.
-``"auto"`` resolves to the kernel for a CUDA device and to the plain version
-for the CPU. ECB, CBC and CFB128 come in a later slice.
+Engines (``CORES[name] = (encrypt, decrypt)`` over (N, 4) words):
+``"cuda-ctr-gen-bp"`` is the hand-written CUDA kernels (``ops/cuda_aes.py``:
+ECB encrypt and decrypt, fused CTR); ``"bitslice"`` is their plain torch
+version; ``"ttable"`` is the T-table core (``ops/block.py``), the reference's
+``"jnp"`` engine, an in-port oracle that ``"auto"`` never picks. ``"auto"``
+resolves to the kernels for a CUDA device and to the plain version for the
+CPU.
+
+Modes: ECB, CTR and the CBC/CFB128 decrypts are one batched engine call.
+CBC and CFB128 encryption are recurrences: the reference runs them as a
+``lax.scan`` over a T-table gather; here each step calls the engine's ECB
+encrypt core on one (1, 4) block (one kernel launch and one XOR on the
+card), and the IV stays on the device, so no step waits on the host.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import bitslice, cuda_aes
+from ..ops import bitslice, block, cuda_aes
 from ..ops.keyschedule import dec_schedule_from_enc, expand_key_enc
 from ..utils import packing
 # The reference keeps the counter add here; the port keeps it in utils so
@@ -29,22 +37,27 @@ AES_DECRYPT = 0
 
 CUDA_ENGINE = "cuda-ctr-gen-bp"
 PLAIN_ENGINE = "bitslice"
+TTABLE_ENGINE = "ttable"
 
-#: (words, rk, nr) -> words block encrypt cores, by engine name (None: the
-#: engine has no ECB core yet).
-CORES: dict[str, object] = {}
-#: (words, ctr_be_words, rk, nr) -> words fused CTR entries, by engine name.
+#: (encrypt, decrypt) block cores, (words, rk, nr) -> words over (N, 4)
+#: int32 words, by engine name.
+CORES: dict[str, tuple] = {}
+#: (words, ctr_be_words, rk, nr) -> words fused CTR entries, by engine name;
+#: engines without one run CTR as keystream then XOR.
 CTR_FUSED: dict[str, object] = {}
 
 
-def register_core(name: str, encrypt_fn, ctr_fused_fn) -> None:
-    CORES[name] = encrypt_fn
-    CTR_FUSED[name] = ctr_fused_fn
+def register_core(name: str, encrypt_fn, decrypt_fn, ctr_fused_fn=None) -> None:
+    CORES[name] = (encrypt_fn, decrypt_fn)
+    if ctr_fused_fn is not None:
+        CTR_FUSED[name] = ctr_fused_fn
 
 
-register_core(PLAIN_ENGINE, bitslice.encrypt_words,
+register_core(CUDA_ENGINE, cuda_aes.encrypt_words, cuda_aes.decrypt_words,
+              cuda_aes.ctr_crypt_words_fused)
+register_core(PLAIN_ENGINE, bitslice.encrypt_words, bitslice.decrypt_words,
               cuda_aes.ctr_crypt_words_fused_plain)
-register_core(CUDA_ENGINE, None, cuda_aes.ctr_crypt_words_fused)
+register_core(TTABLE_ENGINE, block.encrypt_words, block.decrypt_words)
 
 
 def as_device(device=None) -> torch.device:
@@ -63,17 +76,141 @@ def resolve_engine(engine: str, device) -> str:
     device and the plain version on the CPU."""
     if engine == "auto":
         return CUDA_ENGINE if torch.device(device).type == "cuda" else PLAIN_ENGINE
-    if engine not in CTR_FUSED:
-        raise ValueError(f"unknown engine {engine!r}; available: {sorted(CTR_FUSED)}")
+    if engine not in CORES:
+        raise ValueError(f"unknown engine {engine!r}; available: {sorted(CORES)}")
     return engine
+
+
+def _blocks(words: torch.Tensor) -> torch.Tensor:
+    """(N, 4) block view of (N, 4) or flat (4N,) words."""
+    return words.reshape(-1, 4)
+
+
+def ecb_encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int,
+                      engine: str = "auto") -> torch.Tensor:
+    """Batch ECB encrypt over (N, 4) block words or a flat (4N,) stream."""
+    engine = resolve_engine(engine, words.device)
+    return CORES[engine][0](_blocks(words), rk, nr).reshape(words.shape)
+
+
+def ecb_decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int,
+                      engine: str = "auto") -> torch.Tensor:
+    """Batch ECB decrypt (InvMixColumns-folded schedule); the word forms of
+    ``ecb_encrypt_words``."""
+    engine = resolve_engine(engine, words.device)
+    return CORES[engine][1](_blocks(words), rk_dec, nr).reshape(words.shape)
+
+
+def ctr_keystream_words(ctr_be_words: torch.Tensor, rk: torch.Tensor, nr: int,
+                        nblocks_idx: torch.Tensor, engine: str = "auto") -> torch.Tensor:
+    """Keystream blocks E_K(counter0 + idx) as (N, 4) words; ``nblocks_idx``
+    holds the (N,) block offsets, 0 <= idx < 2^63."""
+    engine = resolve_engine(engine, ctr_be_words.device)
+    idx = nblocks_idx.to(device=ctr_be_words.device, dtype=torch.int64)
+    return CORES[engine][0](ctr_le_blocks(ctr_be_words, idx), rk, nr)
 
 
 def ctr_crypt_words(words: torch.Tensor, ctr_be_words: torch.Tensor,
                     rk: torch.Tensor, nr: int, engine: str = "auto") -> torch.Tensor:
     """CTR over (N, 4) int32 block words or a flat (4N,) stream."""
     engine = resolve_engine(engine, words.device)
-    w2 = words.reshape(-1, 4)
-    return CTR_FUSED[engine](w2, ctr_be_words, rk, nr).reshape(words.shape)
+    w2 = _blocks(words)
+    fused = CTR_FUSED.get(engine)
+    if fused is not None:
+        out = fused(w2, ctr_be_words, rk, nr)
+    else:
+        idx = torch.arange(w2.shape[0], dtype=torch.int64, device=w2.device)
+        out = w2 ^ ctr_keystream_words(ctr_be_words, rk, nr, idx, engine)
+    return out.reshape(words.shape)
+
+
+def ctr_crypt_words_scattered(words: torch.Tensor, ctr_le_words: torch.Tensor,
+                              rk: torch.Tensor, nr: int, engine: str = "auto") -> torch.Tensor:
+    """CTR where every block's counter is given: (N, 4) LE counter words
+    (or a flat (4N,) stream) beside the (N, 4)/(4N,) data words. One ECB
+    call over the counters, XORed into the data (the serving seam: a batch
+    of requests under one key, each with its own nonce)."""
+    engine = resolve_engine(engine, words.device)
+    ks = CORES[engine][0](_blocks(ctr_le_words), rk, nr)
+    return (words.reshape(-1) ^ ks.reshape(-1)).reshape(words.shape)
+
+
+def cbc_encrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
+                      nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """CBC encrypt, C_i = E(P_i ^ C_(i-1)), C_(-1) = IV; returns (output,
+    new IV). A recurrence: one (1, 4) engine call per block."""
+    engine = resolve_engine(engine, words.device)
+    enc = CORES[engine][0]
+    w2 = _blocks(words)
+    iv = iv_words.reshape(1, 4)
+    outs = []
+    for i in range(w2.shape[0]):
+        iv = enc(w2[i: i + 1] ^ iv, rk, nr)
+        outs.append(iv)
+    if not outs:
+        return words, iv_words
+    return torch.cat(outs).reshape(words.shape), iv.reshape(4)
+
+
+def cbc_encrypt_words_batch(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
+                            nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """S independent CBC streams at once: each step encrypts one block of
+    every stream as one (S, 4) engine call. ``words``: (S, N, 4) block words
+    or (S, 4N) flat streams; ``iv_words``: (S, 4). Returns (outputs, final
+    IVs) per stream."""
+    engine = resolve_engine(engine, words.device)
+    enc = CORES[engine][0]
+    iv = iv_words.reshape(-1, 4)
+    s = iv.shape[0]
+    w3 = words.reshape(s, -1, 4)
+    outs = []
+    for i in range(w3.shape[1]):
+        iv = enc((w3[:, i] ^ iv).contiguous(), rk, nr)
+        outs.append(iv)
+    if not outs:
+        return words, iv_words
+    return torch.stack(outs, dim=1).reshape(words.shape), iv
+
+
+def cbc_decrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk_dec: torch.Tensor,
+                      nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """CBC decrypt, P_i = D(C_i) ^ C_(i-1): the chain reads only ciphertext,
+    so it is one batched decrypt and a shifted XOR. Length 0 is a no-op."""
+    if words.shape[0] == 0:
+        return words, iv_words
+    flat = words.reshape(-1)
+    prev = torch.cat([iv_words.reshape(-1), flat[:-4]])
+    out = ecb_decrypt_words(flat, rk_dec, nr, engine) ^ prev
+    return out.reshape(words.shape), flat[-4:]
+
+
+def cfb128_encrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
+                         nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """CFB128 encrypt over whole blocks, C_i = P_i ^ E(C_(i-1)); returns
+    (output, new IV). A recurrence: one (1, 4) engine call per block."""
+    engine = resolve_engine(engine, words.device)
+    enc = CORES[engine][0]
+    w2 = _blocks(words)
+    iv = iv_words.reshape(1, 4).contiguous()
+    outs = []
+    for i in range(w2.shape[0]):
+        iv = w2[i: i + 1] ^ enc(iv, rk, nr)
+        outs.append(iv)
+    if not outs:
+        return words, iv_words
+    return torch.cat(outs).reshape(words.shape), iv.reshape(4)
+
+
+def cfb128_decrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
+                         nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """CFB128 decrypt over whole blocks: keystream block i = E(C_(i-1)) is
+    known up front, so one batched encrypt and an XOR."""
+    if words.shape[0] == 0:
+        return words, iv_words
+    flat = words.reshape(-1)
+    prev = torch.cat([iv_words.reshape(-1), flat[:-4]])
+    out = flat ^ ecb_encrypt_words(prev, rk, nr, engine)
+    return out.reshape(words.shape), flat[-4:]
 
 
 def ctr_crypt_fn(nr: int, engine: str = "auto"):
@@ -136,15 +273,86 @@ class AES:
         self.rk_enc = packing.words_tensor(np.asarray(rk_enc), self.device)
         self.rk_dec = packing.words_tensor(np.asarray(rk_dec), self.device)
 
-    def crypt_ecb(self, mode: int, data):
-        raise NotImplementedError("ported in a later slice")
+    def _words(self, b: np.ndarray) -> torch.Tensor:
+        """uint8 bytes (length % 16 == 0) -> int32 words on the context's device."""
+        return packing.words_tensor(packing.np_bytes_to_words(b), self.device)
 
-    def crypt_cbc(self, mode: int, iv, data):
-        raise NotImplementedError("ported in a later slice")
+    # -- ECB ---------------------------------------------------------------
+    def crypt_ecb(self, mode: int, data) -> np.ndarray:
+        """Bulk ECB over any multiple of 16 bytes (reference aes.c:650-752
+        handles one block; the batch dimension replaces the caller's loop)."""
+        b = _to_u8(data)
+        if b.size % 16:
+            raise ValueError("ECB data must be a multiple of 16 bytes")
+        w = self._words(b)
+        if mode == AES_ENCRYPT:
+            out = ecb_encrypt_words(w, self.rk_enc, self.nr, self.engine)
+        else:
+            out = ecb_decrypt_words(w, self.rk_dec, self.nr, self.engine)
+        return _bytes_np(out)
 
+    # -- CBC ---------------------------------------------------------------
+    def crypt_cbc(self, mode: int, iv, data) -> tuple[np.ndarray, np.ndarray]:
+        """CBC with explicit IV state; returns (output, new_iv). Semantics of
+        reference aes.c:757-816 (IV updated to the last ciphertext block)."""
+        b = _to_u8(data)
+        if b.size % 16:
+            raise ValueError("CBC data must be a multiple of 16 bytes")
+        ivw = self._words(_to_u8(iv)[:16])
+        w = self._words(b)
+        if mode == AES_ENCRYPT:
+            out, newiv = cbc_encrypt_words(w, ivw, self.rk_enc, self.nr, self.engine)
+        else:
+            out, newiv = cbc_decrypt_words(w, ivw, self.rk_dec, self.nr, self.engine)
+        return _bytes_np(out), _bytes_np(newiv)
+
+    # -- CFB128 ------------------------------------------------------------
     def crypt_cfb128(self, mode: int, iv_off: int, iv, data):
-        raise NotImplementedError("ported in a later slice")
+        """Byte-granular CFB128 (reference aes.c:822-863): returns
+        (output, new_iv_off, new_iv). ``iv`` carries the feedback register,
+        partially overwritten with ciphertext when iv_off != 0."""
+        b = _to_u8(data)
+        iv = _to_u8(iv).copy()
+        return self._cfb_impl(mode, int(iv_off), iv, b)
 
+    def _ecb1(self, block16: np.ndarray) -> np.ndarray:
+        """E_K of one 16-byte block through the context's engine (one kernel
+        launch on the card)."""
+        w = self._words(_to_u8(block16)).reshape(1, 4)
+        return _bytes_np(ecb_encrypt_words(w, self.rk_enc, self.nr, self.engine))
+
+    def _cfb_impl(self, mode, iv_off, iv, b):
+        out = np.empty_like(b)
+        pos = 0
+        n = int(iv_off)
+        # As in the reference, when n != 0 the iv buffer holds ciphertext in
+        # [0, n) and not-yet-used keystream bytes E(prev_iv) in [n, 16).
+        while pos < b.size:
+            if n == 0 and b.size - pos >= 16:
+                # Aligned bulk: all full blocks in one entry call.
+                nfull = (b.size - pos) // 16
+                w = self._words(b[pos: pos + nfull * 16])
+                ivw = self._words(iv)
+                if mode == AES_ENCRYPT:
+                    o, newiv = cfb128_encrypt_words(w, ivw, self.rk_enc, self.nr, self.engine)
+                else:
+                    o, newiv = cfb128_decrypt_words(w, ivw, self.rk_enc, self.nr, self.engine)
+                out[pos: pos + nfull * 16] = _bytes_np(o)
+                iv = _bytes_np(newiv)
+                pos += nfull * 16
+                continue
+            if n == 0:
+                iv = self._ecb1(iv)
+            take = min(16 - n, b.size - pos)
+            chunk = b[pos: pos + take]
+            c = chunk ^ iv[n: n + take]
+            iv[n: n + take] = c if mode == AES_ENCRYPT else chunk
+            out[pos: pos + take] = c
+            pos += take
+            n = (n + take) & 0x0F
+        return out, n, iv
+
+    # -- CTR ---------------------------------------------------------------
     def _ctr_words(self, words_np: np.ndarray, nonce_counter: np.ndarray) -> np.ndarray:
         w = packing.words_tensor(words_np, self.device)
         ctr_be = packing.words_tensor(

@@ -1,24 +1,35 @@
-"""Bitsliced AES, forward direction, in plain torch.
+"""Bitsliced AES in plain torch, both directions.
 
-This is the plain version of the CUDA kernel's arithmetic
-(``csrc/ctr_gen.cu``): the same circuit on whole tensors, used for CPU
-tensors and as the kernel's yardstick on the card. Port of the forward
-half of ``our_tree_tpu.ops.bitslice``; the tower S-box and the inverse
-circuit come with the ECB slice.
+This is the plain version of the CUDA kernels' arithmetic
+(``csrc/ctr_gen.cu``, ``csrc/ecb.cu``): the same functions on whole
+tensors, used for CPU tensors and as the kernels' yardstick on the card.
+Port of ``our_tree_tpu.ops.bitslice`` without its TPU-only boundary
+layouts (``grouped``/``dense`` exist for TPU tile padding) and without
+``multikey_planes``, which comes with the multi-key slice.
 
 Data layout (the reference's, so tests compare planes directly): N blocks
 (N % 32 == 0) become an ``(8, 16, W)`` int32 tensor, W = N/32, where
 ``planes[b, p, w]`` holds in bit t bit ``b`` of state byte ``p`` of block
 ``32*w + t``. State byte p is row p%4, column p//4, and word c of a block
 holds bytes 4c..4c+3 little-endian. Every mask is 0 or -1 (all 32 bits).
+
+S-box circuits, chosen per call (there is no environment knob):
+``"bp"`` is the 115-gate Boyar-Peralta forward circuit the kernels run;
+``"tower"`` is the composite-field form (GF(2^8) as GF(2^4)[x], the 4-bit
+inverse one tower level further down), whose inverse direction is the
+plain version of the ECB decrypt kernel; ``"chain"`` is x^254 by four
+multiplies, an independent formulation for cross-checks. Every linear map
+is a GF(2) matrix derived at import time from the field arithmetic.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from . import gf
+from . import gf, tables
 from ..utils.packing import i32
 
 # ---------------------------------------------------------------------------
@@ -36,17 +47,239 @@ def _linmat(f, n: int = 8) -> np.ndarray:
     return m
 
 
-#: Constant multiplier x2 for MixColumns (x4 joins it with InvMixColumns).
-MAT_MUL = {2: _linmat(lambda x: gf.gmul(2, x))}
+def _gf2_inv(mat: np.ndarray) -> np.ndarray:
+    """Invert a GF(2) matrix by Gauss-Jordan elimination."""
+    n = mat.shape[0]
+    a = np.concatenate([mat.copy(), np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = next(r for r in range(col, n) if a[r, col])
+        a[[col, piv]] = a[[piv, col]]
+        for r in range(n):
+            if r != col and a[r, col]:
+                a[r] ^= a[col]
+    return a[:, n:]
 
+
+#: Squaring, linear in characteristic 2.
+MAT_SQ = _linmat(lambda x: gf.gmul(x, x))
+
+#: The linear part L of the S-box affine layer, S(x) = L(x^-1) ^ 0x63,
+#: derived from the S-box table: L(y) = S(y^-1) ^ S(0).
+MAT_AFF = _linmat(lambda y: int(tables.SBOX[gf.ginv(y)]) ^ 0x63)
+MAT_AFF_INV = _gf2_inv(MAT_AFF)
 AFF_CONST = 0x63
 
-#: ShiftRows as a permutation of byte positions: new[4c+r] = old[4((c+r)%4)+r].
+#: Constant multipliers: x2 for MixColumns, x4 for the InvMixColumns
+#: pre-transform.
+MAT_MUL = {c: _linmat(lambda x, c=c: gf.gmul(c, x)) for c in (2, 4)}
+
+#: Reduction of a degree-14 product: REDUCE[k] = x^k mod POLY.
+REDUCE = np.array([gf.gpow(2, k) for k in range(15)], dtype=np.uint16)
+
+#: ShiftRows as a permutation of byte positions: new[4c+r] = old[4((c+r)%4)+r];
+#: the inverse rotates by -r.
 SR_PERM = np.array([4 * ((i // 4 + i % 4) % 4) + i % 4 for i in range(16)])
+ISR_PERM = np.array([4 * ((i // 4 - i % 4) % 4) + i % 4 for i in range(16)])
 
 #: ROT_PERM[k][i] = the byte position holding a_(r+k) of byte i's column.
 ROT_PERM = [np.array([4 * (i // 4) + (i % 4 + k) % 4 for i in range(16)])
             for k in range(4)]
+
+# ---------------------------------------------------------------------------
+# Composite-field ("tower") S-box derivation: GF(2^8) = GF(2^4)[x]/(x^2+x+λ),
+# GF(2^4) = GF(2^2)[u]/(u^2+u+Λ), GF(2^2) = GF(2)[w]/(w^2+w+1). λ, Λ, the
+# field isomorphisms and every small linear map are searched or derived
+# here from the field arithmetic, as in the reference.
+# ---------------------------------------------------------------------------
+
+GF16_POLY = 0b10011  # w^4 + w + 1
+
+
+def _gf16_mul(a: int, b: int) -> int:
+    r = 0
+    while b:
+        if b & 1:
+            r ^= a
+        b >>= 1
+        a <<= 1
+        if a & 0x10:
+            a ^= GF16_POLY
+    return r & 0xF
+
+
+def _pick_lambda() -> int:
+    """Smallest λ making x^2 + x + λ irreducible over GF(2^4)."""
+    for lam in range(1, 16):
+        if all(_gf16_mul(r, r) ^ r ^ lam for r in range(16)):
+            return lam
+    raise AssertionError("no irreducible x^2+x+λ over GF(2^4)")
+
+
+TOWER_LAMBDA = _pick_lambda()
+
+
+def _tower_mul(u: int, v: int) -> int:
+    """Multiply in GF(2^4)[x]/(x^2+x+λ); byte = (a<<4)|b for a·x+b."""
+    a, b, c, d = u >> 4, u & 0xF, v >> 4, v & 0xF
+    ac = _gf16_mul(a, c)
+    hi = _gf16_mul(a, d) ^ _gf16_mul(b, c) ^ ac
+    lo = _gf16_mul(b, d) ^ _gf16_mul(ac, TOWER_LAMBDA)
+    return (hi << 4) | lo
+
+
+def _find_tower_iso() -> np.ndarray:
+    """8x8 GF(2) matrix φ with φ(uv) = φ(u)φ(v) into the tower field, from
+    discrete logs: 0x03 generates the AES field; for each tower generator
+    h, φ(3^k) = h^k is taken if it is linear."""
+    log = {}
+    v = 1
+    for k in range(255):
+        log[v] = k
+        v = gf.gmul(v, 0x03)
+    for h in range(2, 256):
+        powers = [1]
+        for _ in range(254):
+            powers.append(_tower_mul(powers[-1], h))
+        if len(set(powers)) != 255:
+            continue
+        phi = [0] * 256
+        for val, k in log.items():
+            phi[val] = powers[k]
+        m = np.zeros((8, 8), dtype=np.uint8)
+        for j in range(8):
+            for i in range(8):
+                m[i, j] = (phi[1 << j] >> i) & 1
+        if all(int(sum(int(b) << i for i, b in enumerate(
+                (m @ [(x >> j) & 1 for j in range(8)]) % 2))) == phi[x]
+               for x in range(256)):
+            return m
+    raise AssertionError("no field isomorphism found")
+
+
+TOWER_ISO = _find_tower_iso()
+TOWER_ISO_INV = _gf2_inv(TOWER_ISO)
+
+#: Merged boundary maps: S = Aff∘inv_tower∘φ (+0x63 after);
+#: InvS = φ⁻¹∘inv_tower∘φ∘Aff⁻¹ (0x63 XORed before).
+M_SBOX_IN = TOWER_ISO
+M_SBOX_OUT = (MAT_AFF @ TOWER_ISO_INV) % 2
+M_ISBOX_IN = (TOWER_ISO @ MAT_AFF_INV) % 2
+M_ISBOX_OUT = TOWER_ISO_INV
+
+MAT_SQ4 = _linmat(lambda x: _gf16_mul(x, x), 4)
+MAT_LAMSQ4 = _linmat(lambda x: _gf16_mul(TOWER_LAMBDA, _gf16_mul(x, x)), 4)
+
+
+def _gf4_mul(a: int, b: int) -> int:
+    """GF(2^2) multiply, poly w^2 + w + 1."""
+    r = 0
+    while b:
+        if b & 1:
+            r ^= a
+        b >>= 1
+        a <<= 1
+        if a & 4:
+            a ^= 0b111
+    return r & 3
+
+
+def _pick_lambda4() -> int:
+    """Λ in GF(2^2) making u^2 + u + Λ irreducible over GF(2^2)."""
+    for lam in range(1, 4):
+        if all(_gf4_mul(r, r) ^ r ^ lam for r in range(4)):
+            return lam
+    raise AssertionError("no irreducible u^2+u+Λ over GF(2^2)")
+
+
+SUB_LAMBDA = _pick_lambda4()
+
+
+def _pair_mul(u: int, v: int) -> int:
+    """Multiply in GF(2^2)[u]/(u^2+u+Λ); nibble = (a<<2)|b for a·u+b."""
+    a, b, c, d = u >> 2, u & 3, v >> 2, v & 3
+    ac = _gf4_mul(a, c)
+    hi = _gf4_mul(a, d) ^ _gf4_mul(b, c) ^ ac
+    lo = _gf4_mul(b, d) ^ _gf4_mul(ac, SUB_LAMBDA)
+    return (hi << 2) | lo
+
+
+def _find_sub_iso() -> np.ndarray:
+    """4x4 GF(2) matrix ψ with ψ(uv) = ψ(u)ψ(v), GF(16) w-basis -> pair basis."""
+    gen = next(g for g in range(2, 16)
+               if len({functools.reduce(lambda x, _: _gf16_mul(x, g),
+                                        range(k), 1) for k in range(15)}) == 15)
+    log = {}
+    v = 1
+    for k in range(15):
+        log[v] = k
+        v = _gf16_mul(v, gen)
+    for h in range(2, 16):
+        powers = [1]
+        for _ in range(14):
+            powers.append(_pair_mul(powers[-1], h))
+        if len(set(powers)) != 15:
+            continue
+        psi = [0] * 16
+        for val, k in log.items():
+            psi[val] = powers[k]
+        m = np.zeros((4, 4), dtype=np.uint8)
+        for j in range(4):
+            for i in range(4):
+                m[i, j] = (psi[1 << j] >> i) & 1
+        if all(int(sum(int(b) << i for i, b in enumerate(
+                (m @ [(x >> j) & 1 for j in range(4)]) % 2))) == psi[x]
+               for x in range(16)):
+            return m
+    raise AssertionError("no GF(16) sub-tower isomorphism found")
+
+
+SUB_ISO = _find_sub_iso()
+SUB_ISO_INV = _gf2_inv(SUB_ISO)
+
+#: δ^-1 = δ² and the Λ·x² map over 2-bit planes; MAT_DELTA4 merges the two
+#: δ-terms over [hi; lo] into one map.
+MAT_SQ2 = _linmat(lambda x: _gf4_mul(x, x), 2)
+MAT_LAMSQ2 = _linmat(lambda x: _gf4_mul(SUB_LAMBDA, _gf4_mul(x, x)), 2)
+MAT_DELTA4 = np.concatenate([MAT_LAMSQ2, MAT_SQ2], axis=1)
+
+
+def _apply4(m: np.ndarray, x: int) -> int:
+    return int(sum(int(v) << i for i, v in enumerate(
+        (m @ [(x >> j) & 1 for j in range(4)]) % 2)))
+
+
+def _bilinear_reduction(out_map) -> np.ndarray:
+    """(4, 16) GF(2) matrix R with out_k = XOR over R[k, 4i+j] of a_i & b_j,
+    R[k, 4i+j] = bit k of out_map(i, j): folds a linear map after a GF(16)
+    product into the product."""
+    m = np.zeros((4, 16), dtype=np.uint8)
+    for i in range(4):
+        for j in range(4):
+            prod = out_map(i, j)
+            for k in range(4):
+                m[k, 4 * i + j] = (prod >> k) & 1
+    return m
+
+
+#: w-basis x w-basis -> pair-basis product (ψ folded in).
+_MUL_W_W_TO_PAIR = _bilinear_reduction(
+    lambda i, j: _apply4(SUB_ISO, _gf16_mul(1 << i, 1 << j)))
+#: w-basis x pair-basis -> w-basis product (ψ⁻¹ folded in).
+_MUL_W_PAIR_TO_W = _bilinear_reduction(
+    lambda i, j: _gf16_mul(1 << i, _apply4(SUB_ISO_INV, 1 << j)))
+
+#: [ψ∘λ(·)² | ψ∘(·)²] over the stacked [a; b] planes: ψ(λa² + b²).
+MAT_DELTA8 = np.concatenate([(SUB_ISO @ MAT_LAMSQ4) % 2,
+                             (SUB_ISO @ MAT_SQ4) % 2], axis=1)
+
+#: x^k mod (w^4 + w + 1) for the 4-bit schoolbook product's degree-6 terms.
+GF16_REDUCE = np.array([functools.reduce(lambda v, _: _gf16_mul(v, 2), range(k), 1)
+                        for k in range(7)], dtype=np.uint8)
+
+# ---------------------------------------------------------------------------
+# Circuit primitives: a "byte" is a list of 8 same-shaped int32 tensors
+# (LSB first); every op is elementwise over them.
+# ---------------------------------------------------------------------------
 
 
 def _xor_cse_schedule(mat: np.ndarray):
@@ -106,8 +339,86 @@ def xor_const(p: list, c: int) -> list:
     return [~x if (c >> i) & 1 else x for i, x in enumerate(p)]
 
 
+#: Reductions of schoolbook partials as GF(2) matrices (degree-k term ->
+#: output bits), so the XOR trees go through apply_linear.
+_RED8 = np.array([[(int(REDUCE[k]) >> i) & 1 for k in range(15)] for i in range(8)],
+                 dtype=np.uint8)
+_RED4 = np.array([[(int(GF16_REDUCE[k]) >> i) & 1 for k in range(7)] for i in range(4)],
+                 dtype=np.uint8)
+#: GF(2^2) product as a bilinear reduction: column 2i+j = a_i & b_j.
+_MUL_GF4 = np.array([[(_gf4_mul(1 << i, 1 << j) >> k) & 1 for i in range(2) for j in range(2)]
+                     for k in range(2)], dtype=np.uint8)
+
+
+def _schoolbook(a: list, b: list) -> list:
+    """Partial products summed by degree: c[k] = XOR of a_i & b_j, i + j = k."""
+    c = [None] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            t = x & y
+            c[i + j] = t if c[i + j] is None else c[i + j] ^ t
+    return c
+
+
+def gf_mul_planes(a: list, b: list) -> list:
+    """Bitsliced GF(2^8) multiply: schoolbook partials + derived reduction."""
+    return apply_linear(_RED8, _schoolbook(a, b))
+
+
+def gf_inv_planes(x: list) -> list:
+    """x^254 (x^-1, 0 -> 0) by the 4-multiply addition chain
+    254 = 2 + 12 + 240; squarings are linear."""
+    sq = functools.partial(apply_linear, MAT_SQ)
+    x2 = sq(x)
+    x3 = gf_mul_planes(x2, x)
+    x12 = sq(sq(x3))
+    x15 = gf_mul_planes(x12, x3)
+    x240 = sq(sq(sq(sq(x15))))
+    x252 = gf_mul_planes(x240, x12)
+    return gf_mul_planes(x252, x2)
+
+
+def gf16_mul_planes(a: list, b: list) -> list:
+    """Bitsliced GF(2^4) multiply: 16 ANDs + the derived 7-term reduction."""
+    return apply_linear(_RED4, _schoolbook(a, b))
+
+
+def gf4_mul_planes(a: list, b: list) -> list:
+    """Bitsliced GF(2^2) multiply: 4 ANDs + the derived reduction."""
+    return apply_linear(_MUL_GF4, [x & y for x in a for y in b])
+
+
+def _mul16_planes(a: list, b: list, red: np.ndarray) -> list:
+    """GF(16) multiply through a folded bilinear reduction (``red`` picks
+    the operand and output bases); column 4i+j of ``red`` is a_i & b_j."""
+    return apply_linear(red, [x & y for x in a for y in b])
+
+
+def tower_inv_planes(p: list) -> list:
+    """GF(2^8) inversion in the tower basis: p = [b0..b3, a0..a3] for a·x+b.
+
+    (a·x + b)^-1 = aΔ^-1·x + (a+b)Δ^-1 with Δ = λa² + ab + b². Δ^-1 descends
+    one more level: over GF(2^2) pairs δ^-1 = δ², a linear map. Three GF(16)
+    and three GF(4) multiplies in all."""
+    b, a = p[:4], p[4:]
+    ab = _mul16_planes(a, b, _MUL_W_W_TO_PAIR)
+    dlin = apply_linear(MAT_DELTA8, a + b)
+    delta = [dlin[i] ^ ab[i] for i in range(4)]
+    lo, hi = delta[:2], delta[2:]
+    hl = gf4_mul_planes(hi, lo)
+    dlin2 = apply_linear(MAT_DELTA4, hi + lo)
+    d = [dlin2[i] ^ hl[i] for i in range(2)]
+    dinv = apply_linear(MAT_SQ2, d)
+    hi_out = gf4_mul_planes(hi, dinv)
+    lo_out = gf4_mul_planes([hi[i] ^ lo[i] for i in range(2)], dinv)
+    dinv4 = lo_out + hi_out
+    a_out = _mul16_planes(a, dinv4, _MUL_W_PAIR_TO_W)
+    b_out = _mul16_planes([a[i] ^ b[i] for i in range(4)], dinv4, _MUL_W_PAIR_TO_W)
+    return b_out + a_out
+
+
 # ---------------------------------------------------------------------------
-# S-box, MixColumns, rounds.
+# S-boxes, MixColumns, rounds.
 # ---------------------------------------------------------------------------
 
 
@@ -239,11 +550,29 @@ def _bp_sbox_core(p: list) -> list:
     return [s7, s6, s5, s4, s3, s2, s1, s0]
 
 
+SBOX_IMPLS = ("tower", "bp", "chain")
+
+
 def sbox_planes(p: list, impl: str = "bp") -> list:
-    """Forward S-box on 8 stacked bit planes (LSB first)."""
-    if impl != "bp":
-        raise NotImplementedError(f"S-box {impl!r} is ported in a later slice")
-    return xor_const(_bp_sbox_core(p), AFF_CONST)
+    """Forward S-box on 8 stacked bit planes (LSB first). ``impl`` picks
+    the circuit: "bp" (what the kernels run), "tower" or "chain"."""
+    if impl == "bp":
+        return xor_const(_bp_sbox_core(p), AFF_CONST)
+    if impl == "tower":
+        t = tower_inv_planes(apply_linear(M_SBOX_IN, p))
+        return xor_const(apply_linear(M_SBOX_OUT, t), AFF_CONST)
+    if impl == "chain":
+        return xor_const(apply_linear(MAT_AFF, gf_inv_planes(p)), AFF_CONST)
+    raise ValueError(f"unknown S-box impl {impl!r}; one of {SBOX_IMPLS}")
+
+
+def inv_sbox_planes(p: list) -> list:
+    """Inverse S-box on 8 stacked bit planes in the tower form, the
+    reference's default and the plain version of the ECB decrypt kernel
+    (which runs another formulation: the Boyar-Peralta core conjugated by
+    the inverse affine map)."""
+    t = apply_linear(M_ISBOX_IN, xor_const(list(p), AFF_CONST))
+    return apply_linear(M_ISBOX_OUT, tower_inv_planes(t))
 
 
 def _perm(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
@@ -259,6 +588,14 @@ def mixcolumns_planes(p: list) -> list:
     return [xt[i] ^ t[i] ^ _perm(t[i], ROT_PERM[2]) ^ p[i] for i in range(8)]
 
 
+def inv_mixcolumns_planes(p: list) -> list:
+    """out_r = 14a_r + 11a_(r+1) + 13a_(r+2) + 9a_(r+3), as MixColumns of
+    the pre-transform d_r = a_r ^ 4(a_r ^ a_(r+2))."""
+    t = [x ^ _perm(x, ROT_PERM[2]) for x in p]
+    four = apply_linear(MAT_MUL[4], t)
+    return mixcolumns_planes([p[i] ^ four[i] for i in range(8)])
+
+
 def encrypt_round(planes: torch.Tensor, kp: torch.Tensor, last: bool,
                   sbox: str = "bp") -> torch.Tensor:
     """One forward round on (8, 16, W) planes; kp = (8, 16, 1) key masks."""
@@ -266,6 +603,16 @@ def encrypt_round(planes: torch.Tensor, kp: torch.Tensor, last: bool,
     p = [_perm(x, SR_PERM) for x in p]
     if not last:
         p = mixcolumns_planes(p)
+    return torch.stack([p[i] ^ kp[i] for i in range(8)])
+
+
+def decrypt_round(planes: torch.Tensor, kp: torch.Tensor, last: bool) -> torch.Tensor:
+    """One inverse round with the InvMixColumns-folded schedule:
+    InvSubBytes, InvShiftRows, InvMixColumns unless ``last``, AddRoundKey."""
+    p = inv_sbox_planes([planes[i] for i in range(8)])
+    p = [_perm(x, ISR_PERM) for x in p]
+    if not last:
+        p = inv_mixcolumns_planes(p)
     return torch.stack([p[i] ^ kp[i] for i in range(8)])
 
 
@@ -328,14 +675,31 @@ def key_planes(rk: torch.Tensor, nr: int) -> torch.Tensor:
     return (-bits).to(torch.int32)[..., None]
 
 
-def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int) -> torch.Tensor:
-    """Bitsliced batch encrypt of (N, 4) int32 LE words with schedule rk."""
+def _pad32(words: torch.Tensor) -> tuple[torch.Tensor, int]:
     n = words.shape[0]
     pad = (-n) % 32
     if pad:
         words = torch.cat([words, words.new_zeros((pad, 4))])
-    kp = key_planes(rk, nr)
-    p = to_planes(words) ^ kp[0]
+    return words, n
+
+
+def _crypt_planes(planes: torch.Tensor, kp: torch.Tensor, nr: int, round_fn) -> torch.Tensor:
+    planes = planes ^ kp[0]
     for r in range(1, nr):
-        p = encrypt_round(p, kp[r], False)
-    return from_planes(encrypt_round(p, kp[nr], True))[:n]
+        planes = round_fn(planes, kp[r], False)
+    return round_fn(planes, kp[nr], True)
+
+
+def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int,
+                  sbox: str = "bp") -> torch.Tensor:
+    """Bitsliced batch encrypt of (N, 4) int32 LE words with schedule rk."""
+    padded, n = _pad32(words)
+    round_fn = functools.partial(encrypt_round, sbox=sbox)
+    return from_planes(_crypt_planes(to_planes(padded), key_planes(rk, nr), nr, round_fn))[:n]
+
+
+def decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int) -> torch.Tensor:
+    """Bitsliced batch decrypt with the InvMixColumns-folded schedule."""
+    padded, n = _pad32(words)
+    return from_planes(_crypt_planes(to_planes(padded), key_planes(rk_dec, nr), nr,
+                                     decrypt_round))[:n]

@@ -1,23 +1,32 @@
-"""Fused counter-synthesising AES-CTR: the CUDA kernel's wrapper and its
-plain torch version.
+"""The CUDA kernels' wrappers and their plain torch versions.
 
-The kernel (``csrc/ctr_gen.cu``) replaces the TPU kernel ``_ctr_gen_kernel``
-(``our_tree_tpu/ops/pallas_aes.py:601-612``, launched at ``:626``):
-``out[j] = data[j] ^ E_K(base + j)`` with ``base`` a 128-bit big-endian
-counter given as 4 BE u32 words and the add wrapping mod 2^128. One kernel
-serves every layout and engine name of the reference (planes, grouped,
-dense; the layouts only existed for TPU tile padding), with the
-Boyar-Peralta S-box.
+``ctr_crypt_words_fused`` launches ``csrc/ctr_gen.cu``, which replaces the
+TPU kernel ``_ctr_gen_kernel`` (``our_tree_tpu/ops/pallas_aes.py:601-612``,
+launched at ``:626``): ``out[j] = data[j] ^ E_K(base + j)`` with ``base`` a
+128-bit big-endian counter given as 4 BE u32 words and the add wrapping mod
+2^128.
 
-What bounds it on an H100 and what the design does about it: it does about
-40 integer logic instructions per byte against 2 bytes of HBM traffic, so
-it is bound by integer issue slots, not memory. It is bitsliced (32 blocks
-per thread, state in 128 registers) so each logic instruction does 32
-blocks of work, and it synthesises counters in registers so that only the
-data is read and only the output is written. See the source's header.
+``encrypt_words`` and ``decrypt_words`` launch ``csrc/ecb.cu``, which
+replaces the TPU kernel ``_aes_kernel`` (``pallas_aes.py:259-273``, launched
+at ``:358``): ECB of (N, 4) words, decrypt with the InvMixColumns-folded
+schedule. Their plain versions are ``bitslice.encrypt_words`` (the same
+Boyar-Peralta circuit) and ``bitslice.decrypt_words`` (the tower inverse
+S-box, a formulation independent of the kernel's).
 
-``ctr_crypt_words_fused`` launches the kernel for CUDA tensors and raises on
-anything it cannot launch; only CPU tensors go to the plain version.
+One kernel per function serves every layout and engine name of the
+reference (planes, grouped, dense; the layouts only existed for TPU tile
+padding).
+
+What bounds them on an H100 and what the design does about it: about 40
+integer logic instructions per byte against 2 bytes of HBM traffic, so they
+are bound by integer issue slots, not memory. They are bitsliced (32 blocks
+per thread, state in 128 registers) so each logic instruction does 32 blocks
+of work; the CTR kernel synthesises its counters in registers so that only
+the data is read and only the output is written. See the sources' headers.
+
+Each wrapper launches its kernel for CUDA tensors and raises on anything it
+cannot launch; only CPU tensors go to the plain version. Each counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -40,12 +49,12 @@ def ctr_crypt_words_fused_plain(words: torch.Tensor, ctr_be: torch.Tensor,
     return words ^ bitslice.encrypt_words(ctr_le_blocks(ctr_be, idx), rk, nr)
 
 
-def _check(words: torch.Tensor, ctr_be: torch.Tensor, rk: torch.Tensor,
-           nr: int) -> None:
+def _check(words: torch.Tensor, nr: int, **others) -> None:
+    """The checks every wrapper makes: int32, contiguous, one device,
+    (N, 4) words, and the given shapes of the other tensors."""
     if nr not in NR_VALUES:
         raise ValueError(f"nr must be one of {NR_VALUES}, got {nr}")
-    for name, t, shape in (("words", words, None), ("ctr_be", ctr_be, (4,)),
-                           ("rk", rk, (4 * (nr + 1),))):
+    for name, (t, shape) in {"words": (words, None), **others}.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
@@ -56,19 +65,14 @@ def _check(words: torch.Tensor, ctr_be: torch.Tensor, rk: torch.Tensor,
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if words.dim() != 2 or words.shape[1] != 4:
         raise ValueError(f"words must be (N, 4), got {tuple(words.shape)}")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {words.device}")
 
 
-def ctr_crypt_words_fused(words: torch.Tensor, ctr_be: torch.Tensor,
-                          rk: torch.Tensor, nr: int) -> torch.Tensor:
-    """CTR over (N, 4) int32 LE block words: block j is XORed with
-    E_K(ctr_be + j). ``ctr_be``: (4,) int32 BE counter words, read by the
-    kernel through a device pointer (so a chain can carry it on the card);
-    ``rk``: (4*(nr+1),) int32 encrypt schedule. Symmetric in direction."""
-    _check(words, ctr_be, rk, nr)
-    if words.device.type == "cpu":
-        return ctr_crypt_words_fused_plain(words, ctr_be, rk, nr)
-    if words.device.type != "cuda":
-        raise ValueError(f"no CTR kernel for device {words.device}")
+def _launch(wrapper, fn: str, words: torch.Tensor, tensors: tuple, nr: int) -> torch.Tensor:
+    """Launch C entry ``fn`` on (N, 4) CUDA words into a new tensor,
+    ``fn(words, out, *tensors, n, nr, stream)``, and count the launch on
+    ``wrapper``; raises if the launch failed. N = 0 launches nothing."""
     out = torch.empty_like(words)
     n = words.shape[0]
     if n == 0:
@@ -78,13 +82,45 @@ def ctr_crypt_words_fused(words: torch.Tensor, ctr_be: torch.Tensor,
     lib = cuda_build.load()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = lib.ot_ctr_gen(words.data_ptr(), out.data_ptr(), ctr_be.data_ptr(),
-                            rk.data_ptr(), ctypes.c_longlong(n), nr, stream)
+        ptrs = [t.data_ptr() for t in (words, out, *tensors)]
+        rc = getattr(lib, fn)(*ptrs, ctypes.c_longlong(n), nr, stream)
     if rc:
-        raise RuntimeError(f"ctr_gen launch failed: cudaError {rc}")
-    ctr_crypt_words_fused.launches += 1
+        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
+    wrapper.launches += 1
     return out
+
+
+def ctr_crypt_words_fused(words: torch.Tensor, ctr_be: torch.Tensor,
+                          rk: torch.Tensor, nr: int) -> torch.Tensor:
+    """CTR over (N, 4) int32 LE block words: block j is XORed with
+    E_K(ctr_be + j). ``ctr_be``: (4,) int32 BE counter words, read by the
+    kernel through a device pointer (so a chain can carry it on the card);
+    ``rk``: (4*(nr+1),) int32 encrypt schedule. Symmetric in direction."""
+    _check(words, nr, ctr_be=(ctr_be, (4,)), rk=(rk, (4 * (nr + 1),)))
+    if words.device.type == "cpu":
+        return ctr_crypt_words_fused_plain(words, ctr_be, rk, nr)
+    return _launch(ctr_crypt_words_fused, "ot_ctr_gen", words, (ctr_be, rk), nr)
+
+
+def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int) -> torch.Tensor:
+    """ECB encrypt of (N, 4) int32 LE block words with the (4*(nr+1),)
+    int32 encrypt schedule ``rk``."""
+    _check(words, nr, rk=(rk, (4 * (nr + 1),)))
+    if words.device.type == "cpu":
+        return bitslice.encrypt_words(words, rk, nr)
+    return _launch(encrypt_words, "ot_ecb_encrypt", words, (rk,), nr)
+
+
+def decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int) -> torch.Tensor:
+    """ECB decrypt of (N, 4) int32 LE block words with the (4*(nr+1),)
+    int32 InvMixColumns-folded decrypt schedule ``rk_dec``."""
+    _check(words, nr, rk_dec=(rk_dec, (4 * (nr + 1),)))
+    if words.device.type == "cpu":
+        return bitslice.decrypt_words(words, rk_dec, nr)
+    return _launch(decrypt_words, "ot_ecb_decrypt", words, (rk_dec,), nr)
 
 
 #: Kernel launches since the last reset (the main path's proof of route).
 ctr_crypt_words_fused.launches = 0
+encrypt_words.launches = 0
+decrypt_words.launches = 0

@@ -6,6 +6,8 @@ of ``our_tree_tpu.ops.gf``; GF(2^128) comes with the AEAD slice.
 
 from __future__ import annotations
 
+import numpy as np
+
 #: The AES field modulus x^8 + x^4 + x^3 + x + 1.
 POLY = 0x11B
 
@@ -39,6 +41,11 @@ def gpow(a: int, e: int) -> int:
         base = gmul(base, base)
         e >>= 1
     return r
+
+
+def gmul_table(c: int) -> np.ndarray:
+    """Multiply-by-constant lookup table: out[x] = c * x in GF(2^8)."""
+    return np.array([gmul(c, x) for x in range(256)], dtype=np.uint32)
 
 
 def ginv(a: int) -> int:

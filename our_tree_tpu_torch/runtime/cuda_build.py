@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels at first use.
 
 ``load()`` compiles every ``our_tree_tpu_torch/csrc/*.cu`` with ``nvcc``
-into one shared library with a plain C interface and loads it with
-``ctypes``. Nothing is built at import time, and nothing but the sources in
-the package is compiled. The library goes into ``_build/`` beside the
+(one ``nvcc`` per source, all started together), links the objects into one
+shared library with a plain C interface and loads it with ``ctypes``
+(``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
+``ot_ecb_decrypt`` from ``ecb.cu``). Nothing is built at import time, and
+nothing but the sources in the package is compiled. The library goes into ``_build/`` beside the
 package (listed in ``.gitignore``) under a name keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
 build. An ``fcntl`` lock keeps concurrent processes from racing on one
@@ -19,6 +21,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,8 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-         "-Xptxas", "-v"]
+FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: ctypes.CDLL | None = None
 
@@ -54,14 +56,31 @@ def library_path() -> Path:
 
 
 def _build(so: Path) -> None:
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    tmp.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = tmp / f"{cu.stem}.o"
+        jobs.append((obj, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(obj), str(cu)],
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+    report, failed = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{err[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    lib = tmp / "lib.so"
+    res = subprocess.run([nvcc, ARCH, "-shared", "-o", str(lib), *(str(o) for o, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    so.with_suffix(".ptxas.txt").write_text(res.stderr)
-    os.replace(tmp, so)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    so.with_suffix(".ptxas.txt").write_text("".join(report))
+    os.replace(lib, so)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load() -> ctypes.CDLL:
@@ -82,6 +101,9 @@ def load() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.ot_ctr_gen.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
     lib.ot_ctr_gen.restype = ctypes.c_int
+    for fn in (lib.ot_ecb_encrypt, lib.ot_ecb_decrypt):
+        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -89,3 +111,30 @@ def load() -> ctypes.CDLL:
 def ptxas_report() -> str:
     """The ``ptxas -v`` lines of the loaded library's build."""
     return library_path().with_suffix(".ptxas.txt").read_text()
+
+
+def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
+    """Registers, spills, stack and shared memory of each kernel
+    instantiation in a ``ptxas -v`` report, keyed ``"name<NR>"`` (e.g.
+    ``"ecb_decrypt_kernel<14>"``)."""
+    text = ptxas_report() if report is None else report
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                      line)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", m.group(1))
+            cur = out.setdefault(f"{k.group(1)}<{k.group(2)}>", {}) if k else None
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            v = re.search(pat, line)
+            if v:
+                cur[key] = int(v.group(1))
+    return out

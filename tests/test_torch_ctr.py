@@ -133,8 +133,9 @@ def test_from_schedule_takes_reference_context_arrays():
     want = ref.crypt_ctr(0, nonce.copy(), np.zeros(16, np.uint8), data)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[3], want[3])
-    for call in (lambda: ours.crypt_ecb(1, data[:16]),
-                 lambda: ours.crypt_cbc(1, np.zeros(16, np.uint8), data[:16]),
-                 lambda: ours.crypt_cfb128(1, 0, np.zeros(16, np.uint8), data[:16])):
-        with pytest.raises(NotImplementedError):
-            call()
+    iv = np.arange(16, dtype=np.uint8)
+    np.testing.assert_array_equal(ours.crypt_ecb(0, data[:4096]), ref.crypt_ecb(0, data[:4096]))
+    for got, want in zip(ours.crypt_cbc(0, iv, data[:4096]), ref.crypt_cbc(0, iv, data[:4096])):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(ours.crypt_cfb128(1, 3, iv, data[:99]), ref.crypt_cfb128(1, 3, iv, data[:99])):
+        np.testing.assert_array_equal(got, want)

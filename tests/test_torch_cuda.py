@@ -1,15 +1,16 @@
-"""The CUDA counter-synthesising CTR kernel against its plain torch version,
-on the card. Needs a CUDA card: each test skips, from a fixture at run
-time, when none is present. Run on the card with
-``python -m pytest -m gpu tests/test_torch_cuda.py``."""
+"""The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt)
+against their plain torch versions, and the ``AES`` context on the card
+against the CPU in every mode. Needs a CUDA card: each test skips, from a
+fixture at run time, when none is present. Run on the card with
+``python -m pytest -m gpu --noconftest tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
 import torch
 
 from our_tree_tpu_torch.models import aes
-from our_tree_tpu_torch.ops import cuda_aes
-from our_tree_tpu_torch.ops.keyschedule import expand_key_enc
+from our_tree_tpu_torch.ops import bitslice, cuda_aes
+from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
 from our_tree_tpu_torch.utils import packing
 
 pytestmark = pytest.mark.gpu
@@ -62,3 +63,68 @@ def test_aes_context_on_card_matches_cpu(card):
     want = aes.AES(key, device="cpu").crypt_ctr(0, nonce.copy(), np.zeros(16, np.uint8), data)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 1 << 16])
+@pytest.mark.parametrize("direction", ["encrypt", "decrypt"])
+def test_ecb_kernel_matches_plain(card, bits, n, direction):
+    rng = np.random.default_rng(7 * n + bits)
+    key = rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes()
+    if direction == "encrypt":
+        (nr, rk), kernel, plain = expand_key_enc(key), cuda_aes.encrypt_words, bitslice.encrypt_words
+    else:
+        (nr, rk), kernel, plain = expand_key_dec(key), cuda_aes.decrypt_words, bitslice.decrypt_words
+    w = packing.words_tensor(rng.integers(0, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32), card)
+    rk = packing.words_tensor(rk, card)
+    before = kernel.launches
+    got = kernel(w, rk, nr)
+    want = plain(w, rk, nr)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_ecb_kernel_takes_no_launch_for_no_blocks(card):
+    nr, rk = expand_key_enc(bytes(16))
+    w = torch.zeros((0, 4), dtype=torch.int32, device=card)
+    before = cuda_aes.encrypt_words.launches
+    assert cuda_aes.encrypt_words(w, packing.words_tensor(rk, card), nr).shape == (0, 4)
+    assert cuda_aes.encrypt_words.launches == before
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+def test_block_modes_on_card_match_cpu(card, bits):
+    rng = np.random.default_rng(bits)
+    key = rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes()
+    gpu, cpu = aes.AES(key, device=card), aes.AES(key, device="cpu")
+    assert gpu.engine == aes.CUDA_ENGINE
+    iv = rng.integers(0, 256, 16, dtype=np.uint8)
+    bulk = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+    odd = bulk[:1000 + bits]
+    for mode in (aes.AES_ENCRYPT, aes.AES_DECRYPT):
+        np.testing.assert_array_equal(gpu.crypt_ecb(mode, bulk), cpu.crypt_ecb(mode, bulk))
+        data = bulk if mode == aes.AES_DECRYPT else bulk[:4096]
+        for g, c in zip(gpu.crypt_cbc(mode, iv, data), cpu.crypt_cbc(mode, iv, data)):
+            np.testing.assert_array_equal(g, c)
+        for off in (0, 5):
+            for g, c in zip(gpu.crypt_cfb128(mode, off, iv, odd), cpu.crypt_cfb128(mode, off, iv, odd)):
+                np.testing.assert_array_equal(np.asarray(g), np.asarray(c))
+
+
+def test_word_entries_on_card_match_cpu(card):
+    rng = np.random.default_rng(3)
+    key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    nr, rk = expand_key_enc(key)
+    w = rng.integers(0, 2**32, (16, 40, 4), dtype=np.uint64).astype(np.uint32)
+    iv = rng.integers(0, 2**32, (16, 4), dtype=np.uint64).astype(np.uint32)
+    ctr = rng.integers(0, 2**32, (640, 4), dtype=np.uint64).astype(np.uint32)
+    for dev_out, cpu_out in (
+            (aes.cbc_encrypt_words_batch(*(packing.words_tensor(x, card) for x in (w, iv, rk)), nr),
+             aes.cbc_encrypt_words_batch(*(packing.words_tensor(x, "cpu") for x in (w, iv, rk)), nr)),
+            ((aes.ctr_crypt_words_scattered(*(packing.words_tensor(x, card)
+                                              for x in (w.reshape(-1, 4), ctr, rk)), nr),),
+             (aes.ctr_crypt_words_scattered(*(packing.words_tensor(x, "cpu")
+                                              for x in (w.reshape(-1, 4), ctr, rk)), nr),))):
+        for g, c in zip(dev_out, cpu_out):
+            assert torch.equal(g.cpu(), c)

@@ -11,33 +11,41 @@ import numpy as np
 import pytest
 import torch
 
-from our_tree_tpu_torch.models import aes
-from our_tree_tpu_torch.ops import cuda_aes
+from our_tree_tpu_torch import bench
+from our_tree_tpu_torch.harness import decrypt
+from our_tree_tpu_torch.models import aes, base
+from our_tree_tpu_torch.ops import bitslice, cuda_aes
 from our_tree_tpu_torch.utils import packing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """Every module of the package, found by walking it, and chip_smoke.py."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, runpy, sys
         import our_tree_tpu_torch
-        import our_tree_tpu_torch.models.aes
-        import our_tree_tpu_torch.bench
-        import our_tree_tpu_torch.ops.cuda_aes
-        import our_tree_tpu_torch.runtime.cuda_build
+        names = [m.name for m in pkgutil.walk_packages(our_tree_tpu_torch.__path__,
+                                                       "our_tree_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
+        expected = {"our_tree_tpu_torch.models.aes", "our_tree_tpu_torch.models.base",
+                    "our_tree_tpu_torch.ops.block", "our_tree_tpu_torch.harness.decrypt",
+                    "our_tree_tpu_torch.ops.cuda_aes", "our_tree_tpu_torch.bench"}
+        assert expected <= set(names), sorted(expected - set(names))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "our_tree_tpu" or m.startswith("our_tree_tpu."))
         assert not bad, bad
-        print("clean")
+        print("clean", len(names))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "clean"
+    assert res.stdout.strip().startswith("clean")
 
 
 def test_aes_without_device_raises_without_card(monkeypatch):
@@ -47,6 +55,32 @@ def test_aes_without_device_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         aes.AES(bytes(16), device="cuda")
     assert aes.AES(bytes(16), device="cpu").device.type == "cpu"
+
+
+def test_cuda_typed_calls_without_card_raise(monkeypatch, tmp_path):
+    """Asking for the card without one raises; nothing computes on the CPU
+    in its place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        base.AESCipher(bytes(16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decrypt.main(["00" * 16, "00" * 16, "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.Chain(1 << 10, "cuda")
+    # A tensor on a device with no kernel is refused, not computed on the CPU.
+    rk = aes.AES(bytes(16), device="cpu").rk_enc
+    meta = torch.empty((32, 4), dtype=torch.int32, device="meta")
+    for wrapper, args in ((cuda_aes.encrypt_words, (rk.to("meta"), 10)),
+                          (cuda_aes.decrypt_words, (rk.to("meta"), 10))):
+        with pytest.raises(ValueError, match="no kernel"):
+            wrapper(meta, *args)
+    # The only route to a kernel is the nvcc build, which this host lacks.
+    monkeypatch.setattr(cuda_aes.cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_aes.cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_aes.cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_aes.cuda_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_aes.cuda_build.load()
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch(monkeypatch):
@@ -66,6 +100,29 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch(monkeypatch):
     assert aes.resolve_engine("auto", "cuda") == aes.CUDA_ENGINE
 
 
+def test_cpu_tensor_takes_plain_ecb_and_counts_no_launch(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not reach the kernel build")
+
+    monkeypatch.setattr(cuda_aes.cuda_build, "load", no_build)
+    monkeypatch.setattr(cuda_aes.encrypt_words, "launches", 0)
+    monkeypatch.setattr(cuda_aes.decrypt_words, "launches", 0)
+    ctx = aes.AES(bytes(range(16)), device="cpu", engine=aes.CUDA_ENGINE)
+    assert ctx.engine == aes.CUDA_ENGINE
+    w = packing.words_tensor(np.arange(40 * 4, dtype=np.uint32).reshape(40, 4), "cpu")
+    enc = aes.ecb_encrypt_words(w, ctx.rk_enc, ctx.nr, ctx.engine)
+    assert torch.equal(enc, bitslice.encrypt_words(w, ctx.rk_enc, ctx.nr))
+    dec = aes.ecb_decrypt_words(enc, ctx.rk_dec, ctx.nr, ctx.engine)
+    assert torch.equal(dec, w)
+    data = np.arange(100, dtype=np.uint8)
+    ctx.crypt_cbc(aes.AES_ENCRYPT, np.zeros(16, np.uint8), data[:96])
+    ctx.crypt_cfb128(aes.AES_DECRYPT, 0, np.zeros(16, np.uint8), data)
+    assert cuda_aes.encrypt_words.launches == 0
+    assert cuda_aes.decrypt_words.launches == 0
+    empty = cuda_aes.encrypt_words(w[:0], ctx.rk_enc, ctx.nr)
+    assert empty.shape == (0, 4) and cuda_aes.encrypt_words.launches == 0
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     rk = aes.AES(bytes(16), device="cpu").rk_enc
     w = torch.zeros((8, 4), dtype=torch.int32)
@@ -80,3 +137,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_aes.ctr_crypt_words_fused(w.reshape(-1), ctr, rk, 10)
     with pytest.raises(ValueError):
         cuda_aes.ctr_crypt_words_fused(w, ctr[:3], rk, 10)
+    for wrapper in (cuda_aes.encrypt_words, cuda_aes.decrypt_words):
+        with pytest.raises(TypeError):
+            wrapper(w.long(), rk, 10)
+        with pytest.raises(ValueError):
+            wrapper(w, rk, 14)
+        with pytest.raises(ValueError):
+            wrapper(w.t().contiguous().t(), rk, 10)
+        with pytest.raises(ValueError):
+            wrapper(w.reshape(-1), rk, 10)
+        with pytest.raises(ValueError):
+            wrapper(w, rk[:40], 10)

@@ -82,8 +82,8 @@ def test_bp_sbox_exhaustive():
     out = bitslice.sbox_planes(planes, impl="bp")
     val = sum((o & 1).to(torch.int64) << b for b, o in enumerate(out))
     np.testing.assert_array_equal(val.numpy(), jtables.SBOX)
-    with pytest.raises(NotImplementedError):
-        bitslice.sbox_planes(planes, impl="tower")
+    with pytest.raises(ValueError):
+        bitslice.sbox_planes(planes, impl="table")
 
 
 def test_linear_maps_and_permutations_match_reference():
