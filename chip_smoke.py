@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its two
-paths, AES-128-CTR over one 256 MiB buffer with the bench chain and the
-ECB/CBC/CFB128 block-mode path over the same size, and holds every kernel of
-those paths against its plain torch version on the card. Phases, in order;
-any failure raises and the exit code is not 0:
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its three
+paths, AES-128-CTR over one 256 MiB buffer with the bench chain, the
+ECB/CBC/CFB128 block-mode path over the same size, and the multi-key CTR
+serve path (``serve.bench``, the JAX package's two documented drives at the
+full ladder), and holds every kernel of those paths against its plain torch
+version on the card. Phases, in order; any failure raises and the exit code
+is not 0:
 
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
    source, in parallel), print ``ptxas -v`` per kernel;
 2. kernel vs plain version: ``ctr_gen`` at every counter wrap, and both ECB
-   kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20} (mismatching
-   words must be 0);
+   kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20}; ``ctr_mk``
+   for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
+   with one slot, runs of 1-300 blocks, a random slot per block and unused
+   zero schedules, and its K = 1 entry over counters from every wrap nonce
+   (mismatching words must be 0);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
-   the card, whose engine must be the CUDA one;
+   the card, whose engine must be the CUDA one; F.5.1 in slot 3 of 8
+   through the multi-key serve seam;
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
    must be 0xa612a647, the reference's digest for this chain;
 5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
@@ -23,14 +29,28 @@ any failure raises and the exit code is not 0:
    the first 4,096 recovered blocks (they give back the input), and
    ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks;
 6. the hex CLI on the card decrypts the F.1.2 vector;
-7. per kernel at the paths' 256 MiB shape: time per launch (CUDA events),
-   the plain version's time, the least time the card could take (the bytes
-   the function moves over the HBM rate or the operations it needs over the
-   integer rate, the larger), the kernel's own SASS instruction count beside
-   the operations; the sequential encrypt's time per block.
+7. the serve path: ``serve.bench`` drive A (``--requests 500
+   --mixed-sizes``: 16 B-64 KiB, 4 tenants x 2 keys, ladder 32-4,096 blocks,
+   one lane) and drive B (``--requests 300 --tenant-heavy --min-coalesce
+   0.5``: 24 tenants, 16 B-1 KiB, so 32-block groups straddle slots); each
+   with 0 lost, failed and mismatching, 0 kernel-library builds after
+   warmup, the CUDA engine, ``ctr_mk`` launches equal to its engine calls
+   and no other kernel launched; latency, goodput, the stage split and the
+   first traffic dispatch beside the p50; then drive A's mix once more in a
+   fresh process (``python -m our_tree_tpu_torch.serve.bench``), where
+   warmup meets the card first: warmup must count the library load and the
+   kernel's first launch, traffic none;
+8. per kernel at its path's shape (256 MiB; ``ctr_mk`` at the 4,096-block
+   rung, and at 256 MiB with K = 8 and with its K = 1 entry): time per
+   launch (CUDA events), the plain version's time, the least time the card
+   could take (the bytes the function moves over the HBM rate or the
+   operations it needs over the integer rate, the larger), the kernel's own
+   SASS instruction count beside the operations (for ``ctr_mk`` an upper
+   bound); the sequential encrypt's time per block.
 
-Phases 4 and 5 each run with every launch count set to 0 just before and
-read just after: each path must have launched each of its kernels.
+Phases 4, 5 and each drive of 7 run with every launch count set to 0 just
+before and read just after: each path must have launched each of its
+kernels.
 Standard output ends with the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
@@ -39,6 +59,8 @@ result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -163,38 +185,90 @@ def ecb_ops_per_group(nr: int, decrypt: bool) -> tuple[float, dict]:
     return sum(gates.values()) / 2 + shifts, {**gates, "shifts": shifts}
 
 
-def sass_int_ops_per_thread(text: str, kernel: str, nr: int) -> tuple[int, dict]:
-    """Integer instructions one thread of ``kernel``<nr> executes, read
-    from the compiled SASS (``cuobjdump -sass``): the straight-line code
-    counts once, the round loop's body (the one backward branch) nr - 1
-    times. Returns the count and the opcode histogram of that stream."""
+_SASS_SKIP = ("NOP", "EXIT", "BRA", "BAR", "RET", "S2R", "S2UR", "CS2R", "BSSY", "BSYNC",
+              "WARPSYNC", "DEPBAR")
+
+
+def sass_function(text: str, kernel: str, nr: int) -> tuple[list, list]:
+    """The instructions [(address, opcode base, text)] of ``kernel``<nr> in
+    the compiled SASS (``cuobjdump -sass``) and its backward branches
+    [(target, address)], the loops."""
     funcs = re.split(r"\n\s*Function : ", text)
     body = [f for f in funcs if f.startswith("_ZN") and f"{kernel}ILi{nr}E" in f.split("\n", 1)[0]]
     if len(body) != 1:
         raise RuntimeError(f"expected one SASS function {kernel}<{nr}>, found {len(body)}")
-    ins = [(int(a, 16), t.strip()) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body[0])]
+    ins = []
     back = []
-    for addr, t in ins:
+    for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body[0]):
+        addr, t = int(a, 16), t.strip()
+        op = t.split()[1] if t.startswith("@") else t.split()[0]
+        ins.append((addr, op.split(".")[0], t))
         m = re.search(r"\bBRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))", t)
         if m and m.group(1) is not None and int(m.group(1), 16) < addr:
             back.append((int(m.group(1), 16), addr))
+    return ins, back
+
+
+def _is_int_op(base: str) -> bool:
+    return not (base in _SASS_SKIP or base.startswith(("LD", "ST", "U", "ATOM", "RED")))
+
+
+def sass_int_ops_per_thread(text: str, kernel: str, nr: int) -> tuple[int, dict]:
+    """Integer instructions one thread of ``kernel``<nr> executes, read
+    from the compiled SASS: the straight-line code counts once, the round
+    loop's body (the one backward branch) nr - 1 times. Returns the count
+    and the opcode histogram of that stream."""
+    ins, back = sass_function(text, kernel, nr)
     if len(back) != 1:
         raise RuntimeError(f"expected one backward branch (the round loop), found {back}")
     lo, hi = back[0]
-    skip = ("NOP", "EXIT", "BRA", "BAR", "RET", "S2R", "S2UR", "CS2R", "BSSY", "BSYNC",
-            "WARPSYNC", "DEPBAR")
     hist: dict = {}
     total = 0
-    for addr, t in ins:
-        op = t.split()[1] if t.startswith("@") else t.split()[0]
-        base = op.split(".")[0]
-        if base in skip or base.startswith(("LD", "ST", "U", "ATOM", "RED")):
+    for addr, base, _t in ins:
+        if not _is_int_op(base):
             continue
         k = nr - 1 if lo <= addr <= hi else 1
         hist[base] = hist.get(base, 0) + k
         total += k
     return total, dict(sorted(hist.items(), key=lambda kv: -kv[1]))
+
+
+def sass_mk_per_thread(text: str, nr: int) -> dict:
+    """``ctr_mk_kernel``<nr>'s integer SASS by key form. The kernel has one
+    rolled round loop per key form (the two largest loops; the mixed one
+    reads its key words from shared memory, so it has the more LDS) and
+    small set-up loops. Per group, a form runs its loop body nr - 1 times
+    plus straight-line code; the straight-line code holds both forms' first
+    and last rounds, and the set-up loops are counted once, so
+    ``*_group`` is an upper bound for one group of that form."""
+    ins, back = sass_function(text, "ctr_mk_kernel", nr)
+    loops = []
+    for lo, hi in back:
+        body = [(a, b) for a, b, _t in ins if lo <= a <= hi]
+        loops.append({"range": (lo, hi), "int": sum(_is_int_op(b) for _a, b in body),
+                      "lds": sum(b == "LDS" for _a, b in body)})
+    loops.sort(key=lambda lp: -lp["int"])
+    if len(loops) < 2:
+        raise RuntimeError(f"expected two round loops in ctr_mk_kernel<{nr}>, found {back}")
+    mixed, uniform = sorted(loops[:2], key=lambda lp: -lp["lds"])
+    rounds = [mixed["range"], uniform["range"]]
+    outside = sum(_is_int_op(b) for a, b, _t in ins
+                  if not any(lo <= a <= hi for lo, hi in rounds))
+    return {"uniform_round": uniform["int"], "mixed_round": mixed["int"],
+            "outside_round_loops": outside,
+            "uniform_group": uniform["int"] * (nr - 1) + outside,
+            "mixed_group": mixed["int"] * (nr - 1) + outside}
+
+
+def mk_ops_per_group(nr: int) -> tuple[float, dict]:
+    """Operations multi-key CTR needs for one group of 32 blocks: the ECB
+    encrypt count (``ecb_ops_per_group``) plus the keystream XORed into the
+    data (128 gates). Every group is credited as uniform: the per-block key
+    planes of a mixed group (four transposes a round) are the cost of this
+    layout, not work the function needs, so the bound is deliberately
+    low."""
+    ops, parts = ecb_ops_per_group(nr, decrypt=False)
+    return ops + 128 / 2, {**parts, "data_xor": 128}
 
 
 def main() -> int:
@@ -218,7 +292,9 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     wrappers = {"ctr_gen": cuda_aes.ctr_crypt_words_fused,
                 "ecb_encrypt": cuda_aes.encrypt_words,
-                "ecb_decrypt": cuda_aes.decrypt_words}
+                "ecb_decrypt": cuda_aes.decrypt_words,
+                "ctr_mk": cuda_aes.ctr_scattered_multikey,
+                "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -304,6 +380,72 @@ def main() -> int:
     if any(ecb_mismatches.values()):
         raise SystemExit("an ECB kernel disagrees with its plain version")
 
+    def mk_stack(bits, k, seed):
+        """(nr, (k, 4*(nr+1)) schedules of k random keys on the card)."""
+        rng = np.random.default_rng(seed)
+        rows = [expand_key_enc(rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes())
+                for _ in range(k)]
+        return rows[0][0], packing.words_tensor(np.stack([r for _, r in rows]), dev)
+
+    def slot_runs(n, k, lengths, seed):
+        """(n,) int32 slots on the card: runs of lengths drawn from
+        ``lengths`` (a range or a menu), each on a random slot."""
+        rng = np.random.default_rng(seed)
+        parts, total = [], 0
+        while total < n:
+            part = rng.choice(lengths, size=(n - total) // int(np.mean(lengths)) + 16)
+            parts.append(part)
+            total += int(part.sum())
+        runs = np.concatenate(parts)
+        sl = np.repeat(rng.integers(0, k, runs.size), runs)[:n].astype(np.int32)
+        return torch.from_numpy(sl).to(dev)
+
+    mk_mismatch, mk_cases = 0, 0
+    for bits in (128, 192, 256):
+        for k in (1, 3, 8, 64):
+            nr, rks = mk_stack(bits, k, seed=bits * k)
+            zero_rks = rks.clone()
+            zero_rks[(k + 1) // 2:] = 0
+            for n in (1, 31, 33, 1000, 4096, 1 << 20):
+                rng = np.random.default_rng(n * k + bits)
+                patterns = {
+                    "one slot": (rks, torch.full((n,), k - 1, dtype=torch.int32, device=dev)),
+                    "runs 1-300": (rks, slot_runs(n, k, np.arange(1, 301), seed=n + k)),
+                    "random per block": (rks, torch.from_numpy(
+                        rng.integers(0, k, n).astype(np.int32)).to(dev)),
+                    "zero schedules": (zero_rks, torch.from_numpy(
+                        rng.integers(0, k, n).astype(np.int32)).to(dev)),
+                }
+                w, c = random_words(n, seed=5 * n + k), random_words(n, seed=7 * n + k)
+                for name, (r, sl) in patterns.items():
+                    m, _ = diff(cuda_aes.ctr_scattered_multikey(w, c, r, sl, nr),
+                                cuda_aes.ctr_scattered_multikey_plain(w, c, r, sl, nr))
+                    mk_mismatch += m
+                    mk_cases += 1
+                    if m:
+                        log(f"MISMATCH ctr_mk bits={bits} K={k} n={n} {name}: {m} words")
+    k1_mismatch, k1_cases = 0, 0
+    for bits in (128, 192, 256):
+        nr, rk, _ = schedules(np.random.default_rng(bits + 1).integers(
+            0, 256, bits // 8, dtype=np.uint8).tobytes())
+        for hexnonce in WRAP_NONCES:
+            for n in (1, 33, 1000, 1 << 20):
+                if n == 1 << 20 and hexnonce != WRAP_NONCES[1]:
+                    continue
+                ctr = packing.words_tensor(packing.np_ctr_le_blocks(
+                    bytes.fromhex(hexnonce), np.arange(n)), dev)
+                w = random_words(n, seed=11 * n + bits)
+                m, _ = diff(cuda_aes.ctr_crypt_words_explicit(w, ctr, rk, nr),
+                            cuda_aes.ctr_crypt_words_explicit_plain(w, ctr, rk, nr))
+                k1_mismatch += m
+                k1_cases += 1
+                if m:
+                    log(f"MISMATCH ctr_mk K=1 entry bits={bits} nonce={hexnonce} n={n}: {m} words")
+    log(f"ctr_mk vs plain: {mk_cases} cases, {mk_mismatch} mismatching words; its K = 1 entry "
+        f"(ctr_crypt_words_explicit): {k1_cases} cases, {k1_mismatch} mismatching words")
+    if mk_mismatch or k1_mismatch:
+        raise SystemExit("ctr_mk disagrees with its plain version")
+
     # 3. KATs and chunked resume through the AES context on the card.
     kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
     ctr0 = np.frombuffer(bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"), np.uint8)
@@ -350,6 +492,26 @@ def main() -> int:
             raise SystemExit(f"NIST SP800-38A KAT failed for AES-{bits}: {checks}")
     log("NIST SP800-38A F.1 and F.2 (ECB, CBC; 128/192/256, both directions) and F.3.13 "
         "(CFB128-AES128, both directions) through AES on the card: pass")
+    # F.5.1 in slot 3 of 8 through the serve seam, other tenants interleaved
+    # and slots 6-7 empty.
+    others = [np.random.default_rng(29 + i).integers(0, 256, 16, dtype=np.uint8).tobytes()
+              for i in range(5)]
+    rows = [expand_key_enc(k)[1] for k in others[:3] + [kat_key] + others[3:]]
+    rks8 = packing.words_tensor(np.stack(rows + [np.zeros_like(rows[0])] * 2), dev)
+    kat_slots = np.array([3, 0, 1, 3, 4, 3, 5, 2, 3, 0], np.int32)
+    kat_ctr = np.random.default_rng(30).integers(0, 2**32, (10, 4), dtype=np.uint64).astype(np.uint32)
+    kat_ctr[kat_slots == 3] = packing.np_ctr_le_blocks(ctr0.tobytes(), np.arange(4))
+    kat_data = np.random.default_rng(31).integers(0, 256, (10, 16), dtype=np.uint8)
+    kat_data[kat_slots == 3] = np.frombuffer(pt, np.uint8).reshape(4, 16)
+    out = aes.ctr_crypt_words_scattered_multikey(
+        packing.words_tensor(packing.np_bytes_to_words(kat_data.reshape(-1)), dev),
+        packing.words_tensor(kat_ctr.reshape(-1), dev), rks8,
+        torch.from_numpy(kat_slots).to(dev), 10, aes.CUDA_ENGINE)
+    got = packing.np_words_to_bytes(packing.words_numpy(out)).reshape(10, 16)
+    if got[kat_slots == 3].tobytes().hex() != ct:
+        raise SystemExit("NIST SP800-38A F.5.1 in slot 3 of 8 failed")
+    log("NIST SP800-38A F.5.1 CTR-AES128 in slot 3 of 8 (ctr_crypt_words_scattered_multikey, "
+        "CUDA engine): pass")
 
     # 4. The CTR main path, counted.
     reset_counts()
@@ -417,51 +579,138 @@ def main() -> int:
                          f"err {res.stderr[-2000:]!r}")
     log(f"CLI on the card: decrypt F.1.2 block 1 -> {res.stdout.strip()}: pass")
 
-    # 7. Each kernel at the paths' 256 MiB shape: time, plain time, bound.
+    # 7. The serve path: the JAX package's two documented drives, counted.
+    from our_tree_tpu_torch.serve import bench as serve_bench
+
+    def log_first_dispatch(name, line):
+        first, d = line["device"]["first_dispatch"], line["device"]
+        log(f"serve {name} first traffic dispatch (rung {first['rung']}): window "
+            f"{first['window_us']} µs = worker wait {first['worker_wait_us']} + staging "
+            f"{first['staging_us']} + card {first['device_us']} + host rest "
+            f"{first['host_us']} µs; all dispatches' p50: window {d['window_p50_us']} µs, "
+            f"card {d['device_p50_us']} µs; card: {card}")
+
+    def serve_drive(name, argv):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_bench.main(argv)
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for text in lines[:-1]:
+            log(f"serve {name}: {text}")
+        line = json.loads(lines[-1])
+        got = counts()
+        dev_stats = line["device"]
+        stages = {st: (v["p50_us"], v["p95_us"]) for st, v in line["stages"].items()}
+        log(f"serve {name} ({' '.join(argv)}): p50 {line['p50_ms']} ms, p95 {line['p95_ms']} ms, "
+            f"p99 {line['p99_ms']} ms, goodput {line['goodput_gbps']} GB/s, "
+            f"{dev_stats['dispatches_per_s']} dispatches/s, coalesce "
+            f"{line['coalesce_efficiency']}, slot fill {line['slot_fill']}, occupancy "
+            f"{line['occupancy']}; stages (p50, p95) µs {stages}; lanes busy "
+            f"{dev_stats['busy_s']} s = staging {dev_stats['staging_s']} s + card "
+            f"{dev_stats['device_s']} s (device share {dev_stats['device_share']}) + rest, fence "
+            f"{dev_stats['fence_s']} s; launches {got}; {wall:.1f} s wall; card: {card}")
+        log_first_dispatch(name, line)
+        checks = {
+            "rc 0": rc == 0,
+            "CUDA engine": line["engine"] == aes.CUDA_ENGINE,
+            "0 lost": line["lost"] == 0,
+            "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
+            "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
+            "0 steady builds": line["recompiles"] == 0,
+            "ctr_mk launches == engine calls": got["ctr_mk"] == line["engine_calls"] > 0,
+            "no other kernel": all(v == 0 for n, v in got.items() if n != "ctr_mk"),
+        }
+        if "--min-coalesce" in argv:
+            checks["coalesce >= 0.5"] = line["coalesce_efficiency"] >= 0.5
+        if not all(checks.values()):
+            raise SystemExit(f"serve drive {name} failed: {checks}")
+        return line, got
+
+    _, counts_a = serve_drive("A", ["--requests", "500", "--mixed-sizes"])
+    _, counts_b = serve_drive("B", ["--requests", "300", "--tenant-heavy",
+                                          "--min-coalesce", "0.5"])
+    # Drive A's mix in a fresh process: there the lane's warmup is the first
+    # contact with the card (context, library load, first ctr_mk<10> launch).
+    argv = ["--requests", "500", "--mixed-sizes"]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench", *argv],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    try:
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        line = None
+    if res.returncode != 0 or line is None:
+        raise SystemExit(f"serve bench in a fresh process: rc {res.returncode}, "
+                         f"out {res.stdout[-2000:]!r}, err {res.stderr[-2000:]!r}")
+    checks = {"CUDA engine": line["engine"] == aes.CUDA_ENGINE, "0 lost": line["lost"] == 0,
+              "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
+              "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
+              "warmup counted the library load and the first launch":
+                  line["compiles"]["warmup"] >= 2,
+              "0 steady": line["compiles"]["steady"] == 0}
+    log(f"serve A in a fresh process: p50 {line['p50_ms']} ms, p99 {line['p99_ms']} ms, "
+        f"builds/loads/first launches: warmup {line['compiles']['warmup']}, steady "
+        f"{line['compiles']['steady']}; {wall:.1f} s wall with start-up; card: {card}")
+    log_first_dispatch("A (fresh process)", line)
+    if not all(checks.values()):
+        raise SystemExit(f"serve bench in a fresh process failed: {checks}")
+
+    # 8. Each kernel at its path's shape: time, plain time, bound.
     sass_text = sass(lib_path)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_ops_per_ms = sm_count * INT_OPS_PER_CLK_PER_SM * clock_mhz * 1e3
     kernels = []
 
-    def measure(name, source, replaces, kernel_fn, plain_fn, got, want, fn_ops, parts,
-                nbytes, launches):
+    def timing(name, kernel_fn, plain_fn, got, want, fn_ops, parts, nbytes, nblocks, sass_ops,
+               reps=20, plain_reps=2, nr=10, sass_upper_bound=False):
+        """Time one kernel and its plain version at one shape; the entry
+        fields of the ``kernels`` line. ``sass_upper_bound``: ``sass_ops``
+        over-counts the stream (``sass_mk_per_thread``), so it is reported
+        as a bound and no share of the kernel's time is read from it."""
         m, max_err = diff(got, want)
         if m:
             raise SystemExit(f"{name} vs plain at the path's shape: {m} mismatching words")
-        ms = events_ms(kernel_fn, 20)
-        plain_ms = events_ms(plain_fn, 2)
-        groups = MAIN_BYTES // 16 // 32
-        sass_ops, hist = sass_int_ops_per_thread(sass_text, f"{name}_kernel", nr)
+        ms = events_ms(kernel_fn, reps)
+        plain_ms = events_ms(plain_fn, plain_reps)
+        groups = -(-nblocks // 32)
         ops_ms = groups * fn_ops / int_ops_per_ms
         sass_ms = groups * sass_ops / int_ops_per_ms
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        regs = ptxas.get(f"{name}_kernel<{nr}>", {})
-        log(f"{name} at {MAIN_BYTES >> 20} MiB: {ms:.4f} ms/launch "
-            f"({MAIN_BYTES / ms / 1e6:.2f} GB/s), plain {plain_ms:.2f} ms; ptxas {regs}; card: {card}")
+        size = f"{nblocks * 16 >> 20} MiB" if nblocks * 16 >= 1 << 20 else f"{nblocks} blocks"
+        log(f"{name} at {size}: {ms:.4f} ms/launch ({nblocks * 16 / ms / 1e6:.2f} GB/s), plain "
+            f"{plain_ms:.2f} ms; ptxas {ptxas.get(name.split()[0] + '_kernel<' + str(nr) + '>')}; "
+            f"card: {card}")
         log(f"{name} bound: {fn_ops} operations per group of 32 blocks ({parts}) x {groups} groups / "
             f"({sm_count} SMs x {INT_OPS_PER_CLK_PER_SM}/clk x {clock_mhz:.0f} MHz) = "
             f"{ops_ms:.4f} ms; bytes {bytes_ms:.4f} ms; kernel at "
             f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
-        log(f"{name} own stream: {sass_ops} SASS integer instructions per thread, "
-            f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the integer rate, "
-            f"kernel at {100 * sass_ms / ms:.1f} % of that); top opcodes {list(hist.items())[:8]}")
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": launches,
-            "mismatches": m,
-            "max_abs_err": max_err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "ops_per_group": fn_ops,
-            "sass_instructions_per_group": sass_ops,
-        })
+        if sass_upper_bound:
+            log(f"{name} own stream: at most {sass_ops} SASS integer instructions per group, "
+                f"at most {sass_ops / fn_ops:.3f}x the operations")
+        else:
+            log(f"{name} own stream: {sass_ops} SASS integer instructions per group, "
+                f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the integer "
+                f"rate, kernel at {100 * sass_ms / ms:.1f} % of that)")
+        sass_key = ("sass_instructions_per_group_upper_bound" if sass_upper_bound
+                    else "sass_instructions_per_group")
+        return {"mismatches": m, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "ops_per_group": fn_ops, sass_key: sass_ops}
+
+    def measure(name, source, replaces, kernel_fn, plain_fn, got, want, fn_ops, parts,
+                nbytes, launches):
+        sass_ops, hist = sass_int_ops_per_thread(sass_text, f"{name}_kernel", nr)
+        entry = timing(name, kernel_fn, plain_fn, got, want, fn_ops, parts, nbytes,
+                       MAIN_BYTES // 16, sass_ops, nr=nr)
+        log(f"{name} top opcodes {list(hist.items())[:8]}")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, **entry, "library_ms": None})
 
     w, ctr, rk_ctr, nr = tensors(MAIN_BYTES // 16, bench.KEY, WRAP_NONCES[4], seed=1337)
     measure("ctr_gen", "our_tree_tpu_torch/csrc/ctr_gen.cu", "our_tree_tpu/ops/pallas_aes.py:601",
@@ -510,6 +759,73 @@ def main() -> int:
     batch_ms = events_ms(lambda: aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng), 2)
     log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks: {batch_ms:.3f} ms, "
         f"{1e3 * batch_ms / 64:.2f} us per step of {SEQ_BLOCKS} blocks; card: {card}")
+
+    # ctr_mk: the serve path's shape (the 4,096-block rung, K = 8, drive B's
+    # pattern of 1-64-block requests on random slots), then 256 MiB with
+    # K = 8 in runs of 1-300 blocks and with its K = 1 entry.
+    mk = sass_mk_per_thread(sass_text, nr)
+    log(f"ctr_mk SASS (nr {nr}): {mk}")
+    mk_ops, mk_parts = mk_ops_per_group(nr)
+    nr8, rks8 = mk_stack(128, 8, seed=8)
+    rung = 4096
+    w_r, c_r = random_words(rung, seed=41), random_words(rung, seed=42)
+    s_r = slot_runs(rung, 8, np.array([1, 4, 16, 64]), seed=43)
+    mixed_groups = int((s_r.reshape(-1, 32) != s_r.reshape(-1, 32)[:, :1]).any(dim=1).sum())
+    log(f"ctr_mk serve-shape slots: {mixed_groups} of {rung // 32} groups mixed")
+    sass_r = (mk["mixed_group"] * mixed_groups + mk["uniform_group"] * (rung // 32 - mixed_groups)
+              ) // (rung // 32)
+    mk_bytes = lambda n, k, slots: 48 * n + 4 * n * slots + 4 * k * 4 * (nr8 + 1)  # noqa: E731
+    entry = timing("ctr_mk", lambda: cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8),
+                   lambda: cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
+                   cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8),
+                   cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
+                   mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung, sass_r, reps=200, plain_reps=5,
+                   sass_upper_bound=True)
+    cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"ctr_mk at the {rung}-block rung: host issue {host_us:.2f} us per launch, card "
+        f"{entry['ms'] * 1e3:.2f} us per launch; card: {card}")
+    n_big = MAIN_BYTES // 16
+    w_b, c_b = random_words(n_big, seed=51), random_words(n_big, seed=52)
+    s_b = slot_runs(n_big, 8, np.arange(1, 301), seed=53)
+    mixed_b = int((s_b.reshape(-1, 32) != s_b.reshape(-1, 32)[:, :1]).any(dim=1).sum())
+    sass_b = (mk["mixed_group"] * mixed_b + mk["uniform_group"] * (n_big // 32 - mixed_b)
+              ) // (n_big // 32)
+    bulk = timing("ctr_mk K=8 runs 1-300",
+                  lambda: cuda_aes.ctr_scattered_multikey(w_b, c_b, rks8, s_b, nr8),
+                  lambda: cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8),
+                  cuda_aes.ctr_scattered_multikey(w_b, c_b, rks8, s_b, nr8),
+                  cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8),
+                  mk_ops, mk_parts, mk_bytes(n_big, 8, 1), n_big, sass_b,
+                  sass_upper_bound=True)
+    del s_b
+    rk1 = rks8[0].contiguous()
+    k1 = timing("ctr_mk K=1 entry",
+                lambda: cuda_aes.ctr_crypt_words_explicit(w_b, c_b, rk1, nr8),
+                lambda: cuda_aes.ctr_crypt_words_explicit_plain(w_b, c_b, rk1, nr8),
+                cuda_aes.ctr_crypt_words_explicit(w_b, c_b, rk1, nr8),
+                cuda_aes.ctr_crypt_words_explicit_plain(w_b, c_b, rk1, nr8),
+                mk_ops, mk_parts, mk_bytes(n_big, 1, 0), n_big, mk["uniform_group"],
+                sass_upper_bound=True)
+    del w_b, c_b
+    kernels.append({
+        "name": "ctr_mk", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ctr_mk.cu",
+        "replaces": "our_tree_tpu/ops/pallas_aes.py:767",
+        "launches": counts_a["ctr_mk"] + counts_b["ctr_mk"], **entry, "library_ms": None,
+        "shape": f"{rung} blocks, K = 8, drive B's request pattern ({mixed_groups} of "
+                 f"{rung // 32} groups mixed)",
+        "sass_by_key_form": mk,
+        "at_256MiB_k8_runs": {**bulk, "library_ms": None},
+        "k1_entry": {"entry": "ops/cuda_aes.py:ctr_crypt_words_explicit",
+                     "counterpart_of": "_ctr_kernel",
+                     "replaces": "our_tree_tpu/ops/pallas_aes.py:476",
+                     "shape": "256 MiB", **k1, "library_ms": None},
+    })
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

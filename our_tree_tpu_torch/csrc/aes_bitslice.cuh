@@ -1,13 +1,14 @@
-// Bitsliced AES arithmetic shared by the port's kernels (ctr_gen.cu, ecb.cu):
+// Bitsliced AES arithmetic shared by the port's kernels (ctr_gen.cu, ecb.cu,
+// ctr_mk.cu):
 // the state of one group of 32 blocks held as 128 bit planes in registers
 // (plane 8p+b = bit b of state byte p, lane bit t = block t of the group).
 // Every function here reads memory only at addresses fixed by the round and
-// plane number (the round-key masks), never at one that depends on key or
-// data.
+// plane number (the round-key masks) or by the public slot vector (the
+// per-block schedules), never at one that depends on key or data.
 //
 // Without nvcc the same code compiles as host C++, so the CPU tests run it
 // against the plain torch version (tests/test_torch_ctr_host.py,
-// tests/test_torch_ecb_host.py).
+// tests/test_torch_ecb_host.py, tests/test_torch_mk_host.py).
 
 #pragma once
 
@@ -119,6 +120,8 @@ __device__ __forceinline__ void xtime(const uint32_t* t, uint32_t* o) {
 
 // MixColumns of one column a[r][b] (row r, bit b) plus AddRoundKey, into
 // o[8r + b]: t_r = a_r ^ a_(r+1); out_r = xt(t_r) ^ t_r ^ t_(r+2) ^ a_r ^ k_r.
+// Without KEYED the key term is left out (km is not read).
+template <bool KEYED = true>
 __device__ __forceinline__ void mix_column(const uint32_t (&a)[4][8], const uint32_t* km,
                                            uint32_t* o) {
   uint32_t t[4][8];
@@ -132,12 +135,13 @@ __device__ __forceinline__ void mix_column(const uint32_t (&a)[4][8], const uint
     xtime(t[r], xt);
 #pragma unroll
     for (int b = 0; b < 8; ++b)
-      o[8 * r + b] = xt[b] ^ t[r][b] ^ t[(r + 2) % 4][b] ^ a[r][b] ^ km[8 * r + b];
+      o[8 * r + b] = xt[b] ^ t[r][b] ^ t[(r + 2) % 4][b] ^ a[r][b] ^ (KEYED ? km[8 * r + b] : 0u);
   }
 }
 
 // One round: SubBytes, ShiftRows, MixColumns unless LAST, AddRoundKey (km).
-template <bool LAST>
+// Without KEYED the AddRoundKey is left to the caller (km is not read).
+template <bool LAST, bool KEYED = true>
 __device__ __forceinline__ void aes_round(uint32_t (&s)[128], const uint32_t* km) {
 #pragma unroll
   for (int p = 0; p < 16; ++p) sbox_bp(&s[8 * p]);
@@ -153,9 +157,10 @@ __device__ __forceinline__ void aes_round(uint32_t (&s)[128], const uint32_t* km
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) o[32 * c + 8 * r + b] = a[r][b] ^ km[32 * c + 8 * r + b];
+        for (int b = 0; b < 8; ++b)
+          o[32 * c + 8 * r + b] = a[r][b] ^ (KEYED ? km[32 * c + 8 * r + b] : 0u);
     } else {
-      mix_column(a, km + 32 * c, &o[32 * c]);
+      mix_column<KEYED>(a, KEYED ? km + 32 * c : km, &o[32 * c]);
     }
   }
 #pragma unroll
@@ -240,6 +245,84 @@ __device__ __forceinline__ void ecb_group(uint32_t (&s)[128], const uint32_t* km
   }
   if (DECRYPT) aes_inv_round<true>(s, kmask + 128 * NR);
   else aes_round<true>(s, kmask + 128 * NR);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) transpose32(&s[32 * c]);
+}
+
+// ---------------------------------------------------------------------------
+// Per-block keys (ctr_mk.cu). A group's 32 blocks may each use one of K
+// schedules, kept as words (row stride 4*(NR+1)). Round r's key planes are
+// the transpose of the 32 blocks' round-r words (bitslice.multikey_planes in
+// the plain version): plane 32c + j is bit j of word c of each block's round
+// key, lane t = block t. The slot vector that picks each block's schedule is
+// public batch layout, so reading a schedule at a slot-dependent offset and
+// branching on whether a group's slots are all equal leak nothing of key or
+// data.
+
+// Round r's key planes for a group whose 32 blocks share one schedule rk:
+// full-lane masks of its words, made on the fly (bit j shifted up to the sign
+// bit, then arithmetically back across the word: two shifts a plane).
+__device__ __forceinline__ void add_round_key_uniform(uint32_t (&s)[128], const uint32_t* rk,
+                                                      int r) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t w = rk[4 * r + c];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[32 * c + j] ^= (uint32_t)((int32_t)(w << (31 - j)) >> 31);
+  }
+}
+
+// Round r's key planes for a group whose blocks' schedules differ: block t's
+// schedule starts at word off[t * stride] of rks. One column at a time, the
+// 32 blocks' round-r words are gathered, transposed into 32 planes and XORed
+// into the state, so only 32 key words are live at once. The offsets are read
+// through a volatile pointer, every round: hoisted out of the round loop,
+// their 32 loop-invariant values spilled the state to local memory.
+__device__ __forceinline__ void add_round_key_mixed(uint32_t (&s)[128], const uint32_t* rks,
+                                                    const volatile uint16_t* off, int stride,
+                                                    int r) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t kw[32];
+#pragma unroll
+    for (int t = 0; t < 32; ++t) kw[t] = rks[off[t * stride] + 4 * r + c];
+    transpose32(kw);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[32 * c + j] ^= kw[j];
+  }
+}
+
+// Round r's key planes: full-lane masks of the schedule at off0 when UNIFORM,
+// per-block planes from the schedules at off[t * stride] otherwise.
+template <bool UNIFORM>
+__device__ __forceinline__ void add_round_key_mk(uint32_t (&s)[128], const uint32_t* rks,
+                                                 uint32_t off0, const volatile uint16_t* off,
+                                                 int stride, int r) {
+  if (UNIFORM) add_round_key_uniform(s, rks + off0, r);
+  else add_round_key_mixed(s, rks, off, stride, r);
+}
+
+// AES encrypt of one group of 32 blocks in place, block t under the schedule
+// at word offset off[t * stride] of rks. On entry and on return s[32c + t] is
+// word c (little-endian) of block t. UNIFORM says every block uses the
+// schedule at offset off0 (then off is not read): full-lane key masks,
+// otherwise per-block key planes. A separate instantiation per key form
+// keeps the branch out of the round loop, so each form gets its own register
+// allocation. The round loop is rolled, each round straight-line.
+template <int NR, bool UNIFORM>
+__device__ __forceinline__ void mk_encrypt_group(uint32_t (&s)[128], const uint32_t* rks,
+                                                 uint32_t off0, const volatile uint16_t* off,
+                                                 int stride) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) transpose32(&s[32 * c]);
+  add_round_key_mk<UNIFORM>(s, rks, off0, off, stride, 0);
+#pragma unroll 1
+  for (int r = 1; r < NR; ++r) {
+    aes_round<false, false>(s, nullptr);
+    add_round_key_mk<UNIFORM>(s, rks, off0, off, stride, r);
+  }
+  aes_round<true, false>(s, nullptr);
+  add_round_key_mk<UNIFORM>(s, rks, off0, off, stride, NR);
 #pragma unroll
   for (int c = 0; c < 4; ++c) transpose32(&s[32 * c]);
 }

@@ -7,11 +7,14 @@ as the reference C ``aes_crypt_ctr`` does.
 
 Engines (``CORES[name] = (encrypt, decrypt)`` over (N, 4) words):
 ``"cuda-ctr-gen-bp"`` is the hand-written CUDA kernels (``ops/cuda_aes.py``:
-ECB encrypt and decrypt, fused CTR); ``"bitslice"`` is their plain torch
-version; ``"ttable"`` is the T-table core (``ops/block.py``), the reference's
-``"jnp"`` engine, an in-port oracle that ``"auto"`` never picks. ``"auto"``
-resolves to the kernels for a CUDA device and to the plain version for the
-CPU.
+ECB encrypt and decrypt, fused CTR, multi-key scattered CTR and its
+single-key explicit-counter entry);
+``"bitslice"`` is their plain torch version; ``"ttable"`` is the T-table
+core (``ops/block.py``), the reference's ``"jnp"`` engine, an in-port oracle
+that ``"auto"`` never picks. ``"auto"`` resolves to the kernels for a CUDA
+device and to the plain version for the CPU. ``MULTIKEY_CTR`` holds each
+engine's multi-key scattered-CTR core, the serve path's dispatch
+(``ctr_crypt_words_scattered_multikey``, engines by ``resolve_serve_engine``).
 
 Modes: ECB, CTR and the CBC/CFB128 decrypts are one batched engine call.
 CBC and CFB128 encryption are recurrences: the reference runs them as a
@@ -45,19 +48,59 @@ CORES: dict[str, tuple] = {}
 #: (words, ctr_be_words, rk, nr) -> words fused CTR entries, by engine name;
 #: engines without one run CTR as keystream then XOR.
 CTR_FUSED: dict[str, object] = {}
+#: (words, ctr_le, rk, nr) -> words single-key CTR over given LE counters,
+#: by engine name; engines without one run it as ECB of the counters, then
+#: XOR.
+CTR_EXPLICIT: dict[str, object] = {}
+#: Multi-key scattered-CTR cores, (words, ctr_le, rks, key_slots, nr) ->
+#: words over (N, 4) int32 words, where ``rks`` is a (K, 4*(nr+1)) stack of
+#: schedules and ``key_slots`` the (N,) int32 public per-block slot vector:
+#: one call carrying K tenants' keys (the serve rung-packer's dispatch).
+MULTIKEY_CTR: dict[str, object] = {}
+#: The reference's host tier (the native C runtime), which the port does
+#: not have: ``resolve_serve_engine`` refuses it.
+NATIVE_ENGINE = "native"
+#: (engine, nr, device) of every call of the serve seam in this process
+#: (``set.add`` is atomic, so lane worker threads add without a lock).
+_SEAM_CALLS: set = set()
 
 
-def register_core(name: str, encrypt_fn, decrypt_fn, ctr_fused_fn=None) -> None:
+def seam_first_calls() -> int:
+    """How many distinct (engine, nr, device) ``ctr_crypt_words_scattered_multikey``
+    has been called with in this process. On the card the first launch of
+    a kernel's NR instantiation is when CUDA loads its code into the
+    context (lazy module loading), so each first call stands for the one
+    cost the JAX package's compile counter would see; the CPU counts the
+    same first calls, so the serve contract reads the same on both."""
+    return len(_SEAM_CALLS)
+
+
+def register_core(name: str, encrypt_fn, decrypt_fn, ctr_fused_fn=None,
+                  multikey_fn=None, ctr_explicit_fn=None) -> None:
     CORES[name] = (encrypt_fn, decrypt_fn)
     if ctr_fused_fn is not None:
         CTR_FUSED[name] = ctr_fused_fn
+    if ctr_explicit_fn is not None:
+        CTR_EXPLICIT[name] = ctr_explicit_fn
+    if multikey_fn is not None:
+        MULTIKEY_CTR[name] = multikey_fn
+
+
+def _multikey_ttable(words, ctr_le, rks, key_slots, nr):
+    """T-table multi-key core: gather each block's schedule by its public
+    slot index and run the T-table core with the schedule as a batch
+    dimension (the reference's vmapped ``_multikey_jnp``)."""
+    return words ^ block.encrypt_words(ctr_le, rks[key_slots.long()].t(), nr)
 
 
 register_core(CUDA_ENGINE, cuda_aes.encrypt_words, cuda_aes.decrypt_words,
-              cuda_aes.ctr_crypt_words_fused)
+              cuda_aes.ctr_crypt_words_fused, cuda_aes.ctr_scattered_multikey,
+              cuda_aes.ctr_crypt_words_explicit)
 register_core(PLAIN_ENGINE, bitslice.encrypt_words, bitslice.decrypt_words,
-              cuda_aes.ctr_crypt_words_fused_plain)
-register_core(TTABLE_ENGINE, block.encrypt_words, block.decrypt_words)
+              cuda_aes.ctr_crypt_words_fused_plain, cuda_aes.ctr_scattered_multikey_plain,
+              cuda_aes.ctr_crypt_words_explicit_plain)
+register_core(TTABLE_ENGINE, block.encrypt_words, block.decrypt_words,
+              multikey_fn=_multikey_ttable)
 
 
 def as_device(device=None) -> torch.device:
@@ -78,6 +121,21 @@ def resolve_engine(engine: str, device) -> str:
         return CUDA_ENGINE if torch.device(device).type == "cuda" else PLAIN_ENGINE
     if engine not in CORES:
         raise ValueError(f"unknown engine {engine!r}; available: {sorted(CORES)}")
+    return engine
+
+
+def resolve_serve_engine(name: str | None = "auto", device=None) -> str:
+    """Engine for the serve dispatch path (the multi-key scattered-CTR
+    seam): ``"auto"`` is the CUDA kernel on a CUDA device and the plain
+    version on the CPU. ``"native"``, the reference's host tier, raises:
+    the port has no native runtime. Any other name must have a multi-key
+    core."""
+    if name == NATIVE_ENGINE:
+        raise ValueError("engine 'native' (the native C host tier) is not part of the port")
+    engine = resolve_engine("auto" if name is None else name, as_device(device))
+    if engine not in MULTIKEY_CTR:
+        raise ValueError(f"engine {engine!r} has no multi-key CTR core; "
+                         f"available: {sorted(MULTIKEY_CTR)}")
     return engine
 
 
@@ -127,12 +185,36 @@ def ctr_crypt_words(words: torch.Tensor, ctr_be_words: torch.Tensor,
 def ctr_crypt_words_scattered(words: torch.Tensor, ctr_le_words: torch.Tensor,
                               rk: torch.Tensor, nr: int, engine: str = "auto") -> torch.Tensor:
     """CTR where every block's counter is given: (N, 4) LE counter words
-    (or a flat (4N,) stream) beside the (N, 4)/(4N,) data words. One ECB
-    call over the counters, XORed into the data (the serving seam: a batch
-    of requests under one key, each with its own nonce)."""
+    (or a flat (4N,) stream) beside the (N, 4)/(4N,) data words (the
+    serving seam: a batch of requests under one key, each with its own
+    nonce). The engine's explicit-counter CTR entry (on the card the
+    ``ctr_mk`` kernel with one schedule, one launch), else one ECB call over
+    the counters XORed into the data."""
     engine = resolve_engine(engine, words.device)
+    explicit = CTR_EXPLICIT.get(engine)
+    if explicit is not None:
+        return explicit(_blocks(words), _blocks(ctr_le_words), rk, nr).reshape(words.shape)
     ks = CORES[engine][0](_blocks(ctr_le_words), rk, nr)
     return (words.reshape(-1) ^ ks.reshape(-1)).reshape(words.shape)
+
+
+def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.Tensor,
+                                       rks: torch.Tensor, key_slots: torch.Tensor, nr: int,
+                                       engine: str = "auto") -> torch.Tensor:
+    """Scattered CTR where one call carries K independent keys.
+
+    The multi-key serve seam: ``rks`` is a (K, 4*(nr+1)) int32 stack of
+    schedules (unused slots hold the all-zero schedule, so the call's shape
+    is closed over K) and ``key_slots`` a (N,) int32 vector mapping each
+    block to its slot. The slot vector is public: it comes from batch
+    layout, never from key or payload bytes. ``words``/``ctr_le_words``
+    are (N, 4) or flat (4N,) int32 words; the result has ``words``' shape.
+    The reference's ``native_*`` arguments belong to its host tier, which
+    the port does not have."""
+    engine = resolve_engine(engine, words.device)
+    _SEAM_CALLS.add((engine, nr, str(words.device)))
+    out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
+    return out.reshape(words.shape)
 
 
 def cbc_encrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,

@@ -1,0 +1,404 @@
+"""The process-global tracer: spans, counters, gauges, instant points.
+
+Copy of ``our_tree_tpu.obs.trace``, trimmed to what the port's serve path
+calls. One process writes one append-only JSONL event file under
+``$OT_TRACE_DIR/<run-id>/trace-<pid>-<tok>.jsonl``; with ``OT_TRACE_DIR``
+unset every call is one check and ``span()`` returns a shared no-op. Span
+begin and end are separate events, flushed as written, so a dispatch that
+never ends leaves its begin on disk (an orphan: the kill evidence of a hung
+dispatch). Tracing never raises: a failed write is a counted drop.
+
+Per-request spans are head-sampled (``OT_TRACE_SAMPLE``, decided once per
+request at admission by ``sample()``): an unsampled span
+(``maybe_span(False, ...)``) writes nothing on the happy path and
+materialises, with its original timestamp, when it fails or is forced.
+``OT_TRACE_RUN`` names the run (minted by ``ensure_run`` when unset) and
+``OT_TRACE_PARENT`` gives root spans a parent. The reference's segment
+rotation (``OT_TRACE_MAX_MB``) and ``child_env`` are not carried over.
+
+Event schema (the reference's v1)::
+
+    {"kind":"ot-trace","v":1,"run":...,"pid":...,"proc":"a1b2c3d4",...}
+    {"ev":"b","id":"a1b2c3d4.1","parent":null,"name":"...","ts":...,"tid":0,"attrs":{}}
+    {"ev":"e","id":"a1b2c3d4.1","ts":...,"status":"ok","attrs":{...}}
+    {"ev":"c","name":"...","ts":...,"n":1,"attrs":{...}}
+    {"ev":"g","name":"...","ts":...,"value":1.5,"attrs":{...}}
+    {"ev":"p","name":"...","ts":...,"attrs":{...}}
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import sys
+import threading
+import time
+import uuid
+
+KIND = "ot-trace"
+VERSION = 1
+
+_SPANS_STARTED = 0
+_DROPPED = 0
+_COUNTS: dict[str, float] = {}
+_GAUGES: dict[str, float] = {}
+_TIDS: dict[int, int] = {}
+_LOCK = threading.Lock()
+_TLS = threading.local()
+#: Lazily opened per-process state {"run", "dir", "fh", "proc", "pid", "seq"}.
+_STATE: dict | None = None
+
+
+def enabled() -> bool:
+    """Tracing is on iff ``OT_TRACE_DIR`` is set."""
+    return bool(os.environ.get("OT_TRACE_DIR"))
+
+
+_SAMPLE_CACHE: tuple[str, float] = ("", 1.0)
+
+
+def sample_rate() -> float:
+    """The head-sampling rate (``OT_TRACE_SAMPLE``), clamped to [0, 1];
+    unset is 1 (every request traced)."""
+    global _SAMPLE_CACHE
+    raw = os.environ.get("OT_TRACE_SAMPLE", "")
+    cached_raw, cached = _SAMPLE_CACHE
+    if raw == cached_raw:
+        return cached
+    try:
+        rate = min(max(float(raw), 0.0), 1.0) if raw else 1.0
+    except ValueError:
+        rate = 1.0
+    _SAMPLE_CACHE = (raw, rate)
+    return rate
+
+
+def sample() -> bool:
+    """One head-sampling coin flip (the admission-time decision)."""
+    rate = sample_rate()
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return random.random() < rate
+
+
+def _now_us() -> int:
+    return time.time_ns() // 1000
+
+
+def _tid() -> int:
+    ident = threading.get_ident()
+    with _LOCK:
+        return _TIDS.setdefault(ident, len(_TIDS))
+
+
+def _stack() -> list:
+    st = getattr(_TLS, "stack", None)
+    if st is None:
+        st = _TLS.stack = []
+    return st
+
+
+def run_id() -> str | None:
+    """The current run id (None while disabled)."""
+    if not enabled():
+        return None
+    state = _STATE
+    if state is not None:
+        return state["run"]
+    return os.environ.get("OT_TRACE_RUN") or None
+
+
+def ensure_run() -> str | None:
+    """Adopt ``OT_TRACE_RUN`` or mint a run id and publish it there;
+    None while disabled."""
+    if not enabled():
+        return None
+    rid = os.environ.get("OT_TRACE_RUN")
+    if not rid:
+        rid = time.strftime("%Y%m%d-%H%M%S") + f"-{os.getpid()}"
+        os.environ["OT_TRACE_RUN"] = rid
+    return rid
+
+
+def run_dir() -> str | None:
+    """``$OT_TRACE_DIR/<run-id>`` (None while disabled)."""
+    if not enabled():
+        return None
+    return os.path.join(os.environ["OT_TRACE_DIR"], ensure_run())
+
+
+def _state() -> dict | None:
+    """Open this process's event file, header first, on first use."""
+    global _STATE, _DROPPED
+    with _LOCK:
+        if _STATE is not None:
+            if _STATE["run"] == os.environ.get("OT_TRACE_RUN", _STATE["run"]):
+                return _STATE
+            try:
+                _STATE["fh"].close()
+            except OSError:
+                pass
+            _STATE = None
+        try:
+            d = run_dir()
+            os.makedirs(d, exist_ok=True)
+            state = {"run": os.environ["OT_TRACE_RUN"], "dir": d,
+                     "proc": uuid.uuid4().hex[:8], "pid": os.getpid(), "seq": 0}
+            fh = open(os.path.join(d, f"trace-{state['pid']}-{state['proc']}.jsonl"), "a",
+                      encoding="utf-8")
+            fh.write(json.dumps({"kind": KIND, "v": VERSION, "run": state["run"],
+                                 "pid": state["pid"], "proc": state["proc"],
+                                 "argv": " ".join(sys.argv[:6])[:300],
+                                 "start_us": _now_us()}, separators=(",", ":")) + "\n")
+            fh.flush()
+            state["fh"] = fh
+            _STATE = state
+            return _STATE
+        except OSError:
+            _DROPPED += 1
+            return None
+
+
+def _write(rec: dict) -> None:
+    """One JSONL line, flushed."""
+    global _DROPPED
+    state = _STATE
+    if state is None:
+        return
+    try:
+        line = json.dumps(rec, separators=(",", ":"), default=repr)
+        with _LOCK:
+            state["fh"].write(line + "\n")
+            state["fh"].flush()
+    except (TypeError, ValueError, OSError):
+        _DROPPED += 1
+
+
+class Span:
+    """One live span: ``id`` is its handle."""
+
+    __slots__ = ("id", "name")
+
+    def __init__(self, sid: str, name: str):
+        self.id, self.name = sid, name
+
+
+def _begin(name: str, attrs: dict, parent: str | None, ts: int) -> Span | None:
+    global _SPANS_STARTED
+    st = _state()
+    if st is None:
+        return None
+    with _LOCK:
+        st["seq"] += 1
+        sid = f"{st['proc']}.{st['seq']}"
+    _SPANS_STARTED += 1
+    rec = {"ev": "b", "id": sid, "parent": parent, "name": name, "ts": ts, "tid": _tid()}
+    if attrs:
+        rec["attrs"] = attrs
+    _write(rec)
+    return Span(sid, name)
+
+
+def _end(span: Span, exc_type, end_attrs: dict | None) -> None:
+    rec = {"ev": "e", "id": span.id, "ts": _now_us(),
+           "status": "ok" if exc_type is None else f"error:{exc_type.__name__}"}
+    if end_attrs:
+        rec["attrs"] = end_attrs
+    _write(rec)
+
+
+def _ambient_parent(override: str | None) -> str | None:
+    stack = getattr(_TLS, "stack", None)
+    return override or (stack[-1] if stack else os.environ.get("OT_TRACE_PARENT") or None)
+
+
+class _SpanCM:
+    """An eager span: begin written at enter, end at exit (idempotent).
+    A detached span never joins the per-thread nesting stack."""
+
+    def __init__(self, name: str, attrs: dict, detached: bool = False,
+                 parent: str | None = None):
+        self._name, self._attrs = name, attrs
+        self._detached = detached
+        self._parent = parent
+        self._end_attrs: dict | None = None
+        self._span: Span | None = None
+
+    def __enter__(self) -> Span | None:
+        self._span = _begin(self._name, self._attrs, _ambient_parent(self._parent), _now_us())
+        if self._span is not None and not self._detached:
+            _stack().append(self._span.id)
+        return self._span
+
+    def note(self, **attrs) -> None:
+        """Attrs for the END event (measurements known only at close)."""
+        if attrs:
+            self._end_attrs = {**(self._end_attrs or {}), **attrs}
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._span is None:
+            return False
+        if not self._detached:
+            stack = _stack()
+            if stack and stack[-1] == self._span.id:
+                stack.pop()
+        _end(self._span, exc_type, self._end_attrs)
+        self._span = None
+        return False
+
+    def force(self):
+        """No-op on an eager span (already on disk)."""
+        return self._span
+
+    @property
+    def span_id(self) -> str | None:
+        return self._span.id if self._span is not None else None
+
+
+class _DeferredSpanCM:
+    """An unsampled detached span: the begin is captured, not written. It
+    materialises with its original timestamp when the region exits with
+    an exception (begin + error end) or when ``force()`` is called (begin
+    only, the span left open: the orphan of a hung dispatch); a clean exit
+    without ``force()`` writes nothing."""
+
+    __slots__ = ("_name", "_attrs", "_ts", "_parent", "_span", "_done", "_override",
+                 "_end_attrs")
+
+    def __init__(self, name: str, attrs: dict, parent: str | None = None):
+        self._name, self._attrs = name, attrs
+        self._ts: int | None = None
+        self._parent = None
+        self._override = parent
+        self._end_attrs: dict | None = None
+        self._span: Span | None = None
+        self._done = False
+
+    def __enter__(self):
+        self._ts = _now_us()
+        self._parent = _ambient_parent(self._override)
+        return None
+
+    def force(self) -> Span | None:
+        if self._span is None and not self._done and self._ts is not None:
+            self._span = _begin(self._name, self._attrs, self._parent, self._ts)
+        return self._span
+
+    def note(self, **attrs) -> None:
+        if attrs:
+            self._end_attrs = {**(self._end_attrs or {}), **attrs}
+
+    @property
+    def span_id(self) -> str | None:
+        return self._span.id if self._span is not None else None
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._done:
+            return False
+        if exc_type is not None:
+            self.force()
+        if self._span is not None:
+            _end(self._span, exc_type, self._end_attrs)
+        self._done = True
+        self._span = None
+        return False
+
+
+class _NullCM:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+    def force(self):
+        return None
+
+    def note(self, **attrs):
+        return None
+
+    @property
+    def span_id(self):
+        return None
+
+
+_NULL = _NullCM()
+
+
+def span(name: str, **attrs):
+    """Context manager timing a region, nested per thread."""
+    if not enabled():
+        return _NULL
+    return _SpanCM(name, attrs)
+
+
+def detached_span(name: str, parent: str | None = None, **attrs):
+    """A span outside the per-thread nesting stack, for lifetimes that
+    overlap on one thread (enter and exit it explicitly; exit is
+    idempotent; one never exited is an orphan)."""
+    if not enabled():
+        return _NULL
+    return _SpanCM(name, attrs, detached=True, parent=parent)
+
+
+def maybe_span(sampled: bool, name: str, parent: str | None = None, **attrs):
+    """A detached span gated by the request's head-sampling decision:
+    eager when ``sampled``, deferred (``_DeferredSpanCM``) otherwise."""
+    if not enabled():
+        return _NULL
+    if sampled:
+        return _SpanCM(name, attrs, detached=True, parent=parent)
+    return _DeferredSpanCM(name, attrs, parent=parent)
+
+
+def point(name: str, **attrs) -> None:
+    """One instant event."""
+    if not enabled() or _state() is None:
+        return
+    rec = {"ev": "p", "name": name, "ts": _now_us()}
+    if attrs:
+        rec["attrs"] = attrs
+    _write(rec)
+
+
+def counter(name: str, n: float = 1, **attrs) -> None:
+    """Add ``n`` to the named counter and emit one ``c`` event."""
+    if not enabled() or _state() is None:
+        return
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+    rec = {"ev": "c", "name": name, "ts": _now_us(), "n": n}
+    if attrs:
+        rec["attrs"] = attrs
+    _write(rec)
+
+
+def gauge(name: str, value: float, **attrs) -> None:
+    """Set the named gauge and emit one ``g`` event."""
+    if not enabled() or _state() is None:
+        return
+    with _LOCK:
+        _GAUGES[name] = value
+    rec = {"ev": "g", "name": name, "ts": _now_us(), "value": value}
+    if attrs:
+        rec["attrs"] = attrs
+    _write(rec)
+
+
+def metrics_snapshot() -> dict:
+    """Run id, span count, counter totals, gauges and drops, for the bench
+    JSON line."""
+    snap: dict = {"run": run_id(), "spans": _SPANS_STARTED}
+    with _LOCK:
+        if _COUNTS:
+            snap["counters"] = dict(sorted(_COUNTS.items()))
+        if _GAUGES:
+            snap["gauges"] = dict(sorted(_GAUGES.items()))
+    if _DROPPED:
+        snap["dropped"] = _DROPPED
+    return snap

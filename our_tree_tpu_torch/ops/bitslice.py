@@ -1,11 +1,12 @@
 """Bitsliced AES in plain torch, both directions.
 
 This is the plain version of the CUDA kernels' arithmetic
-(``csrc/ctr_gen.cu``, ``csrc/ecb.cu``): the same functions on whole
-tensors, used for CPU tensors and as the kernels' yardstick on the card.
-Port of ``our_tree_tpu.ops.bitslice`` without its TPU-only boundary
-layouts (``grouped``/``dense`` exist for TPU tile padding) and without
-``multikey_planes``, which comes with the multi-key slice.
+(``csrc/ctr_gen.cu``, ``csrc/ecb.cu``, ``csrc/ctr_mk.cu``): the same
+functions on whole tensors, used for CPU tensors and as the kernels'
+yardstick on the card. Port of ``our_tree_tpu.ops.bitslice`` without its
+TPU-only boundary layouts (``grouped``/``dense`` exist for TPU tile
+padding) and without ``decrypt_words_multikey``, which waits for the CBC
+serve mode.
 
 Data layout (the reference's, so tests compare planes directly): N blocks
 (N % 32 == 0) become an ``(8, 16, W)`` int32 tensor, W = N/32, where
@@ -675,6 +676,19 @@ def key_planes(rk: torch.Tensor, nr: int) -> torch.Tensor:
     return (-bits).to(torch.int32)[..., None]
 
 
+def multikey_planes(rk_blocks: torch.Tensor, nr: int) -> torch.Tensor:
+    """Per-block round keys -> (nr+1, 8, 16, W) key bit planes.
+
+    ``rk_blocks``: (N, 4*(nr+1)) int32, row i = block i's schedule
+    (N % 32 == 0). Where ``key_planes`` broadcasts one key as full-lane
+    masks, every block may carry its own key here, so round r's key planes
+    are ``to_planes`` of the (N, 4) round-r words. The round circuit only
+    meets the key in AddRoundKey, so K keys are a change of layout, not of
+    formulation."""
+    r = rk_blocks.reshape(rk_blocks.shape[0], nr + 1, 4)
+    return torch.stack([to_planes(r[:, i, :].contiguous()) for i in range(nr + 1)])
+
+
 def _pad32(words: torch.Tensor) -> tuple[torch.Tensor, int]:
     n = words.shape[0]
     pad = (-n) % 32
@@ -703,3 +717,18 @@ def decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int) -> torch.T
     padded, n = _pad32(words)
     return from_planes(_crypt_planes(to_planes(padded), key_planes(rk_dec, nr), nr,
                                      decrypt_round))[:n]
+
+
+def encrypt_words_multikey(words: torch.Tensor, rk_blocks: torch.Tensor,
+                           nr: int) -> torch.Tensor:
+    """Bitsliced batch encrypt where block i uses its own schedule.
+
+    ``rk_blocks``: (N, 4*(nr+1)) int32 per-block round keys (the caller
+    gathers them from a (K, 4*(nr+1)) stack by the public slot vector).
+    Padding blocks get the all-zero schedule; their output is dropped."""
+    padded, n = _pad32(words)
+    pad = padded.shape[0] - rk_blocks.shape[0]
+    if pad:
+        rk_blocks = torch.cat([rk_blocks, rk_blocks.new_zeros((pad, rk_blocks.shape[1]))])
+    out = _crypt_planes(to_planes(padded), multikey_planes(rk_blocks, nr), nr, encrypt_round)
+    return from_planes(out)[:n]

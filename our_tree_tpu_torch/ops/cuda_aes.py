@@ -13,6 +13,18 @@ schedule. Their plain versions are ``bitslice.encrypt_words`` (the same
 Boyar-Peralta circuit) and ``bitslice.decrypt_words`` (the tower inverse
 S-box, a formulation independent of the kernel's).
 
+``ctr_scattered_multikey`` launches ``csrc/ctr_mk.cu``, which replaces the
+TPU kernel ``_ctr_scat_mk_kernel`` (``pallas_aes.py:767-781``, launched at
+``:800``; entries ``ctr_scattered_multikey_dense(_bp)``, ``:838-858``):
+``out[i] = data[i] ^ E_{rks[slot[i]]}(ctr_le[i])``, up to ``MK_MAX_SLOTS``
+schedules per launch, the serve path's dispatch. ``ctr_crypt_words_explicit``
+launches the same kernel with one schedule and no slot vector; it replaces
+``_ctr_kernel`` (``pallas_aes.py:476-482``, launched at ``:491``; entry
+``ctr_crypt_words``, ``:505-533``), single-key CTR over materialised
+counters. Their plain versions gather each block's schedule by the public
+slot index and run ``bitslice.encrypt_words_multikey``, or run
+``bitslice.encrypt_words`` on the counters.
+
 One kernel per function serves every layout and engine name of the
 reference (planes, grouped, dense; the layouts only existed for TPU tile
 padding).
@@ -26,12 +38,15 @@ the data is read and only the output is written. See the sources' headers.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot launch; only CPU tensors go to the plain version. Each counts its
-launches in ``.launches``.
+launches in ``.launches``, a plain integer a reader may reset; the serve
+path launches from one worker thread per lane, so every count goes through
+``count_launch`` under one lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +55,18 @@ from ..runtime import cuda_build
 from ..utils.packing import ctr_le_blocks
 
 NR_VALUES = (10, 12, 14)
+#: The most schedules one ``ctr_scattered_multikey`` launch takes
+#: (``kMaxSlots`` in ``csrc/ctr_mk.cu``).
+MK_MAX_SLOTS = 64
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; safe across threads (a bare
+    ``+= 1`` can lose counts when lane workers launch at once)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def ctr_crypt_words_fused_plain(words: torch.Tensor, ctr_be: torch.Tensor,
@@ -69,24 +96,27 @@ def _check(words: torch.Tensor, nr: int, **others) -> None:
         raise ValueError(f"no kernel for device {words.device}")
 
 
-def _launch(wrapper, fn: str, words: torch.Tensor, tensors: tuple, nr: int) -> torch.Tensor:
+def _launch(wrapper, fn: str, words: torch.Tensor, tensors: tuple, nr: int,
+            ints: tuple = (), aligned: tuple = ()) -> torch.Tensor:
     """Launch C entry ``fn`` on (N, 4) CUDA words into a new tensor,
-    ``fn(words, out, *tensors, n, nr, stream)``, and count the launch on
-    ``wrapper``; raises if the launch failed. N = 0 launches nothing."""
+    ``fn(words, out, *tensors, n, *ints, nr, stream)`` (a ``None`` tensor
+    passes NULL), and count the launch on ``wrapper``; raises if the launch
+    failed. ``aligned`` tensors are read as uint4, like ``words``. N = 0
+    launches nothing."""
     out = torch.empty_like(words)
     n = words.shape[0]
     if n == 0:
         return out
-    if words.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (words, out, *aligned)):
+        raise ValueError("block words must be 16-byte aligned")
     lib = cuda_build.load()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        ptrs = [t.data_ptr() for t in (words, out, *tensors)]
-        rc = getattr(lib, fn)(*ptrs, ctypes.c_longlong(n), nr, stream)
+        ptrs = [None if t is None else t.data_ptr() for t in (words, out, *tensors)]
+        rc = getattr(lib, fn)(*ptrs, ctypes.c_longlong(n), *ints, nr, stream)
     if rc:
         raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out
 
 
@@ -120,7 +150,58 @@ def decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int) -> torch.T
     return _launch(decrypt_words, "ot_ecb_decrypt", words, (rk_dec,), nr)
 
 
+def ctr_scattered_multikey_plain(words: torch.Tensor, ctr_le: torch.Tensor, rks: torch.Tensor,
+                                 key_slots: torch.Tensor, nr: int) -> torch.Tensor:
+    """Plain version: gather each block's schedule by its public slot index,
+    bitsliced per-block-key encrypt of the counters, XOR."""
+    return words ^ bitslice.encrypt_words_multikey(ctr_le, rks[key_slots.long()], nr)
+
+
+def ctr_crypt_words_explicit_plain(words: torch.Tensor, ctr_le: torch.Tensor, rk: torch.Tensor,
+                                   nr: int) -> torch.Tensor:
+    """Plain version: bitsliced encrypt of the given counters, XOR."""
+    return words ^ bitslice.encrypt_words(ctr_le, rk, nr)
+
+
+def ctr_scattered_multikey(words: torch.Tensor, ctr_le: torch.Tensor, rks: torch.Tensor,
+                           key_slots: torch.Tensor, nr: int) -> torch.Tensor:
+    """Multi-key CTR over (N, 4) int32 LE block words with every block's
+    counter given: block i is XORed with E_{rks[key_slots[i]]}(ctr_le[i]).
+    ``ctr_le``: (N, 4) int32 LE counter words; ``rks``: (K, 4*(nr+1)) int32
+    encrypt schedules, 1 <= K <= ``MK_MAX_SLOTS``; ``key_slots``: (N,) int32
+    public slot indices, each below K (checked on the CPU; the kernel clamps
+    a bad one into range rather than read outside ``rks``)."""
+    n = words.shape[0] if words.dim() == 2 else -1
+    _check(words, nr, ctr_le=(ctr_le, (n, 4)), key_slots=(key_slots, (n,)), rks=(rks, None))
+    if rks.dim() != 2 or rks.shape[1] != 4 * (nr + 1):
+        raise ValueError(f"rks must be (K, {4 * (nr + 1)}), got {tuple(rks.shape)}")
+    k = rks.shape[0]
+    if not 1 <= k <= MK_MAX_SLOTS:
+        raise ValueError(f"rks must hold 1..{MK_MAX_SLOTS} schedules, got {k}")
+    if words.device.type == "cpu":
+        if n and (int(key_slots.min()) < 0 or int(key_slots.max()) >= k):
+            raise ValueError(f"key_slots must lie in [0, {k})")
+        return ctr_scattered_multikey_plain(words, ctr_le, rks, key_slots, nr)
+    return _launch(ctr_scattered_multikey, "ot_ctr_mk", words, (ctr_le, key_slots, rks), nr,
+                   ints=(k,), aligned=(ctr_le,))
+
+
+def ctr_crypt_words_explicit(words: torch.Tensor, ctr_le: torch.Tensor, rk: torch.Tensor,
+                             nr: int) -> torch.Tensor:
+    """Single-key CTR over (N, 4) int32 LE block words and their (N, 4) LE
+    counter words: ``words ^ E_K(ctr_le)``. The ``ctr_mk`` kernel with one
+    schedule and no slot vector."""
+    n = words.shape[0] if words.dim() == 2 else -1
+    _check(words, nr, ctr_le=(ctr_le, (n, 4)), rk=(rk, (4 * (nr + 1),)))
+    if words.device.type == "cpu":
+        return ctr_crypt_words_explicit_plain(words, ctr_le, rk, nr)
+    return _launch(ctr_crypt_words_explicit, "ot_ctr_mk", words, (ctr_le, None, rk), nr,
+                   ints=(1,), aligned=(ctr_le,))
+
+
 #: Kernel launches since the last reset (the main path's proof of route).
 ctr_crypt_words_fused.launches = 0
 encrypt_words.launches = 0
 decrypt_words.launches = 0
+ctr_scattered_multikey.launches = 0
+ctr_crypt_words_explicit.launches = 0

@@ -1,0 +1,206 @@
+"""Dispatch watchdog: a deadline around a device call, kept by one monitor
+thread.
+
+Copy of ``our_tree_tpu.resilience.watchdog``'s deadline machinery. On the
+port the guarded call is a lane's engine call, which ends in a CUDA stream
+synchronize (the barrier that waits out the card's work). A running CUDA
+kernel cannot be interrupted; what the watchdog can do at the deadline is
+
+1. dump every thread's stack to a crash-report file (``OT_CRASH_DIR``,
+   default ``ot_crash`` under the process's temporary directory, which
+   honours ``TMPDIR``; the reference's default is a fixed ``/tmp/ot_crash``),
+   so a hang leaves evidence of where each thread was;
+2. deliver ``DispatchTimeout``: on a thread that registered a kill hook
+   (``thread_kill_hook``: the serve lane workers) by calling the hook,
+   which fails the dispatch's future and abandons the wedged worker; on any
+   other thread by raising when the guarded block returns late (the
+   reference's SIGALRM delivery to the main thread has no caller here,
+   since every dispatch runs on a lane worker);
+3. record the demotion (``degrade``, kind ``dispatch-timeout``).
+
+``deadline(None or 0)`` disarms entirely; ``default_deadline_s()`` reads the
+opt-in global ``OT_DISPATCH_DEADLINE``. Every armed deadline rides one
+long-lived scheduler thread, so arming costs a dict insert, not a thread.
+The reference's fault-injected hangs (``injected_hang``, ``OT_HANG_S``)
+belong to its fault seams and are not carried over.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import tempfile
+import threading
+import time
+import traceback
+
+from ..obs import trace
+from . import degrade
+
+
+class DispatchTimeout(TimeoutError):
+    """A guarded device call exceeded its watchdog deadline. ``what`` names
+    the call; ``report`` is the crash-report path (None when the dump
+    failed)."""
+
+    def __init__(self, what: str, seconds: float, report: str | None):
+        self.what, self.seconds, self.report = what, seconds, report
+        super().__init__(f"{what} exceeded its {seconds:.0f}s watchdog deadline"
+                         + (f" (stacks: {report})" if report else ""))
+
+
+def crash_dir() -> str:
+    return os.environ.get("OT_CRASH_DIR") or os.path.join(tempfile.gettempdir(), "ot_crash")
+
+
+def default_deadline_s() -> float:
+    """The opt-in global dispatch deadline (``OT_DISPATCH_DEADLINE``,
+    seconds); 0 / unset disarms."""
+    try:
+        return max(float(os.environ.get("OT_DISPATCH_DEADLINE", 0) or 0), 0.0)
+    except ValueError:
+        return 0.0
+
+
+def dump_stacks(what: str, seconds: float) -> str | None:
+    """Write every thread's current stack, with thread names, to a
+    crash-report file; the path, or None when nothing could be written."""
+    try:
+        d = crash_dir()
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"watchdog-{os.getpid()}-{int(time.time())}.txt")
+        names = {t.ident: t.name for t in threading.enumerate()}
+        with open(path, "w") as fh:
+            fh.write(f"# watchdog: {what!r} exceeded {seconds:.0f}s (pid {os.getpid()}, "
+                     f"{time.strftime('%Y-%m-%dT%H:%M:%S%z')})\n")
+            for ident, frame in sorted(sys._current_frames().items()):
+                fh.write(f"\n## thread {names.get(ident, '?')} (ident {ident})\n")
+                fh.write("".join(traceback.format_stack(frame)))
+        return path
+    except OSError:
+        return None
+
+
+class _Scheduler:
+    """One daemon thread multiplexing every armed deadline: it sleeps until
+    the earliest expiry and hands each due entry's ``fire`` to a short-lived
+    thread (a dump stuck on a full disk disables only its own deadline).
+    An entry disarmed before it is due never fires."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._entries: dict = {}  # id -> (monotonic expiry, fire)
+        self._seq = 0
+        self._thread = None
+
+    def arm(self, seconds: float, fire) -> int:
+        with self._cv:
+            self._seq += 1
+            eid = self._seq
+            self._entries[eid] = (time.monotonic() + seconds, fire)
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._run, daemon=True,
+                                                name="ot-watchdog")
+                self._thread.start()
+            self._cv.notify()
+        return eid
+
+    def disarm(self, eid: int) -> None:
+        with self._cv:
+            self._entries.pop(eid, None)
+            self._cv.notify()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                if not self._entries:
+                    self._cv.wait()
+                    continue
+                now = time.monotonic()
+                nxt = min(t for t, _ in self._entries.values())
+                if nxt > now:
+                    self._cv.wait(nxt - now)
+                    continue
+                due = [eid for eid, (t, _) in self._entries.items() if t <= now]
+                fires = [self._entries.pop(eid)[1] for eid in due]
+            for fire in fires:
+                threading.Thread(target=self._fire_one, args=(fire,), daemon=True,
+                                 name="ot-watchdog-fire").start()
+
+    @staticmethod
+    def _fire_one(fire):
+        try:
+            fire()
+        except Exception:  # noqa: BLE001 - a fire thread must not die loudly
+            pass
+
+
+_SCHEDULER = _Scheduler()
+
+#: thread ident -> kill hook (``thread_kill_hook``).
+_THREAD_KILLS: dict[int, object] = {}
+
+
+@contextlib.contextmanager
+def thread_kill_hook(hook):
+    """Register ``hook(exc)`` as this thread's watchdog kill path: a
+    deadline armed on this thread that expires calls
+    ``hook(DispatchTimeout(...))`` from the expiry thread, after the stack
+    dump and the degrade stamp. The hook must be quick and must not raise.
+    Nests: the previous hook is restored on exit."""
+    ident = threading.get_ident()
+    prev = _THREAD_KILLS.get(ident)
+    _THREAD_KILLS[ident] = hook
+    try:
+        yield
+    finally:
+        if prev is None:
+            _THREAD_KILLS.pop(ident, None)
+        else:
+            _THREAD_KILLS[ident] = prev
+
+
+@contextlib.contextmanager
+def deadline(seconds: float | None, what: str = "device dispatch",
+             degrade_kind: str = "dispatch-timeout"):
+    """Guard a block with a watchdog deadline. ``seconds`` None or <= 0
+    disarms. At expiry the stacks are dumped and, on a thread with a kill
+    hook, the hook gets the ``DispatchTimeout`` at once; either way a block
+    that returns after its deadline raises it on exit."""
+    if not seconds or seconds <= 0:
+        yield
+        return
+    trace.point("watchdog-arm", what=what, seconds=seconds)
+    kill_hook = _THREAD_KILLS.get(threading.get_ident())
+    fired: dict = {}
+    done = threading.Event()
+
+    def record_and_build():
+        # The degrade stamp rides the delivery, not the monitor: a block
+        # that completes at the edge must not leave the run marked degraded.
+        degrade.degrade(degrade_kind, f"{what} exceeded {seconds:.0f}s watchdog deadline")
+        trace.point("watchdog-expired", what=what, seconds=seconds, report=fired.get("report"))
+        return DispatchTimeout(what, seconds, fired.get("report"))
+
+    def fire():
+        if done.is_set():
+            return
+        fired["report"] = dump_stacks(what, seconds)
+        if kill_hook is not None and not done.is_set():
+            fired["delivered"] = True
+            try:
+                kill_hook(record_and_build())
+            except Exception:  # noqa: BLE001 - the hook is the caller's
+                pass
+
+    eid = _SCHEDULER.arm(seconds, fire)
+    try:
+        yield
+        if "report" in fired:
+            if fired.get("delivered"):
+                raise DispatchTimeout(what, seconds, fired.get("report"))
+            raise record_and_build()
+    finally:
+        done.set()
+        _SCHEDULER.disarm(eid)

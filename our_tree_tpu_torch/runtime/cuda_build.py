@@ -4,12 +4,14 @@
 (one ``nvcc`` per source, all started together), links the objects into one
 shared library with a plain C interface and loads it with ``ctypes``
 (``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
-``ot_ecb_decrypt`` from ``ecb.cu``). Nothing is built at import time, and
+``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` from ``ctr_mk.cu``). Nothing is built at import time, and
 nothing but the sources in the package is compiled. The library goes into ``_build/`` beside the
 package (listed in ``.gitignore``) under a name keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
 build. An ``fcntl`` lock keeps concurrent processes from racing on one
-build. ``ptxas -v`` output (registers, spills per kernel) is kept beside
+build, and a thread lock concurrent threads. ``load_count()`` counts
+builds and loads, the port's counterpart of the JAX package's compile
+counter. ``ptxas -v`` output (registers, spills per kernel) is kept beside
 the library and returned by ``ptxas_report()``.
 
 A build failure raises; there is no other route to the kernels.
@@ -24,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,6 +36,9 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: ctypes.CDLL | None = None
+_LOAD_LOCK = threading.Lock()
+_builds = 0
+_loads = 0
 
 
 def sources() -> list[Path]:
@@ -83,28 +89,48 @@ def _build(so: Path) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+def load_count() -> int:
+    """Library builds plus loads in this process so far: the serve path's
+    zero-build gate (``serve.server.compile_count``) differences two
+    readings."""
+    return _builds + _loads
+
+
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _lib
+    """The loaded kernel library, building it first if needed. Safe to call
+    from several threads at once (one builds and loads, the rest wait)."""
+    global _lib, _builds, _loads
     if _lib is not None:
         return _lib
-    so = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not so.exists():
-                _build(so)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    lib = ctypes.CDLL(str(so))
+    with _LOAD_LOCK:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not so.exists():
+                    _build(so)
+                    _builds += 1
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+        _lib = _bind(ctypes.CDLL(str(so)))
+        _loads += 1
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set every C entry's argument and result types."""
     vp = ctypes.c_void_p
     lib.ot_ctr_gen.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
     lib.ot_ctr_gen.restype = ctypes.c_int
     for fn in (lib.ot_ecb_encrypt, lib.ot_ecb_decrypt):
         fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
         fn.restype = ctypes.c_int
-    _lib = lib
+    lib.ot_ctr_mk.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int, vp]
+    lib.ot_ctr_mk.restype = ctypes.c_int
     return lib
 
 

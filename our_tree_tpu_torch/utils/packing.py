@@ -78,14 +78,37 @@ def ctr_le_blocks(ctr_be_words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return byteswap32(add_counter_be(ctr_be_words, idx))
 
 
-def np_ctr_le_blocks(nonce_counter: np.ndarray | bytes,
-                     idx: np.ndarray) -> np.ndarray:
+def np_ctr_le_blocks(nonce_counter: np.ndarray | bytes, idx: np.ndarray,
+                     out: np.ndarray | None = None) -> np.ndarray:
     """Host-side form of ``ctr_le_blocks``: counter blocks ``nonce + idx``
-    as (N, 4) uint32 LE words. ``nonce_counter``: the 16 big-endian
-    counter bytes; ``idx``: (N,) offsets, 0 <= idx < 2^63."""
+    as (N, 4) uint32 LE words (``our_tree_tpu.utils.packing``'s). The serve
+    batcher builds each request's counters with it, straight into its batch
+    array through ``out``; when the low counter word never wraps (the common
+    case) the upper words are one broadcast and only the low word is per
+    block. ``nonce_counter``: the 16 big-endian counter bytes; ``idx``: (N,)
+    offsets below 2^32."""
     b = np.frombuffer(bytes(nonce_counter), dtype=np.uint8)
     if b.size != 16:
         raise ValueError("nonce_counter must be 16 bytes")
-    ctr_be = words_tensor(np_bytes_to_words(b).byteswap(), "cpu")
-    idx = torch.from_numpy(np.asarray(idx, dtype=np.int64).reshape(-1))
-    return words_numpy(ctr_le_blocks(ctr_be, idx))
+    ctr_be = np_bytes_to_words(b).byteswap()  # (4,) big-endian words
+    ctr_le = ctr_be.byteswap()                # the same words, LE view
+    idx = np.asarray(idx, dtype=np.uint32).reshape(-1)
+    if out is None:
+        out = np.empty((idx.size, 4), dtype=np.uint32)
+    with np.errstate(over="ignore"):  # 128-bit ripple: word wrap intended
+        s3 = (ctr_be[3] + idx).astype(np.uint32)
+        wrapped = s3 < idx
+        if wrapped.any():
+            c3 = wrapped.astype(np.uint32)
+            s2 = (ctr_be[2] + c3).astype(np.uint32)
+            c2 = c3 & (s2 == 0)
+            s1 = (ctr_be[1] + c2).astype(np.uint32)
+            c1 = c2 & (s1 == 0)
+            s0 = (ctr_be[0] + c1).astype(np.uint32)
+            out[:, 0] = s0.byteswap()
+            out[:, 1] = s1.byteswap()
+            out[:, 2] = s2.byteswap()
+        else:
+            out[:] = ctr_le
+        out[:, 3] = s3.byteswap()
+    return out

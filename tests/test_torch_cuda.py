@@ -1,6 +1,7 @@
-"""The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt)
-against their plain torch versions, and the ``AES`` context on the card
-against the CPU in every mode. Needs a CUDA card: each test skips, from a
+"""The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt,
+multi-key scattered CTR) against their plain torch versions, the ``AES``
+context on the card against the CPU in every mode, and the serve path on
+the card. Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
 ``python -m pytest -m gpu --noconftest tests/test_torch_cuda.py``."""
 
@@ -128,3 +129,85 @@ def test_word_entries_on_card_match_cpu(card):
                                               for x in (w.reshape(-1, 4), ctr, rk)), nr),))):
         for g, c in zip(dev_out, cpu_out):
             assert torch.equal(g.cpu(), c)
+
+
+def _mk_case(card, bits, k, n, pattern, seed):
+    rng = np.random.default_rng(seed)
+    rows = [expand_key_enc(rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes())
+            for _ in range(k)]
+    nr, rks = rows[0][0], np.stack([r for _, r in rows])
+    if pattern == "uniform":
+        slots = np.full(n, k - 1, np.int32)
+    elif pattern == "runs":
+        slots, pos = np.zeros(n, np.int32), 0
+        while pos < n:
+            length = int(rng.integers(1, 301))
+            slots[pos: pos + length] = rng.integers(k)
+            pos += length
+    else:
+        slots = rng.integers(0, k, n).astype(np.int32)
+    rand = lambda: rng.integers(0, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32)  # noqa: E731
+    return (packing.words_tensor(rand(), card), packing.words_tensor(rand(), card),
+            packing.words_tensor(rks, card), torch.from_numpy(slots).to(card), nr)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4096])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "independent"])
+def test_ctr_mk_kernel_matches_plain(card, bits, k, n, pattern):
+    w, c, rks, slots, nr = _mk_case(card, bits, k, n, pattern, seed=n * k + bits)
+    before = cuda_aes.ctr_scattered_multikey.launches
+    got = cuda_aes.ctr_scattered_multikey(w, c, rks, slots, nr)
+    want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, slots, nr)
+    torch.cuda.synchronize()
+    assert cuda_aes.ctr_scattered_multikey.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hexnonce", WRAP_NONCES)
+def test_ctr_explicit_kernel_matches_plain(card, hexnonce):
+    nr, rk = expand_key_enc(bytes(range(16)))
+    ctr = packing.np_ctr_le_blocks(bytes.fromhex(hexnonce), np.arange(1000))
+    w = np.random.default_rng(2).integers(0, 2**32, (1000, 4), dtype=np.uint64).astype(np.uint32)
+    args = [packing.words_tensor(x, card) for x in (w, ctr, rk)]
+    before = cuda_aes.ctr_crypt_words_explicit.launches
+    got = cuda_aes.ctr_crypt_words_explicit(*args, nr)
+    want = cuda_aes.ctr_crypt_words_explicit_plain(*args, nr)
+    torch.cuda.synchronize()
+    assert cuda_aes.ctr_crypt_words_explicit.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_ctr_mk_kernel_clamps_a_bad_slot(card):
+    """A slot outside [0, K) reaches the card unchecked; the kernel clamps
+    it (below 0 to 0, from K up to K - 1) and reads nothing outside rks."""
+    w, c, rks, slots, nr = _mk_case(card, 128, 3, 64, "independent", seed=4)
+    bad = slots.clone()
+    bad[::3] = 7
+    bad[1::3] = -5
+    got = cuda_aes.ctr_scattered_multikey(w, c, rks, bad, nr)
+    want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, bad.clamp(0, 2), nr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("drive", [["--requests", "120", "--mixed-sizes"],
+                                   ["--requests", "120", "--tenant-heavy",
+                                    "--min-coalesce", "0.5"]])
+def test_serve_drives_on_card(card, capsys, drive):
+    import json
+
+    from our_tree_tpu_torch.serve import bench as serve_bench
+
+    for fn in (cuda_aes.ctr_scattered_multikey, cuda_aes.ctr_crypt_words_fused,
+               cuda_aes.encrypt_words, cuda_aes.decrypt_words):
+        fn.launches = 0
+    assert serve_bench.main(drive) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["engine"] == aes.CUDA_ENGINE
+    assert line["lost"] == 0 and line["mismatches"] == 0 and line["recompiles"] == 0
+    assert line["ok"] == line["requests"] == 120
+    assert cuda_aes.ctr_scattered_multikey.launches == line["engine_calls"]
+    assert (cuda_aes.ctr_crypt_words_fused.launches, cuda_aes.encrypt_words.launches,
+            cuda_aes.decrypt_words.launches) == (0, 0, 0)

@@ -32,7 +32,15 @@ def test_port_imports_neither_jax_nor_reference():
         runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_only")
         expected = {"our_tree_tpu_torch.models.aes", "our_tree_tpu_torch.models.base",
                     "our_tree_tpu_torch.ops.block", "our_tree_tpu_torch.harness.decrypt",
-                    "our_tree_tpu_torch.ops.cuda_aes", "our_tree_tpu_torch.bench"}
+                    "our_tree_tpu_torch.ops.cuda_aes", "our_tree_tpu_torch.bench",
+                    "our_tree_tpu_torch.obs.metrics", "our_tree_tpu_torch.obs.trace",
+                    "our_tree_tpu_torch.resilience.policy",
+                    "our_tree_tpu_torch.resilience.degrade",
+                    "our_tree_tpu_torch.resilience.watchdog",
+                    "our_tree_tpu_torch.serve.queue", "our_tree_tpu_torch.serve.keycache",
+                    "our_tree_tpu_torch.serve.batcher", "our_tree_tpu_torch.serve.dispatch",
+                    "our_tree_tpu_torch.serve.lanes", "our_tree_tpu_torch.serve.server",
+                    "our_tree_tpu_torch.serve.loadgen", "our_tree_tpu_torch.serve.bench"}
         assert expected <= set(names), sorted(expected - set(names))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
