@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its three
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its four
 paths, AES-128-CTR over one 256 MiB buffer with the bench chain, the
-ECB/CBC/CFB128 block-mode path over the same size, and the multi-key CTR
-serve path (``serve.bench``, the JAX package's two documented drives at the
-full ladder), and holds every kernel of those paths against its plain torch
+ECB/CBC/CFB128 block-mode path over the same size, the measured roofline
+(the ceiling probe ``harness.ceiling`` and the serve bench's cost and
+profile sections that use its figure) and the multi-key CTR serve path
+(``serve.bench``, the JAX package's two documented drives at the full
+ladder), and holds every kernel of those paths against its plain torch
 version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -15,8 +17,9 @@ is not 0:
    kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20}; ``ctr_mk``
    for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
    with one slot, runs of 1-300 blocks, a random slot per block and unused
-   zero schedules, and its K = 1 entry over counters from every wrap nonce
-   (mismatching words must be 0);
+   zero schedules, and its K = 1 entry over counters from every wrap nonce;
+   ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
+   at 64 MiB (mismatching words must be 0);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
    the card, whose engine must be the CUDA one; F.5.1 in slot 3 of 8
@@ -29,7 +32,19 @@ is not 0:
    the first 4,096 recovered blocks (they give back the input), and
    ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks;
 6. the hex CLI on the card decrypts the F.1.2 vector;
-7. the serve path: ``serve.bench`` drive A (``--requests 500
+7. the ceiling probe: ``harness.ceiling.main`` in this process (counted:
+   ``chain`` launched, nothing else), then ``python -m
+   our_tree_tpu_torch.harness.ceiling`` at its defaults, whose JSON line
+   (the reference's keys) is printed; then each regime's kernel alone at
+   64 MiB (CUDA events over at least a second of launches, the SM clock,
+   power and temperature sampled by ``nvidia-smi`` meanwhile) and its SASS
+   per element: each compute regime must hold about chain x ilp LOP3s per
+   element, and ``compute-ilp8`` must reach 10 % of the table's integer
+   rate. Printed: the measured integer instruction rate as results per
+   clock per SM at the sampled and at the maximum clock beside the table's
+   64, the streaming rate beside 3.35 TB/s, the logical-op rate by the
+   reference's count, and the ``ctr_mk`` ceiling these imply;
+8. the serve path: ``serve.bench`` drive A (``--requests 500
    --mixed-sizes``: 16 B-64 KiB, 4 tenants x 2 keys, ladder 32-4,096 blocks,
    one lane) and drive B (``--requests 300 --tenant-heavy --min-coalesce
    0.5``: 24 tenants, 16 B-1 KiB, so 32-block groups straddle slots); each
@@ -40,16 +55,25 @@ is not 0:
    fresh process (``python -m our_tree_tpu_torch.serve.bench``), where
    warmup meets the card first: warmup must count the library load and the
    kernel's first launch, traffic none;
-8. per kernel at its path's shape (256 MiB; ``ctr_mk`` at the 4,096-block
-   rung, and at 256 MiB with K = 8 and with its K = 1 entry): time per
-   launch (CUDA events), the plain version's time, the least time the card
-   could take (the bytes the function moves over the HBM rate or the
-   operations it needs over the integer rate, the larger), the kernel's own
-   SASS instruction count beside the operations (for ``ctr_mk`` an upper
-   bound); the sequential encrypt's time per block.
+9. per kernel at its path's shape (256 MiB; ``ctr_mk`` at the 4,096-block
+   rung, and at 256 MiB with K = 8 and with its K = 1 entry; ``chain`` in
+   each regime at 64 MiB): time per launch (CUDA events, the SM clock
+   sampled), the plain version's time, the least time the card could take
+   at the table's rates (the bytes the function moves over the HBM rate or
+   the operations it needs over 64 results per clock per SM, the larger) at
+   the maximum and at the sampled clock, and at the probe's measured rates;
+   the kernel's own SASS instruction count beside the operations (for
+   ``ctr_mk`` an upper bound); the sequential encrypt's time per block;
+10. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
+   and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
+   with a ``torch``-tier profile section that validates, cross-check rows
+   equal to the window's dispatches, a cost row per warmed rung and
+   ``ctr_mk`` kernels in the exported trace, whose kernel time over the
+   window is the card's busy share under the profiler. It comes last, so
+   that the profiler touches none of the timings before it.
 
-Phases 4, 5 and each drive of 7 run with every launch count set to 0 just
-before and read just after: each path must have launched each of its
+Phases 4, 5, 7, each drive of 8 and 10 run with every launch count set to
+0 just before and read just after: each path must have launched each of its
 kernels.
 Standard output ends with the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
@@ -59,18 +83,31 @@ result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import datetime
 import io
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_BYTES = 256 << 20
+#: The ceiling probe's buffer, its default (``OT_VPU_BYTES``): above the 50 MB L2.
+PROBE_BYTES = 64 << 20
+#: Least seconds of back-to-back launches per timed kernel, so that the clock
+#: sampler (every 100 ms) sees it.
+SAMPLED_S = 1.0
+#: Drive A's mix, profiled: enough requests that the drive outlasts its
+#: window (1 s in, 2 s long) with the profiler running.
+PROFILED_REQUESTS = 10000
 MAIN_DIGEST = 0xA612A647
 #: H100 SXM HBM3 rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -189,14 +226,17 @@ _SASS_SKIP = ("NOP", "EXIT", "BRA", "BAR", "RET", "S2R", "S2UR", "CS2R", "BSSY",
               "WARPSYNC", "DEPBAR")
 
 
-def sass_function(text: str, kernel: str, nr: int) -> tuple[list, list]:
-    """The instructions [(address, opcode base, text)] of ``kernel``<nr> in
-    the compiled SASS (``cuobjdump -sass``) and its backward branches
-    [(target, address)], the loops."""
+def sass_function(text: str, kernel: str, targs) -> tuple[list, list]:
+    """The instructions [(address, opcode base, text)] of ``kernel``<targs>
+    (one int template argument, or a tuple of them) in the compiled SASS
+    (``cuobjdump -sass``) and its backward branches [(target, address)], the
+    loops."""
+    targs = (targs,) if isinstance(targs, int) else tuple(targs)
+    mangled = kernel + "I" + "".join(f"Li{a}E" for a in targs) + "E"
     funcs = re.split(r"\n\s*Function : ", text)
-    body = [f for f in funcs if f.startswith("_ZN") and f"{kernel}ILi{nr}E" in f.split("\n", 1)[0]]
+    body = [f for f in funcs if f.startswith("_ZN") and mangled in f.split("\n", 1)[0]]
     if len(body) != 1:
-        raise RuntimeError(f"expected one SASS function {kernel}<{nr}>, found {len(body)}")
+        raise RuntimeError(f"expected one SASS function {kernel}<{targs}>, found {len(body)}")
     ins = []
     back = []
     for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body[0]):
@@ -260,6 +300,104 @@ def sass_mk_per_thread(text: str, nr: int) -> dict:
             "mixed_group": mixed["int"] * (nr - 1) + outside}
 
 
+def sass_chain_per_element(text: str, chain: int, ilp: int) -> dict:
+    """LOP3s and integer instructions one element of
+    ``chain_kernel<chain, ilp>`` costs, read from the compiled SASS: the body
+    of the grid-stride loop (the one backward branch), which the source keeps
+    rolled so that one trip is one element."""
+    ins, back = sass_function(text, "chain_kernel", (chain, ilp))
+    if len(back) != 1:
+        raise RuntimeError(f"expected one backward branch in chain_kernel<{chain},{ilp}>, "
+                           f"found {back}")
+    lo, hi = back[0]
+    body = [b for a, b, _t in ins if lo <= a <= hi]
+    return {"lop3": sum(b == "LOP3" for b in body), "int": sum(_is_int_op(b) for b in body),
+            "instructions": len(body)}
+
+
+class SmiSampler:
+    """``nvidia-smi`` reading the SM clock, power draw and temperature every
+    100 ms in a child process (line-buffered through ``stdbuf`` where there
+    is one), each sample stamped with nvidia-smi's own timestamp, so a late
+    read does not shift it; ``between`` summarises the samples of a host
+    wall-clock interval. ``close`` ends the child."""
+
+    def __init__(self):
+        self.samples: list = []
+        cmd = ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,temperature.gpu",
+               "--format=csv,noheader,nounits", "-lms", "100"]
+        if shutil.which("stdbuf"):
+            cmd = ["stdbuf", "-oL", *cmd]
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                                     text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            parts = [p.strip() for p in line.split(",")]
+            try:
+                t = datetime.datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                self.samples.append((t, float(parts[1]), float(parts[2]), float(parts[3])))
+            except (ValueError, IndexError):
+                continue
+
+    def between(self, t0: float, t1: float) -> dict:
+        """Median SM clock (MHz), mean and peak power (W), peak temperature
+        (C) of the samples in [t0, t1] (``time.time()`` seconds); raises if
+        there are none."""
+        deadline = time.time() + 3.0  # wait for the first sample after t1 to be read
+        while time.time() < deadline and not (self.samples and self.samples[-1][0] >= t1):
+            time.sleep(0.05)
+        sel = [s for s in list(self.samples) if t0 <= s[0] <= t1]
+        if not sel:
+            raise RuntimeError(f"no nvidia-smi sample in a {t1 - t0:.3f} s window "
+                               f"({len(self.samples)} samples in all)")
+        return {"samples": len(sel), "clock_mhz": statistics.median(s[1] for s in sel),
+                "power_w_mean": round(statistics.fmean(s[2] for s in sel), 2),
+                "power_w_max": max(s[2] for s in sel), "temp_c_max": max(s[3] for s in sel)}
+
+    def close(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def trace_kernels(path: str, t0_us: int, t1_us: int) -> dict:
+    """The CUDA kernels and copies of an exported ``torch.profiler`` trace,
+    clipped to the window [t0_us, t1_us] (epoch µs; the trace's times are
+    ``baseTimeNanoseconds`` plus each event's ``ts``): count and µs per
+    category, and the ``ctr_mk`` kernels among them."""
+    with open(path, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    out = {"kernel_us": 0.0, "kernels": 0, "ctr_mk_kernels": 0, "memcpy_us": 0.0, "memcpys": 0,
+           "kernels_in_trace": 0, "ctr_mk_in_trace": 0}
+    for ev in doc.get("traceEvents", []):
+        cat = ev.get("cat")
+        if cat not in ("kernel", "gpu_memcpy") or "dur" not in ev:
+            continue
+        start = base_us + float(ev["ts"])
+        end = start + float(ev["dur"])
+        mk = cat == "kernel" and "ctr_mk_kernel" in ev.get("name", "")
+        out["kernels_in_trace"] += cat == "kernel"
+        out["ctr_mk_in_trace"] += mk
+        dur = min(end, t1_us) - max(start, t0_us)
+        if dur <= 0:
+            continue
+        if cat == "kernel":
+            out["kernel_us"] += dur
+            out["kernels"] += 1
+            out["ctr_mk_kernels"] += mk
+        else:
+            out["memcpy_us"] += dur
+            out["memcpys"] += 1
+    return out
+
+
 def mk_ops_per_group(nr: int) -> tuple[float, dict]:
     """Operations multi-key CTR needs for one group of 32 blocks: the ECB
     encrypt count (``ecb_ops_per_group``) plus the keystream XORed into the
@@ -281,6 +419,7 @@ def main() -> int:
     import numpy as np
 
     from our_tree_tpu_torch import bench
+    from our_tree_tpu_torch.harness import ceiling
     from our_tree_tpu_torch.models import aes
     from our_tree_tpu_torch.ops import bitslice, cuda_aes
     from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
@@ -294,7 +433,8 @@ def main() -> int:
                 "ecb_encrypt": cuda_aes.encrypt_words,
                 "ecb_decrypt": cuda_aes.decrypt_words,
                 "ctr_mk": cuda_aes.ctr_scattered_multikey,
-                "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit}
+                "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
+                "chain": ceiling.chain}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -445,6 +585,21 @@ def main() -> int:
         f"(ctr_crypt_words_explicit): {k1_cases} cases, {k1_mismatch} mismatching words")
     if mk_mismatch or k1_mismatch:
         raise SystemExit("ctr_mk disagrees with its plain version")
+    chain_words = ceiling.words(PROBE_BYTES)
+    chain_mismatch, chain_cases = 0, 0
+    for name, c, i in ceiling.REGIMES:
+        for n in (1, 31, 4097, (1 << 20) + 3, chain_words):
+            x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                              generator=torch.Generator(dev).manual_seed(n + 10 * i + c))
+            m, _ = diff(ceiling.chain(x, c, i), ceiling.chain_plain(x, c, i))
+            chain_mismatch += m
+            chain_cases += 1
+            if m:
+                log(f"MISMATCH chain {name} n={n}: {m} words")
+    log(f"chain vs plain: {chain_cases} cases (four regimes, n up to {chain_words}), "
+        f"{chain_mismatch} mismatching words")
+    if chain_mismatch:
+        raise SystemExit("chain disagrees with its plain version")
 
     # 3. KATs and chunked resume through the AES context on the card.
     kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
@@ -579,7 +734,110 @@ def main() -> int:
                          f"err {res.stderr[-2000:]!r}")
     log(f"CLI on the card: decrypt F.1.2 block 1 -> {res.stdout.strip()}: pass")
 
-    # 7. The serve path: the JAX package's two documented drives, counted.
+    # 7. The ceiling probe: its entry point counted in this process, the CLI
+    # in its own, then each regime's kernel alone with the clock sampled.
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ceiling.main([])
+    probe_counts = counts()
+    probe_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or probe_counts["chain"] <= 0 or any(
+            v for n, v in probe_counts.items() if n != "chain"):
+        raise SystemExit(f"the ceiling probe's path: rc {rc}, launches {probe_counts}")
+    log(f"ceiling probe in this process: launches {probe_counts}")
+    res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.harness.ceiling"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    try:
+        cli_line = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        cli_line = None
+    if res.returncode != 0 or cli_line is None:
+        raise SystemExit(f"the ceiling probe's CLI: rc {res.returncode}, out "
+                         f"{res.stdout[-2000:]!r}, err {res.stderr[-2000:]!r}")
+    for text in res.stdout.strip().splitlines()[:-1]:
+        log(f"probe CLI: {text}")
+    log(json.dumps(cli_line))
+    keys = {"chain", "ilp", "sec", "t_ops_per_s", "mem_gb_per_s"}
+    if not (cli_line["platform"] == probe_line["platform"] == "gpu"
+            and cli_line["device_kind"] == torch.cuda.get_device_name(0)
+            and cli_line["bytes"] == PROBE_BYTES
+            and all(set(cli_line[n]) == keys for n, _c, _i in ceiling.REGIMES)):
+        raise SystemExit(f"the ceiling probe's line lacks the reference's keys: {cli_line}")
+
+    sass_text = sass(lib_path)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    int_ops_per_ms = sm_count * INT_OPS_PER_CLK_PER_SM * clock_mhz * 1e3
+    sampler = SmiSampler()
+    atexit.register(sampler.close)  # the child ends with the script, however it ends
+
+    def sampled_ms(fn):
+        """(ms per launch, the sampler's summary) of back-to-back launches of
+        ``fn`` lasting at least ``SAMPLED_S``."""
+        reps = max(int(SAMPLED_S * 1e3 / events_ms(fn, 3)), 10)
+        t0 = time.time()
+        ms = events_ms(fn, reps)
+        return ms, sampler.between(t0, time.time())
+
+    x = torch.arange(chain_words, dtype=torch.int32, device=dev)
+    regimes = {}
+    for name, c, i in ceiling.REGIMES:
+        ms, clocks = sampled_ms(lambda c=c, i=i: ceiling.chain(x, c, i))
+        regimes[name] = {"chain": c, "ilp": i, "ms": ms, "smi": clocks,
+                         **sass_chain_per_element(sass_text, c, i)}
+    stream_bytes_per_s = 8 * chain_words / (regimes["stream"]["ms"] / 1e3)
+    for name, r in regimes.items():
+        per_s = r["int"] * chain_words / (r["ms"] / 1e3)
+        r["int_per_clk_per_sm"] = per_s / (sm_count * r["smi"]["clock_mhz"] * 1e6)
+        r["int_per_clk_per_sm_at_max"] = per_s / (sm_count * clock_mhz * 1e6)
+        r["lop3_per_clk_per_sm"] = r["int_per_clk_per_sm"] * r["lop3"] / r["int"]
+        r["t_ops_per_s"] = chain_words * ceiling.ops_per_word(r["chain"], r["ilp"]) / (
+            r["ms"] / 1e3) / 1e12
+        log(f"probe {name} (chain {r['chain']}, ilp {r['ilp']}) alone: {r['ms']:.4f} ms per "
+            f"{PROBE_BYTES >> 20} MiB launch; SASS per element {r['lop3']} LOP3 of {r['int']} "
+            f"integer ({r['instructions']} in the loop); {r['int_per_clk_per_sm']:.2f} integer "
+            f"results/clk/SM at the sampled {r['smi']['clock_mhz']:.0f} MHz "
+            f"({r['int_per_clk_per_sm_at_max']:.2f} at the {clock_mhz:.0f} MHz maximum; LOP3 "
+            f"{r['lop3_per_clk_per_sm']:.2f}) against the table's {INT_OPS_PER_CLK_PER_SM}; "
+            f"{r['t_ops_per_s']:.3f} T logical ops/s by the reference's count; "
+            f"{8 * chain_words / (r['ms'] / 1e3) / 1e12:.4f} TB/s moved; nvidia-smi "
+            f"{r['smi']}; card: {card}")
+    for name, r in regimes.items():
+        if r["chain"] == 1:
+            continue
+        steps = r["chain"] * r["ilp"]
+        if not steps <= r["lop3"] <= 1.1 * steps + 4 * r["ilp"] + 8:
+            raise SystemExit(f"chain_kernel<{r['chain']},{r['ilp']}> holds {r['lop3']} LOP3 per "
+                             f"element, not about {steps}: it no longer measures the chain")
+    if regimes["compute-ilp8"]["int_per_clk_per_sm"] < 0.1 * INT_OPS_PER_CLK_PER_SM:
+        raise SystemExit("compute-ilp8 ran under 10 % of the table's integer rate: the probe "
+                         "is broken")
+    top = max((r for r in regimes.values() if r["chain"] > 1),
+              key=lambda r: r["int"] / r["ms"])
+    int_per_s = top["int"] * chain_words / (top["ms"] / 1e3)
+    measured = {"int_results_per_clk_per_sm": top["int_per_clk_per_sm"],
+                "at_max_clock": top["int_per_clk_per_sm_at_max"],
+                "sampled_clock_mhz": top["smi"]["clock_mhz"], "from": f"chain_kernel<"
+                f"{top['chain']},{top['ilp']}>", "int_per_s": int_per_s,
+                "stream_bytes_per_s": stream_bytes_per_s}
+    mk_ops10 = mk_ops_per_group(10)[0]
+    ceiling_gbps = 1 / max(1 / stream_bytes_per_s, mk_ops10 / (52 * 32) / int_per_s) / 1e9
+    log(f"measured: {int_per_s / 1e12:.4f} T integer instructions/s = "
+        f"{measured['int_results_per_clk_per_sm']:.2f} results/clk/SM at the sampled "
+        f"{measured['sampled_clock_mhz']:.0f} MHz, {measured['at_max_clock']:.2f} at the "
+        f"{clock_mhz:.0f} MHz maximum (table: {INT_OPS_PER_CLK_PER_SM}), from {measured['from']}; "
+        f"stream {stream_bytes_per_s / 1e12:.4f} TB/s ({100 * stream_bytes_per_s / HBM_BYTES_PER_S:.1f} "
+        f"% of the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}); ctr_mk ceiling (nr 10, "
+        f"{mk_ops10} operations per 52 x 32 bytes) {ceiling_gbps:.2f} GB/s of modeled traffic; "
+        f"card: {card}")
+
+    def measured_bound(ops: float, nbytes: float) -> tuple[float, str]:
+        """The least time at the measured rates: (ms, what bounds it)."""
+        ops_ms, bytes_ms = ops / int_per_s * 1e3, nbytes / stream_bytes_per_s * 1e3
+        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+    # 8. The serve path: the JAX package's two documented drives, counted.
     from our_tree_tpu_torch.serve import bench as serve_bench
 
     def log_first_dispatch(name, line):
@@ -659,28 +917,30 @@ def main() -> int:
     if not all(checks.values()):
         raise SystemExit(f"serve bench in a fresh process failed: {checks}")
 
-    # 8. Each kernel at its path's shape: time, plain time, bound.
-    sass_text = sass(lib_path)
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
-    int_ops_per_ms = sm_count * INT_OPS_PER_CLK_PER_SM * clock_mhz * 1e3
+    # 9. Each kernel at its path's shape: time, plain time, both bounds.
     kernels = []
 
     def timing(name, kernel_fn, plain_fn, got, want, fn_ops, parts, nbytes, nblocks, sass_ops,
-               reps=20, plain_reps=2, nr=10, sass_upper_bound=False):
-        """Time one kernel and its plain version at one shape; the entry
-        fields of the ``kernels`` line. ``sass_upper_bound``: ``sass_ops``
+               plain_reps=2, nr=10, sass_upper_bound=False):
+        """Time one kernel (at least ``SAMPLED_S`` of launches, the SM clock
+        sampled) and its plain version at one shape; the entry fields of the
+        ``kernels`` line. Bounds: the table rate at the maximum clock
+        (``bound_ms``) and at the sampled one, and the probe's measured
+        rates (``bound_ms_measured``). ``sass_upper_bound``: ``sass_ops``
         over-counts the stream (``sass_mk_per_thread``), so it is reported
         as a bound and no share of the kernel's time is read from it."""
         m, max_err = diff(got, want)
         if m:
             raise SystemExit(f"{name} vs plain at the path's shape: {m} mismatching words")
-        ms = events_ms(kernel_fn, reps)
+        ms, clocks = sampled_ms(kernel_fn)
         plain_ms = events_ms(plain_fn, plain_reps)
         groups = -(-nblocks // 32)
         ops_ms = groups * fn_ops / int_ops_per_ms
         sass_ms = groups * sass_ops / int_ops_per_ms
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        sampled_mhz = clocks["clock_mhz"]
+        at_sampled = max(ops_ms * clock_mhz / sampled_mhz, bytes_ms)
+        meas_ms, meas_by = measured_bound(groups * fn_ops, nbytes)
         size = f"{nblocks * 16 >> 20} MiB" if nblocks * 16 >= 1 << 20 else f"{nblocks} blocks"
         log(f"{name} at {size}: {ms:.4f} ms/launch ({nblocks * 16 / ms / 1e6:.2f} GB/s), plain "
             f"{plain_ms:.2f} ms; ptxas {ptxas.get(name.split()[0] + '_kernel<' + str(nr) + '>')}; "
@@ -688,19 +948,31 @@ def main() -> int:
         log(f"{name} bound: {fn_ops} operations per group of 32 blocks ({parts}) x {groups} groups / "
             f"({sm_count} SMs x {INT_OPS_PER_CLK_PER_SM}/clk x {clock_mhz:.0f} MHz) = "
             f"{ops_ms:.4f} ms; bytes {bytes_ms:.4f} ms; kernel at "
-            f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound")
+            f"{100 * max(ops_ms, bytes_ms) / ms:.1f} % of the bound at the maximum clock, "
+            f"{100 * at_sampled / ms:.1f} % of {at_sampled:.4f} ms at the sampled "
+            f"{sampled_mhz:.0f} MHz (nvidia-smi {clocks})")
+        log(f"{name} bound at the measured rates ({int_per_s / 1e12:.4f} T integer "
+            f"instructions/s, {stream_bytes_per_s / 1e12:.4f} TB/s): {meas_ms:.4f} ms "
+            f"({meas_by}), kernel at {100 * meas_ms / ms:.1f} %")
+        sass_meas_ms = groups * sass_ops / int_per_s * 1e3
         if sass_upper_bound:
             log(f"{name} own stream: at most {sass_ops} SASS integer instructions per group, "
                 f"at most {sass_ops / fn_ops:.3f}x the operations")
         else:
             log(f"{name} own stream: {sass_ops} SASS integer instructions per group, "
-                f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the integer "
-                f"rate, kernel at {100 * sass_ms / ms:.1f} % of that)")
+                f"{sass_ops / fn_ops:.3f}x the operations ({sass_ms:.4f} ms at the table rate, "
+                f"kernel at {100 * sass_ms / ms:.1f} % of that at the maximum clock, "
+                f"{100 * sass_ms * clock_mhz / sampled_mhz / ms:.1f} % at the sampled clock; "
+                f"{sass_meas_ms:.4f} ms at the measured rate, kernel at "
+                f"{100 * sass_meas_ms / ms:.1f} %)")
         sass_key = ("sass_instructions_per_group_upper_bound" if sass_upper_bound
                     else "sass_instructions_per_group")
         return {"mismatches": m, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bound_ms_at_sampled_clock": at_sampled, "sampled_clock_mhz": sampled_mhz,
+                "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
+                "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"],
                 "ops_per_group": fn_ops, sass_key: sass_ops}
 
     def measure(name, source, replaces, kernel_fn, plain_fn, got, want, fn_ops, parts,
@@ -779,7 +1051,7 @@ def main() -> int:
                    lambda: cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
                    cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8),
                    cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
-                   mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung, sass_r, reps=200, plain_reps=5,
+                   mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung, sass_r, plain_reps=5,
                    sass_upper_bound=True)
     cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8)
     torch.cuda.synchronize()
@@ -826,6 +1098,103 @@ def main() -> int:
                      "replaces": "our_tree_tpu/ops/pallas_aes.py:476",
                      "shape": "256 MiB", **k1, "library_ms": None},
     })
+
+    # chain: each regime at the probe's 64 MiB, timed alone in phase 7.
+    chain_entries = {}
+    for name, r in regimes.items():
+        c, i = r["chain"], r["ilp"]
+        m, max_err = diff(ceiling.chain(x, c, i), ceiling.chain_plain(x, c, i))
+        if m:
+            raise SystemExit(f"chain {name} vs plain at {PROBE_BYTES >> 20} MiB: {m} words")
+        # Operations: the reference's logical count with a LOP3 credited with
+        # two, as for the AES kernels; bytes: one word read, one written.
+        ops = chain_words * ceiling.ops_per_word(c, i) / 2
+        ops_ms, bytes_ms = ops / int_ops_per_ms, 8 * chain_words / HBM_BYTES_PER_S * 1e3
+        meas_ms, meas_by = measured_bound(ops, 8 * chain_words)
+        sampled_mhz = r["smi"]["clock_mhz"]
+        chain_entries[name] = {
+            "chain": c, "ilp": i, "mismatches": m, "max_abs_err": max_err, "ms": r["ms"],
+            "plain_ms": events_ms(lambda c=c, i=i: ceiling.chain_plain(x, c, i), 2),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_at_sampled_clock": max(ops_ms * clock_mhz / sampled_mhz, bytes_ms),
+            "sampled_clock_mhz": sampled_mhz, "bound_ms_measured": meas_ms,
+            "bound_by_measured": meas_by,
+            "sass_per_element": {k: r[k] for k in ("lop3", "int", "instructions")},
+            "int_results_per_clk_per_sm": r["int_per_clk_per_sm"],
+            "int_results_per_clk_per_sm_at_max_clock": r["int_per_clk_per_sm_at_max"],
+            "t_ops_per_s": r["t_ops_per_s"], "smi": r["smi"]}
+        e = chain_entries[name]
+        log(f"chain {name} at {PROBE_BYTES >> 20} MiB: {r['ms']:.4f} ms/launch, plain "
+            f"{e['plain_ms']:.2f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}; kernel at "
+            f"{100 * e['bound_ms'] / r['ms']:.1f} %), at the sampled clock "
+            f"{e['bound_ms_at_sampled_clock']:.4f} ms, at the measured rates {meas_ms:.4f} ms "
+            f"({meas_by}); ptxas {ptxas.get(f'chain_kernel<{c},{i}>')}; card: {card}")
+    head = chain_entries["compute-ilp8"]
+    kernels.append({
+        "name": "chain", "route": "cuda", "source": "our_tree_tpu_torch/csrc/chain.cu",
+        "replaces": "scripts/vpu_ceiling.py:47", "launches": probe_counts["chain"],
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "bound_ms_at_sampled_clock", "sampled_clock_mhz",
+                                "bound_ms_measured", "bound_by_measured")},
+        "library_ms": None,
+        "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"],
+        "shape": f"{PROBE_BYTES >> 20} MiB, the compute-ilp8 regime; every regime under "
+                 "'regimes'",
+        "measured": measured, "probe_line": cli_line, "regimes": chain_entries})
+
+    # 10. Drive A's mix once more, profiled (torch tier) and costed against
+    # the ceiling the probe implies; its summary, trace and records land in
+    # a temporary run layout, removed after. It runs last: the profiler's
+    # hooks must not touch the timings above.
+    from our_tree_tpu_torch.obs import profiler
+
+    trace_root = tempfile.mkdtemp(prefix="ot_profile_")
+    os.environ["OT_TRACE_DIR"] = trace_root
+    try:
+        line_c, _ = serve_drive("C", ["--requests", str(PROFILED_REQUESTS), "--mixed-sizes",
+                                      "--profile-window", "1:2",
+                                      "--ceiling-gbps", f"{ceiling_gbps:.6f}"])
+        prof = line_c["profile"] or {}
+        cap = prof.get("capture") or {}
+        xrows = (prof.get("crosscheck") or {}).get("rows", [])
+        cost_rungs = [r["rung"] for r in line_c["cost"]["rows"]]
+        tk = (trace_kernels(os.path.join(trace_root, cap["run"], cap["torch_dir"], "trace.json"),
+                            cap["t0_us"], cap["t1_us"]) if cap.get("torch_dir") else {})
+    finally:
+        del os.environ["OT_TRACE_DIR"]
+        os.environ.pop("OT_TRACE_RUN", None)
+        shutil.rmtree(trace_root, ignore_errors=True)
+    window_disp = sum(r["dispatches"] for r in cap.get("rungs", []))
+    checks = {
+        "profile section": bool(cap),
+        "tier torch": cap.get("tier") == "torch",
+        "summary valid": profiler.validate_summary(cap) == [],
+        "crosscheck rows = window's dispatches": [
+            (r["rung"], r["dispatches"]) for r in xrows] == [
+            (r["rung"], r["dispatches"]) for r in cap.get("rungs", [])] and window_disp > 0,
+        "crosscheck rows modeled": all(r["modeled_dispatch_bytes"] for r in xrows),
+        "a cost row per warmed rung": cost_rungs == line_c["config"]["rungs"],
+        "trace holds ctr_mk kernels": tk.get("ctr_mk_in_trace", 0) > 0,
+    }
+    if tk:
+        busy = tk["kernel_us"] / (cap["t1_us"] - cap["t0_us"])
+        log(f"serve C profiled window: {cap['seconds']} s, {window_disp} dispatches; trace: "
+            f"{tk['ctr_mk_kernels']} ctr_mk of {tk['kernels']} kernels in the window "
+            f"({tk['ctr_mk_in_trace']} of {tk['kernels_in_trace']} in the whole trace), kernel "
+            f"time {tk['kernel_us'] / 1e3:.3f} ms, copies {tk['memcpys']} taking "
+            f"{tk['memcpy_us'] / 1e3:.3f} ms; card busy share {100 * busy:.2f} % (idle "
+            f"{100 * (1 - busy):.2f} %) under the profiler; lanes' card time in the window "
+            f"{cap['device_us'] / 1e3:.3f} ms of {cap['busy_us'] / 1e3:.3f} ms busy; card: {card}")
+        for r in xrows:
+            log(f"serve C window rung {r['rung']}: {r['dispatches']} dispatches, "
+                f"{r['window_gbps']} GB/s moved, utilization {r['utilization']} of "
+                f"{ceiling_gbps:.2f} GB/s")
+    log(f"serve C cost rows: " + "; ".join(
+        f"r{r['rung']} {r['dispatches']} disp {r['achieved_gbps']} GB/s util {r['utilization']}"
+        for r in line_c["cost"]["rows"]) + f"; device utilization {line_c['device']['utilization']}")
+    if not all(checks.values()):
+        raise SystemExit(f"serve drive C's profile failed: {checks}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

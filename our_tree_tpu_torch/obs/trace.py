@@ -84,7 +84,9 @@ def sample() -> bool:
     return random.random() < rate
 
 
-def _now_us() -> int:
+def now_us() -> int:
+    """Epoch microseconds, every event's ``ts`` domain (the profiler stamps
+    its windows with it)."""
     return time.time_ns() // 1000
 
 
@@ -152,7 +154,7 @@ def _state() -> dict | None:
             fh.write(json.dumps({"kind": KIND, "v": VERSION, "run": state["run"],
                                  "pid": state["pid"], "proc": state["proc"],
                                  "argv": " ".join(sys.argv[:6])[:300],
-                                 "start_us": _now_us()}, separators=(",", ":")) + "\n")
+                                 "start_us": now_us()}, separators=(",", ":")) + "\n")
             fh.flush()
             state["fh"] = fh
             _STATE = state
@@ -203,7 +205,7 @@ def _begin(name: str, attrs: dict, parent: str | None, ts: int) -> Span | None:
 
 
 def _end(span: Span, exc_type, end_attrs: dict | None) -> None:
-    rec = {"ev": "e", "id": span.id, "ts": _now_us(),
+    rec = {"ev": "e", "id": span.id, "ts": now_us(),
            "status": "ok" if exc_type is None else f"error:{exc_type.__name__}"}
     if end_attrs:
         rec["attrs"] = end_attrs
@@ -228,7 +230,7 @@ class _SpanCM:
         self._span: Span | None = None
 
     def __enter__(self) -> Span | None:
-        self._span = _begin(self._name, self._attrs, _ambient_parent(self._parent), _now_us())
+        self._span = _begin(self._name, self._attrs, _ambient_parent(self._parent), now_us())
         if self._span is not None and not self._detached:
             _stack().append(self._span.id)
         return self._span
@@ -278,7 +280,7 @@ class _DeferredSpanCM:
         self._done = False
 
     def __enter__(self):
-        self._ts = _now_us()
+        self._ts = now_us()
         self._parent = _ambient_parent(self._override)
         return None
 
@@ -360,7 +362,7 @@ def point(name: str, **attrs) -> None:
     """One instant event."""
     if not enabled() or _state() is None:
         return
-    rec = {"ev": "p", "name": name, "ts": _now_us()}
+    rec = {"ev": "p", "name": name, "ts": now_us()}
     if attrs:
         rec["attrs"] = attrs
     _write(rec)
@@ -372,7 +374,7 @@ def counter(name: str, n: float = 1, **attrs) -> None:
         return
     with _LOCK:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
-    rec = {"ev": "c", "name": name, "ts": _now_us(), "n": n}
+    rec = {"ev": "c", "name": name, "ts": now_us(), "n": n}
     if attrs:
         rec["attrs"] = attrs
     _write(rec)
@@ -384,7 +386,7 @@ def gauge(name: str, value: float, **attrs) -> None:
         return
     with _LOCK:
         _GAUGES[name] = value
-    rec = {"ev": "g", "name": name, "ts": _now_us(), "value": value}
+    rec = {"ev": "g", "name": name, "ts": now_us(), "value": value}
     if attrs:
         rec["attrs"] = attrs
     _write(rec)

@@ -18,6 +18,9 @@ kernel cannot be interrupted; what the watchdog can do at the deadline is
    since every dispatch runs on a lane worker);
 3. record the demotion (``degrade``, kind ``dispatch-timeout``).
 
+``current_stacks`` (every thread's frames, the machinery of the dump) is
+shared with the profiler's stack-sampling tier.
+
 ``deadline(None or 0)`` disarms entirely; ``default_deadline_s()`` reads the
 opt-in global ``OT_DISPATCH_DEADLINE``. Every armed deadline rides one
 long-lived scheduler thread, so arming costs a dict insert, not a thread.
@@ -61,6 +64,23 @@ def default_deadline_s() -> float:
         return max(float(os.environ.get("OT_DISPATCH_DEADLINE", 0) or 0), 0.0)
     except ValueError:
         return 0.0
+
+
+def current_stacks(depth: int | None = None) -> dict:
+    """{thread ident: (name, [compact frame strings, leaf first])}: every
+    thread's frames, at most ``depth`` each; the profiler's stack-sampling
+    tier (``obs/profiler.py``) reads it."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out: dict = {}
+    for ident, frame in sys._current_frames().items():
+        frames = []
+        f = frame
+        while f is not None and (depth is None or len(frames) < depth):
+            co = f.f_code
+            frames.append(f"{co.co_name} ({os.path.basename(co.co_filename)}:{f.f_lineno})")
+            f = f.f_back
+        out[ident] = (names.get(ident, "?"), frames)
+    return out
 
 
 def dump_stacks(what: str, seconds: float) -> str | None:

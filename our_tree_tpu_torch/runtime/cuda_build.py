@@ -4,7 +4,8 @@
 (one ``nvcc`` per source, all started together), links the objects into one
 shared library with a plain C interface and loads it with ``ctypes``
 (``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
-``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` from ``ctr_mk.cu``). Nothing is built at import time, and
+``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` from ``ctr_mk.cu``,
+``ot_chain`` from ``chain.cu``). Nothing is built at import time, and
 nothing but the sources in the package is compiled. The library goes into ``_build/`` beside the
 package (listed in ``.gitignore``) under a name keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
@@ -131,6 +132,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ot_ctr_mk.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                               ctypes.c_int, vp]
     lib.ot_ctr_mk.restype = ctypes.c_int
+    lib.ot_chain.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_uint32, vp]
+    lib.ot_chain.restype = ctypes.c_int
     return lib
 
 
@@ -141,8 +145,8 @@ def ptxas_report() -> str:
 
 def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
     """Registers, spills, stack and shared memory of each kernel
-    instantiation in a ``ptxas -v`` report, keyed ``"name<NR>"`` (e.g.
-    ``"ecb_decrypt_kernel<14>"``)."""
+    instantiation in a ``ptxas -v`` report, keyed by name and template
+    arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``)."""
     text = ptxas_report() if report is None else report
     out: dict[str, dict[str, int]] = {}
     cur = None
@@ -150,8 +154,9 @@ def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
                       line)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", m.group(1))
-            cur = out.setdefault(f"{k.group(1)}<{k.group(2)}>", {}) if k else None
+            k = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
+            targs = ",".join(re.findall(r"Li(\d+)E", k.group(2))) if k else ""
+            cur = out.setdefault(f"{k.group(1)}<{targs}>", {}) if k else None
             continue
         if cur is None:
             continue

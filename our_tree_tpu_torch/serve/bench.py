@@ -8,8 +8,21 @@ transitions and the dispatch's stage split. Human-readable ``#`` lines, then
 one JSON line last on stdout: the JAX bench line's keys, plus the
 artifact's sections (``config``, ``load``, ``batches``, ``coalesce``,
 ``occupancy``, ``compiles``, ``keycache``, ``lanes``, ``queue``,
-``device``, ``stages``). It writes the artifact (those sections and the
-metrics snapshot) only to a path given with ``--artifact``.
+``device``, ``stages``, ``cost``, ``profile``). It writes the artifact
+(those sections and the metrics snapshot) only to a path given with
+``--artifact``.
+
+The roofline sections, as in the reference: ``--ceiling-gbps`` gives the
+``device`` section a utilization (card-time goodput over the ceiling) and
+the ``cost`` section (``obs/costmodel.py``: per warmed rung, modeled bytes
+per dispatch x dispatches over the rung's card time, printed as ``# cost:``
+rows) one per rung. ``--profile-window START:DUR`` opens one capture window
+(``obs/profiler.py``) DUR seconds long, START seconds into the drive: the
+``torch`` tier on a card, the ``stack`` tier on the CPU; its summary and
+its cross-check against the cost records form the ``profile`` section. The
+window needs ``OT_TRACE_DIR``, where the summary, the exported trace and
+the ``cost-*.json`` records land; a window that cannot open is reported as
+not armed and the drive goes on.
 
 Exit 1 on any of: a lost request (accepted, never answered), a kernel
 library build or load after warmup, a probe whose bytes differ from the
@@ -25,10 +38,21 @@ import asyncio
 import json
 import sys
 
-from ..obs import metrics, trace
+from ..obs import costmodel, metrics, profiler, trace
 from ..resilience import degrade, watchdog
 from . import batcher, loadgen
 from .server import Server, ServerConfig
+
+
+async def _arm_profile_window(start_s: float, dur_s: float, device) -> None:
+    """The ``--profile-window`` arm: wait out the offset, then open one
+    bounded window. A refusal is reported, never fatal."""
+    await asyncio.sleep(start_s)
+    try:
+        out = profiler.start_window(dur_s, armed_by="cli", device=device)
+        print(f"# profile-window: armed {dur_s:g}s (tier={out['tier']})", file=sys.stderr)
+    except (profiler.CaptureBusy, profiler.CaptureDisabled) as e:
+        print(f"# profile-window: not armed: {e}", file=sys.stderr)
 
 
 async def _drive(args, probes):
@@ -37,14 +61,28 @@ async def _drive(args, probes):
         max_bucket_blocks=args.bucket_max, key_slots=args.key_slots,
         max_depth=args.queue_depth, request_deadline_s=args.deadline,
         dispatch_deadline_s=args.dispatch_deadline, retries=args.retries, lanes=args.lanes,
-        probe_every=args.probe_every, max_inflight=args.max_inflight)
+        probe_every=args.probe_every, max_inflight=args.max_inflight,
+        ceiling_gbps=args.ceiling_gbps)
     server = Server(cfg)
     await server.start()
+    arm_task = None
+    if args.profile_window is not None:
+        arm_task = asyncio.ensure_future(_arm_profile_window(*args.profile_window,
+                                                             server.device))
     report = await loadgen.run(
         server, args.requests, concurrency=args.concurrency, sizes=args.sizes,
         tenants=args.tenants, keys_per_tenant=args.keys_per_tenant, seed=args.seed,
         verify_every=args.verify_every, probes=probes, arrival_rate=args.arrival_rate)
+    if arm_task is not None and not arm_task.done():
+        arm_task.cancel()  # the drive ended before the window's offset
+        try:
+            await arm_task
+        except asyncio.CancelledError:
+            pass
     await server.stop()
+    # A window still open at drain closes here, shortened, before the
+    # sections are stamped; the torch tier's export may take a while.
+    profiler.finish(timeout_s=profiler.TORCH_STOP_S)
     return server, report
 
 
@@ -102,11 +140,24 @@ def parse_args(argv=None):
     ap.add_argument("--verify-every", type=int, default=8,
                     help="every Nth request replays a pinned probe (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ceiling-gbps", type=float, default=None, metavar="GBPS",
+                    help="the measured ceiling in GB/s of modeled traffic: the device section "
+                         "reports card-time goodput over it, the cost rows their utilization")
+    ap.add_argument("--profile-window", default=None, metavar="START:DUR",
+                    help="open one capture window DUR seconds long, START seconds into the "
+                         "drive (torch.profiler on a card, stack sampling on the CPU); needs "
+                         "OT_TRACE_DIR, where the summary and trace land")
     ap.add_argument("--min-coalesce", type=float, default=None, metavar="FRAC",
                     help="exit 1 if coalesce efficiency ends below FRAC")
     ap.add_argument("--artifact", default=None, metavar="PATH",
                     help="write the run's artifact JSON here (nothing is written otherwise)")
     args = ap.parse_args(argv)
+    if args.profile_window is not None:
+        try:
+            start_s, _, dur_s = args.profile_window.partition(":")
+            args.profile_window = (max(float(start_s), 0.0), max(float(dur_s), 0.05))
+        except ValueError:
+            ap.error(f"--profile-window wants START:DUR seconds, got {args.profile_window!r}")
     if args.tenant_heavy:
         args.sizes = loadgen.TENANT_HEAVY_SIZES
         args.tenants = max(args.tenants, 24)
@@ -127,6 +178,7 @@ def main(argv=None) -> int:
     metrics.reset()
     # Reference outputs before the server starts (host T-table, no kernel).
     probes = loadgen.make_probes(args.sizes, args.seed) if args.verify_every else []
+    profile_before = profiler.last_summary()
     server, report = asyncio.run(_drive(args, probes))
     stats = server.stats()
     lanes = _lane_summary(stats, report.wall_s)
@@ -179,16 +231,54 @@ def main(argv=None) -> int:
             metrics.hist_by_label("serve_dispatch_us", "outcome").get("ok", {}), 50), 1),
         "device_p50_us": stages.get("device", {}).get("p50_us", 0.0),
     }
+    device["ceiling_gbps"] = args.ceiling_gbps
+    device["utilization"] = (round(device["device_gbps"] / args.ceiling_gbps, 4)
+                             if args.ceiling_gbps else None)
     print(f"# device: busy_s={device['busy_s']:.3f} staging_s={device['staging_s']:.3f} "
           f"device_s={device['device_s']:.3f} fence_s={device['fence_s']:.3f} "
           f"device_share={device['device_share']:.4f} "
-          f"dispatches/s={device['dispatches_per_s']:.1f}")
+          f"dispatches/s={device['dispatches_per_s']:.1f} "
+          f"device_goodput={device['device_gbps']:.4f} GB/s"
+          + (f" utilization={device['utilization']:.1%} of {args.ceiling_gbps:g} GB/s ceiling"
+             if args.ceiling_gbps else ""))
     first = device["first_dispatch"]
     if first:
         print(f"# first traffic dispatch (rung {first['rung']}): window {first['window_us']} µs, "
               f"device {first['device_us']} µs, staging {first['staging_us']} µs; all "
               f"dispatches' p50 (log2 histogram): window {device['window_p50_us']:.0f} µs, "
               f"device {device['device_p50_us']:.0f} µs")
+
+    # The cost join: modeled bytes per dispatch x per-rung dispatches over
+    # the rung's card time -> GB/s moved (traffic, not payload: counters,
+    # slots and schedules are the difference) and its utilization.
+    cost = costmodel.cost_section(server.cost_records, metrics.snapshot()["counters"],
+                                  ceiling_gbps=args.ceiling_gbps)
+    for row in cost["rows"]:
+        util = f" util={row['utilization']:.1%}" if row["utilization"] is not None else ""
+        print(f"# cost: {row['engine']}/{row['mode']} r{row['rung']} nr{row['nr']}: "
+              f"{row['dispatches']} disp x {row['modeled_dispatch_bytes'] / 1e6:.3f} MB modeled, "
+              f"device {row['device_s']:.6f}s -> {row['achieved_gbps']:.3f} GB/s moved{util}")
+
+    # The profile section: the window's summary joined with the cost
+    # records; present iff a window captured during this drive.
+    profile_doc = profiler.last_summary()
+    profile_section = None
+    if profile_doc is not None and profile_doc is not profile_before:
+        profile_section = {"capture": profile_doc,
+                           "crosscheck": profiler.crosscheck(profile_doc, server.cost_records,
+                                                             ceiling_gbps=args.ceiling_gbps)}
+        print(f"# profile: tier={profile_doc['tier']} window={profile_doc['seconds']:g}s "
+              f"({profile_doc['armed_by']}), {len(profile_doc['rungs'])} rung row(s), device "
+              f"{profile_doc['device_us'] / 1e6:.3f}s of {profile_doc['busy_us'] / 1e6:.3f}s "
+              "busy in-window" + (f", trace {profile_doc['torch_dir']}"
+                                  if profile_doc.get("torch_dir") else ""))
+        for row in profile_section["crosscheck"]["rows"]:
+            if row["window_gbps"] is None:
+                continue
+            util = f" util={row['utilization']:.1%}" if row["utilization"] is not None else ""
+            print(f"# profile: {row['engine']}/{row['mode']} r{row['rung']}: "
+                  f"{row['dispatches']} disp in-window -> {row['window_gbps']:.3f} GB/s "
+                  f"moved{util}")
 
     artifact = {
         "config": {"requests": args.requests, "concurrency": args.concurrency,
@@ -199,7 +289,9 @@ def main(argv=None) -> int:
                    "retries": args.retries, "dispatch_deadline_s": args.dispatch_deadline,
                    "lanes": lanes["count"], "probe_every": args.probe_every,
                    "max_inflight": args.max_inflight, "arrival_rate": args.arrival_rate,
-                   "seed": args.seed},
+                   "seed": args.seed, "ceiling_gbps": args.ceiling_gbps,
+                   "profile_window": (list(args.profile_window) if args.profile_window
+                                      else None)},
         "load": report.to_json(),
         "overlap": overlap,
         "coalesce": coal,
@@ -211,6 +303,8 @@ def main(argv=None) -> int:
         "compiles": stats["compiles"],
         "stages": stages,
         "device": device,
+        "cost": cost,
+        "profile": profile_section,
         "degraded": degrade.events(),
         "metrics": metrics.snapshot(),
     }

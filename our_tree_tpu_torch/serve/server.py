@@ -34,9 +34,15 @@ of that; ``steady_compiles()`` must stay 0 after it. A key length outside
 its instantiation's first launch on its first batch, and the steady count
 shows it. ``pool.first_dispatch`` records the first traffic dispatch's
 times, so a run can set them beside the steady ones. A payload above the top rung answers ``too-large``
-(the JAX server with transfers disabled). The reference's chunked
-transfers, sessions, status endpoint, journal, cost model and pulse
-analytics are not in the port yet.
+(the JAX server with transfers disabled).
+
+Cost model: at ``start()`` the server builds the analytic cost records of
+its warmed ladder (``obs/costmodel.py``: the ``ctr`` mode, every rung, each
+key length of ``warmup_key_bits``) into ``cost_records`` and stamps them,
+with ``ServerConfig.ceiling_gbps``, into the ``OT_TRACE_DIR`` run layout;
+``serve.bench`` joins them with the per-rung counters. The reference's
+chunked transfers, sessions, status endpoint, journal, incident recorder
+and pulse analytics are not in the port yet.
 
 Obs spans: ``request-queued`` (queue), ``batch-formed``, ``lane-dispatch``,
 ``lane-probe``, ``serve-warmup`` / ``lane-warmup``.
@@ -51,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..models import aes
-from ..obs import metrics, trace
+from ..obs import costmodel, metrics, trace
 from ..resilience import watchdog
 from ..runtime import cuda_build
 from ..utils import packing
@@ -103,6 +109,10 @@ class ServerConfig:
     probation_batches: int = 2
     #: dispatches in flight at once; None = one per lane
     max_inflight: int | None = None
+    #: the measured ceiling (GB/s of modeled traffic, ``chip_smoke.py`` derives
+    #: the card's from ``harness/ceiling.py``'s rates) the cost model reports
+    #: utilization against; None records traffic without a utilization
+    ceiling_gbps: float | None = None
 
 
 class Server:
@@ -138,6 +148,7 @@ class Server:
         self._slot_capacity = 0
         self.warmup_compiles = 0
         self._compiles_at_ready = 0
+        self.cost_records: list[dict] = []
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> None:
@@ -155,6 +166,11 @@ class Server:
         if not any(ln.warmed for ln in self.pool.lanes):
             raise RuntimeError(f"serve warmup failed on all {len(self.pool.lanes)} lane(s): "
                                f"no lane can dispatch (engine {self.engine})")
+        self.cost_records = costmodel.ladder_costs(self.engine, ("ctr",), self.rungs,
+                                                   key_bits=c.warmup_key_bits,
+                                                   key_slots=c.key_slots)
+        costmodel.write_run_records(self.cost_records, engine=self.engine,
+                                    ceiling_gbps=c.ceiling_gbps)
         self._compiles_at_ready = compile_count()
         self.warmup_compiles = self._compiles_at_ready - before
         trace.gauge("serve_warmup_compiles", self.warmup_compiles, engine=self.engine,

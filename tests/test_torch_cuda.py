@@ -1,5 +1,6 @@
 """The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt,
-multi-key scattered CTR) against their plain torch versions, the ``AES``
+multi-key scattered CTR, the ceiling probe's chain) against their plain
+torch versions, the ``AES``
 context on the card against the CPU in every mode, and the serve path on
 the card. Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
@@ -211,3 +212,19 @@ def test_serve_drives_on_card(card, capsys, drive):
     assert cuda_aes.ctr_scattered_multikey.launches == line["engine_calls"]
     assert (cuda_aes.ctr_crypt_words_fused.launches, cuda_aes.encrypt_words.launches,
             cuda_aes.decrypt_words.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("name,chain,ilp", [
+    ("stream", 1, 1), ("compute", 128, 1), ("compute-ilp4", 128, 4), ("compute-ilp8", 128, 8)])
+@pytest.mark.parametrize("n", [1, 31, 4097, (1 << 20) + 3])
+def test_chain_kernel_matches_plain(card, name, chain, ilp, n):
+    from our_tree_tpu_torch.harness import ceiling
+
+    x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=card,
+                      generator=torch.Generator(card).manual_seed(n + ilp))
+    before = ceiling.chain.launches
+    got = ceiling.chain(x, chain, ilp)
+    want = ceiling.chain_plain(x, chain, ilp)
+    torch.cuda.synchronize()
+    assert ceiling.chain.launches == before + 1
+    assert torch.equal(got, want)

@@ -40,7 +40,9 @@ def test_port_imports_neither_jax_nor_reference():
                     "our_tree_tpu_torch.serve.queue", "our_tree_tpu_torch.serve.keycache",
                     "our_tree_tpu_torch.serve.batcher", "our_tree_tpu_torch.serve.dispatch",
                     "our_tree_tpu_torch.serve.lanes", "our_tree_tpu_torch.serve.server",
-                    "our_tree_tpu_torch.serve.loadgen", "our_tree_tpu_torch.serve.bench"}
+                    "our_tree_tpu_torch.serve.loadgen", "our_tree_tpu_torch.serve.bench",
+                    "our_tree_tpu_torch.harness.ceiling", "our_tree_tpu_torch.obs.costmodel",
+                    "our_tree_tpu_torch.obs.profiler"}
         assert expected <= set(names), sorted(expected - set(names))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
