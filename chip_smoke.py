@@ -17,20 +17,28 @@ is not 0:
    kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20}; ``ctr_mk``
    for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
    with one slot, runs of 1-300 blocks, a random slot per block and unused
-   zero schedules, and its K = 1 entry over counters from every wrap nonce;
+   zero schedules, and its K = 1 entry over counters from every wrap nonce,
+   every case in the auto form and in each form forced (group, block);
+   ``seq_encrypt`` (chained CBC and CFB128) for nr 10/12/14, S in {1, 3,
+   4096} streams, N in {1, 2, 33, 4096} blocks (up to 33 blocks against the
+   whole plain loop, at 4,096 against every plain step at once);
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
-   at 64 MiB (mismatching words must be 0);
+   at 64 MiB, and its 65,536-step latency chain over one word (mismatching
+   words must be 0);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
-   the card, whose engine must be the CUDA one; F.5.1 in slot 3 of 8
-   through the multi-key serve seam;
+   the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
+   ``seq_encrypt`` launch), and F.2.1 and F.3.13 through the chained
+   kernel's own entries; F.5.1 in slot 3 of 8 through the multi-key serve
+   seam;
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
    must be 0xa612a647, the reference's digest for this chain;
 5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
    kernel equal to its plain version), the parallel CBC and CFB128 decrypts
    (equal to their plain versions), the sequential CBC and CFB128 encrypts of
    the first 4,096 recovered blocks (they give back the input), and
-   ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks;
+   ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks: each of
+   these three exactly one ``seq_encrypt`` launch and no other;
 6. the hex CLI on the card decrypts the F.1.2 vector;
 7. the ceiling probe: ``harness.ceiling.main`` in this process (counted:
    ``chain`` launched, nothing else), then ``python -m
@@ -50,20 +58,29 @@ is not 0:
    0.5``: 24 tenants, 16 B-1 KiB, so 32-block groups straddle slots); each
    with 0 lost, failed and mismatching, 0 kernel-library builds after
    warmup, the CUDA engine, ``ctr_mk`` launches equal to its engine calls
-   and no other kernel launched; latency, goodput, the stage split and the
+   and no other kernel launched, its launches by form (every rung's auto
+   form, and no other, served); latency, goodput, the stage split and the
    first traffic dispatch beside the p50; then drive A's mix once more in a
    fresh process (``python -m our_tree_tpu_torch.serve.bench``), where
    warmup meets the card first: warmup must count the library load and the
    kernel's first launch, traffic none;
-9. per kernel at its path's shape (256 MiB; ``ctr_mk`` at the 4,096-block
-   rung, and at 256 MiB with K = 8 and with its K = 1 entry; ``chain`` in
-   each regime at 64 MiB): time per launch (CUDA events, the SM clock
-   sampled), the plain version's time, the least time the card could take
-   at the table's rates (the bytes the function moves over the HBM rate or
-   the operations it needs over 64 results per clock per SM, the larger) at
-   the maximum and at the sampled clock, and at the probe's measured rates;
-   the kernel's own SASS instruction count beside the operations (for
-   ``ctr_mk`` an upper bound); the sequential encrypt's time per block;
+9. the card's dependent-issue latency (the 65,536-step chain over one
+   word, cycles per dependent LOP3 at the sampled clock); per kernel at its
+   path's shape (256 MiB; ``ctr_mk`` at the 4,096-block rung in each form,
+   and at 256 MiB with K = 8 in each form and with its K = 1 entry;
+   ``seq_encrypt`` as the batch of 4,096 streams x 64 blocks and as the two
+   single-stream encrypts of 4,096 blocks; the one-block ECB launch;
+   ``chain`` in each regime at 64 MiB): time per launch (CUDA events, the SM
+   clock sampled), the plain version's time, the least time the card could
+   take at the table's rates (the bytes the function moves over the HBM rate
+   or the operations it needs over 64 results per clock per SM, the larger)
+   at the maximum and at the sampled clock, and at the probe's measured
+   rates; for the latency-bound launches (the sequential encrypts, the
+   rungs, one block) also the latency bound, the dependent path of a
+   thread's circuit counted in its SASS times the measured latency; the
+   kernel's own SASS instruction count beside the operations (for
+   ``ctr_mk`` an upper bound); both ``ctr_mk`` forms at 32 to 2^24 blocks,
+   one slot and a random slot per block (the auto form's threshold table);
 10. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -75,8 +92,10 @@ is not 0:
 Phases 4, 5, 7, each drive of 8 and 10 run with every launch count set to
 0 just before and read just after: each path must have launched each of its
 kernels.
-Standard output ends with the ``kernels`` JSON line, the ``nvidia-smi``
-name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
+Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
+``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
+``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``chain``), the
+``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
 result.
 """
@@ -315,6 +334,65 @@ def sass_chain_per_element(text: str, chain: int, ilp: int) -> dict:
             "instructions": len(body)}
 
 
+def _sass_dst_srcs(base: str, text: str) -> tuple[list, list]:
+    """(general registers written, registers read) of one SASS instruction:
+    the first operand is the destination when it is a register (its width
+    from a .64/.128/.WIDE suffix); RZ, predicates and uniform registers are
+    not counted."""
+    if text.startswith("@"):
+        text = text.split(None, 1)[1]
+    parts = text.split(None, 1)
+    ops = [o.strip() for o in parts[1].split(",")] if len(parts) > 1 else []
+    dst = []
+    if ops and re.match(r"R\d+\b", ops[0]):
+        opcode = parts[0]
+        width = 4 if ".128" in opcode else 2 if (".64" in opcode or ".WIDE" in opcode
+                                                 or ops[0].endswith(".64")) else 1
+        r0 = int(re.match(r"R(\d+)", ops[0]).group(1))
+        dst = list(range(r0, r0 + width))
+        ops = ops[1:]
+    srcs = []
+    for o in ops:
+        for m in re.finditer(r"\bR(\d+)(\.64)?", o):
+            r = int(m.group(1))
+            srcs += [r, r + 1] if m.group(2) else [r]
+    return dst, srcs
+
+
+def sass_dep_depth(ins: list, lo: int, hi: int) -> int:
+    """The longest chain of dependent integer instructions among the SASS
+    instructions at addresses [lo, hi] (one pass in program order, register
+    def-use): the dependency depth of one trip through a loop body. Values
+    live on entry, and loaded values, start at depth 0."""
+    depth: dict = {}
+    best = 0
+    for addr, base, text in ins:
+        if not lo <= addr <= hi:
+            continue
+        dst, srcs = _sass_dst_srcs(base, text)
+        d = max((depth.get(r, 0) for r in srcs), default=0) + 1 if _is_int_op(base) else 0
+        for r in dst:
+            depth[r] = d
+        best = max(best, d)
+    return best
+
+
+def sass_round_loops(text: str, kernel: str, targs) -> list:
+    """The innermost loops of ``kernel``<targs> (loops that hold no other
+    loop), largest first: [{"range", "int", "depth"}], ``int`` the integer
+    instructions of one trip and ``depth`` its dependency depth
+    (``sass_dep_depth``). In the AES kernels the largest is the rolled round
+    loop, one round a trip."""
+    ins, back = sass_function(text, kernel, targs)
+    inner = [(lo, hi) for lo, hi in back
+             if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back)]
+    loops = [{"range": (lo, hi), "int": sum(_is_int_op(b) for a, b, _t in ins if lo <= a <= hi),
+              "depth": sass_dep_depth(ins, lo, hi)} for lo, hi in inner]
+    if not loops:
+        raise RuntimeError(f"no loop in {kernel}<{targs}>")
+    return sorted(loops, key=lambda lp: -lp["int"])
+
+
 class SmiSampler:
     """``nvidia-smi`` reading the SM clock, power draw and temperature every
     100 ms in a child process (line-buffered through ``stdbuf`` where there
@@ -370,7 +448,7 @@ def trace_kernels(path: str, t0_us: int, t1_us: int) -> dict:
     """The CUDA kernels and copies of an exported ``torch.profiler`` trace,
     clipped to the window [t0_us, t1_us] (epoch µs; the trace's times are
     ``baseTimeNanoseconds`` plus each event's ``ts``): count and µs per
-    category, and the ``ctr_mk`` kernels among them."""
+    category, and the ``ctr_mk`` kernels (either form) among them."""
     with open(path, encoding="utf-8") as fh:
         doc = json.load(fh)
     base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
@@ -382,7 +460,7 @@ def trace_kernels(path: str, t0_us: int, t1_us: int) -> dict:
             continue
         start = base_us + float(ev["ts"])
         end = start + float(ev["dur"])
-        mk = cat == "kernel" and "ctr_mk_kernel" in ev.get("name", "")
+        mk = cat == "kernel" and re.search(r"ctr_mk_(?:block_)?kernel", ev.get("name", "")) is not None
         out["kernels_in_trace"] += cat == "kernel"
         out["ctr_mk_in_trace"] += mk
         dur = min(end, t1_us) - max(start, t0_us)
@@ -434,14 +512,23 @@ def main() -> int:
                 "ecb_decrypt": cuda_aes.decrypt_words,
                 "ctr_mk": cuda_aes.ctr_scattered_multikey,
                 "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
-                "chain": ceiling.chain}
+                "chain": ceiling.chain,
+                "seq_encrypt": cuda_aes.seq_encrypt}
+    mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
+                   "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit}
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        for fn in mk_wrappers.values():
+            fn.form_launches = {form: 0 for form in fn.form_launches}
 
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
+
+    def form_counts():
+        """``ctr_mk`` launches by the form that ran, per wrapper."""
+        return {name: dict(fn.form_launches) for name, fn in mk_wrappers.items()}
 
     # 1. Build.
     t0 = time.perf_counter()
@@ -462,6 +549,34 @@ def main() -> int:
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop) / reps
+
+    def graph_ms(fn, reps=100):
+        """Card time per call of ``fn`` with the host out of the way: ``reps``
+        calls captured in one CUDA graph, replayed, timed with CUDA events.
+        Each launch still pays the card's own launch cost; the host's issue
+        time, which paces back-to-back launches of a kernel of a few µs,
+        does not enter."""
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        stop.record()
+        stop.synchronize()
+        del graph
+        return start.elapsed_time(stop) / (5 * reps)
 
     def random_words(n, seed):
         return torch.randint(-2**31, 2**31, (n, 4), dtype=torch.int32, device=dev,
@@ -541,6 +656,7 @@ def main() -> int:
         return torch.from_numpy(sl).to(dev)
 
     mk_mismatch, mk_cases = 0, 0
+    mk_form_mismatch = {form: 0 for form in cuda_aes.MK_FORMS}
     for bits in (128, 192, 256):
         for k in (1, 3, 8, 64):
             nr, rks = mk_stack(bits, k, seed=bits * k)
@@ -558,12 +674,16 @@ def main() -> int:
                 }
                 w, c = random_words(n, seed=5 * n + k), random_words(n, seed=7 * n + k)
                 for name, (r, sl) in patterns.items():
-                    m, _ = diff(cuda_aes.ctr_scattered_multikey(w, c, r, sl, nr),
-                                cuda_aes.ctr_scattered_multikey_plain(w, c, r, sl, nr))
-                    mk_mismatch += m
+                    want = cuda_aes.ctr_scattered_multikey_plain(w, c, r, sl, nr)
+                    for form in cuda_aes.MK_FORMS:
+                        m, _ = diff(cuda_aes.ctr_scattered_multikey(w, c, r, sl, nr, form=form),
+                                    want)
+                        mk_mismatch += m
+                        mk_form_mismatch[form] += m
+                        if m:
+                            log(f"MISMATCH ctr_mk {form} form bits={bits} K={k} n={n} {name}: "
+                                f"{m} words")
                     mk_cases += 1
-                    if m:
-                        log(f"MISMATCH ctr_mk bits={bits} K={k} n={n} {name}: {m} words")
     k1_mismatch, k1_cases = 0, 0
     for bits in (128, 192, 256):
         nr, rk, _ = schedules(np.random.default_rng(bits + 1).integers(
@@ -575,16 +695,58 @@ def main() -> int:
                 ctr = packing.words_tensor(packing.np_ctr_le_blocks(
                     bytes.fromhex(hexnonce), np.arange(n)), dev)
                 w = random_words(n, seed=11 * n + bits)
-                m, _ = diff(cuda_aes.ctr_crypt_words_explicit(w, ctr, rk, nr),
-                            cuda_aes.ctr_crypt_words_explicit_plain(w, ctr, rk, nr))
-                k1_mismatch += m
+                want = cuda_aes.ctr_crypt_words_explicit_plain(w, ctr, rk, nr)
+                for form in cuda_aes.MK_FORMS:
+                    m, _ = diff(cuda_aes.ctr_crypt_words_explicit(w, ctr, rk, nr, form=form), want)
+                    k1_mismatch += m
+                    mk_form_mismatch[form] += m
+                    if m:
+                        log(f"MISMATCH ctr_mk K=1 entry, {form} form, bits={bits} "
+                            f"nonce={hexnonce} n={n}: {m} words")
                 k1_cases += 1
-                if m:
-                    log(f"MISMATCH ctr_mk K=1 entry bits={bits} nonce={hexnonce} n={n}: {m} words")
     log(f"ctr_mk vs plain: {mk_cases} cases, {mk_mismatch} mismatching words; its K = 1 entry "
-        f"(ctr_crypt_words_explicit): {k1_cases} cases, {k1_mismatch} mismatching words")
+        f"(ctr_crypt_words_explicit): {k1_cases} cases, {k1_mismatch} mismatching words; every "
+        f"case in each form (auto, group forced, block forced), mismatching words by form "
+        f"{mk_form_mismatch}; launches by form {form_counts()}")
     if mk_mismatch or k1_mismatch:
         raise SystemExit("ctr_mk disagrees with its plain version")
+    # seq_encrypt, the chained CBC/CFB128 kernel, against its plain version
+    # (the per-block loop). Up to 33 blocks the loop runs whole. At 4,096
+    # blocks the loop's 4,096 launch-bound plain steps would take about a
+    # minute a case, so every step of it is taken at once from the kernel's
+    # own previous block, C_i = E(P_i ^ C_(i-1)) or P_i ^ E(C_(i-1)) for all
+    # i in one batched plain encrypt; from C_(-1) = IV on, by induction, the
+    # outputs equal the whole loop's exactly when every step agrees.
+    def seq_plain_steps(w, ivs, out, rk, nr, cfb):
+        prev = torch.cat([ivs[:, None], out[:, :-1]], dim=1)
+        if cfb:
+            return w ^ bitslice.encrypt_words(prev.reshape(-1, 4), rk, nr).reshape(w.shape)
+        return bitslice.encrypt_words((w ^ prev).reshape(-1, 4), rk, nr).reshape(w.shape)
+
+    seq_mismatch, seq_cases = 0, 0
+    for bits in (128, 192, 256):
+        nr, rk, _ = schedules(np.random.default_rng(bits + 2).integers(
+            0, 256, bits // 8, dtype=np.uint8).tobytes())
+        for cfb in (False, True):
+            for s_n, n in ((s_n, n) for s_n in (1, 3, SEQ_BLOCKS) for n in (1, 2, 33, SEQ_BLOCKS)):
+                w = random_words(s_n * n, seed=s_n + 13 * n + bits).reshape(s_n, n, 4)
+                ivs = random_words(s_n, seed=s_n + bits + cfb)
+                out, iv_out = cuda_aes.seq_encrypt(w, ivs, rk, nr, cfb)
+                if n <= 33:
+                    want, want_iv = cuda_aes.seq_encrypt_plain(w, ivs, rk, nr, cfb)
+                else:
+                    want, want_iv = seq_plain_steps(w, ivs, out, rk, nr, cfb), out[:, -1]
+                m = diff(out, want)[0] + diff(iv_out, want_iv)[0]
+                seq_mismatch += m
+                seq_cases += 1
+                if m:
+                    log(f"MISMATCH seq_encrypt bits={bits} {'cfb128' if cfb else 'cbc'} S={s_n} "
+                        f"N={n}: {m} words")
+                del w, out
+    log(f"seq_encrypt vs plain: {seq_cases} cases (nr 10/12/14, CBC and CFB128, S in 1, 3, "
+        f"{SEQ_BLOCKS}, N in 1, 2, 33, {SEQ_BLOCKS}), {seq_mismatch} mismatching words")
+    if seq_mismatch:
+        raise SystemExit("seq_encrypt disagrees with its plain version")
     chain_words = ceiling.words(PROBE_BYTES)
     chain_mismatch, chain_cases = 0, 0
     for name, c, i in ceiling.REGIMES:
@@ -596,8 +758,12 @@ def main() -> int:
             chain_cases += 1
             if m:
                 log(f"MISMATCH chain {name} n={n}: {m} words")
-    log(f"chain vs plain: {chain_cases} cases (four regimes, n up to {chain_words}), "
-        f"{chain_mismatch} mismatching words")
+    lat_x = torch.tensor([0x2468ACE], dtype=torch.int32, device=dev)
+    m, _ = diff(ceiling.chain(lat_x, *ceiling.LATENCY[1:]), ceiling.chain_plain(lat_x, *ceiling.LATENCY[1:]))
+    chain_mismatch += m
+    chain_cases += 1
+    log(f"chain vs plain: {chain_cases} cases (four regimes, n up to {chain_words}, and the "
+        f"{ceiling.LATENCY[1]}-step latency chain over one word), {chain_mismatch} mismatching words")
     if chain_mismatch:
         raise SystemExit("chain disagrees with its plain version")
 
@@ -627,6 +793,7 @@ def main() -> int:
         raise SystemExit("chunked crypt_ctr on the card differs from one shot on the CPU")
     log("chunked crypt_ctr resume (1, 15, 16, 17, 1000003 bytes): equal to CPU one-shot")
     iv = np.frombuffer(bytes.fromhex(SP800_IV), np.uint8)
+    seq_before = cuda_aes.seq_encrypt.launches
     for bits, (key_hex, ecb_hex, cbc_hex) in SP800_ECB_CBC.items():
         kctx = aes.AES(bytes.fromhex(key_hex))
         if kctx.engine != aes.CUDA_ENGINE:
@@ -645,8 +812,29 @@ def main() -> int:
             ]
         if not all(checks):
             raise SystemExit(f"NIST SP800-38A KAT failed for AES-{bits}: {checks}")
+    # The three CBC encrypts and the CFB128 encrypt each ran the chained kernel
+    # once; F.2.1 and F.3.13 once more through its entries, straight.
+    kat_seq = cuda_aes.seq_encrypt.launches - seq_before
+    nr, rk, _ = schedules(kat_key)
+    pt_w = packing.words_tensor(packing.np_bytes_to_words(np.frombuffer(pt, np.uint8)), dev)
+    iv_w = packing.words_tensor(packing.np_bytes_to_words(iv), dev)
+    straight = {
+        "F.2.1": (cuda_aes.cbc_encrypt_words_seq, SP800_ECB_CBC[128][2]),
+        "F.3.13": (cuda_aes.cfb128_encrypt_words_seq, SP800_CFB128),
+    }
+    for name, (fn, want_hex) in straight.items():
+        ct_w, iv_out = fn(pt_w.reshape(4, 4), iv_w, rk, nr)
+        got_hex = packing.np_words_to_bytes(packing.words_numpy(ct_w).reshape(-1)).tobytes().hex()
+        if got_hex != want_hex or got_hex[-32:] != packing.np_words_to_bytes(
+                packing.words_numpy(iv_out)).tobytes().hex():
+            raise SystemExit(f"NIST SP800-38A {name} through seq_encrypt failed")
+    if kat_seq != 4 or cuda_aes.seq_encrypt.launches - seq_before != 6:
+        raise SystemExit(f"the CBC/CFB128 KATs made {kat_seq} seq_encrypt launches, not 4")
     log("NIST SP800-38A F.1 and F.2 (ECB, CBC; 128/192/256, both directions) and F.3.13 "
-        "(CFB128-AES128, both directions) through AES on the card: pass")
+        "(CFB128-AES128, both directions) through AES on the card: pass; its CBC and CFB128 "
+        f"encrypts made {kat_seq} seq_encrypt launches (one a call); F.2.1 and F.3.13 through "
+        "cbc_encrypt_words_seq and cfb128_encrypt_words_seq (the chained kernel), ciphertext and "
+        "new IV: pass")
     # F.5.1 in slot 3 of 8 through the serve seam, other tenants interleaved
     # and slots 6-7 empty.
     others = [np.random.default_rng(29 + i).integers(0, 256, 16, dtype=np.uint8).tobytes()
@@ -693,17 +881,34 @@ def main() -> int:
     ecb_pt = aes.ecb_decrypt_words(ecb_ct, rk_dec, nr, eng)
     cbc_pt, cbc_iv = aes.cbc_decrypt_words(words, ivw, rk_dec, nr, eng)
     cfb_pt, cfb_iv = aes.cfb128_decrypt_words(words, ivw, rk, nr, eng)
-    cbc_re, _ = aes.cbc_encrypt_words(cbc_pt[:SEQ_BLOCKS], ivw, rk, nr, eng)
-    cfb_re, _ = aes.cfb128_encrypt_words(cfb_pt[:SEQ_BLOCKS], ivw, rk, nr, eng)
+    seq_calls = {}
+
+    def sequential(name, fn, *args):
+        """One sequential encrypt, its launches counted on their own: one
+        seq_encrypt launch and no ECB launch."""
+        before = counts()
+        res = fn(*args)
+        seq_calls[name] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        return res
+
+    cbc_re, _ = sequential("cbc_encrypt_words", aes.cbc_encrypt_words, cbc_pt[:SEQ_BLOCKS], ivw,
+                           rk, nr, eng)
+    cfb_re, _ = sequential("cfb128_encrypt_words", aes.cfb128_encrypt_words,
+                           cfb_pt[:SEQ_BLOCKS], ivw, rk, nr, eng)
     streams = words[:SEQ_BLOCKS * 64].reshape(SEQ_BLOCKS, 64, 4)
     stream_ivs = words[-SEQ_BLOCKS:].contiguous()
-    batch_ct, batch_iv = aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng)
+    batch_ct, batch_iv = sequential("cbc_encrypt_words_batch", aes.cbc_encrypt_words_batch,
+                                    streams, stream_ivs, rk, nr, eng)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     block_counts = counts()
-    log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}")
+    log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}; "
+        f"the sequential encrypts' own launches {seq_calls}")
     if block_counts["ecb_encrypt"] <= 0 or block_counts["ecb_decrypt"] <= 0:
         raise SystemExit(f"the block-mode path did not launch both ECB kernels: {block_counts}")
+    if any(c != {"seq_encrypt": 1} for c in seq_calls.values()):
+        raise SystemExit(f"a sequential encrypt did not make exactly one seq_encrypt launch and "
+                         f"nothing else: {seq_calls}")
     checks = {
         "ecb round trip": bool(torch.equal(ecb_pt, words)),
         "ecb_encrypt == plain": diff(ecb_ct, bitslice.encrypt_words(words, rk, nr))[0] == 0,
@@ -860,6 +1065,9 @@ def main() -> int:
             log(f"serve {name}: {text}")
         line = json.loads(lines[-1])
         got = counts()
+        forms = form_counts()["ctr_mk"]
+        rung_forms = {r: cuda_aes.MK_FORMS[cuda_build.load().ot_ctr_mk_form(r, 0)]
+                      for r in line["config"]["rungs"]}
         dev_stats = line["device"]
         stages = {st: (v["p50_us"], v["p95_us"]) for st, v in line["stages"].items()}
         log(f"serve {name} ({' '.join(argv)}): p50 {line['p50_ms']} ms, p95 {line['p95_ms']} ms, "
@@ -869,7 +1077,8 @@ def main() -> int:
             f"{line['occupancy']}; stages (p50, p95) µs {stages}; lanes busy "
             f"{dev_stats['busy_s']} s = staging {dev_stats['staging_s']} s + card "
             f"{dev_stats['device_s']} s (device share {dev_stats['device_share']}) + rest, fence "
-            f"{dev_stats['fence_s']} s; launches {got}; {wall:.1f} s wall; card: {card}")
+            f"{dev_stats['fence_s']} s; launches {got}; ctr_mk launches by form {forms} (the auto "
+            f"form of each rung: {rung_forms}); {wall:.1f} s wall; card: {card}")
         log_first_dispatch(name, line)
         checks = {
             "rc 0": rc == 0,
@@ -880,15 +1089,19 @@ def main() -> int:
             "0 steady builds": line["recompiles"] == 0,
             "ctr_mk launches == engine calls": got["ctr_mk"] == line["engine_calls"] > 0,
             "no other kernel": all(v == 0 for n, v in got.items() if n != "ctr_mk"),
+            "ctr_mk forms sum to its launches": sum(forms.values()) == got["ctr_mk"],
+            "each rung's auto form served": all(
+                forms[f] > 0 for f in set(rung_forms.values())) and all(
+                forms[f] == 0 for f in forms if f not in rung_forms.values()),
         }
         if "--min-coalesce" in argv:
             checks["coalesce >= 0.5"] = line["coalesce_efficiency"] >= 0.5
         if not all(checks.values()):
             raise SystemExit(f"serve drive {name} failed: {checks}")
-        return line, got
+        return line, got, forms
 
-    _, counts_a = serve_drive("A", ["--requests", "500", "--mixed-sizes"])
-    _, counts_b = serve_drive("B", ["--requests", "300", "--tenant-heavy",
+    line_a, counts_a, forms_a = serve_drive("A", ["--requests", "500", "--mixed-sizes"])
+    line_b, counts_b, forms_b = serve_drive("B", ["--requests", "300", "--tenant-heavy",
                                           "--min-coalesce", "0.5"])
     # Drive A's mix in a fresh process: there the lane's warmup is the first
     # contact with the card (context, library load, first ctr_mk<10> launch).
@@ -1007,36 +1220,153 @@ def main() -> int:
             lambda: bitslice.decrypt_words(ecb_ct, rk_dec, nr),
             ecb_pt, bitslice.decrypt_words(ecb_ct, rk_dec, nr),
             *ecb_ops_per_group(nr, decrypt=True), ecb_bytes, block_counts["ecb_decrypt"])
+    # The card's dependent-issue latency: the 65,536-step chain over one word,
+    # each step a LOP3 that waits on the one before; a 128-step launch over
+    # the same word, timed in a CUDA graph, stands for the launch's share.
+    _lat_name, lat_chain, lat_ilp = ceiling.LATENCY
+    lat_ms, lat_smi = sampled_ms(lambda: ceiling.chain(lat_x, lat_chain, lat_ilp))
+    lat_short_ms = graph_ms(lambda: ceiling.chain(lat_x, 128, 1))
+    lat_loop = sass_round_loops(sass_text, "chain_kernel", (lat_chain, lat_ilp))[0]
+    lat_cycles = lat_ms * 1e-3 * lat_smi["clock_mhz"] * 1e6 / lat_chain
+    log(f"dependent-issue latency: chain_kernel<{lat_chain},{lat_ilp}> over one word "
+        f"{lat_ms * 1e3:.3f} us/launch at the sampled {lat_smi['clock_mhz']:.0f} MHz = "
+        f"{lat_cycles:.4f} cycles a dependent LOP3 (its SASS run: {lat_loop['int']} integer "
+        f"instructions, dependency depth {lat_loop['depth']}); a 128-step launch in a CUDA graph "
+        f"{lat_short_ms * 1e3:.3f} us, {100 * lat_short_ms / lat_ms:.2f} % of it; nvidia-smi "
+        f"{lat_smi}; card: {card}")
+    if lat_short_ms >= 0.05 * lat_ms or lat_loop["depth"] < 128:
+        raise SystemExit("the latency chain is too short against its launch, or its SASS is not "
+                         "one dependent LOP3 a step")
+
+    def latency_ms(depth: int, mhz: float) -> float:
+        """The latency bound: ``depth`` dependent integer instructions at the
+        measured cycles each, at the SM clock sampled while the kernel ran."""
+        return depth * lat_cycles / (mhz * 1e3)
+
+    def sass_per_block(kernel, targs, nr):
+        """(integer SASS instructions a thread runs for one block or group,
+        its dependent path, the round loop): the round loop nr - 1 times and
+        the rest of the function once (an upper bound where set-up loops run
+        more than once); the path counts the round loop only, nr - 1 trips (a
+        lower bound: the first key XOR and the last round are left out)."""
+        ins, _back = sass_function(sass_text, kernel, targs)
+        rl = sass_round_loops(sass_text, kernel, targs)[0]
+        lo, hi = rl["range"]
+        rest = sum(_is_int_op(b) for a, b, _t in ins if not lo <= a <= hi)
+        return rl["int"] * (nr - 1) + rest, rl["depth"] * (nr - 1), rl
+
+    # The one-block ECB launch the sequential encrypts used to make per block.
+    one = cbc_pt[:1].contiguous()
+
+    def host_issue_ms(fn):
+        """The host's time to issue one launch: 200 launches, no sync."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        issue = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        return issue
+
+    host_us = 1e3 * host_issue_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
+    one_ms, one_smi = sampled_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
+    one_card_ms = graph_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
+    _, ecb_depth, ecb_loop = sass_per_block("ecb_encrypt_kernel", nr, nr)
+    one_lat = latency_ms(ecb_depth, one_smi["clock_mhz"])
+    one_roof, one_by = measured_bound(ecb_ops_per_group(nr, decrypt=False)[0], 32 + 4 * rk.numel())
+    log(f"one-block ecb_encrypt launch: host issue {host_us:.2f} us, {one_ms * 1e3:.2f} us back "
+        f"to back at the sampled {one_smi['clock_mhz']:.0f} MHz, {one_card_ms * 1e3:.2f} us of "
+        f"card per launch in a CUDA graph; its group's round loop "
+        f"{ecb_loop['int']} integer instructions, dependency depth {ecb_loop['depth']}: latency "
+        f"bound {ecb_depth} x {lat_cycles:.3f} cycles = {one_lat * 1e3:.4f} us, roofline bound "
+        f"{one_roof * 1e3:.5f} us ({one_by}); the graph's launch at "
+        f"{100 * max(one_lat, one_roof) / one_card_ms:.1f} % of the larger; card: {card}")
+    next(e for e in kernels if e["name"] == "ecb_encrypt")["one_block"] = {
+        "ms": one_ms, "card_ms_graph": one_card_ms, "host_issue_ms": host_us / 1e3,
+        "sampled_clock_mhz": one_smi["clock_mhz"], "roofline_bound_ms": one_roof,
+        "latency_bound_ms": one_lat, "dependent_instructions": ecb_depth}
+
+    # seq_encrypt: the two sequential encrypts of phase 5 (one stream of
+    # 4,096 blocks) and the batch (4,096 streams of 64 blocks), each one launch.
+    seq_int, seq_depth, seq_loop = {}, {}, {}
+    for c in (0, 1):
+        seq_int[c], seq_depth[c], seq_loop[c] = sass_per_block("seq_encrypt_kernel", (nr, c), nr)
+    log(f"seq_encrypt SASS (nr {nr}): round loop {seq_loop[0]['int']} (CBC) / {seq_loop[1]['int']} "
+        f"(CFB128) integer instructions, dependency depth {seq_loop[0]['depth']} / "
+        f"{seq_loop[1]['depth']}; about {seq_int[0]} / {seq_int[1]} integer instructions a block; "
+        f"ptxas {ptxas.get(f'seq_encrypt_kernel<{nr},0>')} / {ptxas.get(f'seq_encrypt_kernel<{nr},1>')}")
     first = cbc_pt[:SEQ_BLOCKS].contiguous()
-    for mode, fn in (("cbc_encrypt", aes.cbc_encrypt_words), ("cfb128_encrypt", aes.cfb128_encrypt_words)):
-        seq_ms = events_ms(lambda: fn(first, ivw, rk, nr, eng), 2)
-        log(f"{mode}_words, {SEQ_BLOCKS} blocks in sequence: {seq_ms:.3f} ms, "
-            f"{1e3 * seq_ms / SEQ_BLOCKS:.2f} us per block; card: {card}")
-    # One step's parts: the host's time to issue 200 one-block launches (no
-    # sync) against the card's time for them (events); the larger bounds.
-    one = first[:1]
-    cuda_aes.encrypt_words(one, rk, nr)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        cuda_aes.encrypt_words(one, rk, nr)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    stop.record()
-    stop.synchronize()
-    card_us = start.elapsed_time(stop) / 200 * 1e3
-    log(f"one-block ecb_encrypt launch: host issue {host_us:.2f} us, card {card_us:.2f} us "
-        f"per launch ({'card' if card_us > 1.1 * host_us else 'host'}-bound); card: {card}")
-    batch_ms = events_ms(lambda: aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng), 2)
-    log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks: {batch_ms:.3f} ms, "
-        f"{1e3 * batch_ms / 64:.2f} us per step of {SEQ_BLOCKS} blocks; card: {card}")
+    single = {}
+    for mode, fn, c in (("cbc_encrypt", aes.cbc_encrypt_words, 0),
+                        ("cfb128_encrypt", aes.cfb128_encrypt_words, 1)):
+        ms, clocks = sampled_ms(lambda fn=fn: fn(first, ivw, rk, nr, eng))
+        lat_b = latency_ms(SEQ_BLOCKS * seq_depth[c], clocks["clock_mhz"])
+        single[mode] = {"ms": ms, "us_per_block": 1e3 * ms / SEQ_BLOCKS, "latency_bound_ms": lat_b,
+                        "dependent_instructions_per_block": seq_depth[c],
+                        "sampled_clock_mhz": clocks["clock_mhz"]}
+        log(f"{mode}_words, {SEQ_BLOCKS} blocks in sequence (one seq_encrypt launch): {ms:.4f} ms, "
+            f"{1e3 * ms / SEQ_BLOCKS:.4f} us per block; latency bound {SEQ_BLOCKS} blocks x "
+            f"{seq_depth[c]} dependent instructions x {lat_cycles:.3f} cycles at "
+            f"{clocks['clock_mhz']:.0f} MHz = {lat_b:.4f} ms, kernel at {100 * lat_b / ms:.1f} %; "
+            f"card: {card}")
+    batch_got = cuda_aes.seq_encrypt(streams, stream_ivs, rk, nr, False)
+    batch_want = cuda_aes.seq_encrypt_plain(streams, stream_ivs, rk, nr, False)
+    m, batch_err = diff(batch_got[0], batch_want[0])
+    m += diff(batch_got[1], batch_want[1])[0]
+    if m:
+        raise SystemExit(f"seq_encrypt vs plain at the batch's shape: {m} mismatching words")
+    batch_ms, batch_smi = sampled_ms(
+        lambda: aes.cbc_encrypt_words_batch(streams, stream_ivs, rk, nr, eng))
+    batch_plain_ms = events_ms(lambda: cuda_aes.seq_encrypt_plain(streams, stream_ivs, rk, nr,
+                                                                  False), 1)
+    n_batch = streams.shape[0] * streams.shape[1]
+    seq_ops = n_batch / 32 * mk_ops_per_group(nr)[0]
+    seq_bytes = 2 * streams.numel() * 4 + 2 * stream_ivs.numel() * 4 + rk.numel() * 4
+    seq_ops_ms, seq_bytes_ms = seq_ops / int_ops_per_ms, seq_bytes / HBM_BYTES_PER_S * 1e3
+    seq_meas, seq_meas_by = measured_bound(seq_ops, seq_bytes)
+    batch_lat = latency_ms(streams.shape[1] * seq_depth[0], batch_smi["clock_mhz"])
+    log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks (one seq_encrypt launch): "
+        f"{batch_ms:.4f} ms, {1e3 * batch_ms / 64:.4f} us per step of {SEQ_BLOCKS} blocks; plain "
+        f"{batch_plain_ms:.2f} ms; roofline bound {max(seq_ops_ms, seq_bytes_ms):.6f} ms at the "
+        f"table rates, {seq_meas:.6f} ms ({seq_meas_by}) at the measured ones; latency bound 64 x "
+        f"{seq_depth[0]} x {lat_cycles:.3f} cycles at {batch_smi['clock_mhz']:.0f} MHz = "
+        f"{batch_lat:.4f} ms; kernel at {100 * max(seq_meas, batch_lat) / batch_ms:.1f} % of the "
+        f"larger; card: {card}")
+    del batch_got, batch_want
+    kernels.append({
+        "name": "seq_encrypt", "route": "cuda", "source": "our_tree_tpu_torch/csrc/seq.cu",
+        "replaces": "our_tree_tpu/ops/pallas_aes.py:259", "launches": block_counts["seq_encrypt"],
+        "max_abs_err": batch_err, "ms": batch_ms, "plain_ms": batch_plain_ms,
+        "bound_ms": max(seq_ops_ms, seq_bytes_ms),
+        "bound_by": "operations" if seq_ops_ms >= seq_bytes_ms else "bytes",
+        "bound_ms_at_sampled_clock": max(seq_ops_ms * clock_mhz / batch_smi["clock_mhz"],
+                                         seq_bytes_ms),
+        "sampled_clock_mhz": batch_smi["clock_mhz"], "bound_ms_measured": seq_meas,
+        "bound_by_measured": seq_meas_by,
+        "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"],
+        "latency_bound_ms": batch_lat, "dependent_issue_cycles": lat_cycles,
+        "dependent_instructions_per_block": seq_depth[0], "library_ms": None,
+        "shape": f"{SEQ_BLOCKS} CBC streams x 64 blocks (cbc_encrypt_words_batch); the "
+                 f"single-stream encrypts of {SEQ_BLOCKS} blocks under 'single_stream'",
+        "sass_round_loop": {"cbc": seq_loop[0], "cfb128": seq_loop[1]},
+        "sass_int_per_block": {"cbc": seq_int[0], "cfb128": seq_int[1]},
+        "single_stream": single})
 
     # ctr_mk: the serve path's shape (the 4,096-block rung, K = 8, drive B's
-    # pattern of 1-64-block requests on random slots), then 256 MiB with
-    # K = 8 in runs of 1-300 blocks and with its K = 1 entry.
+    # pattern of 1-64-block requests on random slots) in each form, then 256
+    # MiB with K = 8 in runs of 1-300 blocks in each form and with its K = 1
+    # entry; then both forms at every size from 32 blocks to 2^24, one slot
+    # and a random slot per block (the auto form's threshold table; the ladder's
+    # rungs also with the plain version's time and drives A and B's batches).
     mk = sass_mk_per_thread(sass_text, nr)
-    log(f"ctr_mk SASS (nr {nr}): {mk}")
+    mk_loops = sass_round_loops(sass_text, "ctr_mk_kernel", nr)[:2]
+    mk_group_depth = (nr - 1) * min(lp["depth"] for lp in mk_loops)
+    blk_int, blk_depth, blk_loop = sass_per_block("ctr_mk_block_kernel", nr, nr)
+    log(f"ctr_mk SASS (nr {nr}): group form {mk}, round-loop dependency depths "
+        f"{[lp['depth'] for lp in mk_loops]}; block form round loop {blk_loop['int']} integer "
+        f"instructions, depth {blk_loop['depth']}, about {blk_int} a block; ptxas "
+        f"{ptxas.get(f'ctr_mk_kernel<{nr}>')} / {ptxas.get(f'ctr_mk_block_kernel<{nr}>')}")
     mk_ops, mk_parts = mk_ops_per_group(nr)
     nr8, rks8 = mk_stack(128, 8, seed=8)
     rung = 4096
@@ -1047,35 +1377,61 @@ def main() -> int:
     sass_r = (mk["mixed_group"] * mixed_groups + mk["uniform_group"] * (rung // 32 - mixed_groups)
               ) // (rung // 32)
     mk_bytes = lambda n, k, slots: 48 * n + 4 * n * slots + 4 * k * 4 * (nr8 + 1)  # noqa: E731
-    entry = timing("ctr_mk", lambda: cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8),
-                   lambda: cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
-                   cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8),
-                   cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
-                   mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung, sass_r, plain_reps=5,
-                   sass_upper_bound=True)
-    cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        cuda_aes.ctr_scattered_multikey(w_r, c_r, rks8, s_r, nr8)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    log(f"ctr_mk at the {rung}-block rung: host issue {host_us:.2f} us per launch, card "
-        f"{entry['ms'] * 1e3:.2f} us per launch; card: {card}")
+
+    def mk_fn(w, c, sl, form):
+        return lambda: cuda_aes.ctr_scattered_multikey(w, c, rks8, sl, nr8, form=form)
+
+    def with_latency(e, depth, fn):
+        """Add the card time per launch in a CUDA graph and the latency bound
+        (one thread's dependent path) to an entry; the share of the larger
+        bound is read against the graph's card time."""
+        e["card_ms_graph"] = graph_ms(fn)
+        e["latency_bound_ms"] = latency_ms(depth, e["sampled_clock_mhz"])
+        e["dependent_instructions"] = depth
+        e["share_of_larger_bound"] = (max(e["bound_ms_measured"], e["latency_bound_ms"])
+                                      / e["card_ms_graph"])
+        return e
+
+    want_r = cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8)
+    entry = with_latency(timing(
+        "ctr_mk", mk_fn(w_r, c_r, s_r, "group"),
+        lambda: cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
+        mk_fn(w_r, c_r, s_r, "group")(), want_r, mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung,
+        sass_r, plain_reps=5, sass_upper_bound=True), mk_group_depth, mk_fn(w_r, c_r, s_r, "group"))
+    block_r = with_latency(timing(
+        "ctr_mk_block", mk_fn(w_r, c_r, s_r, "block"),
+        lambda: cuda_aes.ctr_scattered_multikey_plain(w_r, c_r, rks8, s_r, nr8),
+        mk_fn(w_r, c_r, s_r, "block")(), want_r, mk_ops, mk_parts, mk_bytes(rung, 8, 1), rung,
+        32 * blk_int, plain_reps=5, sass_upper_bound=True), blk_depth, mk_fn(w_r, c_r, s_r, "block"))
+    for form, e in (("group", entry), ("block", block_r)):
+        e["host_issue_ms"] = host_issue_ms(mk_fn(w_r, c_r, s_r, form))
+        log(f"ctr_mk {form} form at the {rung}-block rung: host issue "
+            f"{e['host_issue_ms'] * 1e3:.2f} us per launch, {e['ms'] * 1e3:.2f} us per launch back "
+            f"to back, {e['card_ms_graph'] * 1e3:.2f} us of card per launch in a CUDA graph; "
+            f"latency bound {e['dependent_instructions']} x {lat_cycles:.3f} cycles = "
+            f"{e['latency_bound_ms'] * 1e3:.4f} us, roofline bound "
+            f"{e['bound_ms_measured'] * 1e3:.4f} us; kernel at "
+            f"{100 * e['share_of_larger_bound']:.1f} % of the larger (graph time); card: {card}")
     n_big = MAIN_BYTES // 16
     w_b, c_b = random_words(n_big, seed=51), random_words(n_big, seed=52)
     s_b = slot_runs(n_big, 8, np.arange(1, 301), seed=53)
     mixed_b = int((s_b.reshape(-1, 32) != s_b.reshape(-1, 32)[:, :1]).any(dim=1).sum())
     sass_b = (mk["mixed_group"] * mixed_b + mk["uniform_group"] * (n_big // 32 - mixed_b)
               ) // (n_big // 32)
-    bulk = timing("ctr_mk K=8 runs 1-300",
-                  lambda: cuda_aes.ctr_scattered_multikey(w_b, c_b, rks8, s_b, nr8),
+    want_b = cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8)
+    bulk = timing("ctr_mk K=8 runs 1-300", mk_fn(w_b, c_b, s_b, "group"),
                   lambda: cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8),
-                  cuda_aes.ctr_scattered_multikey(w_b, c_b, rks8, s_b, nr8),
-                  cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8),
-                  mk_ops, mk_parts, mk_bytes(n_big, 8, 1), n_big, sass_b,
-                  sass_upper_bound=True)
-    del s_b
+                  mk_fn(w_b, c_b, s_b, "group")(), want_b, mk_ops, mk_parts,
+                  mk_bytes(n_big, 8, 1), n_big, sass_b, sass_upper_bound=True)
+    block_bulk = timing("ctr_mk_block K=8 runs 1-300", mk_fn(w_b, c_b, s_b, "block"),
+                        lambda: cuda_aes.ctr_scattered_multikey_plain(w_b, c_b, rks8, s_b, nr8),
+                        mk_fn(w_b, c_b, s_b, "block")(), want_b, mk_ops, mk_parts,
+                        mk_bytes(n_big, 8, 1), n_big, 32 * blk_int, sass_upper_bound=True)
+    log(f"ctr_mk at 256 MiB, K = 8 in runs of 1-300 ({mixed_b} of {n_big // 32} groups mixed): "
+        f"group form {bulk['ms']:.4f} ms, block form {block_bulk['ms']:.4f} ms: the block form "
+        f"{'beats' if block_bulk['ms'] < bulk['ms'] else 'does not beat'} the mixed group form; "
+        f"card: {card}")
+    del s_b, want_b
     rk1 = rks8[0].contiguous()
     k1 = timing("ctr_mk K=1 entry",
                 lambda: cuda_aes.ctr_crypt_words_explicit(w_b, c_b, rk1, nr8),
@@ -1084,19 +1440,64 @@ def main() -> int:
                 cuda_aes.ctr_crypt_words_explicit_plain(w_b, c_b, rk1, nr8),
                 mk_ops, mk_parts, mk_bytes(n_big, 1, 0), n_big, mk["uniform_group"],
                 sass_upper_bound=True)
+    lib = cuda_build.load()
+    table = []
+    ladder = line_a["config"]["rungs"]
+    for n in sorted({*ladder, 32, 128, 512, 1024, 2048, 4096, 1 << 16, 1 << 20, 1 << 24}):
+        w_n, c_n = w_b[:n], c_b[:n]
+        for pattern in ("uniform", "mixed"):
+            sl = (torch.full((n,), 3, dtype=torch.int32, device=dev) if pattern == "uniform" else
+                  torch.randint(0, 8, (n,), dtype=torch.int32, device=dev,
+                                generator=torch.Generator(dev).manual_seed(n)))
+            row = {"n_blocks": n, "slots": pattern,
+                   "auto_form": cuda_aes.MK_FORMS[lib.ot_ctr_mk_form(n, 0)]}
+            if n in ladder:  # drives A and B: traffic batches at this rung (warmup adds one each)
+                row["drive_batches"] = sum(ln["occupancy"].get(str(n), {}).get("batches", 0)
+                                           for ln in (line_a, line_b))
+                row["plain_ms"] = events_ms(lambda: cuda_aes.ctr_scattered_multikey_plain(
+                    w_n, c_n, rks8, sl, nr8), 2)
+            for form in ("group", "block"):
+                fn = mk_fn(w_n, c_n, sl, form)
+                reps = max(3, int(0.2 / (events_ms(fn, 1) / 1e3)))
+                row[f"{form}_ms"] = events_ms(fn, reps)
+                if n <= 1 << 16:  # launches of a few µs: back to back, the host paces them
+                    row[f"{form}_card_ms_graph"] = graph_ms(fn)
+            row["roofline_bound_ms"] = measured_bound(-(-n // 32) * mk_ops, mk_bytes(n, 8, 1))[0]
+            row["latency_bound_ms"] = {"group": latency_ms(mk_group_depth, lat_smi["clock_mhz"]),
+                                       "block": latency_ms(blk_depth, lat_smi["clock_mhz"])}
+            key = "card_ms_graph" if n <= 1 << 16 else "ms"
+            row["faster"] = "block" if row[f"block_{key}"] < row[f"group_{key}"] else "group"
+            table.append(row)
+            log(f"ctr_mk forms at {n} blocks, K = 8, {pattern} slots: group {row['group_ms']:.4f} "
+                f"ms, block {row['block_ms']:.4f} ms back to back; in a CUDA graph group "
+                f"{row.get('group_card_ms_graph', float('nan')):.4f} ms, block "
+                f"{row.get('block_card_ms_graph', float('nan')):.4f} ms (faster: {row['faster']}; auto: "
+                f"{row['auto_form']}); roofline bound {row['roofline_bound_ms']:.6f} ms"
+                + (f"; plain {row['plain_ms']:.2f} ms, {row['drive_batches']} traffic batches in "
+                   f"drives A and B" if "plain_ms" in row else "") + f"; card: {card}")
     del w_b, c_b
+    forms_ab = {f: forms_a[f] + forms_b[f] for f in forms_a}
     kernels.append({
         "name": "ctr_mk", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ctr_mk.cu",
         "replaces": "our_tree_tpu/ops/pallas_aes.py:767",
         "launches": counts_a["ctr_mk"] + counts_b["ctr_mk"], **entry, "library_ms": None,
         "shape": f"{rung} blocks, K = 8, drive B's request pattern ({mixed_groups} of "
-                 f"{rung // 32} groups mixed)",
+                 f"{rung // 32} groups mixed), the group form (ctr_mk_kernel)",
+        "launches_by_form": forms_ab,
         "sass_by_key_form": mk,
         "at_256MiB_k8_runs": {**bulk, "library_ms": None},
         "k1_entry": {"entry": "ops/cuda_aes.py:ctr_crypt_words_explicit",
                      "counterpart_of": "_ctr_kernel",
                      "replaces": "our_tree_tpu/ops/pallas_aes.py:476",
                      "shape": "256 MiB", **k1, "library_ms": None},
+        "block_form": {"name": "ctr_mk_block_kernel", "route": "cuda",
+                       "source": "our_tree_tpu_torch/csrc/ctr_mk.cu",
+                       "replaces": "our_tree_tpu/ops/pallas_aes.py:767",
+                       "launches": forms_ab["block"], **block_r, "library_ms": None,
+                       "shape": f"{rung} blocks, K = 8, drive B's request pattern",
+                       "sass_round_loop": blk_loop, "sass_int_per_block": blk_int,
+                       "at_256MiB_k8_runs": {**block_bulk, "library_ms": None},
+                       "forms_table": table},
     })
 
     # chain: each regime at the probe's 64 MiB, timed alone in phase 7.
@@ -1152,7 +1553,7 @@ def main() -> int:
     trace_root = tempfile.mkdtemp(prefix="ot_profile_")
     os.environ["OT_TRACE_DIR"] = trace_root
     try:
-        line_c, _ = serve_drive("C", ["--requests", str(PROFILED_REQUESTS), "--mixed-sizes",
+        line_c, _, _ = serve_drive("C", ["--requests", str(PROFILED_REQUESTS), "--mixed-sizes",
                                       "--profile-window", "1:2",
                                       "--ceiling-gbps", f"{ceiling_gbps:.6f}"])
         prof = line_c["profile"] or {}

@@ -23,8 +23,11 @@
 // not carried. The mask (passed twice, as k0 and k1) and the chain seeds are
 // kernel arguments, not constants, so that nothing about the chain is known
 // when it is compiled; each step is a LOP3 in inline PTX (chain.cuh says
-// why). Exactly the probe's four regimes are instantiated: (chain, ilp) in
-// {(1,1), (128,1), (128,4), (128,8)}.
+// why). The probe's four regimes are instantiated, (chain, ilp) in
+// {(1,1), (128,1), (128,4), (128,8)}, and one more, (65536, 1): launched over
+// one word it is a single dependent chain long enough that the launch is a
+// few percent of its time, so chip_smoke.py reads the card's dependent-issue
+// latency from it (the latency bounds of the per-block kernels).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,5 +78,6 @@ extern "C" int ot_chain(const void* x, void* out, long long n, int chain, int il
   if (chain == 128 && ilp == 1) return (int)launch<128, 1>(x, out, n, k, st);
   if (chain == 128 && ilp == 4) return (int)launch<128, 4>(x, out, n, k, st);
   if (chain == 128 && ilp == 8) return (int)launch<128, 8>(x, out, n, k, st);
+  if (chain == 65536 && ilp == 1) return (int)launch<65536, 1>(x, out, n, k, st);
   return (int)cudaErrorInvalidValue;
 }

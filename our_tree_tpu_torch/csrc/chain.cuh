@@ -4,6 +4,8 @@
 //
 //   a_i = x ^ c1_i, b_i = x ^ c2_i,  c1_i = seed1 * (2i + 1), c2_i = seed2 * (2i + 1)
 //   repeat chain times: (a_i, b_i) <- (b_i, a_i ^ (b_i & k)), with k = k0 = k1
+//   (a chain longer than kUnrolled steps runs as a rolled loop of 128-step
+//   runs: the latency instantiation, one word through 65,536 dependent steps)
 //   result = XOR over i of (a_i ^ b_i)
 //
 // The work must survive compilation, and two things could shrink it. Per bit
@@ -30,6 +32,9 @@
 
 namespace chain {
 
+// Steps unrolled in one run: the probe's regimes unroll their whole chain.
+constexpr int kUnrolled = 128;
+
 __device__ __forceinline__ uint32_t step(uint32_t a, uint32_t b, uint32_t k) {
 #ifdef __CUDA_ARCH__
   uint32_t r;
@@ -38,6 +43,22 @@ __device__ __forceinline__ uint32_t step(uint32_t a, uint32_t b, uint32_t k) {
 #else
   return a ^ (b & k);
 #endif
+}
+
+// STEPS feedback steps of each of the ILP chains, unrolled; the masks
+// alternate k0, k1 from step to step (STEPS is even or the whole chain).
+template <int STEPS, int ILP>
+__device__ __forceinline__ void run(uint32_t (&a)[ILP], uint32_t (&b)[ILP], uint32_t k0,
+                                    uint32_t k1) {
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+#pragma unroll
+    for (int i = 0; i < ILP; ++i) {
+      const uint32_t t = step(a[i], b[i], (s & 1) ? k1 : k0);
+      a[i] = b[i];
+      b[i] = t;
+    }
+  }
 }
 
 template <int CHAIN, int ILP>
@@ -49,14 +70,13 @@ __device__ __forceinline__ uint32_t element(uint32_t x, uint32_t k0, uint32_t k1
     a[i] = x ^ (seed1 * (2u * i + 1u));
     b[i] = x ^ (seed2 * (2u * i + 1u));
   }
-#pragma unroll
-  for (int s = 0; s < CHAIN; ++s) {
-#pragma unroll
-    for (int i = 0; i < ILP; ++i) {
-      const uint32_t t = step(a[i], b[i], (s & 1) ? k1 : k0);
-      a[i] = b[i];
-      b[i] = t;
-    }
+  if constexpr (CHAIN <= kUnrolled) {
+    run<CHAIN, ILP>(a, b, k0, k1);
+  } else {
+    // A longer chain (the latency probe) is a rolled loop of unrolled runs.
+    static_assert(CHAIN % kUnrolled == 0, "a long chain is whole runs");
+#pragma unroll 1
+    for (int o = 0; o < CHAIN / kUnrolled; ++o) run<kUnrolled, ILP>(a, b, k0, k1);
   }
   uint32_t acc = a[0] ^ b[0];
 #pragma unroll

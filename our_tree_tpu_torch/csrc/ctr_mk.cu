@@ -14,12 +14,27 @@
 // Bound. Per block the function reads 16 bytes of data, 16 of counter and 4
 // of slot and writes 16: 52 bytes against the same boolean circuit as ECB
 // (about 50 two-input gates per byte). At 256 MiB it is bound by operations,
-// like ecb.cu. At a serve rung (4,096 blocks = 128 groups = one thread block
-// on one of 132 SMs) it is bound by neither: its time is one thread's serial
-// pass through one group's rounds, plus the launch. Spreading a group over
-// more threads is later work; chip_smoke.py records both.
+// like ecb.cu. At a serve rung it is bound by neither: its time is the
+// dependent path through a thread's work plus the launch, which the block
+// form below shortens; chip_smoke.py records both bounds and both forms.
 //
-// Design: ecb.cu's shape, reusing its rounds (aes_bitslice.cuh).
+// Two forms, chosen per launch by ot_ctr_mk (form 0, auto: the block form up
+// to kBlockFormMax blocks, the group form above; 1 and 2 force one):
+//
+// Block form (ctr_mk_block_kernel<NR>): one block per thread in the
+// per-block bitsliced form of aes_block.cuh. A serve rung is at most 4,096
+// blocks, 128 groups: the group form puts them on one 128-thread block of one
+// SM, where one thread's serial pass through a whole group is the launch's
+// time; the block form spreads them over 4,096 threads on 32 SMs, and a
+// thread's pass is one block's rounds.
+//   * Each thread block turns the K schedules into plane-form round keys in
+//     shared memory once, K * (NR+1) * 8 words (30 KB at K = 64, NR = 14).
+//   * Each thread XORs in its own slot's key planes, so there are no uniform
+//     and mixed groups in this form. The slot is clamped into [0, K) as in
+//     the group form.
+//
+// Group form (ctr_mk_kernel<NR>): ecb.cu's shape, reusing its rounds
+// (aes_bitslice.cuh).
 //   * Each thread owns one group of 32 consecutive blocks; 128 threads make a
 //     thread block. It loads its 32 counters as uint4 (zero past n), turns
 //     them into 128 planes, runs the rounds, turns the keystream back into
@@ -49,19 +64,26 @@
 //     on the CPU.
 // Constant time: load addresses depend on the block index, the round, the
 // word number and the public slot vector, never on key or data; the one
-// data-dependent-looking branch (uniform or mixed) reads only slots. There
-// are no tables.
+// data-dependent-looking branch (uniform or mixed) reads only slots, and the
+// form depends only on the block count. There are no tables.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "aes_bitslice.cuh"
+#include "aes_block.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 // The most schedules one launch takes (the wrapper's cap).
 constexpr int kMaxSlots = 64;
+// The most blocks the auto form sends to the block form: the largest size
+// of chip_smoke.py phase 9's table (both forms at 32 to 2^24 blocks, K = 8,
+// one slot and random slots) at which the block form was the faster with
+// one slot as well as with random slots; PERF.md holds the table.
+constexpr long long kBlockFormMax = 1ll << 16;
+enum Form { kAuto = 0, kGroup = 1, kBlock = 2 };
 
 template <int NR>
 __global__ void __launch_bounds__(kThreads)
@@ -126,8 +148,39 @@ ctr_mk_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
 }
 
 template <int NR>
+__global__ void __launch_bounds__(kThreads)
+ctr_mk_block_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
+                    const uint4* __restrict__ ctr, const int32_t* __restrict__ slots,
+                    const uint32_t* __restrict__ rks, long long n_blocks, int k) {
+  constexpr int kRounds = NR + 1;
+  // K schedules' key planes, slot j's round r at kp + 8 (j kRounds + r).
+  extern __shared__ uint32_t kp[];
+  for (int i = threadIdx.x; i < k * kRounds; i += kThreads)
+    aes_block::round_key_planes(rks + (i / kRounds) * 4 * kRounds, i % kRounds, kp + 8 * i);
+  __syncthreads();
+
+  const long long j = blockIdx.x * (long long)kThreads + threadIdx.x;
+  if (j >= n_blocks) return;
+  const int sl = slots != nullptr ? min(max(slots[j], 0), k - 1) : 0;
+  out[j] = aes_block::ctr_block<NR>(ctr[j], data[j], kp + 8 * kRounds * sl);
+}
+
+template <int NR>
+cudaError_t launch_block(const void* data, void* out, const void* ctr, const void* slots,
+                         const void* rks, long long n_blocks, int k, cudaStream_t stream) {
+  const unsigned int grid = (unsigned int)((n_blocks + kThreads - 1) / kThreads);
+  const size_t smem = (size_t)k * 8 * (NR + 1) * sizeof(uint32_t);
+  ctr_mk_block_kernel<NR><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint4*>(data), static_cast<uint4*>(out),
+      static_cast<const uint4*>(ctr), static_cast<const int32_t*>(slots),
+      static_cast<const uint32_t*>(rks), n_blocks, k);
+  return cudaGetLastError();
+}
+
+template <int NR>
 cudaError_t launch(const void* data, void* out, const void* ctr, const void* slots,
-                   const void* rks, long long n_blocks, int k, cudaStream_t stream) {
+                   const void* rks, long long n_blocks, int k, int form, cudaStream_t stream) {
+  if (form == kBlock) return launch_block<NR>(data, out, ctr, slots, rks, n_blocks, k, stream);
   const long long groups = (n_blocks + 31) / 32;
   const unsigned int grid = (unsigned int)((groups + kThreads - 1) / kThreads);
   const size_t smem = (size_t)k * 4 * (NR + 1) * sizeof(uint32_t) +
@@ -141,21 +194,31 @@ cudaError_t launch(const void* data, void* out, const void* ctr, const void* slo
 
 }  // namespace
 
+// The form a launch of n_blocks takes: form 1 (group) or 2 (block) as given,
+// form 0 (auto) the block form up to kBlockFormMax blocks; -1 for a bad form.
+extern "C" int ot_ctr_mk_form(long long n_blocks, int form) {
+  if (form == kAuto) return n_blocks <= kBlockFormMax ? kBlock : kGroup;
+  return form == kGroup || form == kBlock ? form : -1;
+}
+
 // C interface for ctypes. data/out/ctr_le: (n_blocks, 4) u32 LE words, 16-byte
 // aligned; slots: (n_blocks,) int32 schedule index per block, or NULL for one
 // schedule (then k must be 1); rks: (k, 4*(nr+1)) u32 encrypt schedules, all
-// on the card; 1 <= k <= 64. Returns the cudaError_t of the launch (0 on
-// success).
+// on the card; 1 <= k <= 64; form: 0 auto, 1 group, 2 block
+// (ot_ctr_mk_form). Returns the cudaError_t of the launch (0 on success).
 extern "C" int ot_ctr_mk(const void* data, void* out, const void* ctr_le, const void* slots,
-                         const void* rks, long long n_blocks, int k, int nr, void* stream) {
-  if (n_blocks <= 0 || k < 1 || k > kMaxSlots || (slots == nullptr && k != 1))
+                         const void* rks, long long n_blocks, int k, int form, int nr,
+                         void* stream) {
+  form = ot_ctr_mk_form(n_blocks, form);
+  if (n_blocks <= 0 || k < 1 || k > kMaxSlots || (slots == nullptr && k != 1) || form < 0)
     return (int)cudaErrorInvalidValue;
-  if ((n_blocks + 31) / 32 > (long long)kThreads * 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  if ((form == kBlock ? n_blocks : (n_blocks + 31) / 32) > (long long)kThreads * 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nr) {
-    case 10: return (int)launch<10>(data, out, ctr_le, slots, rks, n_blocks, k, st);
-    case 12: return (int)launch<12>(data, out, ctr_le, slots, rks, n_blocks, k, st);
-    case 14: return (int)launch<14>(data, out, ctr_le, slots, rks, n_blocks, k, st);
+    case 10: return (int)launch<10>(data, out, ctr_le, slots, rks, n_blocks, k, form, st);
+    case 12: return (int)launch<12>(data, out, ctr_le, slots, rks, n_blocks, k, form, st);
+    case 14: return (int)launch<14>(data, out, ctr_le, slots, rks, n_blocks, k, form, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,6 +52,10 @@ SEED2 = 0x85EBCA6B
 #: (name, chain, ilp): the probe's regimes, the kernel's only instantiations.
 REGIMES = (("stream", 1, 1), ("compute", 128, 1), ("compute-ilp4", 128, 4),
            ("compute-ilp8", 128, 8))
+#: (name, chain, ilp) of the kernel's one other instantiation: one dependent
+#: chain of 65,536 steps, which ``chip_smoke.py`` launches over one word to
+#: read the card's dependent-issue latency. Not a regime of the probe's line.
+LATENCY = ("latency", 1 << 16, 1)
 
 
 def _i32(v: int) -> int:
@@ -80,9 +84,10 @@ def chain_plain(x: torch.Tensor, chain: int, ilp: int) -> torch.Tensor:
 
 def chain(x: torch.Tensor, chain: int, ilp: int) -> torch.Tensor:
     """The chains over every int32 word of ``x`` (any shape, contiguous);
-    (chain, ilp) must be one of ``REGIMES``."""
-    if (chain, ilp) not in {(c, i) for _n, c, i in REGIMES}:
-        raise ValueError(f"(chain, ilp) must be one of the regimes {REGIMES}, got {(chain, ilp)}")
+    (chain, ilp) must be one of ``REGIMES`` or ``LATENCY``."""
+    if (chain, ilp) not in {(c, i) for _n, c, i in (*REGIMES, LATENCY)}:
+        raise ValueError(f"(chain, ilp) must be one of the regimes {REGIMES} or {LATENCY}, "
+                         f"got {(chain, ilp)}")
     if x.dtype != torch.int32:
         raise TypeError(f"x must be int32, got {x.dtype}")
     if not x.is_contiguous():

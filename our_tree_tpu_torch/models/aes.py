@@ -8,7 +8,7 @@ as the reference C ``aes_crypt_ctr`` does.
 Engines (``CORES[name] = (encrypt, decrypt)`` over (N, 4) words):
 ``"cuda-ctr-gen-bp"`` is the hand-written CUDA kernels (``ops/cuda_aes.py``:
 ECB encrypt and decrypt, fused CTR, multi-key scattered CTR and its
-single-key explicit-counter entry);
+single-key explicit-counter entry, the chained CBC/CFB128 encrypt);
 ``"bitslice"`` is their plain torch version; ``"ttable"`` is the T-table
 core (``ops/block.py``), the reference's ``"jnp"`` engine, an in-port oracle
 that ``"auto"`` never picks. ``"auto"`` resolves to the kernels for a CUDA
@@ -18,9 +18,12 @@ engine's multi-key scattered-CTR core, the serve path's dispatch
 
 Modes: ECB, CTR and the CBC/CFB128 decrypts are one batched engine call.
 CBC and CFB128 encryption are recurrences: the reference runs them as a
-``lax.scan`` over a T-table gather; here each step calls the engine's ECB
-encrypt core on one (1, 4) block (one kernel launch and one XOR on the
-card), and the IV stays on the device, so no step waits on the host.
+``lax.scan`` over a T-table gather. ``SEQ_ENCRYPT`` holds each engine's
+chained encrypt over S streams of N blocks: on the card one ``seq_encrypt``
+launch per call runs the whole recurrence (``csrc/seq.cu``), every stream
+and block; the other engines run the per-block loop, one (S, 4) ECB call
+per step, with the IV on the device (for ``"bitslice"`` that loop is the
+kernel's plain version, ``cuda_aes.seq_encrypt_plain``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ CTR_EXPLICIT: dict[str, object] = {}
 #: schedules and ``key_slots`` the (N,) int32 public per-block slot vector:
 #: one call carrying K tenants' keys (the serve rung-packer's dispatch).
 MULTIKEY_CTR: dict[str, object] = {}
+#: Chained CBC/CFB128 encrypts, (words, ivs, rk, nr, cfb) -> (out, ivs_out)
+#: over (S, N, 4) int32 words and (S, 4) IVs, by engine name; engines
+#: without one run the per-block loop over their ECB core.
+SEQ_ENCRYPT: dict[str, object] = {}
 #: The reference's host tier (the native C runtime), which the port does
 #: not have: ``resolve_serve_engine`` refuses it.
 NATIVE_ENGINE = "native"
@@ -76,8 +83,10 @@ def seam_first_calls() -> int:
 
 
 def register_core(name: str, encrypt_fn, decrypt_fn, ctr_fused_fn=None,
-                  multikey_fn=None, ctr_explicit_fn=None) -> None:
+                  multikey_fn=None, ctr_explicit_fn=None, seq_encrypt_fn=None) -> None:
     CORES[name] = (encrypt_fn, decrypt_fn)
+    if seq_encrypt_fn is not None:
+        SEQ_ENCRYPT[name] = seq_encrypt_fn
     if ctr_fused_fn is not None:
         CTR_FUSED[name] = ctr_fused_fn
     if ctr_explicit_fn is not None:
@@ -95,7 +104,7 @@ def _multikey_ttable(words, ctr_le, rks, key_slots, nr):
 
 register_core(CUDA_ENGINE, cuda_aes.encrypt_words, cuda_aes.decrypt_words,
               cuda_aes.ctr_crypt_words_fused, cuda_aes.ctr_scattered_multikey,
-              cuda_aes.ctr_crypt_words_explicit)
+              cuda_aes.ctr_crypt_words_explicit, cuda_aes.seq_encrypt)
 register_core(PLAIN_ENGINE, bitslice.encrypt_words, bitslice.decrypt_words,
               cuda_aes.ctr_crypt_words_fused_plain, cuda_aes.ctr_scattered_multikey_plain,
               cuda_aes.ctr_crypt_words_explicit_plain)
@@ -217,41 +226,42 @@ def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.
     return out.reshape(words.shape)
 
 
+def _seq_encrypt(words: torch.Tensor, ivs: torch.Tensor, rk: torch.Tensor, nr: int,
+                 cfb: bool, engine: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The engine's chained encrypt of (S, N, 4) words under (S, 4) IVs, or
+    the per-block loop over its ECB core."""
+    fn = SEQ_ENCRYPT.get(engine)
+    if fn is not None:
+        return fn(words.contiguous(), ivs.contiguous(), rk, nr, cfb)
+    return cuda_aes.seq_encrypt_plain(words, ivs, rk, nr, cfb, encrypt=CORES[engine][0])
+
+
 def cbc_encrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
                       nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """CBC encrypt, C_i = E(P_i ^ C_(i-1)), C_(-1) = IV; returns (output,
-    new IV). A recurrence: one (1, 4) engine call per block."""
+    new IV). A recurrence: one chained-encrypt call (on the card, one
+    launch)."""
     engine = resolve_engine(engine, words.device)
-    enc = CORES[engine][0]
     w2 = _blocks(words)
-    iv = iv_words.reshape(1, 4)
-    outs = []
-    for i in range(w2.shape[0]):
-        iv = enc(w2[i: i + 1] ^ iv, rk, nr)
-        outs.append(iv)
-    if not outs:
+    if w2.shape[0] == 0:
         return words, iv_words
-    return torch.cat(outs).reshape(words.shape), iv.reshape(4)
+    out, iv = _seq_encrypt(w2.reshape(1, -1, 4), iv_words.reshape(1, 4), rk, nr, False, engine)
+    return out.reshape(words.shape), iv.reshape(4)
 
 
 def cbc_encrypt_words_batch(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
                             nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """S independent CBC streams at once: each step encrypts one block of
-    every stream as one (S, 4) engine call. ``words``: (S, N, 4) block words
-    or (S, 4N) flat streams; ``iv_words``: (S, 4). Returns (outputs, final
-    IVs) per stream."""
+    """S independent CBC streams at once, as one chained-encrypt call (on
+    the card, one launch). ``words``: (S, N, 4) block words or (S, 4N) flat
+    streams; ``iv_words``: (S, 4). Returns (outputs, final IVs) per
+    stream."""
     engine = resolve_engine(engine, words.device)
-    enc = CORES[engine][0]
     iv = iv_words.reshape(-1, 4)
-    s = iv.shape[0]
-    w3 = words.reshape(s, -1, 4)
-    outs = []
-    for i in range(w3.shape[1]):
-        iv = enc((w3[:, i] ^ iv).contiguous(), rk, nr)
-        outs.append(iv)
-    if not outs:
+    w3 = words.reshape(iv.shape[0], -1, 4)
+    if w3.shape[1] == 0:
         return words, iv_words
-    return torch.stack(outs, dim=1).reshape(words.shape), iv
+    out, iv = _seq_encrypt(w3, iv, rk, nr, False, engine)
+    return out.reshape(words.shape), iv
 
 
 def cbc_decrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk_dec: torch.Tensor,
@@ -269,18 +279,14 @@ def cbc_decrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk_dec: torch
 def cfb128_encrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,
                          nr: int, engine: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """CFB128 encrypt over whole blocks, C_i = P_i ^ E(C_(i-1)); returns
-    (output, new IV). A recurrence: one (1, 4) engine call per block."""
+    (output, new IV). A recurrence: one chained-encrypt call (on the card,
+    one launch)."""
     engine = resolve_engine(engine, words.device)
-    enc = CORES[engine][0]
     w2 = _blocks(words)
-    iv = iv_words.reshape(1, 4).contiguous()
-    outs = []
-    for i in range(w2.shape[0]):
-        iv = w2[i: i + 1] ^ enc(iv, rk, nr)
-        outs.append(iv)
-    if not outs:
+    if w2.shape[0] == 0:
         return words, iv_words
-    return torch.cat(outs).reshape(words.shape), iv.reshape(4)
+    out, iv = _seq_encrypt(w2.reshape(1, -1, 4), iv_words.reshape(1, 4), rk, nr, True, engine)
+    return out.reshape(words.shape), iv.reshape(4)
 
 
 def cfb128_decrypt_words(words: torch.Tensor, iv_words: torch.Tensor, rk: torch.Tensor,

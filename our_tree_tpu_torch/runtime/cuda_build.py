@@ -4,8 +4,9 @@
 (one ``nvcc`` per source, all started together), links the objects into one
 shared library with a plain C interface and loads it with ``ctypes``
 (``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
-``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` from ``ctr_mk.cu``,
-``ot_chain`` from ``chain.cu``). Nothing is built at import time, and
+``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` and ``ot_ctr_mk_form``
+from ``ctr_mk.cu``, ``ot_chain`` from ``chain.cu``, ``ot_seq_encrypt`` from
+``seq.cu``). Nothing is built at import time, and
 nothing but the sources in the package is compiled. The library goes into ``_build/`` beside the
 package (listed in ``.gitignore``) under a name keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
@@ -130,8 +131,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
         fn.restype = ctypes.c_int
     lib.ot_ctr_mk.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_int, vp]
+                              ctypes.c_int, ctypes.c_int, vp]
     lib.ot_ctr_mk.restype = ctypes.c_int
+    lib.ot_ctr_mk_form.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.ot_ctr_mk_form.restype = ctypes.c_int
+    lib.ot_seq_encrypt.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_int, vp]
+    lib.ot_seq_encrypt.restype = ctypes.c_int
     lib.ot_chain.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_uint32, vp]
     lib.ot_chain.restype = ctypes.c_int
@@ -146,7 +152,8 @@ def ptxas_report() -> str:
 def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
     """Registers, spills, stack and shared memory of each kernel
     instantiation in a ``ptxas -v`` report, keyed by name and template
-    arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``)."""
+    arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``,
+    ``"seq_encrypt_kernel<10,1>"``, ``"ctr_mk_block_kernel<12>"``)."""
     text = ptxas_report() if report is None else report
     out: dict[str, dict[str, int]] = {}
     cur = None

@@ -1,7 +1,7 @@
 """The ceiling probe kernel's arithmetic (``csrc/chain.cuh``: seeds, chain
 steps, reduction) compiled as host C++ with g++ and held bit-exact against
 the plain torch version (``harness.ceiling.chain_plain``) for the four
-regimes the kernel instantiates. The kernel's grid-stride loop, its inline
+regimes the kernel instantiates and its long latency chain. The kernel's grid-stride loop, its inline
 PTX step and its launch run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
@@ -31,6 +31,7 @@ extern "C" int chain_host(const uint32_t* x, uint32_t* out, long long n, int c, 
   if (c == 128 && ilp == 1) { run<128, 1>(x, out, n, k, s1, s2); return 0; }
   if (c == 128 && ilp == 4) { run<128, 4>(x, out, n, k, s1, s2); return 0; }
   if (c == 128 && ilp == 8) { run<128, 8>(x, out, n, k, s1, s2); return 0; }
+  if (c == 65536 && ilp == 1) { run<65536, 1>(x, out, n, k, s1, s2); return 0; }
   return 1;
 }
 """
@@ -54,9 +55,10 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("name,chain,ilp", ceiling.REGIMES)
+@pytest.mark.parametrize("name,chain,ilp", [*ceiling.REGIMES, ceiling.LATENCY])
 def test_host_chain_matches_plain(host_lib, name, chain, ilp):
-    x = np.random.default_rng(chain * 10 + ilp).integers(0, 2**32, 4097, dtype=np.uint64)
+    n = 4097 if chain <= 128 else 3  # the latency chain runs over one word on the card
+    x = np.random.default_rng(chain * 10 + ilp).integers(0, 2**32, n, dtype=np.uint64)
     x = x.astype(np.uint32)
     got = np.zeros_like(x)
     rc = host_lib.chain_host(x.ctypes.data, got.ctypes.data, x.size, chain, ilp, ceiling.K,

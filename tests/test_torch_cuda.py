@@ -1,6 +1,6 @@
 """The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt,
-multi-key scattered CTR, the ceiling probe's chain) against their plain
-torch versions, the ``AES``
+multi-key scattered CTR in both forms, the chained CBC/CFB128 encrypt, the
+ceiling probe's chain) against their plain torch versions, the ``AES``
 context on the card against the CPU in every mode, and the serve path on
 the card. Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
@@ -225,6 +225,88 @@ def test_chain_kernel_matches_plain(card, name, chain, ilp, n):
     before = ceiling.chain.launches
     got = ceiling.chain(x, chain, ilp)
     want = ceiling.chain_plain(x, chain, ilp)
+    torch.cuda.synchronize()
+    assert ceiling.chain.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4096])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "independent"])
+@pytest.mark.parametrize("form", ["group", "block"])
+def test_ctr_mk_forced_form_matches_plain(card, bits, k, n, pattern, form):
+    w, c, rks, slots, nr = _mk_case(card, bits, k, n, pattern, seed=n * k + bits + 1)
+    before = dict(cuda_aes.ctr_scattered_multikey.form_launches)
+    got = cuda_aes.ctr_scattered_multikey(w, c, rks, slots, nr, form=form)
+    want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, slots, nr)
+    torch.cuda.synchronize()
+    assert cuda_aes.ctr_scattered_multikey.form_launches[form] == before[form] + 1
+    assert torch.equal(got, want)
+
+
+def test_ctr_mk_auto_form_follows_the_block_count(card):
+    """The serve ladder (32-4,096 blocks) takes the block form; the C
+    entry's threshold decides, and each launch counts under its form."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load()
+    for n in (32, 4096, 1 << 22):
+        w, c, rks, slots, nr = _mk_case(card, 128, 8, n, "runs", seed=n)
+        form = cuda_aes.MK_FORMS[lib.ot_ctr_mk_form(n, 0)]
+        before = dict(cuda_aes.ctr_scattered_multikey.form_launches)
+        got = cuda_aes.ctr_scattered_multikey(w, c, rks, slots, nr)
+        assert torch.equal(got, cuda_aes.ctr_scattered_multikey_plain(w, c, rks, slots, nr))
+        assert cuda_aes.ctr_scattered_multikey.form_launches[form] == before[form] + 1
+        if n <= 4096:
+            assert form == "block"
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("cfb", [False, True])
+@pytest.mark.parametrize("s,n", [(1, 1), (1, 2), (1, 33), (3, 33), (100, 5), (4096, 2),
+                                 (1, 4096)])
+def test_seq_kernel_matches_plain(card, bits, cfb, s, n):
+    rng = np.random.default_rng(bits + s + n + cfb)
+    nr, rk = expand_key_enc(rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes())
+    w = rng.integers(0, 2**32, (s, n, 4), dtype=np.uint64).astype(np.uint32)
+    iv = rng.integers(0, 2**32, (s, 4), dtype=np.uint64).astype(np.uint32)
+    args = (packing.words_tensor(w, card), packing.words_tensor(iv, card),
+            packing.words_tensor(rk, card), nr, cfb)
+    before = cuda_aes.seq_encrypt.launches
+    got = cuda_aes.seq_encrypt(*args)
+    want = cuda_aes.seq_encrypt_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_aes.seq_encrypt.launches == before + 1
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_sequential_encrypts_launch_once_per_call(card):
+    rng = np.random.default_rng(9)
+    nr, rk = expand_key_enc(rng.integers(0, 256, 16, dtype=np.uint8).tobytes())
+    w = rng.integers(0, 2**32, (8, 50, 4), dtype=np.uint64).astype(np.uint32)
+    iv = rng.integers(0, 2**32, (8, 4), dtype=np.uint64).astype(np.uint32)
+    for fn, args in ((aes.cbc_encrypt_words, (w[0], iv[0], rk)),
+                     (aes.cfb128_encrypt_words, (w[0], iv[0], rk)),
+                     (aes.cbc_encrypt_words_batch, (w, iv, rk))):
+        seq0, ecb0 = cuda_aes.seq_encrypt.launches, cuda_aes.encrypt_words.launches
+        got = fn(*(packing.words_tensor(x, card) for x in args), nr)
+        torch.cuda.synchronize()
+        assert (cuda_aes.seq_encrypt.launches - seq0, cuda_aes.encrypt_words.launches - ecb0) == (1, 0)
+        want = fn(*(packing.words_tensor(x, "cpu") for x in args), nr)
+        for g, x in zip(got, want):
+            assert torch.equal(g.cpu(), x)
+
+
+def test_latency_chain_matches_plain(card):
+    from our_tree_tpu_torch.harness import ceiling
+
+    _name, c, i = ceiling.LATENCY
+    x = torch.tensor([0x1234567], dtype=torch.int32, device=card)
+    before = ceiling.chain.launches
+    got = ceiling.chain(x, c, i)
+    want = ceiling.chain_plain(x, c, i)
     torch.cuda.synchronize()
     assert ceiling.chain.launches == before + 1
     assert torch.equal(got, want)

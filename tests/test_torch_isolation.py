@@ -158,3 +158,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
             wrapper(w.reshape(-1), rk, 10)
         with pytest.raises(ValueError):
             wrapper(w, rk[:40], 10)
+
+
+def test_cpu_tensor_takes_plain_chained_encrypt_and_counts_no_launch(monkeypatch):
+    """The chained CBC/CFB128 kernel and both ``ctr_mk`` forms: CPU tensors
+    reach the plain versions, with no build and no launch counted."""
+    def no_build():
+        raise AssertionError("a CPU tensor must not reach the kernel build")
+
+    monkeypatch.setattr(cuda_aes.cuda_build, "load", no_build)
+    monkeypatch.setattr(cuda_aes.seq_encrypt, "launches", 0)
+    monkeypatch.setattr(cuda_aes.encrypt_words, "launches", 0)
+    monkeypatch.setattr(cuda_aes.ctr_scattered_multikey, "form_launches",
+                        {"group": 0, "block": 0})
+    ctx = aes.AES(bytes(range(16)), device="cpu", engine=aes.CUDA_ENGINE)
+    data = np.arange(96, dtype=np.uint8)
+    ctx.crypt_cbc(aes.AES_ENCRYPT, np.zeros(16, np.uint8), data)
+    ctx.crypt_cfb128(aes.AES_ENCRYPT, 0, np.zeros(16, np.uint8), data)
+    w = packing.words_tensor(np.arange(3 * 5 * 4, dtype=np.uint32).reshape(3, 5, 4), "cpu")
+    aes.cbc_encrypt_words_batch(w, w[:, 0].contiguous(), ctx.rk_enc, ctx.nr, ctx.engine)
+    rks = ctx.rk_enc.reshape(1, -1)
+    slots = torch.zeros(15, dtype=torch.int32)
+    for form in cuda_aes.MK_FORMS:
+        cuda_aes.ctr_scattered_multikey(w.reshape(-1, 4), w.reshape(-1, 4), rks, slots, ctx.nr,
+                                        form=form)
+    assert cuda_aes.seq_encrypt.launches == 0 and cuda_aes.encrypt_words.launches == 0
+    assert cuda_aes.ctr_scattered_multikey.form_launches == {"group": 0, "block": 0}
