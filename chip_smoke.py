@@ -14,7 +14,8 @@ is not 0:
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
    source, in parallel), print ``ptxas -v`` per kernel;
 2. kernel vs plain version: ``ctr_gen`` at every counter wrap, and both ECB
-   kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20}; ``ctr_mk``
+   kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20, 2^24 + 7} (the
+   last a 256 MiB launch with a ragged tail); ``ctr_mk``
    for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
    with one slot, runs of 1-300 blocks, a random slot per block and unused
    zero schedules, and its K = 1 entry over counters from every wrap nonce,
@@ -79,8 +80,12 @@ is not 0:
    rungs, one block) also the latency bound, the dependent path of a
    thread's circuit counted in its SASS times the measured latency; the
    kernel's own SASS instruction count beside the operations (for
-   ``ctr_mk`` an upper bound); both ``ctr_mk`` forms at 32 to 2^24 blocks,
-   one slot and a random slot per block (the auto form's threshold table);
+   ``ctr_mk`` an upper bound), for both ECB kernels also their round loop's
+   (integer instructions, opcode histogram, dependency depth), and the
+   forward kernels' counts beside their counts from before the decrypt
+   kernel's redesign (``FORWARD_SASS``), which it must leave as they were;
+   both ``ctr_mk`` forms at 32 to 2^24 blocks, one slot and a random slot
+   per block (the auto form's threshold table);
 10. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -138,8 +143,15 @@ BP_SBOX_GATES = 115
 #: XORs of one column's MixColumns, the fewest known (Maximov, "AES
 #: MixColumn with 92 XOR gates", IACR ePrint 2019/833).
 MIXCOLUMN_XORS = 92
+#: The forward kernels' integer SASS at nr 10 as compiled before the decrypt
+#: kernel's redesign (per group of 32 blocks, or per block for the one-block
+#: forms), printed beside this build's: a decrypt-only change leaves them.
+FORWARD_SASS = {"ctr_gen": 21432, "ecb_encrypt": 22324, "ctr_mk_block": 2575, "seq_encrypt": 2637}
 BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
 SEQ_BLOCKS = 4096
+#: Phase 2's ECB sizes: ragged tails around one group and one thread block,
+#: 16 MiB, and a 256 MiB launch whose last group holds 7 blocks.
+ECB_SIZES = (1, 31, 33, 1000, 1 << 20, (1 << 24) + 7)
 SP800_PT = ("6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
             "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
 SP800_IV = "000102030405060708090a0b0c0d0e0f"
@@ -223,14 +235,14 @@ def ecb_ops_per_group(nr: int, decrypt: bool) -> tuple[float, dict]:
     AddRoundKeys of 128 XORs and eight 32x32 transposes (four in, four out).
 
     Both directions count the same. Encrypt S-boxes are Boyar-Peralta's 115
-    gates. The inverse S-box is credited with the same 115: the decrypt
-    kernel runs that core conjugated by the inverse affine map, and A^-1 on
-    either side (linear) and the 0x05 constant (NOTs) fold into the core's
-    top and bottom linear layers; the kernel's own 32 extra XORs are not
-    counted. InvMixColumns is credited with MixColumns' 92 XORs, a
-    deliberately low figure: its matrix is the denser of the two, and the
-    bound must not count work the function may not need. The kernel's own
-    form (the forward 92 after a 58-XOR pre-transform) is not counted."""
+    gates. The inverse S-box is credited with the same 115: A^-1 on either
+    side of that core (linear) and the 0x05 constant (NOTs) fold into its
+    top and bottom linear layers, as the decrypt kernel's dedicated circuit
+    does (22 and 17 steps of 3-input XOR around the same 62-gate middle).
+    InvMixColumns is credited with MixColumns' 92 XORs, a deliberately low
+    figure: its matrix is the denser of the two, and the bound must not
+    count work the function may not need. The kernel's own form (113 steps
+    of 2- or 3-input XOR a column, the key included) is not counted."""
     gates = {
         "sbox": 16 * nr * BP_SBOX_GATES,
         "inv_mixcolumns" if decrypt else "mixcolumns": 4 * (nr - 1) * MIXCOLUMN_XORS,
@@ -379,15 +391,23 @@ def sass_dep_depth(ins: list, lo: int, hi: int) -> int:
 
 def sass_round_loops(text: str, kernel: str, targs) -> list:
     """The innermost loops of ``kernel``<targs> (loops that hold no other
-    loop), largest first: [{"range", "int", "depth"}], ``int`` the integer
-    instructions of one trip and ``depth`` its dependency depth
-    (``sass_dep_depth``). In the AES kernels the largest is the rolled round
-    loop, one round a trip."""
+    loop), largest first: [{"range", "int", "depth", "hist"}], ``int`` the
+    integer instructions of one trip, ``depth`` its dependency depth
+    (``sass_dep_depth``) and ``hist`` its integer opcodes by count. In the
+    AES kernels the largest is the rolled round loop, one round a trip."""
     ins, back = sass_function(text, kernel, targs)
     inner = [(lo, hi) for lo, hi in back
              if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back)]
+
+    def hist(lo, hi):
+        h: dict = {}
+        for a, b, _t in ins:
+            if lo <= a <= hi and _is_int_op(b):
+                h[b] = h.get(b, 0) + 1
+        return dict(sorted(h.items(), key=lambda kv: -kv[1]))
+
     loops = [{"range": (lo, hi), "int": sum(_is_int_op(b) for a, b, _t in ins if lo <= a <= hi),
-              "depth": sass_dep_depth(ins, lo, hi)} for lo, hi in inner]
+              "depth": sass_dep_depth(ins, lo, hi), "hist": hist(lo, hi)} for lo, hi in inner]
     if not loops:
         raise RuntimeError(f"no loop in {kernel}<{targs}>")
     return sorted(loops, key=lambda lp: -lp["int"])
@@ -622,7 +642,7 @@ def main() -> int:
     for bits in (128, 192, 256):
         nr, rk, rk_dec = schedules(np.random.default_rng(bits).integers(
             0, 256, bits // 8, dtype=np.uint8).tobytes())
-        for n in (1, 31, 33, 1000, 1 << 20):
+        for n in ECB_SIZES:
             w = random_words(n, seed=3 * n + bits)
             for name, kernel, plain, sched in (
                     ("ecb_encrypt", cuda_aes.encrypt_words, bitslice.encrypt_words, rk),
@@ -631,7 +651,9 @@ def main() -> int:
                 ecb_mismatches[name] += m
                 if m:
                     log(f"MISMATCH {name} bits={bits} n={n}: {m} words")
-    log(f"ECB kernels vs plain: 15 cases each, mismatching words {ecb_mismatches}")
+            del w
+    log(f"ECB kernels vs plain: {3 * len(ECB_SIZES)} cases each (nr 10/12/14, N in {ECB_SIZES}), "
+        f"mismatching words {ecb_mismatches}")
     if any(ecb_mismatches.values()):
         raise SystemExit("an ECB kernel disagrees with its plain version")
 
@@ -1194,6 +1216,12 @@ def main() -> int:
         entry = timing(name, kernel_fn, plain_fn, got, want, fn_ops, parts, nbytes,
                        MAIN_BYTES // 16, sass_ops, nr=nr)
         log(f"{name} top opcodes {list(hist.items())[:8]}")
+        if name.startswith("ecb_"):
+            loop = sass_round_loops(sass_text, f"{name}_kernel", nr)[0]
+            entry["sass_round_loop"] = loop
+            log(f"{name} round loop (one round a trip): {loop['int']} integer instructions, "
+                f"dependency depth {loop['depth']}, opcodes {loop['hist']}; ptxas "
+                f"{ptxas.get(f'{name}_kernel<{nr}>')}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches, **entry, "library_ms": None})
 
@@ -1367,6 +1395,13 @@ def main() -> int:
         f"{[lp['depth'] for lp in mk_loops]}; block form round loop {blk_loop['int']} integer "
         f"instructions, depth {blk_loop['depth']}, about {blk_int} a block; ptxas "
         f"{ptxas.get(f'ctr_mk_kernel<{nr}>')} / {ptxas.get(f'ctr_mk_block_kernel<{nr}>')}")
+    fwd = {e["name"]: e["sass_instructions_per_group"] for e in kernels
+           if e["name"] in ("ctr_gen", "ecb_encrypt")}
+    fwd.update(ctr_mk_block=blk_int, seq_encrypt=seq_int[0])
+    log("forward kernels' integer SASS at nr 10 (this build; before the decrypt redesign): "
+        + ", ".join(f"{k} {fwd[k]} ({v}, {'same' if fwd[k] == v else 'differs'})"
+                    for k, v in FORWARD_SASS.items())
+        + "; per group for ctr_gen and ecb_encrypt, per block for ctr_mk_block and seq_encrypt")
     mk_ops, mk_parts = mk_ops_per_group(nr)
     nr8, rks8 = mk_stack(128, 8, seed=8)
     rung = 4096

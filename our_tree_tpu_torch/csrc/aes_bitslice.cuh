@@ -1,5 +1,5 @@
 // Bitsliced AES arithmetic shared by the port's kernels (ctr_gen.cu, ecb.cu,
-// ctr_mk.cu):
+// ctr_mk.cu; the decrypt direction is in aes_inv_bitslice.cuh):
 // the state of one group of 32 blocks held as 128 bit planes in registers
 // (plane 8p+b = bit b of state byte p, lane bit t = block t of the group).
 // Every function here reads memory only at addresses fixed by the round and
@@ -79,37 +79,9 @@ __device__ __forceinline__ void sbox_bp_circuit(uint32_t* x) {
 // Forward S-box on one byte's planes, in place.
 __device__ __forceinline__ void sbox_bp(uint32_t* x) { sbox_bp_circuit<true>(x); }
 
-// A^-1, the linear part of the inverse affine map, on planes:
-// A^-1(x) = rotl(x, 1) ^ rotl(x, 3) ^ rotl(x, 6), so out bit i is
-// x[i-1] ^ x[i-3] ^ x[i-6] (indices mod 8). 16 XORs.
-__device__ __forceinline__ void inv_affine_linear(uint32_t* x) {
-  uint32_t y[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) y[i] = x[(i + 7) & 7] ^ x[(i + 5) & 7] ^ x[(i + 2) & 7];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = y[i];
-}
-
-// Inverse S-box on one byte's planes, in place, by conjugating the forward
-// core: InvS(x) = A^-1(core(A^-1(x) ^ 0x05)), where core(z) = A(z^-1) is the
-// Boyar-Peralta circuit without its 0x63 and A^-1(0x63) = 0x05. 115 gates of
-// the core, 32 XORs of the two linear layers and two NOTs (planes 0 and 2).
-__device__ __forceinline__ void inv_sbox_bp(uint32_t* x) {
-  inv_affine_linear(x);
-  x[0] = ~x[0];
-  x[2] = ~x[2];
-  sbox_bp_circuit<false>(x);
-  inv_affine_linear(x);
-}
-
 // ShiftRows source of byte i: new[4c+r] = old[4((c+r)%4)+r].
 __device__ __forceinline__ constexpr int sr(int i) {
   return 4 * ((i / 4 + i % 4) % 4) + i % 4;
-}
-
-// InvShiftRows source of byte i: new[4c+r] = old[4((c-r)%4)+r].
-__device__ __forceinline__ constexpr int isr(int i) {
-  return 4 * ((i / 4 - i % 4 + 4) % 4) + i % 4;
 }
 
 // xtime over planes: x^8 = x^4 + x^3 + x + 1.
@@ -167,48 +139,6 @@ __device__ __forceinline__ void aes_round(uint32_t (&s)[128], const uint32_t* km
   for (int k = 0; k < 128; ++k) s[k] = o[k];
 }
 
-// One inverse round with the InvMixColumns-folded schedule: InvSubBytes,
-// InvShiftRows, InvMixColumns unless LAST, AddRoundKey (km). InvMixColumns
-// is MixColumns of d_r = a_r ^ 4(a_r ^ a_(r+2)); a_r ^ a_(r+2) takes two
-// values per column (r = 0, 1), and x4 is two xtimes.
-template <bool LAST>
-__device__ __forceinline__ void aes_inv_round(uint32_t (&s)[128], const uint32_t* km) {
-#pragma unroll
-  for (int p = 0; p < 16; ++p) inv_sbox_bp(&s[8 * p]);
-  uint32_t o[128];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    uint32_t a[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) a[r][b] = s[8 * isr(4 * c + r) + b];
-    if (LAST) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) o[32 * c + 8 * r + b] = a[r][b] ^ km[32 * c + 8 * r + b];
-    } else {
-      uint32_t f[2][8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t t[8], x2[8];
-#pragma unroll
-        for (int b = 0; b < 8; ++b) t[b] = a[h][b] ^ a[h + 2][b];
-        xtime(t, x2);
-        xtime(x2, f[h]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) a[r][b] ^= f[r & 1][b];
-      mix_column(a, km + 32 * c, &o[32 * c]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 128; ++k) s[k] = o[k];
-}
-
 // In-place 32x32 bit transpose of a[0..31]: out[i] bit t = in[t] bit i.
 __device__ __forceinline__ void transpose32(uint32_t* a) {
   uint32_t m = 0x0000FFFFu;
@@ -224,14 +154,14 @@ __device__ __forceinline__ void transpose32(uint32_t* a) {
   }
 }
 
-// ECB of one group of 32 blocks in place. On entry and on return s[32c + t]
-// is word c (little-endian) of block t. kmask holds key_mask(rk, i) for
-// i < 128(NR+1): the encrypt schedule for the forward direction, the
-// InvMixColumns-folded decrypt schedule (rk_dec[0] the whitening key) for
-// DECRYPT. The column transposes turn words into planes: after them,
-// s[32c + 8a + b] is bit b of byte 4c + a, i.e. plane 8p + b.
-template <int NR, bool DECRYPT>
-__device__ __forceinline__ void ecb_group(uint32_t (&s)[128], const uint32_t* kmask) {
+// ECB encrypt of one group of 32 blocks in place. On entry and on return
+// s[32c + t] is word c (little-endian) of block t. kmask holds key_mask(rk,
+// i) for i < 128(NR+1) of the encrypt schedule. The column transposes turn
+// words into planes: after them, s[32c + 8a + b] is bit b of byte 4c + a,
+// i.e. plane 8p + b. The decrypt counterpart is ecb_decrypt_group
+// (aes_inv_bitslice.cuh).
+template <int NR>
+__device__ __forceinline__ void ecb_encrypt_group(uint32_t (&s)[128], const uint32_t* kmask) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) transpose32(&s[32 * c]);
 #pragma unroll
@@ -239,12 +169,8 @@ __device__ __forceinline__ void ecb_group(uint32_t (&s)[128], const uint32_t* km
   // The round loop is not unrolled, to keep the code inside the instruction
   // cache; each round is straight-line.
 #pragma unroll 1
-  for (int r = 1; r < NR; ++r) {
-    if (DECRYPT) aes_inv_round<false>(s, kmask + 128 * r);
-    else aes_round<false>(s, kmask + 128 * r);
-  }
-  if (DECRYPT) aes_inv_round<true>(s, kmask + 128 * NR);
-  else aes_round<true>(s, kmask + 128 * NR);
+  for (int r = 1; r < NR; ++r) aes_round<false>(s, kmask + 128 * r);
+  aes_round<true>(s, kmask + 128 * NR);
 #pragma unroll
   for (int c = 0; c < 4; ++c) transpose32(&s[32 * c]);
 }

@@ -8,14 +8,16 @@
 // direction serves them all. The plain versions of the same arithmetic are
 // bitslice.encrypt_words and bitslice.decrypt_words
 // (our_tree_tpu_torch/ops/bitslice.py), whose inverse S-box is the tower
-// form: the kernel's conjugated Boyar-Peralta inverse and the plain version
-// are two independent formulations that must agree.
+// form: the kernel's dedicated inverse circuit and the plain version are two
+// independent formulations that must agree.
 //
 // Bound. Per 16-byte block the kernel reads 16 bytes and writes 16 bytes, but
 // the cipher is a boolean circuit of about 50 two-input gates per byte. At 64
 // integer instructions per clock per SM the card runs out of issue slots long
-// before HBM runs out of bytes, so the kernel is bound by operations
-// (chip_smoke.py counts them).
+// before HBM runs out of bytes, so both kernels are bound by operations:
+// 14,120 a group of 32 blocks at nr 10 (chip_smoke.py's ecb_ops_per_group,
+// the same count for both directions). Each kernel issues its own SASS at
+// about 90 % of the card's integer rate, so its time is its instruction count.
 //
 // Design: ctr_gen's shape (ctr_gen.cu), with the counters replaced by loads.
 //   * Each thread owns one group of 32 consecutive blocks; 128 threads make a
@@ -27,24 +29,28 @@
 //     bit transposes turn them into planes. The round loop is rolled, each
 //     round straight-line; four transposes turn the planes back into words,
 //     and only blocks below n are stored.
-//   * Encrypt: Boyar-Peralta S-box, ShiftRows as register renaming,
-//     MixColumns as xtime plus XOR. Decrypt: the inverse S-box as the
-//     Boyar-Peralta core conjugated by the inverse affine map (chosen to
-//     reuse the forward core ctr_gen runs, not a dedicated inverse circuit
-//     such as Maximov and Ekdahl's, TCHES 2019(4)), InvShiftRows,
-//     InvMixColumns as MixColumns of a x4 pre-transform, and the
-//     InvMixColumns-folded schedule.
+//   * Encrypt (aes_bitslice.cuh): Boyar-Peralta S-box, ShiftRows as register
+//     renaming, MixColumns as xtime plus XOR.
+//   * Decrypt (aes_inv_bitslice.cuh), written for LOP3, which computes any
+//     function of three registers: a dedicated inverse S-box,
+//     A^-1 B M(U(A^-1 y ^ 0x05)) around the forward circuit's 62-gate middle
+//     M, whose linear layers U' = U A^-1 and B' = A^-1 B were derived from
+//     the forward layers and synthesised as 22 and 17 steps of 2- or 3-input
+//     XORs (ops/xor_programs.py; the constant 0x05 as NOTs that LOP3
+//     absorbs); InvShiftRows as register renaming; InvMixColumns plus
+//     AddRoundKey as 113 such steps a column, each key plane in the last
+//     step of its output plane; the InvMixColumns-folded schedule; the
+//     transposes' 16- and 8-bit stages as byte permutes.
 //   * A warp's uint4 loads and stores stride 512 bytes (each thread reads its
 //     own 512 contiguous bytes); staging through shared memory for coalescing
 //     is later work.
 // Constant time: no address depends on key or data, only on the block index,
-// the round and the word number; there are no tables. The arithmetic is in
-// aes_bitslice.cuh.
+// the round and the word number; there are no tables.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "aes_bitslice.cuh"
+#include "aes_inv_bitslice.cuh"
 
 namespace {
 
@@ -75,7 +81,8 @@ __device__ __forceinline__ void ecb_body(const uint4* __restrict__ in, uint4* __
     s[96 + t] = d.w;
   }
 
-  aes_bitslice::ecb_group<NR, DECRYPT>(s, kmask);
+  if constexpr (DECRYPT) aes_bitslice::ecb_decrypt_group<NR>(s, kmask);
+  else aes_bitslice::ecb_encrypt_group<NR>(s, kmask);
 
 #pragma unroll
   for (int t = 0; t < 32; ++t) {

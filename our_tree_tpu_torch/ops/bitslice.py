@@ -570,8 +570,8 @@ def sbox_planes(p: list, impl: str = "bp") -> list:
 def inv_sbox_planes(p: list) -> list:
     """Inverse S-box on 8 stacked bit planes in the tower form, the
     reference's default and the plain version of the ECB decrypt kernel
-    (which runs another formulation: the Boyar-Peralta core conjugated by
-    the inverse affine map)."""
+    (which runs an independent formulation: a dedicated circuit around the
+    Boyar-Peralta middle, ``ops/xor_programs.py``)."""
     t = apply_linear(M_ISBOX_IN, xor_const(list(p), AFF_CONST))
     return apply_linear(M_ISBOX_OUT, tower_inv_planes(t))
 

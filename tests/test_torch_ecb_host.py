@@ -1,22 +1,28 @@
-"""The ECB kernels' arithmetic (``csrc/aes_bitslice.cuh``: both S-boxes, both
-round forms, the transposes, ``ecb_group``) compiled as host C++ with g++ and
-held bit-exact against the plain torch version. The kernels' loads, stores and
-ragged-tail mask run only on the card (``tests/test_torch_cuda.py``)."""
+"""The ECB kernels' arithmetic (``csrc/aes_bitslice.cuh`` and
+``csrc/aes_inv_bitslice.cuh``: both S-boxes, both round forms, the
+transposes, ``ecb_encrypt_group`` and ``ecb_decrypt_group``) compiled as host
+C++ with g++ and held bit-exact against the plain torch version, and the
+decrypt header's generated blocks held equal to what
+``ops/xor_programs.py`` derives. The kernels' loads, stores and ragged-tail
+mask run only on the card (``tests/test_torch_cuda.py``)."""
 
 import ctypes
 import shutil
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from our_tree_tpu_torch.ops import bitslice, tables
+from our_tree_tpu.ops import bitslice as jbitslice
+from our_tree_tpu_torch.ops import bitslice, tables, xor_programs
 from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
 from our_tree_tpu_torch.runtime import cuda_build
 from our_tree_tpu_torch.utils import packing
 
 HOST_SOURCE = r"""
-#include "aes_bitslice.cuh"
+#include "aes_inv_bitslice.cuh"
 
 template <int NR, bool DECRYPT>
 static void run(const uint32_t* rk, const uint32_t* in, int groups, uint32_t* out) {
@@ -26,7 +32,8 @@ static void run(const uint32_t* rk, const uint32_t* in, int groups, uint32_t* ou
     uint32_t s[128];
     for (int t = 0; t < 32; ++t)
       for (int c = 0; c < 4; ++c) s[32 * c + t] = in[4 * (32 * g + t) + c];
-    aes_bitslice::ecb_group<NR, DECRYPT>(s, kmask);
+    if (DECRYPT) aes_bitslice::ecb_decrypt_group<NR>(s, kmask);
+    else aes_bitslice::ecb_encrypt_group<NR>(s, kmask);
     for (int t = 0; t < 32; ++t)
       for (int c = 0; c < 4; ++c) out[4 * (32 * g + t) + c] = s[32 * c + t];
   }
@@ -46,8 +53,20 @@ extern "C" int ecb_groups(const uint32_t* rk, int nr, int decrypt, const uint32_
 }
 
 extern "C" void sbox_planes(uint32_t* x, int inverse) {
-  if (inverse) aes_bitslice::inv_sbox_bp(x);
+  if (inverse) aes_bitslice::inv_sbox(x);
   else aes_bitslice::sbox_bp(x);
+}
+
+// a: one column's 32 planes (8r + b = bit b of row r), km: its 32 key planes.
+extern "C" void inv_mix_planes(const uint32_t* a, const uint32_t* km, uint32_t* o) {
+  uint32_t col[4][8];
+  for (int i = 0; i < 32; ++i) col[i / 8][i % 8] = a[i];
+  aes_bitslice::inv_mix_column(col, km, o);
+}
+
+extern "C" void transpose_words(uint32_t* a, int prmt) {
+  if (prmt) aes_bitslice::transpose32_prmt(a);
+  else aes_bitslice::transpose32(a);
 }
 """
 
@@ -68,6 +87,10 @@ def host_lib(tmp_path_factory):
     lib.ecb_groups.restype = ctypes.c_int
     lib.sbox_planes.argtypes = [vp, ctypes.c_int]
     lib.sbox_planes.restype = None
+    lib.inv_mix_planes.argtypes = [vp, vp, vp]
+    lib.inv_mix_planes.restype = None
+    lib.transpose_words.argtypes = [vp, ctypes.c_int]
+    lib.transpose_words.restype = None
     return lib
 
 
@@ -82,14 +105,17 @@ def _host_ecb(lib, rk, nr, decrypt, words):
     return out
 
 
-def _host_sbox(lib, inverse):
-    """The host S-box on all 256 inputs: 8 groups of 32 lanes."""
-    x = np.arange(256, dtype=np.uint32).reshape(8, 32)
+def _host_sbox(lib, inverses, x=None):
+    """The header's S-boxes on all 256 inputs (8 groups of 32 lanes), or on
+    ``x``: each of ``inverses`` in turn (True: the inverse S-box)."""
+    x = np.arange(256, dtype=np.uint32) if x is None else np.asarray(x, np.uint32)
+    x = x.reshape(8, 32)
     got = np.zeros(256, np.uint32)
     for k in range(8):
         planes = np.array([sum(int((x[k, t] >> b) & 1) << t for t in range(32))
                            for b in range(8)], np.uint32)
-        lib.sbox_planes(planes.ctypes.data, int(inverse))
+        for inverse in inverses:
+            lib.sbox_planes(planes.ctypes.data, int(inverse))
         for t in range(32):
             got[32 * k + t] = sum(((int(planes[b]) >> t) & 1) << b for b in range(8))
     return got
@@ -97,8 +123,91 @@ def _host_sbox(lib, inverse):
 
 @pytest.mark.parametrize("inverse", [False, True])
 def test_host_sbox_exhaustive(host_lib, inverse):
+    """Every byte in every lane: the groups put byte 32k + t in lane t."""
     want = tables.INV_SBOX if inverse else tables.SBOX
-    np.testing.assert_array_equal(_host_sbox(host_lib, inverse), want)
+    np.testing.assert_array_equal(_host_sbox(host_lib, [inverse]), want)
+    # And each byte in the other lanes: rotate the bytes across the lanes.
+    for shift in (1, 13, 31):
+        x = np.roll(np.arange(256, dtype=np.uint32).reshape(8, 32), shift, axis=1).reshape(-1)
+        np.testing.assert_array_equal(_host_sbox(host_lib, [inverse], x), want[x])
+
+
+def test_host_inv_sbox_matches_tower_forms(host_lib):
+    """The dedicated inverse circuit over all 256 bytes against the port's
+    plain tower form and the JAX reference's inverse S-box, the same bytes
+    through each."""
+    x = np.arange(256, dtype=np.int64)
+    planes = [-((x >> b) & 1) for b in range(8)]
+    port = bitslice.inv_sbox_planes([torch.from_numpy(p.astype(np.int32)) for p in planes])
+    ref = jbitslice.inv_sbox_planes([jnp.asarray(p.astype(np.uint32)) for p in planes])
+    port_b = sum((o.numpy().astype(np.int64) & 1) << b for b, o in enumerate(port))
+    ref_b = sum((np.asarray(o).astype(np.int64) & 1) << b for b, o in enumerate(ref))
+    got = _host_sbox(host_lib, [True])
+    np.testing.assert_array_equal(got, port_b)
+    np.testing.assert_array_equal(got, ref_b)
+
+
+@pytest.mark.parametrize("order", [(False, True), (True, False)], ids=["inv_after_s", "s_after_inv"])
+def test_host_sbox_round_trip(host_lib, order):
+    """InvS(S(x)) and S(InvS(x)) are x for all 256 bytes, through the header."""
+    np.testing.assert_array_equal(_host_sbox(host_lib, order), np.arange(256))
+
+
+def test_host_inv_mix_column_matches_plain(host_lib):
+    """inv_mix_column plus its key planes on random columns against the
+    port's bitslice.inv_mixcolumns_planes and the JAX reference's (4
+    columns, 32 lanes each)."""
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        state = rng.integers(-2**31, 2**31, (8, 16, 1), dtype=np.int64).astype(np.int32)
+        keys = rng.integers(-2**31, 2**31, (8, 16), dtype=np.int64).astype(np.int32)
+        out = bitslice.inv_mixcolumns_planes([torch.from_numpy(state[b]) for b in range(8)])
+        want = np.stack([out[b].numpy()[:, 0] for b in range(8)]) ^ keys
+        ref = jbitslice.inv_mixcolumns_planes([jnp.asarray(state[b].view(np.uint32))
+                                               for b in range(8)])
+        np.testing.assert_array_equal(
+            np.stack([np.asarray(ref[b])[:, 0] for b in range(8)]).view(np.int32) ^ keys, want)
+        for c in range(4):
+            col = np.array([state[b, 4 * c + r, 0] for r in range(4) for b in range(8)],
+                           np.int32).view(np.uint32)
+            km = np.array([keys[b, 4 * c + r] for r in range(4) for b in range(8)],
+                          np.int32).view(np.uint32)
+            got = np.zeros(32, np.uint32)
+            host_lib.inv_mix_planes(col.ctypes.data, km.ctypes.data, got.ctypes.data)
+            np.testing.assert_array_equal(
+                got, np.array([want[b, 4 * c + r] for r in range(4) for b in range(8)],
+                              np.int32).view(np.uint32))
+
+
+def test_host_transpose_prmt_matches_transpose32(host_lib):
+    """The decrypt path's byte-permute transpose equals transpose32 and, like
+    it, is an involution."""
+    rng = np.random.default_rng(9)
+    for _ in range(8):
+        a = rng.integers(0, 2**32, 32, dtype=np.uint64).astype(np.uint32)
+        got, want = a.copy(), a.copy()
+        host_lib.transpose_words(got.ctypes.data, 1)
+        host_lib.transpose_words(want.ctypes.data, 0)
+        np.testing.assert_array_equal(got, want)
+        host_lib.transpose_words(got.ctypes.data, 1)
+        np.testing.assert_array_equal(got, a)
+
+
+@pytest.mark.parametrize("block", sorted(xor_programs.BLOCKS))
+def test_xor_programs_reproduce_header(block):
+    """The header's generated blocks are what the searches derive now."""
+    assert xor_programs.header_block(block) == xor_programs.BLOCKS[block]()
+
+
+def test_xor_programs_circuits_on_the_host():
+    """The derived programs themselves: InvS over all 256 bytes against the
+    table, InvMixColumns plus AddRoundKey on random columns; and their costs
+    in 3-input steps (22 and 17 for the S-box layers, 113 for a column)."""
+    xor_programs.check_inv_sbox()
+    xor_programs.check_inv_mix()
+    up, bp = xor_programs.inv_sbox_program()
+    assert (len(up), len(bp)) == (22, 17)
+    assert xor_programs.steps_of(*xor_programs.inv_mix_program()) == 113
 
 
 def _case(bits, groups):
