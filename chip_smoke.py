@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its four
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its five
 paths, AES-128-CTR over one 256 MiB buffer with the bench chain, the
 ECB/CBC/CFB128 block-mode path over the same size, the measured roofline
 (the ceiling probe ``harness.ceiling`` and the serve bench's cost and
-profile sections that use its figure) and the multi-key CTR serve path
+profile sections that use its figure), the multi-key CTR serve path
 (``serve.bench``, the JAX package's two documented drives at the full
-ladder), and holds every kernel of those paths against its plain torch
+ladder) and the sweep harness (``harness.bench``, with ARC4 and the native C
+tier), and holds every kernel of those paths against its plain torch
 version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -25,7 +26,10 @@ is not 0:
    whole plain loop, at 4,096 against every plain step at once);
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
    at 64 MiB, and its 65,536-step latency chain over one word (mismatching
-   words must be 0);
+   words must be 0); ``arc4_prga`` for S in {1, 7, 32, 4096} streams x {1,
+   255, 4096, 2^16, 2^20} bytes, each as keystream, fused XOR and a resume
+   across two calls, against the first S rows of one timed plain run a
+   length on 4,096 streams (mismatching bytes must be 0);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
    the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
@@ -85,8 +89,24 @@ is not 0:
    forward kernels' counts beside their counts from before the decrypt
    kernel's redesign (``FORWARD_SASS``), which it must leave as they were;
    both ``ctr_mk`` forms at 32 to 2^24 blocks, one slot and a random slot
-   per block (the auto form's threshold table);
-10. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
+   per block (the auto form's threshold table); a shared-memory load's
+   latency by a dependent-load chase (``CHASE_SOURCE``, built beside the
+   kernels), and ``arc4_prga`` at its timing shapes (32 x 2^20 bytes, the
+   rc4-batch rows' launch; 1 x 2^20; 4,096 x 2^16): time, plain time, the
+   table and measured-rate bounds, and the latency bound (the step's
+   recurrence, two dependent LDS and two dependent integer steps a byte, at
+   the measured latencies; the compiled main loop's longest path beside it);
+10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
+   processes of its own with ``OT_ARC4_PREP=native``: ``--timing device
+   --iters 5 --keybits 128`` over ecb, ecb-dec, ctr, cbc-dec and rc4 at 1,
+   16 and 256 MiB; cbc and cfb128 at 64 KiB; cbc-batch and rc4-batch with 32
+   streams at 32 MiB; ecb, ctr and rc4 at 16 and 256 MiB with ``--timing
+   e2e`` (staging included); the same three on ``--backend c``; rc4 at 1 MiB with
+   ``OT_ARC4_PREP=device``; gated on every self-test, parity and XOR line,
+   no ``# degraded:`` line, each unit's kernel launched (the harness's
+   ``# launches:`` lines) and ``--workers 2`` refused; each row's GB/s is
+   printed beside the CTR chain's;
+11. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
    equal to the window's dispatches, a cost row per warmed rung and
@@ -94,12 +114,13 @@ is not 0:
    window is the card's busy share under the profiler. It comes last, so
    that the profiler touches none of the timings before it.
 
-Phases 4, 5, 7, each drive of 8 and 10 run with every launch count set to
-0 just before and read just after: each path must have launched each of its
-kernels.
+Phases 4, 5, 7, each drive of 8 and 11 run with every launch count set to
+0 just before and read just after, and each run of phase 10 counts its own
+launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
-``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``chain``), the
+``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``chain``,
+``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
 result.
@@ -149,6 +170,61 @@ MIXCOLUMN_XORS = 92
 FORWARD_SASS = {"ctr_gen": 21432, "ecb_encrypt": 22324, "ctr_mk_block": 2575, "seq_encrypt": 2637}
 BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
 SEQ_BLOCKS = 4096
+#: Phase 2's ARC4 cases: streams x bytes, every pair. The plain version runs
+#: once a length, on ARC4_PLAIN_STREAMS streams; a launch on S streams is
+#: held against its first S rows (the streams are independent). 2^20 bytes
+#: is the harness's length (rc4-batch: 32 streams; rc4 with the keystream on
+#: the card: one), 2^16 that of the wide timing shape.
+ARC4_STREAMS = (1, 7, 32, 4096)
+ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 20)
+ARC4_PLAIN_STREAMS = max(ARC4_STREAMS)
+#: Phase 9's timing shapes, (streams, bytes): the rc4-batch rows' launch
+#: (the head of the kernels entry), one stream, and 4,096 streams (one warp
+#: on each of 128 SMs).
+ARC4_TIMED = {"path": (32, 1 << 20), "single": (1, 1 << 20), "wide": (4096, 1 << 16)}
+#: Integer operations of one PRGA step that the function needs: three adds
+#: and three masks (x + 1, y + a, a + b, each & 255). Its five shared-memory
+#: accesses are neither device-memory bytes nor table operations; their
+#: latency is what the latency bound counts.
+ARC4_OPS_PER_BYTE = 6
+#: The step's dependent recurrence from one byte to the next, as the step is
+#: written (the next byte's load of m[x] follows this byte's stores, which
+#: wait on b): the load of a = m[x], the add y + a, one address step (mask
+#: and offset), the load of b = m[y]. Two dependent shared-memory loads and
+#: two dependent integer steps a byte; the latency bound counts these.
+ARC4_RECURRENCE = {"lds": 2, "int": 2}
+#: The sweep harness's rows (phase 10): each mode's kernel, by mode.
+HARNESS_KERNEL = {"ecb": "ecb_encrypt", "ecb-dec": "ecb_decrypt", "ctr": "ctr_gen",
+                  "cbc-dec": "ecb_decrypt", "cbc": "seq_encrypt", "cfb128": "seq_encrypt",
+                  "cbc-batch": "seq_encrypt", "rc4-batch": "arc4_prga"}
+#: The dependent shared-memory load chase (phase 9): one thread walks a
+#: cycle of shared-memory addresses, each load's address the previous load's
+#: value, timed with the SM's cycle counter. Built with its own nvcc beside
+#: the kernels' build; a measurement probe, not a kernel of the port.
+CHASE_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void smem_chase(int steps, unsigned* out, long long* cycles) {
+  __shared__ unsigned s[1024];
+  const unsigned base = (unsigned)__cvta_generic_to_shared(s);
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) s[i] = base + 4u * ((i * 97u + 1u) % 1024u);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned j = base;
+  const long long t0 = clock64();
+#pragma unroll 32
+  for (int k = 0; k < steps; ++k) asm volatile("ld.shared.u32 %0, [%0];" : "+r"(j));
+  const long long t1 = clock64();
+  out[0] = j;
+  cycles[0] = t1 - t0;
+}
+
+extern "C" int ot_smem_chase(int steps, void* out, void* cycles) {
+  smem_chase<<<1, 32>>>(steps, static_cast<unsigned*>(out), static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
+}
+"""
 #: Phase 2's ECB sizes: ragged tails around one group and one thread block,
 #: 16 MiB, and a 256 MiB launch whose last group holds 7 blocks.
 ECB_SIZES = (1, 31, 33, 1000, 1 << 20, (1 << 24) + 7)
@@ -496,6 +572,71 @@ def trace_kernels(path: str, t0_us: int, t1_us: int) -> dict:
     return out
 
 
+def sass_weighted_path(ins: list, lo: int, hi: int, lds_cycles: float, alu_cycles: float) -> float:
+    """The longest dependent path through the SASS instructions at [lo, hi]
+    (one trip of a loop), in cycles: a shared-memory load (LDS) is ready
+    ``lds_cycles`` after its address and after the issue of every earlier
+    shared-memory store (a thread's shared-memory accesses stay in order), an
+    integer instruction ``alu_cycles`` after its inputs; a store issues when
+    its address and value are ready. Values live on entry start at 0."""
+    ready: dict = {}
+    last_store = 0.0
+    best = 0.0
+    for addr, base, text in ins:
+        if not lo <= addr <= hi:
+            continue
+        dst, srcs = _sass_dst_srcs(base, text)
+        start = max((ready.get(r, 0.0) for r in srcs), default=0.0)
+        if base == "STS":
+            last_store = max(last_store, start)
+            continue
+        if base == "LDS":
+            done = max(start, last_store) + lds_cycles
+        elif _is_int_op(base):
+            done = start + alu_cycles
+        else:
+            continue
+        for r in dst:
+            ready[r] = done
+        best = max(best, done)
+    return best
+
+
+def cpu_model() -> str:
+    """The host CPU as ``lscpu`` names it (vendor, model name, family and
+    model numbers, cores), for the native tier's rows; a virtual machine may
+    report its model name as unknown."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return "not read"
+    fields = {k.strip(): v for k, v in (ln.split(":", 1) for ln in out.splitlines() if ":" in ln)}
+    keys = ("Vendor ID", "Model name", "CPU family", "Model", "CPU(s)", "Flags")
+    got = {k: fields[k].strip() for k in keys if k in fields}
+    if "Flags" in got:
+        got["Flags"] = "aes" if " aes " in f" {got['Flags']} " else "no aes"
+    return "; ".join(f"{k} {v}" for k, v in got.items()) or "not read"
+
+
+def harness_rows(out: str) -> list[dict]:
+    """The sweep's result rows: {row, bytes, times_us, gbps} (``gbps`` from
+    its ``# derived:`` line, None for n/a), and for RC4 the keygen µs."""
+    rows: list[dict] = []
+    for line in out.splitlines():
+        if re.match(r"(GPU AES-\d+ |C AES-\d+ |RC4)[^,]*, \d+, \d+,", line):
+            parts = [p.strip() for p in line.split(",") if p.strip()]
+            rows.append({"row": ", ".join(parts[:3]), "bytes": int(parts[1]),
+                         "times_us": [int(p) for p in parts[3:]], "gbps": None})
+        elif line.startswith("Generated a new key in") and rows:
+            rows[-1]["keygen_us"] = int(line.split()[-1].rstrip(","))
+        elif rows and re.fullmatch(r"(\d+, )*\d+,", line.strip()):
+            rows[-1]["times_us"] = [int(p) for p in line.strip().rstrip(",").split(", ")]
+        elif line.startswith("# derived:") and rows:
+            m = re.match(r"# derived: ([0-9.e+-]+) GB/s", line)
+            rows[-1]["gbps"] = float(m.group(1)) if m else None
+    return rows
+
+
 def mk_ops_per_group(nr: int) -> tuple[float, dict]:
     """Operations multi-key CTR needs for one group of 32 blocks: the ECB
     encrypt count (``ecb_ops_per_group``) plus the keystream XORed into the
@@ -518,8 +659,8 @@ def main() -> int:
 
     from our_tree_tpu_torch import bench
     from our_tree_tpu_torch.harness import ceiling
-    from our_tree_tpu_torch.models import aes
-    from our_tree_tpu_torch.ops import bitslice, cuda_aes
+    from our_tree_tpu_torch.models import aes, arc4
+    from our_tree_tpu_torch.ops import bitslice, cuda_aes, cuda_arc4
     from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
     from our_tree_tpu_torch.runtime import cuda_build
     from our_tree_tpu_torch.utils import packing
@@ -533,7 +674,8 @@ def main() -> int:
                 "ctr_mk": cuda_aes.ctr_scattered_multikey,
                 "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
                 "chain": ceiling.chain,
-                "seq_encrypt": cuda_aes.seq_encrypt}
+                "seq_encrypt": cuda_aes.seq_encrypt,
+                "arc4_prga": cuda_arc4.prga}
     mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
                    "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit}
 
@@ -553,8 +695,22 @@ def main() -> int:
     # 1. Build.
     t0 = time.perf_counter()
     lib_path = str(cuda_build.library_path())
+    # The shared-memory chase of phase 9 builds beside the kernels, at once.
+    chase_dir = tempfile.mkdtemp(prefix="ot_chase_")
+    atexit.register(shutil.rmtree, chase_dir, True)
+    chase_cu, chase_so = os.path.join(chase_dir, "chase.cu"), os.path.join(chase_dir, "chase.so")
+    with open(chase_cu, "w", encoding="utf-8") as fh:
+        fh.write(CHASE_SOURCE)
+    chase_build = subprocess.Popen(
+        [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", cuda_build.ARCH, "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", chase_so, chase_cu],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     cuda_build.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)}")
+    _, chase_err = chase_build.communicate(timeout=600)
+    if chase_build.returncode:
+        raise SystemExit(f"the shared-memory chase did not build:\n{chase_err[-3000:]}")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
+        f"shared-memory chase)")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
@@ -788,6 +944,64 @@ def main() -> int:
         f"{ceiling.LATENCY[1]}-step latency chain over one word), {chain_mismatch} mismatching words")
     if chain_mismatch:
         raise SystemExit("chain disagrees with its plain version")
+    # arc4_prga against prga_plain: the keystream, the fused XOR and a resume
+    # across two calls (a third of the bytes, then the rest), for every
+    # streams x bytes pair. The plain version runs once a length on 4,096
+    # streams (timed for the kernels line); a launch on S streams is held
+    # against its first S rows.
+    def arc4_states(s_n, seed):
+        rng = np.random.default_rng(seed)
+        m = np.stack([rng.permutation(256) for _ in range(s_n)])
+        return arc4.state_from_numpy((rng.integers(0, 256, s_n), rng.integers(0, 256, s_n), m),
+                                     dev)
+
+    def byte_diff(got, want):
+        """(mismatching elements, largest absolute difference among them)."""
+        ne = got != want
+        bad = int(ne.sum())
+        if not bad:
+            return 0, 0
+        return bad, int((got[ne].to(torch.int64) - want[ne].to(torch.int64)).abs().max())
+
+    arc4_bad, arc4_cases, arc4_inputs = 0, 0, {}
+    for n in ARC4_LENGTHS:
+        st = arc4_states(ARC4_PLAIN_STREAMS, seed=31 + n)
+        data = torch.randint(0, 256, (ARC4_PLAIN_STREAMS, n), dtype=torch.uint8, device=dev,
+                             generator=torch.Generator(dev).manual_seed(n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_st, want = cuda_arc4.prga_plain(st, n)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        want_x = data ^ want
+        err = 0
+        for s_n in ARC4_STREAMS:
+            st_s, data_s, cut = st[:s_n], data[:s_n], n // 3
+            got_st, got = cuda_arc4.prga(st_s, n)
+            f_st, fused = cuda_arc4.prga(st_s, n, data_s)
+            mid, first = cuda_arc4.prga(st_s, cut, data_s[:, :cut].contiguous())
+            end, second = cuda_arc4.prga(mid, n - cut, data_s[:, cut:].contiguous())
+            torch.cuda.synchronize()
+            diffs = [byte_diff(got, want[:s_n]), byte_diff(fused, want_x[:s_n]),
+                     byte_diff(first, want_x[:s_n, :cut]), byte_diff(second, want_x[:s_n, cut:])]
+            bad = (sum(m for m, _ in diffs)
+                   + sum(byte_diff(x, want_st[:s_n])[0] for x in (got_st, f_st, end)))
+            err = max([err] + [e for _, e in diffs])
+            arc4_bad += bad
+            arc4_cases += 1
+            if bad:
+                log(f"MISMATCH arc4_prga S={s_n} bytes={n}: {bad} bytes or state words")
+            del got, fused, first, second
+        arc4_inputs[n] = {"states": st, "plain_ms": plain_s * 1e3, "max_abs_err": err}
+        del data, want, want_x, want_st
+    torch.cuda.empty_cache()
+    log(f"arc4_prga vs plain: {arc4_cases} cases (S in {ARC4_STREAMS} x bytes in {ARC4_LENGTHS}, "
+        f"against the plain version's first S of {ARC4_PLAIN_STREAMS} streams), each keystream, "
+        f"fused XOR and a resume across two calls: {arc4_bad} mismatching bytes or state words; "
+        f"the plain version on {ARC4_PLAIN_STREAMS} streams "
+        f"{ {n: round(v['plain_ms'], 1) for n, v in arc4_inputs.items()} } ms by length")
+    if arc4_bad:
+        raise SystemExit("arc4_prga disagrees with its plain version")
 
     # 3. KATs and chunked resume through the AES context on the card.
     kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
@@ -887,6 +1101,7 @@ def main() -> int:
         raise SystemExit(f"main path digest is not {MAIN_DIGEST:#010x}: {line['metric']}")
     if ctr_counts["ctr_gen"] <= 0:
         raise SystemExit("the CTR main path launched no ctr_gen kernel")
+    ctr_gbps = line["value"]
     log(f"CTR main path: {line['value']} GB/s median (min {line['value_min']}, max "
         f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}; card: {card}")
 
@@ -1266,6 +1481,27 @@ def main() -> int:
         raise SystemExit("the latency chain is too short against its launch, or its SASS is not "
                          "one dependent LOP3 a step")
 
+    # A shared-memory load's latency: the dependent-load chase, one thread,
+    # its own cycle counter.
+    import ctypes
+
+    chase = ctypes.CDLL(chase_so)
+    chase.ot_smem_chase.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    chase.ot_smem_chase.restype = ctypes.c_int
+    chase_steps = 1 << 20
+    chase_out = torch.zeros(1, dtype=torch.int32, device=dev)
+    chase_cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    per_load = []
+    for _ in range(3):
+        if chase.ot_smem_chase(chase_steps, chase_out.data_ptr(), chase_cycles.data_ptr()):
+            raise SystemExit("the shared-memory chase did not launch")
+        torch.cuda.synchronize()
+        per_load.append(int(chase_cycles.item()) / chase_steps)
+    lds_cycles = min(per_load)
+    log(f"shared-memory load latency: {lds_cycles:.3f} cycles a dependent LDS (chase of "
+        f"{chase_steps} loads, best of {per_load}); dependent integer step {lat_cycles:.4f} "
+        f"cycles; card: {card}")
+
     def latency_ms(depth: int, mhz: float) -> float:
         """The latency bound: ``depth`` dependent integer instructions at the
         measured cycles each, at the SM clock sampled while the kernel ran."""
@@ -1579,7 +1815,166 @@ def main() -> int:
                  "'regimes'",
         "measured": measured, "probe_line": cli_line, "regimes": chain_entries})
 
-    # 10. Drive A's mix once more, profiled (torch tier) and costed against
+    # arc4_prga at its timing shapes: time per launch, bounds and share.
+    arc4_loops = sass_round_loops(sass_text, "arc4_prga_kernel", 32)
+    arc4_ins, _ = sass_function(sass_text, "arc4_prga_kernel", 32)
+    for lp in arc4_loops:
+        lo, hi = lp["range"]
+        lp["lds"] = sum(b == "LDS" for a, b, _t in arc4_ins if lo <= a <= hi)
+        lp["sts"] = sum(b == "STS" for a, b, _t in arc4_ins if lo <= a <= hi)
+    # The main loop: the PRGA loop (it stores to shared memory, the state's
+    # copy-out loop does not) with the most steps a trip.
+    group = max(arc4_loops, key=lambda lp: (lp["sts"] > 0, lp["lds"]))
+    bytes_per_trip = group["lds"] // 3
+    if bytes_per_trip < 1 or group["lds"] % 3:
+        raise SystemExit(f"arc4_prga_kernel's main loop holds {group['lds']} LDS, not three a "
+                         f"byte: {group}")
+    # The latency bound counts the function's recurrence (ARC4_RECURRENCE);
+    # the longest path through the compiled loop, which also counts this
+    # build's address arithmetic and each byte's off-recurrence tail, is a
+    # diagnostic beside it.
+    rec_cycles = ARC4_RECURRENCE["lds"] * lds_cycles + ARC4_RECURRENCE["int"] * lat_cycles
+    sass_path = sass_weighted_path(arc4_ins, *group["range"], lds_cycles, lat_cycles)
+    sass_cycles = sass_path / bytes_per_trip
+    log(f"arc4_prga SASS: main loop {bytes_per_trip} bytes a trip, {group['int']} integer "
+        f"instructions, {group['lds']} LDS, {group['sts']} STS, opcodes {group['hist']}; its "
+        f"longest dependent path {sass_path:.1f} cycles a trip = {sass_cycles:.2f} cycles a byte; "
+        f"the step's recurrence {ARC4_RECURRENCE['lds']} x {lds_cycles:.2f} (a dependent LDS) + "
+        f"{ARC4_RECURRENCE['int']} x {lat_cycles:.3f} (a dependent integer step) = "
+        f"{rec_cycles:.2f} cycles a byte; ptxas {ptxas.get('arc4_prga_kernel<32>')}")
+    log("arc4_prga main loop SASS: " + " | ".join(
+        t for a, _b, t in arc4_ins if group["range"][0] <= a <= group["range"][1]))
+    arc4_shapes = {}
+    for label, (s_n, n) in ARC4_TIMED.items():
+        st = arc4_inputs[n]["states"][:s_n]
+        ms, clocks = sampled_ms(lambda st=st, n=n: cuda_arc4.prga(st, n))
+        nbytes = s_n * n + 2 * s_n * 258 * 4  # keystream written, state read and written
+        ops = ARC4_OPS_PER_BYTE * s_n * n
+        ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
+        meas_ms, meas_by = measured_bound(ops, nbytes)
+        mhz = clocks["clock_mhz"]
+        lat_b = n * rec_cycles / (mhz * 1e3)
+        arc4_shapes[label] = {
+            "streams": s_n, "bytes_per_stream": n, "ms": ms,
+            "plain_ms": arc4_inputs[n]["plain_ms"], "plain_streams": ARC4_PLAIN_STREAMS,
+            "max_abs_err": arc4_inputs[n]["max_abs_err"],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
+            "latency_bound_ms": lat_b, "larger_bound_ms": max(meas_ms, lat_b),
+            "share_of_larger_bound": max(meas_ms, lat_b) / ms,
+            "sass_path_latency_ms": n * sass_cycles / (mhz * 1e3),
+            "sampled_clock_mhz": mhz, "library_ms": None}
+        e = arc4_shapes[label]
+        log(f"arc4_prga {label} at {s_n} x {n} bytes: {ms:.4f} ms/launch ({s_n * n / ms / 1e6:.3f} "
+            f"GB/s of keystream); plain {e['plain_ms']:.1f} ms (on {ARC4_PLAIN_STREAMS} streams of "
+            f"{n} bytes, the first {s_n} of them these); bound {e['bound_ms']:.5f} ms "
+            f"({e['bound_by']}, table rates), {meas_ms:.5f} ms at the measured rates ({meas_by}), "
+            f"latency bound {n} x {rec_cycles:.2f} cycles at {mhz:.0f} MHz = {lat_b:.4f} ms; "
+            f"kernel at {100 * e['share_of_larger_bound']:.1f} % of the larger of the "
+            f"measured-rate and latency bounds (the compiled loop's path: "
+            f"{e['sass_path_latency_ms']:.4f} ms); nvidia-smi {clocks}; card: {card}")
+    head = arc4_shapes["path"]
+    arc4_entry = {
+        "name": "arc4_prga", "route": "cuda", "source": "our_tree_tpu_torch/csrc/arc4.cu",
+        "replaces": "our_tree_tpu/models/arc4.py:59",
+        "counterpart_of": "the XLA scans keystream_scan/keystream_scan_batch "
+                          "(our_tree_tpu/models/arc4.py:59-94), not a Pallas kernel",
+        "launches": None,
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "plain_streams", "bound_ms",
+                                "bound_by", "bound_ms_measured", "bound_by_measured",
+                                "latency_bound_ms", "larger_bound_ms", "share_of_larger_bound",
+                                "sass_path_latency_ms", "sampled_clock_mhz", "library_ms")},
+        "shape": "{0} streams x {1} bytes (rc4-batch's launch); 'single' and 'wide' below".format(
+            *ARC4_TIMED["path"]),
+        "single": arc4_shapes["single"], "wide": arc4_shapes["wide"],
+        "lds_latency_cycles": lds_cycles, "dependent_issue_cycles": lat_cycles,
+        "recurrence_cycles_per_byte": rec_cycles, "sass_path_cycles_per_byte": sass_cycles,
+        "sass_main_loop": {k: group[k] for k in ("int", "lds", "sts", "depth", "hist")}}
+    kernels.append(arc4_entry)
+
+    # 10. The sweep harness (harness.bench) in processes of its own, as a user
+    # runs it: the device rows with the native keystream prep, the sequential
+    # and batch rows, the same rows on the native C tier, the keystream on the
+    # card, and the refusal of a second worker.
+    harness_env = {**os.environ, "OT_ARC4_PREP": "native"}
+
+    def harness(name, argv, env=None, expect_rc=0):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.harness.bench", *argv],
+                             cwd=ROOT, capture_output=True, text=True, timeout=900,
+                             env=env or harness_env)
+        wall = time.perf_counter() - t0
+        if (res.returncode == 0) != (expect_rc == 0):
+            raise SystemExit(f"harness {name}: rc {res.returncode}, out {res.stdout[-2000:]!r}, "
+                             f"err {res.stderr[-3000:]!r}")
+        launches = {}
+        for ln in res.stderr.splitlines():
+            m = re.match(r"# launches: (\S+) (\{.*\})$", ln)
+            if m:
+                launches[m.group(1)] = json.loads(m.group(2))
+        for text in res.stdout.strip().splitlines():
+            log(f"harness {name}: {text}")
+        return res, launches, wall
+
+    common = ["--workers", "1", "--iters", "5", "--keybits", "128", "--timing", "device"]
+    runs = {
+        "device rows": (["--sizes-mb", "1,16,256", "--modes", "ecb,ecb-dec,ctr,cbc-dec,rc4"],
+                        None),
+        "sequential rows": (["--sizes-mb", "0.0625", "--modes", "cbc,cfb128"], None),
+        "batch rows": (["--sizes-mb", "32", "--modes", "cbc-batch,rc4-batch", "--streams",
+                        "32"], None),
+        "e2e rows": (["--sizes-mb", "16,256", "--modes", "ecb,ctr,rc4", "--timing", "e2e"], None),
+        "c backend rows": (["--backend", "c", "--sizes-mb", "1,16,256", "--modes", "ecb,ctr,rc4"],
+                           None),
+        "rc4 keystream on the card": (["--sizes-mb", "1", "--modes", "rc4"],
+                                      {**os.environ, "OT_ARC4_PREP": "device"}),
+    }
+    harness_checks, harness_launches, harness_table = {}, {}, []
+    for name, (argv, env) in runs.items():
+        res, launches, wall = harness(name, common + argv, env)
+        out = res.stdout
+        verdicts = [ln for ln in out.splitlines()
+                    if re.search(r"passed|FAILED|MISMATCH", ln)]
+        harness_checks[f"{name}: every check line passed"] = all(
+            "passed" in ln for ln in verdicts)
+        harness_checks[f"{name}: no degraded line"] = "# degraded:" not in out + res.stderr
+        if "rc4" in argv[argv.index("--modes") + 1].split(","):
+            harness_checks[f"{name}: ARC4 self-test"] = all(
+                f"ARC4 test #{i}: passed" in out for i in (1, 2, 3))
+        if "rc4-batch" in argv[argv.index("--modes") + 1]:
+            harness_checks[f"{name}: batch parity"] = "RC4-batch parity vs single-stream: passed" in out
+        units = {u: c for u, c in launches.items()}
+        harness_launches[name] = units
+        if "--backend" not in argv:
+            for unit, cnt in units.items():
+                mode = unit.split(":")[0]
+                want = "arc4_prga" if (mode == "rc4" and env is not None) else HARNESS_KERNEL.get(mode)
+                if want is not None:
+                    harness_checks[f"{name}: {unit} launched {want}"] = cnt.get(want, 0) > 0
+        for row in harness_rows(out):
+            row["run"] = name
+            harness_table.append(row)
+            gb = row["gbps"]
+            keygen = (f", keygen {row['bytes'] / row['keygen_us'] / 1e3:.4g} GB/s"
+                      if row.get("keygen_us") else "")
+            log(f"harness row [{name}] {row['row']}: {gb if gb is not None else 'n/a'} GB/s"
+                f"{keygen} beside the CTR chain's {ctr_gbps} GB/s; "
+                + (f"CPU: {cpu_model()}" if "--backend" in argv else f"card: {card}"))
+        log(f"harness {name}: {wall:.1f} s wall; launches by unit {units}")
+    res, _, _ = harness("two workers", common + ["--workers", "2", "--sizes-mb", "1", "--modes",
+                                                 "ecb"], expect_rc=1)
+    harness_checks["--workers 2 refused (queue 1 item 9)"] = "queue 1 item 9" in res.stderr
+    log(f"harness checks: {harness_checks}")
+    if not all(harness_checks.values()):
+        raise SystemExit(f"the sweep harness failed: {harness_checks}")
+    arc4_entry["launches"] = (
+        sum(c.get("arc4_prga", 0) for c in harness_launches["batch rows"].values())
+        + sum(c.get("arc4_prga", 0) for c in harness_launches["rc4 keystream on the card"].values()))
+    arc4_entry["harness"] = {"rows": harness_table, "launches_by_unit": harness_launches,
+                             "ctr_chain_gbps": ctr_gbps, "native_tier_cpu": cpu_model()}
+
+    # 11. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
     # hooks must not touch the timings above.

@@ -1,23 +1,27 @@
-"""AES-128-CTR throughput on one card: ``python -m our_tree_tpu_torch.bench``.
+"""AES-128 throughput on one card: ``python -m our_tree_tpu_torch.bench``.
 
 Prints ONE JSON line in the schema of the root ``bench.py``:
   {"metric": ..., "value": GB/s median, "unit": "GB/s", "vs_baseline": ...,
    "value_min": ..., "value_max": ..., "reps": ...}
 
 Method (root ``bench.py:514-598``): key ``bytes(range(16))``, nonce
-``f0..ff``, data from ``default_rng(1337)``. Each chain step runs CTR with
-the counter ``ctr_be ^ acc`` (the running sum XORed into all four BE
-counter words, so no step can be hoisted) and sets ``acc`` to the u32 sum of
-the output words; the digest is the final ``acc``. ``acc`` stays a tensor on
+``f0..ff``, data from ``default_rng(1337)``. Each chain step runs the
+operation with the running sum ``acc`` threaded into an input its work
+depends on, and sets ``acc`` to the u32 sum of the output words; the digest
+is the final ``acc``. ``OT_BENCH_OP`` picks the operation, as the root
+``bench.py:59-68`` does: ``ctr`` (the default; ``acc`` XORed into all four BE
+counter words, so no step can be hoisted), ``ecb`` and ``ecb-dec`` (``acc``
+XORed into the data; ``ecb_encrypt_kernel`` and ``ecb_decrypt_kernel`` on
+the card). ``acc`` stays a tensor on
 the card and the kernel reads the counter through a device pointer, so the
 chain never waits on the host. The reported time of ``iters`` steps is
 T(1 + iters) - T(1), timed with CUDA events; the line reports the median of
 ``OT_BENCH_REPS`` (default 3) such measurements with min and max.
 
 Environment: ``OT_BENCH_BYTES`` (default 256 MiB), ``OT_BENCH_ITERS``
-(default 5), ``OT_BENCH_REPS`` (default 3), ``OT_BENCH_OP`` (only ``ctr``
-is ported). Without a card it raises; tests call ``run(device="cpu")``,
-whose line then names the CPU platform.
+(default 5), ``OT_BENCH_REPS`` (default 3), ``OT_BENCH_OP`` (``ctr``,
+``ecb`` or ``ecb-dec``). Without a card it raises; tests call
+``run(device="cpu")``, whose line then names the CPU platform.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 from .models import aes as aes_mod
 from .utils import packing
 
-#: Reference bar (root bench.py BASELINES, BASELINE.md): AES-NI CTR, 1 GiB,
-#: 8 CPU threads of the reference C implementation.
-BASELINE_CTR_GBPS = 0.520
+#: Reference bars per operation (root bench.py BASELINES, BASELINE.md): the
+#: reference C library's AES-NI CTR (1 GiB, 8 CPU threads) and ECB (8 CPU
+#: threads) rates, CPU numbers; ECB's serves ecb-dec too, as in the root.
+BASELINES = {"ctr": 0.520, "ecb": 0.551, "ecb-dec": 0.551}
 KEY = bytes(range(16))
 NONCE = bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff")
 SEED = 1337
@@ -48,11 +53,15 @@ def u32_sum(out: torch.Tensor) -> torch.Tensor:
 
 
 class Chain:
-    """The chained CTR measurement of one buffer on one device."""
+    """The chained measurement of one operation (``ctr``, ``ecb``,
+    ``ecb-dec``) over one buffer on one device."""
 
-    def __init__(self, nbytes: int, device):
+    def __init__(self, nbytes: int, device, op: str = "ctr"):
         if nbytes <= 0 or nbytes % 16:
             raise ValueError(f"buffer size must be a positive multiple of 16, got {nbytes}")
+        if op not in BASELINES:
+            raise ValueError(f"OT_BENCH_OP must be ctr|ecb|ecb-dec, got {op!r}")
+        self.op = op
         self.device = aes_mod.as_device(device)
         self.nbytes = nbytes
         self.aes = aes_mod.AES(KEY, device=self.device)
@@ -61,13 +70,20 @@ class Chain:
         nonce = np.frombuffer(NONCE, np.uint8)
         self.ctr_be = packing.words_tensor(
             packing.np_bytes_to_words(nonce).byteswap(), self.device)
-        self.crypt = aes_mod.ctr_crypt_fn(self.aes.nr, self.aes.engine)
+        ctx, nr, eng = self.aes, self.aes.nr, self.aes.engine
+        if op == "ctr":
+            ctr = aes_mod.ctr_crypt_fn(nr, eng)
+            self.step = lambda acc: ctr(self.words, self.ctr_be ^ acc, ctx.rk_enc)
+        elif op == "ecb":
+            self.step = lambda acc: aes_mod.ecb_encrypt_words(self.words ^ acc, ctx.rk_enc, nr, eng)
+        else:
+            self.step = lambda acc: aes_mod.ecb_decrypt_words(self.words ^ acc, ctx.rk_dec, nr, eng)
 
     def run(self, k: int) -> torch.Tensor:
         """k chained steps; returns the final acc as a 0-d int32 tensor."""
         acc = torch.zeros((), dtype=torch.int32, device=self.device)
         for _ in range(k):
-            acc = u32_sum(self.crypt(self.words, self.ctr_be ^ acc, self.aes.rk_enc))
+            acc = u32_sum(self.step(acc))
         return acc
 
     def timed(self, k: int) -> tuple[float, int]:
@@ -99,15 +115,15 @@ class Chain:
 
 
 def report_line(nbytes: int, platform: str, engine: str, digest: int,
-                samples: list[float]) -> dict:
+                samples: list[float], op: str = "ctr") -> dict:
     s, n = samples, len(samples)
     gbps = s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
     return {
-        "metric": f"AES-128-CTR throughput, {nbytes >> 20} MiB buffer, "
+        "metric": f"AES-128-{op.upper()} throughput, {nbytes >> 20} MiB buffer, "
                   f"1 {platform} device, engine={engine}, digest={digest:#010x}",
         "value": round(gbps, 4),
         "unit": "GB/s",
-        "vs_baseline": round(gbps / BASELINE_CTR_GBPS, 3),
+        "vs_baseline": round(gbps / BASELINES[op], 3),
         "value_min": round(samples[0], 4),
         "value_max": round(samples[-1], 4),
         "reps": len(samples),
@@ -119,15 +135,13 @@ def run(device=None, nbytes: int | None = None, iters: int | None = None,
     """Measure and return the JSON line (a dict); arguments default to the
     ``OT_BENCH_*`` environment and then to 256 MiB, 5 iterations, 3 reps."""
     op = os.environ.get("OT_BENCH_OP", "ctr")
-    if op != "ctr":
-        raise NotImplementedError(f"OT_BENCH_OP={op!r} is not ported yet")
     nbytes = nbytes or int(os.environ.get("OT_BENCH_BYTES", 256 << 20))
     iters = iters or int(os.environ.get("OT_BENCH_ITERS", 5))
     reps = reps or int(os.environ.get("OT_BENCH_REPS", 3))
-    chain = Chain(nbytes, device)
+    chain = Chain(nbytes, device, op)
     samples, digest = chain.measure(iters, reps)
     platform = "gpu" if chain.device.type == "cuda" else chain.device.type
-    return report_line(nbytes, platform, chain.aes.engine, digest, samples)
+    return report_line(nbytes, platform, chain.aes.engine, digest, samples, op)
 
 
 def main() -> int:

@@ -21,9 +21,10 @@ CBC and CFB128 encryption are recurrences: the reference runs them as a
 ``lax.scan`` over a T-table gather. ``SEQ_ENCRYPT`` holds each engine's
 chained encrypt over S streams of N blocks: on the card one ``seq_encrypt``
 launch per call runs the whole recurrence (``csrc/seq.cu``), every stream
-and block; the other engines run the per-block loop, one (S, 4) ECB call
-per step, with the IV on the device (for ``"bitslice"`` that loop is the
-kernel's plain version, ``cuda_aes.seq_encrypt_plain``).
+and block; ``"ttable"`` runs it on the CPU as a host loop over Python
+integers (``block.seq_encrypt_host``); otherwise the per-block loop, one
+(S, 4) ECB call per step, with the IV on the device (for ``"bitslice"`` that
+loop is the kernel's plain version, ``cuda_aes.seq_encrypt_plain``).
 """
 
 from __future__ import annotations
@@ -102,6 +103,14 @@ def _multikey_ttable(words, ctr_le, rks, key_slots, nr):
     return words ^ block.encrypt_words(ctr_le, rks[key_slots.long()].t(), nr)
 
 
+def _seq_ttable(words, ivs, rk, nr, cfb):
+    """The T-table engine's chained encrypt: the host loop for CPU tensors,
+    the per-block loop over its core on another device."""
+    if words.device.type == "cpu":
+        return block.seq_encrypt_host(words, ivs, rk, nr, cfb)
+    return cuda_aes.seq_encrypt_plain(words, ivs, rk, nr, cfb, encrypt=block.encrypt_words)
+
+
 register_core(CUDA_ENGINE, cuda_aes.encrypt_words, cuda_aes.decrypt_words,
               cuda_aes.ctr_crypt_words_fused, cuda_aes.ctr_scattered_multikey,
               cuda_aes.ctr_crypt_words_explicit, cuda_aes.seq_encrypt)
@@ -109,7 +118,7 @@ register_core(PLAIN_ENGINE, bitslice.encrypt_words, bitslice.decrypt_words,
               cuda_aes.ctr_crypt_words_fused_plain, cuda_aes.ctr_scattered_multikey_plain,
               cuda_aes.ctr_crypt_words_explicit_plain)
 register_core(TTABLE_ENGINE, block.encrypt_words, block.decrypt_words,
-              multikey_fn=_multikey_ttable)
+              multikey_fn=_multikey_ttable, seq_encrypt_fn=_seq_ttable)
 
 
 def as_device(device=None) -> torch.device:

@@ -1,11 +1,13 @@
 """Windowed device profiling: the serve stack's capture seam.
 
-Copy of ``our_tree_tpu.obs.profiler``, trimmed to the windows this slice
-arms: ``serve.bench --profile-window START:DUR`` (``armed_by="cli"``) and a
-direct ``start_window`` call (``"api"``). The reference's ``/profilez``,
-incident and alert arming and sweep captures wait for the modules that call
-them (``serve/status.py``, ``obs/incident.py``, ``obs/pulse.py``,
-``harness/bench.py``); ``ARMED_BY`` keeps the reference's vocabulary.
+Copy of ``our_tree_tpu.obs.profiler``, trimmed to the windows the port
+arms: ``serve.bench --profile-window START:DUR`` (``armed_by="cli"``), a
+direct ``start_window`` call (``"api"``) and ``harness.bench --profile DIR``
+(``sweep_capture``, ``"sweep"``: one unbounded window over the whole sweep,
+its torch trace in the operator's DIR, allowed with tracing off). The
+reference's ``/profilez``, incident and alert arming wait for the modules
+that call them (``serve/status.py``, ``obs/incident.py``, ``obs/pulse.py``);
+``ARMED_BY`` keeps the reference's vocabulary.
 
 Two capture tiers, chosen per window:
 
@@ -40,6 +42,7 @@ exit still closes (``finish``, atexit) so its summary is not lost.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import glob
 import json
 import os
@@ -210,34 +213,43 @@ def _resolve_tier(device) -> tuple[str, bool]:
     return tier_override() or ("torch" if cuda else "stack"), cuda
 
 
-def start_window(seconds: float | None = None, armed_by: str = "api", device=None) -> dict:
+def start_window(seconds: float | None = None, armed_by: str = "api", device=None,
+                 torch_dir: str | None = None) -> dict:
     """Open one capture window on a server whose device is ``device``.
 
     ``seconds`` set: a closer thread ends the window after that long; None:
-    it stays open until ``stop_window``/``finish``. Raises ``CaptureBusy``
-    when a window is open and ``CaptureDisabled`` when tracing is off or the
+    it stays open until ``stop_window``/``finish``. ``torch_dir`` puts the
+    torch tier's trace there (``harness.bench --profile DIR``) and picks that
+    tier on the CPU too, unless ``OT_PROFILE_TIER=stack``; it is the one
+    case allowed with tracing off, where the trace lands and the run-layout
+    summary is skipped. Raises ``CaptureBusy`` when a window is open and
+    ``CaptureDisabled`` when tracing is off with no ``torch_dir`` or the
     torch profiler does not start. Returns {seq, tier, path, torch_dir?}.
     """
     global _ACTIVE, _SEQ, _ATEXIT
-    if not trace.enabled():
+    if not trace.enabled() and torch_dir is None:
         raise CaptureDisabled("profiling needs the run layout: set OT_TRACE_DIR")
     with _LOCK:
         if _ACTIVE is not None:
             raise CaptureBusy(f"capture {_ACTIVE['seq']} ({_ACTIVE['armed_by']}) is "
                               "already in progress")
-        trace.ensure_run()
-        d = trace.run_dir()
-        os.makedirs(d, exist_ok=True)
+        d = None
+        if trace.enabled():
+            trace.ensure_run()
+            d = trace.run_dir()
+            os.makedirs(d, exist_ok=True)
         _SEQ += 1
         seq = _SEQ
         stem = f"profile-{os.getpid()}-{_PROC}-{seq}"
         tier, cuda = _resolve_tier(device)
+        if torch_dir is not None and tier_override() != "stack":
+            tier = "torch"
         entry = {"seq": seq, "armed_by": str(armed_by),
                  "seconds": float(seconds) if seconds else None, "run": trace.run_id(),
-                 "dir": d, "path": os.path.join(d, stem + ".json"), "tier": tier,
+                 "dir": d, "path": os.path.join(d, stem + ".json") if d else None, "tier": tier,
                  "sampler": None, "capture": None, "torch_dir": None}
         if tier == "torch":
-            capture = _TorchCapture(os.path.join(d, stem + ".torchtrace"), cuda)
+            capture = _TorchCapture(torch_dir or os.path.join(d, stem + ".torchtrace"), cuda)
             capture.open()
             entry["capture"] = capture
             entry["torch_dir"] = capture.out_dir
@@ -299,6 +311,9 @@ def stop_window(expected_seq: int | None = None) -> str | None:
             samples = entry["sampler"].samples
         try:
             doc = _summarise(entry, after, stacks, samples)
+            if entry["path"] is None:  # tracing off: the trace is the artifact
+                _LAST = doc
+                return None
             with open(entry["path"], "w", encoding="utf-8") as fh:
                 json.dump(doc, fh, separators=(",", ":"), sort_keys=True)
                 fh.write("\n")
@@ -491,6 +506,23 @@ def crosscheck(doc: dict, records, ceiling_gbps: float | None) -> dict:
             row["utilization"] = None
         rows.append(row)
     return {"ceiling_gbps": ceiling_gbps, "rows": rows}
+
+
+@contextlib.contextmanager
+def sweep_capture(torch_dir: str, device=None):
+    """A whole-run capture (``harness.bench --profile DIR``): an unbounded
+    window opened on enter and closed on exit. A window that cannot open
+    (busy, or the profiler fails to start) makes this a no-op: a profile
+    flag must never fail the sweep it observes."""
+    try:
+        seq = start_window(None, armed_by="sweep", device=device, torch_dir=torch_dir)["seq"]
+    except (CaptureBusy, CaptureDisabled):
+        seq = None
+    try:
+        yield
+    finally:
+        if seq is not None:
+            stop_window(expected_seq=seq)
 
 
 def dropped() -> int:

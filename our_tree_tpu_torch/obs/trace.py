@@ -13,8 +13,10 @@ request at admission by ``sample()``): an unsampled span
 (``maybe_span(False, ...)``) writes nothing on the happy path and
 materialises, with its original timestamp, when it fails or is forced.
 ``OT_TRACE_RUN`` names the run (minted by ``ensure_run`` when unset) and
-``OT_TRACE_PARENT`` gives root spans a parent. The reference's segment
-rotation (``OT_TRACE_MAX_MB``) and ``child_env`` are not carried over.
+``OT_TRACE_PARENT`` gives root spans a parent; ``child_env`` hands both to a
+child process, so its root spans nest under the caller's live span (the
+sweep's isolated children). The reference's segment rotation
+(``OT_TRACE_MAX_MB``) is not carried over.
 
 Event schema (the reference's v1)::
 
@@ -210,6 +212,28 @@ def _end(span: Span, exc_type, end_attrs: dict | None) -> None:
     if end_attrs:
         rec["attrs"] = end_attrs
     _write(rec)
+
+
+def current_span_id() -> str | None:
+    """The innermost live span's id on this thread."""
+    stack = getattr(_TLS, "stack", None)
+    return stack[-1] if stack else None
+
+
+def child_env(env: dict) -> dict:
+    """A copy of ``env`` with the run id and the current span id injected
+    (``OT_TRACE_RUN``, ``OT_TRACE_PARENT``); unchanged while disabled."""
+    if not enabled():
+        return env
+    out = dict(env)
+    out["OT_TRACE_DIR"] = os.environ["OT_TRACE_DIR"]
+    out["OT_TRACE_RUN"] = ensure_run()
+    parent = current_span_id()
+    if parent:
+        out["OT_TRACE_PARENT"] = parent
+    else:
+        out.pop("OT_TRACE_PARENT", None)
+    return out
 
 
 def _ambient_parent(override: str | None) -> str | None:

@@ -10,13 +10,16 @@ kernel cannot be interrupted; what the watchdog can do at the deadline is
    default ``ot_crash`` under the process's temporary directory, which
    honours ``TMPDIR``; the reference's default is a fixed ``/tmp/ot_crash``),
    so a hang leaves evidence of where each thread was;
-2. deliver ``DispatchTimeout``: on a thread that registered a kill hook
-   (``thread_kill_hook``: the serve lane workers) by calling the hook,
-   which fails the dispatch's future and abandons the wedged worker; on any
-   other thread by raising when the guarded block returns late (the
-   reference's SIGALRM delivery to the main thread has no caller here,
-   since every dispatch runs on a lane worker);
-3. record the demotion (``degrade``, kind ``dispatch-timeout``).
+2. deliver ``DispatchTimeout``: on the main thread (the sweep harness) by
+   a SIGALRM sent to it, whose handler raises, which interrupts a call that
+   releases the GIL (a ``torch.cuda.synchronize``, a sleep, a subprocess
+   wait); on a thread that registered a kill hook (``thread_kill_hook``:
+   the serve lane workers) by calling the hook, which fails the dispatch's
+   future and abandons the wedged worker; on any other thread by raising
+   when the guarded block returns late;
+3. record the demotion (``degrade``, kind ``dispatch-timeout``), together
+   with the raise: a block that completes at the deadline's edge is never
+   marked degraded.
 
 ``current_stacks`` (every thread's frames, the machinery of the dump) is
 shared with the profiler's stack-sampling tier.
@@ -24,14 +27,18 @@ shared with the profiler's stack-sampling tier.
 ``deadline(None or 0)`` disarms entirely; ``default_deadline_s()`` reads the
 opt-in global ``OT_DISPATCH_DEADLINE``. Every armed deadline rides one
 long-lived scheduler thread, so arming costs a dict insert, not a thread.
-The reference's fault-injected hangs (``injected_hang``, ``OT_HANG_S``)
-belong to its fault seams and are not carried over.
+
+``injected_hang(point)`` is the fault side of the same seam: when the named
+``OT_FAULTS`` point (``dispatch_hang``) fires it sleeps ``OT_HANG_S``
+seconds (default 24 h), a GIL-releasing stand-in for a wedged dispatch that
+the watchdog can interrupt and a supervising parent can SIGKILL.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import signal
 import sys
 import tempfile
 import threading
@@ -39,7 +46,7 @@ import time
 import traceback
 
 from ..obs import trace
-from . import degrade
+from . import degrade, faults
 
 
 class DispatchTimeout(TimeoutError):
@@ -185,16 +192,23 @@ def thread_kill_hook(hook):
 def deadline(seconds: float | None, what: str = "device dispatch",
              degrade_kind: str = "dispatch-timeout"):
     """Guard a block with a watchdog deadline. ``seconds`` None or <= 0
-    disarms. At expiry the stacks are dumped and, on a thread with a kill
-    hook, the hook gets the ``DispatchTimeout`` at once; either way a block
-    that returns after its deadline raises it on exit."""
+    disarms. At expiry the stacks are dumped; on the main thread a SIGALRM
+    handler installed for the block raises ``DispatchTimeout`` inside it;
+    on a thread with a kill hook the hook gets the ``DispatchTimeout`` at
+    once; on any other thread a block that returns after its deadline
+    raises it on exit. The previous SIGALRM disposition is restored."""
     if not seconds or seconds <= 0:
         yield
         return
     trace.point("watchdog-arm", what=what, seconds=seconds)
-    kill_hook = _THREAD_KILLS.get(threading.get_ident())
+    on_main = (threading.current_thread() is threading.main_thread()
+               and hasattr(signal, "SIGALRM"))
+    kill_hook = None if on_main else _THREAD_KILLS.get(threading.get_ident())
     fired: dict = {}
     done = threading.Event()
+    # Serialises the kill against the handler's restore: the signal is sent
+    # only while this block's handler is installed.
+    gate = threading.Lock()
 
     def record_and_build():
         # The degrade stamp rides the delivery, not the monitor: a block
@@ -207,20 +221,71 @@ def deadline(seconds: float | None, what: str = "device dispatch",
         if done.is_set():
             return
         fired["report"] = dump_stacks(what, seconds)
-        if kill_hook is not None and not done.is_set():
-            fired["delivered"] = True
-            try:
-                kill_hook(record_and_build())
-            except Exception:  # noqa: BLE001 - the hook is the caller's
-                pass
+        with gate:
+            if done.is_set():
+                return
+            if on_main:
+                try:
+                    signal.pthread_kill(threading.main_thread().ident, signal.SIGALRM)
+                except (OSError, RuntimeError):
+                    pass
+            elif kill_hook is not None:
+                fired["delivered"] = True
+                try:
+                    kill_hook(record_and_build())
+                except Exception:  # noqa: BLE001 - the hook is the caller's
+                    pass
 
+    old = None
+    if on_main:
+        def handler(signum, frame):
+            raise record_and_build()
+
+        old = signal.signal(signal.SIGALRM, handler)
     eid = _SCHEDULER.arm(seconds, fire)
     try:
         yield
-        if "report" in fired:
+        if "report" in fired and not on_main:
             if fired.get("delivered"):
                 raise DispatchTimeout(what, seconds, fired.get("report"))
             raise record_and_build()
     finally:
-        done.set()
-        _SCHEDULER.disarm(eid)
+        try:
+            done.set()
+            _SCHEDULER.disarm(eid)
+            # Wait out a fire() past its done check: once the gate is free a
+            # kill in flight has been sent to the still-installed handler,
+            # and a later fire stands down.
+            with gate:
+                pass
+        finally:
+            if old is not None:
+                signal.signal(signal.SIGALRM, old)
+
+
+#: Injected hangs fired so far in this process (``hangs_injected``).
+_INJECTED_HANGS = 0
+
+
+def hangs_injected() -> int:
+    return _INJECTED_HANGS
+
+
+def injected_hang(point: str, detail: str = "", budget=None) -> bool:
+    """Simulate a wedged dispatch when the ``point`` fault fires: sleep
+    ``OT_HANG_S`` seconds (default 24 h, a GIL-releasing sleep the watchdog
+    can interrupt and a parent can SIGKILL), or, given a ``policy.Budget``,
+    debit the hang's cost from it without sleeping. Returns whether it
+    fired; one dict lookup while the point is unarmed."""
+    if not faults.fire(point):
+        return False
+    global _INJECTED_HANGS
+    _INJECTED_HANGS += 1
+    hang_s = float(os.environ.get("OT_HANG_S", 24 * 3600))
+    if budget is not None:
+        budget.debit(hang_s)
+        return True
+    print(f"# OT_FAULTS: {point} sleeping {hang_s:.0f}s" + (f" ({detail})" if detail else ""),
+          file=sys.stderr, flush=True)
+    time.sleep(hang_s)
+    return True

@@ -6,12 +6,13 @@ shared library with a plain C interface and loads it with ``ctypes``
 (``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
 ``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` and ``ot_ctr_mk_form``
 from ``ctr_mk.cu``, ``ot_chain`` from ``chain.cu``, ``ot_seq_encrypt`` from
-``seq.cu``). Nothing is built at import time, and
-nothing but the sources in the package is compiled. The library goes into ``_build/`` beside the
-package (listed in ``.gitignore``) under a name keyed by a hash of the
-sources and flags, so an edit rebuilds and an unchanged tree reuses the
-build. An ``fcntl`` lock keeps concurrent processes from racing on one
-build, and a thread lock concurrent threads. ``load_count()`` counts
+``seq.cu``, ``ot_arc4_prga`` from ``arc4.cu``). Nothing is built at import
+time, and nothing but the sources in the package is compiled. The library
+goes into ``_build/`` beside the package (listed in ``.gitignore``) under a
+name keyed by a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the build. An ``fcntl`` lock keeps concurrent
+processes from racing on one build, and a thread lock concurrent threads.
+``load_count()`` counts
 builds and loads, the port's counterpart of the JAX package's compile
 counter. ``ptxas -v`` output (registers, spills per kernel) is kept beside
 the library and returned by ``ptxas_report()``.
@@ -141,6 +142,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ot_chain.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_uint32, vp]
     lib.ot_chain.restype = ctypes.c_int
+    lib.ot_arc4_prga.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong, vp]
+    lib.ot_arc4_prga.restype = ctypes.c_int
     return lib
 
 
@@ -149,11 +152,31 @@ def ptxas_report() -> str:
     return library_path().with_suffix(".ptxas.txt").read_text()
 
 
+def _kernel_of(symbol: str) -> str | None:
+    """``"name<targs>"`` of a mangled template kernel ``_ZN<len><id>...I...E``
+    whose last name ends in ``_kernel`` (the names are read by their length
+    prefixes, so a namespace id holding digits cannot run into the name),
+    or None."""
+    if not symbol.startswith("_ZN"):
+        return None
+    i, name = 3, None
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+    targs = re.match(r"I((?:Li\d+E)+)E", symbol[i:])
+    if name is None or not name.endswith("_kernel") or targs is None:
+        return None
+    return f"{name}<{','.join(re.findall(r'Li(\d+)E', targs.group(1)))}>"
+
+
 def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
     """Registers, spills, stack and shared memory of each kernel
     instantiation in a ``ptxas -v`` report, keyed by name and template
     arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``,
-    ``"seq_encrypt_kernel<10,1>"``, ``"ctr_mk_block_kernel<12>"``)."""
+    ``"seq_encrypt_kernel<10,1>"``, ``"ctr_mk_block_kernel<12>"``,
+    ``"arc4_prga_kernel<32>"``)."""
     text = ptxas_report() if report is None else report
     out: dict[str, dict[str, int]] = {}
     cur = None
@@ -161,9 +184,8 @@ def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
                       line)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
-            targs = ",".join(re.findall(r"Li(\d+)E", k.group(2))) if k else ""
-            cur = out.setdefault(f"{k.group(1)}<{targs}>", {}) if k else None
+            k = _kernel_of(m.group(1))
+            cur = out.setdefault(k, {}) if k else None
             continue
         if cur is None:
             continue

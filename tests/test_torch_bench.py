@@ -51,5 +51,8 @@ def test_bench_raises_without_card_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.run(nbytes=NBYTES, iters=1, reps=1)
     monkeypatch.setenv("OT_BENCH_OP", "ecb")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run(nbytes=NBYTES, iters=1, reps=1)
+    monkeypatch.setenv("OT_BENCH_OP", "xts")
+    with pytest.raises(ValueError, match="ctr|ecb|ecb-dec"):
         bench.run(device="cpu", nbytes=NBYTES, iters=1, reps=1)

@@ -310,3 +310,72 @@ def test_latency_chain_matches_plain(card):
     torch.cuda.synchronize()
     assert ceiling.chain.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 7, 32, 33, 4096])
+@pytest.mark.parametrize("length", [1, 255, 4096])
+@pytest.mark.parametrize("fused", [False, True])
+def test_arc4_kernel_matches_plain(card, s, length, fused):
+    from our_tree_tpu_torch.models import arc4
+    from our_tree_tpu_torch.ops import cuda_arc4
+
+    rng = np.random.default_rng(s * 7 + length)
+    m = np.stack([rng.permutation(256) for _ in range(s)])
+    state = arc4.state_from_numpy((rng.integers(0, 256, s), rng.integers(0, 256, s), m), card)
+    data = (torch.from_numpy(rng.integers(0, 256, (s, length), dtype=np.uint8)).to(card)
+            if fused else None)
+    before = cuda_arc4.prga.launches
+    got_state, got = cuda_arc4.prga(state, length, data)
+    # Resume: the same bytes in two calls.
+    cut = length // 3
+    mid, first = cuda_arc4.prga(state, cut, None if data is None else data[:, :cut].contiguous())
+    end, second = cuda_arc4.prga(mid, length - cut,
+                                 None if data is None else data[:, cut:].contiguous())
+    want_state, want = cuda_arc4.prga_plain(state, length, data)
+    torch.cuda.synchronize()
+    assert cuda_arc4.prga.launches == before + 3 - (cut == 0)
+    assert torch.equal(got, want) and torch.equal(got_state, want_state)
+    assert torch.equal(torch.cat([first, second], dim=1), want) and torch.equal(end, want_state)
+
+
+def test_gpu_backend_methods_match_the_plain_engine(card):
+    """Each GpuBackend method on the card (the kernels) against the same
+    backend on the CPU with the plain versions."""
+    from our_tree_tpu_torch.harness import backends
+
+    rng = np.random.default_rng(21)
+    key = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+    msg = rng.integers(0, 256, 16 * 4099, dtype=np.uint8)
+    iv = rng.integers(0, 256, 16, dtype=np.uint8)
+    gb, cb = backends.GpuBackend("cuda", card), backends.GpuBackend("bitslice", "cpu")
+    assert gb.engine == aes.CUDA_ENGINE
+    gctx, cctx = gb.make_key(key), cb.make_key(key)
+    gw, cw = gb.stage_words(msg), cb.stage_words(msg)
+    counts0 = gb.launch_counts()
+
+    def eq(g, c):
+        assert torch.equal(gb.block_until_ready(g).cpu(), c)
+
+    eq(gb.ecb(gctx, gw, 1), cb.ecb(cctx, cw, 1))
+    eq(gb.ecb_dec(gctx, gw, 1), cb.ecb_dec(cctx, cw, 1))
+    eq(gb.ctr(gctx, gw, gb.ctr_be_words(iv), 1), cb.ctr(cctx, cw, cb.ctr_be_words(iv), 1))
+    eq(gb.cbc_dec(gctx, gw, gb.iv_words(iv), 1), cb.cbc_dec(cctx, cw, cb.iv_words(iv), 1))
+    short_g, short_c = gb.stage_words(msg[:16 * 33]), cb.stage_words(msg[:16 * 33])
+    eq(gb.cbc(gctx, short_g, gb.iv_words(iv), 1), cb.cbc(cctx, short_c, cb.iv_words(iv), 1))
+    eq(gb.cfb128(gctx, short_g, gb.iv_words(iv), 1), cb.cfb128(cctx, short_c, cb.iv_words(iv), 1))
+    batch = msg[:16 * 4 * 9].reshape(4, -1)
+    ivs = rng.integers(0, 256, (4, 16), dtype=np.uint8)
+    eq(gb.cbc_batch(gctx, gb.stage_batch_words(batch), gb.stage_batch_words(ivs), 1),
+       cb.cbc_batch(cctx, cb.stage_batch_words(batch), cb.stage_batch_words(ivs), 1))
+    odd = msg[:16 * 1000 + 5]
+    np.testing.assert_array_equal(gb.ctr_stream(gctx, odd, iv, 16 * 300, 1),
+                                  cb.ctr_stream(cctx, odd, iv, 16 * 300, 1))
+    keys = [bytes([i]) * 16 for i in range(5)]
+    eq(gb.arc4_prep_batch(gb.arc4_batch_states(keys), 300, 1),
+       cb.arc4_prep_batch(cb.arc4_batch_states(keys), 300, 1))
+    counts = {k: v - counts0[k] for k, v in gb.launch_counts().items()}
+    assert all(counts[k] > 0 for k in counts), counts
+    times = gb.chained_device_times_us(lambda w, acc: gb.ecb(gctx, w ^ acc, 1), gw, 2, 8)
+    assert len(times) == 2 and all(t >= gb.FLOOR_US for t in times)
+    with pytest.raises(ValueError, match="queue 1 item 9"):
+        gb.ecb(gctx, gw, 2)

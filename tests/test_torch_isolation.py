@@ -42,7 +42,14 @@ def test_port_imports_neither_jax_nor_reference():
                     "our_tree_tpu_torch.serve.lanes", "our_tree_tpu_torch.serve.server",
                     "our_tree_tpu_torch.serve.loadgen", "our_tree_tpu_torch.serve.bench",
                     "our_tree_tpu_torch.harness.ceiling", "our_tree_tpu_torch.obs.costmodel",
-                    "our_tree_tpu_torch.obs.profiler"}
+                    "our_tree_tpu_torch.obs.profiler",
+                    "our_tree_tpu_torch.resilience.faults",
+                    "our_tree_tpu_torch.resilience.journal",
+                    "our_tree_tpu_torch.resilience.isolate",
+                    "our_tree_tpu_torch.models.arc4", "our_tree_tpu_torch.models.rc4",
+                    "our_tree_tpu_torch.ops.cuda_arc4", "our_tree_tpu_torch.runtime.native",
+                    "our_tree_tpu_torch.harness.backends",
+                    "our_tree_tpu_torch.harness.bench"}
         assert expected <= set(names), sorted(expected - set(names))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

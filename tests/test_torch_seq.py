@@ -76,8 +76,15 @@ def test_batched_cbc_matches_reference(no_kernel, engine):
 
 def test_registry_holds_the_chained_encrypts():
     assert aes.SEQ_ENCRYPT[aes.CUDA_ENGINE] is cuda_aes.seq_encrypt
-    # The other engines keep the per-block loop over their ECB core.
-    assert aes.SEQ_ENCRYPT.keys() == {aes.CUDA_ENGINE}
+    # The T-table engine runs a host loop on the CPU (the per-block loop over
+    # its core elsewhere); the plain engine keeps the per-block loop over its
+    # ECB core, the kernel's plain version.
+    assert aes.SEQ_ENCRYPT.keys() == {aes.CUDA_ENGINE, aes.TTABLE_ENGINE}
+    nr, rk, w, iv = _case(192, 3, 5, seed=8)
+    for cfb in (False, True):
+        got = aes.SEQ_ENCRYPT[aes.TTABLE_ENGINE](_t(w), _t(iv), _t(rk), nr, cfb)
+        want = cuda_aes.seq_encrypt_plain(_t(w), _t(iv), _t(rk), nr, cfb)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 @pytest.mark.parametrize("cfb", [False, True])
