@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its five
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its six
 paths, AES-128-CTR over one 256 MiB buffer with the bench chain, the
 ECB/CBC/CFB128 block-mode path over the same size, the measured roofline
 (the ceiling probe ``harness.ceiling`` and the serve bench's cost and
 profile sections that use its figure), the multi-key CTR serve path
 (``serve.bench``, the JAX package's two documented drives at the full
-ladder) and the sweep harness (``harness.bench``, with ARC4 and the native C
-tier), and holds every kernel of those paths against its plain torch
-version on the card. Phases, in order; any failure raises and the exit code
+ladder), the sweep harness (``harness.bench``, with ARC4 and the native C
+tier) and the mixed ``ctr,cbc`` serve path (the JAX package's documented
+mixed-mode drive, without its ``gcm`` modes), and holds every kernel of
+those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
@@ -21,6 +22,11 @@ is not 0:
    with one slot, runs of 1-300 blocks, a random slot per block and unused
    zero schedules, and its K = 1 entry over counters from every wrap nonce,
    every case in the auto form and in each form forced (group, block);
+   ``cbc_mk`` (multi-key CBC decrypt) for nr 10/12/14, K in {1, 3, 8, 64},
+   N in {1, 31, 33, 1000, 4096, 2^20}, with one slot, runs of 1-300 blocks
+   and a random slot per block, the upper half of each stack the unused
+   all-zero schedule, and at every rung of the serve ladder (32 to 4,096
+   blocks) with K = 8 in the same three patterns;
    ``seq_encrypt`` (chained CBC and CFB128) for nr 10/12/14, S in {1, 3,
    4096} streams, N in {1, 2, 33, 4096} blocks (up to 33 blocks against the
    whole plain loop, at 4,096 against every plain step at once);
@@ -35,7 +41,8 @@ is not 0:
    the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
    ``seq_encrypt`` launch), and F.2.1 and F.3.13 through the chained
    kernel's own entries; F.5.1 in slot 3 of 8 through the multi-key serve
-   seam;
+   seam, and F.2.2, F.2.4 and F.2.6 (CBC decrypt) in slot 3 of 8 through the
+   multi-key CBC seam (``cbc_mk``);
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
    must be 0xa612a647, the reference's digest for this chain;
 5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
@@ -68,7 +75,15 @@ is not 0:
    first traffic dispatch beside the p50; then drive A's mix once more in a
    fresh process (``python -m our_tree_tpu_torch.serve.bench``), where
    warmup meets the card first: warmup must count the library load and the
-   kernel's first launch, traffic none;
+   kernel's first launch, traffic none; then drive D, the mixed-mode drive
+   (``--requests 300 --concurrency 16 --modes ctr,cbc --sizes
+   16,64,256,1024,4096,16384``): 0 lost, failed and mismatching probes of
+   either mode, 0 builds after warmup, ``cbc_mk`` launches equal to the
+   ``cbc`` engine calls (the warmed rungs plus one per ``cbc`` batch),
+   ``ctr_mk`` launches equal to the ``ctr`` engine calls, no other kernel,
+   per-mode p50/p99, dispatches and card time a dispatch printed; and D in a
+   fresh process, whose warmup must count one more first launch than A's
+   (``cbc_mk<10>``) and whose traffic counts none;
 9. the card's dependent-issue latency (the 65,536-step chain over one
    word, cycles per dependent LOP3 at the sampled clock); per kernel at its
    path's shape (256 MiB; ``ctr_mk`` at the 4,096-block rung in each form,
@@ -96,6 +111,15 @@ is not 0:
    table and measured-rate bounds, and the latency bound (the step's
    recurrence, two dependent LDS and two dependent integer steps a byte, at
    the measured latencies; the compiled main loop's longest path beside it);
+   ``cbc_mk`` at the 4,096-block rung with K = 8 (card time in a CUDA graph)
+   and at 256 MiB with K = 8 in runs of 1-300: time, plain time, the
+   measured-rate bound, the latency bound (the inverse round circuit's own
+   dependent steps, the inverse S-box circuit's depth read from
+   ``aes_inv_bitslice.cuh`` plus the linear layers', at the measured
+   cycles a dependent step; the SASS round loop's path beside it as a
+   diagnostic), share and SASS a block; and the block form beside
+   ``ecb_decrypt_kernel`` (32 blocks a thread) from 4,096 blocks to 2^24,
+   where a group form would pay;
 10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
    processes of its own with ``OT_ARC4_PREP=native``: ``--timing device
    --iters 5 --keybits 128`` over ecb, ecb-dec, ctr, cbc-dec and rc4 at 1,
@@ -114,12 +138,13 @@ is not 0:
    window is the card's busy share under the profiler. It comes last, so
    that the profiler touches none of the timings before it.
 
-Phases 4, 5, 7, each drive of 8 and 11 run with every launch count set to
-0 just before and read just after, and each run of phase 10 counts its own
+Phases 4, 5, 7, each drive of 8 (D included) and 11 run with every launch
+count set to 0 just before and read just after, and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
-``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``chain``,
+``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``cbc_mk`` with its
+256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
@@ -168,6 +193,24 @@ MIXCOLUMN_XORS = 92
 #: kernel's redesign (per group of 32 blocks, or per block for the one-block
 #: forms), printed beside this build's: a decrypt-only change leaves them.
 FORWARD_SASS = {"ctr_gen": 21432, "ecb_encrypt": 22324, "ctr_mk_block": 2575, "seq_encrypt": 2637}
+#: The dependent steps of the per-block inverse round's linear layers as
+#: csrc/aes_block_inv.cuh writes them, a step one funnel shift or one
+#: function of at most three registers (a LOP3, constant masks as
+#: immediates): InvShiftRows 3 (the rotates; two selects of disjoint rows;
+#: one more), the pre-transform a ^= 4(a ^ a_(r+2)) 4 (the shifts; a XORed
+#: with the select; 4(.) renamed, up to four inputs: two), MixColumns with
+#: AddRoundKey 5 (the shifts; t; the shifts of t; the select; the last XOR,
+#: the other terms joined meanwhile). The last round has InvShiftRows and
+#: AddRoundKey (1); the whitening key is 1 more. The inverse S-box's depth is
+#: read from its generated program (``inv_sbox_depth``).
+INV_ROUND_LINEAR_STEPS = {"inv_shift_rows": 3, "inv_mixcolumns_pretransform": 4,
+                          "mixcolumns_addroundkey": 5}
+INV_LAST_ROUND_LINEAR_STEPS = {"inv_shift_rows": 3, "addroundkey": 1}
+#: Drive D, the mixed-mode serve drive: the JAX package's documented
+#: ``--modes ctr,gcm,gcm-open,cbc`` drive (docs/SERVING.md) without the gcm
+#: modes, which the port does not serve yet.
+DRIVE_D = ["--requests", "300", "--concurrency", "16", "--modes", "ctr,cbc", "--sizes",
+           "16,64,256,1024,4096,16384"]
 BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
 SEQ_BLOCKS = 4096
 #: Phase 2's ARC4 cases: streams x bytes, every pair. The plain version runs
@@ -648,6 +691,40 @@ def mk_ops_per_group(nr: int) -> tuple[float, dict]:
     return ops + 128 / 2, {**parts, "data_xor": 128}
 
 
+def cbc_mk_ops_per_group(nr: int) -> tuple[float, dict]:
+    """Operations multi-key CBC decrypt needs for one group of 32 blocks: the
+    ECB decrypt count (``ecb_ops_per_group``) plus the PREV stream XORed into
+    the output (128 gates); every group credited as uniform, as for
+    ``ctr_mk``."""
+    ops, parts = ecb_ops_per_group(nr, decrypt=True)
+    return ops + 128 / 2, {**parts, "prev_xor": 128}
+
+
+def inv_sbox_depth(header: str) -> int:
+    """The dependent depth of the inverse S-box circuit, read from its
+    generated program in ``aes_inv_bitslice.cuh``: every statement (one
+    XOR, XNOR or AND of two or three signals, one LOP3) one step past the
+    deepest signal it reads; x[0..7] at depth 0."""
+    body = header.split("(inv_sbox)", 1)[1].split("END GENERATED (inv_sbox)", 1)[0]
+    depth = {f"x[{i}]": 0 for i in range(8)}
+    for stmt in re.findall(r"const uint32_t (.*?);", body, re.S):
+        parts, cur, level = [], "", 0
+        for ch in stmt:
+            level += (ch == "(") - (ch == ")")
+            if ch == "," and level == 0:
+                parts.append(cur)
+                cur = ""
+            else:
+                cur += ch
+        parts.append(cur)
+        for part in parts:
+            name, expr = (t.strip() for t in part.split("=", 1))
+            ins = [t for t in re.findall(r"x\[\d\]|\b[a-z]\w*\b", expr)
+                   if t not in ("xor3", "xnor3")]
+            depth[name] = 1 + max(depth[t] for t in ins)
+    return max(depth[f"o{i}"] for i in range(8))
+
+
 def main() -> int:
     import torch
 
@@ -661,7 +738,8 @@ def main() -> int:
     from our_tree_tpu_torch.harness import ceiling
     from our_tree_tpu_torch.models import aes, arc4
     from our_tree_tpu_torch.ops import bitslice, cuda_aes, cuda_arc4
-    from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
+    from our_tree_tpu_torch.ops.keyschedule import (dec_schedule_from_enc, expand_key_dec,
+                                                    expand_key_enc)
     from our_tree_tpu_torch.runtime import cuda_build
     from our_tree_tpu_torch.utils import packing
 
@@ -673,6 +751,7 @@ def main() -> int:
                 "ecb_decrypt": cuda_aes.decrypt_words,
                 "ctr_mk": cuda_aes.ctr_scattered_multikey,
                 "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
+                "cbc_mk": cuda_aes.cbc_scattered_multikey,
                 "chain": ceiling.chain,
                 "seq_encrypt": cuda_aes.seq_encrypt,
                 "arc4_prga": cuda_arc4.prga}
@@ -714,6 +793,10 @@ def main() -> int:
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
+    missing = [f"cbc_mk_block_kernel<{nr}>" for nr in (10, 12, 14)
+               if f"cbc_mk_block_kernel<{nr}>" not in ptxas]
+    if missing:
+        raise SystemExit(f"cbc_mk.cu built without {missing}")
 
     def events_ms(fn, reps):
         fn()
@@ -888,6 +971,55 @@ def main() -> int:
         f"{mk_form_mismatch}; launches by form {form_counts()}")
     if mk_mismatch or k1_mismatch:
         raise SystemExit("ctr_mk disagrees with its plain version")
+
+    def dec_stack(bits, k, seed):
+        """(nr, (k, 4*(nr+1)) decrypt schedules of k random keys on the card,
+        the upper half of them the unused all-zero schedule)."""
+        nr, rks = mk_stack(bits, k, seed)
+        dec = np.stack([dec_schedule_from_enc(nr, r) for r in packing.words_numpy(rks)])
+        dec[(k + 1) // 2:] = 0
+        return nr, packing.words_tensor(dec, dev)
+
+    def cbc_patterns(n, k, seed):
+        """The three slot patterns over the used half of a k-slot stack."""
+        used = (k + 1) // 2
+        rng = np.random.default_rng(seed)
+        return {"one slot": torch.full((n,), used - 1, dtype=torch.int32, device=dev),
+                "runs 1-300": slot_runs(n, used, np.arange(1, 301), seed=seed),
+                "random per block": torch.from_numpy(
+                    rng.integers(0, used, n).astype(np.int32)).to(dev)}
+
+    def cbc_check(name, bits, k, n, seed):
+        """cbc_mk against its plain version on random ciphertext and PREV
+        words in the three patterns: (cases, mismatching words)."""
+        nr, rks = dec_stack(bits, k, seed)
+        w, prev = random_words(n, seed=seed + 1), random_words(n, seed=seed + 2)
+        bad = 0
+        for pattern, sl in cbc_patterns(n, k, seed + 3).items():
+            m, _ = diff(cuda_aes.cbc_scattered_multikey(w, prev, rks, sl, nr),
+                        cuda_aes.cbc_scattered_multikey_plain(w, prev, rks, sl, nr))
+            bad += m
+            if m:
+                log(f"MISMATCH cbc_mk {name} bits={bits} K={k} n={n} {pattern}: {m} words")
+        return 3, bad
+
+    cbc_cases = cbc_bad = 0
+    for bits in (128, 192, 256):
+        for k in (1, 3, 8, 64):
+            for n in (1, 31, 33, 1000, 4096, 1 << 20):
+                c, m = cbc_check("", bits, k, n, seed=bits + 100 * k + n)
+                cbc_cases, cbc_bad = cbc_cases + c, cbc_bad + m
+    rung_cases = rung_bad = 0
+    serve_rungs = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+    for rung in serve_rungs:
+        c, m = cbc_check("rung", 128, 8, rung, seed=7 * rung)
+        rung_cases, rung_bad = rung_cases + c, rung_bad + m
+    log(f"cbc_mk vs plain: {cbc_cases} cases (nr 10/12/14, K in 1, 3, 8, 64, N in 1, 31, 33, "
+        f"1000, 4096, 2^20; one slot, runs 1-300, random per block; the upper half of each stack "
+        f"unused and zero), {cbc_bad} mismatching words; at the serve ladder's rungs "
+        f"{serve_rungs} with K = 8: {rung_cases} cases, {rung_bad} mismatching words")
+    if cbc_bad or rung_bad:
+        raise SystemExit("cbc_mk disagrees with its plain version")
     # seq_encrypt, the chained CBC/CFB128 kernel, against its plain version
     # (the per-block loop). Up to 33 blocks the loop runs whole. At 4,096
     # blocks the loop's 4,096 launch-bound plain steps would take about a
@@ -1091,6 +1223,35 @@ def main() -> int:
         raise SystemExit("NIST SP800-38A F.5.1 in slot 3 of 8 failed")
     log("NIST SP800-38A F.5.1 CTR-AES128 in slot 3 of 8 (ctr_crypt_words_scattered_multikey, "
         "CUDA engine): pass")
+    # F.2.2, F.2.4 and F.2.6 in slot 3 of 8 through the multi-key CBC seam:
+    # the KAT's ciphertext, its PREV stream (IV, then the ciphertext shifted)
+    # among other tenants' blocks, slots 6-7 empty.
+    cbc_before = cuda_aes.cbc_scattered_multikey.launches
+    for bits, (key_hex, _ecb_hex, cbc_hex) in SP800_ECB_CBC.items():
+        kat_k = bytes.fromhex(key_hex)
+        nr_k, rk_k = expand_key_enc(kat_k)
+        others = [np.random.default_rng(37 + bits + i).integers(
+            0, 256, bits // 8, dtype=np.uint8).tobytes() for i in range(5)]
+        rows = [dec_schedule_from_enc(*expand_key_enc(k)) for k in others[:3]]
+        rows += [dec_schedule_from_enc(nr_k, rk_k)]
+        rows += [dec_schedule_from_enc(*expand_key_enc(k)) for k in others[3:]]
+        rks8 = packing.words_tensor(np.stack(rows + [np.zeros_like(rows[0])] * 2), dev)
+        ct_b = np.frombuffer(bytes.fromhex(cbc_hex), np.uint8)
+        cbc_data = np.random.default_rng(bits).integers(0, 256, (10, 16), dtype=np.uint8)
+        cbc_prev = np.random.default_rng(bits + 1).integers(0, 256, (10, 16), dtype=np.uint8)
+        cbc_data[kat_slots == 3] = ct_b.reshape(4, 16)
+        cbc_prev[kat_slots == 3] = np.concatenate([iv, ct_b[:48]]).reshape(4, 16)
+        out = aes.cbc_decrypt_words_scattered_multikey(
+            packing.words_tensor(packing.np_bytes_to_words(cbc_data.reshape(-1)), dev),
+            packing.words_tensor(packing.np_bytes_to_words(cbc_prev.reshape(-1)), dev), rks8,
+            torch.from_numpy(kat_slots).to(dev), nr_k, aes.CUDA_ENGINE)
+        got = packing.np_words_to_bytes(packing.words_numpy(out)).reshape(10, 16)
+        if got[kat_slots == 3].tobytes().hex() != SP800_PT:
+            raise SystemExit(f"NIST SP800-38A CBC-AES{bits} decrypt in slot 3 of 8 failed")
+    if cuda_aes.cbc_scattered_multikey.launches - cbc_before != 3:
+        raise SystemExit("the CBC KATs through the multi-key seam were not one cbc_mk launch each")
+    log("NIST SP800-38A F.2.2, F.2.4, F.2.6 (CBC-AES128/192/256 decrypt) in slot 3 of 8 "
+        "(cbc_decrypt_words_scattered_multikey, CUDA engine, one cbc_mk launch each): pass")
 
     # 4. The CTR main path, counted.
     reset_counts()
@@ -1324,13 +1485,39 @@ def main() -> int:
             "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
             "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
             "0 steady builds": line["recompiles"] == 0,
-            "ctr_mk launches == engine calls": got["ctr_mk"] == line["engine_calls"] > 0,
-            "no other kernel": all(v == 0 for n, v in got.items() if n != "ctr_mk"),
             "ctr_mk forms sum to its launches": sum(forms.values()) == got["ctr_mk"],
             "each rung's auto form served": all(
                 forms[f] > 0 for f in set(rung_forms.values())) and all(
                 forms[f] == 0 for f in forms if f not in rung_forms.values()),
         }
+        per = line["per_mode"]
+        if "--modes" not in argv:
+            checks["ctr_mk launches == engine calls"] = got["ctr_mk"] == line["engine_calls"] > 0
+            checks["no other kernel"] = all(v == 0 for n, v in got.items() if n != "ctr_mk")
+        else:
+            # The mixed-mode drive: each mode's engine calls are its kernel's
+            # launches; a cbc engine call is a warmed rung or one cbc batch.
+            calls, disp, lat = per["engine_calls"], per["dispatches"], per["latency"]
+            rungs_n = len(line["config"]["rungs"])
+            checks.update({
+                "both modes served": set(line["modes"]) == {"ctr", "cbc"} and all(
+                    lat[m]["ok"] == lat[m]["requests"] > 0 and lat[m]["verified"] > 0
+                    for m in ("ctr", "cbc")),
+                "ctr_mk launches == ctr engine calls": got["ctr_mk"] == calls["ctr"] > 0,
+                "cbc_mk launches == cbc engine calls": got["cbc_mk"] == calls["cbc"] > 0,
+                "one cbc_mk launch a cbc batch": calls["cbc"] == rungs_n + disp["cbc"] > rungs_n,
+                "engine calls by mode sum": sum(calls.values()) == line["engine_calls"],
+                "the bench's launch section": line["launches"] == {
+                    "ctr_mk": got["ctr_mk"], "cbc_mk": got["cbc_mk"]},
+                "no other kernel": all(v == 0 for n, v in got.items()
+                                       if n not in ("ctr_mk", "cbc_mk")),
+            })
+            for m in ("ctr", "cbc"):
+                log(f"serve {name} mode {m}: {lat[m]['requests']} requests, p50 "
+                    f"{lat[m]['p50_ms']} ms, p95 {lat[m]['p95_ms']} ms, p99 {lat[m]['p99_ms']} "
+                    f"ms, {int(disp[m])} dispatches, {calls[m]} engine calls, card "
+                    f"{per['device_us_per_dispatch'][m]} µs a dispatch, window p50 "
+                    f"{per['window_p50_us'][m]} µs; card: {card}")
         if "--min-coalesce" in argv:
             checks["coalesce >= 0.5"] = line["coalesce_efficiency"] >= 0.5
         if not all(checks.values()):
@@ -1366,6 +1553,37 @@ def main() -> int:
     log_first_dispatch("A (fresh process)", line)
     if not all(checks.values()):
         raise SystemExit(f"serve bench in a fresh process failed: {checks}")
+    warmup_a = line["compiles"]["warmup"]
+
+    # Drive D, the mixed ctr,cbc drive, counted; then in a fresh process, where
+    # warmup must count one first launch more than A's (cbc_mk<10>).
+    line_d, counts_d, _forms_d = serve_drive("D", DRIVE_D)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench", *DRIVE_D],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    try:
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        line = None
+    if res.returncode != 0 or line is None:
+        raise SystemExit(f"serve drive D in a fresh process: rc {res.returncode}, "
+                         f"out {res.stdout[-2000:]!r}, err {res.stderr[-2000:]!r}")
+    checks = {"CUDA engine": line["engine"] == aes.CUDA_ENGINE, "0 lost": line["lost"] == 0,
+              "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
+              "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
+              "warmup counted cbc_mk's first launch": line["compiles"]["warmup"] == warmup_a + 1,
+              "0 steady": line["compiles"]["steady"] == 0,
+              "cbc_mk launched": line["launches"]["cbc_mk"] == line["per_mode"]["engine_calls"][
+                  "cbc"] > 0}
+    log(f"serve D in a fresh process: p50 {line['p50_ms']} ms, p99 {line['p99_ms']} ms, by mode "
+        + ", ".join(f"{m} p50 {v['p50_ms']} p99 {v['p99_ms']} ms"
+                    for m, v in line["per_mode"]["latency"].items())
+        + f"; builds/loads/first launches: warmup {line['compiles']['warmup']} (A's "
+        f"{warmup_a}), steady {line['compiles']['steady']}; launches {line['launches']}; "
+        f"{wall:.1f} s wall with start-up; card: {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"serve drive D in a fresh process failed: {checks}")
 
     # 9. Each kernel at its path's shape: time, plain time, both bounds.
     kernels = []
@@ -1770,6 +1988,105 @@ def main() -> int:
                        "at_256MiB_k8_runs": {**block_bulk, "library_ms": None},
                        "forms_table": table},
     })
+
+    # cbc_mk: the serve path's shape (the 4,096-block rung, K = 8, drive B's
+    # pattern of 1-64-block runs on random slots; the rung's ciphertext and
+    # PREV words random), then 256 MiB with K = 8 in runs of 1-300. The
+    # latency bound is the inverse round circuit's own dependent steps (the
+    # inverse S-box circuit's depth, read from its generated program, plus
+    # the linear layers' steps, INV_ROUND_LINEAR_STEPS); the compiled round
+    # loop's longest path is printed beside it, a diagnostic.
+    with open(os.path.join(ROOT, "our_tree_tpu_torch", "csrc", "aes_inv_bitslice.cuh"),
+              encoding="utf-8") as fh:
+        sbox_depth = inv_sbox_depth(fh.read())
+    round_steps = sbox_depth + sum(INV_ROUND_LINEAR_STEPS.values())
+    last_steps = sbox_depth + sum(INV_LAST_ROUND_LINEAR_STEPS.values())
+    cbc_depth = 1 + (nr8 - 1) * round_steps + last_steps
+    cbc_int, cbc_sass_depth, cbc_loop = sass_per_block("cbc_mk_block_kernel", nr8, nr8)
+    cbc_ops, cbc_parts = cbc_mk_ops_per_group(nr8)
+    log(f"cbc_mk SASS (nr {nr8}): round loop {cbc_loop['int']} integer instructions, dependency "
+        f"depth {cbc_loop['depth']}, opcodes {cbc_loop['hist']}; about {cbc_int} a block; ptxas "
+        f"{ptxas.get(f'cbc_mk_block_kernel<{nr8}>')}; the circuit's dependent steps: inverse "
+        f"S-box depth {sbox_depth} + linear layers {INV_ROUND_LINEAR_STEPS} = {round_steps} a "
+        f"round, last round {last_steps}, whitening 1: {cbc_depth} at nr {nr8} (the compiled "
+        f"round loop's path: {cbc_sass_depth} over nr - 1 rounds)")
+    rksd8 = packing.words_tensor(np.stack([dec_schedule_from_enc(nr8, r)
+                                           for r in packing.words_numpy(rks8)]), dev)
+
+    def cbc_fn(w, p, sl):
+        return lambda: cuda_aes.cbc_scattered_multikey(w, p, rksd8, sl, nr8)
+
+    def cbc_plain(w, p, sl):
+        return lambda: cuda_aes.cbc_scattered_multikey_plain(w, p, rksd8, sl, nr8)
+
+    cbc_r = with_latency(timing(
+        "cbc_mk_block", cbc_fn(w_r, c_r, s_r), cbc_plain(w_r, c_r, s_r), cbc_fn(w_r, c_r, s_r)(),
+        cbc_plain(w_r, c_r, s_r)(), cbc_ops, cbc_parts, mk_bytes(rung, 8, 1), rung,
+        32 * cbc_int, plain_reps=5, sass_upper_bound=True), cbc_depth, cbc_fn(w_r, c_r, s_r))
+    cbc_r["host_issue_ms"] = host_issue_ms(cbc_fn(w_r, c_r, s_r))
+    cbc_r["sass_path_latency_ms"] = latency_ms(cbc_sass_depth, cbc_r["sampled_clock_mhz"])
+    log(f"cbc_mk at the {rung}-block rung, K = 8: host issue {cbc_r['host_issue_ms'] * 1e3:.2f} "
+        f"us per launch, {cbc_r['ms'] * 1e3:.2f} us per launch back to back, "
+        f"{cbc_r['card_ms_graph'] * 1e3:.3f} us of card per launch in a CUDA graph; plain "
+        f"{cbc_r['plain_ms']:.2f} ms; roofline bound {cbc_r['bound_ms_measured'] * 1e3:.4f} us "
+        f"({cbc_r['bound_by_measured']}, measured rates); latency bound {cbc_depth} dependent "
+        f"steps x {lat_cycles:.3f} cycles at {cbc_r['sampled_clock_mhz']:.0f} MHz = "
+        f"{cbc_r['latency_bound_ms'] * 1e3:.4f} us (the compiled path: "
+        f"{cbc_r['sass_path_latency_ms'] * 1e3:.4f} us); kernel at "
+        f"{100 * cbc_r['share_of_larger_bound']:.1f} % of the larger (graph time); {cbc_int} "
+        f"integer SASS a block; card: {card}")
+    w_c, p_c = random_words(n_big, seed=61), random_words(n_big, seed=62)
+    s_c = slot_runs(n_big, 8, np.arange(1, 301), seed=63)
+    cbc_bulk = timing("cbc_mk_block K=8 runs 1-300", cbc_fn(w_c, p_c, s_c),
+                      cbc_plain(w_c, p_c, s_c), cbc_fn(w_c, p_c, s_c)(),
+                      cbc_plain(w_c, p_c, s_c)(), cbc_ops, cbc_parts,
+                      mk_bytes(n_big, 8, 1), n_big, 32 * cbc_int, sass_upper_bound=True)
+    cbc_bulk["latency_bound_ms"] = latency_ms(cbc_depth, cbc_bulk["sampled_clock_mhz"])
+    cbc_bulk["share_of_larger_bound"] = (max(cbc_bulk["bound_ms_measured"],
+                                             cbc_bulk["latency_bound_ms"]) / cbc_bulk["ms"])
+    log(f"cbc_mk at 256 MiB, K = 8 in runs of 1-300: {cbc_bulk['ms']:.4f} ms, plain "
+        f"{cbc_bulk['plain_ms']:.2f} ms; roofline bound {cbc_bulk['bound_ms_measured']:.4f} ms "
+        f"({cbc_bulk['bound_by_measured']}, measured rates), latency bound "
+        f"{cbc_bulk['latency_bound_ms'] * 1e3:.4f} us; kernel at "
+        f"{100 * cbc_bulk['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    # Where a group form would pay: the block form beside ecb_decrypt_kernel,
+    # the same inverse circuit 32 blocks a thread (one key and no PREV XOR, so
+    # a lower estimate of what a group form of cbc_mk would take).
+    group_table = []
+    for n in (4096, 1 << 16, 1 << 20, n_big):
+        w_n, p_n, s_n = w_c[:n], p_c[:n], s_c[:n]
+        row = {"n_blocks": n}
+        for label, fn in (("cbc_mk_block", cbc_fn(w_n, p_n, s_n)),
+                          ("ecb_decrypt_group", lambda w_n=w_n: cuda_aes.decrypt_words(
+                              w_n, rk_dec, nr))):
+            reps = max(3, int(0.2 / (events_ms(fn, 1) / 1e3)))
+            row[f"{label}_ms"] = events_ms(fn, reps)
+            if n <= 1 << 16:
+                row[f"{label}_card_ms_graph"] = graph_ms(fn)
+        key = "card_ms_graph" if n <= 1 << 16 else "ms"
+        row["faster"] = ("block" if row[f"cbc_mk_block_{key}"] < row[f"ecb_decrypt_group_{key}"]
+                         else "group")
+        group_table.append(row)
+        log(f"cbc_mk block form vs the group layout (ecb_decrypt_kernel) at {n} blocks: "
+            f"{row['cbc_mk_block_ms']:.4f} vs {row['ecb_decrypt_group_ms']:.4f} ms back to back"
+            + (f", {row['cbc_mk_block_card_ms_graph'] * 1e3:.3f} vs "
+               f"{row['ecb_decrypt_group_card_ms_graph'] * 1e3:.3f} us in a CUDA graph"
+               if n <= 1 << 16 else "") + f" (faster: {row['faster']}); card: {card}")
+    del w_c, p_c, s_c
+    kernels.append({
+        "name": "cbc_mk", "route": "cuda", "source": "our_tree_tpu_torch/csrc/cbc_mk.cu",
+        "replaces": "our_tree_tpu/models/aes.py:595",
+        "counterpart_of": "the bitsliced jnp circuit _multikey_cbc_bitslice "
+                          "(our_tree_tpu/models/aes.py:595-606), not a Pallas kernel",
+        "launches": counts_d["cbc_mk"], **cbc_r, "library_ms": None,
+        "shape": f"{rung} blocks, K = 8, drive B's request pattern, cbc_mk_block_kernel",
+        "dependent_steps": {"inv_sbox_depth": sbox_depth, "round": round_steps,
+                            "last_round": last_steps, "total": cbc_depth,
+                            "linear_layers": INV_ROUND_LINEAR_STEPS},
+        "dependent_issue_cycles": lat_cycles, "sass_round_loop": cbc_loop,
+        "sass_int_per_block": cbc_int, "sass_path_dependent_instructions": cbc_sass_depth,
+        "at_256MiB_k8_runs": {**cbc_bulk, "library_ms": None},
+        "group_layout_table": group_table})
 
     # chain: each regime at the probe's 64 MiB, timed alone in phase 7.
     chain_entries = {}

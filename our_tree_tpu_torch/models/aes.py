@@ -13,8 +13,11 @@ single-key explicit-counter entry, the chained CBC/CFB128 encrypt);
 core (``ops/block.py``), the reference's ``"jnp"`` engine, an in-port oracle
 that ``"auto"`` never picks. ``"auto"`` resolves to the kernels for a CUDA
 device and to the plain version for the CPU. ``MULTIKEY_CTR`` holds each
-engine's multi-key scattered-CTR core, the serve path's dispatch
-(``ctr_crypt_words_scattered_multikey``, engines by ``resolve_serve_engine``).
+engine's multi-key scattered-CTR core, the serve path's ``ctr`` dispatch
+(``ctr_crypt_words_scattered_multikey``, engines by ``resolve_serve_engine``),
+and ``MULTIKEY_CBC`` its multi-key CBC-decrypt core, the ``cbc`` dispatch
+(``cbc_decrypt_words_scattered_multikey``; on the card the ``cbc_mk``
+kernel).
 
 Modes: ECB, CTR and the CBC/CFB128 decrypts are one batched engine call.
 CBC and CFB128 encryption are recurrences: the reference runs them as a
@@ -61,6 +64,14 @@ CTR_EXPLICIT: dict[str, object] = {}
 #: schedules and ``key_slots`` the (N,) int32 public per-block slot vector:
 #: one call carrying K tenants' keys (the serve rung-packer's dispatch).
 MULTIKEY_CTR: dict[str, object] = {}
+#: Multi-key CBC-decrypt cores, (words, prev, rks_dec, key_slots, nr) ->
+#: words over (N, 4) int32 words: block i is D(words[i]) ^ prev[i] under the
+#: InvMixColumns-folded schedule ``rks_dec[key_slots[i]]``, where ``prev`` is
+#: the PREV stream the serve batcher lays out (each request's IV at its first
+#: block, then its own ciphertext shifted by one block). P_i = D(C_i) ^
+#: C_(i-1) reads only ciphertext, so decrypt batches across requests and keys
+#: where CBC encrypt, a recurrence, does not.
+MULTIKEY_CBC: dict[str, object] = {}
 #: Chained CBC/CFB128 encrypts, (words, ivs, rk, nr, cfb) -> (out, ivs_out)
 #: over (S, N, 4) int32 words and (S, 4) IVs, by engine name; engines
 #: without one run the per-block loop over their ECB core.
@@ -68,14 +79,16 @@ SEQ_ENCRYPT: dict[str, object] = {}
 #: The reference's host tier (the native C runtime), which the port does
 #: not have: ``resolve_serve_engine`` refuses it.
 NATIVE_ENGINE = "native"
-#: (engine, nr, device) of every call of the serve seam in this process
-#: (``set.add`` is atomic, so lane worker threads add without a lock).
+#: (seam, engine, nr, device) of every call of the serve seams in this
+#: process, seam ``"ctr"`` or ``"cbc"`` (``set.add`` is atomic, so lane
+#: worker threads add without a lock).
 _SEAM_CALLS: set = set()
 
 
 def seam_first_calls() -> int:
-    """How many distinct (engine, nr, device) ``ctr_crypt_words_scattered_multikey``
-    has been called with in this process. On the card the first launch of
+    """How many distinct (seam, engine, nr, device) the serve seams
+    (``ctr_crypt_words_scattered_multikey``, ``cbc_decrypt_words_scattered_multikey``)
+    have been called with in this process. On the card the first launch of
     a kernel's NR instantiation is when CUDA loads its code into the
     context (lazy module loading), so each first call stands for the one
     cost the JAX package's compile counter would see; the CPU counts the
@@ -84,8 +97,11 @@ def seam_first_calls() -> int:
 
 
 def register_core(name: str, encrypt_fn, decrypt_fn, ctr_fused_fn=None,
-                  multikey_fn=None, ctr_explicit_fn=None, seq_encrypt_fn=None) -> None:
+                  multikey_fn=None, ctr_explicit_fn=None, seq_encrypt_fn=None,
+                  multikey_cbc_fn=None) -> None:
     CORES[name] = (encrypt_fn, decrypt_fn)
+    if multikey_cbc_fn is not None:
+        MULTIKEY_CBC[name] = multikey_cbc_fn
     if seq_encrypt_fn is not None:
         SEQ_ENCRYPT[name] = seq_encrypt_fn
     if ctr_fused_fn is not None:
@@ -103,6 +119,13 @@ def _multikey_ttable(words, ctr_le, rks, key_slots, nr):
     return words ^ block.encrypt_words(ctr_le, rks[key_slots.long()].t(), nr)
 
 
+def _multikey_cbc_ttable(words, prev, rks_dec, key_slots, nr):
+    """T-table multi-key CBC decrypt: the public schedule gather, the T-table
+    decrypt core with the schedule as a batch dimension, XOR the PREV stream
+    (the reference's ``_multikey_cbc_jnp``)."""
+    return block.decrypt_words(words, rks_dec[key_slots.long()].t(), nr) ^ prev
+
+
 def _seq_ttable(words, ivs, rk, nr, cfb):
     """The T-table engine's chained encrypt: the host loop for CPU tensors,
     the per-block loop over its core on another device."""
@@ -113,12 +136,15 @@ def _seq_ttable(words, ivs, rk, nr, cfb):
 
 register_core(CUDA_ENGINE, cuda_aes.encrypt_words, cuda_aes.decrypt_words,
               cuda_aes.ctr_crypt_words_fused, cuda_aes.ctr_scattered_multikey,
-              cuda_aes.ctr_crypt_words_explicit, cuda_aes.seq_encrypt)
+              cuda_aes.ctr_crypt_words_explicit, cuda_aes.seq_encrypt,
+              cuda_aes.cbc_scattered_multikey)
 register_core(PLAIN_ENGINE, bitslice.encrypt_words, bitslice.decrypt_words,
               cuda_aes.ctr_crypt_words_fused_plain, cuda_aes.ctr_scattered_multikey_plain,
-              cuda_aes.ctr_crypt_words_explicit_plain)
+              cuda_aes.ctr_crypt_words_explicit_plain,
+              multikey_cbc_fn=cuda_aes.cbc_scattered_multikey_plain)
 register_core(TTABLE_ENGINE, block.encrypt_words, block.decrypt_words,
-              multikey_fn=_multikey_ttable, seq_encrypt_fn=_seq_ttable)
+              multikey_fn=_multikey_ttable, seq_encrypt_fn=_seq_ttable,
+              multikey_cbc_fn=_multikey_cbc_ttable)
 
 
 def as_device(device=None) -> torch.device:
@@ -142,18 +168,19 @@ def resolve_engine(engine: str, device) -> str:
     return engine
 
 
-def resolve_serve_engine(name: str | None = "auto", device=None) -> str:
-    """Engine for the serve dispatch path (the multi-key scattered-CTR
-    seam): ``"auto"`` is the CUDA kernel on a CUDA device and the plain
-    version on the CPU. ``"native"``, the reference's host tier, raises:
-    the port has no native runtime. Any other name must have a multi-key
-    core."""
+def resolve_serve_engine(name: str | None = "auto", device=None, modes=("ctr",)) -> str:
+    """Engine for the serve dispatch path (the multi-key seams of ``modes``,
+    ``"ctr"`` and ``"cbc"``): ``"auto"`` is the CUDA kernels on a CUDA
+    device and the plain versions on the CPU. ``"native"``, the reference's
+    host tier, raises: the port has no native runtime. Any other name must
+    have a multi-key core for every mode."""
     if name == NATIVE_ENGINE:
         raise ValueError("engine 'native' (the native C host tier) is not part of the port")
     engine = resolve_engine("auto" if name is None else name, as_device(device))
-    if engine not in MULTIKEY_CTR:
-        raise ValueError(f"engine {engine!r} has no multi-key CTR core; "
-                         f"available: {sorted(MULTIKEY_CTR)}")
+    for mode, cores in (("ctr", MULTIKEY_CTR), ("cbc", MULTIKEY_CBC)):
+        if mode in modes and engine not in cores:
+            raise ValueError(f"engine {engine!r} has no multi-key {mode.upper()} core; "
+                             f"available: {sorted(cores)}")
     return engine
 
 
@@ -230,8 +257,29 @@ def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.
     The reference's ``native_*`` arguments belong to its host tier, which
     the port does not have."""
     engine = resolve_engine(engine, words.device)
-    _SEAM_CALLS.add((engine, nr, str(words.device)))
+    _SEAM_CALLS.add(("ctr", engine, nr, str(words.device)))
     out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
+    return out.reshape(words.shape)
+
+
+def cbc_decrypt_words_scattered_multikey(words: torch.Tensor, prev_words: torch.Tensor,
+                                         rks_dec: torch.Tensor, key_slots: torch.Tensor,
+                                         nr: int, engine: str = "auto") -> torch.Tensor:
+    """Parallel CBC decrypt across many requests and K keys in one call (on
+    the card, one ``cbc_mk`` launch).
+
+    ``words`` are the concatenated ciphertext blocks and ``prev_words`` the
+    per-block XOR stream: each request's IV at its first block, then its own
+    ciphertext shifted by one block (the serve batcher lays it out as it
+    lays out CTR's counters, so CBC rides the rung-packer with the same
+    shapes). ``rks_dec`` is the (K, 4*(nr+1)) int32 stack of
+    InvMixColumns-folded decrypt schedules (unused slots all zero),
+    ``key_slots`` the (N,) int32 public per-block slot vector. Any N, not
+    only the rungs; (N, 4) or flat (4N,) words, the result in ``words``'
+    shape. CBC encrypt is a recurrence and is not servable."""
+    engine = resolve_engine(engine, words.device)
+    _SEAM_CALLS.add(("cbc", engine, nr, str(words.device)))
+    out = MULTIKEY_CBC[engine](_blocks(words), _blocks(prev_words), rks_dec, key_slots, nr)
     return out.reshape(words.shape)
 
 

@@ -12,10 +12,13 @@ Per rung ``N`` (16-byte blocks), ``K`` key slots and ``nr`` rounds, the
 port's ``ctr`` dispatch (``cuda_aes.ctr_scattered_multikey``) reads the
 payload, the counter words, the (K, 4(nr+1)) schedule stack and the (N,)
 slot vector, and writes the payload: 52 bytes per block plus 16 K (nr + 1)
-bytes of schedules, what the JAX package's device engines move. The op
-count is the reference's order-of-magnitude budget (blocks x rounds x 32
-word operations), not the kernel's count. Only ``ctr`` is served by the
-port; another mode raises until the slice that serves it.
+bytes of schedules, what the JAX package's device engines move. The
+``cbc`` dispatch (``cuda_aes.cbc_scattered_multikey``) reads the
+ciphertext, the PREV stream, the decrypt-schedule stack and the slot
+vector, and writes the plaintext: the same bytes, as in the reference. The
+op count is the reference's order-of-magnitude budget (blocks x rounds x 32
+word operations), not the kernel's count. ``gcm``, ``gcm-open`` and ``rc4``
+raise until the slices that serve them.
 
 Not carried: the XLA half (``jit(...).lower().compile()`` cost and memory
 analyses; PyTorch has no counterpart) and with it ``OT_COST_XLA``, so every
@@ -43,7 +46,7 @@ VERSION = 1
 #: reference's budget: 16 gathers + 12 combining XORs + 4 round-key XORs).
 OPS_PER_BLOCK_ROUND = 32
 #: The modes the port serves.
-MODES = ("ctr",)
+MODES = ("ctr", "cbc")
 
 #: (engine, mode, rung, nr, key_slots) -> record, shared by every server of
 #: the process.
@@ -54,12 +57,15 @@ def analytic_cost(engine: str, mode: str, rung: int, nr: int, key_slots: int) ->
     """The per-dispatch record (the module docstring has the formula).
     Bytes are boundary traffic: what one dispatch reads and writes."""
     if mode not in MODES:
-        raise ValueError(f"mode {mode!r} is not served by the port yet: cbc and gcm come "
-                         "with the AEAD serve slice, rc4 with the stream-cipher slice")
+        raise ValueError(f"mode {mode!r} is not served by the port yet: gcm and gcm-open "
+                         "come with the AEAD serve slice (ROADMAP queue 1 item 6), rc4 with "
+                         "the session slice (item 4)")
     n = int(rung)
     k = int(key_slots)
     blk = 16 * n
     sched = k * 4 * (int(nr) + 1) * 4
+    # ctr: payload + counter words; cbc: ciphertext + PREV stream. Both add
+    # the schedule stack (cbc's the decrypt one) and the slot vector.
     bytes_in = blk + blk + sched + 4 * n
     bytes_out = blk
     return {

@@ -297,6 +297,16 @@ def counter_total(name: str) -> float:
         return sum(v for (n, _), v in _COUNTS.items() if n == name)
 
 
+def counter_by_label(name: str, label_key: str) -> dict:
+    """label value -> summed total for one counter name, grouped by one label
+    key (``serve_requests`` by ``mode``: the per-workload split)."""
+    out: dict[str, float] = {}
+    with _LOCK:
+        for (n, labels), v in _COUNTS.items():
+            lv = dict(labels).get(label_key) if n == name else None
+            if lv is not None:
+                out[str(lv)] = out.get(str(lv), 0) + v
+    return dict(sorted(out.items()))
 
 
 def hist_by_label(name: str, label_key: str) -> dict:

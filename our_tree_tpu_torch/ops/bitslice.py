@@ -1,12 +1,11 @@
 """Bitsliced AES in plain torch, both directions.
 
 This is the plain version of the CUDA kernels' arithmetic
-(``csrc/ctr_gen.cu``, ``csrc/ecb.cu``, ``csrc/ctr_mk.cu``): the same
-functions on whole tensors, used for CPU tensors and as the kernels'
-yardstick on the card. Port of ``our_tree_tpu.ops.bitslice`` without its
-TPU-only boundary layouts (``grouped``/``dense`` exist for TPU tile
-padding) and without ``decrypt_words_multikey``, which waits for the CBC
-serve mode.
+(``csrc/ctr_gen.cu``, ``csrc/ecb.cu``, ``csrc/ctr_mk.cu``,
+``csrc/cbc_mk.cu``): the same functions on whole tensors, used for CPU
+tensors and as the kernels' yardstick on the card. Port of
+``our_tree_tpu.ops.bitslice`` without its TPU-only boundary layouts
+(``grouped``/``dense`` exist for TPU tile padding).
 
 Data layout (the reference's, so tests compare planes directly): N blocks
 (N % 32 == 0) become an ``(8, 16, W)`` int32 tensor, W = N/32, where
@@ -731,4 +730,18 @@ def encrypt_words_multikey(words: torch.Tensor, rk_blocks: torch.Tensor,
     if pad:
         rk_blocks = torch.cat([rk_blocks, rk_blocks.new_zeros((pad, rk_blocks.shape[1]))])
     out = _crypt_planes(to_planes(padded), multikey_planes(rk_blocks, nr), nr, encrypt_round)
+    return from_planes(out)[:n]
+
+
+def decrypt_words_multikey(words: torch.Tensor, rk_blocks: torch.Tensor,
+                           nr: int) -> torch.Tensor:
+    """Bitsliced batch decrypt where block i uses its own InvMixColumns-folded
+    schedule: the decrypt twin of ``encrypt_words_multikey`` (the parallel
+    CBC-decrypt serve seam, ``models.aes.cbc_decrypt_words_scattered_multikey``).
+    Padding blocks get the all-zero schedule; their output is dropped."""
+    padded, n = _pad32(words)
+    pad = padded.shape[0] - rk_blocks.shape[0]
+    if pad:
+        rk_blocks = torch.cat([rk_blocks, rk_blocks.new_zeros((pad, rk_blocks.shape[1]))])
+    out = _crypt_planes(to_planes(padded), multikey_planes(rk_blocks, nr), nr, decrypt_round)
     return from_planes(out)[:n]

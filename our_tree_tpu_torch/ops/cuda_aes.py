@@ -29,6 +29,15 @@ group form (32 blocks per thread) and the block form (one block per thread,
 is asked for, and each launch is counted under its form in
 ``.form_launches``.
 
+``cbc_scattered_multikey`` launches ``csrc/cbc_mk.cu``: ``out[i] =
+D_{rks_dec[slot[i]]}(c[i]) ^ prev[i]``, the serve path's ``cbc`` (parallel
+multi-key CBC decrypt) dispatch, one block a thread (``csrc/aes_block_inv.cuh``).
+It is the counterpart of no TPU kernel: the reference runs the same function
+as the bitsliced jnp circuit ``_multikey_cbc_bitslice``
+(``our_tree_tpu/models/aes.py:595-606``) inside one XLA program. Its plain
+version ``cbc_scattered_multikey_plain`` is that circuit in torch
+(``bitslice.decrypt_words_multikey`` on the gathered schedules, then XOR).
+
 ``seq_encrypt`` launches ``csrc/seq.cu``: S streams of N blocks of CBC or
 CFB128 encryption chained inside one launch (the recurrences the reference
 runs as a ``lax.scan``, ``our_tree_tpu/models/aes.py:704-716`` and
@@ -221,6 +230,39 @@ def ctr_scattered_multikey(words: torch.Tensor, ctr_le: torch.Tensor, rks: torch
                    ints=(k, code), aligned=(ctr_le,), form=MK_FORMS[code])
 
 
+def cbc_scattered_multikey_plain(words: torch.Tensor, prev: torch.Tensor, rks_dec: torch.Tensor,
+                                 key_slots: torch.Tensor, nr: int) -> torch.Tensor:
+    """Plain version: gather each block's decrypt schedule by its public slot
+    index, bitsliced per-block-key decrypt, XOR the PREV stream (the
+    reference's ``_multikey_cbc_bitslice``)."""
+    return bitslice.decrypt_words_multikey(words, rks_dec[key_slots.long()], nr) ^ prev
+
+
+def cbc_scattered_multikey(words: torch.Tensor, prev: torch.Tensor, rks_dec: torch.Tensor,
+                           key_slots: torch.Tensor, nr: int) -> torch.Tensor:
+    """Multi-key CBC decrypt over (N, 4) int32 LE ciphertext words: block i
+    becomes D_{rks_dec[key_slots[i]]}(words[i]) ^ prev[i]. ``prev``: (N, 4)
+    int32 words, each request's IV at its first block, then its own
+    ciphertext shifted by one block; ``rks_dec``: (K, 4*(nr+1)) int32
+    InvMixColumns-folded decrypt schedules, 1 <= K <= ``MK_MAX_SLOTS``;
+    ``key_slots``: (N,) int32 public slot indices, each below K (checked on
+    the CPU; the kernel clamps a bad one into range rather than read outside
+    ``rks_dec``)."""
+    n = words.shape[0] if words.dim() == 2 else -1
+    _check(words, nr, prev=(prev, (n, 4)), key_slots=(key_slots, (n,)), rks_dec=(rks_dec, None))
+    if rks_dec.dim() != 2 or rks_dec.shape[1] != 4 * (nr + 1):
+        raise ValueError(f"rks_dec must be (K, {4 * (nr + 1)}), got {tuple(rks_dec.shape)}")
+    k = rks_dec.shape[0]
+    if not 1 <= k <= MK_MAX_SLOTS:
+        raise ValueError(f"rks_dec must hold 1..{MK_MAX_SLOTS} schedules, got {k}")
+    if words.device.type == "cpu":
+        if n and (int(key_slots.min()) < 0 or int(key_slots.max()) >= k):
+            raise ValueError(f"key_slots must lie in [0, {k})")
+        return cbc_scattered_multikey_plain(words, prev, rks_dec, key_slots, nr)
+    return _launch(cbc_scattered_multikey, "ot_cbc_mk", words, (prev, key_slots, rks_dec), nr,
+                   ints=(k,), aligned=(prev,))
+
+
 def ctr_crypt_words_explicit(words: torch.Tensor, ctr_le: torch.Tensor, rk: torch.Tensor,
                              nr: int, form: str = "auto") -> torch.Tensor:
     """Single-key CTR over (N, 4) int32 LE block words and their (N, 4) LE
@@ -316,6 +358,7 @@ encrypt_words.launches = 0
 decrypt_words.launches = 0
 ctr_scattered_multikey.launches = 0
 ctr_crypt_words_explicit.launches = 0
+cbc_scattered_multikey.launches = 0
 seq_encrypt.launches = 0
 #: ``ctr_mk`` launches by the form that ran (a reader may reset them).
 ctr_scattered_multikey.form_launches = {"group": 0, "block": 0}

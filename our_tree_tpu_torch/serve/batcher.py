@@ -1,7 +1,7 @@
 """Shape-bucketed continuous batching: requests -> fixed-shape dispatches.
 
-Port of ``our_tree_tpu.serve.batcher`` for the ``ctr`` mode, host numpy as
-in the reference. Every batch is padded to a rung of a fixed power-of-two
+Port of ``our_tree_tpu.serve.batcher`` for the ``ctr`` and ``cbc`` modes,
+host numpy as in the reference. Every batch is padded to a rung of a fixed power-of-two
 ladder, so after warmup over the ladder the card only ever sees the warmed
 shapes (the JAX package needs that to avoid recompiles; the port keeps the
 same shapes, so its warmup covers every dispatch shape too).
@@ -16,6 +16,12 @@ stream, built here (``utils.packing.np_ctr_le_blocks``). K is fixed per
 server (unused slots carry the all-zero schedule). Groups of different key
 lengths never share a batch. Padding blocks ride slot 0 with zero counters
 and zero payload; their keystream is computed and dropped.
+
+Batches never mix modes (each mode has its own dispatch). A ``cbc`` batch
+is laid out like a ``ctr`` one, with ``ctr_words`` carrying the PREV stream
+in place of counters: each request's IV at its first block, then its own
+ciphertext shifted by one block (P_i = D(C_i) ^ C_(i-1) reads only
+ciphertext, which is why the decrypt direction batches at all).
 """
 
 from __future__ import annotations
@@ -107,7 +113,8 @@ class Batch:
     @property
     def label(self) -> str:
         first = self.slots[0].label if self.slots else "?"
-        return f"{first}+{len(self.slots) - 1}k:{self.bucket}"
+        suffix = "" if self.mode == "ctr" else f":{self.mode}"
+        return f"{first}+{len(self.slots) - 1}k:{self.bucket}{suffix}"
 
     @property
     def requests(self) -> list[Request]:
@@ -126,9 +133,13 @@ class Batch:
 
     def materialise(self) -> None:
         """Build the flat uint32 dispatch arrays: (4N,) payload words, (4N,)
-        LE counter words and the (N,) slot vector, plus ``req_spans``.
-        Requests pack contiguously, so only the padding tail is zeroed; a
-        request that exactly fills its rung is viewed in place."""
+        LE counter words (``cbc``: the PREV stream) and the (N,) slot
+        vector, plus ``req_spans``. Requests pack contiguously, so only the
+        padding tail is zeroed; a ``ctr`` request that exactly fills its rung
+        is viewed in place."""
+        if self.mode == "cbc":
+            self._materialise_cbc()
+            return
         spans, off = [], 0
         for req in self.requests:
             spans.append((off, req.nblocks))
@@ -160,6 +171,30 @@ class Batch:
         self.words = words
         self.ctr_words = ctr.reshape(-1)
         self.slot_index = slot_index
+
+    def _materialise_cbc(self) -> None:
+        """The CBC-decrypt layout: ``ctr_words`` carries the PREV stream, each
+        request's IV at its first block, then its own ciphertext shifted by
+        one block."""
+        words = np.zeros(4 * self.bucket, dtype=np.uint32)
+        prev = np.zeros(4 * self.bucket, dtype=np.uint32)
+        slot_index = np.zeros(self.bucket, dtype=np.uint32)
+        spans, off = [], 0
+        for si, slot in enumerate(self.slots):
+            for req in slot.requests:
+                n = req.nblocks
+                w = packing.np_bytes_to_words(req.payload)
+                words[4 * off:4 * (off + n)] = w
+                prev[4 * off:4 * off + 4] = packing.np_bytes_to_words(
+                    np.frombuffer(req.iv, np.uint8))
+                prev[4 * (off + 1):4 * (off + n)] = w[:4 * (n - 1)]
+                slot_index[off:off + n] = si
+                spans.append((off, n))
+                off += n
+        self.words = words
+        self.ctr_words = prev
+        self.slot_index = slot_index
+        self.req_spans = spans
 
     def split_output(self, out_words: np.ndarray) -> list[np.ndarray]:
         """Per-request output bytes, in ``requests`` order (after

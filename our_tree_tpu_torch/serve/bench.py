@@ -1,16 +1,21 @@
 """``python -m our_tree_tpu_torch.serve.bench``: the serving benchmark.
 
-Port of the ctr part of ``our_tree_tpu.serve.bench``. Closed-loop (or
-open-loop, ``--arrival-rate``) load against an in-process ``Server``:
-mixed request sizes, multi-tenant keys, p50/p95/p99 latency, goodput GB/s,
+Port of the ctr and cbc part of ``our_tree_tpu.serve.bench``. Closed-loop
+(or open-loop, ``--arrival-rate``) load against an in-process ``Server``:
+mixed request sizes, multi-tenant keys, the served-mode mix (``--modes``,
+from ``ctr`` and ``cbc``: the server enables and warms exactly these
+ladders, and each request draws its mode uniformly from them),
+p50/p95/p99 latency (per mode too, with more than ``ctr``), goodput GB/s,
 the batch-occupancy histogram, the per-lane breakdown with its health
 transitions and the dispatch's stage split. Human-readable ``#`` lines, then
-one JSON line last on stdout: the JAX bench line's keys, plus the
-artifact's sections (``config``, ``load``, ``batches``, ``coalesce``,
-``occupancy``, ``compiles``, ``keycache``, ``lanes``, ``queue``,
-``device``, ``stages``, ``cost``, ``profile``). It writes the artifact
-(those sections and the metrics snapshot) only to a path given with
-``--artifact``.
+one JSON line last on stdout: the JAX bench line's keys (``modes``, the
+requests by mode, when the mix is not ``ctr`` alone), plus the artifact's
+sections (``config``, ``load``, ``batches``, ``coalesce``, ``occupancy``,
+``compiles``, ``keycache``, ``lanes``, ``queue``, ``device``, ``stages``,
+``cost``, ``profile``, ``per_mode``: requests, dispatches and engine calls
+by mode; ``launches``: the multi-key kernels' launches during the run, 0 on
+the CPU). It writes the artifact (those sections and the metrics snapshot)
+only to a path given with ``--artifact``.
 
 The roofline sections, as in the reference: ``--ceiling-gbps`` gives the
 ``device`` section a utilization (card-time goodput over the ceiling) and
@@ -39,9 +44,15 @@ import json
 import sys
 
 from ..obs import costmodel, metrics, profiler, trace
+from ..ops import cuda_aes
 from ..resilience import degrade, watchdog
 from . import batcher, loadgen
+from .queue import not_ported
 from .server import Server, ServerConfig
+
+#: The kernel wrapper each served mode launches on the card, by kernel name.
+MODE_KERNELS = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
+                "cbc_mk": cuda_aes.cbc_scattered_multikey}
 
 
 async def _arm_profile_window(start_s: float, dur_s: float, device) -> None:
@@ -62,7 +73,7 @@ async def _drive(args, probes):
         max_depth=args.queue_depth, request_deadline_s=args.deadline,
         dispatch_deadline_s=args.dispatch_deadline, retries=args.retries, lanes=args.lanes,
         probe_every=args.probe_every, max_inflight=args.max_inflight,
-        ceiling_gbps=args.ceiling_gbps)
+        ceiling_gbps=args.ceiling_gbps, modes=args.modes)
     server = Server(cfg)
     await server.start()
     arm_task = None
@@ -72,7 +83,8 @@ async def _drive(args, probes):
     report = await loadgen.run(
         server, args.requests, concurrency=args.concurrency, sizes=args.sizes,
         tenants=args.tenants, keys_per_tenant=args.keys_per_tenant, seed=args.seed,
-        verify_every=args.verify_every, probes=probes, arrival_rate=args.arrival_rate)
+        verify_every=args.verify_every, probes=probes, arrival_rate=args.arrival_rate,
+        modes=args.modes)
     if arm_task is not None and not arm_task.done():
         arm_task.cancel()  # the drive ended before the window's offset
         try:
@@ -97,7 +109,8 @@ def _lane_summary(stats: dict, wall_s: float) -> dict:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m our_tree_tpu_torch.serve.bench",
-                                 description="closed-loop serving benchmark of the port (ctr)")
+                                 description="closed-loop serving benchmark of the port "
+                                             "(ctr, cbc)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
     ap.add_argument("--engine", default="auto",
@@ -120,6 +133,10 @@ def parse_args(argv=None):
     ap.add_argument("--tenant-heavy", action="store_true",
                     help="many tenants, one key each, sizes "
                          f"{loadgen.TENANT_HEAVY_SIZES}: full rungs only from multi-key packing")
+    ap.add_argument("--modes", default="ctr", metavar="M1,M2",
+                    help="served-mode mix (comma list from ctr, cbc): the server enables and "
+                         "warms exactly these ladders, and each request draws its mode "
+                         "uniformly from them")
     ap.add_argument("--key-slots", type=int, default=batcher.DEFAULT_KEY_SLOTS, metavar="K")
     ap.add_argument("--bucket-min", type=int, default=batcher.DEFAULT_MIN_BLOCKS,
                     metavar="BLOCKS")
@@ -158,6 +175,10 @@ def parse_args(argv=None):
             args.profile_window = (max(float(start_s), 0.0), max(float(dur_s), 0.05))
         except ValueError:
             ap.error(f"--profile-window wants START:DUR seconds, got {args.profile_window!r}")
+    args.modes = tuple(m.strip() for m in args.modes.split(",") if m.strip()) or ("ctr",)
+    why = not_ported(args.modes)
+    if why is not None:
+        ap.error(why)
     if args.tenant_heavy:
         args.sizes = loadgen.TENANT_HEAVY_SIZES
         args.tenants = max(args.tenants, 24)
@@ -177,9 +198,12 @@ def main(argv=None) -> int:
     trace.ensure_run()
     metrics.reset()
     # Reference outputs before the server starts (host T-table, no kernel).
-    probes = loadgen.make_probes(args.sizes, args.seed) if args.verify_every else []
+    probes = (loadgen.make_probes(args.sizes, args.seed, args.modes) if args.verify_every
+              else [])
     profile_before = profiler.last_summary()
+    launches_before = {name: fn.launches for name, fn in MODE_KERNELS.items()}
     server, report = asyncio.run(_drive(args, probes))
+    launches = {name: fn.launches - launches_before[name] for name, fn in MODE_KERNELS.items()}
     stats = server.stats()
     lanes = _lane_summary(stats, report.wall_s)
     lost = stats["queue"]["lost"]
@@ -193,6 +217,33 @@ def main(argv=None) -> int:
           f"lost={lost} verified={report.verified} mismatches={report.mismatches}")
     print(f"# latency ms: p50={report.p50_ms} p95={report.p95_ms} p99={report.p99_ms}  "
           f"goodput={report.goodput_gbps:.4f} GB/s wall={report.wall_s:.3f}s")
+    # The per-workload split: the mixed-mode drive's evidence that every
+    # enabled mode carried traffic, and what each one's requests waited.
+    dispatches_by_mode = metrics.counter_by_label("serve_rung_dispatches", "mode")
+    device_us_by_mode = metrics.counter_by_label("serve_rung_device_us", "mode")
+    windows = metrics.hist_by_label("serve_dispatch_us", "mode")
+    per_mode = {
+        "requests": metrics.counter_by_label("serve_requests", "mode"),
+        "dispatches": dispatches_by_mode,
+        "engine_calls": stats["lanes"]["engine_calls_by_mode"],
+        "latency": report.modes,
+        # A served dispatch's card time (CUDA events; the compute window on
+        # the CPU) and its whole window, by mode.
+        "device_us_per_dispatch": {m: round(device_us_by_mode.get(m, 0) / n, 1)
+                                   for m, n in dispatches_by_mode.items() if n},
+        "window_p50_us": {m: round(metrics.percentile_from_buckets(b, 50), 1)
+                          for m, b in windows.items()},
+    }
+    if args.modes != ("ctr",):
+        print("# modes: " + "  ".join(
+            f"{m}:{int(n)}" for m, n in per_mode["requests"].items()))
+        for m, r in report.modes.items():
+            print(f"#   mode {m}: requests={r['requests']} ok={r['ok']} "
+                  f"verified={r['verified']} p50={r['p50_ms']} p95={r['p95_ms']} "
+                  f"p99={r['p99_ms']} ms, dispatches={int(dispatches_by_mode.get(m, 0))}, "
+                  f"engine calls={per_mode['engine_calls'].get(m, 0)}, device "
+                  f"{per_mode['device_us_per_dispatch'].get(m, 0.0)} µs a dispatch, window "
+                  f"p50 {per_mode['window_p50_us'].get(m, 0.0)} µs")
     print(f"# batches={stats['batches']} failed={stats['batches_failed']} "
           f"timed_out={stats['batches_timed_out']} redispatches={lanes['redispatches']} "
           f"quarantines={lanes['quarantine_events']} engine_calls={lanes['engine_calls']} "
@@ -290,8 +341,11 @@ def main(argv=None) -> int:
                    "lanes": lanes["count"], "probe_every": args.probe_every,
                    "max_inflight": args.max_inflight, "arrival_rate": args.arrival_rate,
                    "seed": args.seed, "ceiling_gbps": args.ceiling_gbps,
+                   "modes": list(args.modes),
                    "profile_window": (list(args.profile_window) if args.profile_window
                                       else None)},
+        "per_mode": per_mode,
+        "launches": launches,
         "load": report.to_json(),
         "overlap": overlap,
         "coalesce": coal,
@@ -331,6 +385,8 @@ def main(argv=None) -> int:
                  "quarantines": lanes["quarantine_events"],
                  "recompiles": stats["compiles"]["steady"], "mismatches": report.mismatches,
                  "verified": report.verified})
+    if args.modes != ("ctr",):
+        line["modes"] = {m: int(n) for m, n in per_mode["requests"].items()}
     if degrade.events():
         line["degraded"] = degrade.events()
     if trace.enabled():

@@ -1,10 +1,11 @@
 """Multi-tenant LRU cache of expanded AES key schedules.
 
-Port of ``our_tree_tpu.serve.keycache`` without the AEAD memo and the native
-contexts (the GCM/CBC serve modes and the host tier are not in the port
-yet). Key expansion is host-side and per key, so a service where every
-request names its key makes rekeying a lookup. Entries hold the host
-(numpy) schedule; the lane stages it on its device per dispatch.
+Port of ``our_tree_tpu.serve.keycache`` with the ``cbc`` mode's decrypt
+schedules and without the AEAD memo and the native contexts (the GCM serve
+modes and the host tier are not in the port yet). Key expansion is
+host-side and per key, so a service where every request names its key makes
+rekeying a lookup. Entries hold the host (numpy) schedule; the lane stages
+it on its device per dispatch.
 
 Entries are keyed by (tenant, key digest), and tenants are isolated twice:
 each tenant has its own LRU of ``per_tenant`` entries (one tenant's key
@@ -17,6 +18,9 @@ array of every slot's schedule, zero rows in unused slots, memoized per
 (slot digests, K) in its own LRU, so a familiar batch shape does no schedule
 work. A stack outlives a per-tenant eviction until ``stacked_capacity``
 churn pushes it out (eviction is capacity management, not revocation).
+``stacked(..., mode="cbc")`` also attaches the stack's decrypt schedules
+(``rks_dec``), derived from each slot's encrypt schedule once per key digest
+(``_dec``, bounded at four times the stack capacity).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ..obs import metrics, trace
-from ..ops.keyschedule import expand_key_enc
+from ..ops.keyschedule import dec_schedule_from_enc, expand_key_enc
 
 
 def key_digest(key: bytes) -> str:
@@ -36,15 +40,18 @@ def key_digest(key: bytes) -> str:
 
 
 class StackedSchedules:
-    """An immutable K-slot schedule stack: ``rks`` is (K, 4*(nr+1)) uint32,
-    row i = slot i's schedule, all-zero rows in unused slots."""
+    """A K-slot schedule stack: ``rks`` is (K, 4*(nr+1)) uint32, row i = slot
+    i's schedule, all-zero rows in unused slots. ``rks_dec`` is the same
+    stack of InvMixColumns-folded decrypt schedules, attached by the first
+    ``cbc`` use (None until then)."""
 
-    __slots__ = ("nr", "rks", "digests")
+    __slots__ = ("nr", "rks", "digests", "rks_dec")
 
     def __init__(self, nr: int, rks: np.ndarray, digests: tuple):
         self.nr = int(nr)
         self.rks = rks
         self.digests = digests
+        self.rks_dec = None
 
 
 class KeyCache:
@@ -57,6 +64,8 @@ class KeyCache:
         self._tenants: dict[str, OrderedDict] = {}
         self._stacked: OrderedDict = OrderedDict()
         self.stacked_capacity = max(int(stacked_capacity), 1)
+        #: digest -> decrypt-schedule row, bounded at 4 x stacked_capacity
+        self._dec: OrderedDict = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -89,11 +98,12 @@ class KeyCache:
             trace.counter("keycache_evict", tenant=tenant)
         return (digest, *entry)
 
-    def stacked(self, slots: list, key_slots: int) -> StackedSchedules:
+    def stacked(self, slots: list, key_slots: int, mode: str = "ctr") -> StackedSchedules:
         """The memoized (K, 4*(nr+1)) stack for slot-ordered (tenant, key)
         pairs. Every slot still passes through ``get`` (LRU touch, hit
         accounting), but assembling the stack is memoized per (digests, K).
-        Mixed key lengths are refused: ``nr`` is uniform per dispatch."""
+        Mixed key lengths are refused: ``nr`` is uniform per dispatch.
+        ``mode="cbc"`` attaches the decrypt-schedule stack on first need."""
         if not slots or len(slots) > key_slots:
             raise ValueError(f"{len(slots)} slot(s) for a {key_slots}-slot stack")
         entries = [self.get(t, k) for t, k in slots]
@@ -108,6 +118,7 @@ class KeyCache:
             self.stacked_hits += 1
             metrics.counter("keycache_stacked", outcome="hit")
             trace.counter("keycache_stacked_hit")
+            self._attach_mode(hit, entries, mode)
             return hit
         self.stacked_misses += 1
         metrics.counter("keycache_stacked", outcome="miss")
@@ -120,7 +131,26 @@ class KeyCache:
         self._stacked[memo_key] = sched
         if len(self._stacked) > self.stacked_capacity:
             self._stacked.popitem(last=False)
+        self._attach_mode(sched, entries, mode)
         return sched
+
+    def _attach_mode(self, sched: StackedSchedules, entries: list, mode: str) -> None:
+        """Attach ``mode``'s per-key material to the stack, once: for ``cbc``
+        the decrypt-schedule stack, each row derived from the slot's encrypt
+        schedule (reversed, InvMixColumns; no key bytes touched again) and
+        memoized per digest. Unused slots stay zero."""
+        if mode != "cbc" or sched.rks_dec is not None:
+            return
+        rks_dec = np.zeros_like(sched.rks)
+        for i, (digest, nr, rk) in enumerate(entries):
+            row = self._dec.get(digest)
+            if row is None:
+                row = dec_schedule_from_enc(nr, rk)
+                self._dec[digest] = row
+                if len(self._dec) > 4 * self.stacked_capacity:
+                    self._dec.popitem(last=False)
+            rks_dec[i] = row
+        sched.rks_dec = rks_dec
 
     def holds(self, tenant: str, key: bytes) -> bool:
         """Whether the entry is cached (no LRU touch; introspection only)."""

@@ -5,18 +5,23 @@ lane (an explicit lane count may exceed the card count; such lanes share a
 card, each with its own CUDA stream), and a lane is an isolated fault
 domain. A failing or hung lane degrades its own health, never the service:
 its batch is re-dispatched bit-exactly on another lane before any rider
-sees an error. CTR with explicit per-block counters makes replay free of
-side effects: a batch is a pure function of (words, counters, schedules,
-slots) and can run anywhere, twice, with identical bytes.
+sees an error. CTR with explicit per-block counters, and CBC decrypt with
+its PREV stream laid out by the batcher, make replay free of side effects:
+a batch is a pure function of (words, counters or PREV, schedules, slots)
+and can run anywhere, twice, with identical bytes.
 
 This module is the only place in ``serve/`` that touches a device.
 ``Lane.engine_call`` runs on the lane's worker thread (``serve/dispatch.py``)
 under the lane's watchdog deadline: it makes the lane's card and stream
 current on that thread, stages the batch arrays there (int32 views of the
-batcher's uint32 arrays; copies from pageable host memory), calls
-``aes.ctr_crypt_words_scattered_multikey`` (the ``ctr_mk`` kernel on the
-CUDA engine), records CUDA events around it, fences with a stream
-synchronize and copies the output back. The reference's fault seams and
+batcher's uint32 arrays; copies from pageable host memory), calls the
+batch's mode's seam (``ctr``: ``aes.ctr_crypt_words_scattered_multikey``,
+the ``ctr_mk`` kernel on the CUDA engine; ``cbc``:
+``aes.cbc_decrypt_words_scattered_multikey`` with the stack's decrypt
+schedules, the ``cbc_mk`` kernel), records CUDA events around it, fences
+with a stream synchronize and copies the output back. Staging, the
+``device`` stage, failover replay and the (``ctr``-shaped) canary do not
+depend on the mode; the dispatch metrics carry it as a label. The reference's fault seams and
 journal-backed quarantine are not carried over.
 
 Health state machine (every transition is a ``lane-state`` trace point;
@@ -69,6 +74,10 @@ RELEASED = "released"
 #: States that may receive traffic.
 PLACEABLE = (HEALTHY, SUSPECT, PROBATION)
 
+#: The seam each served mode dispatches to, and the stack's schedules it reads.
+_SEAMS = {"ctr": (aes.ctr_crypt_words_scattered_multikey, "rks"),
+          "cbc": (aes.cbc_decrypt_words_scattered_multikey, "rks_dec")}
+
 #: The pinned canary batch: inputs, the expected output and its rung.
 _Canary = collections.namedtuple("_Canary", "words ctr_words sched key_slots expected bucket")
 
@@ -116,9 +125,10 @@ class Lane:
         self.policy = RetryPolicy(attempts=max(int(retries), 1), base_delay_s=0.0,
                                   retry_on=(RuntimeError,), name=f"lane{idx}-dispatch")
         self.dispatches = 0
-        #: every engine call (warmup, traffic, retries, canaries): on the
-        #: CUDA engine, one ``ctr_mk`` launch each
-        self.engine_calls = 0
+        #: every engine call by mode (warmup, traffic, retries, canaries):
+        #: on the CUDA engine, one kernel launch each (``ctr_mk`` for
+        #: ``ctr``, ``cbc_mk`` for ``cbc``)
+        self.engine_calls_by_mode: dict[str, int] = {}
         self.blocks = 0
         self.failures = 0
         self.timeouts = 0
@@ -137,6 +147,10 @@ class Lane:
         self.executor: LaneExecutor | None = None
         self._clock = clock
         self._t0 = clock()
+
+    @property
+    def engine_calls(self) -> int:
+        return sum(self.engine_calls_by_mode.values())
 
     def run_async(self, unit) -> asyncio.Future:
         """Run ``unit`` (a zero-argument callable around ``engine_call``) on
@@ -194,44 +208,46 @@ class Lane:
 
     # -- the one device-dispatch seam in serve/ ----------------------------
     def engine_call(self, words, ctr_words, sched, key_slots, label: str,
-                    warmup: bool = False, timing: dict | None = None) -> np.ndarray:
+                    warmup: bool = False, timing: dict | None = None,
+                    mode: str = "ctr") -> np.ndarray:
         """One multi-key dispatch on this lane's device, on the calling
         (worker) thread, under this lane's watchdog deadline. ``words`` and
-        ``ctr_words`` are flat (4N,) uint32, ``sched`` the keycache's
-        ``StackedSchedules``, ``key_slots`` the (N,) slot vector. Returns the
-        (4N,) uint32 output. Warmup runs under the global opt-in deadline
-        (a first contact legitimately dwarfs a steady dispatch), except on
-        a quarantined lane."""
+        ``ctr_words`` (counters, or ``cbc``'s PREV stream) are flat (4N,)
+        uint32, ``sched`` the keycache's ``StackedSchedules`` (with
+        ``rks_dec`` for ``cbc``), ``key_slots`` the (N,) slot vector; ``mode``
+        picks the seam. Returns the (4N,) uint32 output. Warmup runs under
+        the global opt-in deadline (a first contact legitimately dwarfs a
+        steady dispatch), except on a quarantined lane."""
+        seam, rks_name = _SEAMS[mode]
+        rks = getattr(sched, rks_name)
         deadline_s = (self.deadline_s if (not warmup or self.state == QUARANTINED)
                       else watchdog.default_deadline_s())
-        self.engine_calls += 1
+        self.engine_calls_by_mode[mode] = self.engine_calls_by_mode.get(mode, 0) + 1
         with watchdog.deadline(deadline_s, what=f"lane {self.idx} dispatch {label}"):
             if self.stream is None:
-                return self._call_cpu(words, ctr_words, sched, key_slots, timing)
+                return self._call_cpu(seam, words, ctr_words, rks, key_slots, sched.nr, timing)
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-                return self._call_cuda(words, ctr_words, sched, key_slots, timing)
+                return self._call_cuda(seam, words, ctr_words, rks, key_slots, sched.nr, timing)
 
-    def _call_cpu(self, words, ctr_words, sched, key_slots, timing):
+    def _call_cpu(self, seam, words, ctr_words, rks, key_slots, nr, timing):
         t0 = self._clock()
-        out = aes.ctr_crypt_words_scattered_multikey(
-            _tensor(words, self.device), _tensor(ctr_words, self.device),
-            _tensor(sched.rks, self.device), _tensor(key_slots, self.device), sched.nr,
-            self.engine)
+        out = seam(_tensor(words, self.device), _tensor(ctr_words, self.device),
+                   _tensor(rks, self.device), _tensor(key_slots, self.device), nr, self.engine)
         res = out.numpy().view(np.uint32)
         if timing is not None:
             timing["device_us"] = d_us = int((self._clock() - t0) * 1e6)
             self.device_us += d_us
         return res
 
-    def _call_cuda(self, words, ctr_words, sched, key_slots, timing):
+    def _call_cuda(self, seam, words, ctr_words, rks, key_slots, nr, timing):
         t0 = self._clock()
         w, c = _tensor(words, self.device), _tensor(ctr_words, self.device)
-        r, s = _tensor(sched.rks, self.device), _tensor(key_slots, self.device)
+        r, s = _tensor(rks, self.device), _tensor(key_slots, self.device)
         t_staged = self._clock()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record(self.stream)
-        out = aes.ctr_crypt_words_scattered_multikey(w, c, r, s, sched.nr, self.engine)
+        out = seam(w, c, r, s, nr, self.engine)
         stop.record(self.stream)
         t_fence = self._clock()
         self.stream.synchronize()
@@ -251,7 +267,8 @@ class Lane:
         return {
             "lane": self.idx, "device": str(self.device), "state": self.state,
             "warmed": self.warmed, "dispatches": self.dispatches,
-            "engine_calls": self.engine_calls, "blocks": self.blocks,
+            "engine_calls": self.engine_calls,
+            "engine_calls_by_mode": dict(self.engine_calls_by_mode), "blocks": self.blocks,
             "bytes": self.blocks * 16, "failures": self.failures, "timeouts": self.timeouts,
             "redispatches_in": self.redispatches_in, "canaries": self.canaries,
             "busy_s": round(self.busy_us / 1e6, 6),
@@ -404,12 +421,12 @@ class LanePool:
 
     # -- dispatch with failover --------------------------------------------
     async def dispatch(self, words, ctr_words, sched, key_slots, label: str, bucket: int,
-                       blocks: int, requests: int, sampled: bool = True):
-        """Place and run one batch, failing over across lanes until it
-        succeeds or every lane has been tried. Returns (output, lane,
-        redispatches); raises ``LanesExhausted`` only when no lane could
-        serve it. The dispatch window's parts (worker wait, staging, card,
-        host rest) go to the ``serve_stage_us`` histograms."""
+                       blocks: int, requests: int, sampled: bool = True, mode: str = "ctr"):
+        """Place and run one batch of ``mode``, failing over across lanes
+        until it succeeds or every lane has been tried. Returns (output,
+        lane, redispatches); raises ``LanesExhausted`` only when no lane
+        could serve it. The dispatch window's parts (worker wait, staging,
+        card, host rest) go to the ``serve_stage_us`` histograms."""
         causes: list = []
         tried: set[int] = set()
         while True:
@@ -430,10 +447,10 @@ class LanePool:
             # at any sample rate.
             cm = trace.maybe_span(sampled or bool(tried), "lane-dispatch", lane=lane.idx,
                                   batch=label, bucket=bucket, blocks=blocks, requests=requests,
-                                  engine=self.engine, redispatch=bool(tried))
+                                  engine=self.engine, mode=mode, redispatch=bool(tried))
             cm.__enter__()
             ex = ({"span": cm.span_id, "trace": trace.run_id(), "lane": lane.idx,
-                   "rung": bucket, "engine": self.engine, "mode": "ctr"}
+                   "rung": bucket, "engine": self.engine, "mode": mode}
                   if cm.span_id else None)
             lane.inflight += 1
             self._inflight(+1)
@@ -444,7 +461,8 @@ class LanePool:
             def unit(lane=lane, attempt_timing=attempt_timing, t0=t0):
                 attempt_timing["worker_wait_us"] = int((lane._clock() - t0) * 1e6)
                 return lane.policy.run(lambda att: lane.engine_call(
-                    words, ctr_words, sched, key_slots, label, timing=attempt_timing))
+                    words, ctr_words, sched, key_slots, label, timing=attempt_timing,
+                    mode=mode))
 
             try:
                 out = await lane.run_async(unit)
@@ -475,7 +493,7 @@ class LanePool:
                 dt_us = int((lane._clock() - t0) * 1e6)
                 lane.busy_us += dt_us
                 metrics.observe("serve_dispatch_us", dt_us, lane=lane.idx, engine=self.engine,
-                                outcome=outcome, mode="ctr", exemplar=ex)
+                                outcome=outcome, mode=mode, exemplar=ex)
                 metrics.counter("serve_lane_busy_us", dt_us, lane=lane.idx)
                 self._notify_change()
             wait_us = int(attempt_timing.get("worker_wait_us", 0))
@@ -491,9 +509,9 @@ class LanePool:
             cm.__exit__(None, None, None)
             metrics.counter("serve_device_us", device_us, lane=lane.idx)
             metrics.counter("serve_rung_dispatches", rung=bucket, engine=self.engine,
-                            mode="ctr", nr=int(getattr(sched, "nr", 0) or 0))
+                            mode=mode, nr=int(getattr(sched, "nr", 0) or 0))
             metrics.counter("serve_rung_device_us", device_us, rung=bucket, engine=self.engine,
-                            mode="ctr", nr=int(getattr(sched, "nr", 0) or 0))
+                            mode=mode, nr=int(getattr(sched, "nr", 0) or 0))
             metrics.observe("serve_stage_us", wait_us, stage="worker_wait", exemplar=ex)
             metrics.observe("serve_stage_us", staging_us, stage="staging", exemplar=ex)
             metrics.observe("serve_stage_us", host_us, stage="dispatch", exemplar=ex)
@@ -525,6 +543,10 @@ class LanePool:
             "count": len(self.lanes),
             "placed_across": sum(1 for ln in self.lanes if ln.dispatches),
             "engine_calls": sum(ln.engine_calls for ln in self.lanes),
+            "engine_calls_by_mode": {m: sum(ln.engine_calls_by_mode.get(m, 0)
+                                            for ln in self.lanes)
+                                     for m in sorted({m for ln in self.lanes
+                                                      for m in ln.engine_calls_by_mode})},
             "redispatches": self.redispatches,
             "quarantine_events": self.quarantine_events(),
             "abandoned_workers": sum(ln.executor.abandoned for ln in self.lanes

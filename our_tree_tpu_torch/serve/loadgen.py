@@ -1,20 +1,25 @@
 """Closed- and open-loop load generators for the serve path.
 
-Port of ``our_tree_tpu.serve.loadgen`` for the ``ctr`` mode. Closed loop
-(the default): ``concurrency`` clients each draw a (tenant, key, size) from
-a seeded generator, submit, await, repeat. Open loop (``arrival_rate=R``):
-one request every 1/R seconds whatever the service rate, latency measured
-from each request's scheduled arrival.
+Port of ``our_tree_tpu.serve.loadgen`` for the ``ctr`` and ``cbc`` modes.
+Closed loop (the default): ``concurrency`` clients each draw a (size, mode,
+tenant, key) from a seeded generator, submit, await, repeat. Open loop
+(``arrival_rate=R``): one request every 1/R seconds whatever the service
+rate, latency measured from each request's scheduled arrival. ``modes`` is
+the mix: each request draws its mode uniformly, so CTR and CBC decrypt
+interleave in one queue. The same seed draws the same sizes, modes, keys,
+nonces, IVs and probes in the same order as the JAX loadgen.
 
-Correctness rides along: one pinned probe per request size (key, nonce and
-payload from the seed) is computed before the server starts, and every
-``verify_every``-th request replays a probe and checks the bytes. The
-expected outputs come from ``AES(key, engine="ttable", device="cpu")``, a
-T-table formulation on the host, independent of the bitsliced kernel under
-test: it is the check, not a fallback.
+Correctness rides along: one pinned probe per (mode, request size) (key,
+nonce or IV, and payload from the seed) is computed before the server
+starts, and every ``verify_every``-th request replays a probe and checks the
+bytes. The expected outputs come from the T-table engine on the host
+(``AES(key, engine="ttable", device="cpu")``: CTR, and ``_np_cbc_encrypt``
+for the ciphertext a ``cbc`` probe decrypts back to its plaintext),
+independent of the bitsliced kernels under test: it is the check, not a
+fallback.
 
-Percentiles are nearest-rank over the full sample; goodput counts OK
-payload bytes only.
+Percentiles are nearest-rank over the full sample, and per mode when the mix
+holds more than ``ctr``; goodput counts OK payload bytes only.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..models.aes import AES, TTABLE_ENGINE
+from ..models.aes import AES, AES_ENCRYPT, TTABLE_ENGINE
 from ..obs import metrics as obs_metrics
 
 #: The mixed-size menu (bytes): one block to the default bucket ceiling.
@@ -48,6 +53,9 @@ class Probe:
     nonce: bytes
     payload: np.ndarray
     expected: np.ndarray
+    #: the served mode and, for ``cbc``, the IV (``ctr`` leaves it empty)
+    mode: str = "ctr"
+    iv: bytes = b""
 
 
 @dataclass
@@ -63,6 +71,11 @@ class LoadReport:
     p95_ms: float = 0.0
     p99_ms: float = 0.0
     latencies_ms: list = field(default_factory=list, repr=False)
+    #: mode -> its requests' latencies (ms), ok count and verified probes
+    by_mode: dict = field(default_factory=dict, repr=False)
+    #: mode -> {requests, ok, verified, p50_ms, p95_ms, p99_ms}, set by
+    #: ``finish`` when the mix holds more than ``ctr``
+    modes: dict = field(default_factory=dict)
 
     def finish(self, wall_s: float, ok_bytes: int) -> None:
         self.wall_s = wall_s
@@ -71,6 +84,14 @@ class LoadReport:
         self.p50_ms = round(percentile(lat, 50), 3)
         self.p95_ms = round(percentile(lat, 95), 3)
         self.p99_ms = round(percentile(lat, 99), 3)
+        if set(self.by_mode) - {"ctr"}:
+            self.modes = {}
+            for mode, m in sorted(self.by_mode.items()):
+                ml = sorted(m["latencies_ms"])
+                self.modes[mode] = {"requests": len(ml), "ok": m["ok"], "verified": m["verified"],
+                                    "p50_ms": round(percentile(ml, 50), 3),
+                                    "p95_ms": round(percentile(ml, 95), 3),
+                                    "p99_ms": round(percentile(ml, 99), 3)}
 
     def to_json(self) -> dict:
         return {"requests": self.requests, "ok": self.ok,
@@ -80,19 +101,36 @@ class LoadReport:
                 "p95_ms": self.p95_ms, "p99_ms": self.p99_ms}
 
 
-def make_probes(sizes, seed: int) -> list[Probe]:
-    """One pinned ctr request per size with its expected output from the
-    host T-table engine. Call before the server starts."""
+def _np_cbc_encrypt(key: bytes, iv16: bytes, pt: bytes) -> bytes:
+    """Host-reference CBC encrypt (the sequential direction serving does not
+    offer): the T-table engine's chained encrypt on the CPU, which makes
+    each ``cbc`` probe's ciphertext."""
+    ref = AES(key, engine=TTABLE_ENGINE, device="cpu")
+    return ref.crypt_cbc(AES_ENCRYPT, np.frombuffer(iv16, np.uint8),
+                         np.frombuffer(pt, np.uint8))[0].tobytes()
+
+
+def make_probes(sizes, seed: int, modes=("ctr",)) -> list[Probe]:
+    """One pinned request per (mode, size) with its expected output from the
+    host T-table engine: a ``ctr`` probe's ciphertext, or a ``cbc`` probe's
+    plaintext (its payload is ``_np_cbc_encrypt`` of it). The draws follow
+    the JAX loadgen's order. Call before the server starts."""
     rng = np.random.default_rng(seed ^ 0x9E3779B9)
     probes = []
     for size in sizes:
         key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
         nonce = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
         payload = rng.integers(0, 256, size, dtype=np.uint8)
-        ref = AES(key, engine=TTABLE_ENGINE, device="cpu")
-        expected = ref.crypt_ctr(0, np.frombuffer(nonce, np.uint8), np.zeros(16, np.uint8),
-                                 payload)[0]
-        probes.append(Probe("probe", key, nonce, payload, np.asarray(expected)))
+        if "ctr" in modes:
+            ref = AES(key, engine=TTABLE_ENGINE, device="cpu")
+            expected = ref.crypt_ctr(0, np.frombuffer(nonce, np.uint8), np.zeros(16, np.uint8),
+                                     payload)[0]
+            probes.append(Probe("probe", key, nonce, payload, np.asarray(expected)))
+        if "cbc" in modes:
+            iv16 = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+            ct = _np_cbc_encrypt(key, iv16, payload.tobytes())
+            probes.append(Probe("probe", key, b"", np.frombuffer(ct, np.uint8), payload,
+                                mode="cbc", iv=iv16))
     return probes
 
 
@@ -100,14 +138,16 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
               tenants: int = 4, keys_per_tenant: int = 2, seed: int = 0,
               verify_every: int = 8, deadline_s: float | None = None,
               probes: list[Probe] | None = None, arrival_rate: float | None = None,
-              clock=time.monotonic) -> LoadReport:
+              modes=("ctr",), clock=time.monotonic) -> LoadReport:
     """Drive ``server`` with ``n_requests`` in total; the aggregated report.
     ``arrival_rate=None``: ``concurrency`` closed-loop clients;
-    ``arrival_rate=R``: open loop, one request every 1/R seconds."""
+    ``arrival_rate=R``: open loop, one request every 1/R seconds. ``modes``:
+    the mix, each request's mode drawn uniformly from it."""
     sizes = tuple(sizes)
+    modes = tuple(modes) or ("ctr",)
     if probes is None:
-        probes = make_probes(sizes, seed)
-    by_size = {p.payload.size: p for p in probes}
+        probes = make_probes(sizes, seed, modes)
+    by_key = {(p.mode, p.payload.size): p for p in probes}
     keys = {}
     key_rng = np.random.default_rng(seed)
     for t in range(tenants):
@@ -122,32 +162,47 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     payloads = {s: pool_rng.integers(0, 256, s, dtype=np.uint8) for s in sizes}
 
     def pick(i: int, rng):
-        """Request i's (tenant, key, nonce, payload, probe); the mix depends
-        only on the seed and the request order, not on the loop shape."""
+        """Request i's (tenant, key, nonce, payload, probe, mode, iv); the mix
+        depends only on the seed and the request order, not on the loop
+        shape."""
         size = int(rng.choice(sizes))
-        probe = by_size.get(size) if (verify_every and i % verify_every == 0) else None
+        mode = modes[int(rng.integers(len(modes)))]
+        probe = by_key.get((mode, size)) if (verify_every and i % verify_every == 0) else None
         if probe is not None:
-            return probe.tenant, probe.key, probe.nonce, probe.payload, probe
+            return (probe.tenant, probe.key, probe.nonce, probe.payload, probe, probe.mode,
+                    probe.iv)
         tenant = f"t{int(rng.integers(tenants))}"
         key = keys[(int(tenant[1:]), int(rng.integers(keys_per_tenant)))]
-        nonce = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-        return tenant, key, nonce, payloads[size], None
+        nonce = iv = b""
+        if mode == "ctr":
+            nonce = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        elif mode == "cbc":
+            iv = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        return tenant, key, nonce, payloads[size], None, mode, iv
 
-    def account(resp, payload, probe, dt_ms: float):
+    def account(resp, payload, probe, mode, dt_ms: float):
         report.requests += 1
         report.latencies_ms.append(dt_ms)
+        m = report.by_mode.setdefault(mode, {"latencies_ms": [], "ok": 0, "verified": 0})
+        m["latencies_ms"].append(dt_ms)
         obs_metrics.counter("loadgen_requests", outcome=(resp.error or "ok"))
         obs_metrics.observe("loadgen_latency_us", dt_ms * 1e3, outcome=(resp.error or "ok"))
         if resp.ok:
             report.ok += 1
+            m["ok"] += 1
             counter["ok_bytes"] += int(payload.size)
             obs_metrics.counter("loadgen_ok_bytes", int(payload.size))
             if probe is not None:
                 report.verified += 1
+                m["verified"] += 1
                 if not np.array_equal(np.asarray(resp.payload), probe.expected):
                     report.mismatches += 1
         else:
             report.errors[resp.error] = report.errors.get(resp.error, 0) + 1
+
+    async def submit_one(tenant, key, nonce, payload, mode, iv):
+        kw = {} if mode == "ctr" else {"mode": mode, "iv": iv}
+        return await server.submit(tenant, key, nonce, payload, deadline_s=deadline_s, **kw)
 
     async def client(cid: int):
         rng = np.random.default_rng((seed << 8) ^ cid)
@@ -156,15 +211,15 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
             if i >= n_requests:
                 return
             counter["next"] = i + 1
-            tenant, key, nonce, payload, probe = pick(i, rng)
+            tenant, key, nonce, payload, probe, mode, iv = pick(i, rng)
             t0 = clock()
-            resp = await server.submit(tenant, key, nonce, payload, deadline_s=deadline_s)
-            account(resp, payload, probe, (clock() - t0) * 1e3)
+            resp = await submit_one(tenant, key, nonce, payload, mode, iv)
+            account(resp, payload, probe, mode, (clock() - t0) * 1e3)
 
     async def open_request(i: int, scheduled: float, rng):
-        tenant, key, nonce, payload, probe = pick(i, rng)
-        resp = await server.submit(tenant, key, nonce, payload, deadline_s=deadline_s)
-        account(resp, payload, probe, (clock() - scheduled) * 1e3)
+        tenant, key, nonce, payload, probe, mode, iv = pick(i, rng)
+        resp = await submit_one(tenant, key, nonce, payload, mode, iv)
+        account(resp, payload, probe, mode, (clock() - scheduled) * 1e3)
 
     async def open_loop(t_start: float):
         interval = 1.0 / arrival_rate

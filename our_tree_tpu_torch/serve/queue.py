@@ -1,6 +1,7 @@
 """Admission control and backpressure for the serve path.
 
-Port of ``our_tree_tpu.serve.queue`` for the ``ctr`` mode. The policy:
+Port of ``our_tree_tpu.serve.queue`` for the ``ctr`` and ``cbc`` modes. The
+policy:
 
 * **Bounded depth.** Past ``max_depth`` queued requests new ones are shed
   with an immediate ``"shed"`` answer (degrade kind ``accept->shed``).
@@ -12,10 +13,14 @@ Port of ``our_tree_tpu.serve.queue`` for the ``ctr`` mode. The policy:
   ``priority_depth_frac * max_depth`` (``serve_shed{reason=priority}``).
 * **Per-request deadline.** Every accepted request carries a ``Budget``; one
   whose budget is spent when the batcher drains it answers ``"deadline"``.
-* **Admission checks up front.** Payloads are a nonzero multiple of 16 bytes
-  that fits the top rung, keys 16/24/32 bytes, nonces 16 bytes. Only ``ctr``
-  is served: any other mode is refused ``"bad-request"``, the code the JAX
-  queue gives a mode outside its enabled set.
+* **Admission checks up front**, in the JAX queue's order and with its
+  codes: a mode outside the reference's vocabulary (``MODES``), or one this
+  server did not enable (its ladder was never warmed), is ``"bad-request"``;
+  payloads are a nonzero multiple of 16 bytes that fits the top rung, keys
+  16/24/32 bytes, ``ctr`` nonces and ``cbc`` IVs 16 bytes. The port serves
+  ``ctr`` and ``cbc`` (``PORTED_MODES``); a server refuses to enable the
+  others at configuration time (``not_ported``), so they reach admission
+  only as modes not enabled.
 
 Every accepted request opens a detached ``request-queued`` span (admission
 to drain), head-sampled once at admission (``trace.sample()``); the metrics
@@ -39,13 +44,37 @@ from ..resilience.policy import Budget
 #: Response error codes (the closed set clients dispatch on).
 ERR_SHED = "shed"                 #: queue full: back off and retry
 ERR_TOO_LARGE = "too-large"       #: payload exceeds the largest bucket
-ERR_BAD_REQUEST = "bad-request"   #: malformed payload/key/nonce, or a mode not served
+ERR_BAD_REQUEST = "bad-request"   #: malformed payload/key/nonce/IV, or a mode not enabled
 ERR_DEADLINE = "deadline"         #: budget exhausted (queued or dispatching)
 ERR_DISPATCH = "dispatch-failed"  #: the batch died on every lane
 ERR_SHUTDOWN = "shutdown"         #: server stopped with the request queued
 
-#: The served modes: the port serves scattered CTR only so far.
-MODES = ("ctr",)
+#: The served-mode vocabulary, the JAX package's: ``ctr`` is scattered CTR,
+#: ``gcm``/``gcm-open`` AES-GCM seal/open, ``cbc`` parallel CBC decrypt (the
+#: only CBC direction that parallelises), ``rc4`` the session stream mode.
+#: Batches never mix modes (``serve/batcher.py``).
+MODES = ("ctr", "gcm", "gcm-open", "cbc", "rc4")
+
+#: The modes the port serves so far.
+PORTED_MODES = ("ctr", "cbc")
+
+#: Where each mode the port does not serve yet is queued.
+_QUEUED = {"gcm": "ROADMAP queue 1 item 6 (AES-GCM)",
+           "gcm-open": "ROADMAP queue 1 item 6 (AES-GCM)",
+           "rc4": "ROADMAP queue 1 item 4 (the rc4 serve mode, after sessions, item 7)"}
+
+
+def not_ported(modes) -> str | None:
+    """Why a server may not enable ``modes``, or None when it may: a mode
+    outside the vocabulary, or one the port does not serve yet."""
+    bad = [m for m in modes if m not in MODES]
+    if bad or not modes:
+        return f"unknown serve mode(s) {bad} (known: {MODES})"
+    later = [m for m in modes if m not in PORTED_MODES]
+    if later:
+        return ("serve mode(s) " + ", ".join(f"{m!r} ({_QUEUED[m]})" for m in later)
+                + f" not ported yet; the port serves {PORTED_MODES}")
+    return None
 
 
 class ServeError(RuntimeError):
@@ -75,12 +104,14 @@ class Request:
     id: int
     tenant: str
     key: bytes
-    nonce: bytes                 #: 16 big-endian counter bytes
+    nonce: bytes                 #: ctr: 16 big-endian counter bytes
     payload: np.ndarray          #: (16*nblocks,) u8
     future: asyncio.Future
     budget: Budget | None = None
     t_submit: float = 0.0
     mode: str = "ctr"
+    #: cbc: the 16-byte IV
+    iv: bytes = b""
     #: the admission-time head-sampling decision
     sampled: bool = True
     #: an upstream span id this request's spans chain under
@@ -113,8 +144,10 @@ class RequestQueue:
     def __init__(self, max_depth: int = 1024, max_request_blocks: int = 4096,
                  default_deadline_s: float = 30.0, tenant_depth_frac: float = 1.0,
                  low_priority_tenants=(), priority_depth_frac: float = 0.5,
-                 clock=time.monotonic):
+                 modes=("ctr",), clock=time.monotonic):
         self.max_depth = int(max_depth)
+        #: the modes this server enabled (and warmed)
+        self.modes = tuple(modes)
         self.max_request_blocks = int(max_request_blocks)
         self.default_deadline_s = float(default_deadline_s)
         self.low_priority_tenants = frozenset(low_priority_tenants)
@@ -146,18 +179,23 @@ class RequestQueue:
         trace.counter(f"serve_shed{'' if reason == 'depth' else '_' + reason}")
         degrade.degrade(kind, why)
 
-    def _refusal(self, tenant, key, nonce, data, mode, priority):
+    def _refusal(self, tenant, key, nonce, iv, data, mode, priority):
         """(code, why) when admission refuses the request, else None."""
         if self.closed:
             return ERR_SHUTDOWN, "server is draining"
         if mode not in MODES:
-            return ERR_BAD_REQUEST, f"mode {mode!r} not served (served modes: {MODES})"
+            return ERR_BAD_REQUEST, f"unknown mode {mode!r} (served modes: {MODES})"
+        if mode not in self.modes:
+            return ERR_BAD_REQUEST, (f"mode {mode!r} not enabled on this server (enabled: "
+                                     f"{self.modes}; its ladder was never warmed)")
         if data.size == 0 or data.size % 16:
             return ERR_BAD_REQUEST, "payload must be a nonzero multiple of 16 bytes"
         if len(key) not in (16, 24, 32):
             return ERR_BAD_REQUEST, f"key must be 16/24/32 bytes, got {len(key)}"
-        if len(nonce) != 16:
+        if mode == "ctr" and len(nonce) != 16:
             return ERR_BAD_REQUEST, "nonce must be 16 bytes"
+        if mode == "cbc" and len(iv) != 16:
+            return ERR_BAD_REQUEST, f"cbc iv must be 16 bytes, got {len(iv)}"
         if data.size // 16 > self.max_request_blocks:
             return ERR_TOO_LARGE, (f"{data.size // 16} blocks > bucket ceiling "
                                    f"{self.max_request_blocks}")
@@ -188,16 +226,17 @@ class RequestQueue:
     def submit(self, tenant: str, key: bytes, nonce: bytes, payload,
                deadline_s: float | None = None, sampled: bool | None = None,
                parent: str | None = None, priority: int | None = None,
-               mode: str = "ctr") -> asyncio.Future:
+               mode: str = "ctr", iv: bytes = b"") -> asyncio.Future:
         """Admit one request; always returns a future (already resolved with
         a coded error Response when admission refuses it). ``priority=0``
         opts one request into the low tier; None defers to
-        ``low_priority_tenants``."""
+        ``low_priority_tenants``. ``mode`` is ``ctr`` (``nonce`` required)
+        or ``cbc`` decrypt (``iv`` required), if enabled."""
         fut = asyncio.get_running_loop().create_future()
         data = np.asarray(payload, dtype=np.uint8).reshape(-1)
         mode = str(mode or "ctr")
-        key, nonce = bytes(key), bytes(nonce)
-        refused = self._refusal(tenant, key, nonce, data, mode, priority)
+        key, nonce, iv = bytes(key), bytes(nonce), bytes(iv)
+        refused = self._refusal(tenant, key, nonce, iv, data, mode, priority)
         if refused is not None:
             code, why = refused
             if code != ERR_SHED:
@@ -212,7 +251,7 @@ class RequestQueue:
         req = Request(id=next(self._ids), tenant=tenant, key=key, nonce=nonce, payload=data,
                       future=fut,
                       budget=Budget(deadline, clock=self._clock) if deadline > 0 else None,
-                      t_submit=self._clock(), mode=mode, _queue=self,
+                      t_submit=self._clock(), mode=mode, iv=iv, _queue=self,
                       sampled=trace.sample() if sampled is None else bool(sampled),
                       parent=parent)
         cm = trace.maybe_span(req.sampled, "request-queued", parent=req.parent, req=req.id,

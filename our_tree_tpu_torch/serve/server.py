@@ -1,6 +1,7 @@
 """The serve dispatch loop: queue -> shape buckets -> in-flight lanes.
 
-Port of ``our_tree_tpu.serve.server`` for the ``ctr`` mode. One asyncio
+Port of ``our_tree_tpu.serve.server`` for the ``ctr`` and ``cbc`` modes
+(``ServerConfig.modes``; ``ctr`` by default). One asyncio
 loop on the main thread owns admission and batch formation; dispatch is
 overlapped. Request coroutines ``submit`` into the bounded queue; the loop
 drains, rung-packs up to K key groups per batch (``batcher``) and submits
@@ -21,15 +22,26 @@ Shutdown drains: ``stop()`` closes admission, dispatches everything
 accepted, awaits every in-flight batch and flushes; ``queue.stats()["lost"]``
 (accepted minus answered) stays 0.
 
+Modes: a batch is one mode (the batcher never mixes them). ``ctr`` batches
+go to the multi-key CTR seam (the ``ctr_mk`` kernel on the card), ``cbc``
+batches, parallel CBC decrypt, to the multi-key CBC seam with the stack's
+decrypt schedules (``cbc_mk``). Admission refuses a mode the server did not
+enable. A server configured with a mode the port does not serve yet
+(``gcm``, ``gcm-open``, ``rc4``) refuses to start (``ValueError`` at
+construction, naming the ROADMAP item): it never serves such a mode through
+another path.
+
 The zero-recompile contract: the JAX package counts XLA compiles; the port
 counts builds and loads of the kernel library (``runtime.cuda_build``) plus
-the first call of the multi-key seam for each (engine, nr, device)
-(``aes.seam_first_calls``: on the card, the first launch of a ``ctr_mk``
-NR instantiation, which CUDA loads lazily). Warmup runs every rung once on
-every lane's worker thread for each key length in ``warmup_key_bits``,
-which makes the thread's CUDA context current, loads the library and
-launches the kernel at each warmed nr, so the first served batch pays none
-of that; ``steady_compiles()`` must stay 0 after it. A key length outside
+the first call of each multi-key seam for each (engine, nr, device)
+(``aes.seam_first_calls``: on the card, the first launch of a ``ctr_mk`` or
+``cbc_mk`` NR instantiation, which CUDA loads lazily). Warmup runs every
+rung once on every lane's worker thread for each key length in
+``warmup_key_bits``, the ``ctr`` ladder (the canary's) and then every other
+enabled mode's, which makes the thread's CUDA context current, loads the
+library and launches each mode's kernel at each warmed nr, so the first
+served batch pays none of that; ``steady_compiles()`` must stay 0 after
+it. A key length outside
 ``warmup_key_bits`` (only 128 bits by default, as in the reference) pays
 its instantiation's first launch on its first batch, and the steady count
 shows it. ``pool.first_dispatch`` records the first traffic dispatch's
@@ -37,7 +49,7 @@ times, so a run can set them beside the steady ones. A payload above the top run
 (the JAX server with transfers disabled).
 
 Cost model: at ``start()`` the server builds the analytic cost records of
-its warmed ladder (``obs/costmodel.py``: the ``ctr`` mode, every rung, each
+its warmed ladder (``obs/costmodel.py``: each enabled mode, every rung, each
 key length of ``warmup_key_bits``) into ``cost_records`` and stamps them,
 with ``ServerConfig.ceiling_gbps``, into the ``OT_TRACE_DIR`` run layout;
 ``serve.bench`` joins them with the per-rung counters. The reference's
@@ -63,7 +75,7 @@ from ..runtime import cuda_build
 from ..utils import packing
 from . import batcher, lanes
 from .keycache import KeyCache, key_digest
-from .queue import ERR_DEADLINE, ERR_DISPATCH, RequestQueue, Response
+from .queue import ERR_DEADLINE, ERR_DISPATCH, RequestQueue, Response, not_ported
 
 
 def compile_count() -> int:
@@ -101,6 +113,10 @@ class ServerConfig:
     keycache_per_tenant: int = 8
     #: key lengths (bits) warmed per rung
     warmup_key_bits: tuple = (128,)
+    #: the enabled served modes, from ``queue.PORTED_MODES`` (``ctr``,
+    #: ``cbc``): warmup walks each one's ladder on every lane and admission
+    #: refuses the others; a mode the port does not serve yet raises here
+    modes: tuple = ("ctr",)
     #: dispatch lanes: None = one per visible card; more share cards
     lanes: int | None = None
     #: canary-probe quarantined lanes every N batches
@@ -122,11 +138,14 @@ class Server:
         self.config = config or ServerConfig()
         c = self.config
         self.rungs = batcher.bucket_ladder(c.min_bucket_blocks, c.max_bucket_blocks)
+        why = not_ported(tuple(c.modes))
+        if why is not None:
+            raise ValueError(why)
         self.queue = RequestQueue(max_depth=c.max_depth, max_request_blocks=self.rungs[-1],
                                   default_deadline_s=c.request_deadline_s,
                                   tenant_depth_frac=c.tenant_depth_frac,
                                   low_priority_tenants=c.low_priority_tenants,
-                                  priority_depth_frac=c.priority_depth_frac)
+                                  priority_depth_frac=c.priority_depth_frac, modes=c.modes)
         self.keycache = KeyCache(per_tenant=c.keycache_per_tenant)
         self.engine: str | None = None
         self.device = None
@@ -157,7 +176,7 @@ class Server:
         c = self.config
         self.device = aes.as_device(c.device)
         before = compile_count()
-        self.engine = aes.resolve_serve_engine(c.engine, self.device)
+        self.engine = aes.resolve_serve_engine(c.engine, self.device, c.modes)
         self.pool = lanes.LanePool(engine=self.engine, device=self.device,
                                    deadline_s=self._deadline_s, retries=c.retries,
                                    lanes=c.lanes, probe_every=c.probe_every,
@@ -166,7 +185,7 @@ class Server:
         if not any(ln.warmed for ln in self.pool.lanes):
             raise RuntimeError(f"serve warmup failed on all {len(self.pool.lanes)} lane(s): "
                                f"no lane can dispatch (engine {self.engine})")
-        self.cost_records = costmodel.ladder_costs(self.engine, ("ctr",), self.rungs,
+        self.cost_records = costmodel.ladder_costs(self.engine, c.modes, self.rungs,
                                                    key_bits=c.warmup_key_bits,
                                                    key_slots=c.key_slots)
         costmodel.write_run_records(self.cost_records, engine=self.engine,
@@ -183,11 +202,12 @@ class Server:
         self._task = asyncio.ensure_future(self._loop())
 
     async def _warmup(self) -> None:
-        """Run every rung once on every lane's worker thread. The smallest
-        rung is the canary (zero key, zero payload, zero-nonce counters):
-        the first lane's output becomes the canary expectation and every
-        other lane's is compared with it. A lane whose warmup fails, hangs
-        or mismatches starts quarantined and unwarmed."""
+        """Run every rung of the ``ctr`` ladder, then of every other enabled
+        mode's, once on every lane's worker thread. The smallest ``ctr`` rung
+        is the canary (zero key, zero payload, zero-nonce counters): the
+        first lane's output becomes the canary expectation and every other
+        lane's is compared with it. A lane whose warmup fails, hangs or
+        mismatches starts quarantined and unwarmed."""
         c = self.config
         canary_rung = self.rungs[0]
         canary_words = np.zeros(4 * canary_rung, dtype=np.uint32)
@@ -223,6 +243,17 @@ class Server:
                                     break
                             if mismatch:
                                 break
+                            for m in c.modes:
+                                if m == "ctr":
+                                    continue
+                                sched_m = self.keycache.stacked(
+                                    [("_warmup", b"\x00" * (bits // 8))], c.key_slots, mode=m)
+                                for rung in self.rungs:
+                                    words = np.zeros(4 * rung, np.uint32)
+                                    await lane.run_async(
+                                        lambda w=words, s=sched_m, v=slot_vecs[rung], r=rung,
+                                        m=m: lane.engine_call(w, w, s, v, f"warmup:{r}:{m}",
+                                                              warmup=True, mode=m))
                         if mismatch:
                             lane._quarantine("warmup-mismatch")
                         else:
@@ -262,11 +293,12 @@ class Server:
     async def submit(self, tenant: str, key: bytes, nonce: bytes, payload,
                      deadline_s: float | None = None, sampled: bool | None = None,
                      parent: str | None = None, priority: int | None = None,
-                     mode: str = "ctr"):
-        """Admit one CTR request and await its Response."""
+                     mode: str = "ctr", iv: bytes = b""):
+        """Admit one request (``ctr`` with its nonce, or ``cbc`` decrypt with
+        its IV) and await its Response."""
         return await self.queue.submit(tenant, key, nonce, payload, deadline_s,
                                        sampled=sampled, parent=parent, priority=priority,
-                                       mode=mode)
+                                       mode=mode, iv=iv)
 
     # -- the batcher loop --------------------------------------------------
     async def _loop(self) -> None:
@@ -311,8 +343,8 @@ class Server:
         try:
             with trace.maybe_span(b.sampled, "batch-formed", batch=b.label, bucket=b.bucket,
                                   blocks=b.blocks, slots=len(b.slots),
-                                  requests=len(b.requests)):
-                sched = self.keycache.stacked(b.keys, b.key_slots)
+                                  requests=len(b.requests), mode=b.mode):
+                sched = self.keycache.stacked(b.keys, b.key_slots, mode=b.mode)
                 b.materialise()
                 return sched
         except Exception as e:  # noqa: BLE001 - containment
@@ -328,7 +360,7 @@ class Server:
         try:
             out, _lane, _redispatched = await self.pool.dispatch(
                 b.words, b.ctr_words, sched, b.slot_index, b.label, bucket=b.bucket,
-                blocks=b.blocks, requests=len(b.requests), sampled=b.sampled)
+                blocks=b.blocks, requests=len(b.requests), sampled=b.sampled, mode=b.mode)
         except lanes.LanesExhausted as e:
             if e.timed_out:
                 self.batches_timed_out += 1
@@ -402,6 +434,7 @@ class Server:
         return {
             "engine": self.engine,
             "device": str(self.device),
+            "modes": list(self.config.modes),
             "rungs": list(self.rungs),
             "coalesce": self.coalesce_stats(),
             "overlap": {"inflight_limit": self.inflight_limit,

@@ -1,6 +1,7 @@
 """The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt,
-multi-key scattered CTR in both forms, the chained CBC/CFB128 encrypt, the
-ceiling probe's chain) against their plain torch versions, the ``AES``
+multi-key scattered CTR in both forms, multi-key CBC decrypt, the chained
+CBC/CFB128 encrypt, the ceiling probe's chain) against their plain torch
+versions, the ``AES``
 context on the card against the CPU in every mode, and the serve path on
 the card. Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
@@ -12,7 +13,7 @@ import torch
 
 from our_tree_tpu_torch.models import aes
 from our_tree_tpu_torch.ops import bitslice, cuda_aes
-from our_tree_tpu_torch.ops.keyschedule import expand_key_dec, expand_key_enc
+from our_tree_tpu_torch.ops.keyschedule import dec_schedule_from_enc, expand_key_dec, expand_key_enc
 from our_tree_tpu_torch.utils import packing
 
 pytestmark = pytest.mark.gpu
@@ -191,6 +192,75 @@ def test_ctr_mk_kernel_clamps_a_bad_slot(card):
     want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, bad.clamp(0, 2), nr)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _cbc_case(card, bits, k, n, pattern, seed):
+    """``_mk_case`` with the stack turned into decrypt schedules (the upper
+    half all zero, unused slots) and the counters read as the PREV stream."""
+    w, prev, rks, slots, nr = _mk_case(card, bits, k, n, pattern, seed)
+    dec = np.stack([dec_schedule_from_enc(nr, r) for r in packing.words_numpy(rks)])
+    dec[(k + 1) // 2:] = 0
+    return w, prev, packing.words_tensor(dec, card), slots, nr
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4096])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "independent"])
+def test_cbc_mk_kernel_matches_plain(card, bits, k, n, pattern):
+    w, prev, rks, slots, nr = _cbc_case(card, bits, k, n, pattern, seed=n * k + bits + 1)
+    before = cuda_aes.cbc_scattered_multikey.launches
+    got = cuda_aes.cbc_scattered_multikey(w, prev, rks, slots, nr)
+    want = cuda_aes.cbc_scattered_multikey_plain(w, prev, rks, slots, nr)
+    torch.cuda.synchronize()
+    assert cuda_aes.cbc_scattered_multikey.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rung", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "independent"])
+def test_cbc_mk_kernel_at_the_serve_rungs(card, rung, pattern):
+    """Every rung of the serve ladder with K = 8: the shapes the cbc serve
+    mode gives the kernel."""
+    w, prev, rks, slots, nr = _cbc_case(card, 128, 8, rung, pattern, seed=rung)
+    got = cuda_aes.cbc_scattered_multikey(w, prev, rks, slots, nr)
+    want = cuda_aes.cbc_scattered_multikey_plain(w, prev, rks, slots, nr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cbc_mk_kernel_clamps_a_bad_slot(card):
+    w, prev, rks, slots, nr = _cbc_case(card, 128, 3, 64, "independent", seed=4)
+    bad = slots.clone()
+    bad[::3] = 7
+    bad[1::3] = -5
+    got = cuda_aes.cbc_scattered_multikey(w, prev, rks, bad, nr)
+    want = cuda_aes.cbc_scattered_multikey_plain(w, prev, rks, bad.clamp(0, 2), nr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_serve_ctr_cbc_drive_on_card(card, capsys):
+    """The mixed-mode drive: each cbc engine call one cbc_mk launch, each
+    ctr one ctr_mk launch, nothing else launched, every probe bit-exact."""
+    import json
+
+    from our_tree_tpu_torch.serve import bench as serve_bench
+
+    for fn in (cuda_aes.ctr_scattered_multikey, cuda_aes.cbc_scattered_multikey,
+               cuda_aes.ctr_crypt_words_fused, cuda_aes.encrypt_words, cuda_aes.decrypt_words):
+        fn.launches = 0
+    assert serve_bench.main(["--requests", "120", "--concurrency", "16", "--modes", "ctr,cbc",
+                             "--sizes", "16,64,256,1024,4096,16384"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    calls = line["per_mode"]["engine_calls"]
+    assert line["engine"] == aes.CUDA_ENGINE and set(line["modes"]) == {"ctr", "cbc"}
+    assert line["lost"] == 0 and line["mismatches"] == 0 and line["recompiles"] == 0
+    assert line["ok"] == line["requests"] == 120
+    assert cuda_aes.cbc_scattered_multikey.launches == calls["cbc"] == line["launches"]["cbc_mk"]
+    assert cuda_aes.ctr_scattered_multikey.launches == calls["ctr"] == line["launches"]["ctr_mk"]
+    assert (cuda_aes.ctr_crypt_words_fused.launches, cuda_aes.encrypt_words.launches,
+            cuda_aes.decrypt_words.launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("drive", [["--requests", "120", "--mixed-sizes"],
