@@ -17,7 +17,9 @@ is not 0:
    source, in parallel), print ``ptxas -v`` per kernel;
 2. kernel vs plain version: ``ctr_gen`` at every counter wrap, and both ECB
    kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20, 2^24 + 7} (the
-   last a 256 MiB launch with a ragged tail); ``ctr_mk``
+   last a 256 MiB launch with a ragged tail), encrypt in each form (auto,
+   group forced, block forced), and the encrypt block form at N in {1, 2,
+   31, 33, 4096}; ``ctr_mk``
    for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
    with one slot, runs of 1-300 blocks, a random slot per block and unused
    zero schedules, and its K = 1 entry over counters from every wrap nonce,
@@ -50,7 +52,10 @@ is not 0:
    (equal to their plain versions), the sequential CBC and CFB128 encrypts of
    the first 4,096 recovered blocks (they give back the input), and
    ``cbc_encrypt_words_batch`` with 4,096 streams of 64 blocks: each of
-   these three exactly one ``seq_encrypt`` launch and no other;
+   these three exactly one ``seq_encrypt`` launch and no other; and
+   byte-granular CFB128 through ``AES`` in chunks carried across calls from
+   iv_off 5, both directions, equal to the CPU's, with one block-form ECB
+   launch for each partial step that needs a keystream block;
 6. the hex CLI on the card decrypts the F.1.2 vector;
 7. the ceiling probe: ``harness.ceiling.main`` in this process (counted:
    ``chain`` launched, nothing else), then ``python -m
@@ -116,8 +121,24 @@ is not 0:
    measured-rate bound, the latency bound (the inverse round circuit's own
    dependent steps, the inverse S-box circuit's depth read from
    ``aes_inv_bitslice.cuh`` plus the linear layers', at the measured
-   cycles a dependent step; the SASS round loop's path beside it as a
-   diagnostic), share and SASS a block; and the block form beside
+   cycles a dependent step; the compiled path beside it as a diagnostic),
+   share and SASS a block; where a launch's time goes, at the 4,096- and
+   32-block rungs: the launch floor (``EMPTY_SOURCE``, an empty kernel at
+   the launch's grid and shared memory, built beside the kernels), the
+   stamped instantiation's phases per warp (prologue, loads, rounds,
+   store; median and largest) and their sum beside the card time, and the
+   issue diagnostic (integer SASS a block at one a cycle) beside the
+   integer pipe's rate for one warp (its integer-pipe SASS at 2 cycles
+   each, IMAD on the FMA pipe beside them); the one-block
+   ECB encrypt launch in each form; the design variants
+   (``VARIANTS_SOURCE``: ``cbc_mk``'s former form, with the loads after
+   the prologue, unrolled with the key planes a round ahead,
+   at 64 and 32 threads a thread block; the ECB block form with its load
+   after the barrier, and unrolled) in 12 turns with the kernels in CUDA
+   graphs (median, quartiles, turns the kernel won), each equal to the
+   kernel; both encrypt forms from 1 to 2^20
+   blocks (the crossing, ``kEcbBlockFormMax``), and ``ctr_gen``'s one-block
+   tail launch (``crypt_ctr`` ending mid-block); and the block form beside
    ``ecb_decrypt_kernel`` (32 blocks a thread) from 4,096 blocks to 2^24,
    where a group form would pay;
 10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
@@ -146,7 +167,11 @@ Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows), the
-``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``. Without a card,
+``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``;
+``ecb_encrypt`` carries its launches by form, the one-block launch by form
+and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
+``cbc_mk`` its breakdown and 32-block rung, ``ctr_gen`` its one-block tail.
+Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
 result.
 """
@@ -268,6 +293,231 @@ extern "C" int ot_smem_chase(int steps, void* out, void* cycles) {
   return (int)cudaGetLastError();
 }
 """
+#: The launch floor (phase 9): a kernel that does nothing, with cbc_mk's
+#: parameters, launched at a given grid, block and dynamic shared memory and
+#: replayed in a CUDA graph as the kernels are timed. Built with its own nvcc
+#: beside the kernels; a measurement probe, not a kernel of the port.
+EMPTY_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel(const uint4*, uint4*, const uint4*, const int32_t*, const uint32_t*,
+                             long long, int) {}
+
+extern "C" int ot_empty(int grid, int threads, int smem, void* stream) {
+  empty_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0);
+  return (int)cudaGetLastError();
+}
+"""
+#: The design variants of phase 9, timed in turns beside the kernels in one
+#: run: cbc_mk's former form (its inverse round MixColumns after the
+#: pre-transform with the shifts on the integer pipe, and the block's loads
+#: after the key-plane prologue), with the loads after the prologue, with
+#: the rounds unrolled and each round's key planes loaded one round ahead,
+#: and at 32 or 64 threads a thread block;
+#: the ECB block form with its load after the barrier, and unrolled ahead.
+#: Built with its own nvcc beside the kernels, from the kernels' headers; a
+#: measurement probe, not a kernel of the port.
+VARIANTS_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "aes_block_inv.cuh"
+
+namespace {
+using namespace aes_block;
+
+// The former inverse round: the pre-transform a ^= 4(a ^ a_(r+2)), then
+// mix_columns, then the key, every shift on the integer pipe.
+__device__ __forceinline__ void int_pipe_inv_mix_columns(uint32_t (&s)[8]) {
+  uint32_t w[8], x2[8], x4[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b) w[b] = s[b] ^ row_after_next(s[b]);
+  aes_bitslice::xtime(w, x2);
+  aes_bitslice::xtime(x2, x4);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= x4[b];
+  mix_columns(s);
+}
+
+template <bool LAST>
+__device__ __forceinline__ void int_pipe_round(uint32_t (&s)[8], const uint32_t* k) {
+  aes_bitslice::inv_sbox(s);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] = inv_shift_rows(s[b]);
+  if (!LAST) int_pipe_inv_mix_columns(s);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= k[b];
+}
+
+// ROUND 0: the former round, rolled; 1: the kernel's rolled; 2: the kernel's unrolled,
+// each round's key planes loaded one round ahead.
+template <int NR, int ROUND>
+__device__ __forceinline__ void decrypt(uint32_t (&s)[8], const uint32_t* kp) {
+  if constexpr (ROUND == 0) {
+  #pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
+#pragma unroll 1
+    for (int r = 1; r < NR; ++r) int_pipe_round<false>(s, kp + 8 * r);
+    int_pipe_round<true>(s, kp + 8 * NR);
+  } else if constexpr (ROUND == 1) {
+    decrypt_block<NR>(s, kp);
+  } else {
+    uint32_t k[8];
+  #pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
+  #pragma unroll
+  for (int b = 0; b < 8; ++b) k[b] = kp[8 + b];
+#pragma unroll
+    for (int r = 1; r < NR; ++r) {
+      uint32_t next[8];
+    #pragma unroll
+  for (int b = 0; b < 8; ++b) next[b] = kp[8 * (r + 1) + b];
+      inv_block_round<false>(s, k);
+    #pragma unroll
+  for (int b = 0; b < 8; ++b) k[b] = next[b];
+    }
+    inv_block_round<true>(s, k);
+  }
+}
+
+template <int ROUND, bool FIRST, int T>
+__global__ void __launch_bounds__(T)
+cbc_variant(const uint4* __restrict__ in, uint4* __restrict__ out, const uint4* __restrict__ prev,
+            const int32_t* __restrict__ slots, const uint32_t* __restrict__ rks_dec,
+            long long n, int k) {
+  constexpr int NR = 10, kRounds = NR + 1;
+  extern __shared__ uint32_t kp[];
+  const long long j = blockIdx.x * (long long)T + threadIdx.x;
+  const bool live = j < n;
+  int raw = 0;
+  uint4 c = make_uint4(0u, 0u, 0u, 0u), p = c;
+  if (FIRST && live) {
+    raw = slots[j];
+    c = in[j];
+    p = prev[j];
+  }
+  for (int i = threadIdx.x; i < k * kRounds; i += T)
+    round_key_planes(rks_dec + (i / kRounds) * 4 * kRounds, i % kRounds, kp + 8 * i);
+  __syncthreads();
+  if (!live) return;
+  if (!FIRST) {
+    raw = slots[j];
+    c = in[j];
+    p = prev[j];
+  }
+  const int sl = min(max(raw, 0), k - 1);
+  uint32_t s[8];
+  pack(c, s);
+  decrypt<NR, ROUND>(s, kp + 8 * kRounds * sl);
+  const uint4 d = unpack(s);
+  out[j] = make_uint4(d.x ^ p.x, d.y ^ p.y, d.z ^ p.z, d.w ^ p.w);
+}
+
+// The ECB block form with its load after the barrier (FIRST false), or
+// with the rounds unrolled and the key planes loaded a round ahead.
+template <bool FIRST, bool AHEAD>
+__global__ void __launch_bounds__(128)
+ecb_variant(const uint4* __restrict__ in, uint4* __restrict__ out,
+            const uint32_t* __restrict__ rk, long long n) {
+  constexpr int NR = 10;
+  __shared__ uint32_t kp[8 * (NR + 1)];
+  const long long j = blockIdx.x * 128ll + threadIdx.x;
+  const bool live = j < n;
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (FIRST && live) x = in[j];
+  if (threadIdx.x <= NR) round_key_planes(rk, threadIdx.x, kp + 8 * threadIdx.x);
+  __syncthreads();
+  if (!live) return;
+  if (!FIRST) x = in[j];
+  uint32_t s[8];
+  pack(x, s);
+  if constexpr (AHEAD) {
+    uint32_t k[8];
+  #pragma unroll
+  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
+  #pragma unroll
+  for (int b = 0; b < 8; ++b) k[b] = kp[8 + b];
+#pragma unroll
+    for (int r = 1; r < NR; ++r) {
+      uint32_t next[8];
+    #pragma unroll
+  for (int b = 0; b < 8; ++b) next[b] = kp[8 * (r + 1) + b];
+      block_round<false>(s, k);
+    #pragma unroll
+  for (int b = 0; b < 8; ++b) k[b] = next[b];
+    }
+    block_round<true>(s, k);
+  } else {
+    encrypt_block<NR>(s, kp);
+  }
+  out[j] = unpack(s);
+}
+
+template <int ROUND, bool FIRST, int T>
+int cbc_go(const void* in, void* out, const void* prev, const void* slots, const void* rks,
+           long long n, int k, void* stream) {
+  cbc_variant<ROUND, FIRST, T><<<(unsigned)((n + T - 1) / T), T, (size_t)k * 8 * 11 * 4,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(in), static_cast<uint4*>(out), static_cast<const uint4*>(prev),
+      static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(rks), n, k);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+// nr 10. code: 0 the former kernel (its round, the loads after the barrier), 1
+// the loads after the barrier, 2 unrolled ahead, 3 64 threads a thread
+// block, 4 32 threads; 2-4 with the loads first, as the kernel.
+extern "C" int ot_cbc_variant(int code, const void* in, void* out, const void* prev,
+                              const void* slots, const void* rks, long long n, int k,
+                              void* stream) {
+  switch (code) {
+    case 0: return cbc_go<0, false, 128>(in, out, prev, slots, rks, n, k, stream);
+    case 1: return cbc_go<1, false, 128>(in, out, prev, slots, rks, n, k, stream);
+    case 2: return cbc_go<2, true, 128>(in, out, prev, slots, rks, n, k, stream);
+    case 3: return cbc_go<1, true, 64>(in, out, prev, slots, rks, n, k, stream);
+    case 4: return cbc_go<1, true, 32>(in, out, prev, slots, rks, n, k, stream);
+    default: return -1;
+  }
+}
+
+// nr 10. code: 0 load after the barrier, 1 unrolled ahead.
+extern "C" int ot_ecb_variant(int code, const void* in, void* out, const void* rk, long long n,
+                              void* stream) {
+  const unsigned grid = (unsigned)((n + 127) / 128);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* src = static_cast<const uint4*>(in);
+  uint4* dst = static_cast<uint4*>(out);
+  const uint32_t* keys = static_cast<const uint32_t*>(rk);
+  if (code == 0) ecb_variant<false, false><<<grid, 128, 0, st>>>(src, dst, keys, n);
+  else if (code == 1) ecb_variant<true, true><<<grid, 128, 0, st>>>(src, dst, keys, n);
+  else return -1;
+  return (int)cudaGetLastError();
+}
+"""
+#: Turns of the design variants' timing (phase 9), the order reversed every
+#: other turn: one launch's card time varies by a few percent from one
+#: measurement to the next, about what the variants differ by.
+VARIANT_TURNS = 12
+#: The variants by code (VARIANTS_SOURCE's C entries).
+CBC_VARIANTS = {"former_kernel": 0, "loads_after_barrier": 1, "unrolled_ahead": 2,
+                "threads_64": 3, "threads_32": 4}
+ECB_VARIANTS = {"load_after_barrier": 0, "unrolled_ahead": 1}
+#: Phase 2's ECB block-form sizes (one block a thread): one block, ragged
+#: warps, and a serve rung's worth.
+ECB_BLOCK_SIZES = (1, 2, 31, 33, 4096)
+#: Phase 9's ECB crossing table: both encrypt forms at each size.
+ECB_FORM_SIZES = (1, 32, 1024, 1 << 14, 1 << 16, 1 << 18, 1 << 20)
+#: Phase 5's byte-granular CFB128 run: chunks carried across calls from
+#: iv_off 5, as the reference's aes_crypt_cfb128 resume and the hex CLI's
+#: --iv-off give it; every step that needs a keystream block alone is one
+#: block-form ECB launch (AES._ecb1).
+CFB_IV_OFF = 5
+CFB_CHUNKS = (1, 15, 16, 17, 40)
+#: cbc_mk's card time at the 4,096-block rung, K = 8, in its former form
+#: (PERF.md's kernel table), printed beside the breakdown.
+CBC_MK_FORMER_US = 4.204
 #: Phase 2's ECB sizes: ragged tails around one group and one thread block,
 #: 16 MiB, and a 256 MiB launch whose last group holds 7 blocks.
 ECB_SIZES = (1, 31, 33, 1000, 1 << 20, (1 << 24) + 7)
@@ -306,6 +556,27 @@ WRAP_NONCES = [
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def cfb_steps(iv_off: int, chunks) -> list:
+    """The launches a chunked byte-granular CFB128 run makes, in order, as
+    ``AES._cfb_impl`` walks it: ("partial", 1) for each step that starts at
+    offset 0 with fewer than 16 bytes left in its call (one block through
+    ``AES._ecb1``), ("bulk", n) for each run of n whole blocks."""
+    n, steps = iv_off, []
+    for size in chunks:
+        pos = 0
+        while pos < size:
+            if n == 0 and size - pos >= 16:
+                steps.append(("bulk", (size - pos) // 16))
+                pos += (size - pos) // 16 * 16
+                continue
+            if n == 0:
+                steps.append(("partial", 1))
+            take = min(16 - n, size - pos)
+            pos += take
+            n = (n + take) & 15
+    return steps
 
 
 def smi(query: str) -> str:
@@ -532,6 +803,32 @@ def sass_round_loops(text: str, kernel: str, targs) -> list:
     return sorted(loops, key=lambda lp: -lp["int"])
 
 
+def sass_block_kernel(text: str, kernel: str, targs, nr: int) -> dict:
+    """A one-block-a-thread kernel's integer SASS for one block: if its
+    round loop is rolled (a loop of at least 100 integer instructions), the
+    loop nr - 1 times and the rest once, and the loop's dependency depth
+    nr - 1 times as its path (``sass_round_loops``); if the rounds are
+    unrolled, every instruction once (a set-up loop, such as the key-plane
+    prologue, counted once: its one trip at K = 8) and the whole function's
+    dependency depth (``sass_dep_depth``) as its path. ``fma``: those of
+    them that issue on the FMA pipe (IMAD in all its forms), the rest on the
+    integer pipe. Returns {"int", "fma", "depth", "rolled", "hist",
+    "round_loop"}."""
+    ins, back = sass_function(text, kernel, targs)
+    loops = sass_round_loops(text, kernel, targs) if back else []
+    rolled = bool(loops) and loops[0]["int"] >= 100
+    lo, hi = loops[0]["range"] if rolled else (1, 0)
+    hist: dict = {}
+    for a, b, _t in ins:
+        if _is_int_op(b):
+            hist[b] = hist.get(b, 0) + (nr - 1 if lo <= a <= hi else 1)
+    return {"int": sum(hist.values()), "fma": hist.get("IMAD", 0),
+            "depth": (loops[0]["depth"] * (nr - 1) if rolled
+                      else sass_dep_depth(ins, 0, ins[-1][0])),
+            "rolled": rolled, "hist": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
+            "round_loop": loops[0] if rolled else None}
+
+
 class SmiSampler:
     """``nvidia-smi`` reading the SM clock, power draw and temperature every
     100 ms in a child process (line-buffered through ``stdbuf`` where there
@@ -756,7 +1053,8 @@ def main() -> int:
                 "seq_encrypt": cuda_aes.seq_encrypt,
                 "arc4_prga": cuda_arc4.prga}
     mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
-                   "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit}
+                   "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
+                   "ecb_encrypt": cuda_aes.encrypt_words}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -768,35 +1066,43 @@ def main() -> int:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     def form_counts():
-        """``ctr_mk`` launches by the form that ran, per wrapper."""
+        """``ctr_mk`` and ECB encrypt launches by the form that ran, per
+        wrapper."""
         return {name: dict(fn.form_launches) for name, fn in mk_wrappers.items()}
 
     # 1. Build.
     t0 = time.perf_counter()
     lib_path = str(cuda_build.library_path())
-    # The shared-memory chase of phase 9 builds beside the kernels, at once.
-    chase_dir = tempfile.mkdtemp(prefix="ot_chase_")
-    atexit.register(shutil.rmtree, chase_dir, True)
-    chase_cu, chase_so = os.path.join(chase_dir, "chase.cu"), os.path.join(chase_dir, "chase.so")
-    with open(chase_cu, "w", encoding="utf-8") as fh:
-        fh.write(CHASE_SOURCE)
-    chase_build = subprocess.Popen(
-        [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", cuda_build.ARCH, "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-o", chase_so, chase_cu],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # Phase 9's probes (the shared-memory chase, the empty kernel) build
+    # beside the kernels, at once, one nvcc each.
+    probe_dir = tempfile.mkdtemp(prefix="ot_probes_")
+    atexit.register(shutil.rmtree, probe_dir, True)
+    probe_builds = {}
+    for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE),
+                         ("variants", VARIANTS_SOURCE)):
+        cu, so = os.path.join(probe_dir, f"{name}.cu"), os.path.join(probe_dir, f"{name}.so")
+        with open(cu, "w", encoding="utf-8") as fh:
+            fh.write(source)
+        probe_builds[name] = (so, subprocess.Popen(
+            [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", cuda_build.ARCH, "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{cuda_build.CSRC}", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     cuda_build.load()
-    _, chase_err = chase_build.communicate(timeout=600)
-    if chase_build.returncode:
-        raise SystemExit(f"the shared-memory chase did not build:\n{chase_err[-3000:]}")
+    for name, (so, proc) in probe_builds.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise SystemExit(f"the {name} probe did not build:\n{err[-3000:]}")
+    chase_so, empty_so, variants_so = (probe_builds[k][0] for k in ("chase", "empty", "variants"))
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
-        f"shared-memory chase)")
+        f"shared-memory chase, the empty kernel and the design variants)")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
-    missing = [f"cbc_mk_block_kernel<{nr}>" for nr in (10, 12, 14)
-               if f"cbc_mk_block_kernel<{nr}>" not in ptxas]
+    missing = [f"{kernel}<{nr}>" for kernel in ("cbc_mk_block_kernel", "ecb_encrypt_block_kernel")
+               for nr in (10, 12, 14) if f"{kernel}<{nr}>" not in ptxas]
+    missing += [] if "cbc_mk_stamped_kernel<10>" in ptxas else ["cbc_mk_stamped_kernel<10>"]
     if missing:
-        raise SystemExit(f"cbc_mk.cu built without {missing}")
+        raise SystemExit(f"the kernels built without {missing}")
 
     def events_ms(fn, reps):
         fn()
@@ -878,21 +1184,37 @@ def main() -> int:
     if mismatches:
         raise SystemExit("ctr_gen disagrees with its plain version")
     ecb_mismatches = {"ecb_encrypt": 0, "ecb_decrypt": 0}
+    ecb_form_mismatches = {form: 0 for form in cuda_aes.ECB_FORMS}
     for bits in (128, 192, 256):
         nr, rk, rk_dec = schedules(np.random.default_rng(bits).integers(
             0, 256, bits // 8, dtype=np.uint8).tobytes())
         for n in ECB_SIZES:
             w = random_words(n, seed=3 * n + bits)
-            for name, kernel, plain, sched in (
-                    ("ecb_encrypt", cuda_aes.encrypt_words, bitslice.encrypt_words, rk),
-                    ("ecb_decrypt", cuda_aes.decrypt_words, bitslice.decrypt_words, rk_dec)):
-                m, _ = diff(kernel(w, sched, nr), plain(w, sched, nr))
-                ecb_mismatches[name] += m
+            want = bitslice.encrypt_words(w, rk, nr)
+            for form in cuda_aes.ECB_FORMS:
+                m, _ = diff(cuda_aes.encrypt_words(w, rk, nr, form=form), want)
+                ecb_mismatches["ecb_encrypt"] += m
+                ecb_form_mismatches[form] += m
                 if m:
-                    log(f"MISMATCH {name} bits={bits} n={n}: {m} words")
-            del w
+                    log(f"MISMATCH ecb_encrypt {form} form bits={bits} n={n}: {m} words")
+            m, _ = diff(cuda_aes.decrypt_words(w, rk_dec, nr), bitslice.decrypt_words(w, rk_dec, nr))
+            ecb_mismatches["ecb_decrypt"] += m
+            if m:
+                log(f"MISMATCH ecb_decrypt bits={bits} n={n}: {m} words")
+            del w, want
+        # The block form (one block a thread) at its own sizes.
+        for n in ECB_BLOCK_SIZES:
+            w = random_words(n, seed=5 * n + bits)
+            m, _ = diff(cuda_aes.encrypt_words(w, rk, nr, form="block"),
+                        bitslice.encrypt_words(w, rk, nr))
+            ecb_mismatches["ecb_encrypt"] += m
+            ecb_form_mismatches["block"] += m
+            if m:
+                log(f"MISMATCH ecb_encrypt block form bits={bits} n={n}: {m} words")
     log(f"ECB kernels vs plain: {3 * len(ECB_SIZES)} cases each (nr 10/12/14, N in {ECB_SIZES}), "
-        f"mismatching words {ecb_mismatches}")
+        f"encrypt in each form (auto, group forced, block forced), and the block form at N in "
+        f"{ECB_BLOCK_SIZES}: mismatching words {ecb_mismatches}, encrypt by form "
+        f"{ecb_form_mismatches}")
     if any(ecb_mismatches.values()):
         raise SystemExit("an ECB kernel disagrees with its plain version")
 
@@ -1297,13 +1619,52 @@ def main() -> int:
     stream_ivs = words[-SEQ_BLOCKS:].contiguous()
     batch_ct, batch_iv = sequential("cbc_encrypt_words_batch", aes.cbc_encrypt_words_batch,
                                     streams, stream_ivs, rk, nr, eng)
+    # Byte-granular CFB128 through AES on the card, in chunks carried across
+    # calls from iv_off 5: each partial step that needs a keystream block is
+    # one block-form ECB launch; a run of whole blocks is one seq_encrypt
+    # launch (encrypt) or one ECB launch in its auto form (decrypt).
+    cfb_ctx, cfb_cpu = aes.AES(bench.KEY), aes.AES(bench.KEY, device="cpu")
+    cfb_bytes = host[:sum(CFB_CHUNKS)]
+    steps = cfb_steps(CFB_IV_OFF, CFB_CHUNKS)
+    lib_forms = cuda_build.load()
+    cfb_runs = {}
+    for mode in (aes.AES_ENCRYPT, aes.AES_DECRYPT):
+        before, before_forms = counts(), form_counts()["ecb_encrypt"]
+        state = state_cpu = (CFB_IV_OFF, np.frombuffer(bytes.fromhex(BLOCK_IV), np.uint8))
+        outs, pos, same = [], 0, True
+        for size in CFB_CHUNKS:
+            o, *state = cfb_ctx.crypt_cfb128(mode, *state, cfb_bytes[pos: pos + size])
+            o_cpu, *state_cpu = cfb_cpu.crypt_cfb128(mode, *state_cpu, cfb_bytes[pos: pos + size])
+            same &= bool(np.array_equal(o, o_cpu) and state[0] == state_cpu[0]
+                         and np.array_equal(state[1], state_cpu[1]))
+            pos += size
+        got = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        forms = {f: v - before_forms[f] for f, v in form_counts()["ecb_encrypt"].items()}
+        want_forms = {"group": 0, "block": sum(n for kind, n in steps if kind == "partial")}
+        for kind, n in steps:
+            if kind == "bulk" and mode == aes.AES_DECRYPT:
+                want_forms[cuda_aes.ECB_FORMS[lib_forms.ot_ecb_encrypt_form(n, 0)]] += 1
+        bulk = sum(kind == "bulk" for kind, _n in steps)
+        cfb_runs["encrypt" if mode == aes.AES_ENCRYPT else "decrypt"] = {
+            "equal to the CPU": same, "launches": got, "ecb_encrypt by form": forms,
+            "expected by form": want_forms,
+            "seq_encrypt as expected": got.get("seq_encrypt", 0) == (
+                bulk if mode == aes.AES_ENCRYPT else 0)}
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     block_counts = counts()
-    log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}; "
-        f"the sequential encrypts' own launches {seq_calls}")
-    if block_counts["ecb_encrypt"] <= 0 or block_counts["ecb_decrypt"] <= 0:
-        raise SystemExit(f"the block-mode path did not launch both ECB kernels: {block_counts}")
+    block_forms = form_counts()["ecb_encrypt"]
+    log(f"byte-granular CFB128 from iv_off {CFB_IV_OFF} in chunks {CFB_CHUNKS} through AES on the "
+        f"card: steps {steps}; {cfb_runs}; card: {card}")
+    if not all(r["equal to the CPU"] and r["ecb_encrypt by form"] == r["expected by form"]
+               and r["seq_encrypt as expected"] for r in cfb_runs.values()):
+        raise SystemExit(f"byte-granular CFB128 on the card: {cfb_runs}")
+    log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}, "
+        f"ecb_encrypt by form {block_forms}; the sequential encrypts' own launches {seq_calls}")
+    if block_counts["ecb_encrypt"] <= 0 or block_counts["ecb_decrypt"] <= 0 or min(
+            block_forms.values()) <= 0:
+        raise SystemExit(f"the block-mode path did not launch both ECB kernels, encrypt in both "
+                         f"forms: {block_counts}, encrypt by form {block_forms}")
     if any(c != {"seq_encrypt": 1} for c in seq_calls.values()):
         raise SystemExit(f"a sequential encrypt did not make exactly one seq_encrypt launch and "
                          f"nothing else: {seq_calls}")
@@ -1725,18 +2086,6 @@ def main() -> int:
         measured cycles each, at the SM clock sampled while the kernel ran."""
         return depth * lat_cycles / (mhz * 1e3)
 
-    def sass_per_block(kernel, targs, nr):
-        """(integer SASS instructions a thread runs for one block or group,
-        its dependent path, the round loop): the round loop nr - 1 times and
-        the rest of the function once (an upper bound where set-up loops run
-        more than once); the path counts the round loop only, nr - 1 trips (a
-        lower bound: the first key XOR and the last round are left out)."""
-        ins, _back = sass_function(sass_text, kernel, targs)
-        rl = sass_round_loops(sass_text, kernel, targs)[0]
-        lo, hi = rl["range"]
-        rest = sum(_is_int_op(b) for a, b, _t in ins if not lo <= a <= hi)
-        return rl["int"] * (nr - 1) + rest, rl["depth"] * (nr - 1), rl
-
     # The one-block ECB launch the sequential encrypts used to make per block.
     one = cbc_pt[:1].contiguous()
 
@@ -1751,29 +2100,173 @@ def main() -> int:
         torch.cuda.synchronize()
         return issue
 
-    host_us = 1e3 * host_issue_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
-    one_ms, one_smi = sampled_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
-    one_card_ms = graph_ms(lambda: cuda_aes.encrypt_words(one, rk, nr))
-    _, ecb_depth, ecb_loop = sass_per_block("ecb_encrypt_kernel", nr, nr)
-    one_lat = latency_ms(ecb_depth, one_smi["clock_mhz"])
-    one_roof, one_by = measured_bound(ecb_ops_per_group(nr, decrypt=False)[0], 32 + 4 * rk.numel())
-    log(f"one-block ecb_encrypt launch: host issue {host_us:.2f} us, {one_ms * 1e3:.2f} us back "
-        f"to back at the sampled {one_smi['clock_mhz']:.0f} MHz, {one_card_ms * 1e3:.2f} us of "
-        f"card per launch in a CUDA graph; its group's round loop "
-        f"{ecb_loop['int']} integer instructions, dependency depth {ecb_loop['depth']}: latency "
-        f"bound {ecb_depth} x {lat_cycles:.3f} cycles = {one_lat * 1e3:.4f} us, roofline bound "
-        f"{one_roof * 1e3:.5f} us ({one_by}); the graph's launch at "
-        f"{100 * max(one_lat, one_roof) / one_card_ms:.1f} % of the larger; card: {card}")
-    next(e for e in kernels if e["name"] == "ecb_encrypt")["one_block"] = {
-        "ms": one_ms, "card_ms_graph": one_card_ms, "host_issue_ms": host_us / 1e3,
-        "sampled_clock_mhz": one_smi["clock_mhz"], "roofline_bound_ms": one_roof,
-        "latency_bound_ms": one_lat, "dependent_instructions": ecb_depth}
+    # The design variants (VARIANTS_SOURCE), timed in turns with the kernels.
+    variants = ctypes.CDLL(variants_so)
+    vp = ctypes.c_void_p
+    variants.ot_cbc_variant.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_longlong,
+                                        ctypes.c_int, vp]
+    variants.ot_cbc_variant.restype = ctypes.c_int
+    variants.ot_ecb_variant.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong, vp]
+    variants.ot_ecb_variant.restype = ctypes.c_int
+
+    def in_turns(fns, turns=VARIANT_TURNS):
+        """Each of ``fns`` (the first is the kernel) timed by ``graph_ms`` in
+        ``turns`` turns, the order reversed every other turn: per variant the
+        median, least and quartiles (ms), and the turns in which the kernel
+        was the faster of the two."""
+        times = {name: [] for name in fns}
+        for turn in range(turns):
+            for name in (list(fns) if turn % 2 == 0 else list(reversed(list(fns)))):
+                times[name].append(graph_ms(fns[name]))
+        kernel = times[next(iter(fns))]
+        out = {}
+        for name, v in times.items():
+            q = statistics.quantiles(v, n=4)
+            out[name] = {"median_ms": statistics.median(v), "min_ms": min(v), "q1_ms": q[0],
+                         "q3_ms": q[2], "kernel_faster_turns": sum(
+                             a < b for a, b in zip(kernel, v))}
+        return out
+
+    def turns_line(res):
+        return "; ".join(f"{k} median {v['median_ms'] * 1e3:.3f} us (least "
+                         f"{v['min_ms'] * 1e3:.3f}, quartiles {v['q1_ms'] * 1e3:.3f}-"
+                         f"{v['q3_ms'] * 1e3:.3f}, kernel faster in {v['kernel_faster_turns']} of "
+                         f"{VARIANT_TURNS})" for k, v in res.items())
+
+    # One block by form: the auto form (the block form, as AES._ecb1 takes
+    # it), and each form forced. The latency bound is the forward cipher's
+    # dependent path as the group form's round loop gives it (the same bound
+    # for both forms: it is the function's), the roofline bound one block's
+    # share of a group's operations or its 32 bytes and the schedule.
+    ecb_depth = sass_block_kernel(sass_text, "ecb_encrypt_kernel", nr, nr)["depth"]
+    ecb_loop = sass_round_loops(sass_text, "ecb_encrypt_kernel", nr)[0]
+    ecb_blk = sass_block_kernel(sass_text, "ecb_encrypt_block_kernel", nr, nr)
+    one_roof, one_by = measured_bound(ecb_ops_per_group(nr, decrypt=False)[0] / 32,
+                                      32 + 4 * rk.numel())
+    one_ops_ms = ecb_ops_per_group(nr, decrypt=False)[0] / 32 / int_ops_per_ms
+    one_bytes_ms = (32 + 4 * rk.numel()) / HBM_BYTES_PER_S * 1e3
+    one_forms = {}
+    for form in cuda_aes.ECB_FORMS:
+        fn = lambda form=form: cuda_aes.encrypt_words(one, rk, nr, form=form)  # noqa: E731
+        host_us = 1e3 * host_issue_ms(fn)
+        one_ms, one_smi = sampled_ms(fn)
+        one_card_ms = graph_ms(fn)
+        one_lat = latency_ms(ecb_depth, one_smi["clock_mhz"])
+        one_forms[form] = {
+            "form": cuda_aes.ECB_FORMS[cuda_build.load().ot_ecb_encrypt_form(1, cuda_aes.ECB_FORMS.index(form))],
+            "ms": one_ms, "card_ms_graph": one_card_ms, "host_issue_ms": host_us / 1e3,
+            "sampled_clock_mhz": one_smi["clock_mhz"], "roofline_bound_ms": one_roof,
+            "latency_bound_ms": one_lat, "dependent_instructions": ecb_depth,
+            "share_of_larger_bound": max(one_lat, one_roof) / one_card_ms}
+        log(f"one-block ecb_encrypt launch, form {form} (runs the {one_forms[form]['form']} "
+            f"form): host issue {host_us:.2f} us, {one_ms * 1e3:.2f} us back to back at the "
+            f"sampled {one_smi['clock_mhz']:.0f} MHz, {one_card_ms * 1e3:.3f} us of card per "
+            f"launch in a CUDA graph; latency bound {ecb_depth} x {lat_cycles:.3f} cycles = "
+            f"{one_lat * 1e3:.4f} us (the group form's round loop: {ecb_loop['int']} integer "
+            f"instructions, depth {ecb_loop['depth']}), roofline bound {one_roof * 1e3:.6f} us "
+            f"({one_by}); the graph's launch at "
+            f"{100 * one_forms[form]['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    log(f"ecb_encrypt_block_kernel<{nr}> SASS: {ecb_blk['int']} integer instructions a block "
+        f"({'rolled' if ecb_blk['rolled'] else 'unrolled'} rounds), dependency depth "
+        f"{ecb_blk['depth']}, opcodes {list(ecb_blk['hist'].items())[:8]}; ptxas "
+        f"{ptxas.get(f'ecb_encrypt_block_kernel<{nr}>')}")
+    # The crossing: both forms from 1 block to 2^20, in a CUDA graph (card
+    # time) and back to back; kEcbBlockFormMax is the largest size at which
+    # the block form is the faster in the graph.
+    lib = cuda_build.load()
+    ecb_table = []
+    for n in ECB_FORM_SIZES:
+        w_n = words[:n]
+        row = {"n_blocks": n, "auto_form": cuda_aes.ECB_FORMS[lib.ot_ecb_encrypt_form(n, 0)]}
+        for form in ("group", "block"):
+            fn = lambda w_n=w_n, form=form: cuda_aes.encrypt_words(w_n, rk, nr, form=form)  # noqa: E731
+            reps = max(3, int(0.2 / (events_ms(fn, 1) / 1e3)))
+            row[f"{form}_ms"] = events_ms(fn, reps)
+            row[f"{form}_card_ms_graph"] = graph_ms(fn)
+        row["roofline_bound_ms"] = measured_bound(n / 32 * ecb_ops_per_group(nr, decrypt=False)[0],
+                                                  32 * n + 4 * rk.numel())[0]
+        row["faster"] = "block" if row["block_card_ms_graph"] < row["group_card_ms_graph"] else "group"
+        ecb_table.append(row)
+        log(f"ecb_encrypt forms at {n} blocks: in a CUDA graph group "
+            f"{row['group_card_ms_graph'] * 1e3:.3f} us, block {row['block_card_ms_graph'] * 1e3:.3f} "
+            f"us; back to back group {row['group_ms'] * 1e3:.3f} us, block "
+            f"{row['block_ms'] * 1e3:.3f} us (faster in the graph: {row['faster']}; auto: "
+            f"{row['auto_form']}); roofline bound {row['roofline_bound_ms'] * 1e3:.4f} us; card: "
+            f"{card}")
+    log(f"ecb_encrypt auto form picks the faster form at every size of the table: "
+        f"{all(r['auto_form'] == r['faster'] for r in ecb_table)}")
+    ecb_entry = next(e for e in kernels if e["name"] == "ecb_encrypt")
+    ecb_entry["one_block"] = one_forms["auto"]
+    ecb_entry["one_block_by_form"] = one_forms
+    ecb_entry["launches_by_form"] = block_forms
+    ecb_entry["block_form"] = {
+        "name": "ecb_encrypt_block_kernel", "route": "cuda",
+        "source": "our_tree_tpu_torch/csrc/ecb.cu", "replaces": "our_tree_tpu/ops/pallas_aes.py:259",
+        "launches": block_forms["block"], "max_abs_err": 0, "ms": one_forms["block"]["ms"],
+        "card_ms_graph": one_forms["block"]["card_ms_graph"],
+        "plain_ms": events_ms(lambda: bitslice.encrypt_words(one, rk, nr), 20),
+        "bound_ms": max(one_ops_ms, one_bytes_ms),
+        "bound_by": "operations" if one_ops_ms >= one_bytes_ms else "bytes",
+        "bound_ms_measured": one_roof, "latency_bound_ms": one_forms["block"]["latency_bound_ms"],
+        "library_ms": None, "shape": "one block (AES._ecb1, a partial step of byte-granular CFB128)",
+        "sass_int_per_block": ecb_blk["int"], "sass_depth": ecb_blk["depth"],
+        "rolled_rounds": ecb_blk["rolled"], "forms_table": ecb_table}
+    m, _ = diff(cuda_aes.encrypt_words(one, rk, nr, form="block"), bitslice.encrypt_words(one, rk, nr))
+    if m:
+        raise SystemExit(f"ecb_encrypt block form vs plain at one block: {m} mismatching words")
+    ecb_variants = {}
+    for n_v in (1, 32):
+        w_v = words[:n_v]
+        want_v = bitslice.encrypt_words(w_v, rk, nr)
+        fns = {"kernel": lambda w_v=w_v: cuda_aes.encrypt_words(w_v, rk, nr, form="block")}
+        for name, code in ECB_VARIANTS.items():
+
+            def fn(code=code, w_v=w_v, n_v=n_v):
+                o = torch.empty_like(w_v)  # a new output a call, as the wrapper's
+                if variants.ot_ecb_variant(code, w_v.data_ptr(), o.data_ptr(), rk.data_ptr(),
+                                           ctypes.c_longlong(n_v),
+                                           torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit(f"the ECB variant {code} did not launch")
+                return o
+            fns[name] = fn
+        bad = {name: diff(fns[name](), want_v)[0] for name in ECB_VARIANTS}
+        if any(bad.values()):
+            raise SystemExit(f"an ECB block-form design variant disagrees with plain: {bad}")
+        ecb_variants[n_v] = in_turns(fns)
+        log(f"ecb_encrypt block-form design variants at {n_v} blocks, in {VARIANT_TURNS} turns "
+            f"(CUDA graph): {turns_line(ecb_variants[n_v])}; card: {card}")
+    ecb_entry["block_form"]["design_variants_ms_graph"] = ecb_variants
+    # ctr_gen's one-block tail launch: a crypt_ctr call that ends mid-block
+    # makes its last keystream block with one ctr_gen launch over one block
+    # (models/aes.py AES.crypt_ctr).
+    tail = lambda: cuda_aes.ctr_crypt_words_fused(one, ctr, rk_ctr, nr)  # noqa: E731
+    m, _ = diff(tail(), cuda_aes.ctr_crypt_words_fused_plain(one, ctr, rk_ctr, nr))
+    if m:
+        raise SystemExit(f"ctr_gen vs plain at one block: {m} mismatching words")
+    tail_ms, tail_smi = sampled_ms(tail)
+    tail_card = graph_ms(tail)
+    tail_depth = sass_round_loops(sass_text, "ctr_gen_kernel", nr)[0]["depth"] * (nr - 1)
+    tail_lat = latency_ms(tail_depth, tail_smi["clock_mhz"])
+    tail_roof, tail_by = measured_bound(ctr_ops_per_group(nr)[0] / 32, 32 + 16 + 4 * rk_ctr.numel())
+    ctr_tail = {"ms": tail_ms, "card_ms_graph": tail_card,
+                "host_issue_ms": host_issue_ms(tail), "sampled_clock_mhz": tail_smi["clock_mhz"],
+                "latency_bound_ms": tail_lat, "dependent_instructions": tail_depth,
+                "roofline_bound_ms": tail_roof,
+                "share_of_larger_bound": max(tail_lat, tail_roof) / tail_card}
+    next(e for e in kernels if e["name"] == "ctr_gen")["one_block_tail"] = ctr_tail
+    log(f"one-block ctr_gen launch (crypt_ctr's tail): host issue "
+        f"{ctr_tail['host_issue_ms'] * 1e3:.2f} us, {tail_ms * 1e3:.2f} us back to back, "
+        f"{tail_card * 1e3:.3f} us of card in a CUDA graph; latency bound {tail_depth} x "
+        f"{lat_cycles:.3f} cycles = {tail_lat * 1e3:.4f} us, roofline bound "
+        f"{tail_roof * 1e3:.6f} us ({tail_by}); at "
+        f"{100 * ctr_tail['share_of_larger_bound']:.1f} % of the larger; card: {card}")
 
     # seq_encrypt: the two sequential encrypts of phase 5 (one stream of
     # 4,096 blocks) and the batch (4,096 streams of 64 blocks), each one launch.
     seq_int, seq_depth, seq_loop = {}, {}, {}
     for c in (0, 1):
-        seq_int[c], seq_depth[c], seq_loop[c] = sass_per_block("seq_encrypt_kernel", (nr, c), nr)
+        blk = sass_block_kernel(sass_text, "seq_encrypt_kernel", (nr, c), nr)
+        seq_int[c], seq_depth[c], seq_loop[c] = blk["int"], blk["depth"], blk["round_loop"]
     log(f"seq_encrypt SASS (nr {nr}): round loop {seq_loop[0]['int']} (CBC) / {seq_loop[1]['int']} "
         f"(CFB128) integer instructions, dependency depth {seq_loop[0]['depth']} / "
         f"{seq_loop[1]['depth']}; about {seq_int[0]} / {seq_int[1]} integer instructions a block; "
@@ -1844,7 +2337,8 @@ def main() -> int:
     mk = sass_mk_per_thread(sass_text, nr)
     mk_loops = sass_round_loops(sass_text, "ctr_mk_kernel", nr)[:2]
     mk_group_depth = (nr - 1) * min(lp["depth"] for lp in mk_loops)
-    blk_int, blk_depth, blk_loop = sass_per_block("ctr_mk_block_kernel", nr, nr)
+    blk = sass_block_kernel(sass_text, "ctr_mk_block_kernel", nr, nr)
+    blk_int, blk_depth, blk_loop = blk["int"], blk["depth"], blk["round_loop"]
     log(f"ctr_mk SASS (nr {nr}): group form {mk}, round-loop dependency depths "
         f"{[lp['depth'] for lp in mk_loops]}; block form round loop {blk_loop['int']} integer "
         f"instructions, depth {blk_loop['depth']}, about {blk_int} a block; ptxas "
@@ -2002,14 +2496,22 @@ def main() -> int:
     round_steps = sbox_depth + sum(INV_ROUND_LINEAR_STEPS.values())
     last_steps = sbox_depth + sum(INV_LAST_ROUND_LINEAR_STEPS.values())
     cbc_depth = 1 + (nr8 - 1) * round_steps + last_steps
-    cbc_int, cbc_sass_depth, cbc_loop = sass_per_block("cbc_mk_block_kernel", nr8, nr8)
+    cbc_sass = sass_block_kernel(sass_text, "cbc_mk_block_kernel", nr8, nr8)
+    cbc_int, cbc_sass_depth = cbc_sass["int"], cbc_sass["depth"]
     cbc_ops, cbc_parts = cbc_mk_ops_per_group(nr8)
-    log(f"cbc_mk SASS (nr {nr8}): round loop {cbc_loop['int']} integer instructions, dependency "
-        f"depth {cbc_loop['depth']}, opcodes {cbc_loop['hist']}; about {cbc_int} a block; ptxas "
+    cbc_ins, _ = sass_function(sass_text, "cbc_mk_block_kernel", nr8)
+    lo, hi = cbc_sass["round_loop"]["range"] if cbc_sass["rolled"] else (0, cbc_ins[-1][0])
+    imads = [t for a, b, t in cbc_ins if b == "IMAD" and lo <= a <= hi]
+    log(f"cbc_mk SASS (nr {nr8}): rounds {'rolled' if cbc_sass['rolled'] else 'unrolled'}"
+        + (f", round loop {cbc_sass['round_loop']['int']} integer instructions, dependency "
+           f"depth {cbc_sass['round_loop']['depth']}" if cbc_sass["rolled"] else "")
+        + f", opcodes {cbc_sass['hist']}; about {cbc_int} integer instructions a block; ptxas "
         f"{ptxas.get(f'cbc_mk_block_kernel<{nr8}>')}; the circuit's dependent steps: inverse "
         f"S-box depth {sbox_depth} + linear layers {INV_ROUND_LINEAR_STEPS} = {round_steps} a "
         f"round, last round {last_steps}, whitening 1: {cbc_depth} at nr {nr8} (the compiled "
-        f"round loop's path: {cbc_sass_depth} over nr - 1 rounds)")
+        f"path: {cbc_sass_depth})")
+    log(f"cbc_mk IMAD in the {'round loop' if cbc_sass['rolled'] else 'kernel'} ({len(imads)}): "
+        + " | ".join(imads[:40]))
     rksd8 = packing.words_tensor(np.stack([dec_schedule_from_enc(nr8, r)
                                            for r in packing.words_numpy(rks8)]), dev)
 
@@ -2035,6 +2537,122 @@ def main() -> int:
         f"{cbc_r['sass_path_latency_ms'] * 1e3:.4f} us); kernel at "
         f"{100 * cbc_r['share_of_larger_bound']:.1f} % of the larger (graph time); {cbc_int} "
         f"integer SASS a block; card: {card}")
+    # Where a launch's time goes, at the 4,096- and 32-block rungs: the
+    # launch floor (the empty kernel at the launch's grid, 128 threads a
+    # thread block and its dynamic shared memory, in a CUDA graph), the
+    # stamped instantiation's phases per warp (SM cycles at the sampled
+    # clock: the key-plane prologue to its barrier, the block's loads, the
+    # rounds, the store until visible), their sum beside the card time, and
+    # the issue diagnostic: the integer SASS a block at one instruction a
+    # cycle, a count of the compiled code (not a bound), beside the latency
+    # bound.
+    empty = ctypes.CDLL(empty_so)
+    empty.ot_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.ot_empty.restype = ctypes.c_int
+    cbc_smem = 8 * 8 * (nr8 + 1) * 4
+
+    def empty_fn(grid):
+        def fn():
+            if empty.ot_empty(grid, 128, cbc_smem, torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("the empty kernel did not launch")
+        return fn
+
+    mhz = cbc_r["sampled_clock_mhz"]
+    issue_ms = cbc_int / (mhz * 1e3)
+    # The integer pipe's rate for one warp: 16 lanes a clock a sub-partition
+    # (the table's 64 a clock an SM over its 4), so a LOP3 or SHF every 2
+    # cycles; IMAD issues on the FMA pipe beside it. With one warp a
+    # sub-partition, the rounds cannot run faster than that.
+    pipe_ms = 2 * (cbc_int - cbc_sass["fma"]) / (mhz * 1e3)
+    a1 = {}
+    for n_r in (rung, 32):
+        grid = -(-n_r // 128)
+        floor_ms = statistics.median(graph_ms(empty_fn(grid)) for _ in range(5))
+        prod = cbc_fn(w_r[:n_r], c_r[:n_r], s_r[:n_r])
+        card_ms = cbc_r["card_ms_graph"] if n_r == rung else graph_ms(prod)
+        stamps = torch.zeros((-(-n_r // 32), 8), dtype=torch.int64, device=dev)
+        out_s = torch.empty_like(w_r[:n_r])
+        runs = []
+        for i in range(40):
+            stamps.zero_()
+            rc = lib.ot_cbc_mk_stamped(w_r.data_ptr(), out_s.data_ptr(), c_r.data_ptr(),
+                                       s_r.data_ptr(), rksd8.data_ptr(), ctypes.c_longlong(n_r),
+                                       8, nr8, stamps.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"ot_cbc_mk_stamped launch failed: cudaError {rc}")
+            torch.cuda.synchronize()
+            if i >= 10:  # warm launches only
+                a = stamps.cpu().numpy()
+                runs.append(a[a[:, 0] != 0])
+        m, _ = diff(out_s, prod())
+        if m:
+            raise SystemExit(f"the stamped cbc_mk disagrees with the kernel: {m} mismatching words")
+        a = np.concatenate(runs)
+        cyc = {"prologue": a[:, 1] - a[:, 0], "loads": a[:, 2] - a[:, 1],
+               "rounds": a[:, 3] - a[:, 2], "store": a[:, 4] - a[:, 3],
+               "entry_to_store_visible": a[:, 4] - a[:, 0]}
+        phases = {k: {"median_us": float(np.median(v)) / mhz, "max_us": float(v.max()) / mhz,
+                      "median_cycles": float(np.median(v)), "max_cycles": int(v.max())}
+                  for k, v in cyc.items()}
+        skew = [int(r[:, 5].max() - r[:, 5].min()) for r in runs]
+        span = [int(r[:, 6].max() - r[:, 5].min()) for r in runs]
+        parts = ("prologue", "loads", "rounds", "store")
+        total = floor_ms * 1e3 + sum(phases[k]["median_us"] for k in parts)
+        a1[n_r] = {"floor_ms": floor_ms, "grid": grid, "smem_bytes": cbc_smem, "card_ms_graph": card_ms,
+                   "phases": phases, "warps": int(a.shape[0] // len(runs)), "launches": len(runs),
+                   "start_skew_ns_median": float(np.median(skew)),
+                   "span_ns_median": float(np.median(span)),
+                   "sum_floor_and_median_phases_us": total,
+                   "issue_diagnostic_ms": issue_ms, "integer_pipe_ms": pipe_ms,
+                   "above_floor_plus_diagnostic_us": (card_ms - floor_ms - issue_ms) * 1e3,
+                   "above_floor_plus_integer_pipe_us": (card_ms - floor_ms - pipe_ms) * 1e3}
+        log(f"cbc_mk launch floor at the {n_r}-block rung: the empty kernel, {grid} thread blocks "
+            f"x 128 threads, {cbc_smem} B dynamic shared memory, {floor_ms * 1e3:.3f} us per launch "
+            f"in a CUDA graph (median of 5); card: {card}")
+        log(f"cbc_mk stamped breakdown at the {n_r}-block rung (K = 8, {a1[n_r]['warps']} warps x "
+            f"{len(runs)} launches, SM cycles at {mhz:.0f} MHz), median / largest across warps: "
+            + "; ".join(f"{k} {v['median_us']:.3f} / {v['max_us']:.3f} us" for k, v in phases.items())
+            + f"; warps' start skew {a1[n_r]['start_skew_ns_median']:.0f} ns and first start to "
+            f"last end {a1[n_r]['span_ns_median']:.0f} ns (global timer, median over launches); "
+            f"card: {card}")
+        log(f"cbc_mk at the {n_r}-block rung: floor {floor_ms * 1e3:.3f} + prologue "
+            f"{phases['prologue']['median_us']:.3f} + loads {phases['loads']['median_us']:.3f} + "
+            f"rounds {phases['rounds']['median_us']:.3f} + store {phases['store']['median_us']:.3f} "
+            f"= {total:.3f} us beside {card_ms * 1e3:.3f} us of card in a CUDA graph (the former "
+            f"form: {CBC_MK_FORMER_US} us at the 4,096-block rung); issue diagnostic (a count of the "
+            f"compiled code, not a bound): {cbc_int} integer SASS a block x 1 cycle at {mhz:.0f} "
+            f"MHz = {issue_ms * 1e3:.4f} us, beside the latency bound "
+            f"{cbc_r['latency_bound_ms'] * 1e3:.4f} us ({cbc_depth} circuit steps); card time above "
+            f"floor plus diagnostic {a1[n_r]['above_floor_plus_diagnostic_us']:.3f} us; at the "
+            f"integer pipe's rate for one warp ({cbc_int - cbc_sass['fma']} integer-pipe "
+            f"instructions x 2 cycles, {cbc_sass['fma']} IMAD on the FMA pipe beside them) "
+            f"{pipe_ms * 1e3:.4f} us, card time above floor plus that "
+            f"{a1[n_r]['above_floor_plus_integer_pipe_us']:.3f} us; card: {card}")
+    # The design variants in turns with the kernel, at the 4,096- and
+    # 32-block rungs; each variant's words equal the kernel's.
+    cbc_variants = {}
+    for n_r in (rung, 32):
+        w_v, p_v, s_v = w_r[:n_r], c_r[:n_r], s_r[:n_r]
+        want_v = cbc_fn(w_v, p_v, s_v)()
+        fns = {"kernel": cbc_fn(w_v, p_v, s_v)}
+        for name, code in CBC_VARIANTS.items():
+
+            def fn(code=code, w_v=w_v, p_v=p_v, s_v=s_v, n_r=n_r):
+                o = torch.empty_like(w_v)  # a new output a call, as the wrapper's
+                if variants.ot_cbc_variant(code, w_v.data_ptr(), o.data_ptr(), p_v.data_ptr(),
+                                           s_v.data_ptr(), rksd8.data_ptr(),
+                                           ctypes.c_longlong(n_r), 8,
+                                           torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit(f"the cbc_mk variant {code} did not launch")
+                return o
+            fns[name] = fn
+        bad = {name: diff(fns[name](), want_v)[0] for name in CBC_VARIANTS}
+        if any(bad.values()):
+            raise SystemExit(f"a cbc_mk design variant disagrees with the kernel: {bad}")
+        cbc_variants[n_r] = in_turns(fns)
+        log(f"cbc_mk design variants at the {n_r}-block rung, K = 8, in {VARIANT_TURNS} turns "
+            f"(CUDA graph): {turns_line(cbc_variants[n_r])}; card: {card}")
     w_c, p_c = random_words(n_big, seed=61), random_words(n_big, seed=62)
     s_c = slot_runs(n_big, 8, np.arange(1, 301), seed=63)
     cbc_bulk = timing("cbc_mk_block K=8 runs 1-300", cbc_fn(w_c, p_c, s_c),
@@ -2083,8 +2701,13 @@ def main() -> int:
         "dependent_steps": {"inv_sbox_depth": sbox_depth, "round": round_steps,
                             "last_round": last_steps, "total": cbc_depth,
                             "linear_layers": INV_ROUND_LINEAR_STEPS},
-        "dependent_issue_cycles": lat_cycles, "sass_round_loop": cbc_loop,
+        "dependent_issue_cycles": lat_cycles, "sass_round_loop": cbc_sass["round_loop"],
+        "rolled_rounds": cbc_sass["rolled"], "sass_hist": cbc_sass["hist"],
         "sass_int_per_block": cbc_int, "sass_path_dependent_instructions": cbc_sass_depth,
+        "rung32_card_ms_graph": a1[32]["card_ms_graph"], "breakdown": a1,
+        "design_variants_ms_graph": cbc_variants,
+        "issue_diagnostic_ms": issue_ms, "integer_pipe_ms": pipe_ms,
+        "sass_fma_per_block": cbc_sass["fma"],
         "at_256MiB_k8_runs": {**cbc_bulk, "library_ms": None},
         "group_layout_table": group_table})
 

@@ -1,4 +1,5 @@
-// Per-block bitsliced AES arithmetic (seq.cu, the block form of ctr_mk.cu):
+// Per-block bitsliced AES arithmetic (seq.cu, the block forms of ctr_mk.cu
+// and ecb.cu):
 // one thread holds one 16-byte block as 8 bit planes in 8 registers. Plane b
 // holds bit b of each state byte, lane p = byte p of the block in memory
 // order, so lane 4c + r is row r of column c. Each plane's 16 lanes are kept
@@ -163,6 +164,15 @@ __device__ __forceinline__ void encrypt_block(uint32_t (&s)[8], const uint32_t* 
 #pragma unroll 1
   for (int r = 1; r < NR; ++r) block_round<false>(s, kp + 8 * r);
   block_round<true>(s, kp + 8 * NR);
+}
+
+// ECB encrypt of one block: E(x) under the key planes kp.
+template <int NR>
+__device__ __forceinline__ uint4 ecb_block(uint4 x, const uint32_t* kp) {
+  uint32_t s[8];
+  pack(x, s);
+  encrypt_block<NR>(s, kp);
+  return unpack(s);
 }
 
 // One chained encrypt over a stream of n blocks: CBC, C_i = E(P_i ^ C_(i-1)),

@@ -15,9 +15,10 @@
 //                   plane by 16 - 4r lanes, masked to row r's lanes.
 //   InvMixColumns   MixColumns after the pre-transform a_r ^= 4(a_r ^ a_(r+2))
 //                   (the matrix identity InvMixColumns = MixColumns x
-//                   circ(05, 00, 04, 00)): aes_block::mix_columns is reused,
-//                   and the pre-transform is one 2-lane in-nibble rotate, an
-//                   XOR and 4(.) as xtime renaming. Chosen over a direct form
+//                   circ(05, 00, 04, 00)): the pre-transform is one 2-lane
+//                   in-nibble rotate, an XOR and 4(.) as xtime renaming, then
+//                   aes_block::mix_columns' form (inv_mix_add_key below).
+//                   Chosen over a direct form
 //                   of 14/11/13/9 by count: about 46 plane operations on top
 //                   of the forward layer's 75 (121 in all), where the direct
 //                   form, MixColumns plus 4(w) plus 8(a_0 ^ .. ^ a_3) with the
@@ -30,6 +31,16 @@
 //                   these beside the inverse S-box circuit's own depth.
 //   AddRoundKey     8 XORs with the round's decrypt key planes, made by
 //                   aes_block::round_key_planes from rk_dec.
+//
+// Pipes. With one warp on each SM sub-partition (the serve rungs: at most 128
+// warps), the rounds are bound by the sub-partition's integer pipe: 16
+// lanes a clock (the table's 64 results a clock an SM), one LOP3 or SHF
+// every 2 cycles (chip_smoke.py phase 9's breakdown: the rounds take about
+// 2 cycles for each such instruction). IMAD issues on the FMA pipe beside
+// it. So the linear layers' shifts and ORs of disjoint bits are written as
+// multiplies: x >> k as mulhi(x, 2^(32-k)) (IMAD.HI), x << 3 as x * 8, and
+// a ^ a_(r+2), whose bits in rows 2-3 repeat those in rows 0-1, as 5 u
+// (u | u << 2) for u its rows 0-1.
 //
 // Constant time: no tables, and no address that depends on key or data (the
 // kernel reads key planes at offsets fixed by the round and the public slot).
@@ -54,17 +65,60 @@ __device__ __forceinline__ uint32_t inv_shift_rows(uint32_t x) {
          (rotr(x, 4) & 0x88888888u);
 }
 
-// InvMixColumns on planes, in place: the pre-transform d_r = a_r ^ 4(a_r ^
-// a_(r+2)), then MixColumns. 4(.) is xtime twice, plane renaming and XORs.
-__device__ __forceinline__ void inv_mix_columns(uint32_t (&s)[8]) {
-  uint32_t w[8], x2[8], x4[8];
+// x >> K as the high 32 bits of x * 2^(32-K): an IMAD.HI on the FMA pipe.
+template <int K>
+__device__ __forceinline__ uint32_t shr_fma(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(x, 1u << (32 - K));
+#else
+  return (uint32_t)(((uint64_t)x << (32 - K)) >> 32);
+#endif
+}
+
+// a ^ a_(r+2) of one plane: its rows 0-1 are u = (a ^ a >> 2) & 0x33333333,
+// its rows 2-3 the same bits one row pair up, so the plane is u | u << 2 =
+// 5 u.
+__device__ __forceinline__ uint32_t xor_row_after_next(uint32_t a) {
+  return 5u * ((a ^ shr_fma<2>(a)) & 0x33333333u);
+}
+
+// InvMixColumns then AddRoundKey on planes, in place: the pre-transform
+// a_r ^= 4(a_r ^ a_(r+2)), then MixColumns, t_r = a_r ^ a_(r+1) and
+// out_r = xt(t_r) ^ (t_r ^ t_(r+2)) ^ a_r, with the round key (k: its 8
+// planes) XORed in the same steps. 4(.) and xt(.) are plane renaming and
+// XORs, every XOR of three a LOP3.
+__device__ __forceinline__ void inv_mix_add_key(uint32_t (&s)[8], const uint32_t* k) {
+  using aes_bitslice::xor3;
+  uint32_t w[8], t[8], q[8];
 #pragma unroll
-  for (int b = 0; b < 8; ++b) w[b] = s[b] ^ row_after_next(s[b]);
-  aes_bitslice::xtime(w, x2);
-  aes_bitslice::xtime(x2, x4);
+  for (int b = 0; b < 8; ++b) w[b] = xor_row_after_next(s[b]);
+  // s ^= 4(w), xtime twice: 4(w)_b = w_(b-2), with w_6 also into planes 0,
+  // 1, 3, 4 and w_7 into planes 1, 2, 4, 5.
+  const uint32_t w67 = w[6] ^ w[7];
+  s[0] ^= w[6];
+  s[1] ^= w67;
+  s[2] = xor3(s[2], w[0], w[7]);
+  s[3] = xor3(s[3], w[1], w[6]);
+  s[4] = xor3(s[4], w[2], w67);
+  s[5] = xor3(s[5], w[3], w[7]);
+  s[6] ^= w[4];
+  s[7] ^= w[5];
 #pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= x4[b];
-  mix_columns(s);
+  for (int b = 0; b < 8; ++b) {
+    // next_row: ((s >> 1) & 0x77777777) | ((s << 3) & 0x88888888).
+    t[b] = s[b] ^ ((shr_fma<1>(s[b]) & 0x77777777u) | ((s[b] * 8u) & 0x88888888u));
+    q[b] = xor_row_after_next(t[b]);
+  }
+  // xt(t)_b = t_(b-1), with t_7 also into planes 1, 3, 4 (and t_7 alone
+  // into plane 0).
+  s[0] = xor3(s[0], q[0], k[0]) ^ t[7];
+  s[1] = xor3(xor3(s[1], q[1], k[1]), t[0], t[7]);
+  s[2] = xor3(s[2], q[2], k[2]) ^ t[1];
+  s[3] = xor3(xor3(s[3], q[3], k[3]), t[2], t[7]);
+  s[4] = xor3(xor3(s[4], q[4], k[4]), t[3], t[7]);
+  s[5] = xor3(s[5], q[5], k[5]) ^ t[4];
+  s[6] = xor3(s[6], q[6], k[6]) ^ t[5];
+  s[7] = xor3(s[7], q[7], k[7]) ^ t[6];
 }
 
 // One inverse round with the folded schedule: InvSubBytes, InvShiftRows,
@@ -74,14 +128,20 @@ __device__ __forceinline__ void inv_block_round(uint32_t (&s)[8], const uint32_t
   aes_bitslice::inv_sbox(s);
 #pragma unroll
   for (int b = 0; b < 8; ++b) s[b] = inv_shift_rows(s[b]);
-  if (!LAST) inv_mix_columns(s);
+  if (LAST) {
 #pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= k[b];
+    for (int b = 0; b < 8; ++b) s[b] ^= k[b];
+  } else {
+    inv_mix_add_key(s, k);
+  }
 }
 
 // AES decrypt of one block's planes in place under kp, the (NR+1)*8 key
 // planes of the decrypt schedule (round r at kp + 8r). The round loop is
-// rolled, each round straight-line, as in encrypt_block.
+// rolled, each round straight-line, as in encrypt_block: a launch runs the
+// code once a warp, and the loop's 4.4 KB stay in the instruction cache
+// where the unrolled rounds would be fetched anew (chip_smoke.py phase 9
+// times them unrolled, with the key planes loaded a round ahead).
 template <int NR>
 __device__ __forceinline__ void decrypt_block(uint32_t (&s)[8], const uint32_t* kp) {
 #pragma unroll

@@ -1,5 +1,6 @@
-// Bitsliced AES-ECB for Hopper (sm_90a), both directions:
-// out[j] = E_K(in[j]) (ecb_encrypt_kernel) or D_K(in[j]) (ecb_decrypt_kernel).
+// AES-ECB for Hopper (sm_90a), both directions:
+// out[j] = E_K(in[j]) (ecb_encrypt_kernel, ecb_encrypt_block_kernel) or
+// D_K(in[j]) (ecb_decrypt_kernel).
 //
 // Replaces the TPU kernel _aes_kernel (our_tree_tpu/ops/pallas_aes.py:259-273,
 // launched at :358 by _crypt_planes_pallas), the ECB core of every Pallas
@@ -44,17 +45,44 @@
 //   * A warp's uint4 loads and stores stride 512 bytes (each thread reads its
 //     own 512 contiguous bytes); staging through shared memory for coalescing
 //     is later work.
+//
+// Encrypt has two forms, chosen per launch by ot_ecb_encrypt (form 0, auto:
+// the block form up to kEcbBlockFormMax blocks, the group form above; 1 and
+// 2 force one), as ctr_mk.cu's two forms are:
+//   * the group form above (ecb_encrypt_kernel), for bulk ECB: 32 blocks a
+//     thread, bound by operations;
+//   * the block form (ecb_encrypt_block_kernel): one block a thread on the
+//     per-block core of aes_block.cuh, for few blocks. One block in the group
+//     form is one thread walking a whole 32-block group (22,324 integer
+//     instructions, 24 us of card): the one-block launches of byte-granular
+//     CFB128 (models/aes.py AES._ecb1, one a partial step) are bound by that
+//     thread's path, not by the card's rates. Each thread issues its block's
+//     load before the thread block turns the schedule into key planes in
+//     shared memory, so the two round trips overlap; the rounds are
+//     aes_block.cuh's rolled encrypt_block. chip_smoke.py phase 9 times both
+//     choices against their alternatives, the load after the barrier and
+//     the rounds unrolled with the key planes loaded a round ahead (whose
+//     straight-line code misses the instruction cache), in turns on the
+//     card (PERF.md).
 // Constant time: no address depends on key or data, only on the block index,
-// the round and the word number; there are no tables.
+// the round and the word number; there are no tables. The form depends only
+// on the block count.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "aes_block.cuh"
 #include "aes_inv_bitslice.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+// The most blocks the auto form sends to the block form: the largest size of
+// chip_smoke.py phase 9's crossing table (both forms at 1 to 2^20 blocks, in a
+// CUDA graph and back to back) at which the block form was the faster;
+// PERF.md holds the table.
+constexpr long long kEcbBlockFormMax = 1ll << 16;
+enum Form { kAuto = 0, kGroup = 1, kBlock = 2 };
 
 template <int NR, bool DECRYPT>
 __device__ __forceinline__ void ecb_body(const uint4* __restrict__ in, uint4* __restrict__ out,
@@ -105,6 +133,22 @@ ecb_decrypt_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   ecb_body<NR, true>(in, out, rk_dec, n_blocks);
 }
 
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+ecb_encrypt_block_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+                         const uint32_t* __restrict__ rk, long long n_blocks) {
+  static_assert(NR + 1 <= kThreads, "one thread per round key");
+  __shared__ uint32_t kp[8 * (NR + 1)];
+  const long long j = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const bool live = j < n_blocks;
+  // The block's load goes out before the key planes are made, so its round
+  // trip overlaps theirs.
+  const uint4 x = live ? in[j] : make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x <= NR) aes_block::round_key_planes(rk, threadIdx.x, kp + 8 * threadIdx.x);
+  __syncthreads();
+  if (live) out[j] = aes_block::ecb_block<NR>(x, kp);
+}
+
 template <int NR, bool DECRYPT>
 cudaError_t launch(const void* in, void* out, const void* rk, long long n_blocks,
                    cudaStream_t stream) {
@@ -121,12 +165,31 @@ cudaError_t launch(const void* in, void* out, const void* rk, long long n_blocks
   return cudaGetLastError();
 }
 
+template <int NR>
+cudaError_t launch_block(const void* in, void* out, const void* rk, long long n_blocks,
+                         cudaStream_t stream) {
+  const unsigned int grid = (unsigned int)((n_blocks + kThreads - 1) / kThreads);
+  ecb_encrypt_block_kernel<NR><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint4*>(in), static_cast<uint4*>(out), static_cast<const uint32_t*>(rk),
+      n_blocks);
+  return cudaGetLastError();
+}
+
 template <bool DECRYPT>
-int dispatch(const void* in, void* out, const void* rk, long long n_blocks, int nr,
+int dispatch(const void* in, void* out, const void* rk, long long n_blocks, int form, int nr,
              void* stream) {
   if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
-  if ((n_blocks + 31) / 32 > (long long)kThreads * 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  if ((form == kBlock ? n_blocks : (n_blocks + 31) / 32) > (long long)kThreads * 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == kBlock) {
+    switch (nr) {
+      case 10: return (int)launch_block<10>(in, out, rk, n_blocks, st);
+      case 12: return (int)launch_block<12>(in, out, rk, n_blocks, st);
+      case 14: return (int)launch_block<14>(in, out, rk, n_blocks, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (nr) {
     case 10: return (int)launch<10, DECRYPT>(in, out, rk, n_blocks, st);
     case 12: return (int)launch<12, DECRYPT>(in, out, rk, n_blocks, st);
@@ -137,16 +200,27 @@ int dispatch(const void* in, void* out, const void* rk, long long n_blocks, int 
 
 }  // namespace
 
+// The form an encrypt launch of n_blocks takes: form 1 (group) or 2 (block)
+// as given, form 0 (auto) the block form up to kEcbBlockFormMax blocks; -1
+// for a bad form.
+extern "C" int ot_ecb_encrypt_form(long long n_blocks, int form) {
+  if (form == kAuto) return n_blocks <= kEcbBlockFormMax ? kBlock : kGroup;
+  return form == kGroup || form == kBlock ? form : -1;
+}
+
 // C interface for ctypes. in/out: (n_blocks, 4) u32 LE words, 16-byte aligned;
 // rk: 4*(nr+1) u32 words on the card, the encrypt schedule for ot_ecb_encrypt
-// and the InvMixColumns-folded decrypt schedule for ot_ecb_decrypt.
-// Returns the cudaError_t of the launch (0 on success).
+// and the InvMixColumns-folded decrypt schedule for ot_ecb_decrypt; form: 0
+// auto, 1 group, 2 block (ot_ecb_encrypt_form). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int ot_ecb_encrypt(const void* in, void* out, const void* rk, long long n_blocks,
-                              int nr, void* stream) {
-  return dispatch<false>(in, out, rk, n_blocks, nr, stream);
+                              int form, int nr, void* stream) {
+  form = ot_ecb_encrypt_form(n_blocks, form);
+  if (form < 0) return (int)cudaErrorInvalidValue;
+  return dispatch<false>(in, out, rk, n_blocks, form, nr, stream);
 }
 
 extern "C" int ot_ecb_decrypt(const void* in, void* out, const void* rk_dec,
                               long long n_blocks, int nr, void* stream) {
-  return dispatch<true>(in, out, rk_dec, n_blocks, nr, stream);
+  return dispatch<true>(in, out, rk_dec, n_blocks, kGroup, nr, stream);
 }

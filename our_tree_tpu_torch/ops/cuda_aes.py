@@ -11,7 +11,12 @@ replaces the TPU kernel ``_aes_kernel`` (``pallas_aes.py:259-273``, launched
 at ``:358``): ECB of (N, 4) words, decrypt with the InvMixColumns-folded
 schedule. Their plain versions are ``bitslice.encrypt_words`` (the same
 Boyar-Peralta circuit) and ``bitslice.decrypt_words`` (the tower inverse
-S-box, a formulation independent of the kernel's).
+S-box, a formulation independent of the kernel's). Encrypt has two forms,
+as ``ctr_mk`` has: the group form (32 blocks a thread) for bulk ECB and the
+block form (one block a thread, ``csrc/aes_block.cuh``) for few blocks,
+such as the one-block launches of byte-granular CFB128; the C entry picks
+one by block count unless a form is asked for, and each launch is counted
+under its form in ``encrypt_words.form_launches``.
 
 ``ctr_scattered_multikey`` launches ``csrc/ctr_mk.cu``, which replaces the
 TPU kernel ``_ctr_scat_mk_kernel`` (``pallas_aes.py:767-781``, launched at
@@ -87,6 +92,8 @@ _COUNT_LOCK = threading.Lock()
 #: ``ctr_mk`` forms by C code (``ot_ctr_mk_form``): ``"auto"`` lets the C
 #: entry choose by block count.
 MK_FORMS = ("auto", "group", "block")
+#: ECB encrypt forms by C code (``ot_ecb_encrypt_form``), the same codes.
+ECB_FORMS = MK_FORMS
 
 
 def count_launch(wrapper, form: str | None = None) -> None:
@@ -150,12 +157,13 @@ def _launch(wrapper, fn: str, words: torch.Tensor, tensors: tuple, nr: int,
     return out
 
 
-def _mk_form(form: str, n: int) -> int:
-    """The C code of the ``ctr_mk`` form a launch of ``n`` blocks takes
+def _form_code(entry: str, form: str, n: int) -> int:
+    """The C code of the form a launch of ``n`` blocks takes, as C entry
+    ``entry`` (``ot_ctr_mk_form``, ``ot_ecb_encrypt_form``) decides it
     (``form`` one of ``MK_FORMS``)."""
-    code = cuda_build.load().ot_ctr_mk_form(ctypes.c_longlong(n), MK_FORMS.index(form))
+    code = getattr(cuda_build.load(), entry)(ctypes.c_longlong(n), MK_FORMS.index(form))
     if code not in (1, 2):
-        raise RuntimeError(f"ot_ctr_mk_form({n}, {form!r}) returned {code}")
+        raise RuntimeError(f"{entry}({n}, {form!r}) returned {code}")
     return code
 
 
@@ -171,13 +179,21 @@ def ctr_crypt_words_fused(words: torch.Tensor, ctr_be: torch.Tensor,
     return _launch(ctr_crypt_words_fused, "ot_ctr_gen", words, (ctr_be, rk), nr)
 
 
-def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int) -> torch.Tensor:
+def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int,
+                  form: str = "auto") -> torch.Tensor:
     """ECB encrypt of (N, 4) int32 LE block words with the (4*(nr+1),)
-    int32 encrypt schedule ``rk``."""
+    int32 encrypt schedule ``rk``. ``form``: one of ``ECB_FORMS``, the
+    kernel's form on the card (``"auto"``: by block count); the CPU checks
+    it and runs the plain version."""
     _check(words, nr, rk=(rk, (4 * (nr + 1),)))
+    if form not in ECB_FORMS:
+        raise ValueError(f"form must be one of {ECB_FORMS}, got {form!r}")
     if words.device.type == "cpu":
         return bitslice.encrypt_words(words, rk, nr)
-    return _launch(encrypt_words, "ot_ecb_encrypt", words, (rk,), nr)
+    n = words.shape[0]
+    code = _form_code("ot_ecb_encrypt_form", form, n) if n else 0
+    return _launch(encrypt_words, "ot_ecb_encrypt", words, (rk,), nr, ints=(code,),
+                   form=ECB_FORMS[code])
 
 
 def decrypt_words(words: torch.Tensor, rk_dec: torch.Tensor, nr: int) -> torch.Tensor:
@@ -225,7 +241,7 @@ def ctr_scattered_multikey(words: torch.Tensor, ctr_le: torch.Tensor, rks: torch
         if n and (int(key_slots.min()) < 0 or int(key_slots.max()) >= k):
             raise ValueError(f"key_slots must lie in [0, {k})")
         return ctr_scattered_multikey_plain(words, ctr_le, rks, key_slots, nr)
-    code = _mk_form(form, n) if n else 0
+    code = _form_code("ot_ctr_mk_form", form, n) if n else 0
     return _launch(ctr_scattered_multikey, "ot_ctr_mk", words, (ctr_le, key_slots, rks), nr,
                    ints=(k, code), aligned=(ctr_le,), form=MK_FORMS[code])
 
@@ -274,7 +290,7 @@ def ctr_crypt_words_explicit(words: torch.Tensor, ctr_le: torch.Tensor, rk: torc
         raise ValueError(f"form must be one of {MK_FORMS}, got {form!r}")
     if words.device.type == "cpu":
         return ctr_crypt_words_explicit_plain(words, ctr_le, rk, nr)
-    code = _mk_form(form, n) if n else 0
+    code = _form_code("ot_ctr_mk_form", form, n) if n else 0
     return _launch(ctr_crypt_words_explicit, "ot_ctr_mk", words, (ctr_le, None, rk), nr,
                    ints=(1, code), aligned=(ctr_le,), form=MK_FORMS[code])
 
@@ -360,6 +376,8 @@ ctr_scattered_multikey.launches = 0
 ctr_crypt_words_explicit.launches = 0
 cbc_scattered_multikey.launches = 0
 seq_encrypt.launches = 0
-#: ``ctr_mk`` launches by the form that ran (a reader may reset them).
+#: ``ctr_mk`` and ECB encrypt launches by the form that ran (a reader may
+#: reset them).
 ctr_scattered_multikey.form_launches = {"group": 0, "block": 0}
 ctr_crypt_words_explicit.form_launches = {"group": 0, "block": 0}
+encrypt_words.form_launches = {"group": 0, "block": 0}

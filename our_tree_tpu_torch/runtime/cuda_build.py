@@ -3,9 +3,10 @@
 ``load()`` compiles every ``our_tree_tpu_torch/csrc/*.cu`` with ``nvcc``
 (one ``nvcc`` per source, all started together), links the objects into one
 shared library with a plain C interface and loads it with ``ctypes``
-(``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt`` and
-``ot_ecb_decrypt`` from ``ecb.cu``, ``ot_ctr_mk`` and ``ot_ctr_mk_form``
-from ``ctr_mk.cu``, ``ot_cbc_mk`` from ``cbc_mk.cu``, ``ot_chain`` from
+(``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt``,
+``ot_ecb_encrypt_form`` and ``ot_ecb_decrypt`` from ``ecb.cu``,
+``ot_ctr_mk`` and ``ot_ctr_mk_form`` from ``ctr_mk.cu``, ``ot_cbc_mk`` and
+its instrumented twin ``ot_cbc_mk_stamped`` from ``cbc_mk.cu``, ``ot_chain`` from
 ``chain.cu``, ``ot_seq_encrypt`` from ``seq.cu``, ``ot_arc4_prga`` from
 ``arc4.cu``). Nothing is built at import
 time, and nothing but the sources in the package is compiled. The library
@@ -129,9 +130,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.ot_ctr_gen.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
     lib.ot_ctr_gen.restype = ctypes.c_int
-    for fn in (lib.ot_ecb_encrypt, lib.ot_ecb_decrypt):
-        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
+    lib.ot_ecb_encrypt.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+    lib.ot_ecb_encrypt.restype = ctypes.c_int
+    lib.ot_ecb_encrypt_form.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.ot_ecb_encrypt_form.restype = ctypes.c_int
+    lib.ot_ecb_decrypt.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+    lib.ot_ecb_decrypt.restype = ctypes.c_int
     lib.ot_ctr_mk.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, vp]
     lib.ot_ctr_mk.restype = ctypes.c_int
@@ -140,6 +144,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ot_cbc_mk.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                               vp]
     lib.ot_cbc_mk.restype = ctypes.c_int
+    lib.ot_cbc_mk_stamped.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, vp, vp]
+    lib.ot_cbc_mk_stamped.restype = ctypes.c_int
     lib.ot_seq_encrypt.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, vp]
     lib.ot_seq_encrypt.restype = ctypes.c_int
@@ -180,7 +187,7 @@ def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
     instantiation in a ``ptxas -v`` report, keyed by name and template
     arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``,
     ``"seq_encrypt_kernel<10,1>"``, ``"ctr_mk_block_kernel<12>"``,
-    ``"cbc_mk_block_kernel<14>"``,
+    ``"cbc_mk_block_kernel<14>"``, ``"ecb_encrypt_block_kernel<10>"``,
     ``"arc4_prga_kernel<32>"``)."""
     text = ptxas_report() if report is None else report
     out: dict[str, dict[str, int]] = {}

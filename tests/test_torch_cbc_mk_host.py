@@ -3,7 +3,10 @@ host C++ with g++: ``decrypt_block`` and ``cbc_dec_block`` (under per-slot
 key planes, slots clamped as the ``cbc_mk`` kernel clamps them) held
 bit-exact against the plain torch versions (``bitslice.decrypt_words`` and
 ``cuda_aes.cbc_scattered_multikey_plain``), and ``decrypt_block`` undoing
-``aes_block.cuh``'s ``encrypt_block``. The kernel's thread layout, shared
+``aes_block.cuh``'s ``encrypt_block``. The inverse round's linear layers
+(``inv_mix_add_key``: shifts as multiplies, a ^ a_(r+2) as 5 u) are also
+held, plane for plane, against the MixColumns-based form they replace, on
+random planes. The kernel's thread layout, shared
 memory and launch run only on the card (``tests/test_torch_cuda.py``).
 Integer cryptography: the tolerance is zero."""
 
@@ -97,6 +100,25 @@ extern "C" int block_round_trip(const uint32_t* rk, const uint32_t* rk_dec, int 
   }
 }
 
+// InvMixColumns then AddRoundKey of 8 planes, as the kernel runs it
+// (inv_mix_add_key) and as the MixColumns-based form: a ^= 4(a ^ a_(r+2)),
+// then aes_block::mix_columns, then the key.
+extern "C" void inv_mix_planes(const uint32_t* in, const uint32_t* k, uint32_t* got,
+                               uint32_t* want) {
+  uint32_t s[8], r[8], w[8], x2[8], x4[8];
+  for (int b = 0; b < 8; ++b) s[b] = r[b] = in[b];
+  aes_block::inv_mix_add_key(s, k);
+  for (int b = 0; b < 8; ++b) w[b] = r[b] ^ aes_block::row_after_next(r[b]);
+  aes_bitslice::xtime(w, x2);
+  aes_bitslice::xtime(x2, x4);
+  for (int b = 0; b < 8; ++b) r[b] ^= x4[b];
+  aes_block::mix_columns(r);
+  for (int b = 0; b < 8; ++b) {
+    got[b] = s[b];
+    want[b] = r[b] ^ k[b];
+  }
+}
+
 extern "C" int block_cbc(const uint32_t* rks_dec, int k, int nr, const int32_t* slots,
                          const uint32_t* c, const uint32_t* prev, uint32_t* out, long long n) {
   if (k < 1 || k > 64) return 1;
@@ -127,6 +149,8 @@ def host_lib(tmp_path_factory):
     lib.block_cbc.argtypes = [vp, ci, ci, vp, vp, vp, vp, ll]
     for fn in (lib.block_decrypt, lib.block_round_trip, lib.block_cbc):
         fn.restype = ci
+    lib.inv_mix_planes.argtypes = [vp, vp, vp, vp]
+    lib.inv_mix_planes.restype = None
     return lib
 
 
@@ -211,3 +235,19 @@ def test_cbc_dec_block_clamps_a_bad_slot(host_lib):
     np.testing.assert_array_equal(out, packing.words_numpy(want))
     with pytest.raises(ValueError, match="key_slots"):
         cuda_aes.cbc_scattered_multikey(_t(c), _t(prev), _t(rks), torch.from_numpy(slots), nr)
+
+
+def test_inv_mix_add_key_matches_the_mixcolumns_form(host_lib):
+    """The kernel's InvMixColumns with AddRoundKey (multiplies for the
+    shifts, 5 u for a ^ a_(r+2), the key in the last XORs) equals the
+    pre-transform, ``mix_columns`` and the key XOR on 200 random sets of 8
+    planes, each with both 16-lane copies."""
+    rng = np.random.default_rng(17)
+    for _ in range(200):
+        half = _u32(rng, 16) & np.uint32(0xFFFF)
+        planes = _c(half[:8] | (half[:8] << np.uint32(16)))
+        key = _c(half[8:] | (half[8:] << np.uint32(16)))
+        got, want = np.zeros(8, np.uint32), np.zeros(8, np.uint32)
+        host_lib.inv_mix_planes(planes.ctypes.data, key.ctypes.data, got.ctypes.data,
+                                want.ctypes.data)
+        np.testing.assert_array_equal(got, want)

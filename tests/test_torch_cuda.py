@@ -1,4 +1,5 @@
-"""The CUDA kernels (counter-synthesising CTR, ECB encrypt and decrypt,
+"""The CUDA kernels (counter-synthesising CTR, ECB encrypt in both forms and
+decrypt,
 multi-key scattered CTR in both forms, multi-key CBC decrypt, the chained
 CBC/CFB128 encrypt, the ceiling probe's chain) against their plain torch
 versions, the ``AES``
@@ -94,6 +95,99 @@ def test_ecb_kernel_takes_no_launch_for_no_blocks(card):
     before = cuda_aes.encrypt_words.launches
     assert cuda_aes.encrypt_words(w, packing.words_tensor(rk, card), nr).shape == (0, 4)
     assert cuda_aes.encrypt_words.launches == before
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 4096])
+@pytest.mark.parametrize("form", ["auto", "group", "block"])
+def test_ecb_encrypt_forms_match_plain(card, bits, n, form):
+    """Each ECB encrypt form, forced or picked by the C entry, equals the
+    plain version and counts one launch, under the form it ran."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    rng = np.random.default_rng(11 * n + bits)
+    nr, rk = expand_key_enc(rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes())
+    w = packing.words_tensor(rng.integers(0, 2**32, (n, 4), dtype=np.uint64).astype(np.uint32), card)
+    rk = packing.words_tensor(rk, card)
+    ran = cuda_aes.ECB_FORMS[cuda_build.load().ot_ecb_encrypt_form(n, cuda_aes.ECB_FORMS.index(form))]
+    before = dict(cuda_aes.encrypt_words.form_launches)
+    got = cuda_aes.encrypt_words(w, rk, nr, form=form)
+    want = bitslice.encrypt_words(w, rk, nr)
+    torch.cuda.synchronize()
+    assert form == "auto" or ran == form
+    assert cuda_aes.encrypt_words.form_launches == {**before, ran: before[ran] + 1}
+    assert torch.equal(got, want)
+
+
+def test_ecb_encrypt_auto_form_follows_the_block_count(card):
+    """One block (AES._ecb1) takes the block form; 2^24 blocks (256 MiB) the
+    group form."""
+    nr, rk = expand_key_enc(bytes(range(16)))
+    rk = packing.words_tensor(rk, card)
+    for n, form in ((1, "block"), (1 << 24, "group")):
+        w = torch.randint(-2**31, 2**31, (n, 4), dtype=torch.int32, device=card,
+                          generator=torch.Generator(card).manual_seed(n))
+        before = dict(cuda_aes.encrypt_words.form_launches)
+        got = cuda_aes.encrypt_words(w, rk, nr)
+        assert cuda_aes.encrypt_words.form_launches[form] == before[form] + 1
+        assert torch.equal(got, bitslice.encrypt_words(w, rk, nr))
+        del w, got
+
+
+def _cfb_steps(iv_off, chunks):
+    """The keystream launches of a chunked CFB128 run as ``AES._cfb_impl``
+    walks it: ("partial", 1) for a step that starts at offset 0 with fewer
+    than 16 bytes left in its call, ("bulk", n) for a run of n whole
+    blocks."""
+    n, steps = iv_off, []
+    for size in chunks:
+        pos = 0
+        while pos < size:
+            if n == 0 and size - pos >= 16:
+                steps.append(("bulk", (size - pos) // 16))
+                pos += (size - pos) // 16 * 16
+                continue
+            if n == 0:
+                steps.append(("partial", 1))
+            take = min(16 - n, size - pos)
+            pos += take
+            n = (n + take) & 15
+    return steps
+
+
+@pytest.mark.parametrize("mode", [aes.AES_ENCRYPT, aes.AES_DECRYPT], ids=["encrypt", "decrypt"])
+@pytest.mark.parametrize("iv_off", [0, 5])
+def test_cfb128_byte_chunks_on_card_match_cpu(card, mode, iv_off):
+    """Byte-granular CFB128 in chunks of 1, 15, 16 and 17 bytes carried across
+    calls: the card's output and resume state equal the CPU's after every
+    call, and every partial step that needs a keystream block is one
+    block-form ECB launch (a decrypt's run of whole blocks one more ECB
+    launch, an encrypt's one seq_encrypt launch)."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    key, chunks = bytes(range(16)), (1, 15, 16, 17)
+    gpu, cpu = aes.AES(key, device=card), aes.AES(key, device="cpu")
+    rng = np.random.default_rng(iv_off)
+    data = rng.integers(0, 256, sum(chunks), dtype=np.uint8)
+    s_g = s_c = (iv_off, rng.integers(0, 256, 16, dtype=np.uint8))
+    want = {"group": 0, "block": 0}
+    for kind, n in _cfb_steps(iv_off, chunks):
+        if kind == "partial":
+            want["block"] += 1
+        elif mode == aes.AES_DECRYPT:
+            want[cuda_aes.ECB_FORMS[cuda_build.load().ot_ecb_encrypt_form(n, 0)]] += 1
+    before = dict(cuda_aes.encrypt_words.form_launches)
+    pos = 0
+    for size in chunks:
+        chunk = data[pos: pos + size]
+        pos += size
+        out_g, *s_g = gpu.crypt_cfb128(mode, *s_g, chunk)
+        out_c, *s_c = cpu.crypt_cfb128(mode, *s_c, chunk)
+        np.testing.assert_array_equal(out_g, out_c)
+        assert s_g[0] == s_c[0]
+        np.testing.assert_array_equal(s_g[1], s_c[1])
+    got = {f: v - before[f] for f, v in cuda_aes.encrypt_words.form_launches.items()}
+    assert want["block"] > 0 and got == want
 
 
 @pytest.mark.parametrize("bits", [128, 192, 256])

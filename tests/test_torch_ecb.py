@@ -13,7 +13,7 @@ from our_tree_tpu.ops import bitslice as jbitslice
 from our_tree_tpu.ops import block as jblock
 from our_tree_tpu.ops import keyschedule as jks
 from our_tree_tpu.ops import tables as jtables
-from our_tree_tpu_torch.ops import bitslice, block
+from our_tree_tpu_torch.ops import bitslice, block, cuda_aes
 from our_tree_tpu_torch.utils import packing
 
 
@@ -143,3 +143,23 @@ def test_plain_ecb_matches_pallas_kernel_interpret(monkeypatch):
     dec = np.asarray(pallas_aes.decrypt_words_dense(jnp.asarray(w), jnp.asarray(dk), nr))
     np.testing.assert_array_equal(_n(bitslice.encrypt_words(_t(w), _t(rk), nr)), enc)
     np.testing.assert_array_equal(_n(bitslice.decrypt_words(_t(w), _t(dk), nr)), dec)
+
+
+@pytest.mark.parametrize("form", cuda_aes.ECB_FORMS)
+def test_encrypt_words_takes_a_form_and_runs_plain_on_cpu(form):
+    """Every form of the ECB encrypt wrapper gives the plain version's words
+    on the CPU, counting no launch; the form is checked before anything
+    runs."""
+    nr, rk = jks.expand_key_enc(bytes(range(16)))
+    w = np.random.default_rng(5).integers(0, 2**32, (33, 4), dtype=np.uint64).astype(np.uint32)
+    before = dict(cuda_aes.encrypt_words.form_launches)
+    got = cuda_aes.encrypt_words(_t(w), _t(rk), nr, form=form)
+    np.testing.assert_array_equal(_n(got), np.asarray(jbitslice.encrypt_words(
+        jnp.asarray(w), jnp.asarray(np.asarray(rk, np.uint32)), nr)))
+    assert cuda_aes.encrypt_words.form_launches == before
+
+
+def test_encrypt_words_refuses_an_unknown_form():
+    nr, rk = jks.expand_key_enc(bytes(16))
+    with pytest.raises(ValueError, match="form"):
+        cuda_aes.encrypt_words(_t(np.zeros((1, 4), np.uint32)), _t(rk), nr, form="tile")

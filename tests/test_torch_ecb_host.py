@@ -1,7 +1,8 @@
 """The ECB kernels' arithmetic (``csrc/aes_bitslice.cuh`` and
 ``csrc/aes_inv_bitslice.cuh``: both S-boxes, both round forms, the
-transposes, ``ecb_encrypt_group`` and ``ecb_decrypt_group``) compiled as host
-C++ with g++ and held bit-exact against the plain torch version, and the
+transposes, ``ecb_encrypt_group`` and ``ecb_decrypt_group``; and the encrypt
+block form's per-block ``ecb_block`` from ``csrc/aes_block.cuh``) compiled as host C++ with g++ and held bit-exact against the plain torch
+version, and the
 decrypt header's generated blocks held equal to what
 ``ops/xor_programs.py`` derives. The kernels' loads, stores and ragged-tail
 mask run only on the card (``tests/test_torch_cuda.py``)."""
@@ -22,6 +23,7 @@ from our_tree_tpu_torch.runtime import cuda_build
 from our_tree_tpu_torch.utils import packing
 
 HOST_SOURCE = r"""
+#include "aes_block.cuh"
 #include "aes_inv_bitslice.cuh"
 
 template <int NR, bool DECRYPT>
@@ -64,6 +66,29 @@ extern "C" void inv_mix_planes(const uint32_t* a, const uint32_t* km, uint32_t* 
   aes_bitslice::inv_mix_column(col, km, o);
 }
 
+// The encrypt block form's arithmetic: the key planes as the kernel's
+// prologue makes them, then one block at a time through ecb_block.
+template <int NR>
+static void blocks(const uint32_t* rk, const uint32_t* in, long long n, uint32_t* out) {
+  uint32_t kp[8 * (NR + 1)];
+  for (int r = 0; r <= NR; ++r) aes_block::round_key_planes(rk, r, kp + 8 * r);
+  for (long long i = 0; i < n; ++i) {
+    const uint4 o = aes_block::ecb_block<NR>(
+        make_uint4(in[4 * i], in[4 * i + 1], in[4 * i + 2], in[4 * i + 3]), kp);
+    out[4 * i] = o.x; out[4 * i + 1] = o.y; out[4 * i + 2] = o.z; out[4 * i + 3] = o.w;
+  }
+}
+
+extern "C" int ecb_blocks(const uint32_t* rk, int nr, const uint32_t* in, long long n,
+                          uint32_t* out) {
+  switch (nr) {
+    case 10: blocks<10>(rk, in, n, out); return 0;
+    case 12: blocks<12>(rk, in, n, out); return 0;
+    case 14: blocks<14>(rk, in, n, out); return 0;
+    default: return 1;
+  }
+}
+
 extern "C" void transpose_words(uint32_t* a, int prmt) {
   if (prmt) aes_bitslice::transpose32_prmt(a);
   else aes_bitslice::transpose32(a);
@@ -91,6 +116,8 @@ def host_lib(tmp_path_factory):
     lib.inv_mix_planes.restype = None
     lib.transpose_words.argtypes = [vp, ctypes.c_int]
     lib.transpose_words.restype = None
+    lib.ecb_blocks.argtypes = [vp, ctypes.c_int, vp, ctypes.c_longlong, vp]
+    lib.ecb_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -242,3 +269,25 @@ def test_host_decrypt_inverts_encrypt(host_lib, bits):
     ct = _host_ecb(host_lib, rk, nr, False, words)
     assert not np.array_equal(ct, words)
     np.testing.assert_array_equal(_host_ecb(host_lib, rk_dec, nr, True, ct), words)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+def test_host_block_form_encrypt_matches_plain(host_lib, bits):
+    """The ECB block form's per-block encrypt (``ecb_block``: pack, the rolled
+    ``encrypt_block``, unpack) on 1, 2, 31 and 161 blocks, among them blocks
+    whose bytes are all equal or that hold one bit, against the plain
+    version."""
+    nr, rk, _, words = _case(bits, 6)
+    words = np.ascontiguousarray(words[:33 + 128])
+    words[33:] = 0
+    words[33:].reshape(-1)[np.arange(128) * 4 + np.arange(128) // 32] = (
+        np.uint32(1) << (np.arange(128) % 32).astype(np.uint32))
+    words[:8] = np.uint32(0x01010101) * np.arange(8, dtype=np.uint32)[:, None]
+    rk = np.ascontiguousarray(rk, np.uint32)
+    for n in (1, 2, 31, words.shape[0]):
+        out = np.zeros((n, 4), np.uint32)
+        assert host_lib.ecb_blocks(rk.ctypes.data, nr, words.ctypes.data, n,
+                                   out.ctypes.data) == 0
+        want = bitslice.encrypt_words(packing.words_tensor(words[:n], "cpu"),
+                                      packing.words_tensor(rk, "cpu"), nr)
+        np.testing.assert_array_equal(out, packing.words_numpy(want))

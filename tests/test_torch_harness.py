@@ -26,6 +26,7 @@ import torch
 
 from our_tree_tpu.harness import backends as jbackends
 from our_tree_tpu.harness import bench as jbench
+from our_tree_tpu.resilience import degrade as jdegrade
 from our_tree_tpu_torch import bench as port_bench
 from our_tree_tpu_torch.harness import backends, bench
 from our_tree_tpu_torch.resilience import degrade
@@ -79,7 +80,11 @@ def _native_prep(monkeypatch):
     monkeypatch.setenv("OT_ARC4_PREP", "native")
     monkeypatch.delenv("OT_FAULTS", raising=False)
     monkeypatch.delenv("OT_SWEEP_JOURNAL", raising=False)
+    # Both demotion ledgers are process-global: an earlier test in the same
+    # worker (tests/test_ranking.py demotes a fake engine) would otherwise
+    # add its "# degraded:" line to this sweep's output.
     degrade.clear()
+    jdegrade.clear()
 
 
 def _run_both(modes: str, timing: str):

@@ -109,6 +109,27 @@ def test_cfb128_matches_reference_with_odd_lengths_and_resume(bits):
                                       ours.crypt_cfb128(mode, 0, iv, data)[0])
 
 
+@pytest.mark.parametrize("mode", [aes.AES_ENCRYPT, aes.AES_DECRYPT], ids=["encrypt", "decrypt"])
+@pytest.mark.parametrize("iv_off", [0, 5])
+def test_cfb128_byte_chunks_match_reference(mode, iv_off):
+    """Byte-granular CFB128 in chunks of 1, 15, 16 and 17 bytes carried across
+    calls from iv_off 0 and 5 (the reference C's aes_crypt_cfb128 resume, the
+    hex CLI's --iv-off): output and resume state equal the JAX ``AES``
+    context's after every call. Each partial step that needs a keystream
+    block goes through ``AES._ecb1``, one ECB launch on the card."""
+    key = _key(128)
+    ours, ref = aes.AES(key, device="cpu"), jaes.AES(key, engine="jnp")
+    data = _data(29 + iv_off, 1 + 15 + 16 + 17)
+    s_o = s_r = (iv_off, _data(31, 16))
+    pos = 0
+    for size in (1, 15, 16, 17):
+        chunk = data[pos: pos + size]
+        pos += size
+        out_o, *s_o = ours.crypt_cfb128(mode, *s_o, chunk)
+        out_r, *s_r = ref.crypt_cfb128(mode, *s_r, chunk)
+        _same((out_o, *s_o), (out_r, *s_r))
+
+
 @pytest.mark.parametrize("case", GOLDEN["aes"], ids=lambda c: str(c["keybits"]))
 def test_golden_vectors(case):
     a = aes.AES(bytes.fromhex(case["key"]), device="cpu")
