@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives ``our_tree_tpu_torch`` (never the JAX package) through its six
+Drives ``our_tree_tpu_torch`` (never the JAX package) through its seven
 paths, AES-128-CTR over one 256 MiB buffer with the bench chain, the
 ECB/CBC/CFB128 block-mode path over the same size, the measured roofline
 (the ceiling probe ``harness.ceiling`` and the serve bench's cost and
@@ -9,8 +9,9 @@ profile sections that use its figure), the multi-key CTR serve path
 (``serve.bench``, the JAX package's two documented drives at the full
 ladder), the sweep harness (``harness.bench``, with ARC4 and the native C
 tier) and the mixed ``ctr,cbc`` serve path (the JAX package's documented
-mixed-mode drive, without its ``gcm`` modes), and holds every kernel of
-those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
+mixed-mode drive, without its ``gcm`` modes) and AES-GCM through the
+models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256 MiB), and holds
+every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
@@ -151,7 +152,28 @@ is not 0:
    no ``# degraded:`` line, each unit's kernel launched (the harness's
    ``# launches:`` lines) and ``--workers 2`` refused; each row's GB/s is
    printed beside the CTR chain's;
-11. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
+11. AES-GCM: ``ghash_scan`` against ``ghash_scan_plain`` (zero mismatching
+   words) at N in {1, 2, 31, 33, 4096} rows with K 1/8/64 and at 65,537
+   with K = 8 (random slots, keep, y0 and inject, and x ^ inject given
+   without it), and through the seam ``gcm_crypt_ghash_words`` (CUDA engine
+   against the plain engine on the card, ``out`` and every row of ``ys``) at
+   every serve rung with K = 8 in the batcher's layout, sealing and opening,
+   AES-128/192/256; the SP 800-38D KATs (``tests/golden/gcm_kats.json``)
+   through ``gcm_seal``/``gcm_open`` on the card, each tampered tag refused,
+   and a 7-byte IV against the host GCM; then the main path, counted:
+   ``gcm_seal`` and ``gcm_open`` over 256 MiB (``default_rng(1337)``, key
+   ``bytes(range(16))``, a 96-bit IV, 20 bytes of AAD) and over 256 MiB + 5
+   bytes, each one ``ctr_mk`` and one ``ghash_scan`` call and nothing else,
+   open giving the plaintext back, the ciphertext equal to the CTR seam's
+   under the inc32 counters, the tag equal to an independent formulation on
+   the card (chunked matrix powers in float32 matmuls, ``ghash_by_powers``);
+   the seal's GHASH rows at every 32,768th block against the same
+   formulation; times: ``ghash_scan`` at 2^24 + 1 rows and at the 4,096
+   rung with K = 8 (CUDA events and a CUDA graph), the plain version at the
+   rung and at 65,537 rows, the roofline bound (one multiply by H a row, its
+   SASS) and the latency bound (the scan's dependent path), and the seal's
+   dispatch on the card in GB/s;
+12. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
    equal to the window's dispatches, a cost row per warmed rung and
@@ -159,14 +181,16 @@ is not 0:
    window is the card's busy share under the profiler. It comes last, so
    that the profiler touches none of the timings before it.
 
-Phases 4, 5, 7, each drive of 8 (D included) and 11 run with every launch
-count set to 0 just before and read just after, and each run of phase 10 counts its own
+Phases 4, 5, 7, each drive of 8 (D included), the seal and the open of 11
+and 12 run with every launch count set to 0 just before and read just after, and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
 ``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
-``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows), the
+``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows,
+``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows`` and
+``seal_256MiB``), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``;
 ``ecb_encrypt`` carries its launches by form, the one-block launch by form
 and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
@@ -237,6 +261,12 @@ INV_LAST_ROUND_LINEAR_STEPS = {"inv_shift_rows": 3, "addroundkey": 1}
 DRIVE_D = ["--requests", "300", "--concurrency", "16", "--modes", "ctr,cbc", "--sizes",
            "16,64,256,1024,4096,16384"]
 BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
+#: Phase 11 (AES-GCM): the GHASH scan's random cases, and the 256 MiB seal's
+#: key, 96-bit IV and 20 bytes of AAD.
+GHASH_SIZES = (1, 2, 31, 33, 4096, 65537)
+GCM_KEY = bytes(range(16))
+GCM_IV = bytes.fromhex("cafebabefacedbaddecaf888")
+GCM_AAD = bytes(range(20))
 SEQ_BLOCKS = 4096
 #: Phase 2's ARC4 cases: streams x bytes, every pair. The plain version runs
 #: once a length, on ARC4_PLAIN_STREAMS streams; a launch on S streams is
@@ -1022,6 +1052,36 @@ def inv_sbox_depth(header: str) -> int:
     return max(depth[f"o{i}"] for i in range(8))
 
 
+def sass_ghash(text: str) -> dict:
+    """The GHASH scan kernels' integer SASS (``csrc/ghash.cu``, 128 threads a
+    thread block), each as integer instructions and dependency depth:
+    ``row``, one row of ``ghash_rows_kernel`` (a multiply by H: the word
+    loop, four trips, the one inner loop that reads columns from shared
+    memory, and the rest of the row loop around it); ``map_row``, one row
+    of ``ghash_map_kernel`` (two multiplies by H sharing the column reads);
+    ``compose``, the largest inner loop of ``ghash_carry_kernel`` (the
+    general multiply's 32-trip loop, two products at once) times 32."""
+    out = {}
+    for key, kernel in (("row", "ghash_rows_kernel"), ("map_row", "ghash_map_kernel")):
+        ins, back = sass_function(text, kernel, 128)
+        inner = [(lo, hi) for lo, hi in back
+                 if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back)]
+        word = max(inner, key=lambda lp: sum(b == "LDS" for a, b, _t in ins
+                                             if lp[0] <= a <= lp[1]))
+        row = min((lp for lp in back if lp != word and lp[0] <= word[0] and word[1] <= lp[1]),
+                  key=lambda lp: lp[1] - lp[0])
+        ints = lambda lo, hi, skip=(1, 0): sum(  # noqa: E731
+            _is_int_op(b) for a, b, _t in ins if lo <= a <= hi and not skip[0] <= a <= skip[1])
+        rest = [t for t in ins if not word[0] <= t[0] <= word[1]]
+        out[key] = {"int": 4 * ints(*word) + ints(*row, skip=word),
+                    "depth": 4 * sass_dep_depth(ins, *word) + sass_dep_depth(rest, *row),
+                    "word_loop_int": ints(*word), "word_loop_lds": sum(
+                        b == "LDS" for a, b, _t in ins if word[0] <= a <= word[1])}
+    loops = sass_round_loops(text, "ghash_carry_kernel", 128)
+    out["compose"] = {"int": 32 * loops[0]["int"], "depth": 32 * loops[0]["depth"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1034,7 +1094,7 @@ def main() -> int:
     from our_tree_tpu_torch import bench
     from our_tree_tpu_torch.harness import ceiling
     from our_tree_tpu_torch.models import aes, arc4
-    from our_tree_tpu_torch.ops import bitslice, cuda_aes, cuda_arc4
+    from our_tree_tpu_torch.ops import bitslice, cuda_aes, cuda_arc4, cuda_ghash
     from our_tree_tpu_torch.ops.keyschedule import (dec_schedule_from_enc, expand_key_dec,
                                                     expand_key_enc)
     from our_tree_tpu_torch.runtime import cuda_build
@@ -1051,7 +1111,8 @@ def main() -> int:
                 "cbc_mk": cuda_aes.cbc_scattered_multikey,
                 "chain": ceiling.chain,
                 "seq_encrypt": cuda_aes.seq_encrypt,
-                "arc4_prga": cuda_arc4.prga}
+                "arc4_prga": cuda_arc4.prga,
+                "ghash_scan": cuda_ghash.ghash_scan}
     mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
                    "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
                    "ecb_encrypt": cuda_aes.encrypt_words}
@@ -1100,7 +1161,8 @@ def main() -> int:
         log(f"ptxas: {name}: {info}")
     missing = [f"{kernel}<{nr}>" for kernel in ("cbc_mk_block_kernel", "ecb_encrypt_block_kernel")
                for nr in (10, 12, 14) if f"{kernel}<{nr}>" not in ptxas]
-    missing += [] if "cbc_mk_stamped_kernel<10>" in ptxas else ["cbc_mk_stamped_kernel<10>"]
+    missing += [k for k in ("cbc_mk_stamped_kernel<10>", "ghash_map_kernel<128>",
+                            "ghash_carry_kernel<128>", "ghash_rows_kernel<128>") if k not in ptxas]
     if missing:
         raise SystemExit(f"the kernels built without {missing}")
 
@@ -2914,7 +2976,328 @@ def main() -> int:
     arc4_entry["harness"] = {"rows": harness_table, "launches_by_unit": harness_launches,
                              "ctr_chain_gbps": ctr_gbps, "native_tier_cpu": cpu_model()}
 
-    # 11. Drive A's mix once more, profiled (torch tier) and costed against
+    # 11. AES-GCM through the models API (aead/gcm.py): the GHASH scan kernel
+    # against its plain version (random layouts, and the serve rungs through
+    # the seam in both directions), the SP 800-38D KATs, the 256 MiB seal and
+    # open (and 256 MiB + 5 bytes) counted, their ciphertext against the CTR
+    # seam and their tag and rows against an independent formulation, and
+    # the kernel's and the seal's times.
+    from our_tree_tpu_torch.aead import gcm as agcm
+    from our_tree_tpu_torch.aead import ghash as aghash
+    from our_tree_tpu_torch.ops import gf
+
+    def ghash_inputs(n, k, seed, rung_layout=False):
+        """(x, hkeys, slots, keep, y0, inject) on the card: random, with keep's
+        bit 1 set on some rows (it must not count); or with ``rung_layout``
+        the serve batcher's GCM layout (requests of 0-40 blocks, each a J0
+        row and its payload, keep 0 at both, inject at the first payload
+        row, y0 zero)."""
+        rng = np.random.default_rng(seed)
+        u = lambda *shape: rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)  # noqa: E731
+        x, hk = u(n, 4), u(k, 4)
+        if rung_layout:
+            inj, keep, slots, y0 = np.zeros((n, 4), np.uint32), np.ones(n, np.int32), \
+                np.zeros(n, np.int32), np.zeros(4, np.uint32)
+            off = 0
+            while off < n:
+                m = min(int(rng.integers(0, 41)) + 1, n - off)
+                keep[off:off + 2] = 0
+                slots[off:off + m] = rng.integers(0, k)
+                if m > 1:
+                    inj[off + 1] = u(4)
+                off += m
+        else:
+            inj, slots, y0 = u(n, 4), rng.integers(0, k, n).astype(np.int32), u(4)
+            keep = rng.integers(0, 4, n).astype(np.int32)
+            keep[rng.random(n) < 0.8] = 1
+        t = lambda a: packing.words_tensor(a, dev)  # noqa: E731
+        return (t(x), t(hk), torch.from_numpy(slots).to(dev), torch.from_numpy(keep).to(dev),
+                t(y0), t(inj))
+
+    gh_bad, gh_cases, gh_err, gh_plain_ms = 0, 0, 0, {}
+    for n in GHASH_SIZES:
+        for k in ((8,) if n > 4096 else (1, 8, 64)):
+            x, hk, sl, kp, y0, inj = ghash_inputs(n, k, seed=100 * n + k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_ghash.ghash_scan_plain(x, hk, sl, kp, y0, inject=inj)
+            torch.cuda.synchronize()
+            gh_plain_ms[(n, k)] = (time.perf_counter() - t0) * 1e3
+            for got in (cuda_ghash.ghash_scan(x, hk, sl, kp, y0, inject=inj),
+                        cuda_ghash.ghash_scan(x ^ inj, hk, sl, kp, y0)):
+                m, e = diff(got, want)
+                gh_bad, gh_err, gh_cases = gh_bad + m, max(gh_err, e), gh_cases + 1
+                if m:
+                    log(f"MISMATCH ghash_scan n={n} k={k}: {m} words")
+    log(f"ghash_scan vs plain: {gh_cases} cases (N in {GHASH_SIZES}, K 1/8/64, 8 at 65,537; "
+        f"random slots, keep, y0, inject, and x ^ inject without it): {gh_bad} mismatching "
+        f"words; the plain row loop {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows; card: {card}")
+    # The serve rungs through the seam, K = 8 in the batcher's layout, both
+    # directions, nr 10/12/14: the CUDA engine (ctr_mk, ghash_scan) against
+    # the plain engine on the same card.
+    seam_bad, seam_cases = 0, 0
+    for bits in (128, 192, 256):
+        rng = np.random.default_rng(bits)
+        keys = [rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes() for _ in range(8)]
+        mats = [agcm._key_material(key_) for key_ in keys]
+        rks_g = packing.words_tensor(np.stack([m_[1] for m_ in mats]), dev)
+        hm_g = np.stack([m_[3] for m_ in mats])
+        for rung in serve_rungs:
+            x, _hk, sl, kp, _y0, inj = ghash_inputs(rung, 8, seed=rung + bits, rung_layout=True)
+            ctr_g = random_words(rung, seed=rung + bits)
+            for direction in (agcm.SEAL, agcm.OPEN):
+                args = (x, ctr_g, rks_g, sl, hm_g, inj, kp, mats[0][0])
+                got = agcm.gcm_crypt_ghash_words(*args, aes.CUDA_ENGINE, direction)
+                want = agcm.gcm_crypt_ghash_words(*args, aes.PLAIN_ENGINE, direction)
+                m = diff(got[0], want[0])[0] + diff(got[1], want[1])[0]
+                seam_bad, seam_cases = seam_bad + m, seam_cases + 1
+                if m:
+                    log(f"MISMATCH gcm seam bits={bits} rung={rung} {direction}: {m} words")
+    log(f"gcm_crypt_ghash_words (CUDA engine vs plain engine on the card) at the serve rungs "
+        f"{serve_rungs}, K = 8 in the batcher's layout, seal and open, AES-128/192/256: "
+        f"{seam_cases} cases, {seam_bad} mismatching words of out and ys")
+    if gh_bad or seam_bad:
+        raise SystemExit("ghash_scan disagrees with its plain version")
+    with open(os.path.join(ROOT, "tests", "golden", "gcm_kats.json"), encoding="utf-8") as fh:
+        gcm_kats = json.load(fh)["kats"]
+    for kat in gcm_kats:
+        key_, iv_, aad_, pt_ = (bytes.fromhex(kat[f]) for f in ("key", "iv", "aad", "pt"))
+        ct_, tag_ = agcm.gcm_seal(key_, iv_, aad_, pt_)
+        if (ct_.hex(), tag_.hex()) != (kat["ct"], kat["tag"]) or \
+                agcm.gcm_open(key_, iv_, aad_, ct_, tag_) != pt_:
+            raise SystemExit(f"NIST SP 800-38D {kat['name']} failed on the card")
+        opened = "raised"
+        try:
+            opened = agcm.gcm_open(key_, iv_, aad_, ct_, tag_[:-1] + bytes([tag_[-1] ^ 1]))
+        except agcm.TagMismatchError:
+            pass
+        if opened != "raised":
+            raise SystemExit(f"a tampered tag of {kat['name']} was not refused")
+    odd_iv = bytes(range(7))
+    odd = agcm.gcm_seal(GCM_KEY, odd_iv, GCM_AAD, bytes(range(200)) * 5)
+    if odd != aghash.np_gcm_seal(GCM_KEY, odd_iv, GCM_AAD, bytes(range(200)) * 5):
+        raise SystemExit("gcm_seal with a 56-bit IV differs from the host GCM")
+    log(f"NIST SP 800-38D: {len(gcm_kats)} KATs through gcm_seal/gcm_open on the card: pass, "
+        f"each tampered tag refused (TagMismatchError, no plaintext); a 7-byte IV over 1,000 "
+        f"bytes equal to the host GCM")
+
+    def ghash_by_powers(h, blocks, span_c=64, span_s=512):
+        """GHASH over (L, 4) int32 block words on the card by matrix powers,
+        independent of the kernel: M = gf128_mul_matrix_words(h) (host ints),
+        chunks of C blocks contribute [M^C ... M^1] times their bits, runs of
+        S chunks [G^(S-1) ... G^0] times the chunks' (G = M^C), and the runs
+        chain sequentially, Y <- G^S Y + run; float32 products of 0/1 values
+        (sums below 2^24, exact), mod 2. Zero blocks are put first, which
+        leaves Y at zero, so the sequence is whole runs. Returns (the leading
+        zero blocks, Y after each run as an int)."""
+        span = span_c * span_s
+        m = torch.from_numpy(gf.gf128_mul_matrix_words(h).astype(np.float32)).to(dev)
+        mod2 = lambda a, b: torch.remainder(a @ b, 2)  # noqa: E731
+        pw = [m]
+        for _ in range(span_c - 1):
+            pw.append(mod2(pw[-1], m))
+        w1 = torch.cat(pw[::-1], dim=1).t().contiguous()
+        gp = [torch.eye(128, device=dev)]
+        for _ in range(span_s - 1):
+            gp.append(mod2(gp[-1], pw[-1]))
+        w2 = torch.cat(gp[::-1], dim=1).t().contiguous()
+        g_s = mod2(gp[-1], pw[-1])
+        pad = -blocks.shape[0] % span
+        seq = torch.cat([torch.zeros((pad, 4), dtype=torch.int32, device=dev), blocks])
+        y, ys_runs = torch.zeros(128, device=dev), []
+        for r in range(seq.shape[0] // span):
+            bits = cuda_ghash.bits_of(seq[r * span:(r + 1) * span]).to(torch.float32)
+            c = torch.remainder(bits.reshape(span_s, span_c * 128) @ w1, 2)
+            d = torch.remainder(c.reshape(1, -1) @ w2, 2)[0]
+            y = torch.remainder(g_s @ y + d, 2)
+            ys_runs.append(y)
+        ys_w = packing.words_numpy(cuda_ghash.words_of(torch.stack(ys_runs).to(torch.int64)))
+        return pad, [gf.block_to_int(packing.np_words_to_bytes(w).tobytes()) for w in ys_w]
+
+    nr_m, rk_m, h_m, hmat_m = agcm._key_material(GCM_KEY)
+    j0_m = aghash.j0_from_iv(h_m, GCM_IV)
+    ek_j0 = aghash.np_aes_encrypt_block(nr_m, rk_m, j0_m)
+    y_aad = aghash.ghash_int(h_m, aghash.pad16(GCM_AAD))
+    gcm_host = np.random.default_rng(1337).integers(0, 256, MAIN_BYTES + 5, dtype=np.uint8)
+    gcm_runs, gcm_tags = {}, {}
+    for extra in (0, 5):
+        pt_ = gcm_host[:MAIN_BYTES + extra].tobytes()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ct_, tag_ = agcm.gcm_seal(GCM_KEY, GCM_IV, GCM_AAD, pt_)
+        seal_s = time.perf_counter() - t0
+        seal_counts = counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        back = agcm.gcm_open(GCM_KEY, GCM_IV, GCM_AAD, ct_, tag_)
+        open_s = time.perf_counter() - t0
+        open_counts = counts()
+        nfull = len(pt_) // 16
+        ctr_w = packing.words_tensor(aghash.np_gcm_ctr_blocks(
+            j0_m, np.arange(1, nfull + 1, dtype=np.uint32)), dev)
+        ks = aes.ctr_crypt_words_scattered(
+            packing.words_tensor(packing.np_bytes_to_words(gcm_host[:16 * nfull]), dev).reshape(
+                -1, 4), ctr_w, packing.words_tensor(rk_m, dev), nr_m, aes.CUDA_ENGINE)
+        same_ctr = packing.np_words_to_bytes(packing.words_numpy(ks).reshape(-1)).tobytes() == \
+            ct_[:16 * nfull]
+        del ks, ctr_w
+        seq_words = packing.words_tensor(packing.np_bytes_to_words(np.frombuffer(
+            aghash.pad16(GCM_AAD) + aghash.pad16(ct_) + aghash.length_block(len(GCM_AAD), len(ct_)),
+            np.uint8)), dev).reshape(-1, 4)
+        _pad, run_ys = ghash_by_powers(h_m, seq_words)
+        del seq_words
+        indep_tag = bytes(np.frombuffer(gf.int_to_block(run_ys[-1]), np.uint8) ^ ek_j0)
+        checks = {
+            "open returns the plaintext": back == pt_,
+            "ciphertext = the CTR seam under inc32": same_ctr,
+            "tag = the matrix-power formulation's": indep_tag == tag_,
+            "seal: one ctr_mk and one ghash_scan call, nothing else": seal_counts == {
+                **{n_: 0 for n_ in seal_counts}, "ctr_mk": 1, "ghash_scan": 1},
+            "open: one ctr_mk and one ghash_scan call, nothing else": open_counts == seal_counts,
+        }
+        log(f"gcm_seal/gcm_open at {len(pt_)} bytes on the card: seal {seal_s:.3f} s, open "
+            f"{open_s:.3f} s wall (host staging included); launches seal {seal_counts}, open "
+            f"{open_counts}; checks {checks}; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"gcm at {len(pt_)} bytes failed: {checks}")
+        gcm_runs[extra] = {"seal_s": seal_s, "open_s": open_s, "seal_launches": seal_counts,
+                           "open_launches": open_counts}
+        gcm_tags[extra] = tag_.hex()
+        del ct_, back, pt_
+    # The seal's dispatch on the card: the seam on the 256 MiB seal's arrays
+    # (staged), its rows held at every run's end against the formulation
+    # above, its time; then ghash_scan alone on the same rows.
+    words_m, ctr_m, inj_m, keep_m, nfull_m = agcm._gcm_arrays(
+        j0_m, gcm_host[:MAIN_BYTES].tobytes(), y_aad)
+    n_m = nfull_m + 1
+    seam_args = (packing.words_tensor(words_m, dev).reshape(n_m, 4),
+                 packing.words_tensor(ctr_m, dev).reshape(n_m, 4),
+                 packing.words_tensor(rk_m[None], dev),
+                 torch.zeros(n_m, dtype=torch.int32, device=dev),
+                 torch.from_numpy(hmat_m[None].astype(np.int32)).to(dev),
+                 packing.words_tensor(inj_m, dev).reshape(n_m, 4),
+                 packing.words_tensor(keep_m, dev), nr_m, aes.CUDA_ENGINE, agcm.SEAL)
+    del words_m, ctr_m, inj_m
+    seam_fn = lambda: agcm.gcm_crypt_ghash_words(*seam_args)  # noqa: E731
+    out_m, ys_m = seam_fn()
+    blocks_m = torch.cat([packing.words_tensor(packing.np_bytes_to_words(np.frombuffer(
+        aghash.pad16(GCM_AAD), np.uint8)), dev).reshape(-1, 4), out_m[1:]])
+    pad_m, run_ys = ghash_by_powers(h_m, blocks_m)
+    del blocks_m
+    a_blocks = len(aghash.pad16(GCM_AAD)) // 16
+    rows_checked, rows_bad, rows_err = 0, 0, 0
+    for r, y_int in enumerate(run_ys):
+        j = (r + 1) * 64 * 512 - pad_m - a_blocks  # the seam's row after that run
+        if 1 <= j <= nfull_m:
+            m, e = diff(ys_m[j], packing.words_tensor(packing.np_bytes_to_words(np.frombuffer(
+                gf.int_to_block(y_int), np.uint8)), dev))
+            rows_checked, rows_bad, rows_err = rows_checked + 1, rows_bad + m, max(rows_err, e)
+    last = gf.block_to_int(packing.np_words_to_bytes(packing.words_numpy(ys_m[nfull_m])).tobytes())
+    tag_from_rows = agcm._finish_tag(last, h_m, b"", len(GCM_AAD), MAIN_BYTES,
+                                     packing.np_words_to_bytes(packing.words_numpy(out_m[0])))
+    log(f"the seal's rows (ghash_scan at {n_m} rows) against the matrix-power formulation: "
+        f"{rows_checked} rows (one each {64 * 512} blocks), {rows_bad} mismatching words; the "
+        f"tag finished from the last row {'equals' if tag_from_rows.hex() == gcm_tags[0] else 'DIFFERS FROM'} "
+        f"gcm_seal's")
+    if rows_bad or rows_checked < 500 or tag_from_rows.hex() != gcm_tags[0]:
+        raise SystemExit("the seal's GHASH rows differ from the independent formulation")
+    del out_m, ys_m
+    seam_ms = events_ms(seam_fn, 5)
+    seal_gbps = MAIN_BYTES / seam_ms / 1e6
+    # ghash_scan alone on the seal's rows: the input words stand for x (the
+    # scan's time does not depend on the data), with the seal's inject.
+    gh_args = (seam_args[0], agcm._h_words(hmat_m[None], dev), seam_args[3], seam_args[6],
+               torch.zeros(4, dtype=torch.int32, device=dev))
+    gh_fn = lambda: cuda_ghash.ghash_scan(*gh_args, inject=seam_args[5])  # noqa: E731
+    gh_ms, gh_clocks = sampled_ms(gh_fn)
+    gh_ms_graph = graph_ms(gh_fn, reps=5)
+    # The rung: 4,096 rows, K = 8, the batcher's layout.
+    x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inj_r4 = ghash_inputs(4096, 8, seed=4096, rung_layout=True)
+    rung_fn = lambda: cuda_ghash.ghash_scan(x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4)  # noqa: E731
+    rung_ms, rung_clocks = sampled_ms(rung_fn)
+    rung_graph = graph_ms(rung_fn)
+    rung_plain_ms = events_ms(lambda: cuda_ghash.ghash_scan_plain(
+        x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4), 1)
+    m, e = diff(rung_fn(), cuda_ghash.ghash_scan_plain(x_r4, hk_r4, sl_r4, kp_r4, y0_r4,
+                                                       inject=inj_r4))
+    if m:
+        raise SystemExit("ghash_scan disagrees with its plain version at the 4,096 rung")
+    gs = sass_ghash(sass_text)
+    log(f"ghash SASS: one row of ghash_rows_kernel {gs['row']}, of ghash_map_kernel "
+        f"{gs['map_row']}, a composition {gs['compose']}; ptxas "
+        f"{ {k_: v for k_, v in ptxas.items() if k_.startswith('ghash')} }")
+
+    def ghash_bounds(n, k, ms, clocks):
+        """The roofline bound (one multiply by H a row, its SASS integer
+        instructions, against the bytes: x, inject, slot, keep in, y out, the
+        keys and y0) at the table's and the measured rates, and the latency
+        bound: the scan's dependent path (rows a thread through both row
+        loops, the compositions of the three scans) at the measured cycles
+        a dependent step."""
+        rows, blocks = cuda_ghash.plan(n)
+        ops = n * gs["row"]["int"]
+        nbytes = 56 * n + 16 * k + 16
+        ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
+        meas_ms, meas_by = measured_bound(ops, nbytes)
+        per = -(-blocks // 128)
+        path = (rows * (gs["map_row"]["depth"] + gs["row"]["depth"])
+                + gs["compose"]["depth"] * (10 + 2 * per + 10 + 1))
+        lat = latency_ms(path, clocks["clock_mhz"])
+        return {"rows_per_thread": rows, "thread_blocks": blocks,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
+                "latency_bound_ms": lat, "dependent_instructions": path,
+                "share_of_larger_bound": max(meas_ms, lat) / ms,
+                "sampled_clock_mhz": clocks["clock_mhz"],
+                "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"]}
+
+    main_b = ghash_bounds(n_m, 1, gh_ms, gh_clocks)
+    rung_b = ghash_bounds(4096, 8, rung_graph, rung_clocks)
+    log(f"ghash_scan at {n_m} rows (the 256 MiB seal, K = 1): {gh_ms:.4f} ms a call back to back "
+        f"({gh_ms_graph:.4f} ms in a CUDA graph), 3 grid launches, {main_b['rows_per_thread']} rows "
+        f"a thread in {main_b['thread_blocks']} thread blocks; roofline bound "
+        f"{main_b['bound_ms_measured']:.4f} ms ({main_b['bound_by_measured']}, measured rates; "
+        f"{gs['row']['int']} integer SASS a row), latency bound {main_b['latency_bound_ms']:.4f} ms "
+        f"({main_b['dependent_instructions']} dependent steps); kernel at "
+        f"{100 * main_b['share_of_larger_bound']:.1f} % of the larger; the plain version not "
+        f"measured at this size (a row loop; {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows); "
+        f"nvidia-smi {gh_clocks}; card: {card}")
+    log(f"ghash_scan at the 4,096-row rung, K = 8: {rung_graph * 1e3:.3f} us of card a call in a "
+        f"CUDA graph (3 grid launches), {rung_ms * 1e3:.3f} us back to back; plain "
+        f"{rung_plain_ms:.1f} ms; roofline bound {rung_b['bound_ms_measured'] * 1e3:.4f} us, "
+        f"latency bound {rung_b['latency_bound_ms'] * 1e3:.3f} us "
+        f"({rung_b['dependent_instructions']} dependent steps); kernel at "
+        f"{100 * rung_b['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    log(f"gcm seal on the card at 256 MiB (the seam: ctr_mk then ghash_scan, staged arrays): "
+        f"{seam_ms:.4f} ms, {seal_gbps:.2f} GB/s; ghash_scan {100 * gh_ms / seam_ms:.1f} % of it; "
+        f"card: {card}")
+    kernels.append({
+        "name": "ghash_scan", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ghash.cu",
+        "replaces": "our_tree_tpu/aead/gcm.py:118",
+        "counterpart_of": "the XLA lax.scan of _gcm_fused_jit (our_tree_tpu/aead/gcm.py:118-143) "
+                          "and of ghash_words (:94-104), not a Pallas kernel",
+        "launches": gcm_runs[0]["seal_launches"]["ghash_scan"],
+        "max_abs_err": max(gh_err, rows_err, e), "ms": rung_ms, "card_ms_graph": rung_graph,
+        "plain_ms": rung_plain_ms, **rung_b, "library_ms": None,
+        "shape": "4,096 rows, K = 8, the serve batcher's GCM layout (the rung the gcm serve "
+                 "modes will give it; kernel and plain version on the same inputs)",
+        "grid_launches_per_call": 3, "sass": gs,
+        "plain_ms_65537_rows": gh_plain_ms[(65537, 8)],
+        "seal_rows": {"ms": gh_ms, "card_ms_graph": gh_ms_graph, **main_b, "library_ms": None,
+                      "shape": f"{n_m} rows, K = 1 (the 256 MiB seal: J0 row, then the "
+                               f"ciphertext), held against the matrix-power formulation",
+                      "plain_ms": "not measured (a row loop of several launches a row)"},
+        "seal_256MiB": {"seam_ms": seam_ms, "gbps": seal_gbps, "ghash_share": gh_ms / seam_ms,
+                        "launches": gcm_runs[0]["seal_launches"], "wall": gcm_runs,
+                        "tag": gcm_tags[0], "tag_plus5": gcm_tags[5]},
+        "tag_formulation": "chunked matrix powers in float32 matmuls (64-block chunks, runs of "
+                           "512 chunks), host gf128_mul_matrix_words",
+    })
+    del seam_args, gh_args
+
+    # 12. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
     # hooks must not touch the timings above.

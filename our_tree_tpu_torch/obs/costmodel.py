@@ -58,8 +58,8 @@ def analytic_cost(engine: str, mode: str, rung: int, nr: int, key_slots: int) ->
     Bytes are boundary traffic: what one dispatch reads and writes."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not served by the port yet: gcm and gcm-open "
-                         "come with the AEAD serve slice (ROADMAP queue 1 item 6), rc4 with "
-                         "the session slice (item 4)")
+                         "come with ROADMAP queue 1, \"The gcm/gcm-open serve modes\", rc4 "
+                         "with \"The rc4 serve mode and sessions\"")
     n = int(rung)
     k = int(key_slots)
     blk = 16 * n

@@ -58,10 +58,11 @@ MODES = ("ctr", "gcm", "gcm-open", "cbc", "rc4")
 #: The modes the port serves so far.
 PORTED_MODES = ("ctr", "cbc")
 
-#: Where each mode the port does not serve yet is queued.
-_QUEUED = {"gcm": "ROADMAP queue 1 item 6 (AES-GCM)",
-           "gcm-open": "ROADMAP queue 1 item 6 (AES-GCM)",
-           "rc4": "ROADMAP queue 1 item 4 (the rc4 serve mode, after sessions, item 7)"}
+#: Where each mode the port does not serve yet is queued: its ROADMAP queue 1
+#: item, by title, so that renumbering the queue leaves the pointer true.
+_QUEUED = {"gcm": "ROADMAP queue 1, \"The gcm/gcm-open serve modes\"",
+           "gcm-open": "ROADMAP queue 1, \"The gcm/gcm-open serve modes\"",
+           "rc4": "ROADMAP queue 1, \"The rc4 serve mode and sessions\""}
 
 
 def not_ported(modes) -> str | None:

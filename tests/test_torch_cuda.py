@@ -1,9 +1,10 @@
 """The CUDA kernels (counter-synthesising CTR, ECB encrypt in both forms and
 decrypt,
 multi-key scattered CTR in both forms, multi-key CBC decrypt, the chained
-CBC/CFB128 encrypt, the ceiling probe's chain) against their plain torch
-versions, the ``AES``
-context on the card against the CPU in every mode, and the serve path on
+CBC/CFB128 encrypt, the ceiling probe's chain, the GHASH scan) against their
+plain torch versions, the ``AES``
+context on the card against the CPU in every mode, AES-GCM on the card
+against the KATs and the CPU, and the serve path on
 the card. Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
 ``python -m pytest -m gpu --noconftest tests/test_torch_cuda.py``."""
@@ -543,3 +544,134 @@ def test_gpu_backend_methods_match_the_plain_engine(card):
     assert len(times) == 2 and all(t >= gb.FLOOR_US for t in times)
     with pytest.raises(ValueError, match="queue 1 item 9"):
         gb.ecb(gctx, gw, 2)
+
+
+def _ghash_case(card, n, k, seed, rung_layout=False):
+    """GHASH scan inputs on the card: random x, inject, slots, keep (bit 1
+    set on some rows, which must not count) and y0; with ``rung_layout``,
+    the serve batcher's GCM layout instead (requests of 0-40 blocks, each a
+    J0 row and its payload, keep 0 at both, inject at the first payload
+    row, y0 zero)."""
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)  # noqa: E731
+    x, hk = u(n, 4), u(k, 4)
+    if rung_layout:
+        inj = np.zeros((n, 4), np.uint32)
+        keep = np.ones(n, np.int32)
+        slots = np.zeros(n, np.int32)
+        off = 0
+        while off < n:
+            m = min(int(rng.integers(0, 41)) + 1, n - off)
+            keep[off:off + 2] = 0
+            slots[off:off + m] = rng.integers(0, k)
+            if m > 1:
+                inj[off + 1] = u(4)
+            off += m
+        y0 = np.zeros(4, np.uint32)
+    else:
+        inj = u(n, 4)
+        keep = rng.integers(0, 4, n).astype(np.int32)
+        keep[rng.random(n) < 0.8] = 1
+        slots = rng.integers(0, k, n).astype(np.int32)
+        y0 = u(4)
+    t = lambda a: packing.words_tensor(a, card)  # noqa: E731
+    return (t(x), t(hk), torch.from_numpy(slots).to(card), torch.from_numpy(keep).to(card), t(y0),
+            t(inj))
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for n in (1, 2, 31, 33, 129, 4096) for k in (1, 3, 8, 64)]
+                         + [(65537, 8)])
+def test_ghash_scan_kernel_matches_plain(card, n, k):
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, n, k, seed=n * 100 + k)
+    before = cuda_ghash.ghash_scan.launches
+    got = cuda_ghash.ghash_scan(x, hk, slots, keep, y0, inject=inj)
+    want = cuda_ghash.ghash_scan_plain(x, hk, slots, keep, y0, inject=inj)
+    torch.cuda.synchronize()
+    assert cuda_ghash.ghash_scan.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(cuda_ghash.ghash_scan(x ^ inj, hk, slots, keep, y0), want)
+
+
+@pytest.mark.parametrize("rung", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_ghash_scan_kernel_at_the_serve_rungs(card, rung):
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, rung, 8, seed=rung, rung_layout=True)
+    got = cuda_ghash.ghash_scan(x, hk, slots, keep, y0, inject=inj)
+    want = cuda_ghash.ghash_scan_plain(x, hk, slots, keep, y0, inject=inj)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ghash_scan_kernel_clamps_a_bad_slot(card):
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, 300, 3, seed=5)
+    bad = slots.clone()
+    bad[::3] = 7
+    bad[1::3] = -5
+    got = cuda_ghash.ghash_scan(x, hk, bad, keep, y0, inject=inj)
+    want = cuda_ghash.ghash_scan_plain(x, hk, bad.clamp(0, 2), keep, y0, inject=inj)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _gcm_kats():
+    import json
+    import os
+
+    with open(os.path.join(os.path.dirname(__file__), "golden", "gcm_kats.json")) as fh:
+        return json.load(fh)["kats"]
+
+
+def test_gcm_kats_on_card(card):
+    """SP 800-38D through gcm_seal/gcm_open on the card: each call one
+    ctr_mk and one ghash_scan launch; a tampered tag raises."""
+    from our_tree_tpu_torch.aead import gcm
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    for kat in _gcm_kats():
+        key, iv, aad, pt = (bytes.fromhex(kat[f]) for f in ("key", "iv", "aad", "pt"))
+        mk, gh = cuda_aes.ctr_scattered_multikey.launches, cuda_ghash.ghash_scan.launches
+        ct, tag = gcm.gcm_seal(key, iv, aad, pt)
+        assert (ct.hex(), tag.hex()) == (kat["ct"], kat["tag"]), kat["name"]
+        assert (cuda_aes.ctr_scattered_multikey.launches - mk,
+                cuda_ghash.ghash_scan.launches - gh) == (1, 1)
+        assert gcm.gcm_open(key, iv, aad, ct, tag) == pt
+        with pytest.raises(gcm.TagMismatchError):
+            gcm.gcm_open(key, iv, aad, ct, tag[:-1] + bytes([tag[-1] ^ 1]))
+
+
+@pytest.mark.parametrize("direction", ["seal", "open"])
+@pytest.mark.parametrize("bits", [128, 192, 256])
+def test_gcm_seam_on_card_matches_cpu(card, direction, bits):
+    from our_tree_tpu_torch.aead import gcm
+
+    rng = np.random.default_rng(bits)
+    x, hk, slots, keep, _y0, inj = _ghash_case(card, 4096, 8, seed=bits, rung_layout=True)
+    keys = [rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes() for _ in range(8)]
+    nr = expand_key_enc(keys[0])[0]
+    rks = packing.words_tensor(np.stack([expand_key_enc(k)[1] for k in keys]), card)
+    hmats = np.stack([gcm._key_material(k)[3] for k in keys])
+    ctr = packing.words_tensor(rng.integers(0, 2**32, (4096, 4), dtype=np.uint64)
+                               .astype(np.uint32), card)
+    args = (x, ctr, rks, slots, hmats, inj, keep, nr)
+    out, ys = gcm.gcm_crypt_ghash_words(*args, engine=aes.CUDA_ENGINE, direction=direction)
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    want_out, want_ys = gcm.gcm_crypt_ghash_words(*cpu, engine="auto", direction=direction)
+    assert torch.equal(out.cpu(), want_out) and torch.equal(ys.cpu(), want_ys)
+
+
+@pytest.mark.parametrize("size", [0, 1, 16, 17, 4095, 100_003])
+@pytest.mark.parametrize("ivlen", [12, 7])
+def test_gcm_on_card_matches_cpu(card, size, ivlen):
+    from our_tree_tpu_torch.aead import gcm
+
+    rng = np.random.default_rng(size + ivlen)
+    key, iv, aad = rng.bytes(16), rng.bytes(ivlen), rng.bytes(size % 41)
+    pt = rng.bytes(size)
+    ct, tag = gcm.gcm_seal(key, iv, aad, pt)
+    assert (ct, tag) == gcm.gcm_seal(key, iv, aad, pt, device="cpu")
+    assert gcm.gcm_open(key, iv, aad, ct, tag) == pt
