@@ -10,13 +10,16 @@ profile sections that use its figure), the multi-key CTR serve path
 ladder), the sweep harness (``harness.bench``, with ARC4 and the native C
 tier) and the mixed ``ctr,cbc`` serve path (the JAX package's documented
 mixed-mode drive, without its ``gcm`` modes) and AES-GCM through the
-models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256 MiB), and holds
+models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256 MiB, on
+``ghash_at``), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
    source, in parallel), print ``ptxas -v`` per kernel;
-2. kernel vs plain version: ``ctr_gen`` at every counter wrap, and both ECB
+2. kernel vs plain version: ``ctr_gen`` at every counter wrap in each form
+   (auto, group forced, block forced), its block form also at N in {1, 2,
+   31, 33, 4096} and the auto form either side of its crossing, and both ECB
    kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20, 2^24 + 7} (the
    last a 256 MiB launch with a ragged tail), encrypt in each form (auto,
    group forced, block forced), and the encrypt block form at N in {1, 2,
@@ -47,7 +50,8 @@ is not 0:
    seam, and F.2.2, F.2.4 and F.2.6 (CBC decrypt) in slot 3 of 8 through the
    multi-key CBC seam (``cbc_mk``);
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
-   must be 0xa612a647, the reference's digest for this chain;
+   must be 0xa612a647, the reference's digest for this chain, and every
+   ``ctr_gen`` launch in the group form;
 5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
    kernel equal to its plain version), the parallel CBC and CFB128 decrypts
    (equal to their plain versions), the sequential CBC and CFB128 encrypts of
@@ -139,7 +143,11 @@ is not 0:
    graphs (median, quartiles, turns the kernel won), each equal to the
    kernel; both encrypt forms from 1 to 2^20
    blocks (the crossing, ``kEcbBlockFormMax``), and ``ctr_gen``'s one-block
-   tail launch (``crypt_ctr`` ending mid-block); and the block form beside
+   tail launch (``crypt_ctr`` ending mid-block) in each form, its block
+   form's SASS, ``crypt_ctr`` in chunks ending mid-block, counted (block-form
+   launches only, equal to the CPU's), both ``ctr_gen`` forms from 1 to 2^20 blocks (the crossing,
+   ``kCtrGenBlockFormMax``) and ``ctr_gen`` at 256 MiB beside its time
+   before the block form (``CTR_GEN_256MIB_MS``); and the block form beside
    ``ecb_decrypt_kernel`` (32 blocks a thread) from 4,096 blocks to 2^24,
    where a group form would pay;
 10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
@@ -155,24 +163,37 @@ is not 0:
 11. AES-GCM: ``ghash_scan`` against ``ghash_scan_plain`` (zero mismatching
    words) at N in {1, 2, 31, 33, 4096} rows with K 1/8/64 and at 65,537
    with K = 8 (random slots, keep, y0 and inject, and x ^ inject given
-   without it), and through the seam ``gcm_crypt_ghash_words`` (CUDA engine
-   against the plain engine on the card, ``out`` and every row of ``ys``) at
-   every serve rung with K = 8 in the batcher's layout, sealing and opening,
-   AES-128/192/256; the SP 800-38D KATs (``tests/golden/gcm_kats.json``)
-   through ``gcm_seal``/``gcm_open`` on the card, each tampered tag refused,
-   and a 7-byte IV against the host GCM; then the main path, counted:
+   without it), ``ghash_at`` at random named rows of the same inputs against
+   the plain rows and ``ghash_scan``'s (and ``ghash_at_plain`` itself at
+   4,096 rows), the parent's kernel (``GHASH_FORMER_SOURCE``) against the
+   same plain rows, and through the seam ``gcm_crypt_ghash_words`` (CUDA
+   engine against the plain engine on the card, ``out`` and every row of
+   ``ys``, and with ``rows`` each request's last row) at every serve rung
+   with K = 8 in the batcher's layout, sealing and opening, AES-128/192/256;
+   the SP 800-38D KATs (``tests/golden/gcm_kats.json``) through
+   ``gcm_seal``/``gcm_open`` on the card, each tampered tag refused, and a
+   7-byte IV against the host GCM; then the main path, counted:
    ``gcm_seal`` and ``gcm_open`` over 256 MiB (``default_rng(1337)``, key
    ``bytes(range(16))``, a 96-bit IV, 20 bytes of AAD) and over 256 MiB + 5
-   bytes, each one ``ctr_mk`` and one ``ghash_scan`` call and nothing else,
+   bytes, each one ``ctr_mk`` and one ``ghash_at`` call and nothing else,
    open giving the plaintext back, the ciphertext equal to the CTR seam's
    under the inc32 counters, the tag equal to an independent formulation on
    the card (chunked matrix powers in float32 matmuls, ``ghash_by_powers``);
-   the seal's GHASH rows at every 32,768th block against the same
-   formulation; times: ``ghash_scan`` at 2^24 + 1 rows and at the 4,096
-   rung with K = 8 (CUDA events and a CUDA graph), the plain version at the
-   rung and at 65,537 rows, the roofline bound (one multiply by H a row, its
-   SASS) and the latency bound (the scan's dependent path), and the seal's
-   dispatch on the card in GB/s;
+   the every-row seam's GHASH rows at every 32,768th block against the same
+   formulation, and its launches counted (one ``ctr_mk``, one
+   ``ghash_scan``); times: ``ghash_at`` and ``ghash_scan`` at 2^24 + 1 rows
+   (K = 1) and at the 4,096 rung with K = 8 (CUDA events and a CUDA graph),
+   the plain versions (at the seal's shape ``ghash_by_powers``), each call's
+   launches alone (map, carry, rows; the parent's kernel's and the
+   kernel's own: ``GHASH_VARIANTS_SOURCE``) beside the launch floor at their
+   grid and shared memory, their registers, spills and resident thread
+   blocks; ``ghash_at``, ``ghash_scan``, the parent's kernel and three design
+   variants in 12 alternating turns at both shapes; the SASS of a product
+   (both pipes) and of the parent's kernel; bounds for the work itself (a
+   row's bytes at phase 7's stream rate, one 128 x 128 GF(2) product a row
+   at the int8 tensor-core rate) and the latency bound (the dependent
+   path's products at the product's SASS depth); and the seal's dispatch on
+   the card in GB/s;
 12. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -189,12 +210,15 @@ Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows,
-``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows`` and
-``seal_256MiB``), the
+``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
+and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``
+and ``seal_256MiB``), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``;
 ``ecb_encrypt`` carries its launches by form, the one-block launch by form
 and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
-``cbc_mk`` its breakdown and 32-block rung, ``ctr_gen`` its one-block tail.
+``cbc_mk`` its breakdown and 32-block rung, ``ctr_gen`` its one-block tail
+by form, its launches by form and its block form (``ctr_gen_block_kernel``,
+with the crossing table).
 Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
 result.
@@ -264,6 +288,12 @@ BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
 #: Phase 11 (AES-GCM): the GHASH scan's random cases, and the 256 MiB seal's
 #: key, 96-bit IV and 20 bytes of AAD.
 GHASH_SIZES = (1, 2, 31, 33, 4096, 65537)
+#: One 128 x 128 GF(2) product as a matrix product: 16,384 multiplies and
+#: 16,384 adds, the least work of a GHASH row whatever its formulation; and
+#: the card's fastest rate for such operations, the int8 tensor cores
+#: (NVIDIA H100 SXM data sheet, dense).
+GF_PRODUCT_INT8_OPS = 2 * 128 * 128
+INT8_OPS_PER_S = 1.979e15
 GCM_KEY = bytes(range(16))
 GCM_IV = bytes.fromhex("cafebabefacedbaddecaf888")
 GCM_AAD = bytes(range(20))
@@ -534,11 +564,631 @@ VARIANT_TURNS = 12
 CBC_VARIANTS = {"former_kernel": 0, "loads_after_barrier": 1, "unrolled_ahead": 2,
                 "threads_64": 3, "threads_32": 4}
 ECB_VARIANTS = {"load_after_barrier": 0, "unrolled_ahead": 1}
+#: The parent's GHASH kernel (phase 11): the GHASH scan as it was before its
+#: redesign (a column table of H in shared memory, masked XORs on the integer
+#: pipe, three products a row: ghash.cuh and ghash.cu of the parent commit,
+#: comments dropped), with C entries that run the whole call or one of its
+#: three launches alone, and give each launch's grid, shared memory and
+#: resident thread blocks an SM. Built with its own nvcc beside the kernels
+#: and timed in turns with them; a measurement probe, not a kernel of the
+#: port.
+GHASH_FORMER_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#ifndef __CUDACC__
+#define __device__
+#define __forceinline__ inline
+#endif
+
+namespace former_ghash {
+
+constexpr int kMaxSlots = 64;
+constexpr int kColumns = 128;
+
+struct alignas(16) Elem {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Elem zero() { return Elem{{0u, 0u, 0u, 0u}}; }
+
+__device__ __forceinline__ Elem one() { return Elem{{0x80u, 0u, 0u, 0u}}; }
+
+__device__ __forceinline__ Elem exor(const Elem& a, const Elem& b) {
+  return Elem{{a.w[0] ^ b.w[0], a.w[1] ^ b.w[1], a.w[2] ^ b.w[2], a.w[3] ^ b.w[3]}};
+}
+
+__device__ __forceinline__ Elem masked(const Elem& a, uint32_t m) {
+  return Elem{{a.w[0] & m, a.w[1] & m, a.w[2] & m, a.w[3] & m}};
+}
+
+__device__ __forceinline__ uint32_t flip_word(uint32_t v) {
+  v = ((v >> 1) & 0x55555555u) | ((v & 0x55555555u) << 1);
+  v = ((v >> 2) & 0x33333333u) | ((v & 0x33333333u) << 2);
+  return ((v >> 4) & 0x0F0F0F0Fu) | ((v & 0x0F0F0F0Fu) << 4);
+}
+
+__device__ __forceinline__ Elem flip(const Elem& a) {
+  return Elem{{flip_word(a.w[0]), flip_word(a.w[1]), flip_word(a.w[2]), flip_word(a.w[3])}};
+}
+
+__device__ __forceinline__ void mul_x(uint32_t* v) {
+  const uint32_t carry = 0u - (v[3] >> 31);
+  v[3] = (v[3] << 1) | (v[2] >> 31);
+  v[2] = (v[2] << 1) | (v[1] >> 31);
+  v[1] = (v[1] << 1) | (v[0] >> 31);
+  v[0] = (v[0] << 1) ^ (carry & 0x87u);
+}
+
+__device__ __forceinline__ void mul_x32(uint32_t* v) {
+  const uint32_t t = v[3];
+  const uint32_t lo = t ^ (t << 1) ^ (t << 2) ^ (t << 7);
+  const uint32_t hi = (t >> 31) ^ (t >> 30) ^ (t >> 25);
+  v[3] = v[2];
+  v[2] = v[1];
+  v[1] = v[0] ^ hi;
+  v[0] = lo;
+}
+
+__device__ __forceinline__ void build_columns(const uint32_t* hkeys, int k, Elem* col, int tid,
+                                              int nthreads) {
+  for (int i = tid; i < 32 * k; i += nthreads) {
+    const int s = i >> 5, q = i & 31;
+    uint32_t v[4];
+    for (int c = 0; c < 4; ++c) v[c] = flip_word(hkeys[4 * s + c]);
+    for (int j = 0; j < q; ++j) mul_x(v);
+    for (int m = 0; m < 4; ++m) {
+      col[kColumns * s + ((32 * m + q) ^ 7)] =
+          Elem{{flip_word(v[0]), flip_word(v[1]), flip_word(v[2]), flip_word(v[3])}};
+      mul_x32(v);
+    }
+  }
+}
+
+__device__ __forceinline__ Elem mul_h(const Elem& y, const Elem* col) {
+  uint32_t z0[4] = {0u, 0u, 0u, 0u}, z1[4] = {0u, 0u, 0u, 0u};
+  uint32_t cur = y.w[0], n1 = y.w[1], n2 = y.w[2], n3 = y.w[3];
+#pragma unroll 1
+  for (int w = 0; w < 4; ++w) {
+    const Elem* c = col + 32 * w;
+#pragma unroll
+    for (int b = 0; b < 32; b += 2) {
+      const uint32_t m0 = 0u - ((cur >> b) & 1u), m1 = 0u - ((cur >> (b + 1)) & 1u);
+      const Elem c0 = c[b], c1 = c[b + 1];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        z0[i] ^= c0.w[i] & m0;
+        z1[i] ^= c1.w[i] & m1;
+      }
+    }
+    cur = n1;
+    n1 = n2;
+    n2 = n3;
+  }
+  return Elem{{z0[0] ^ z1[0], z0[1] ^ z1[1], z0[2] ^ z1[2], z0[3] ^ z1[3]}};
+}
+
+__device__ __forceinline__ void mul_h2(Elem& a, Elem& b, const Elem* col) {
+  uint32_t za[4] = {0u, 0u, 0u, 0u}, zb[4] = {0u, 0u, 0u, 0u};
+  uint32_t ca = a.w[0], a1 = a.w[1], a2 = a.w[2], a3 = a.w[3];
+  uint32_t cb = b.w[0], b1 = b.w[1], b2 = b.w[2], b3 = b.w[3];
+#pragma unroll 1
+  for (int w = 0; w < 4; ++w) {
+    const Elem* c = col + 32 * w;
+#pragma unroll
+    for (int bit = 0; bit < 32; ++bit) {
+      const uint32_t ma = 0u - ((ca >> bit) & 1u), mb = 0u - ((cb >> bit) & 1u);
+      const Elem cv = c[bit];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        za[i] ^= cv.w[i] & ma;
+        zb[i] ^= cv.w[i] & mb;
+      }
+    }
+    ca = a1;
+    a1 = a2;
+    a2 = a3;
+    cb = b1;
+    b1 = b2;
+    b2 = b3;
+  }
+  a = Elem{{za[0], za[1], za[2], za[3]}};
+  b = Elem{{zb[0], zb[1], zb[2], zb[3]}};
+}
+
+template <int N>
+__device__ __forceinline__ void mul_g(const Elem* a, const Elem& g, Elem* r) {
+  uint32_t pa[N][4], z[N][4], v[4][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pa[n][c] = flip_word(a[n].w[c]);
+      z[n][c] = 0u;
+    }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[0][c] = flip_word(g.w[c]);
+#pragma unroll
+  for (int m = 1; m < 4; ++m) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[m][c] = v[m - 1][c];
+    mul_x32(v[m]);
+  }
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const uint32_t bm = 0u - ((pa[n][m] >> i) & 1u);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) z[n][c] ^= v[m][c] & bm;
+      }
+      mul_x(v[m]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    r[n] = Elem{{flip_word(z[n][0]), flip_word(z[n][1]), flip_word(z[n][2]), flip_word(z[n][3])}};
+}
+
+__device__ __forceinline__ void compose(Elem& a, Elem& b, const Elem& ag, const Elem& bg) {
+  const Elem in[2] = {a, b};
+  Elem out[2];
+  mul_g<2>(in, ag, out);
+  a = out[0];
+  b = exor(out[1], bg);
+}
+
+__device__ __forceinline__ Elem apply(const Elem& y, const Elem& a, const Elem& b) {
+  Elem r;
+  mul_g<1>(&y, a, &r);
+  return exor(r, b);
+}
+
+__device__ __forceinline__ Elem load_row(const uint32_t* p, long long r) {
+#ifdef __CUDACC__
+  const uint4 v = reinterpret_cast<const uint4*>(p)[r];
+  return Elem{{v.x, v.y, v.z, v.w}};
+#else
+  return Elem{{p[4 * r], p[4 * r + 1], p[4 * r + 2], p[4 * r + 3]}};
+#endif
+}
+
+__device__ __forceinline__ void store_row(uint32_t* p, long long r, const Elem& e) {
+#ifdef __CUDACC__
+  reinterpret_cast<uint4*>(p)[r] = make_uint4(e.w[0], e.w[1], e.w[2], e.w[3]);
+#else
+  for (int c = 0; c < 4; ++c) p[4 * r + c] = e.w[c];
+#endif
+}
+
+struct Rows {
+  const uint32_t* x;
+  const uint32_t* inject;
+  const int32_t* slots;
+  const int32_t* keep;
+  int k;
+};
+
+__device__ __forceinline__ Elem row_x(const Rows& in, long long r) {
+  const Elem x = load_row(in.x, r);
+  return in.inject ? exor(x, load_row(in.inject, r)) : x;
+}
+
+__device__ __forceinline__ int row_slot(const Rows& in, long long r) {
+  const int s = in.slots[r];
+  return s < 0 ? 0 : (s >= in.k ? in.k - 1 : s);
+}
+
+__device__ __forceinline__ void chunk_map(const Rows& in, const Elem* col, long long r0,
+                                          long long r1, Elem& a, Elem& b) {
+  a = one();
+  b = zero();
+  for (long long r = r0; r < r1; ++r) {
+    const uint32_t km = 0u - ((uint32_t)in.keep[r] & 1u);
+    a = masked(a, km);
+    b = exor(masked(b, km), row_x(in, r));
+    mul_h2(a, b, col + kColumns * row_slot(in, r));
+  }
+}
+
+__device__ __forceinline__ void chunk_run(const Rows& in, const Elem* col, long long r0,
+                                          long long r1, Elem y, uint32_t* ys) {
+  for (long long r = r0; r < r1; ++r) {
+    const uint32_t km = 0u - ((uint32_t)in.keep[r] & 1u);
+    y = mul_h(exor(masked(y, km), row_x(in, r)), col + kColumns * row_slot(in, r));
+    store_row(ys, r, y);
+  }
+}
+
+}  // namespace former_ghash
+
+
+
+namespace {
+
+using former_ghash::Elem;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr long long kTargetThreads = 1ll << 16;
+constexpr long long kMaxRowsPerThread = 64;
+
+struct Plan {
+  long long rows;     // rows a thread
+  long long blocks;   // thread blocks of launches 1 and 3
+};
+
+Plan plan(long long n) {
+  long long rows = (n + kTargetThreads - 1) / kTargetThreads;
+  rows = rows < 1 ? 1 : (rows > kMaxRowsPerThread ? kMaxRowsPerThread : rows);
+  const long long threads = (n + rows - 1) / rows;
+  return Plan{rows, (threads + kThreads - 1) / kThreads};
+}
+
+__device__ __forceinline__ Elem shfl_up(const Elem& e, int d) {
+  Elem r;
+  for (int c = 0; c < 4; ++c) r.w[c] = __shfl_up_sync(0xffffffffu, e.w[c], d);
+  return r;
+}
+
+__device__ __forceinline__ void block_scan(Elem& a, Elem& b, Elem* warp_maps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    Elem pa = shfl_up(a, d), pb = shfl_up(b, d);
+    if (lane >= d) {
+      former_ghash::compose(pa, pb, a, b);
+      a = pa;
+      b = pb;
+    }
+  }
+  if (lane == 31) {
+    warp_maps[2 * warp] = a;
+    warp_maps[2 * warp + 1] = b;
+  }
+  Elem ea = shfl_up(a, 1), eb = shfl_up(b, 1);
+  if (lane == 0) {
+    ea = former_ghash::one();
+    eb = former_ghash::zero();
+  }
+  __syncthreads();
+  Elem wa = former_ghash::one(), wb = former_ghash::zero();
+  for (int w = 0; w < warp; ++w) former_ghash::compose(wa, wb, warp_maps[2 * w], warp_maps[2 * w + 1]);
+  former_ghash::compose(wa, wb, ea, eb);
+  a = wa;
+  b = wb;
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+ghash_map_kernel(former_ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows, long long n,
+                 Elem* __restrict__ prefix, Elem* __restrict__ block_maps) {
+  extern __shared__ Elem col[];
+  __shared__ Elem warp_maps[2 * kWarps];
+  former_ghash::build_columns(hkeys, in.k, col, threadIdx.x, T);
+  __syncthreads();
+  const long long t = blockIdx.x * (long long)T + threadIdx.x;
+  const long long r0 = t * rows < n ? t * rows : n;
+  const long long r1 = r0 + rows < n ? r0 + rows : n;
+  Elem a, b;
+  former_ghash::chunk_map(in, col, r0, r1, a, b);
+  Elem ea = a, eb = b;
+  block_scan(ea, eb, warp_maps);
+  prefix[2 * t] = ea;
+  prefix[2 * t + 1] = eb;
+  if (threadIdx.x == T - 1) {
+    former_ghash::compose(ea, eb, a, b);
+    block_maps[2 * blockIdx.x] = ea;
+    block_maps[2 * blockIdx.x + 1] = eb;
+  }
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+ghash_carry_kernel(const Elem* __restrict__ block_maps, long long blocks,
+                   const uint32_t* __restrict__ y0, Elem* __restrict__ carry) {
+  __shared__ Elem warp_maps[2 * kWarps];
+  const long long per = (blocks + T - 1) / T;
+  const long long g0 = threadIdx.x * per < blocks ? threadIdx.x * per : blocks;
+  const long long g1 = g0 + per < blocks ? g0 + per : blocks;
+  Elem a = former_ghash::one(), b = former_ghash::zero();
+  for (long long g = g0; g < g1; ++g) former_ghash::compose(a, b, block_maps[2 * g], block_maps[2 * g + 1]);
+  block_scan(a, b, warp_maps);
+  Elem y = former_ghash::apply(Elem{{y0[0], y0[1], y0[2], y0[3]}}, a, b);
+  for (long long g = g0; g < g1; ++g) {
+    carry[g] = y;
+    y = former_ghash::apply(y, block_maps[2 * g], block_maps[2 * g + 1]);
+  }
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+ghash_rows_kernel(former_ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows, long long n,
+                  const Elem* __restrict__ prefix, const Elem* __restrict__ carry,
+                  uint32_t* __restrict__ ys) {
+  extern __shared__ Elem col[];
+  former_ghash::build_columns(hkeys, in.k, col, threadIdx.x, T);
+  __syncthreads();
+  const long long t = blockIdx.x * (long long)T + threadIdx.x;
+  const long long r0 = t * rows;
+  if (r0 >= n) return;
+  const long long r1 = r0 + rows < n ? r0 + rows : n;
+  const Elem y = former_ghash::apply(carry[blockIdx.x], prefix[2 * t], prefix[2 * t + 1]);
+  former_ghash::chunk_run(in, col, r0, r1, y, ys);
+}
+
+long long scratch_elems(const Plan& p) { return 2 * p.blocks * kThreads + 3 * p.blocks; }
+
+Plan former_plan(long long n) { return plan(n < 1 ? 1 : n); }
+
+size_t former_smem(int k) { return (size_t)k * former_ghash::kColumns * sizeof(Elem); }
+
+}  // namespace
+
+extern "C" long long ot_former_scratch_words(long long n) { return 4 * scratch_elems(former_plan(n)); }
+
+// which: 0 the former call (three launches), 1 the map launch, 2 the carry
+// launch, 3 the rows launch alone (2 and 3 read the scratch a map launch
+// left). Arguments as the former ot_ghash_scan.
+extern "C" int ot_former_ghash(int which, const void* x, const void* inject, const void* slots,
+                               const void* keep, const void* hkeys, const void* y0, void* ys,
+                               void* scratch, long long n, int k, void* stream) {
+  const Plan p = former_plan(n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = former_smem(k);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute((const void*)ghash_map_kernel<kThreads>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute((const void*)ghash_rows_kernel<kThreads>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  const former_ghash::Rows in{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(inject),
+                              static_cast<const int32_t*>(slots), static_cast<const int32_t*>(keep), k};
+  const uint32_t* h = static_cast<const uint32_t*>(hkeys);
+  Elem* prefix = static_cast<Elem*>(scratch);
+  Elem* block_maps = prefix + 2 * p.blocks * kThreads;
+  Elem* carry = block_maps + 2 * p.blocks;
+  const unsigned int grid = (unsigned int)p.blocks;
+  if (which == 0 || which == 1)
+    ghash_map_kernel<kThreads><<<grid, kThreads, smem, st>>>(in, h, p.rows, n, prefix, block_maps);
+  if (which == 0 || which == 2)
+    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks,
+                                                         static_cast<const uint32_t*>(y0), carry);
+  if (which == 0 || which == 3)
+    ghash_rows_kernel<kThreads><<<grid, kThreads, smem, st>>>(in, h, p.rows, n, prefix, carry,
+                                                              static_cast<uint32_t*>(ys));
+  return (int)cudaGetLastError();
+}
+
+// Launch `which` (1 map, 2 carry, 3 rows) over n rows and k keys: out[0]
+// its grid, out[1] its dynamic shared memory, out[2] its resident thread
+// blocks an SM (the occupancy API).
+extern "C" int ot_former_launch_shape(int which, long long n, int k, long long* out) {
+  const Plan p = former_plan(n);
+  const size_t smem = which == 2 ? 0 : former_smem(k);
+  const void* fn = which == 1 ? (const void*)ghash_map_kernel<kThreads>
+                 : which == 2 ? (const void*)ghash_carry_kernel<kThreads>
+                              : (const void*)ghash_rows_kernel<kThreads>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  out[0] = which == 2 ? 1 : p.blocks;
+  out[1] = (long long)smem;
+  out[2] = blocks;
+  return (int)e;
+}
+"""
+#: The GHASH kernel's launches one at a time, and its design variants
+#: (phase 11): the package's ghash.cu included whole, with C entries that run
+#: one launch alone (map, carry or rows, of either form) and give its shape,
+#: and three variants of the whole call: the every-row form with each
+#: chunk's a made by a product a row (no table of powers), ghash_at with at
+#: most 64 rows a thread, and the every-row form with its rows launch's
+#: stores one row a thread, not staged. Built with its own nvcc beside the kernels; a
+#: measurement probe, not a kernel of the port.
+GHASH_VARIANTS_SOURCE = r"""
+#include "ghash.cu"
+
+namespace {
+
+// The map launch with each chunk's a made by a product a row (a <- a H_s),
+// no table of powers: two products a row in the map launch.
+template <int T>
+__global__ void __launch_bounds__(T)
+map_by_products_kernel(ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows,
+                       long long n, Elem* __restrict__ prefix, Elem* __restrict__ block_maps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Elem warp_maps[2 * kWarps];
+  Prep* h = reinterpret_cast<Prep*>(smem);
+  ghash::build_keys(hkeys, in.k, (int)rows, h, nullptr, threadIdx.x, T);
+  const long long t = blockIdx.x * (long long)T + threadIdx.x;
+  const long long r0 = t * rows < n ? t * rows : n;
+  const long long r1 = r0 + rows < n ? r0 + rows : n;
+  Elem a = ghash::one(), b = ghash::zero();
+  for (long long r = r0; r < r1; ++r) {
+    const ghash::RawRow row = ghash::load_raw(in, r);
+    const uint32_t km = 0u - ((uint32_t)row.keep & 1u);
+    const Prep& hs = h[ghash::clamp_slot(row.slot, in.k)];
+    a = ghash::mul(ghash::masked(a, km), hs);
+    b = ghash::mul(ghash::exor(ghash::masked(b, km), ghash::raw_x(row)), hs);
+  }
+  Elem ea = a, eb = b;
+  block_scan(ea, eb, warp_maps);
+  prefix[2 * t] = ea;
+  prefix[2 * t + 1] = eb;
+  if (threadIdx.x == T - 1) {
+    ghash::compose(ea, eb, a, b);
+    block_maps[2 * blockIdx.x] = ea;
+    block_maps[2 * blockIdx.x + 1] = eb;
+  }
+}
+
+// The rows launch with each row's y stored by its own thread (16 bytes a
+// lane, the lanes rows_per_thread rows apart), not staged as whole lines.
+template <int T>
+__global__ void __launch_bounds__(T)
+rows_direct_kernel(ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows,
+                   long long n, const Elem* __restrict__ prefix, const Elem* __restrict__ carry,
+                   uint32_t* __restrict__ ys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Prep* h = reinterpret_cast<Prep*>(smem);
+  ghash::build_keys(hkeys, in.k, (int)rows, h, nullptr, threadIdx.x, T);
+  const long long t = blockIdx.x * (long long)T + threadIdx.x;
+  const long long r0 = t * rows, r1 = r0 + rows < n ? r0 + rows : n;
+  if (r0 < r1)
+    ghash::chunk_run(in, h, r0, r1, ghash::apply(carry[blockIdx.x], prefix[2 * t],
+                                                 prefix[2 * t + 1]), ys);
+}
+
+struct Args {
+  ghash::Rows in;
+  const uint32_t* h;
+  const uint32_t* y0;
+  const long long* named;
+  uint32_t* out;
+  long long n, n_named;
+  int k;
+};
+
+// One launch (1 map, 2 carry, 3 rows) of the every-row form (named 0) or
+// of ghash_at (named 1) under plan p, the scratch laid out as the C entries
+// lay it out; which 0 runs the whole call.
+cudaError_t launch(int which, int named, const Args& a, const Plan& p, void* scratch,
+                   cudaStream_t st) {
+  const size_t map_smem = keys_smem(a.k, p.rows, true), prod_smem = keys_smem(a.k, p.rows, false),
+               row_smem = rows_smem(a.k, p.rows);
+  allow_smem((const void*)ghash_map_kernel<kThreads, 0>, map_smem);
+  allow_smem((const void*)ghash_map_kernel<kThreads, 1>, map_smem);
+  allow_smem((const void*)ghash_rows_kernel<kThreads>, row_smem);
+  const unsigned int grid = (unsigned int)p.blocks;
+  if (named) {
+    Elem* named_maps = static_cast<Elem*>(scratch);
+    int* named_blk = reinterpret_cast<int*>(named_maps + 2 * a.n_named);
+    Elem* block_maps = named_maps + 2 * a.n_named + (a.n_named + 3) / 4;
+    Elem* carry = block_maps + 2 * p.blocks;
+    if (which == 0 || which == 1)
+      ghash_map_kernel<kThreads, 1><<<grid, kThreads, map_smem, st>>>(
+          a.in, a.h, p.rows, a.n, a.named, a.n_named, named_maps, named_blk, nullptr, block_maps);
+    if (which == 0 || which == 2)
+      ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
+                                                           named_maps, named_blk, a.n_named, a.out);
+    return cudaGetLastError();
+  }
+  Elem* prefix = static_cast<Elem*>(scratch);
+  Elem* block_maps = prefix + 2 * p.blocks * kThreads;
+  Elem* carry = block_maps + 2 * p.blocks;
+  if (which == 0 || which == 1)
+    ghash_map_kernel<kThreads, 0><<<grid, kThreads, map_smem, st>>>(
+        a.in, a.h, p.rows, a.n, nullptr, 0, nullptr, nullptr, prefix, block_maps);
+  if (which == 4)
+    map_by_products_kernel<kThreads><<<grid, kThreads, prod_smem, st>>>(a.in, a.h, p.rows, a.n,
+                                                                        prefix, block_maps);
+  if (which == 0 || which == 2 || which == 4)
+    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
+                                                         nullptr, nullptr, 0, nullptr);
+  if (which == 5) {
+    ghash_map_kernel<kThreads, 0><<<grid, kThreads, map_smem, st>>>(
+        a.in, a.h, p.rows, a.n, nullptr, 0, nullptr, nullptr, prefix, block_maps);
+    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
+                                                         nullptr, nullptr, 0, nullptr);
+    rows_direct_kernel<kThreads><<<grid, kThreads, prod_smem, st>>>(a.in, a.h, p.rows, a.n,
+                                                                    prefix, carry, a.out);
+  }
+  if (which == 0 || which == 3 || which == 4)
+    ghash_rows_kernel<kThreads><<<grid, kThreads, row_smem, st>>>(a.in, a.h, p.rows, a.n,
+                                                                   prefix, carry, a.out);
+  return cudaGetLastError();
+}
+
+Args args(const void* x, const void* inject, const void* slots, const void* keep,
+          const void* hkeys, const void* y0, const void* rows_out, void* out, long long n,
+          long long n_named, int k) {
+  return Args{ghash::Rows{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(inject),
+                          static_cast<const int32_t*>(slots), static_cast<const int32_t*>(keep), k},
+              static_cast<const uint32_t*>(hkeys), static_cast<const uint32_t*>(y0),
+              static_cast<const long long*>(rows_out), static_cast<uint32_t*>(out), n, n_named, k};
+}
+
+}  // namespace
+
+// One launch of the kernels' own plan: which 1 map, 2 carry, 3 rows (the
+// every-row form, named 0, or ghash_at, named 1, whose rows_out and n_named
+// are read); scratch as ot_ghash_scratch_words gives it.
+extern "C" int ot_ghash_launch(int which, int named, const void* x, const void* inject,
+                               const void* slots, const void* keep, const void* hkeys,
+                               const void* y0, const void* rows_out, void* out, void* scratch,
+                               long long n, long long n_named, int k, void* stream) {
+  return (int)launch(which, named, args(x, inject, slots, keep, hkeys, y0, rows_out, out, n,
+                                        n_named, k),
+                     plan(n, k), scratch, static_cast<cudaStream_t>(stream));
+}
+
+// The design variants, a whole call each: code 0 the every-row form with
+// its map's a by a product a row (no table); code 1 ghash_at with at most 64
+// rows a thread (the former kernel's cap; 4x the threads at 2^24 rows);
+// code 2 the every-row form with the rows launch's stores one row a thread
+// (not staged).
+extern "C" int ot_ghash_variant(int code, const void* x, const void* inject, const void* slots,
+                                const void* keep, const void* hkeys, const void* y0,
+                                const void* rows_out, void* out, void* scratch, long long n,
+                                long long n_named, int k, void* stream) {
+  const Args a = args(x, inject, slots, keep, hkeys, y0, rows_out, out, n, n_named, k);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (code == 0) return (int)launch(4, 0, a, plan(n, k), scratch, st);
+  if (code == 2) return (int)launch(5, 0, a, plan(n, k), scratch, st);
+  if (code == 1) {
+    Plan p = plan(n, k);
+    if (p.rows > 64) {
+      p.rows = 64;
+      p.blocks = ((n + 63) / 64 + kThreads - 1) / kThreads;
+    }
+    return (int)launch(0, 1, a, p, scratch, st);
+  }
+  return -1;
+}
+
+// u32 words of scratch variant code 1 needs (more blocks than the plan's).
+extern "C" long long ot_ghash_variant_scratch_words(long long n, long long n_named) {
+  const long long blocks = ((n + 63) / 64 + kThreads - 1) / kThreads;
+  return 4 * (2 * n_named + (n_named + 3) / 4 + 3 * blocks);
+}
+
+// Launch `which` (1 map, 2 carry, 3 rows; named 1 the map of ghash_at) over
+// n rows and k keys: out[0] its grid, out[1] its dynamic shared memory,
+// out[2] its resident thread blocks an SM (the occupancy API).
+extern "C" int ot_ghash_launch_shape(int which, int named, long long n, int k, long long* out) {
+  const Plan p = plan(n, k);
+  const size_t smem = which == 2 ? 0 : which == 1 ? keys_smem(k, p.rows, true) : rows_smem(k, p.rows);
+  const void* fn = which == 1 ? (named ? (const void*)ghash_map_kernel<kThreads, 1>
+                                       : (const void*)ghash_map_kernel<kThreads, 0>)
+                 : which == 2 ? (const void*)ghash_carry_kernel<kThreads>
+                              : (const void*)ghash_rows_kernel<kThreads>;
+  allow_smem(fn, smem);
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  out[0] = which == 2 ? 1 : p.blocks;
+  out[1] = (long long)smem;
+  out[2] = blocks;
+  return (int)e;
+}
+"""
 #: Phase 2's ECB block-form sizes (one block a thread): one block, ragged
 #: warps, and a serve rung's worth.
 ECB_BLOCK_SIZES = (1, 2, 31, 33, 4096)
-#: Phase 9's ECB crossing table: both encrypt forms at each size.
+#: Phase 9's ECB and ctr_gen crossing tables: both forms at each size.
 ECB_FORM_SIZES = (1, 32, 1024, 1 << 14, 1 << 16, 1 << 18, 1 << 20)
+#: Phase 2's ctr_gen block-form sizes (one block a thread), as ECB's.
+CTR_BLOCK_SIZES = (1, 2, 31, 33, 4096)
+#: Phase 9's crypt_ctr chunks: calls that end mid-block (a one-block tail
+#: each), one that drains a partial block first, and a 33-byte one with a
+#: whole block between.
+CTR_TAIL_CHUNKS = (7, 16, 33, 5, 100)
+#: ctr_gen's time at 256 MiB before its block form (PERF.md's kernel table,
+#: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's: the main path
+#: keeps the group form.
+CTR_GEN_256MIB_MS = 0.7052
 #: Phase 5's byte-granular CFB128 run: chunks carried across calls from
 #: iv_off 5, as the reference's aes_crypt_cfb128 resume and the hex CLI's
 #: --iv-off give it; every step that needs a keystream block alone is one
@@ -1053,8 +1703,35 @@ def inv_sbox_depth(header: str) -> int:
 
 
 def sass_ghash(text: str) -> dict:
-    """The GHASH scan kernels' integer SASS (``csrc/ghash.cu``, 128 threads a
-    thread block), each as integer instructions and dependency depth:
+    """The GHASH kernels' SASS (``csrc/ghash.cu``), both pipes: ``product``,
+    one field product as the rows launch runs it a row (the innermost loop
+    of ``ghash_rows_kernel<128>`` holding the IMAD.WIDEs, 144 a product, its
+    counts divided by the products a trip; the row's load, flip and store
+    included); ``compose``, the carry launch's loop with the most IMAD.WIDE
+    (a composition: two products sharing a prepared multiplier). Each as
+    integer instructions (``int``), those on the FMA pipe (``fma``: IMAD in
+    all its forms), those on the integer pipe (``int_pipe``), IMAD.WIDE, and
+    dependency depth."""
+    out = {}
+    for key, kernel, per in (("product", "ghash_rows_kernel", 144), ("compose", "ghash_carry_kernel",
+                                                                     288)):
+        ins, _back = sass_function(text, kernel, 128)
+        wide = lambda lp: sum(1 for a, _b, t in ins  # noqa: E731
+                              if lp["range"][0] <= a <= lp["range"][1] and "IMAD.WIDE" in t)
+        lp = max(sass_round_loops(text, kernel, 128), key=wide)
+        trips = max(1, round(wide(lp) / per))
+        fma = lp["hist"].get("IMAD", 0)
+        out[key] = {"int": lp["int"] / trips, "fma": fma / trips,
+                    "int_pipe": (lp["int"] - fma) / trips, "imad_wide": wide(lp) / trips,
+                    "depth": lp["depth"] / trips, "per_loop_trip": trips,
+                    "hist": dict(list(lp["hist"].items())[:12])}
+    return out
+
+
+def sass_ghash_former(text: str) -> dict:
+    """The parent's GHASH scan kernels' integer SASS (``GHASH_FORMER_SOURCE``,
+    128 threads a thread block), each as integer instructions and dependency
+    depth:
     ``row``, one row of ``ghash_rows_kernel`` (a multiply by H: the word
     loop, four trips, the one inner loop that reads columns from shared
     memory, and the rest of the row loop around it); ``map_row``, one row
@@ -1112,10 +1789,12 @@ def main() -> int:
                 "chain": ceiling.chain,
                 "seq_encrypt": cuda_aes.seq_encrypt,
                 "arc4_prga": cuda_arc4.prga,
-                "ghash_scan": cuda_ghash.ghash_scan}
+                "ghash_scan": cuda_ghash.ghash_scan,
+                "ghash_at": cuda_ghash.ghash_at}
     mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
                    "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
-                   "ecb_encrypt": cuda_aes.encrypt_words}
+                   "ecb_encrypt": cuda_aes.encrypt_words,
+                   "ctr_gen": cuda_aes.ctr_crypt_words_fused}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1127,42 +1806,51 @@ def main() -> int:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     def form_counts():
-        """``ctr_mk`` and ECB encrypt launches by the form that ran, per
-        wrapper."""
+        """``ctr_mk``, ECB encrypt and ``ctr_gen`` launches by the form that
+        ran, per wrapper."""
         return {name: dict(fn.form_launches) for name, fn in mk_wrappers.items()}
 
     # 1. Build.
     t0 = time.perf_counter()
     lib_path = str(cuda_build.library_path())
-    # Phase 9's probes (the shared-memory chase, the empty kernel) build
-    # beside the kernels, at once, one nvcc each.
+    # Phase 9's and 11's probes (the shared-memory chase, the empty kernel,
+    # the design variants, the parent's GHASH kernel and the GHASH kernel's
+    # per-launch entries and variants) build beside the kernels, at once, one
+    # nvcc each.
     probe_dir = tempfile.mkdtemp(prefix="ot_probes_")
     atexit.register(shutil.rmtree, probe_dir, True)
     probe_builds = {}
     for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE),
-                         ("variants", VARIANTS_SOURCE)):
+                         ("variants", VARIANTS_SOURCE), ("ghash_former", GHASH_FORMER_SOURCE),
+                         ("ghash_variants", GHASH_VARIANTS_SOURCE)):
         cu, so = os.path.join(probe_dir, f"{name}.cu"), os.path.join(probe_dir, f"{name}.so")
         with open(cu, "w", encoding="utf-8") as fh:
             fh.write(source)
         probe_builds[name] = (so, subprocess.Popen(
             [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", cuda_build.ARCH, "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{cuda_build.CSRC}", "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{cuda_build.CSRC}",
+             "-o", so, cu], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     cuda_build.load()
+    probe_ptxas = {}
     for name, (so, proc) in probe_builds.items():
         _, err = proc.communicate(timeout=600)
         if proc.returncode:
             raise SystemExit(f"the {name} probe did not build:\n{err[-3000:]}")
-    chase_so, empty_so, variants_so = (probe_builds[k][0] for k in ("chase", "empty", "variants"))
+        probe_ptxas[name] = cuda_build.ptxas_kernels(err)
+    chase_so, empty_so, variants_so, former_so, ghash_var_so = (probe_builds[k][0] for k in (
+        "chase", "empty", "variants", "ghash_former", "ghash_variants"))
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
-        f"shared-memory chase, the empty kernel and the design variants)")
+        f"shared-memory chase, the empty kernel, the design variants, the parent's GHASH kernel "
+        f"and the GHASH kernel's per-launch entries)")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
-    missing = [f"{kernel}<{nr}>" for kernel in ("cbc_mk_block_kernel", "ecb_encrypt_block_kernel")
+    missing = [f"{kernel}<{nr}>" for kernel in ("cbc_mk_block_kernel", "ecb_encrypt_block_kernel",
+                                                "ctr_gen_block_kernel")
                for nr in (10, 12, 14) if f"{kernel}<{nr}>" not in ptxas]
-    missing += [k for k in ("cbc_mk_stamped_kernel<10>", "ghash_map_kernel<128>",
-                            "ghash_carry_kernel<128>", "ghash_rows_kernel<128>") if k not in ptxas]
+    missing += [k for k in ("cbc_mk_stamped_kernel<10>", "ghash_map_kernel<128,0>",
+                            "ghash_map_kernel<128,1>", "ghash_carry_kernel<128>",
+                            "ghash_rows_kernel<128>") if k not in ptxas]
     if missing:
         raise SystemExit(f"the kernels built without {missing}")
 
@@ -1220,9 +1908,12 @@ def main() -> int:
         d = (got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)
         return int((got != want).sum()), int(d.abs().max()) if d.numel() else 0
 
-    def compare(w, ctr, rk, nr):
-        return diff(cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr),
-                    cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr))
+    def compare(w, ctr, rk, nr, forms=cuda_aes.CTR_GEN_FORMS):
+        """Mismatching words of ``ctr_gen`` in each of ``forms`` against the
+        plain version, by form."""
+        want = cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr)
+        return {form: diff(cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr, form=form), want)[0]
+                for form in forms}
 
     def schedules(key):
         nr, rk = expand_key_enc(key)
@@ -1230,19 +1921,33 @@ def main() -> int:
 
     # 2. Kernels vs plain versions on the card.
     mismatches = 0
-    cases = 0
+    cases = block_cases = 0
     for bits in (128, 192, 256):
         key = np.random.default_rng(bits).integers(0, 256, bits // 8, dtype=np.uint8).tobytes()
         for hexnonce in WRAP_NONCES:
             for n in (1, 31, 33, 1000, 1 << 20):
                 if n == 1 << 20 and hexnonce != WRAP_NONCES[1]:
                     continue  # 16 MiB once per key size, across a 64-bit carry
-                m, _ = compare(*tensors(n, key, hexnonce, seed=n + bits))
-                mismatches += m
+                by_form = compare(*tensors(n, key, hexnonce, seed=n + bits))
+                mismatches += sum(by_form.values())
                 cases += 1
-                if m:
-                    log(f"MISMATCH ctr_gen bits={bits} nonce={hexnonce} n={n}: {m} words")
-    log(f"ctr_gen vs plain: {cases} cases, {mismatches} mismatching words")
+                if any(by_form.values()):
+                    log(f"MISMATCH ctr_gen bits={bits} nonce={hexnonce} n={n}: {by_form} words")
+            # The block form at its own sizes, and both sides of the crossing
+            # in the auto form.
+            lib_c = cuda_build.load()
+            top = next(n for n in (1 << j for j in range(25)) if lib_c.ot_ctr_gen_form(2 * n, 0) == 1)
+            for n, forms in [(n, ("block",)) for n in CTR_BLOCK_SIZES] + [
+                    (top, ("auto",)), (top + 1, ("auto",))]:
+                by_form = compare(*tensors(n, key, hexnonce, seed=3 * n + bits), forms=forms)
+                mismatches += sum(by_form.values())
+                block_cases += 1
+                if any(by_form.values()):
+                    log(f"MISMATCH ctr_gen bits={bits} nonce={hexnonce} n={n}: {by_form} words")
+    log(f"ctr_gen vs plain: {cases} cases in each form (auto, group forced, block forced) at N in "
+        f"(1, 31, 33, 1000, 2^20), {block_cases} more (the block form at N in {CTR_BLOCK_SIZES}, "
+        f"the auto form at {top} and {top + 1} blocks, either side of the crossing), every "
+        f"counter wrap: {mismatches} mismatching words")
     if mismatches:
         raise SystemExit("ctr_gen disagrees with its plain version")
     ecb_mismatches = {"ecb_encrypt": 0, "ecb_decrypt": 0}
@@ -1641,14 +2346,19 @@ def main() -> int:
     reset_counts()
     line = bench.run(device=dev, nbytes=MAIN_BYTES, iters=5, reps=3)
     ctr_counts = counts()
+    ctr_forms = form_counts()["ctr_gen"]
     log(json.dumps(line))
     if f"digest={MAIN_DIGEST:#010x}" not in line["metric"]:
         raise SystemExit(f"main path digest is not {MAIN_DIGEST:#010x}: {line['metric']}")
     if ctr_counts["ctr_gen"] <= 0:
         raise SystemExit("the CTR main path launched no ctr_gen kernel")
+    if ctr_forms != {"group": ctr_counts["ctr_gen"], "block": 0}:
+        raise SystemExit(f"the CTR main path's ctr_gen launches were not all in the group form: "
+                         f"{ctr_forms}")
     ctr_gbps = line["value"]
     log(f"CTR main path: {line['value']} GB/s median (min {line['value_min']}, max "
-        f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}; card: {card}")
+        f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}, ctr_gen by form "
+        f"{ctr_forms}; card: {card}")
 
     # 5. The block-mode path at 256 MiB, counted.
     nr, rk, rk_dec = schedules(bench.KEY)
@@ -2171,22 +2881,22 @@ def main() -> int:
     variants.ot_ecb_variant.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong, vp]
     variants.ot_ecb_variant.restype = ctypes.c_int
 
-    def in_turns(fns, turns=VARIANT_TURNS):
-        """Each of ``fns`` (the first is the kernel) timed by ``graph_ms`` in
-        ``turns`` turns, the order reversed every other turn: per variant the
-        median, least and quartiles (ms), and the turns in which the kernel
-        was the faster of the two."""
+    def in_turns(fns, turns=VARIANT_TURNS, reps=100):
+        """Each of ``fns`` (the first is the kernel) timed by ``graph_ms``
+        (``reps`` calls a graph) in ``turns`` turns, the order reversed every
+        other turn: per variant the median, least and quartiles (ms), the
+        turns in which the kernel was the faster of the two, and the times."""
         times = {name: [] for name in fns}
         for turn in range(turns):
             for name in (list(fns) if turn % 2 == 0 else list(reversed(list(fns)))):
-                times[name].append(graph_ms(fns[name]))
+                times[name].append(graph_ms(fns[name], reps))
         kernel = times[next(iter(fns))]
         out = {}
         for name, v in times.items():
             q = statistics.quantiles(v, n=4)
             out[name] = {"median_ms": statistics.median(v), "min_ms": min(v), "q1_ms": q[0],
                          "q3_ms": q[2], "kernel_faster_turns": sum(
-                             a < b for a, b in zip(kernel, v))}
+                             a < b for a, b in zip(kernel, v)), "times_ms": v}
         return out
 
     def turns_line(res):
@@ -2300,28 +3010,117 @@ def main() -> int:
     ecb_entry["block_form"]["design_variants_ms_graph"] = ecb_variants
     # ctr_gen's one-block tail launch: a crypt_ctr call that ends mid-block
     # makes its last keystream block with one ctr_gen launch over one block
-    # (models/aes.py AES.crypt_ctr).
-    tail = lambda: cuda_aes.ctr_crypt_words_fused(one, ctr, rk_ctr, nr)  # noqa: E731
-    m, _ = diff(tail(), cuda_aes.ctr_crypt_words_fused_plain(one, ctr, rk_ctr, nr))
-    if m:
-        raise SystemExit(f"ctr_gen vs plain at one block: {m} mismatching words")
-    tail_ms, tail_smi = sampled_ms(tail)
-    tail_card = graph_ms(tail)
+    # (models/aes.py AES.crypt_ctr), in the auto form (the block form) and
+    # in each form forced. The latency bound is the group form's round loop
+    # times the rounds (the function's path, the same for both forms).
     tail_depth = sass_round_loops(sass_text, "ctr_gen_kernel", nr)[0]["depth"] * (nr - 1)
-    tail_lat = latency_ms(tail_depth, tail_smi["clock_mhz"])
     tail_roof, tail_by = measured_bound(ctr_ops_per_group(nr)[0] / 32, 32 + 16 + 4 * rk_ctr.numel())
-    ctr_tail = {"ms": tail_ms, "card_ms_graph": tail_card,
-                "host_issue_ms": host_issue_ms(tail), "sampled_clock_mhz": tail_smi["clock_mhz"],
-                "latency_bound_ms": tail_lat, "dependent_instructions": tail_depth,
-                "roofline_bound_ms": tail_roof,
-                "share_of_larger_bound": max(tail_lat, tail_roof) / tail_card}
-    next(e for e in kernels if e["name"] == "ctr_gen")["one_block_tail"] = ctr_tail
-    log(f"one-block ctr_gen launch (crypt_ctr's tail): host issue "
-        f"{ctr_tail['host_issue_ms'] * 1e3:.2f} us, {tail_ms * 1e3:.2f} us back to back, "
-        f"{tail_card * 1e3:.3f} us of card in a CUDA graph; latency bound {tail_depth} x "
-        f"{lat_cycles:.3f} cycles = {tail_lat * 1e3:.4f} us, roofline bound "
-        f"{tail_roof * 1e3:.6f} us ({tail_by}); at "
-        f"{100 * ctr_tail['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    tail_forms = {}
+    for form in cuda_aes.CTR_GEN_FORMS:
+        tail = lambda form=form: cuda_aes.ctr_crypt_words_fused(one, ctr, rk_ctr, nr, form=form)  # noqa: E731
+        m, _ = diff(tail(), cuda_aes.ctr_crypt_words_fused_plain(one, ctr, rk_ctr, nr))
+        if m:
+            raise SystemExit(f"ctr_gen ({form} form) vs plain at one block: {m} mismatching words")
+        tail_ms, tail_smi = sampled_ms(tail)
+        tail_card = graph_ms(tail)
+        tail_lat = latency_ms(tail_depth, tail_smi["clock_mhz"])
+        tail_forms[form] = {
+            "form": cuda_aes.CTR_GEN_FORMS[cuda_build.load().ot_ctr_gen_form(
+                1, cuda_aes.CTR_GEN_FORMS.index(form))],
+            "ms": tail_ms, "card_ms_graph": tail_card, "host_issue_ms": host_issue_ms(tail),
+            "sampled_clock_mhz": tail_smi["clock_mhz"], "latency_bound_ms": tail_lat,
+            "dependent_instructions": tail_depth, "roofline_bound_ms": tail_roof,
+            "share_of_larger_bound": max(tail_lat, tail_roof) / tail_card}
+        log(f"one-block ctr_gen launch (crypt_ctr's tail), form {form} (runs the "
+            f"{tail_forms[form]['form']} form): host issue "
+            f"{tail_forms[form]['host_issue_ms'] * 1e3:.2f} us, {tail_ms * 1e3:.2f} us back to "
+            f"back, {tail_card * 1e3:.3f} us of card in a CUDA graph; latency bound {tail_depth} x "
+            f"{lat_cycles:.3f} cycles = {tail_lat * 1e3:.4f} us, roofline bound "
+            f"{tail_roof * 1e3:.6f} us ({tail_by}); at "
+            f"{100 * tail_forms[form]['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    ctr_blk = sass_block_kernel(sass_text, "ctr_gen_block_kernel", nr, nr)
+    log(f"ctr_gen_block_kernel<{nr}> SASS: {ctr_blk['int']} integer instructions a block "
+        f"({'rolled' if ctr_blk['rolled'] else 'unrolled'} rounds; {ctr_blk['fma']} of them IMAD "
+        f"on the FMA pipe), dependency depth {ctr_blk['depth']}; ptxas "
+        f"{ptxas.get(f'ctr_gen_block_kernel<{nr}>')}")
+    # The crossing: both forms from 1 block to 2^20, in a CUDA graph (card
+    # time) and back to back; kCtrGenBlockFormMax is the largest size at which
+    # the block form is the faster in the graph.
+    ctr_table = []
+    for n in ECB_FORM_SIZES:
+        w_n = words[:n]
+        row = {"n_blocks": n,
+               "auto_form": cuda_aes.CTR_GEN_FORMS[cuda_build.load().ot_ctr_gen_form(n, 0)]}
+        for form in ("group", "block"):
+            fn = lambda w_n=w_n, form=form: cuda_aes.ctr_crypt_words_fused(  # noqa: E731
+                w_n, ctr, rk_ctr, nr, form=form)
+            reps = max(3, int(0.2 / (events_ms(fn, 1) / 1e3)))
+            row[f"{form}_ms"] = events_ms(fn, reps)
+            row[f"{form}_card_ms_graph"] = graph_ms(fn)
+        row["roofline_bound_ms"] = measured_bound(n / 32 * ctr_ops_per_group(nr)[0],
+                                                  32 * n + 16 + 4 * rk_ctr.numel())[0]
+        row["faster"] = "block" if row["block_card_ms_graph"] < row["group_card_ms_graph"] else "group"
+        ctr_table.append(row)
+        log(f"ctr_gen forms at {n} blocks: in a CUDA graph group "
+            f"{row['group_card_ms_graph'] * 1e3:.3f} us, block {row['block_card_ms_graph'] * 1e3:.3f} "
+            f"us; back to back group {row['group_ms'] * 1e3:.3f} us, block "
+            f"{row['block_ms'] * 1e3:.3f} us (faster in the graph: {row['faster']}; auto: "
+            f"{row['auto_form']}); roofline bound {row['roofline_bound_ms'] * 1e3:.4f} us; card: "
+            f"{card}")
+    log(f"ctr_gen auto form picks the faster form at every size of the table: "
+        f"{all(r['auto_form'] == r['faster'] for r in ctr_table)}")
+    # crypt_ctr's tail path, counted: chunks that end mid-block through
+    # AES.crypt_ctr on the card, equal to the CPU's; each partial tail (and
+    # each short bulk run) is one block-form launch.
+    tail_ctx, tail_cpu = aes.AES(bench.KEY, device=dev), aes.AES(bench.KEY, device="cpu")
+    tail_data = np.random.default_rng(7).integers(0, 256, sum(CTR_TAIL_CHUNKS), dtype=np.uint8)
+    tail_st = tail_st_cpu = (0, np.frombuffer(bytes.fromhex(WRAP_NONCES[4]), np.uint8),
+                             np.zeros(16, np.uint8))
+    reset_counts()
+    tail_pos, tail_same = 0, True
+    for size in CTR_TAIL_CHUNKS:
+        o, *tail_st = tail_ctx.crypt_ctr(*tail_st, tail_data[tail_pos:tail_pos + size])
+        o_cpu, *tail_st_cpu = tail_cpu.crypt_ctr(*tail_st_cpu, tail_data[tail_pos:tail_pos + size])
+        tail_same &= bool(np.array_equal(o, o_cpu) and tail_st[0] == tail_st_cpu[0]
+                          and np.array_equal(tail_st[1], tail_st_cpu[1])
+                          and np.array_equal(tail_st[2], tail_st_cpu[2]))
+        tail_pos += size
+    torch.cuda.synchronize()
+    tail_path_forms = form_counts()["ctr_gen"]
+    log(f"crypt_ctr in chunks {CTR_TAIL_CHUNKS} on the card: equal to the CPU's "
+        f"{tail_same}; ctr_gen launches by form {tail_path_forms}; card: {card}")
+    if not tail_same or tail_path_forms["group"] or not tail_path_forms["block"]:
+        raise SystemExit(f"crypt_ctr's tail path failed: equal {tail_same}, forms {tail_path_forms}")
+    ctr_entry = next(e for e in kernels if e["name"] == "ctr_gen")
+    ctr_entry["one_block_tail"] = tail_forms["auto"]
+    ctr_entry["one_block_tail_by_form"] = tail_forms
+    ctr_entry["launches_by_form"] = ctr_forms
+    ctr_entry["former_256MiB_ms"] = CTR_GEN_256MIB_MS
+    ctr_entry["within_2_percent_of_former_256MiB"] = abs(
+        ctr_entry["ms"] / CTR_GEN_256MIB_MS - 1) <= 0.02
+    one_ctr_ops_ms = ctr_ops_per_group(nr)[0] / 32 / int_ops_per_ms
+    one_ctr_bytes_ms = (32 + 16 + 4 * rk_ctr.numel()) / HBM_BYTES_PER_S * 1e3
+    ctr_entry["block_form"] = {
+        "name": "ctr_gen_block_kernel", "route": "cuda",
+        "source": "our_tree_tpu_torch/csrc/ctr_gen.cu",
+        "replaces": "our_tree_tpu/ops/pallas_aes.py:601",
+        "launches": tail_path_forms["block"],
+        "launches_path": f"AES.crypt_ctr in chunks {CTR_TAIL_CHUNKS} (the CTR main path: "
+                         f"{ctr_forms['block']})",
+        "max_abs_err": 0, "ms": tail_forms["block"]["ms"],
+        "card_ms_graph": tail_forms["block"]["card_ms_graph"],
+        "plain_ms": events_ms(lambda: cuda_aes.ctr_crypt_words_fused_plain(one, ctr, rk_ctr, nr), 20),
+        "bound_ms": max(one_ctr_ops_ms, one_ctr_bytes_ms),
+        "bound_by": "operations" if one_ctr_ops_ms >= one_ctr_bytes_ms else "bytes",
+        "bound_ms_measured": tail_roof, "latency_bound_ms": tail_forms["block"]["latency_bound_ms"],
+        "library_ms": None,
+        "shape": "one block (AES.crypt_ctr's tail)",
+        "sass_int_per_block": ctr_blk["int"], "sass_fma_per_block": ctr_blk["fma"],
+        "sass_depth": ctr_blk["depth"], "rolled_rounds": ctr_blk["rolled"],
+        "forms_table": ctr_table}
+    log(f"ctr_gen at 256 MiB (group form): {ctr_entry['ms']:.4f} ms a launch against "
+        f"{CTR_GEN_256MIB_MS} before its block form: within 2 %: "
+        f"{ctr_entry['within_2_percent_of_former_256MiB']}; card: {card}")
 
     # seq_encrypt: the two sequential encrypts of phase 5 (one stream of
     # 4,096 blocks) and the batch (4,096 streams of 64 blocks), each one launch.
@@ -3014,7 +3813,87 @@ def main() -> int:
         return (t(x), t(hk), torch.from_numpy(slots).to(dev), torch.from_numpy(keep).to(dev),
                 t(y0), t(inj))
 
+    # The parent's GHASH kernel (GHASH_FORMER_SOURCE) and the GHASH kernel's
+    # per-launch entries and design variants (GHASH_VARIANTS_SOURCE).
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    former = ctypes.CDLL(former_so)
+    former.ot_former_ghash.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ll, ci, vp]
+    former.ot_former_ghash.restype = ci
+    former.ot_former_scratch_words.argtypes = [ll]
+    former.ot_former_scratch_words.restype = ll
+    former.ot_former_launch_shape.argtypes = [ci, ll, ci, ctypes.POINTER(ll)]
+    former.ot_former_launch_shape.restype = ci
+    gvar = ctypes.CDLL(ghash_var_so)
+    gvar.ot_ghash_launch.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ci, vp]
+    gvar.ot_ghash_launch.restype = ci
+    gvar.ot_ghash_variant.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ci, vp]
+    gvar.ot_ghash_variant.restype = ci
+    gvar.ot_ghash_variant_scratch_words.argtypes = [ll, ll]
+    gvar.ot_ghash_variant_scratch_words.restype = ll
+    gvar.ot_ghash_launch_shape.argtypes = [ci, ci, ll, ci, ctypes.POINTER(ll)]
+    gvar.ot_ghash_launch_shape.restype = ci
+    glib = cuda_build.load()
+
+    class GhashCall:
+        """One GHASH call's inputs on the card, with each way of running it
+        as a function of no arguments (scratch and outputs allocated once,
+        so each can be captured in a CUDA graph): the wrappers, the parent's
+        kernel whole or one launch alone, the kernel's own launches alone,
+        and the design variants."""
+
+        def __init__(self, x, hk, sl, kp, y0, inj, rows):
+            self.args = (x, hk, sl, kp, y0)
+            self.inj, self.rows = inj, [int(r) for r in rows]
+            n, k = x.shape[0], hk.shape[0]
+            self.n, self.k = n, k
+            self.rows_t = torch.tensor(self.rows, dtype=torch.int64, device=dev)
+            self.out = torch.empty_like(x)
+            self.out_at = torch.empty((len(self.rows), 4), dtype=torch.int32, device=dev)
+            words = lambda c: torch.empty(c, dtype=torch.int32, device=dev)  # noqa: E731
+            self.s_former = words(former.ot_former_scratch_words(n))
+            self.s_scan = words(glib.ot_ghash_scratch_words(n, k, -1))
+            self.s_at = words(glib.ot_ghash_scratch_words(n, k, len(self.rows)))
+            self.s_var = words(gvar.ot_ghash_variant_scratch_words(n, len(self.rows)))
+            self.ptrs = [t.data_ptr() for t in (x, inj, sl, kp, hk, y0)]
+
+        def scan(self):
+            return cuda_ghash.ghash_scan(*self.args, inject=self.inj)
+
+        def at(self):
+            return cuda_ghash.ghash_at(*self.args, self.rows_t, inject=self.inj)
+
+        def former(self, which=0):
+            if former.ot_former_ghash(which, *self.ptrs, self.out.data_ptr(),
+                                      self.s_former.data_ptr(), self.n, self.k,
+                                      torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("the parent's GHASH kernel did not launch")
+            return self.out
+
+        def launch(self, which, named):
+            if gvar.ot_ghash_launch(which, named, *self.ptrs, self.rows_t.data_ptr(),
+                                    (self.out_at if named else self.out).data_ptr(),
+                                    (self.s_at if named else self.s_scan).data_ptr(), self.n,
+                                    len(self.rows), self.k, torch.cuda.current_stream().cuda_stream):
+                raise SystemExit(f"GHASH launch {which} (named {named}) did not launch")
+            return self.out_at if named else self.out
+
+        def variant(self, code):
+            out, scratch = (self.out_at, self.s_var) if code == 1 else (self.out, self.s_scan)
+            if gvar.ot_ghash_variant(code, *self.ptrs, self.rows_t.data_ptr(), out.data_ptr(),
+                                     scratch.data_ptr(), self.n, len(self.rows), self.k,
+                                     torch.cuda.current_stream().cuda_stream):
+                raise SystemExit(f"GHASH variant {code} did not launch")
+            return out
+
+    def named_rows(n, seed):
+        """Sorted random named rows of N rows: the first, the last, up to 40
+        more and one of them twice."""
+        rng = np.random.default_rng(seed)
+        rows = sorted({0, n - 1, *rng.integers(0, n, min(n, 40)).tolist()})
+        return sorted(rows + rows[len(rows) // 2:len(rows) // 2 + 1])
+
     gh_bad, gh_cases, gh_err, gh_plain_ms = 0, 0, 0, {}
+    at_bad, at_cases, former_bad = 0, 0, 0
     for n in GHASH_SIZES:
         for k in ((8,) if n > 4096 else (1, 8, 64)):
             x, hk, sl, kp, y0, inj = ghash_inputs(n, k, seed=100 * n + k)
@@ -3023,15 +3902,36 @@ def main() -> int:
             want = cuda_ghash.ghash_scan_plain(x, hk, sl, kp, y0, inject=inj)
             torch.cuda.synchronize()
             gh_plain_ms[(n, k)] = (time.perf_counter() - t0) * 1e3
-            for got in (cuda_ghash.ghash_scan(x, hk, sl, kp, y0, inject=inj),
-                        cuda_ghash.ghash_scan(x ^ inj, hk, sl, kp, y0)):
+            got_scan = cuda_ghash.ghash_scan(x, hk, sl, kp, y0, inject=inj)
+            for got in (got_scan, cuda_ghash.ghash_scan(x ^ inj, hk, sl, kp, y0)):
                 m, e = diff(got, want)
                 gh_bad, gh_err, gh_cases = gh_bad + m, max(gh_err, e), gh_cases + 1
                 if m:
                     log(f"MISMATCH ghash_scan n={n} k={k}: {m} words")
+            call = GhashCall(x, hk, sl, kp, y0, inj, named_rows(n, seed=n + k))
+            got_at = call.at()
+            # ghash_at against ghash_at_plain (ghash_scan_plain's rows: the
+            # plain loop above, not run again), and against ghash_scan.
+            m = diff(got_at, want[call.rows_t])[0] + diff(got_at, got_scan[call.rows_t])[0]
+            at_bad, at_cases = at_bad + m, at_cases + 1
+            if m:
+                log(f"MISMATCH ghash_at n={n} k={k}: {m} words")
+            m = diff(call.former(), want)[0]
+            former_bad += m
+            if m:
+                log(f"MISMATCH the parent's ghash_scan n={n} k={k}: {m} words")
+    # ghash_at_plain itself, at the smaller sizes.
+    x, hk, sl, kp, y0, inj = ghash_inputs(4096, 8, seed=4097)
+    rows = named_rows(4096, seed=5)
+    m = diff(cuda_ghash.ghash_at(x, hk, sl, kp, y0, rows, inject=inj),
+             cuda_ghash.ghash_at_plain(x, hk, sl, kp, y0, rows, inject=inj))[0]
+    at_bad, at_cases = at_bad + m, at_cases + 1
     log(f"ghash_scan vs plain: {gh_cases} cases (N in {GHASH_SIZES}, K 1/8/64, 8 at 65,537; "
         f"random slots, keep, y0, inject, and x ^ inject without it): {gh_bad} mismatching "
-        f"words; the plain row loop {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows; card: {card}")
+        f"words; ghash_at at random named rows (up to 42, one twice) against the plain rows and "
+        f"ghash_scan's: {at_cases} cases, {at_bad} mismatching words; the parent's kernel "
+        f"{former_bad}; the plain row loop {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows; "
+        f"card: {card}")
     # The serve rungs through the seam, K = 8 in the batcher's layout, both
     # directions, nr 10/12/14: the CUDA engine (ctr_mk, ghash_scan) against
     # the plain engine on the same card.
@@ -3045,19 +3945,27 @@ def main() -> int:
         for rung in serve_rungs:
             x, _hk, sl, kp, _y0, inj = ghash_inputs(rung, 8, seed=rung + bits, rung_layout=True)
             ctr_g = random_words(rung, seed=rung + bits)
+            # Each request's last row, as the gcm serve modes will name them.
+            starts = torch.nonzero(kp == 0).flatten().tolist()
+            last_rows = sorted({r - 1 for r in starts if r > 0} | {rung - 1})
             for direction in (agcm.SEAL, agcm.OPEN):
                 args = (x, ctr_g, rks_g, sl, hm_g, inj, kp, mats[0][0])
                 got = agcm.gcm_crypt_ghash_words(*args, aes.CUDA_ENGINE, direction)
                 want = agcm.gcm_crypt_ghash_words(*args, aes.PLAIN_ENGINE, direction)
-                m = diff(got[0], want[0])[0] + diff(got[1], want[1])[0]
+                got_r = agcm.gcm_crypt_ghash_words(*args, aes.CUDA_ENGINE, direction,
+                                                   rows=last_rows)
+                m = (diff(got[0], want[0])[0] + diff(got[1], want[1])[0]
+                     + diff(got_r[0], want[0])[0]
+                     + diff(got_r[1], want[1][torch.tensor(last_rows, device=dev)])[0])
                 seam_bad, seam_cases = seam_bad + m, seam_cases + 1
                 if m:
                     log(f"MISMATCH gcm seam bits={bits} rung={rung} {direction}: {m} words")
     log(f"gcm_crypt_ghash_words (CUDA engine vs plain engine on the card) at the serve rungs "
-        f"{serve_rungs}, K = 8 in the batcher's layout, seal and open, AES-128/192/256: "
-        f"{seam_cases} cases, {seam_bad} mismatching words of out and ys")
-    if gh_bad or seam_bad:
-        raise SystemExit("ghash_scan disagrees with its plain version")
+        f"{serve_rungs}, K = 8 in the batcher's layout, seal and open, AES-128/192/256, every "
+        f"row and with rows = each request's last row (ghash_at): {seam_cases} cases, "
+        f"{seam_bad} mismatching words of out and ys")
+    if gh_bad or seam_bad or at_bad or former_bad:
+        raise SystemExit("a GHASH kernel disagrees with its plain version")
     with open(os.path.join(ROOT, "tests", "golden", "gcm_kats.json"), encoding="utf-8") as fh:
         gcm_kats = json.load(fh)["kats"]
     for kat in gcm_kats:
@@ -3152,9 +4060,9 @@ def main() -> int:
             "open returns the plaintext": back == pt_,
             "ciphertext = the CTR seam under inc32": same_ctr,
             "tag = the matrix-power formulation's": indep_tag == tag_,
-            "seal: one ctr_mk and one ghash_scan call, nothing else": seal_counts == {
-                **{n_: 0 for n_ in seal_counts}, "ctr_mk": 1, "ghash_scan": 1},
-            "open: one ctr_mk and one ghash_scan call, nothing else": open_counts == seal_counts,
+            "seal: one ctr_mk and one ghash_at call, nothing else": seal_counts == {
+                **{n_: 0 for n_ in seal_counts}, "ctr_mk": 1, "ghash_at": 1},
+            "open: one ctr_mk and one ghash_at call, nothing else": open_counts == seal_counts,
         }
         log(f"gcm_seal/gcm_open at {len(pt_)} bytes on the card: seal {seal_s:.3f} s, open "
             f"{open_s:.3f} s wall (host staging included); launches seal {seal_counts}, open "
@@ -3203,99 +4111,282 @@ def main() -> int:
     if rows_bad or rows_checked < 500 or tag_from_rows.hex() != gcm_tags[0]:
         raise SystemExit("the seal's GHASH rows differ from the independent formulation")
     del out_m, ys_m
-    seam_ms = events_ms(seam_fn, 5)
+    # The seal's dispatch as gcm_seal makes it (the seam with rows = the last
+    # full block's: ctr_mk, then ghash_at), and the every-row seam, on the
+    # seal's arrays.
+    seal_fn = lambda: agcm.gcm_crypt_ghash_words(*seam_args, rows=[nfull_m])  # noqa: E731
+    seam_ms = events_ms(seal_fn, 5)
+    seam_every_ms = events_ms(seam_fn, 5)
     seal_gbps = MAIN_BYTES / seam_ms / 1e6
-    # ghash_scan alone on the seal's rows: the input words stand for x (the
-    # scan's time does not depend on the data), with the seal's inject.
-    gh_args = (seam_args[0], agcm._h_words(hmat_m[None], dev), seam_args[3], seam_args[6],
-               torch.zeros(4, dtype=torch.int32, device=dev))
-    gh_fn = lambda: cuda_ghash.ghash_scan(*gh_args, inject=seam_args[5])  # noqa: E731
-    gh_ms, gh_clocks = sampled_ms(gh_fn)
-    gh_ms_graph = graph_ms(gh_fn, reps=5)
-    # The rung: 4,096 rows, K = 8, the batcher's layout.
+    # The GHASH call alone on the seal's rows: the input words stand for x
+    # (the time does not depend on the data), with the seal's inject.
+    seal_call = GhashCall(seam_args[0], agcm._h_words(hmat_m[None], dev), seam_args[3],
+                          seam_args[6], torch.zeros(4, dtype=torch.int32, device=dev),
+                          seam_args[5], [nfull_m])
+    m = (diff(seal_call.at(), seal_call.scan()[seal_call.rows_t])[0]
+         + diff(seal_call.former(), seal_call.scan())[0])
+    if m:
+        raise SystemExit(f"at the seal's shape ghash_at, ghash_scan and the parent's kernel "
+                         f"disagree: {m} words")
+    at_ms, at_clocks = sampled_ms(seal_call.at)
+    at_graph = graph_ms(seal_call.at, reps=5)
+    gh_ms, gh_clocks = sampled_ms(seal_call.scan)
+    gh_ms_graph = graph_ms(seal_call.scan, reps=5)
+    # The plain version at the seal's shape: the same row's GHASH by
+    # ghash_by_powers (chunked matrix powers in float32 matmuls, a PyTorch
+    # formulation independent of the kernel), timed on the seal's blocks.
+    blocks_p = torch.cat([packing.words_tensor(packing.np_bytes_to_words(np.frombuffer(
+        aghash.pad16(GCM_AAD), np.uint8)), dev).reshape(-1, 4),
+        agcm.gcm_crypt_ghash_words(*seam_args[:-1], agcm.SEAL, rows=[1])[0][1:]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _pad, run_ys = ghash_by_powers(h_m, blocks_p)
+    torch.cuda.synchronize()
+    at_plain_ms = (time.perf_counter() - t0) * 1e3
+    last_at = gf.block_to_int(packing.np_words_to_bytes(packing.words_numpy(
+        seal_fn()[1][0])).tobytes())
+    if last_at != run_ys[-1]:
+        raise SystemExit("ghash_at's seal row differs from the matrix-power formulation")
+    del blocks_p
+    # The rung: 4,096 rows, K = 8, the batcher's layout; ghash_at at each
+    # request's last row.
     x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inj_r4 = ghash_inputs(4096, 8, seed=4096, rung_layout=True)
-    rung_fn = lambda: cuda_ghash.ghash_scan(x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4)  # noqa: E731
-    rung_ms, rung_clocks = sampled_ms(rung_fn)
-    rung_graph = graph_ms(rung_fn)
+    starts = torch.nonzero(kp_r4 == 0).flatten().tolist()
+    rung_call = GhashCall(x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inj_r4,
+                          sorted({r - 1 for r in starts if r > 0} | {4095}))
+    rung_ms, rung_clocks = sampled_ms(rung_call.scan)
+    rung_graph = graph_ms(rung_call.scan)
+    rung_at_ms, rung_at_clocks = sampled_ms(rung_call.at)
+    rung_at_graph = graph_ms(rung_call.at)
     rung_plain_ms = events_ms(lambda: cuda_ghash.ghash_scan_plain(
         x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4), 1)
-    m, e = diff(rung_fn(), cuda_ghash.ghash_scan_plain(x_r4, hk_r4, sl_r4, kp_r4, y0_r4,
-                                                       inject=inj_r4))
+    rung_at_plain_ms = events_ms(lambda: cuda_ghash.ghash_at_plain(
+        x_r4, hk_r4, sl_r4, kp_r4, y0_r4, rung_call.rows_t, inject=inj_r4), 1)
+    want_r4 = cuda_ghash.ghash_scan_plain(x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4)
+    m, e = diff(rung_call.scan(), want_r4)
+    m += diff(rung_call.at(), want_r4[rung_call.rows_t])[0] + diff(rung_call.former(), want_r4)[0]
     if m:
-        raise SystemExit("ghash_scan disagrees with its plain version at the 4,096 rung")
+        raise SystemExit("a GHASH kernel disagrees with its plain version at the 4,096 rung")
+    # SASS: the product as the rows launch's row loop runs it (one product a
+    # row; 144 IMAD.WIDE a product), both pipes; the parent's counts.
     gs = sass_ghash(sass_text)
-    log(f"ghash SASS: one row of ghash_rows_kernel {gs['row']}, of ghash_map_kernel "
-        f"{gs['map_row']}, a composition {gs['compose']}; ptxas "
-        f"{ {k_: v for k_, v in ptxas.items() if k_.startswith('ghash')} }")
+    former_text = sass(former_so)
+    gs_former = sass_ghash_former(former_text)
+    log(f"ghash SASS, the product: {gs['product']}; a composition {gs['compose']}; ptxas "
+        f"{ {k_: v for k_, v in ptxas.items() if k_.startswith('ghash')} }; the parent's kernel: "
+        f"one row of ghash_rows_kernel {gs_former['row']}, of ghash_map_kernel "
+        f"{gs_former['map_row']}, a composition {gs_former['compose']}, ptxas "
+        f"{probe_ptxas['ghash_former']}")
 
-    def ghash_bounds(n, k, ms, clocks):
-        """The roofline bound (one multiply by H a row, its SASS integer
-        instructions, against the bytes: x, inject, slot, keep in, y out, the
-        keys and y0) at the table's and the measured rates, and the latency
-        bound: the scan's dependent path (rows a thread through both row
-        loops, the compositions of the three scans) at the measured cycles
-        a dependent step."""
-        rows, blocks = cuda_ghash.plan(n)
-        ops = n * gs["row"]["int"]
-        nbytes = 56 * n + 16 * k + 16
-        ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
-        meas_ms, meas_by = measured_bound(ops, nbytes)
-        per = -(-blocks // 128)
-        path = (rows * (gs["map_row"]["depth"] + gs["row"]["depth"])
-                + gs["compose"]["depth"] * (10 + 2 * per + 10 + 1))
-        lat = latency_ms(path, clocks["clock_mhz"])
-        return {"rows_per_thread": rows, "thread_blocks": blocks,
+    # Where each call's time goes (item 0 on the parent's kernel, then the
+    # kernel's own): each launch alone in a CUDA graph, beside the launch
+    # floor at its grid and shared memory (EMPTY_SOURCE), its registers and
+    # spills (ptxas -v) and its resident thread blocks an SM (the occupancy
+    # API; achieved occupancy is not measured).
+    def launch_split(call, reps):
+        shape = (ll * 3)()
+        parts = {"former": [("map", 1, "ghash_map_kernel<128>"), ("carry", 2, "ghash_carry_kernel<128>"),
+                            ("rows", 3, "ghash_rows_kernel<128>")],
+                 "ghash_scan": [("map", 1, "ghash_map_kernel<128,0>"),
+                                ("carry", 2, "ghash_carry_kernel<128>"),
+                                ("rows", 3, "ghash_rows_kernel<128>")],
+                 "ghash_at": [("map", 1, "ghash_map_kernel<128,1>"),
+                              ("carry", 2, "ghash_carry_kernel<128>")]}
+        out = {}
+        for form, launches in parts.items():
+            whole = (call.former if form == "former" else
+                     call.scan if form == "ghash_scan" else call.at)
+            row = {"whole_ms_graph": graph_ms(whole, reps)}
+            for label, which, kname in launches:
+                if form == "former":
+                    fn = lambda which=which: call.former(which)  # noqa: E731
+                    rc = former.ot_former_launch_shape(which, call.n, call.k, shape)
+                    regs = probe_ptxas["ghash_former"].get(kname, {})
+                else:
+                    named = int(form == "ghash_at")
+                    fn = lambda which=which, named=named: call.launch(which, named)  # noqa: E731
+                    rc = gvar.ot_ghash_launch_shape(which, named, call.n, call.k, shape)
+                    regs = ptxas.get(kname, {})
+                if rc:
+                    raise SystemExit(f"the occupancy query of {form} {label} failed: {rc}")
+                grid, smem, resident = shape[0], shape[1], shape[2]
+
+                def floor_fn(grid=grid, smem=smem):
+                    if empty.ot_empty(grid, 128, smem, torch.cuda.current_stream().cuda_stream):
+                        raise SystemExit("the empty kernel did not launch")
+                row[label] = {"ms_graph": graph_ms(fn, reps), "floor_ms_graph": graph_ms(floor_fn),
+                              "grid": grid, "smem": smem, "resident_blocks_per_sm": resident,
+                              "registers": regs.get("registers"),
+                              "spill_bytes": regs.get("spill_stores", 0) + regs.get("spill_loads", 0)}
+            out[form] = row
+            log(f"{form} launches alone ({call.n} rows, K = {call.k}), CUDA graph: whole call "
+                f"{row['whole_ms_graph'] * 1e3:.3f} us; " + "; ".join(
+                    f"{label} {row[label]['ms_graph'] * 1e3:.3f} us (floor "
+                    f"{row[label]['floor_ms_graph'] * 1e3:.3f} us, grid {row[label]['grid']}, "
+                    f"smem {row[label]['smem']} B, {row[label]['registers']} registers, spills "
+                    f"{row[label]['spill_bytes']} B, {row[label]['resident_blocks_per_sm']} "
+                    f"resident blocks an SM)" for label, _w, _k in launches) + f"; card: {card}")
+        return out
+
+    split = {"seal": launch_split(seal_call, 5), "rung": launch_split(rung_call, 100)}
+    # The comparisons in alternating turns, one call: at the seal's shape
+    # ghash_at and ghash_scan against the parent's kernel and the variants
+    # (a by a product a row; ghash_at with at most 64 rows a thread; the rows
+    # launch's stores not staged); at the rung ghash_scan against the
+    # parent's kernel and the first variant.
+    seal_turns = in_turns({"ghash_at": seal_call.at, "former_ghash_scan": seal_call.former,
+                           "ghash_scan": seal_call.scan,
+                           "variant_scan_a_by_products": lambda: seal_call.variant(0),
+                           "variant_ghash_at_rows_64": lambda: seal_call.variant(1),
+                           "variant_scan_stores_unstaged": lambda: seal_call.variant(2)}, reps=3)
+    rung_turns = in_turns({"ghash_scan": rung_call.scan, "former_ghash_scan": rung_call.former,
+                           "variant_scan_a_by_products": lambda: rung_call.variant(0),
+                           "ghash_at": rung_call.at})
+
+    def pair(turns, a, b):
+        """(median of b / median of a, turns in which a was the faster)."""
+        return (turns[b]["median_ms"] / turns[a]["median_ms"],
+                sum(x < y for x, y in zip(turns[a]["times_ms"], turns[b]["times_ms"])))
+
+    comparisons = {
+        "seal: ghash_at vs the parent's ghash_scan": pair(seal_turns, "ghash_at", "former_ghash_scan"),
+        "seal: ghash_scan vs the parent's ghash_scan": pair(seal_turns, "ghash_scan",
+                                                           "former_ghash_scan"),
+        "seal: ghash_scan vs a by products": pair(seal_turns, "ghash_scan",
+                                                  "variant_scan_a_by_products"),
+        "seal: ghash_at vs at most 64 rows a thread": pair(seal_turns, "ghash_at",
+                                                           "variant_ghash_at_rows_64"),
+        "seal: ghash_scan vs stores unstaged": pair(seal_turns, "ghash_scan",
+                                                    "variant_scan_stores_unstaged"),
+        "rung: ghash_scan vs the parent's ghash_scan": pair(rung_turns, "ghash_scan",
+                                                           "former_ghash_scan"),
+        "rung: ghash_scan vs a by products": pair(rung_turns, "ghash_scan",
+                                                  "variant_scan_a_by_products"),
+    }
+    log(f"GHASH in {VARIANT_TURNS} alternating turns at the seal's shape ({n_m} rows, K = 1, "
+        f"CUDA graph): {turns_line(seal_turns)}; card: {card}")
+    log(f"GHASH in {VARIANT_TURNS} alternating turns at the 4,096 rung (K = 8, CUDA graph): "
+        f"{turns_line(rung_turns)}; card: {card}")
+    log("GHASH comparisons (the other's median over the first's, turns the first won of "
+        f"{VARIANT_TURNS}): " + "; ".join(f"{k_}: {r:.3f}x, {w}" for k_, (r, w) in comparisons.items()))
+    if comparisons["seal: ghash_at vs the parent's ghash_scan"][0] < 3:
+        raise SystemExit("ghash_at is not 3x the parent's ghash_scan at the seal's shape")
+
+    def ghash_bounds(n, k, row_bytes, ms, clocks, path_products):
+        """The least time for the work itself, whatever the formulation: the
+        bytes (``row_bytes`` a row, the keys and y0) at the table's HBM rate
+        and at phase 7's measured stream rate, and the operations (one
+        128 x 128 GF(2) product a row as 2 x 16,384 int8 operations) at the
+        table's int8 tensor-core rate; the share against the larger. The
+        latency bound: the new formulation's dependent path, its products
+        in a chain (``path_products``) at the product's SASS dependency
+        depth, at the measured cycles a dependent step."""
+        nbytes = row_bytes * n + 16 * k + 16
+        ops_ms = n * GF_PRODUCT_INT8_OPS / INT8_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_meas_ms = nbytes / stream_bytes_per_s * 1e3
+        depth = path_products * gs["product"]["depth"]
+        lat = latency_ms(depth, clocks["clock_mhz"])
+        meas = max(ops_ms, bytes_meas_ms)
+        return {"rows_per_thread": cuda_ghash.plan(n, k)[0],
+                "thread_blocks": cuda_ghash.plan(n, k)[1],
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
-                "latency_bound_ms": lat, "dependent_instructions": path,
-                "share_of_larger_bound": max(meas_ms, lat) / ms,
+                "bound_ms_measured": meas,
+                "bound_by_measured": "operations" if ops_ms >= bytes_meas_ms else "bytes",
+                "ops_bound_ms": ops_ms, "bytes_bound_ms_measured_rate": bytes_meas_ms,
+                "latency_bound_ms": lat, "dependent_products": path_products,
+                "dependent_instructions": depth,
+                "share_of_larger_bound": max(meas, lat) / ms,
                 "sampled_clock_mhz": clocks["clock_mhz"],
+                "sass_per_product": gs["product"],
                 "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"]}
 
-    main_b = ghash_bounds(n_m, 1, gh_ms, gh_clocks)
-    rung_b = ghash_bounds(4096, 8, rung_graph, rung_clocks)
-    log(f"ghash_scan at {n_m} rows (the 256 MiB seal, K = 1): {gh_ms:.4f} ms a call back to back "
-        f"({gh_ms_graph:.4f} ms in a CUDA graph), 3 grid launches, {main_b['rows_per_thread']} rows "
-        f"a thread in {main_b['thread_blocks']} thread blocks; roofline bound "
-        f"{main_b['bound_ms_measured']:.4f} ms ({main_b['bound_by_measured']}, measured rates; "
-        f"{gs['row']['int']} integer SASS a row), latency bound {main_b['latency_bound_ms']:.4f} ms "
-        f"({main_b['dependent_instructions']} dependent steps); kernel at "
-        f"{100 * main_b['share_of_larger_bound']:.1f} % of the larger; the plain version not "
-        f"measured at this size (a row loop; {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows); "
-        f"nvidia-smi {gh_clocks}; card: {card}")
-    log(f"ghash_scan at the 4,096-row rung, K = 8: {rung_graph * 1e3:.3f} us of card a call in a "
-        f"CUDA graph (3 grid launches), {rung_ms * 1e3:.3f} us back to back; plain "
-        f"{rung_plain_ms:.1f} ms; roofline bound {rung_b['bound_ms_measured'] * 1e3:.4f} us, "
-        f"latency bound {rung_b['latency_bound_ms'] * 1e3:.3f} us "
-        f"({rung_b['dependent_instructions']} dependent steps); kernel at "
-        f"{100 * rung_b['share_of_larger_bound']:.1f} % of the larger; card: {card}")
-    log(f"gcm seal on the card at 256 MiB (the seam: ctr_mk then ghash_scan, staged arrays): "
-        f"{seam_ms:.4f} ms, {seal_gbps:.2f} GB/s; ghash_scan {100 * gh_ms / seam_ms:.1f} % of it; "
-        f"card: {card}")
+    def path_products(n, k, named):
+        """Products in a chain on the scan's dependent path: a chunk's rows,
+        the block scan's compositions (5 shuffle levels, up to 3 warps, 1),
+        the carry launch's chain (its blocks a thread, composed then
+        applied, the scan, y0), then the rows again (every row) or the named
+        row's composition and application."""
+        rows, blocks = cuda_ghash.plan(n, k)
+        per = -(-blocks // 128)
+        scan = rows + 9 + per + 9 + 1 + per
+        return scan + (2 if named else 1 + rows)
+
+    main_b = ghash_bounds(n_m, 1, 56, gh_ms, gh_clocks, path_products(n_m, 1, False))
+    at_b = ghash_bounds(n_m, 1, 40, at_ms, at_clocks, path_products(n_m, 1, True))
+    rung_b = ghash_bounds(4096, 8, 56, rung_graph, rung_clocks, path_products(4096, 8, False))
+    rung_at_b = ghash_bounds(4096, 8, 40, rung_at_graph, rung_at_clocks,
+                             path_products(4096, 8, True))
+    for label, ms, b in (("ghash_at at the seal's shape", at_ms, at_b),
+                         ("ghash_scan at the seal's shape", gh_ms, main_b),
+                         ("ghash_scan at the 4,096 rung (graph)", rung_graph, rung_b),
+                         ("ghash_at at the 4,096 rung (graph)", rung_at_graph, rung_at_b)):
+        log(f"{label}: {ms * 1e3:.3f} us, {b['rows_per_thread']} rows a thread in "
+            f"{b['thread_blocks']} thread blocks; bounds: operations {b['ops_bound_ms'] * 1e3:.3f} "
+            f"us (2 x 16,384 int8 a row at {INT8_OPS_PER_S / 1e12:.0f} TOPS), bytes "
+            f"{b['bytes_bound_ms_measured_rate'] * 1e3:.3f} us at the measured stream rate, "
+            f"latency {b['latency_bound_ms'] * 1e3:.3f} us ({b['dependent_products']} products "
+            f"in a chain, {b['dependent_instructions']} dependent steps); at "
+            f"{100 * b['share_of_larger_bound']:.1f} % of the larger; card: {card}")
+    log(f"the seal on the card at 256 MiB (the seam with rows: ctr_mk then ghash_at, staged "
+        f"arrays): {seam_ms:.4f} ms, {seal_gbps:.2f} GB/s, ghash_at {100 * at_ms / seam_ms:.1f} % "
+        f"of it; the every-row seam (ctr_mk then ghash_scan) {seam_every_ms:.4f} ms; ghash_at "
+        f"{at_ms:.4f} ms back to back ({at_graph:.4f} in a CUDA graph), ghash_scan {gh_ms:.4f} ms "
+        f"({gh_ms_graph:.4f}); plain at this shape (ghash_by_powers) {at_plain_ms:.1f} ms; card: "
+        f"{card}")
+    # The every-row seam's path, counted: the seam without rows, as a caller
+    # that wants every row makes it.
+    reset_counts()
+    seam_fn()
+    torch.cuda.synchronize()
+    every_counts = counts()
+    if every_counts != {**{n_: 0 for n_ in every_counts}, "ctr_mk": 1, "ghash_scan": 1}:
+        raise SystemExit(f"the every-row seam launched {every_counts}")
     kernels.append({
         "name": "ghash_scan", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ghash.cu",
         "replaces": "our_tree_tpu/aead/gcm.py:118",
         "counterpart_of": "the XLA lax.scan of _gcm_fused_jit (our_tree_tpu/aead/gcm.py:118-143) "
                           "and of ghash_words (:94-104), not a Pallas kernel",
-        "launches": gcm_runs[0]["seal_launches"]["ghash_scan"],
+        "launches": every_counts["ghash_scan"],
+        "launches_path": "the every-row seam (gcm_crypt_ghash_words without rows) at 256 MiB",
         "max_abs_err": max(gh_err, rows_err, e), "ms": rung_ms, "card_ms_graph": rung_graph,
         "plain_ms": rung_plain_ms, **rung_b, "library_ms": None,
-        "shape": "4,096 rows, K = 8, the serve batcher's GCM layout (the rung the gcm serve "
-                 "modes will give it; kernel and plain version on the same inputs)",
-        "grid_launches_per_call": 3, "sass": gs,
+        "shape": "4,096 rows, K = 8, the serve batcher's GCM layout (kernel and plain version on "
+                 "the same inputs)",
+        "grid_launches_per_call": 3, "sass": gs, "sass_former": gs_former,
         "plain_ms_65537_rows": gh_plain_ms[(65537, 8)],
         "seal_rows": {"ms": gh_ms, "card_ms_graph": gh_ms_graph, **main_b, "library_ms": None,
                       "shape": f"{n_m} rows, K = 1 (the 256 MiB seal: J0 row, then the "
                                f"ciphertext), held against the matrix-power formulation",
                       "plain_ms": "not measured (a row loop of several launches a row)"},
-        "seal_256MiB": {"seam_ms": seam_ms, "gbps": seal_gbps, "ghash_share": gh_ms / seam_ms,
-                        "launches": gcm_runs[0]["seal_launches"], "wall": gcm_runs,
-                        "tag": gcm_tags[0], "tag_plus5": gcm_tags[5]},
+        "split_ms_graph": split, "design_variants_ms_graph": {"seal": seal_turns, "rung": rung_turns},
+        "comparisons": {k_: {"ratio_of_medians": r, "first_faster_turns": w}
+                        for k_, (r, w) in comparisons.items()},
+        "every_row_seam_256MiB_ms": seam_every_ms,
         "tag_formulation": "chunked matrix powers in float32 matmuls (64-block chunks, runs of "
                            "512 chunks), host gf128_mul_matrix_words",
     })
-    del seam_args, gh_args
+    kernels.append({
+        "name": "ghash_at", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ghash.cu",
+        "replaces": "our_tree_tpu/aead/gcm.py:118",
+        "counterpart_of": "the XLA lax.scan of _gcm_fused_jit (our_tree_tpu/aead/gcm.py:118-143) "
+                          "and of ghash_words (:94-104) where one row is read, not a Pallas kernel",
+        "launches": gcm_runs[0]["seal_launches"]["ghash_at"], "max_abs_err": 0,
+        "ms": at_ms, "card_ms_graph": at_graph, "plain_ms": at_plain_ms,
+        "plain": "ghash_by_powers on the seal's blocks (the row's GHASH by chunked matrix "
+                 "powers in float32 matmuls; the row loop ghash_at_plain would take minutes)",
+        **at_b, "library_ms": None,
+        "shape": f"{n_m} rows, K = 1, one named row (the 256 MiB seal's last full block)",
+        "grid_launches_per_call": 2,
+        "rung": {"ms": rung_at_ms, "card_ms_graph": rung_at_graph, "plain_ms": rung_at_plain_ms,
+                 **rung_at_b, "named_rows": len(rung_call.rows),
+                 "shape": "4,096 rows, K = 8, the batcher's layout, each request's last row"},
+        "seal_256MiB": {"seam_ms": seam_ms, "gbps": seal_gbps, "ghash_at_share": at_ms / seam_ms,
+                        "launches": gcm_runs[0]["seal_launches"], "wall": gcm_runs,
+                        "tag": gcm_tags[0], "tag_plus5": gcm_tags[5]},
+    })
+    del seam_args, seal_call
 
     # 12. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in

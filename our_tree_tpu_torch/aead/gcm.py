@@ -4,16 +4,18 @@
 GHASH multiplies by a fixed per-key H, which is linear over GF(2), so it
 needs no lookup indexed by secret data: the reference carries a 128 x 128 bit
 matrix a key and runs a ``lax.scan`` of matrix products. On the card the
-GHASH half is the ``ghash_scan`` kernel (``ops/cuda_ghash.py``,
-``csrc/ghash.cu``), which takes H as field elements (column 7 of a key's
-matrix, word-bit 7 being the field's one) and multiplies by masks.
+GHASH half is the GHASH kernel (``ops/cuda_ghash.py``, ``csrc/ghash.cu``),
+which takes H as field elements (column 7 of a key's matrix, word-bit 7
+being the field's one) and multiplies on integer multiplies: ``ghash_scan``
+for every row, ``ghash_at`` for the rows a caller names.
 
 ``gcm_crypt_ghash_words`` is the serve dispatch seam: scattered multi-key
 CTR (``models.aes.ctr_crypt_words_scattered_multikey``, on the card the
 ``ctr_mk`` kernel) and then the segmented Horner GHASH over the ciphertext
-stream, two launches a dispatch (``ghash_scan``'s call is three grid
-launches). The batch layout, which ``gcm_seal``/``gcm_open`` build for one
-request (K = 1) and the serve batcher for many:
+stream, two kernel calls a dispatch (``ghash_scan``'s call is three grid
+launches; with ``rows`` given the seam calls ``ghash_at``, two). The batch
+layout, which ``gcm_seal``/``gcm_open`` build for one request (K = 1) and
+the serve batcher for many:
 
 * each request takes 1 + n rows: row 0 carries counter J0 with a zero data
   word, so its CTR output is E_K(J0), the tag's final pad; rows 1..n carry
@@ -22,10 +24,11 @@ request (K = 1) and the serve batcher for many:
   at the J0 rows, whose GHASH lane is discarded;
 * ``inject_words`` XORs each request's AAD state Y_aad, computed on the host,
   into its first ciphertext block, which continues the AAD's Horner chain;
-* the scan gives the running Y at every row; the host finisher reads each
-  request's last full-block row and applies the partial block, the length
-  block and the E_K(J0) pad (``ops.gf.gf128_mul`` on ints, one or two
-  multiplies a request).
+* the scan gives the running Y at every row (or at the rows named by
+  ``rows``); the host finisher reads each request's last full-block row and
+  applies the partial block, the length block and the E_K(J0) pad
+  (``ops.gf.gf128_mul`` on ints, one or two multiplies a request).
+  ``gcm_seal``/``gcm_open`` name that one row.
 
 ``tag_eq_words`` is the constant-time tag compare (a full XOR, one OR fold,
 one terminal equality); ``ghash.np_tag_eq`` is its host twin.
@@ -77,18 +80,21 @@ def _h_words(hmats, device) -> torch.Tensor:
     return _words_of(col & 1).contiguous()
 
 
-def _ghash_fn(engine: str):
-    """The GHASH scan of an engine: the kernel's wrapper for the CUDA engine
-    (its plain version on CPU tensors), the plain version for the others."""
-    return cuda_ghash.ghash_scan if engine == _aes.CUDA_ENGINE else cuda_ghash.ghash_scan_plain
+def _ghash_fn(engine: str, rows: bool):
+    """The GHASH of an engine, every row or (``rows``) the named rows: the
+    kernel's wrapper for the CUDA engine (its plain version on CPU
+    tensors), the plain version for the others."""
+    if engine == _aes.CUDA_ENGINE:
+        return cuda_ghash.ghash_at if rows else cuda_ghash.ghash_scan
+    return cuda_ghash.ghash_at_plain if rows else cuda_ghash.ghash_scan_plain
 
 
 def ghash_words(words, hmat, y0_words=None) -> torch.Tensor:
     """Horner GHASH over (N, 4) int32 block words (or a flat (4N,) stream)
     under the (128, 128) multiply-by-H matrix ``hmat`` (numpy or tensor),
     from the (4,) state ``y0_words`` (zero when None). Returns the final Y as
-    (4,) int32 words on ``words``' device: ``ghash_scan`` with one key and no
-    restart (on the card the kernel)."""
+    (4,) int32 words on ``words``' device: ``ghash_at`` at the last row with
+    one key and no restart (on the card the kernel)."""
     w2 = words.reshape(-1, 4).contiguous()
     dev = w2.device
     y0 = (torch.zeros(4, dtype=torch.int32, device=dev) if y0_words is None
@@ -97,24 +103,27 @@ def ghash_words(words, hmat, y0_words=None) -> torch.Tensor:
     if n == 0:
         return y0.clone()
     hmats = hmat[None] if isinstance(hmat, torch.Tensor) else np.asarray(hmat)[None]
-    ys = cuda_ghash.ghash_scan(w2, _h_words(hmats, dev),
-                               torch.zeros(n, dtype=torch.int32, device=dev),
-                               torch.ones(n, dtype=torch.int32, device=dev), y0)
-    return ys[-1]
+    ys = cuda_ghash.ghash_at(w2, _h_words(hmats, dev),
+                             torch.zeros(n, dtype=torch.int32, device=dev),
+                             torch.ones(n, dtype=torch.int32, device=dev), y0, [n - 1])
+    return ys[0]
 
 
 def gcm_crypt_ghash_words(words, ctr_le_words, rks, key_slots, hmats, inject_words, seg_keep,
-                          nr: int, engine: str = "auto", direction: str = SEAL):
+                          nr: int, engine: str = "auto", direction: str = SEAL, rows=None):
     """The GCM dispatch: scattered multi-key CTR, then the segmented GHASH
     over the ciphertext (the module docstring has the batch layout). Returns
-    ``(out_words, y_words)`` in ``words``' shape: the CTR result (E_K(J0) on
-    the J0 rows) and the running GHASH state after every row. ``words``,
+    ``(out_words, y_words)``: the CTR result (E_K(J0) on the J0 rows) in
+    ``words``' shape and the running GHASH state after every row, in
+    ``words``' shape too; with ``rows`` (E sorted row indices, a sequence or
+    an int64 tensor) the state at those rows only, as (E, 4). ``words``,
     ``ctr_le_words``, ``inject_words``: (N, 4) or flat (4N,) int32 tensors;
     ``rks``: (K, 4*(nr+1)) int32 schedules; ``key_slots``, ``seg_keep``: (N,)
     int32; ``hmats``: (K, 128, 128) multiply-by-H matrices, numpy u32 (the
     JAX package's keycache layout) or a tensor. ``engine`` as
     ``models.aes.resolve_engine``: the kernels on a card (``ctr_mk``, then
-    ``ghash_scan``), the plain versions on the CPU."""
+    ``ghash_scan``, or ``ghash_at`` with ``rows``), the plain versions on the
+    CPU."""
     if direction not in (SEAL, OPEN):
         raise ValueError(f"direction must be {SEAL!r} or {OPEN!r}, got {direction!r}")
     engine = _aes.resolve_engine(engine, words.device)
@@ -123,10 +132,13 @@ def gcm_crypt_ghash_words(words, ctr_le_words, rks, key_slots, hmats, inject_wor
     out = _aes.ctr_crypt_words_scattered_multikey(w2, ctr_le_words.reshape(-1, 4), rks, slots,
                                                   nr, engine)
     ct = out if direction == SEAL else w2
-    ys = _ghash_fn(engine)(ct.contiguous(), _h_words(hmats, words.device), slots,
-                           seg_keep.to(torch.int32).contiguous(),
-                           torch.zeros(4, dtype=torch.int32, device=words.device),
-                           inject_words.reshape(-1, 4).contiguous())
+    args = (ct.contiguous(), _h_words(hmats, words.device), slots,
+            seg_keep.to(torch.int32).contiguous(),
+            torch.zeros(4, dtype=torch.int32, device=words.device))
+    inject = inject_words.reshape(-1, 4).contiguous()
+    if rows is not None:
+        return out.reshape(words.shape), _ghash_fn(engine, True)(*args, rows, inject)
+    ys = _ghash_fn(engine, False)(*args, inject)
     return out.reshape(words.shape), ys.reshape(words.shape)
 
 
@@ -202,12 +214,13 @@ def _gcm_crypt(key: bytes, iv: bytes, aad: bytes, data: bytes, engine: str, dire
     dev = _aes.as_device(device)
     engine = _aes.resolve_engine(engine, dev)
     n = 1 + nfull
+    # GHASH is read at one row, the last full block's (none without one).
     out, ys = gcm_crypt_ghash_words(
         packing.words_tensor(words, dev).reshape(n, 4),
         packing.words_tensor(ctr, dev).reshape(n, 4), packing.words_tensor(rk[None, :], dev),
         torch.zeros(n, dtype=torch.int32, device=dev), hmat[None, :, :],
         packing.words_tensor(inject, dev).reshape(n, 4),
-        packing.words_tensor(keep, dev), nr, engine, direction)
+        packing.words_tensor(keep, dev), nr, engine, direction, rows=[nfull] if nfull else [])
     out = packing.words_numpy(out)
     ek_j0 = packing.np_words_to_bytes(out[0])
     full = packing.np_words_to_bytes(out[1:].reshape(-1)).tobytes()
@@ -221,7 +234,7 @@ def _gcm_crypt(key: bytes, iv: bytes, aad: bytes, data: bytes, engine: str, dire
         tail_out = b""
     out_bytes = full + tail_out
     ct = out_bytes if direction == SEAL else bytes(data)
-    y_int = (gf.block_to_int(packing.np_words_to_bytes(packing.words_numpy(ys[nfull])))
+    y_int = (gf.block_to_int(packing.np_words_to_bytes(packing.words_numpy(ys[0])))
              if nfull else y_aad)
     tag = _finish_tag(y_int, h, ct[16 * nfull:], len(aad), len(ct), ek_j0)
     return out_bytes, tag

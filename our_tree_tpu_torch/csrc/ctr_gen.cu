@@ -23,18 +23,41 @@
 //     renaming, MixColumns is xtime as a plane shuffle plus XOR;
 //   * four 32x32 bit transposes turn the keystream planes back into words,
 //     which are XORed with the data and stored. Blocks past n are masked.
+// Two forms, chosen per launch by ot_ctr_gen (form 0, auto: the block form up
+// to kCtrGenBlockFormMax blocks, the group form above; 1 and 2 force one), as
+// ecb.cu's encrypt forms are:
+//   * the group form above (ctr_gen_kernel), for bulk CTR (the 256 MiB main
+//     path): 32 blocks a thread, bound by operations;
+//   * the block form (ctr_gen_block_kernel): one block a thread on the
+//     per-block core of aes_block.cuh, for few blocks. A call of AES.crypt_ctr
+//     that ends mid-block makes its last keystream block with one launch over
+//     one block (models/aes.py), which in the group form is one thread
+//     walking a whole 32-block group, bound by that thread's path. Each
+//     thread makes its counter (base + j with a full 128-bit carry,
+//     ctr_gen.cuh counter_block) and issues its data load before the thread
+//     block turns the schedule into key planes in shared memory; the rounds
+//     are aes_block.cuh's rolled encrypt_block (the choices ecb.cu's block
+//     form measured against their alternatives).
 // Constant time: no load address depends on key or data, only on the block
-// index, the round and the word number. The arithmetic is in ctr_gen.cuh
-// (counter synthesis) and aes_bitslice.cuh (rounds, transposes).
+// index, the round and the word number; the form depends only on the block
+// count. The arithmetic is in ctr_gen.cuh (counter synthesis),
+// aes_bitslice.cuh (rounds, transposes) and aes_block.cuh (one block).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "aes_block.cuh"
 #include "ctr_gen.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+// The most blocks the auto form sends to the block form: the largest size of
+// chip_smoke.py phase 9's crossing table (both forms at 1 to 2^20 blocks, in a
+// CUDA graph) at which the block form was the faster; PERF.md holds the
+// table.
+constexpr long long kCtrGenBlockFormMax = 1ll << 16;
+enum Form { kAuto = 0, kGroup = 1, kBlock = 2 };
 
 template <int NR>
 __global__ void __launch_bounds__(kThreads)
@@ -70,30 +93,67 @@ ctr_gen_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
 }
 
 template <int NR>
+__global__ void __launch_bounds__(kThreads)
+ctr_gen_block_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
+                     const uint32_t* __restrict__ ctr_be, const uint32_t* __restrict__ rk,
+                     long long n_blocks) {
+  static_assert(NR + 1 <= kThreads, "one thread per round key");
+  __shared__ uint32_t kp[8 * (NR + 1)];
+  const long long j = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const bool live = j < n_blocks;
+  // The block's load and its counter go out before the key planes are made,
+  // so their round trips overlap.
+  const uint4 d = live ? data[j] : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t c[4];
+  ctr_gen::counter_block(ctr_be, (unsigned long long)j, c);
+  if (threadIdx.x <= NR) aes_block::round_key_planes(rk, threadIdx.x, kp + 8 * threadIdx.x);
+  __syncthreads();
+  if (live) out[j] = aes_block::ctr_block<NR>(make_uint4(c[0], c[1], c[2], c[3]), d, kp);
+}
+
+template <int NR>
 cudaError_t launch(const void* data, void* out, const void* ctr_be, const void* rk,
-                   long long n_blocks, cudaStream_t stream) {
-  const long long groups = (n_blocks + 31) / 32;
-  const unsigned int grid = (unsigned int)((groups + kThreads - 1) / kThreads);
-  ctr_gen_kernel<NR><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(data), static_cast<uint4*>(out),
-      static_cast<const uint32_t*>(ctr_be), static_cast<const uint32_t*>(rk), n_blocks);
+                   long long n_blocks, int form, cudaStream_t stream) {
+  const uint4* src = static_cast<const uint4*>(data);
+  uint4* dst = static_cast<uint4*>(out);
+  const uint32_t* ctr = static_cast<const uint32_t*>(ctr_be);
+  const uint32_t* keys = static_cast<const uint32_t*>(rk);
+  if (form == kBlock) {
+    const unsigned int grid = (unsigned int)((n_blocks + kThreads - 1) / kThreads);
+    ctr_gen_block_kernel<NR><<<grid, kThreads, 0, stream>>>(src, dst, ctr, keys, n_blocks);
+  } else {
+    const long long groups = (n_blocks + 31) / 32;
+    const unsigned int grid = (unsigned int)((groups + kThreads - 1) / kThreads);
+    ctr_gen_kernel<NR><<<grid, kThreads, 0, stream>>>(src, dst, ctr, keys, n_blocks);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The form a launch of n_blocks takes: form 1 (group) or 2 (block) as given,
+// form 0 (auto) the block form up to kCtrGenBlockFormMax blocks; -1 for a bad
+// form.
+extern "C" int ot_ctr_gen_form(long long n_blocks, int form) {
+  if (form == kAuto) return n_blocks <= kCtrGenBlockFormMax ? kBlock : kGroup;
+  return form == kGroup || form == kBlock ? form : -1;
+}
+
 // C interface for ctypes. data/out: (n_blocks, 4) u32 LE words, 16-byte aligned;
-// ctr_be: 4 u32 big-endian counter words on the card; rk: 4*(nr+1) u32 words.
-// Returns the cudaError_t of the launch (0 on success).
+// ctr_be: 4 u32 big-endian counter words on the card; rk: 4*(nr+1) u32 words;
+// form: 0 auto, 1 group, 2 block (ot_ctr_gen_form). Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int ot_ctr_gen(const void* data, void* out, const void* ctr_be, const void* rk,
-                          long long n_blocks, int nr, void* stream) {
-  if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
-  if ((n_blocks + 31) / 32 > (long long)kThreads * 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+                          long long n_blocks, int form, int nr, void* stream) {
+  form = ot_ctr_gen_form(n_blocks, form);
+  if (n_blocks <= 0 || form < 0) return (int)cudaErrorInvalidValue;
+  if ((form == kBlock ? n_blocks : (n_blocks + 31) / 32) > (long long)kThreads * 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nr) {
-    case 10: return (int)launch<10>(data, out, ctr_be, rk, n_blocks, st);
-    case 12: return (int)launch<12>(data, out, ctr_be, rk, n_blocks, st);
-    case 14: return (int)launch<14>(data, out, ctr_be, rk, n_blocks, st);
+    case 10: return (int)launch<10>(data, out, ctr_be, rk, n_blocks, form, st);
+    case 12: return (int)launch<12>(data, out, ctr_be, rk, n_blocks, form, st);
+    case 14: return (int)launch<14>(data, out, ctr_be, rk, n_blocks, form, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,11 @@
-// Counter synthesis of the ctr_gen kernel (ctr_gen.cu): the keystream of one
-// group of 32 consecutive counter blocks, held as 128 bit planes in registers
-// (plane 8p+b = bit b of state byte p, lane bit t = block t of the group). Its
-// only memory reads are the base counter and the round-key masks, at
-// addresses fixed by the round and plane number. The round arithmetic is
-// aes_bitslice.cuh's, shared with the ECB kernels.
+// Counter synthesis of the ctr_gen kernel (ctr_gen.cu). The group form: the
+// keystream of one group of 32 consecutive counter blocks, held as 128 bit
+// planes in registers (plane 8p+b = bit b of state byte p, lane bit t = block
+// t of the group). Its only memory reads are the base counter and the
+// round-key masks, at addresses fixed by the round and plane number. The
+// round arithmetic is aes_bitslice.cuh's, shared with the ECB kernels. The
+// block form: one counter block as LE words (counter_block), encrypted by
+// aes_block.cuh's per-block core.
 //
 // Without nvcc the same code compiles as host C++, so the CPU tests run it
 // against the plain torch version (tests/test_torch_ctr_host.py).
@@ -15,6 +17,20 @@
 #include "aes_bitslice.cuh"
 
 namespace ctr_gen {
+
+// Counter block base + j as the block's LE words: base is 4 big-endian u32
+// words (word 0 most significant), the addition of the 64-bit block index
+// carries through all 128 bits and wraps mod 2^128.
+__device__ __forceinline__ void counter_block(const uint32_t* ctr_be, unsigned long long j,
+                                              uint32_t (&le)[4]) {
+  const unsigned long long lo = (((unsigned long long)ctr_be[2] << 32) | ctr_be[3]) + j;
+  const unsigned long long hi =
+      (((unsigned long long)ctr_be[0] << 32) | ctr_be[1]) + (unsigned long long)(lo < j);
+  const uint32_t be[4] = {(uint32_t)(hi >> 32), (uint32_t)hi, (uint32_t)(lo >> 32), (uint32_t)lo};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    le[c] = (be[c] >> 24) | ((be[c] >> 8) & 0xFF00u) | ((be[c] << 8) & 0xFF0000u) | (be[c] << 24);
+}
 
 using aes_bitslice::aes_round;
 using aes_bitslice::key_mask;

@@ -4,7 +4,11 @@
 TPU kernel ``_ctr_gen_kernel`` (``our_tree_tpu/ops/pallas_aes.py:601-612``,
 launched at ``:626``): ``out[j] = data[j] ^ E_K(base + j)`` with ``base`` a
 128-bit big-endian counter given as 4 BE u32 words and the add wrapping mod
-2^128.
+2^128. It has two forms, as ECB encrypt has: the group form (32 blocks a
+thread) for bulk CTR and the block form (one block a thread) for few
+blocks, such as ``AES.crypt_ctr``'s one-block tail; the C entry picks one by
+block count unless a form is asked for, and each launch is counted under
+its form in ``ctr_crypt_words_fused.form_launches``.
 
 ``encrypt_words`` and ``decrypt_words`` launch ``csrc/ecb.cu``, which
 replaces the TPU kernel ``_aes_kernel`` (``pallas_aes.py:259-273``, launched
@@ -92,8 +96,10 @@ _COUNT_LOCK = threading.Lock()
 #: ``ctr_mk`` forms by C code (``ot_ctr_mk_form``): ``"auto"`` lets the C
 #: entry choose by block count.
 MK_FORMS = ("auto", "group", "block")
-#: ECB encrypt forms by C code (``ot_ecb_encrypt_form``), the same codes.
+#: ECB encrypt and ``ctr_gen`` forms by C code (``ot_ecb_encrypt_form``,
+#: ``ot_ctr_gen_form``), the same codes.
 ECB_FORMS = MK_FORMS
+CTR_GEN_FORMS = MK_FORMS
 
 
 def count_launch(wrapper, form: str | None = None) -> None:
@@ -159,7 +165,8 @@ def _launch(wrapper, fn: str, words: torch.Tensor, tensors: tuple, nr: int,
 
 def _form_code(entry: str, form: str, n: int) -> int:
     """The C code of the form a launch of ``n`` blocks takes, as C entry
-    ``entry`` (``ot_ctr_mk_form``, ``ot_ecb_encrypt_form``) decides it
+    ``entry`` (``ot_ctr_mk_form``, ``ot_ecb_encrypt_form``,
+    ``ot_ctr_gen_form``) decides it
     (``form`` one of ``MK_FORMS``)."""
     code = getattr(cuda_build.load(), entry)(ctypes.c_longlong(n), MK_FORMS.index(form))
     if code not in (1, 2):
@@ -168,15 +175,23 @@ def _form_code(entry: str, form: str, n: int) -> int:
 
 
 def ctr_crypt_words_fused(words: torch.Tensor, ctr_be: torch.Tensor,
-                          rk: torch.Tensor, nr: int) -> torch.Tensor:
+                          rk: torch.Tensor, nr: int, form: str = "auto") -> torch.Tensor:
     """CTR over (N, 4) int32 LE block words: block j is XORed with
     E_K(ctr_be + j). ``ctr_be``: (4,) int32 BE counter words, read by the
     kernel through a device pointer (so a chain can carry it on the card);
-    ``rk``: (4*(nr+1),) int32 encrypt schedule. Symmetric in direction."""
+    ``rk``: (4*(nr+1),) int32 encrypt schedule. Symmetric in direction.
+    ``form``: one of ``CTR_GEN_FORMS``, the kernel's form on the card
+    (``"auto"``: by block count); the CPU checks it and runs the plain
+    version."""
     _check(words, nr, ctr_be=(ctr_be, (4,)), rk=(rk, (4 * (nr + 1),)))
+    if form not in CTR_GEN_FORMS:
+        raise ValueError(f"form must be one of {CTR_GEN_FORMS}, got {form!r}")
     if words.device.type == "cpu":
         return ctr_crypt_words_fused_plain(words, ctr_be, rk, nr)
-    return _launch(ctr_crypt_words_fused, "ot_ctr_gen", words, (ctr_be, rk), nr)
+    n = words.shape[0]
+    code = _form_code("ot_ctr_gen_form", form, n) if n else 0
+    return _launch(ctr_crypt_words_fused, "ot_ctr_gen", words, (ctr_be, rk), nr, ints=(code,),
+                   form=CTR_GEN_FORMS[code])
 
 
 def encrypt_words(words: torch.Tensor, rk: torch.Tensor, nr: int,
@@ -376,8 +391,9 @@ ctr_scattered_multikey.launches = 0
 ctr_crypt_words_explicit.launches = 0
 cbc_scattered_multikey.launches = 0
 seq_encrypt.launches = 0
-#: ``ctr_mk`` and ECB encrypt launches by the form that ran (a reader may
-#: reset them).
+#: ``ctr_mk``, ECB encrypt and ``ctr_gen`` launches by the form that ran (a
+#: reader may reset them).
+ctr_crypt_words_fused.form_launches = {"group": 0, "block": 0}
 ctr_scattered_multikey.form_launches = {"group": 0, "block": 0}
 ctr_crypt_words_explicit.form_launches = {"group": 0, "block": 0}
 encrypt_words.form_launches = {"group": 0, "block": 0}

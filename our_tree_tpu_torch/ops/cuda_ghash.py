@@ -1,31 +1,34 @@
-"""The GHASH scan kernel's wrapper and its plain torch version.
+"""The GHASH kernels' wrappers and their plain torch versions.
 
-``ghash_scan`` launches ``csrc/ghash.cu``: the segmented Horner recurrence of
-GCM's GHASH over (N, 4) int32 LE block words,
+``ghash_scan`` and ``ghash_at`` launch ``csrc/ghash.cu``: the segmented
+Horner recurrence of GCM's GHASH over (N, 4) int32 LE block words,
 
     y_j = H_{s_j} * ((y_{j-1} * keep_j) ^ x_j),   y_{-1} = y0,
 
-in GF(2^128), every row's y returned (only the low bit of ``keep_j`` counts).
-It is the counterpart of the JAX package's ``lax.scan`` of a 128 x 128 GF(2)
-bit-matrix product a row (``our_tree_tpu/aead/gcm.py:118-143``, and
-``ghash_words`` at ``:94-104``), which is an XLA loop, not a Pallas kernel.
-The kernel runs the scan in parallel within a segment as a scan over the
-rows' affine maps, in three launches (its source has the design).
+in GF(2^128) (only the low bit of ``keep_j`` counts). ``ghash_scan`` returns
+every row's y; ``ghash_at`` returns y at the named rows only, which is what
+a seal, an open and ``ghash_words`` read (one row each). They are the
+counterpart of the JAX package's ``lax.scan`` of a 128 x 128 GF(2) bit-matrix
+product a row (``our_tree_tpu/aead/gcm.py:118-143``, and ``ghash_words`` at
+``:94-104``), which is an XLA loop, not a Pallas kernel. The kernel runs the
+scan in parallel within a segment as a scan over the rows' affine maps
+(``ghash_at`` in two launches, ``ghash_scan`` in three; its source has the
+design), its field products on integer multiplies.
 
 H is given as field elements, one (4,) row of words a key (``hkeys``, the
-block bytes of H = E_K(0^128) packed as LE words); the kernel builds each
-key's multiply-by-H columns from it. ``h_matrices`` derives the same
-(K, 128, 128) matrices in torch for the plain version.
+block bytes of H = E_K(0^128) packed as LE words); the kernel prepares each
+key's H from it. ``h_matrices`` derives the (K, 128, 128) multiply-by-H
+matrices in torch for the plain version.
 
 ``ghash_scan_plain`` is the plain version: a row loop of float32 matrix
 products on 0/1 values (exact: a sum holds at most 128 ones), since torch has
-no integer matrix product on CUDA. The CPU tests use it, and ``chip_smoke.py``
-holds the kernel against it on the card; nothing on the card's path does.
+no integer matrix product on CUDA; ``ghash_at_plain`` is its rows at the
+named rows. The CPU tests use them, and ``chip_smoke.py`` holds the kernels
+against them on the card; nothing on the card's path does.
 
-The wrapper launches the kernel for CUDA tensors and raises on anything it
-cannot launch; only CPU tensors go to the plain version. It counts its calls
-in ``ghash_scan.launches`` (one a call: the call's three grid launches, map,
-carry and rows, count once).
+The wrappers launch the kernel for CUDA tensors and raise on anything they
+cannot launch; only CPU tensors go to the plain versions. Each counts its
+calls in ``.launches`` (one a call: a call's grid launches count once).
 """
 
 from __future__ import annotations
@@ -92,6 +95,15 @@ def ghash_scan_plain(x: torch.Tensor, hkeys: torch.Tensor, key_slots: torch.Tens
     return words_of(ys)
 
 
+def ghash_at_plain(x: torch.Tensor, hkeys: torch.Tensor, key_slots: torch.Tensor,
+                   seg_keep: torch.Tensor, y0: torch.Tensor, rows_out,
+                   inject: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ghash_at``: ``ghash_scan_plain``'s rows at
+    ``rows_out`` (a sequence or an int64 tensor)."""
+    rows = torch.as_tensor(rows_out, dtype=torch.int64).reshape(-1).to(x.device)
+    return ghash_scan_plain(x, hkeys, key_slots, seg_keep, y0, inject)[rows]
+
+
 def _check(x: torch.Tensor, hkeys: torch.Tensor, key_slots: torch.Tensor,
            seg_keep: torch.Tensor, y0: torch.Tensor, inject: torch.Tensor | None) -> None:
     n = x.shape[0] if x.dim() == 2 else -1
@@ -136,31 +148,72 @@ def ghash_scan(x: torch.Tensor, hkeys: torch.Tensor, key_slots: torch.Tensor,
     out = torch.empty_like(x)
     if n == 0:
         return out
-    if any(t.data_ptr() % 16 for t in (x, out) + (() if inject is None else (inject,))):
-        raise ValueError("block words must be 16-byte aligned")
-    lib = cuda_build.load()
-    scratch = torch.empty(lib.ot_ghash_scratch_words(ctypes.c_longlong(n)), dtype=torch.int32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ot_ghash_scan(x.data_ptr(), None if inject is None else inject.data_ptr(),
-                               key_slots.data_ptr(), seg_keep.data_ptr(), hkeys.data_ptr(),
-                               y0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                               ctypes.c_longlong(n), k, stream)
-    if rc:
-        raise RuntimeError(f"ot_ghash_scan launch failed: cudaError {rc}")
-    count_launch(ghash_scan)
+    _launch(ghash_scan, "ot_ghash_scan", x, hkeys, key_slots, seg_keep, y0, inject, out, -1,
+            (out,))
     return out
 
 
-def plan(n: int) -> tuple[int, int]:
+def ghash_at(x: torch.Tensor, hkeys: torch.Tensor, key_slots: torch.Tensor,
+             seg_keep: torch.Tensor, y0: torch.Tensor, rows_out,
+             inject: torch.Tensor | None = None) -> torch.Tensor:
+    """``ghash_scan``'s rows at ``rows_out`` only, as (E, 4) int32 words:
+    ``rows_out`` is E sorted row indices in [0, N) (a sequence, or an int64
+    tensor; public, like the slots). Arguments otherwise as ``ghash_scan``;
+    E = 0 launches nothing. On the card the kernel runs one product a row
+    and never materialises the other rows (two launches)."""
+    _check(x, hkeys, key_slots, seg_keep, y0, inject)
+    n, k = x.shape[0], hkeys.shape[0]
+    rows = torch.as_tensor(rows_out, dtype=torch.int64).reshape(-1)
+    e = rows.shape[0]
+    if x.device.type == "cpu":
+        if e and (bool((rows[1:] < rows[:-1]).any()) or int(rows[0]) < 0
+                  or int(rows[-1]) >= n):
+            raise ValueError(f"rows_out must be sorted and lie in [0, {n})")
+        if n and (int(key_slots.min()) < 0 or int(key_slots.max()) >= k):
+            raise ValueError(f"key_slots must lie in [0, {k})")
+        return ghash_at_plain(x, hkeys, key_slots, seg_keep, y0, rows, inject)
+    out = torch.empty((e, 4), dtype=torch.int32, device=x.device)
+    if e == 0:
+        return out
+    rows = rows.to(x.device).contiguous()
+    _launch(ghash_at, "ot_ghash_at", x, hkeys, key_slots, seg_keep, y0, inject, out, e,
+            (rows, out))
+    return out
+
+
+def _launch(wrapper, fn: str, x, hkeys, key_slots, seg_keep, y0, inject, out, n_named: int,
+            outs: tuple) -> None:
+    """Launch C entry ``fn`` (``ot_ghash_scan``: ``n_named`` -1, ``outs``
+    (out,); ``ot_ghash_at``: ``outs`` (rows_out, out)) on the card with
+    scratch of its own, and count the call on ``wrapper``; raises if the
+    launch failed."""
+    n, k = x.shape[0], hkeys.shape[0]
+    if any(t.data_ptr() % 16 for t in (x, out) + (() if inject is None else (inject,))):
+        raise ValueError("block words must be 16-byte aligned")
+    lib = cuda_build.load()
+    words = lib.ot_ghash_scratch_words(ctypes.c_longlong(n), k, ctypes.c_longlong(n_named))
+    scratch = torch.empty(words, dtype=torch.int32, device=x.device)
+    sizes = (ctypes.c_longlong(n),) + (() if n_named < 0 else (ctypes.c_longlong(n_named),))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, fn)(x.data_ptr(), None if inject is None else inject.data_ptr(),
+                              key_slots.data_ptr(), seg_keep.data_ptr(), hkeys.data_ptr(),
+                              y0.data_ptr(), *(t.data_ptr() for t in outs), scratch.data_ptr(),
+                              *sizes, k, stream)
+    if rc:
+        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
+    count_launch(wrapper)
+
+
+def plan(n: int, k: int) -> tuple[int, int]:
     """(rows a thread, thread blocks) of the kernel's launches for N = ``n``
-    rows, as its C entry decides them."""
+    rows and K = ``k`` keys, as its C entry decides them."""
     out = (ctypes.c_longlong * 2)()
-    cuda_build.load().ot_ghash_plan(ctypes.c_longlong(n), out)
+    cuda_build.load().ot_ghash_plan(ctypes.c_longlong(n), k, out)
     return out[0], out[1]
 
 
 #: Calls that launched the kernel since the last reset (the main path's proof
 #: of route).
 ghash_scan.launches = 0
+ghash_at.launches = 0

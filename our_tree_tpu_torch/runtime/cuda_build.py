@@ -3,13 +3,13 @@
 ``load()`` compiles every ``our_tree_tpu_torch/csrc/*.cu`` with ``nvcc``
 (one ``nvcc`` per source, all started together), links the objects into one
 shared library with a plain C interface and loads it with ``ctypes``
-(``ot_ctr_gen`` from ``ctr_gen.cu``, ``ot_ecb_encrypt``,
+(``ot_ctr_gen`` and ``ot_ctr_gen_form`` from ``ctr_gen.cu``, ``ot_ecb_encrypt``,
 ``ot_ecb_encrypt_form`` and ``ot_ecb_decrypt`` from ``ecb.cu``,
 ``ot_ctr_mk`` and ``ot_ctr_mk_form`` from ``ctr_mk.cu``, ``ot_cbc_mk`` and
 its instrumented twin ``ot_cbc_mk_stamped`` from ``cbc_mk.cu``, ``ot_chain`` from
 ``chain.cu``, ``ot_seq_encrypt`` from ``seq.cu``, ``ot_arc4_prga`` from
-``arc4.cu``, ``ot_ghash_scan`` with ``ot_ghash_scratch_words`` and
-``ot_ghash_plan`` from ``ghash.cu``). Nothing is built at import
+``arc4.cu``, ``ot_ghash_scan`` and ``ot_ghash_at`` with
+``ot_ghash_scratch_words`` and ``ot_ghash_plan`` from ``ghash.cu``). Nothing is built at import
 time, and nothing but the sources in the package is compiled. The library
 goes into ``_build/`` beside the package (listed in ``.gitignore``) under a
 name keyed by a hash of the sources and flags, so an edit rebuilds and an
@@ -129,8 +129,10 @@ def load() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set every C entry's argument and result types."""
     vp = ctypes.c_void_p
-    lib.ot_ctr_gen.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+    lib.ot_ctr_gen.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
     lib.ot_ctr_gen.restype = ctypes.c_int
+    lib.ot_ctr_gen_form.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.ot_ctr_gen_form.restype = ctypes.c_int
     lib.ot_ecb_encrypt.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
     lib.ot_ecb_encrypt.restype = ctypes.c_int
     lib.ot_ecb_encrypt_form.argtypes = [ctypes.c_longlong, ctypes.c_int]
@@ -159,9 +161,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ot_ghash_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                                   vp]
     lib.ot_ghash_scan.restype = ctypes.c_int
-    lib.ot_ghash_scratch_words.argtypes = [ctypes.c_longlong]
+    lib.ot_ghash_at.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
+                                ctypes.c_longlong, ctypes.c_int, vp]
+    lib.ot_ghash_at.restype = ctypes.c_int
+    lib.ot_ghash_scratch_words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     lib.ot_ghash_scratch_words.restype = ctypes.c_longlong
-    lib.ot_ghash_plan.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ot_ghash_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_longlong)]
     lib.ot_ghash_plan.restype = None
     return lib
 
@@ -196,7 +202,7 @@ def ptxas_kernels(report: str | None = None) -> dict[str, dict[str, int]]:
     arguments (e.g. ``"ecb_decrypt_kernel<14>"``, ``"chain_kernel<128,4>"``,
     ``"seq_encrypt_kernel<10,1>"``, ``"ctr_mk_block_kernel<12>"``,
     ``"cbc_mk_block_kernel<14>"``, ``"ecb_encrypt_block_kernel<10>"``,
-    ``"arc4_prga_kernel<32>"``, ``"ghash_rows_kernel<128>"``)."""
+    ``"arc4_prga_kernel<32>"``, ``"ghash_map_kernel<128,1>"``)."""
     text = ptxas_report() if report is None else report
     out: dict[str, dict[str, int]] = {}
     cur = None

@@ -194,6 +194,50 @@ def test_seam_matches_reference(direction, nr_bits, k, engines):
         np.testing.assert_array_equal(_np(ys), want["jnp"][1])  # every row, J0 rows too
 
 
+@pytest.mark.parametrize("direction,nr_bits,k,engines", SEAM_CASES,
+                         ids=[f"{d}-{b}-k{k}-{'+'.join(e)}" for d, b, k, e in SEAM_CASES])
+def test_seam_rows_match_reference(direction, nr_bits, k, engines):
+    """The seam with ``rows`` (``ghash_at`` behind the CUDA engine): the
+    named rows of the reference's every-row ``ys`` (each request's last row,
+    as the serve modes read them, row 0 and the last row), and the same
+    ``out``. The layouts are ``test_seam_matches_reference``'s."""
+    rng = np.random.default_rng(100 * k + nr_bits + (direction == "open"))
+    w, c, rks, slots, hmats, inj, keep, nr = _layout(rng, k, nr_bits)
+    n = keep.size
+    want = {eng: [np.asarray(a) for a in jgcm.gcm_crypt_ghash_words(
+        w, c, rks, slots, hmats, inj, keep, nr, eng, direction)] for eng in engines}
+    starts = np.flatnonzero(keep == 0)
+    rows = sorted({0, n - 1, *(int(r) - 1 for r in starts[1:] if r > 0)})
+    for eng in engines:
+        for engine in (aes.CUDA_ENGINE, "auto"):
+            out, ys = gcm.gcm_crypt_ghash_words(
+                _t(w), _t(c), _t(rks), torch.from_numpy(slots.astype(np.int32)), hmats,
+                _t(inj), torch.from_numpy(keep.astype(np.int32)), nr, engine, direction,
+                rows=rows)
+            assert tuple(ys.shape) == (len(rows), 4)
+            np.testing.assert_array_equal(_np(out), want[eng][0])
+            np.testing.assert_array_equal(_np(ys), want[eng][1].reshape(-1, 4)[rows])
+
+
+def test_ghash_at_is_the_scans_rows_and_checks_them():
+    rng = np.random.default_rng(8)
+    n, k = 70, 3
+    x, inj, hk, y0 = (_t(_u32(rng, *shape)) for shape in ((n, 4), (n, 4), (k, 4), (4,)))
+    slots = torch.from_numpy(rng.integers(0, k, n).astype(np.int32))
+    keep = torch.from_numpy((rng.random(n) < 0.8).astype(np.int32))
+    every = cuda_ghash.ghash_scan(x, hk, slots, keep, y0, inject=inj)
+    for rows in ([0], [69], [3, 3, 40], list(range(0, 70, 7)), torch.tensor([5, 6])):
+        got = cuda_ghash.ghash_at(x, hk, slots, keep, y0, rows, inject=inj)
+        assert torch.equal(got, every[torch.as_tensor(rows, dtype=torch.int64)])
+        assert torch.equal(got, cuda_ghash.ghash_at_plain(x, hk, slots, keep, y0, rows, inj))
+    assert tuple(cuda_ghash.ghash_at(x, hk, slots, keep, y0, []).shape) == (0, 4)
+    for bad in ([70], [-1], [5, 4]):
+        with pytest.raises(ValueError, match="rows_out"):
+            cuda_ghash.ghash_at(x, hk, slots, keep, y0, bad)
+    with pytest.raises(ValueError, match="key_slots"):
+        cuda_ghash.ghash_at(x, hk, slots + 3, keep, y0, [1])
+
+
 def test_seam_takes_hmats_as_a_tensor_and_other_engines():
     rng = np.random.default_rng(7)
     w, c, rks, slots, hmats, inj, keep, nr = _layout(rng, 3, 128)

@@ -139,3 +139,26 @@ def test_from_schedule_takes_reference_context_arrays():
         np.testing.assert_array_equal(got, want)
     for got, want in zip(ours.crypt_cfb128(1, 3, iv, data[:99]), ref.crypt_cfb128(1, 3, iv, data[:99])):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("form", cuda_aes.CTR_GEN_FORMS)
+def test_fused_ctr_takes_a_form_and_runs_plain_on_cpu(form):
+    """Every form of the fused CTR wrapper gives the reference's words on
+    the CPU across a 64-bit carry, counting no launch; the form is checked
+    before anything runs."""
+    nr, rk = jks.expand_key_enc(bytes(range(16)))
+    ctr = _ctr_be(WRAP_NONCES[1])
+    w = np.random.default_rng(6).integers(0, 2**32, (33, 4), dtype=np.uint64).astype(np.uint32)
+    before = dict(cuda_aes.ctr_crypt_words_fused.form_launches)
+    got = cuda_aes.ctr_crypt_words_fused(_t(w), _t(ctr), _t(rk), nr, form=form)
+    want = np.asarray(jaes.ctr_crypt_words(
+        jnp.asarray(w), jnp.asarray(ctr), jnp.asarray(rk), nr, "jnp"))
+    np.testing.assert_array_equal(packing.words_numpy(got), want)
+    assert cuda_aes.ctr_crypt_words_fused.form_launches == before
+
+
+def test_fused_ctr_refuses_an_unknown_form():
+    nr, rk = jks.expand_key_enc(bytes(16))
+    with pytest.raises(ValueError, match="form"):
+        cuda_aes.ctr_crypt_words_fused(_t(np.zeros((1, 4), np.uint32)), _t(_ctr_be(WRAP_NONCES[0])),
+                                       _t(rk), nr, form="warp")

@@ -1,9 +1,10 @@
 """The CUDA kernel's arithmetic (``csrc/ctr_gen.cuh``: counter synthesis,
 rounds, transposes) compiled as host C++ with g++ and held bit-exact against
 the plain torch version, including block indices past 2^37 (where the TPU
-kernel's shortcut stops) up to the top of the 64-bit index. The kernel's
-loads, stores and ragged-tail mask run only on the card
-(``tests/test_torch_cuda.py``)."""
+kernel's shortcut stops) up to the top of the 64-bit index; and the block
+form's counter (``counter_block``, carries across bits 32, 64 and 127) and
+its one-block keystream on ``aes_block.cuh``. The kernel's loads, stores and
+ragged-tail mask run only on the card (``tests/test_torch_cuda.py``)."""
 
 import ctypes
 import shutil
@@ -18,6 +19,7 @@ from our_tree_tpu_torch.runtime import cuda_build
 from our_tree_tpu_torch.utils import packing
 
 HOST_SOURCE = r"""
+#include "aes_block.cuh"
 #include "ctr_gen.cuh"
 
 template <int NR>
@@ -38,6 +40,43 @@ extern "C" int keystream_groups(const uint32_t* ctr_be, const uint32_t* rk, int 
     case 10: run<10>(ctr_be, rk, groups, n, out); return 0;
     case 12: run<12>(ctr_be, rk, groups, n, out); return 0;
     case 14: run<14>(ctr_be, rk, groups, n, out); return 0;
+    default: return 1;
+  }
+}
+
+// The block form: block j's counter as LE words, and its keystream block.
+extern "C" void counter_blocks(const uint32_t* ctr_be, const unsigned long long* js, int n,
+                               uint32_t* out) {
+  for (int k = 0; k < n; ++k) {
+    uint32_t le[4];
+    ctr_gen::counter_block(ctr_be, js[k], le);
+    for (int c = 0; c < 4; ++c) out[4 * k + c] = le[c];
+  }
+}
+
+template <int NR>
+static void block_run(const uint32_t* ctr_be, const uint32_t* rk,
+                      const unsigned long long* js, int n, uint32_t* out) {
+  uint32_t kp[8 * (NR + 1)];
+  for (int r = 0; r <= NR; ++r) aes_block::round_key_planes(rk, r, kp + 8 * r);
+  for (int k = 0; k < n; ++k) {
+    uint32_t c[4];
+    ctr_gen::counter_block(ctr_be, js[k], c);
+    const uint4 ks = aes_block::ctr_block<NR>(make_uint4(c[0], c[1], c[2], c[3]),
+                                              make_uint4(0u, 0u, 0u, 0u), kp);
+    out[4 * k] = ks.x;
+    out[4 * k + 1] = ks.y;
+    out[4 * k + 2] = ks.z;
+    out[4 * k + 3] = ks.w;
+  }
+}
+
+extern "C" int keystream_blocks(const uint32_t* ctr_be, const uint32_t* rk, int nr,
+                                const unsigned long long* js, int n, uint32_t* out) {
+  switch (nr) {
+    case 10: block_run<10>(ctr_be, rk, js, n, out); return 0;
+    case 12: block_run<12>(ctr_be, rk, js, n, out); return 0;
+    case 14: block_run<14>(ctr_be, rk, js, n, out); return 0;
     default: return 1;
   }
 }
@@ -71,6 +110,10 @@ def host_lib(tmp_path_factory):
     vp = ctypes.c_void_p
     lib.keystream_groups.argtypes = [vp, vp, ctypes.c_int, vp, ctypes.c_int, vp]
     lib.keystream_groups.restype = ctypes.c_int
+    lib.keystream_blocks.argtypes = [vp, vp, ctypes.c_int, vp, ctypes.c_int, vp]
+    lib.keystream_blocks.restype = ctypes.c_int
+    lib.counter_blocks.argtypes = [vp, vp, ctypes.c_int, vp]
+    lib.counter_blocks.restype = None
     return lib
 
 
@@ -120,3 +163,42 @@ def test_host_keystream_at_large_block_indices(host_lib, group, hexnonce):
     nr, rk = expand_key_enc(_key(bits, group % 1000))
     got = _host_keystream(host_lib, _ctr_be(hexnonce), rk, nr, [group])
     np.testing.assert_array_equal(got, _plain_keystream(hexnonce, rk, nr, 32 * group, 32))
+
+
+#: (start counter, block indices) whose additions carry across bit 32, bit
+#: 64 (the two 64-bit halves) and bit 127 (the wrap mod 2^128).
+COUNTER_CASES = [
+    ("000102030405060708090a0bfffffffb", [0, 4, 5, 6]),
+    ("0001020304050607fffffffffffffff9", [6, 7, 8, 2**40]),
+    ("00000000000000000000000000000001", [2**64 - 2, 2**64 - 1]),
+    ("7fffffffffffffffffffffffffffffff", [0, 1, 2]),
+    ("fffffffffffffffffffffffffffffff0", [15, 16, 17, 2**63]),
+    ("ffffffffffffffffffffffffffffffff", [0, 1, 2**64 - 1]),
+]
+
+
+@pytest.mark.parametrize("hexnonce,js", COUNTER_CASES, ids=[c[0] for c in COUNTER_CASES])
+def test_block_form_counter_carries(host_lib, hexnonce, js):
+    g = np.asarray(js, np.uint64)
+    out = np.zeros((len(js), 4), np.uint32)
+    host_lib.counter_blocks(np.ascontiguousarray(_ctr_be(hexnonce)).ctypes.data, g.ctypes.data,
+                            len(js), out.ctypes.data)
+    for j, got in zip(js, out):
+        want = ((int(hexnonce, 16) + j) % (1 << 128)).to_bytes(16, "big")
+        assert packing.np_words_to_bytes(got).tobytes() == want, (hexnonce, j)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("hexnonce", [WRAP_NONCES[1], WRAP_NONCES[2], WRAP_NONCES[3]])
+def test_block_form_keystream_matches_plain(host_lib, bits, hexnonce):
+    """One block a thread: each block's keystream equals the plain
+    version's at the same block index, across the 64- and 128-bit wraps."""
+    nr, rk = expand_key_enc(_key(bits, bits + 1))
+    js = [0, 1, 6, 7, 15, 16, 31, 32]
+    g = np.asarray(js, np.uint64)
+    out = np.zeros((len(js), 4), np.uint32)
+    rc = host_lib.keystream_blocks(np.ascontiguousarray(_ctr_be(hexnonce)).ctypes.data,
+                                   np.ascontiguousarray(rk, np.uint32).ctypes.data, nr,
+                                   g.ctypes.data, len(js), out.ctypes.data)
+    assert rc == 0
+    np.testing.assert_array_equal(out, _plain_keystream(hexnonce, rk, nr, 0, 33)[js])

@@ -120,6 +120,51 @@ def test_ecb_encrypt_forms_match_plain(card, bits, n, form):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("hexnonce", WRAP_NONCES)
+@pytest.mark.parametrize("n", [1, 2, 33, 4096])
+@pytest.mark.parametrize("form", ["auto", "group", "block"])
+def test_ctr_gen_forms_match_plain(card, bits, hexnonce, n, form):
+    """Each ctr_gen form, forced or picked by the C entry, equals the plain
+    version across every counter wrap and counts one launch, under the form
+    it ran."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    w, ctr, rk, nr = _case(card, bits, hexnonce, n, seed=13 * n + bits)
+    code = cuda_build.load().ot_ctr_gen_form(n, cuda_aes.CTR_GEN_FORMS.index(form))
+    ran = cuda_aes.CTR_GEN_FORMS[code]
+    before = dict(cuda_aes.ctr_crypt_words_fused.form_launches)
+    got = cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr, form=form)
+    want = cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr)
+    torch.cuda.synchronize()
+    assert form == "auto" or ran == form
+    assert cuda_aes.ctr_crypt_words_fused.form_launches == {**before, ran: before[ran] + 1}
+    assert torch.equal(got, want)
+
+
+def test_ctr_gen_auto_form_follows_the_block_count(card):
+    """crypt_ctr's one-block tail takes the block form, the 256 MiB main
+    path the group form; both sides of the crossing agree with the plain
+    version."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load()
+    top = next(n for n in (1 << k for k in range(25)) if lib.ot_ctr_gen_form(2 * n, 0) == 1)
+    assert lib.ot_ctr_gen_form(1, 0) == 2 and lib.ot_ctr_gen_form(1 << 24, 0) == 1
+    for n in (top, top + 1):
+        w, ctr, rk, nr = _case(card, 128, WRAP_NONCES[1], n, seed=n)
+        assert torch.equal(cuda_aes.ctr_crypt_words_fused(w, ctr, rk, nr),
+                           cuda_aes.ctr_crypt_words_fused_plain(w, ctr, rk, nr))
+    ctx = aes.AES(bytes(range(16)), device=card)
+    before = dict(cuda_aes.ctr_crypt_words_fused.form_launches)
+    nonce = np.frombuffer(bytes.fromhex(WRAP_NONCES[4]), np.uint8)
+    out, n_off, _nc, _sb = ctx.crypt_ctr(0, nonce, np.zeros(16, np.uint8), bytes(range(7)))
+    cpu = aes.AES(bytes(range(16)), device="cpu").crypt_ctr(0, nonce, np.zeros(16, np.uint8),
+                                                           bytes(range(7)))
+    assert bytes(out) == bytes(cpu[0]) and n_off == 7
+    assert cuda_aes.ctr_crypt_words_fused.form_launches == {**before, "block": before["block"] + 1}
+
+
 def test_ecb_encrypt_auto_form_follows_the_block_count(card):
     """One block (AES._ecb1) takes the block form; 2^24 blocks (256 MiB) the
     group form."""
@@ -594,6 +639,66 @@ def test_ghash_scan_kernel_matches_plain(card, n, k):
     assert torch.equal(cuda_ghash.ghash_scan(x ^ inj, hk, slots, keep, y0), want)
 
 
+def _named_rows(n, seed):
+    """Sorted random named rows of N rows, a repeat among them when N > 1,
+    the first and the last row always."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, n, max(1, min(n, 40))))
+    return sorted({0, n - 1, *rows.tolist()}) + ([int(rows[0])] if n > 1 else [])
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for n in (1, 2, 31, 33, 129, 4096) for k in (1, 3, 8, 64)]
+                         + [(65537, 8)])
+def test_ghash_at_kernel_matches_plain(card, n, k):
+    """ghash_at at random named rows: equal to ghash_at_plain and to
+    ghash_scan's rows; one call counted."""
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, n, k, seed=n * 100 + k + 1)
+    rows = sorted(_named_rows(n, seed=n + k))
+    before = cuda_ghash.ghash_at.launches
+    got = cuda_ghash.ghash_at(x, hk, slots, keep, y0, rows, inject=inj)
+    every = cuda_ghash.ghash_scan(x, hk, slots, keep, y0, inject=inj)
+    torch.cuda.synchronize()
+    assert cuda_ghash.ghash_at.launches == before + 1
+    idx = torch.tensor(rows, dtype=torch.int64, device=card)
+    assert torch.equal(got, every[idx])
+    if n <= 4096:
+        assert torch.equal(got, cuda_ghash.ghash_at_plain(x, hk, slots, keep, y0, rows, inj))
+    else:
+        assert torch.equal(got, cuda_ghash.ghash_scan_plain(x, hk, slots, keep, y0, inj)[idx])
+
+
+@pytest.mark.parametrize("n", [(1 << 19) + 3, 3 * (1 << 18) + 5])
+def test_ghash_scan_staged_rows_match_ghash_at(card, n):
+    """With 8 rows a thread or more the rows launch stages its stores in
+    shared memory (9 and 13 rows a thread here, ragged): every 997th row and
+    the last few equal ghash_at's, which never runs that launch."""
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, n, 3, seed=n)
+    assert cuda_ghash.plan(n, 3)[0] >= 8
+    rows = sorted(set(range(0, n, 997)) | set(range(n - 20, n)))
+    every = cuda_ghash.ghash_scan(x, hk, slots, keep, y0, inject=inj)
+    got = cuda_ghash.ghash_at(x, hk, slots, keep, y0, rows, inject=inj)
+    torch.cuda.synchronize()
+    assert torch.equal(every[torch.tensor(rows, dtype=torch.int64, device=card)], got)
+
+
+@pytest.mark.parametrize("rung", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_ghash_at_kernel_at_the_serve_rungs(card, rung):
+    """Each request's last row, as the gcm serve modes will name them."""
+    from our_tree_tpu_torch.ops import cuda_ghash
+
+    x, hk, slots, keep, y0, inj = _ghash_case(card, rung, 8, seed=rung + 3, rung_layout=True)
+    starts = torch.nonzero(keep.cpu() == 0).flatten().tolist()
+    rows = sorted({r - 1 for r in starts if r > 0} | {rung - 1})
+    got = cuda_ghash.ghash_at(x, hk, slots, keep, y0, rows, inject=inj)
+    want = cuda_ghash.ghash_at_plain(x, hk, slots, keep, y0, rows, inject=inj)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rung", [32, 64, 128, 256, 512, 1024, 2048, 4096])
 def test_ghash_scan_kernel_at_the_serve_rungs(card, rung):
     from our_tree_tpu_torch.ops import cuda_ghash
@@ -628,17 +733,19 @@ def _gcm_kats():
 
 def test_gcm_kats_on_card(card):
     """SP 800-38D through gcm_seal/gcm_open on the card: each call one
-    ctr_mk and one ghash_scan launch; a tampered tag raises."""
+    ctr_mk launch and one ghash_at call (none without a full block), no
+    ghash_scan; a tampered tag raises."""
     from our_tree_tpu_torch.aead import gcm
     from our_tree_tpu_torch.ops import cuda_ghash
 
     for kat in _gcm_kats():
         key, iv, aad, pt = (bytes.fromhex(kat[f]) for f in ("key", "iv", "aad", "pt"))
         mk, gh = cuda_aes.ctr_scattered_multikey.launches, cuda_ghash.ghash_scan.launches
+        at = cuda_ghash.ghash_at.launches
         ct, tag = gcm.gcm_seal(key, iv, aad, pt)
         assert (ct.hex(), tag.hex()) == (kat["ct"], kat["tag"]), kat["name"]
-        assert (cuda_aes.ctr_scattered_multikey.launches - mk,
-                cuda_ghash.ghash_scan.launches - gh) == (1, 1)
+        assert (cuda_aes.ctr_scattered_multikey.launches - mk, cuda_ghash.ghash_scan.launches - gh,
+                cuda_ghash.ghash_at.launches - at) == (1, 0, int(len(pt) >= 16))
         assert gcm.gcm_open(key, iv, aad, ct, tag) == pt
         with pytest.raises(gcm.TagMismatchError):
             gcm.gcm_open(key, iv, aad, ct, tag[:-1] + bytes([tag[-1] ^ 1]))
