@@ -149,7 +149,15 @@ is not 0:
    ``kCtrGenBlockFormMax``) and ``ctr_gen`` at 256 MiB beside its time
    before the block form (``CTR_GEN_256MIB_MS``); and the block form beside
    ``ecb_decrypt_kernel`` (32 blocks a thread) from 4,096 blocks to 2^24,
-   where a group form would pay;
+   where a group form would pay; ``ctr_mk``'s group form beside
+   the parent's (``CTR_MK_FORMER_SOURCE``) and its own design steps one at
+   a time (``ctr_mk.cu`` built once a code with ``OT_CTR_MK_PROBE``) at the
+   seal's launch (2^24 + 1 blocks, K = 1, all-zero slots), the K = 1 entry
+   (2^24 blocks) and 256 MiB at K = 8 in runs of 1-300: each equal to the
+   plain version, 12 alternating turns in CUDA graphs, the launch floor at
+   its grid and shared memory, registers, spills and resident blocks, the
+   stamped phases per warp (and the warps by key form), the SASS of each
+   key form and of the prologue;
 10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
    processes of its own with ``OT_ARC4_PREP=native``: ``--timing device
    --iters 5 --keybits 128`` over ecb, ecb-dec, ctr, cbc-dec and rc4 at 1,
@@ -183,7 +191,9 @@ is not 0:
    formulation, and its launches counted (one ``ctr_mk``, one
    ``ghash_scan``); times: ``ghash_at`` and ``ghash_scan`` at 2^24 + 1 rows
    (K = 1) and at the 4,096 rung with K = 8 (CUDA events and a CUDA graph),
-   the plain versions (at the seal's shape ``ghash_by_powers``), each call's
+   the plain versions (at the seal's shape ``ghash_by_powers``), the seal's
+   ``ctr_mk`` launch alone on the seal's arrays and its share of the
+   dispatch, each call's
    launches alone (map, carry, rows; the parent's kernel's and the
    kernel's own: ``GHASH_VARIANTS_SOURCE``) beside the launch floor at their
    grid and shared memory, their registers, spills and resident thread
@@ -207,7 +217,9 @@ and 12 run with every launch count set to 0 just before and read just after, and
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
-``ctr_mk`` with its ``k1_entry`` and its ``block_form``, ``cbc_mk`` with its
+``ctr_mk`` with its ``k1_entry``, its ``seal_shape``, its
+``design_variants_ms_graph`` and ``group_form_study`` and its
+``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows,
 ``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
@@ -365,6 +377,11 @@ __global__ void empty_kernel(const uint4*, uint4*, const uint4*, const int32_t*,
                              long long, int) {}
 
 extern "C" int ot_empty(int grid, int threads, int smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   empty_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0);
   return (int)cudaGetLastError();
@@ -1174,6 +1191,185 @@ extern "C" int ot_ghash_launch_shape(int which, int named, long long n, int k, l
   return (int)e;
 }
 """
+#: The parent's group form of ctr_mk (phase 9): ctr_mk_kernel as it was
+#: before its redesign (the slots as 32 scalar loads and 32 offsets written
+#: before the warp's vote, the keys as words with each round's masks made on
+#: the fly; ctr_mk.cu of the parent commit, comments dropped), on the word
+#: forms that aes_bitslice.cuh still holds, with a stamped instantiation
+#: (phases as ctr_mk.cu's probe build stamps them, in this kernel's order:
+#: key prologue, slots, counters, vote, rounds, store) and a C entry for each
+#: launch's shape. Built with its own nvcc beside the kernels and timed in
+#: turns with them; a measurement probe, not a kernel of the port.
+CTR_MK_FORMER_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "aes_bitslice.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : : "memory");
+  return t;
+}
+
+__device__ __forceinline__ long long clock_after(uint32_t dep, long long* sink) {
+  long long t;
+  asm volatile("st.volatile.global.u32 [%1], %2;\n\tmov.u64 %0, %%clock64;"
+               : "=l"(t) : "l"(sink), "r"(dep) : "memory");
+  return t;
+}
+
+template <int NR, int STAMP>
+__global__ void __launch_bounds__(kThreads)
+former_ctr_mk_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
+                     const uint4* __restrict__ ctr, const int32_t* __restrict__ slots,
+                     const uint32_t* __restrict__ rks, long long n_blocks, int k,
+                     long long* stamps) {
+  constexpr int kWords = 4 * (NR + 1);
+  extern __shared__ uint32_t smem[];
+  uint32_t* keys = smem;
+  uint16_t* offs = reinterpret_cast<uint16_t*>(smem + k * kWords);
+  long long t[7] = {0, 0, 0, 0, 0, 0, 0};
+  long long* row = nullptr;
+  if constexpr (STAMP) {
+    row = stamps + 8 * ((blockIdx.x * (long long)kThreads + threadIdx.x) / 32);
+    t[0] = clock_now();
+  }
+  for (int i = threadIdx.x; i < k * kWords; i += kThreads) keys[i] = rks[i];
+  __syncthreads();
+  if constexpr (STAMP) t[1] = clock_now();
+
+  const unsigned long long g = blockIdx.x * (unsigned long long)kThreads + threadIdx.x;
+  const long long first = (long long)(g * 32ull);
+  if (first >= n_blocks) return;
+
+  bool uniform = true;
+  uint32_t off0 = 0;
+  if (slots != nullptr) {
+    const int s0 = min(max(slots[first], 0), k - 1);
+    off0 = (uint32_t)(s0 * kWords);
+#pragma unroll
+    for (int t = 0; t < 32; ++t) {
+      const long long j = first + t;
+      const int sl = j < n_blocks ? min(max(slots[j], 0), k - 1) : s0;
+      offs[t * kThreads + threadIdx.x] = (uint16_t)(sl * kWords);
+      uniform &= sl == s0;
+    }
+  }
+  if constexpr (STAMP) t[2] = clock_after(off0 ^ (uint32_t)uniform, row + 7);
+
+  uint32_t s[128];
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    const long long j = first + t;
+    const uint4 c = j < n_blocks ? ctr[j] : make_uint4(0u, 0u, 0u, 0u);
+    s[t] = c.x;
+    s[32 + t] = c.y;
+    s[64 + t] = c.z;
+    s[96 + t] = c.w;
+  }
+  if constexpr (STAMP) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) x ^= s[i];
+    t[3] = clock_after(x, row + 7);
+  }
+
+  uniform = __all_sync(__activemask(), uniform);
+  if constexpr (STAMP) t[4] = clock_now();
+  if (uniform) aes_bitslice::mk_encrypt_group<NR, true>(s, keys, off0, offs, kThreads);
+  else aes_bitslice::mk_encrypt_group<NR, false>(s, keys, off0, offs + threadIdx.x, kThreads);
+  if constexpr (STAMP) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) x ^= s[i];
+    t[5] = clock_after(x, row + 7);
+  }
+
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    const long long j = first + t;
+    if (j < n_blocks) {
+      const uint4 d = data[j];
+      out[j] = make_uint4(d.x ^ s[t], d.y ^ s[32 + t], d.z ^ s[64 + t], d.w ^ s[96 + t]);
+    }
+  }
+  if constexpr (STAMP) {
+    __threadfence();
+    t[6] = clock_now();
+    if ((threadIdx.x & 31) == 0) {
+      unsigned int sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      for (int i = 0; i < 7; ++i) row[i] = t[i];
+      row[7] = 4ll * sm + (uniform ? 1 : 3);
+    }
+  }
+}
+
+size_t former_smem(int k, bool slots) {
+  return (size_t)k * 4 * 11 * sizeof(uint32_t) + (slots ? 32 * kThreads * sizeof(uint16_t) : 0);
+}
+
+}  // namespace
+
+// The parent's group-form launch at nr 10 (stamped: stamps, one zeroed row
+// of 8 int64 a warp).
+extern "C" int ot_former_ctr_mk(int stamped, const void* data, void* out, const void* ctr,
+                                const void* slots, const void* rks, long long n_blocks, int k,
+                                void* stamps, void* stream) {
+  const long long groups = (n_blocks + 31) / 32;
+  const unsigned int grid = (unsigned int)((groups + kThreads - 1) / kThreads);
+  const size_t smem = former_smem(k, slots != nullptr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* d = static_cast<const uint4*>(data);
+  const uint4* c = static_cast<const uint4*>(ctr);
+  const int32_t* sl = static_cast<const int32_t*>(slots);
+  const uint32_t* rk = static_cast<const uint32_t*>(rks);
+  if (stamped)
+    former_ctr_mk_kernel<10, 1><<<grid, kThreads, smem, st>>>(
+        d, static_cast<uint4*>(out), c, sl, rk, n_blocks, k, static_cast<long long*>(stamps));
+  else
+    former_ctr_mk_kernel<10, 0><<<grid, kThreads, smem, st>>>(
+        d, static_cast<uint4*>(out), c, sl, rk, n_blocks, k, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// shape[0..2]: grid, dynamic shared memory, resident thread blocks an SM.
+extern "C" int ot_former_ctr_mk_shape(int stamped, long long n_blocks, int k, int slots,
+                                      long long* shape) {
+  const size_t smem = former_smem(k, slots != 0);
+  int blocks = 0;
+  const cudaError_t e = stamped
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, former_ctr_mk_kernel<10, 1>,
+                                                      kThreads, smem)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, former_ctr_mk_kernel<10, 0>,
+                                                      kThreads, smem);
+  shape[0] = ((n_blocks + 31) / 32 + kThreads - 1) / kThreads;
+  shape[1] = (long long)smem;
+  shape[2] = blocks;
+  return (int)e;
+}
+"""
+#: ctr_mk.cu built again for phase 9's measurements, once for each code of
+#: CTR_MK_PROBE (OT_CTR_MK_PROBE: its steps one at a time, its stamped
+#: instantiation, each launch's shape), beside the kernels; not in the port's
+#: library.
+CTR_MK_PROBE_SOURCE = '#define OT_CTR_MK_PROBE {code}\n#include "ctr_mk.cu"\n'
+#: The probe builds' codes (ctr_mk.cu kProbeSteps): the kernel, then the
+#: design with one step left out or changed, and the stamped kernel.
+CTR_MK_PROBE = {"kernel": 0, "prologue_only": 1, "no_select": 2, "select_2_slots": 3,
+                "no_prmt": 4, "scalar_slot_loads": 5, "stamped": 6, "k1_consecutive": 7,
+                "k1_pipelined": 8}
+#: The phases of a stamped warp, in the order each kernel runs them (the
+#: differences of its stamps 0..6).
+CTR_MK_PHASES = {"former": ("keys", "slots", "loads", "vote", "rounds", "store"),
+                 "kernel": ("slots", "keys", "loads", "form", "rounds", "store")}
+#: A warp's key form as its stamps record it (ctr_mk.cu KeyForm).
+CTR_MK_KEY_FORMS = ("uniform_masks", "uniform_words", "select_masks", "mixed_words")
 #: Phase 2's ECB block-form sizes (one block a thread): one block, ragged
 #: warps, and a serve rung's worth.
 ECB_BLOCK_SIZES = (1, 2, 31, 33, 4096)
@@ -1374,31 +1570,58 @@ def sass_int_ops_per_thread(text: str, kernel: str, nr: int) -> tuple[int, dict]
     return total, dict(sorted(hist.items(), key=lambda kv: -kv[1]))
 
 
-def sass_mk_per_thread(text: str, nr: int) -> dict:
+def sass_mk_per_thread(text: str, nr: int, kernel: str = "ctr_mk_kernel", targs=None) -> dict:
     """``ctr_mk_kernel``<nr>'s integer SASS by key form. The kernel has one
-    rolled round loop per key form (the two largest loops; the mixed one
-    reads its key words from shared memory, so it has the more LDS) and
-    small set-up loops. Per group, a form runs its loop body nr - 1 times
-    plus straight-line code; the straight-line code holds both forms' first
-    and last rounds, and the set-up loops are counted once, so
-    ``*_group`` is an upper bound for one group of that form."""
-    ins, back = sass_function(text, "ctr_mk_kernel", nr)
+    rolled round loop per key form (its largest loops) and small set-up
+    loops: four (the mixed word form, the most instructions; of
+    the other three the select form reads the most from shared memory, the
+    uniform word form the least, and the uniform mask form is the last),
+    two in the parent's kernel (``kernel`` in CTR_MK_FORMER_SOURCE: the
+    mixed word form reads the more). Per group, a form runs its loop body
+    nr - 1 times plus straight-line code; the straight-line code holds every
+    form's first and last rounds, and the set-up loops are counted once, so
+    ``*_group`` is an upper bound for one group of that form.
+    ``uniform_group`` and ``mixed_group`` are the forms a uniform and a
+    mixed warp take at K up to the mask cap (the parent: the word forms).
+    ``targs``: the kernel's template arguments, if not (nr,)."""
+    ins, back = sass_function(text, kernel, nr if targs is None else targs)
     loops = []
     for lo, hi in back:
         body = [(a, b) for a, b, _t in ins if lo <= a <= hi]
         loops.append({"range": (lo, hi), "int": sum(_is_int_op(b) for _a, b in body),
                       "lds": sum(b == "LDS" for _a, b in body)})
     loops.sort(key=lambda lp: -lp["int"])
-    if len(loops) < 2:
-        raise RuntimeError(f"expected two round loops in ctr_mk_kernel<{nr}>, found {back}")
-    mixed, uniform = sorted(loops[:2], key=lambda lp: -lp["lds"])
-    rounds = [mixed["range"], uniform["range"]]
+    forms = 4 if kernel == "ctr_mk_kernel" else 2
+    if len(loops) < forms:
+        raise RuntimeError(f"expected {forms} round loops in {kernel}<{nr}>, found {back}")
+    loops = loops[:forms]
+    if forms == 4:
+        rest = sorted(loops[1:], key=lambda lp: -lp["lds"])
+        named = {"mixed_words": loops[0], "select_masks": rest[0], "uniform_masks": rest[1],
+                 "uniform_words": rest[2]}
+    else:
+        mixed, uniform = sorted(loops, key=lambda lp: -lp["lds"])
+        named = {"mixed_words": mixed, "uniform_words": uniform}
     outside = sum(_is_int_op(b) for a, b, _t in ins
-                  if not any(lo <= a <= hi for lo, hi in rounds))
-    return {"uniform_round": uniform["int"], "mixed_round": mixed["int"],
-            "outside_round_loops": outside,
-            "uniform_group": uniform["int"] * (nr - 1) + outside,
-            "mixed_group": mixed["int"] * (nr - 1) + outside}
+                  if not any(lp["range"][0] <= a <= lp["range"][1] for lp in loops))
+    out = {"outside_round_loops": outside}
+    for name, lp in named.items():
+        out[f"{name}_round"] = lp["int"]
+        out[f"{name}_group"] = lp["int"] * (nr - 1) + outside
+    out["uniform_group"] = out["uniform_masks_group" if forms == 4 else "uniform_words_group"]
+    out["mixed_group"] = out["select_masks_group" if forms == 4 else "mixed_words_group"]
+    # The prologue: from entry to the warp's first vote (the slot and counter
+    # loads, the key prologue, the clamps and, in the parent, the offsets).
+    vote = next((a for a, b, _t in ins if b == "VOTE"), None)
+    pro = [(b, t) for a, b, t in ins if vote is not None and a < vote]
+    out["prologue_to_vote"] = {
+        "integer": sum(_is_int_op(b) for b, _t in pro),
+        "global_loads": sum(b == "LDG" for b, _t in pro),
+        "global_loads_128": sum(b == "LDG" and ".128" in t for b, t in pro),
+        "shared_stores": sum(b == "STS" for b, _t in pro),
+        "instructions": len(pro)}
+    out["votes"] = sum(b == "VOTE" for _a, b, _t in ins)
+    return out
 
 
 def sass_chain_per_element(text: str, chain: int, ilp: int) -> dict:
@@ -1815,14 +2038,17 @@ def main() -> int:
     lib_path = str(cuda_build.library_path())
     # Phase 9's and 11's probes (the shared-memory chase, the empty kernel,
     # the design variants, the parent's GHASH kernel and the GHASH kernel's
-    # per-launch entries and variants) build beside the kernels, at once, one
-    # nvcc each.
+    # per-launch entries and variants, the parent's ctr_mk group form and
+    # ctr_mk's probe build) build beside the kernels, at once, one nvcc each.
     probe_dir = tempfile.mkdtemp(prefix="ot_probes_")
     atexit.register(shutil.rmtree, probe_dir, True)
     probe_builds = {}
     for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE),
                          ("variants", VARIANTS_SOURCE), ("ghash_former", GHASH_FORMER_SOURCE),
-                         ("ghash_variants", GHASH_VARIANTS_SOURCE)):
+                         ("ghash_variants", GHASH_VARIANTS_SOURCE),
+                         ("ctr_mk_former", CTR_MK_FORMER_SOURCE),
+                         *((f"ctr_mk_probe_{c}", CTR_MK_PROBE_SOURCE.format(code=c))
+                           for c in CTR_MK_PROBE.values())):
         cu, so = os.path.join(probe_dir, f"{name}.cu"), os.path.join(probe_dir, f"{name}.so")
         with open(cu, "w", encoding="utf-8") as fh:
             fh.write(source)
@@ -1837,11 +2063,16 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"the {name} probe did not build:\n{err[-3000:]}")
         probe_ptxas[name] = cuda_build.ptxas_kernels(err)
-    chase_so, empty_so, variants_so, former_so, ghash_var_so = (probe_builds[k][0] for k in (
-        "chase", "empty", "variants", "ghash_former", "ghash_variants"))
+    chase_so, empty_so, variants_so, former_so, ghash_var_so, mk_former_so = (
+        probe_builds[k][0] for k in ("chase", "empty", "variants", "ghash_former",
+                                     "ghash_variants", "ctr_mk_former"))
+    mk_probe_sos = {c: probe_builds[f"ctr_mk_probe_{c}"][0] for c in CTR_MK_PROBE.values()}
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
-        f"shared-memory chase, the empty kernel, the design variants, the parent's GHASH kernel "
-        f"and the GHASH kernel's per-launch entries)")
+        f"shared-memory chase, the empty kernel, the design variants, the parent's GHASH kernel, "
+        f"the GHASH kernel's per-launch entries, the parent's ctr_mk group form and ctr_mk's "
+        f"probe build)")
+    for name in ("ctr_mk_former", *(f"ctr_mk_probe_{c}" for c in CTR_MK_PROBE.values())):
+        log(f"ptxas ({name} probe): {probe_ptxas[name]}")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
@@ -3189,6 +3420,200 @@ def main() -> int:
         "sass_int_per_block": {"cbc": seq_int[0], "cfb128": seq_int[1]},
         "single_stream": single})
 
+    # ctr_mk's group form, redesigned, against the parent's
+    # (CTR_MK_FORMER_SOURCE) and its own steps one at a time (ctr_mk.cu's
+    # probe build), at three shapes: (S) the seal's launch, 2^24 + 1 blocks,
+    # K = 1, an all-zero slot vector; (E) the K = 1 entry, 2^24 blocks, no
+    # slot vector; (M) 256 MiB, K = 8 in runs of 1-300. Each kernel alone:
+    # equal to the plain version, its card time in 12 alternating turns (CUDA
+    # graphs), the launch floor at its grid and shared memory, registers and
+    # spills, resident thread blocks an SM, and its stamped phases per warp;
+    # the SASS of each key form and of the prologue.
+    vp_, ll_, ci_ = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    mk_former = ctypes.CDLL(mk_former_so)
+    mk_former.ot_former_ctr_mk.argtypes = [ci_, vp_, vp_, vp_, vp_, vp_, ll_, ci_, vp_, vp_]
+    mk_former.ot_former_ctr_mk.restype = ci_
+    mk_former.ot_former_ctr_mk_shape.argtypes = [ci_, ll_, ci_, ci_, ctypes.POINTER(ll_)]
+    mk_former.ot_former_ctr_mk_shape.restype = ci_
+    mk_probes = {}
+    for code, so in mk_probe_sos.items():
+        lib_c = mk_probes[code] = ctypes.CDLL(so)
+        lib_c.ot_ctr_mk_probe.argtypes = [vp_, vp_, vp_, vp_, vp_, ll_, ci_, vp_, vp_]
+        lib_c.ot_ctr_mk_probe.restype = ci_
+        lib_c.ot_ctr_mk_probe_shape.argtypes = [ll_, ci_, ci_, ctypes.POINTER(ll_)]
+        lib_c.ot_ctr_mk_probe_shape.restype = ci_
+    mk_empty = ctypes.CDLL(empty_so)
+    mk_empty.ot_empty.argtypes = [ci_, ci_, ci_, vp_]
+    mk_empty.ot_empty.restype = ci_
+
+    class MkCall:
+        """One group-form launch's inputs at nr 10 (``sl`` None: the K = 1
+        entry), with each way of running it as a function of no arguments:
+        the wrapper (the port's kernel), the parent's kernel, a probe code."""
+
+        def __init__(self, w, c, rks_, sl):
+            self.w, self.c, self.rks, self.sl = w, c, rks_, sl
+            self.n, self.k = w.shape[0], rks_.shape[0]
+            self.out = torch.empty_like(w)
+            grid = -(-(-(-self.n // 32)) // 128)
+            self.stamps = torch.zeros((4 * grid, 8), dtype=torch.int64, device=dev)
+            self.ptrs = [None if t is None else t.data_ptr() for t in (w, self.out, c, sl, rks_)]
+
+        def kernel(self):
+            if self.sl is None:
+                return cuda_aes.ctr_crypt_words_explicit(self.w, self.c, self.rks[0], 10,
+                                                         form="group")
+            return cuda_aes.ctr_scattered_multikey(self.w, self.c, self.rks, self.sl, 10,
+                                                   form="group")
+
+        def former(self, stamped=0):
+            if mk_former.ot_former_ctr_mk(stamped, *self.ptrs, self.n, self.k,
+                                          self.stamps.data_ptr() if stamped else None,
+                                          torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("the parent's ctr_mk did not launch")
+            return self.out
+
+        def probe(self, code):
+            stamped = code == CTR_MK_PROBE["stamped"]
+            if mk_probes[code].ot_ctr_mk_probe(*self.ptrs, self.n, self.k,
+                                               self.stamps.data_ptr() if stamped else None,
+                                               torch.cuda.current_stream().cuda_stream):
+                raise SystemExit(f"ctr_mk probe code {code} did not launch")
+            return self.out
+
+        def shape(self, which):
+            """(grid, dynamic shared memory, resident thread blocks an SM) of
+            the parent's kernel ("former") or probe code ``which``."""
+            out = (ll_ * 3)()
+            rc = (mk_former.ot_former_ctr_mk_shape(0, self.n, self.k, self.sl is not None, out)
+                  if which == "former" else
+                  mk_probes[which].ot_ctr_mk_probe_shape(self.n, self.k, self.sl is not None,
+                                                         out))
+            if rc:
+                raise SystemExit(f"the occupancy query of ctr_mk {which} failed: {rc}")
+            return tuple(out)
+
+    def stamped_phases(call, fn, names, mhz):
+        """Each phase's SM cycles per warp over 5 warm launches of the
+        stamped ``fn`` (median and largest across warps, µs at ``mhz``), each
+        median's share of their sum, and the warps by key form."""
+        runs = []
+        for i in range(6):
+            call.stamps.zero_()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                a = call.stamps.cpu().numpy()
+                runs.append(a[a[:, 0] != 0])
+        a = np.concatenate(runs)
+        d = np.diff(a[:, :7], axis=1)
+        med = {nm: float(np.median(d[:, i])) for i, nm in enumerate(names)}
+        total = sum(med.values())
+        return {"phases": {nm: {"median_us": med[nm] / mhz, "max_us": float(d[:, i].max()) / mhz,
+                                "median_cycles": med[nm], "share_of_sum": med[nm] / total}
+                           for i, nm in enumerate(names)},
+                "entry_to_store_median_us": float(np.median(a[:, 6] - a[:, 0])) / mhz,
+                "warps": int(a.shape[0] // len(runs)),
+                "warps_by_key_form": {f: int((a[:, 7] % 4 == i).sum()) // len(runs)
+                                      for i, f in enumerate(CTR_MK_KEY_FORMS)}}
+
+    def ctr_mk_study(w_m, c_m, s_m, rk1s):
+        n_s = (1 << 24) + 1
+        w_s, c_s = random_words(n_s, seed=61), random_words(n_s, seed=62)
+        calls = {"S": MkCall(w_s, c_s, rk1s, torch.zeros(n_s, dtype=torch.int32, device=dev)),
+                 "E": MkCall(w_m, c_m, rk1s, None), "M": MkCall(w_m, c_m, rks8, s_m)}
+        labels = {"S": "the seal's launch, 2^24 + 1 blocks, K = 1, all-zero slots",
+                  "E": "the K = 1 entry, 2^24 blocks, no slot vector",
+                  "M": "256 MiB, K = 8, runs of 1-300"}
+        former_text = sass(mk_former_so)
+        sass_k = {"kernel": mk, "former": sass_mk_per_thread(former_text, 10,
+                                                              "former_ctr_mk_kernel", (10, 0))}
+        regs = {"kernel": ptxas.get("ctr_mk_kernel<10>", {}),
+                "former": probe_ptxas["ctr_mk_former"].get("former_ctr_mk_kernel<10,0>", {})}
+        log(f"ctr_mk group form SASS at nr 10, the kernel: {sass_k['kernel']}; the parent's: "
+            f"{sass_k['former']}; ptxas kernel {regs['kernel']}, parent {regs['former']}, probe "
+            f"builds " + "; ".join(f"{name} {probe_ptxas[f'ctr_mk_probe_{c}']}"
+                                   for name, c in CTR_MK_PROBE.items()))
+        bad, out = 0, {}
+        for key, call in calls.items():
+            want = (cuda_aes.ctr_crypt_words_explicit_plain(call.w, call.c, call.rks[0], 10)
+                    if call.sl is None else
+                    cuda_aes.ctr_scattered_multikey_plain(call.w, call.c, call.rks, call.sl, 10))
+            m, err = diff(call.kernel(), want)
+            got = {"kernel": m, "former": diff(call.former(), want)[0],
+                   "former_stamped": diff(call.former(1), want)[0]}
+            for name, code in CTR_MK_PROBE.items():
+                got[f"probe_{name}"] = diff(call.probe(code), want)[0]
+            bad += sum(got.values())
+            if any(got.values()):
+                log(f"MISMATCH ctr_mk group form at ({key}) {labels[key]}: {got}")
+            del want
+            fns = {"kernel": call.kernel, "former": call.former}
+            variants = (("prologue_only", "no_prmt", "k1_consecutive", "k1_pipelined")
+                        if key != "M" else
+                        ("prologue_only", "no_select", "select_2_slots", "no_prmt",
+                         "scalar_slot_loads"))
+            for name in variants:
+                fns[name] = lambda code=CTR_MK_PROBE[name], call=call: call.probe(code)
+            turns = in_turns(fns, reps=5)
+            ms, clocks = sampled_ms(call.kernel)
+            mhz = clocks["clock_mhz"]
+            groups = -(-call.n // 32)
+            nbytes = 48 * call.n + (4 * call.n if call.sl is not None else 0) + 4 * call.k * 44
+            bound, bound_by = measured_bound(groups * mk_ops, nbytes)
+            row = {"shape": labels[key], "n_blocks": call.n, "k": call.k, "ms": ms,
+                   "sampled_clock_mhz": mhz, "card_ms_graph": turns["kernel"]["median_ms"],
+                   "former_card_ms_graph": turns["former"]["median_ms"],
+                   "bound_ms_measured": bound, "bound_by_measured": bound_by,
+                   "share_of_bound": bound / turns["kernel"]["median_ms"],
+                   "former_share_of_bound": bound / turns["former"]["median_ms"],
+                   "kernel_faster_turns": turns["former"]["kernel_faster_turns"],
+                   "turns": turns, "mismatching_words": got, "max_abs_err": err}
+            for which, code, stamped, names in (
+                    ("former", "former", lambda call=call: call.former(1), CTR_MK_PHASES["former"]),
+                    ("kernel", CTR_MK_PROBE["kernel"],
+                     lambda call=call: call.probe(CTR_MK_PROBE["stamped"]),
+                     CTR_MK_PHASES["kernel"])):
+                grid, smem, resident = call.shape(code)
+
+                def floor_fn(grid=grid, smem=smem):
+                    if mk_empty.ot_empty(grid, 128, smem, torch.cuda.current_stream().cuda_stream):
+                        raise SystemExit("the empty kernel did not launch")
+                row[which] = {"grid": grid, "smem_bytes": smem, "resident_blocks_per_sm": resident,
+                              "registers": regs[which].get("registers"),
+                              "spill_bytes": regs[which].get("spill_stores", 0)
+                              + regs[which].get("spill_loads", 0),
+                              "floor_ms_graph": graph_ms(floor_fn, 20),
+                              "stamped": stamped_phases(call, stamped, names, mhz)}
+                st = row[which]["stamped"]
+                log(f"ctr_mk group form at ({key}) {labels[key]}, {which}: "
+                    f"{turns[which]['median_ms']:.4f} ms card (graph median), launch floor "
+                    f"{row[which]['floor_ms_graph'] * 1e3:.3f} us at grid {grid}, {smem} B shared, "
+                    f"{resident} resident blocks an SM, {row[which]['registers']} registers, "
+                    f"{row[which]['spill_bytes']} B spills; stamped phases per warp "
+                    f"({st['warps']} warps, {mhz:.0f} MHz; median / largest, share of the "
+                    f"medians' sum): " + "; ".join(
+                        f"{nm} {v['median_us']:.3f} / {v['max_us']:.3f} us "
+                        f"({100 * v['share_of_sum']:.1f} %)" for nm, v in st["phases"].items())
+                    + f"; entry to store {st['entry_to_store_median_us']:.3f} us; warps by key "
+                    f"form {st['warps_by_key_form']}; card: {card}")
+            log(f"ctr_mk group form at ({key}) {labels[key]}: the kernel {ms:.4f} ms back to back "
+                f"({call.n * 16 / ms / 1e6:.2f} GB/s), bound {bound:.4f} ms ({bound_by}, measured "
+                f"rates): {100 * row['share_of_bound']:.1f} % (the parent "
+                f"{100 * row['former_share_of_bound']:.1f} %); in {VARIANT_TURNS} alternating "
+                f"turns (CUDA graph): {turns_line(turns)}; card: {card}")
+            out[key] = row
+        log(f"ctr_mk group form, the kernel, its probes and the parent's against the plain "
+            f"version at (S), (E), (M): {bad} mismatching words")
+        if bad:
+            raise SystemExit("a ctr_mk group-form kernel disagrees with its plain version")
+        for key in ("S", "M"):
+            if out[key]["card_ms_graph"] >= out[key]["former_card_ms_graph"]:
+                raise SystemExit(f"the redesigned ctr_mk group form is not faster than the "
+                                 f"parent's at ({key})")
+        del calls, w_s, c_s
+        return {"shapes": out, "sass": sass_k}
+
     # ctr_mk: the serve path's shape (the 4,096-block rung, K = 8, drive B's
     # pattern of 1-64-block requests on random slots) in each form, then 256
     # MiB with K = 8 in runs of 1-300 blocks in each form and with its K = 1
@@ -3196,7 +3621,7 @@ def main() -> int:
     # and a random slot per block (the auto form's threshold table; the ladder's
     # rungs also with the plain version's time and drives A and B's batches).
     mk = sass_mk_per_thread(sass_text, nr)
-    mk_loops = sass_round_loops(sass_text, "ctr_mk_kernel", nr)[:2]
+    mk_loops = sass_round_loops(sass_text, "ctr_mk_kernel", nr)[:4]
     mk_group_depth = (nr - 1) * min(lp["depth"] for lp in mk_loops)
     blk = sass_block_kernel(sass_text, "ctr_mk_block_kernel", nr, nr)
     blk_int, blk_depth, blk_loop = blk["int"], blk["depth"], blk["round_loop"]
@@ -3275,7 +3700,7 @@ def main() -> int:
         f"group form {bulk['ms']:.4f} ms, block form {block_bulk['ms']:.4f} ms: the block form "
         f"{'beats' if block_bulk['ms'] < bulk['ms'] else 'does not beat'} the mixed group form; "
         f"card: {card}")
-    del s_b, want_b
+    del want_b
     rk1 = rks8[0].contiguous()
     k1 = timing("ctr_mk K=1 entry",
                 lambda: cuda_aes.ctr_crypt_words_explicit(w_b, c_b, rk1, nr8),
@@ -3287,7 +3712,8 @@ def main() -> int:
     lib = cuda_build.load()
     table = []
     ladder = line_a["config"]["rungs"]
-    for n in sorted({*ladder, 32, 128, 512, 1024, 2048, 4096, 1 << 16, 1 << 20, 1 << 24}):
+    for n in sorted({*ladder, 32, 128, 512, 1024, 2048, 4096, 1 << 16, 1 << 17, 1 << 18, 1 << 19,
+                     1 << 20, 1 << 24}):
         w_n, c_n = w_b[:n], c_b[:n]
         for pattern in ("uniform", "mixed"):
             sl = (torch.full((n,), 3, dtype=torch.int32, device=dev) if pattern == "uniform" else
@@ -3304,12 +3730,12 @@ def main() -> int:
                 fn = mk_fn(w_n, c_n, sl, form)
                 reps = max(3, int(0.2 / (events_ms(fn, 1) / 1e3)))
                 row[f"{form}_ms"] = events_ms(fn, reps)
-                if n <= 1 << 16:  # launches of a few µs: back to back, the host paces them
+                if n <= 1 << 19:  # launches of tens of µs: back to back, the host paces them
                     row[f"{form}_card_ms_graph"] = graph_ms(fn)
             row["roofline_bound_ms"] = measured_bound(-(-n // 32) * mk_ops, mk_bytes(n, 8, 1))[0]
             row["latency_bound_ms"] = {"group": latency_ms(mk_group_depth, lat_smi["clock_mhz"]),
                                        "block": latency_ms(blk_depth, lat_smi["clock_mhz"])}
-            key = "card_ms_graph" if n <= 1 << 16 else "ms"
+            key = "card_ms_graph" if n <= 1 << 19 else "ms"
             row["faster"] = "block" if row[f"block_{key}"] < row[f"group_{key}"] else "group"
             table.append(row)
             log(f"ctr_mk forms at {n} blocks, K = 8, {pattern} slots: group {row['group_ms']:.4f} "
@@ -3319,7 +3745,8 @@ def main() -> int:
                 f"{row['auto_form']}); roofline bound {row['roofline_bound_ms']:.6f} ms"
                 + (f"; plain {row['plain_ms']:.2f} ms, {row['drive_batches']} traffic batches in "
                    f"drives A and B" if "plain_ms" in row else "") + f"; card: {card}")
-    del w_b, c_b
+    study = ctr_mk_study(w_b, c_b, s_b, rks8[:1].contiguous())
+    del w_b, c_b, s_b
     forms_ab = {f: forms_a[f] + forms_b[f] for f in forms_a}
     kernels.append({
         "name": "ctr_mk", "route": "cuda", "source": "our_tree_tpu_torch/csrc/ctr_mk.cu",
@@ -3329,6 +3756,17 @@ def main() -> int:
                  f"{rung // 32} groups mixed), the group form (ctr_mk_kernel)",
         "launches_by_form": forms_ab,
         "sass_by_key_form": mk,
+        "seal_shape": {"ms": study["shapes"]["S"]["card_ms_graph"],
+                       "ms_back_to_back": study["shapes"]["S"]["ms"],
+                       "bound_ms": study["shapes"]["S"]["bound_ms_measured"],
+                       "bound_by": study["shapes"]["S"]["bound_by_measured"],
+                       "share": study["shapes"]["S"]["share_of_bound"],
+                       "former_ms": study["shapes"]["S"]["former_card_ms_graph"],
+                       "kernel_faster_turns": study["shapes"]["S"]["kernel_faster_turns"],
+                       "shape": study["shapes"]["S"]["shape"]},
+        "design_variants_ms_graph": {key: {name: v["median_ms"] for name, v in row["turns"].items()}
+                                     for key, row in study["shapes"].items()},
+        "group_form_study": study,
         "at_256MiB_k8_runs": {**bulk, "library_ms": None},
         "k1_entry": {"entry": "ops/cuda_aes.py:ctr_crypt_words_explicit",
                      "counterpart_of": "_ctr_kernel",
@@ -4118,6 +4556,24 @@ def main() -> int:
     seam_ms = events_ms(seal_fn, 5)
     seam_every_ms = events_ms(seam_fn, 5)
     seal_gbps = MAIN_BYTES / seam_ms / 1e6
+    # The seal's ctr_mk launch alone, on the seal's arrays (the seam's first
+    # call, as it makes it): its share of the dispatch.
+    seal_mk_fn = lambda: cuda_aes.ctr_scattered_multikey(  # noqa: E731
+        seam_args[0], seam_args[1], seam_args[2], seam_args[3], nr_m)
+    seal_mk_ms = events_ms(seal_mk_fn, 5)
+    seal_mk_graph = graph_ms(seal_mk_fn, reps=5)
+    mk_entry = next(e for e in kernels if e["name"] == "ctr_mk")
+    mk_entry["seal_shape"].update({
+        "launches_a_seal": gcm_runs[0]["seal_launches"]["ctr_mk"],
+        "launches_an_open": gcm_runs[0]["open_launches"]["ctr_mk"],
+        "seal_arrays_ms": seal_mk_ms, "seal_arrays_card_ms_graph": seal_mk_graph,
+        "seal_dispatch_ms": seam_ms, "share_of_seal_dispatch": seal_mk_ms / seam_ms})
+    log(f"the seal's ctr_mk launch on the seal's arrays: {seal_mk_ms:.4f} ms back to back "
+        f"({seal_mk_graph:.4f} in a CUDA graph), {100 * seal_mk_ms / seam_ms:.1f} % of the seal's "
+        f"dispatch ({seam_ms:.4f} ms); the parent's group form at this shape "
+        f"{mk_entry['seal_shape']['former_ms']:.4f} ms in a CUDA graph (phase 9); launches a seal "
+        f"{gcm_runs[0]['seal_launches']['ctr_mk']}, an open "
+        f"{gcm_runs[0]['open_launches']['ctr_mk']}; card: {card}")
     # The GHASH call alone on the seal's rows: the input words stand for x
     # (the time does not depend on the data), with the seal's inject.
     seal_call = GhashCall(seam_args[0], agcm._h_words(hmat_m[None], dev), seam_args[3],

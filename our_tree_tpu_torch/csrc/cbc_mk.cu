@@ -43,7 +43,7 @@
 //     (the straight-line code misses the instruction cache), and 32 or 64
 //     threads a thread block (a longer prologue).
 //   * One form only: the serve rungs are at most 4,096 blocks, which
-//     ctr_mk serves with its block form (kBlockFormMax = 2^16 there). Where
+//     ctr_mk serves with its block form (kBlockFormMax = 2^18 there). Where
 //     a group form (32 blocks a thread, aes_inv_bitslice.cuh's rounds)
 //     would pay, at 256 MiB, is read from chip_smoke.py phase 9 (PERF.md).
 // Constant time: load addresses depend on the block index, the round and

@@ -472,6 +472,80 @@ def test_ctr_mk_auto_form_follows_the_block_count(card):
             assert form == "block"
 
 
+def _group_launch(fn, *args, form="group"):
+    """One call of a ctr_mk wrapper, checked to launch once in the form that
+    ``form`` picks (``ot_ctr_mk_form``; "group" for "group")."""
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    wrapper = getattr(cuda_aes, fn)
+    n = args[0].shape[0]
+    took = cuda_aes.MK_FORMS[cuda_build.load().ot_ctr_mk_form(n, cuda_aes.MK_FORMS.index(form))]
+    before = dict(wrapper.form_launches)
+    got = wrapper(*args, form=form)
+    torch.cuda.synchronize()
+    assert wrapper.form_launches[took] == before[took] + 1
+    assert took == "group" or form == "auto"
+    return got
+
+
+@pytest.mark.parametrize("n", [(1 << 16) + 1, (1 << 20) + 3])
+@pytest.mark.parametrize("form", ["group", "auto"])
+def test_ctr_mk_group_form_at_the_seals_layout(card, n, form):
+    """gcm_seal's launch: K = 1 and an all-zero slot vector, in the group
+    form (each warp's blocks dealt to its lanes in turn; at 2^20 + 3 blocks
+    the auto form takes it too); a vector of bad slots at K = 1 gives the
+    same, all clamped to 0; the K = 1 entry (no slot vector) too."""
+    w, c, rks, _slots, nr = _mk_case(card, 128, 1, n, "uniform", seed=n)
+    want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, torch.zeros_like(_slots), nr)
+    zeros = torch.zeros(n, dtype=torch.int32, device=card)
+    bad = torch.from_numpy(np.random.default_rng(n).integers(-9, 9, n).astype(np.int32)).to(card)
+    assert torch.equal(_group_launch("ctr_scattered_multikey", w, c, rks, zeros, nr, form=form),
+                       want)
+    assert torch.equal(_group_launch("ctr_scattered_multikey", w, c, rks, bad, nr, form=form), want)
+    assert torch.equal(_group_launch("ctr_crypt_words_explicit", w, c, rks[0], nr, form=form),
+                       want)
+
+
+@pytest.mark.parametrize("bits", [128, 256])
+@pytest.mark.parametrize("k", [7, 8, 9, 16])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "short_runs", "independent"])
+def test_ctr_mk_group_form_either_side_of_the_mask_cap(card, bits, k, pattern):
+    """K up to the mask cap (8: the masks in shared memory, uniform warps on
+    ECB's keyed rounds, mixed warps by the select form or, with more than 4
+    slots in a group, the transposes) and above it (the word forms), in the
+    group form, with a ragged tail and a slot vector that is not 16-byte
+    aligned."""
+    n = 40_000 + 7
+    w, c, rks, slots, nr = _mk_case(card, bits, k, n,
+                                    "runs" if pattern == "short_runs" else pattern, seed=bits * k)
+    if pattern == "short_runs":  # runs of 1-8 blocks: 2-6 distinct slots a group
+        rng = np.random.default_rng(k)
+        lens = rng.integers(1, 9, n)
+        slots = torch.from_numpy(np.repeat(rng.integers(0, k, lens.size), lens)[:n]
+                                 .astype(np.int32)).to(card)
+    want = cuda_aes.ctr_scattered_multikey_plain(w, c, rks, slots, nr)
+    assert torch.equal(_group_launch("ctr_scattered_multikey", w, c, rks, slots, nr), want)
+    shifted = torch.empty(n + 1, dtype=torch.int32, device=card)
+    shifted[1:] = slots
+    assert shifted[1:].data_ptr() % 16
+    assert torch.equal(_group_launch("ctr_scattered_multikey", w, c, rks, shifted[1:], nr), want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+def test_ctr_mk_group_form_clamps_a_bad_slot(card, k):
+    """In the group form, below the mask cap and above it, a slot outside
+    [0, K) is clamped into range (below 0 to 0, from K up to K - 1)."""
+    n = 4096 + 33
+    w, c, rks, slots, nr = _mk_case(card, 192, k, n, "runs", seed=k + 40)
+    bad = slots.clone()
+    bad[::5] = k + 3
+    bad[2::7] = -4
+    bad[64:96] = -1  # one whole group on a bad slot
+    got = _group_launch("ctr_scattered_multikey", w, c, rks, bad, nr)
+    assert torch.equal(got, cuda_aes.ctr_scattered_multikey_plain(w, c, rks, bad.clamp(0, k - 1),
+                                                                  nr))
+
+
 @pytest.mark.parametrize("bits", [128, 192, 256])
 @pytest.mark.parametrize("cfb", [False, True])
 @pytest.mark.parametrize("s,n", [(1, 1), (1, 2), (1, 33), (3, 33), (100, 5), (4096, 2),
@@ -782,3 +856,19 @@ def test_gcm_on_card_matches_cpu(card, size, ivlen):
     ct, tag = gcm.gcm_seal(key, iv, aad, pt)
     assert (ct, tag) == gcm.gcm_seal(key, iv, aad, pt, device="cpu")
     assert gcm.gcm_open(key, iv, aad, ct, tag) == pt
+
+
+def test_gcm_above_the_block_forms_cap_matches_cpu(card):
+    """A seal and an open of 2^22 + 37 bytes (2^18 + 3 blocks with J0, above
+    ctr_mk's block-form cap): one ctr_mk launch each, in the group form,
+    against the CPU's seal."""
+    from our_tree_tpu_torch.aead import gcm
+
+    rng = np.random.default_rng(22)
+    key, iv, aad, pt = rng.bytes(16), rng.bytes(12), rng.bytes(13), rng.bytes((1 << 22) + 37)
+    before = dict(cuda_aes.ctr_scattered_multikey.form_launches)
+    ct, tag = gcm.gcm_seal(key, iv, aad, pt)
+    assert gcm.gcm_open(key, iv, aad, ct, tag) == pt
+    assert cuda_aes.ctr_scattered_multikey.form_launches["group"] == before["group"] + 2
+    assert cuda_aes.ctr_scattered_multikey.form_launches["block"] == before["block"]
+    assert (ct, tag) == gcm.gcm_seal(key, iv, aad, pt, device="cpu")
