@@ -8,10 +8,10 @@ ECB/CBC/CFB128 block-mode path over the same size, the measured roofline
 profile sections that use its figure), the multi-key CTR serve path
 (``serve.bench``, the JAX package's two documented drives at the full
 ladder), the sweep harness (``harness.bench``, with ARC4 and the native C
-tier) and the mixed ``ctr,cbc`` serve path (the JAX package's documented
-mixed-mode drive, without its ``gcm`` modes) and AES-GCM through the
-models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256 MiB, on
-``ghash_at``), and holds
+tier), the mixed ``ctr,gcm,gcm-open,cbc`` serve path (the JAX package's
+documented mixed-mode drive, and its auth-failure rehearsal) and AES-GCM
+through the models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256
+MiB, on ``ghash_at``), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -86,14 +86,20 @@ is not 0:
    fresh process (``python -m our_tree_tpu_torch.serve.bench``), where
    warmup meets the card first: warmup must count the library load and the
    kernel's first launch, traffic none; then drive D, the mixed-mode drive
-   (``--requests 300 --concurrency 16 --modes ctr,cbc --sizes
+   (``--requests 300 --concurrency 16 --modes ctr,gcm,gcm-open,cbc --sizes
    16,64,256,1024,4096,16384``): 0 lost, failed and mismatching probes of
-   either mode, 0 builds after warmup, ``cbc_mk`` launches equal to the
-   ``cbc`` engine calls (the warmed rungs plus one per ``cbc`` batch),
-   ``ctr_mk`` launches equal to the ``ctr`` engine calls, no other kernel,
-   per-mode p50/p99, dispatches and card time a dispatch printed; and D in a
-   fresh process, whose warmup must count one more first launch than A's
-   (``cbc_mk<10>``) and whose traffic counts none;
+   any mode (a ``gcm`` probe pins its tag against the host GCM), 0
+   ``auth-failed``, 0 builds after warmup, ``cbc_mk`` launches equal to the
+   ``cbc`` engine calls (the warmed rungs plus one per ``cbc`` batch), one
+   ``ghash_at`` call for each ``gcm`` and ``gcm-open`` engine call (likewise
+   the warmed rungs plus one a batch), ``ctr_mk`` launches equal to the
+   ``ctr``, ``gcm`` and ``gcm-open`` engine calls, no other kernel, per-mode
+   p50/p99, dispatches and card time a dispatch printed; D in a fresh
+   process, whose warmup must count two more first launches than A's
+   (``cbc_mk<10>``, ``ghash_at``) and whose traffic counts none; and the
+   auth-failure rehearsal (``OT_FAULTS=tag_mismatch:1``, ``--requests 100
+   --modes gcm,gcm-open --sizes 256,1024``, counted): exactly one
+   ``auth-failed`` answer, a ``gcm-open`` one, rc 0, 0 lost;
 9. the card's dependent-issue latency (the 65,536-step chain over one
    word, cycles per dependent LOP3 at the sampled clock); per kernel at its
    path's shape (256 MiB; ``ctr_mk`` at the 4,096-block rung in each form,
@@ -193,7 +199,12 @@ is not 0:
    (K = 1) and at the 4,096 rung with K = 8 (CUDA events and a CUDA graph),
    the plain versions (at the seal's shape ``ghash_by_powers``), the seal's
    ``ctr_mk`` launch alone on the seal's arrays and its share of the
-   dispatch, each call's
+   dispatch; the GCM serve dispatch at each rung of the ladder (32 to 4,096
+   blocks) with K = 8 in the batcher's layout (``serve.batcher`` and
+   ``serve.keycache``), its tags and ciphertexts against the host GCM and
+   ``ghash_at`` against its plain rows, then ``ctr_mk``, ``ghash_at`` and
+   ``ghash_scan`` each in a CUDA graph in 12 alternating turns beside their
+   launch floors, and the dispatch through the seam; each call's
    launches alone (map, carry, rows; the parent's kernel's and the
    kernel's own: ``GHASH_VARIANTS_SOURCE``) beside the launch floor at their
    grid and shared memory, their registers, spills and resident thread
@@ -212,7 +223,8 @@ is not 0:
    window is the card's busy share under the profiler. It comes last, so
    that the profiler touches none of the timings before it.
 
-Phases 4, 5, 7, each drive of 8 (D included), the seal and the open of 11
+Phases 4, 5, 7, each drive of 8 (D and the rehearsal included), the seal
+and the open of 11
 and 12 run with every launch count set to 0 just before and read just after, and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
@@ -223,8 +235,9 @@ Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows,
 ``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
-and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``
-and ``seal_256MiB``), the
+and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``,
+``seal_256MiB`` and ``gcm_serve``: the per-rung GCM dispatch table and the
+GCM launches of drive D and the rehearsal), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``;
 ``ecb_encrypt`` carries its launches by form, the one-block launch by form
 and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
@@ -292,10 +305,14 @@ INV_ROUND_LINEAR_STEPS = {"inv_shift_rows": 3, "inv_mixcolumns_pretransform": 4,
                           "mixcolumns_addroundkey": 5}
 INV_LAST_ROUND_LINEAR_STEPS = {"inv_shift_rows": 3, "addroundkey": 1}
 #: Drive D, the mixed-mode serve drive: the JAX package's documented
-#: ``--modes ctr,gcm,gcm-open,cbc`` drive (docs/SERVING.md) without the gcm
-#: modes, which the port does not serve yet.
-DRIVE_D = ["--requests", "300", "--concurrency", "16", "--modes", "ctr,cbc", "--sizes",
-           "16,64,256,1024,4096,16384"]
+#: ``--modes ctr,gcm,gcm-open,cbc`` drive (docs/SERVING.md).
+DRIVE_D = ["--requests", "300", "--concurrency", "16", "--modes", "ctr,gcm,gcm-open,cbc",
+           "--sizes", "16,64,256,1024,4096,16384"]
+#: The auth-failure rehearsal (docs/SERVING.md), run with
+#: ``OT_FAULTS=tag_mismatch:1``: exactly one request answers ``auth-failed``.
+DRIVE_AUTH = ["--requests", "100", "--modes", "gcm,gcm-open", "--sizes", "256,1024"]
+#: The GCM modes and the kernels each mode's engine call launches.
+GCM_SERVE_MODES = ("gcm", "gcm-open")
 BLOCK_IV = "f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"
 #: Phase 11 (AES-GCM): the GHASH scan's random cases, and the 256 MiB seal's
 #: key, 96-bit IV and 20 bytes of AAD.
@@ -2815,7 +2832,10 @@ def main() -> int:
             f"{first['host_us']} µs; all dispatches' p50: window {d['window_p50_us']} µs, "
             f"card {d['device_p50_us']} µs; card: {card}")
 
-    def serve_drive(name, argv):
+    def serve_drive(name, argv, auth_failed=0):
+        """One serve.bench drive in this process, counted and gated;
+        ``auth_failed`` requests may answer ``auth-failed`` (the rehearsal),
+        each a ``gcm-open`` one."""
         reset_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -2846,7 +2866,8 @@ def main() -> int:
             "rc 0": rc == 0,
             "CUDA engine": line["engine"] == aes.CUDA_ENGINE,
             "0 lost": line["lost"] == 0,
-            "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
+            "0 failed": line["errors"] == ({"auth-failed": auth_failed} if auth_failed else {})
+            and line["ok"] == line["requests"] - auth_failed,
             "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
             "0 steady builds": line["recompiles"] == 0,
             "ctr_mk forms sum to its launches": sum(forms.values()) == got["ctr_mk"],
@@ -2859,24 +2880,38 @@ def main() -> int:
             checks["ctr_mk launches == engine calls"] = got["ctr_mk"] == line["engine_calls"] > 0
             checks["no other kernel"] = all(v == 0 for n, v in got.items() if n != "ctr_mk")
         else:
-            # The mixed-mode drive: each mode's engine calls are its kernel's
-            # launches; a cbc engine call is a warmed rung or one cbc batch.
+            # A mixed-mode drive: each mode's engine calls are its kernels'
+            # launches (a GCM call one ctr_mk launch and one ghash_at call);
+            # a cbc or GCM engine call is a warmed rung or one batch.
+            modes = argv[argv.index("--modes") + 1].split(",")
+            gcm = [m for m in modes if m in GCM_SERVE_MODES]
             calls, disp, lat = per["engine_calls"], per["dispatches"], per["latency"]
             rungs_n = len(line["config"]["rungs"])
+            used = ["ctr_mk"] + (["ghash_at"] if gcm else []) + (["cbc_mk"] if "cbc" in modes
+                                                                  else [])
             checks.update({
-                "both modes served": set(line["modes"]) == {"ctr", "cbc"} and all(
-                    lat[m]["ok"] == lat[m]["requests"] > 0 and lat[m]["verified"] > 0
-                    for m in ("ctr", "cbc")),
-                "ctr_mk launches == ctr engine calls": got["ctr_mk"] == calls["ctr"] > 0,
-                "cbc_mk launches == cbc engine calls": got["cbc_mk"] == calls["cbc"] > 0,
-                "one cbc_mk launch a cbc batch": calls["cbc"] == rungs_n + disp["cbc"] > rungs_n,
+                "every mode served": set(line["modes"]) == set(modes) and all(
+                    lat[m]["ok"] == lat[m]["requests"] - (auth_failed if m == "gcm-open" else 0)
+                    > 0 and lat[m]["verified"] > 0 for m in modes),
+                "ctr_mk launches == ctr and GCM engine calls": got["ctr_mk"] == sum(
+                    calls.get(m, 0) for m in ("ctr", *gcm)) > 0,
+                "one ghash_at call a GCM engine call": got["ghash_at"] == sum(
+                    calls[m] for m in gcm),
+                "cbc_mk launches == cbc engine calls": got["cbc_mk"] == calls.get("cbc", 0),
+                "one cbc_mk launch a cbc batch, one ctr_mk and one ghash_at a GCM batch": all(
+                    calls[m] == rungs_n + disp[m] > rungs_n for m in modes if m != "ctr"),
                 "engine calls by mode sum": sum(calls.values()) == line["engine_calls"],
-                "the bench's launch section": line["launches"] == {
-                    "ctr_mk": got["ctr_mk"], "cbc_mk": got["cbc_mk"]},
-                "no other kernel": all(v == 0 for n, v in got.items()
-                                       if n not in ("ctr_mk", "cbc_mk")),
+                "the bench's launch section": line["launches"] == {n: got[n] for n in used},
+                "no other kernel": all(v == 0 for n, v in got.items() if n not in used),
+                "auth failures as asked": per["auth_failed"] == (
+                    {"gcm-open": auth_failed} if auth_failed else {}),
             })
-            for m in ("ctr", "cbc"):
+            if "gcm" in modes:
+                # The loadgen counts a gcm probe whose tag differs from the
+                # host GCM's as a mismatch.
+                checks["every gcm probe's ciphertext and tag equal the host GCM's"] = (
+                    lat["gcm"]["verified"] > 0 and line["mismatches"] == 0)
+            for m in modes:
                 log(f"serve {name} mode {m}: {lat[m]['requests']} requests, p50 "
                     f"{lat[m]['p50_ms']} ms, p95 {lat[m]['p95_ms']} ms, p99 {lat[m]['p99_ms']} "
                     f"ms, {int(disp[m])} dispatches, {calls[m]} engine calls, card "
@@ -2919,9 +2954,10 @@ def main() -> int:
         raise SystemExit(f"serve bench in a fresh process failed: {checks}")
     warmup_a = line["compiles"]["warmup"]
 
-    # Drive D, the mixed ctr,cbc drive, counted; then in a fresh process, where
-    # warmup must count one first launch more than A's (cbc_mk<10>).
-    line_d, counts_d, _forms_d = serve_drive("D", DRIVE_D)
+    # Drive D, the mixed ctr,gcm,gcm-open,cbc drive, counted; then in a fresh
+    # process, where warmup must count two first launches more than A's
+    # (cbc_mk<10> and ghash_at).
+    line_d, counts_d, forms_d = serve_drive("D", DRIVE_D)
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench", *DRIVE_D],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -2936,10 +2972,16 @@ def main() -> int:
     checks = {"CUDA engine": line["engine"] == aes.CUDA_ENGINE, "0 lost": line["lost"] == 0,
               "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
               "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
-              "warmup counted cbc_mk's first launch": line["compiles"]["warmup"] == warmup_a + 1,
+              "warmup counted the first launches of cbc_mk and ghash_at":
+                  line["compiles"]["warmup"] == warmup_a + 2,
               "0 steady": line["compiles"]["steady"] == 0,
               "cbc_mk launched": line["launches"]["cbc_mk"] == line["per_mode"]["engine_calls"][
-                  "cbc"] > 0}
+                  "cbc"] > 0,
+              "ghash_at called once a GCM engine call": line["launches"]["ghash_at"] == sum(
+                  line["per_mode"]["engine_calls"][m] for m in GCM_SERVE_MODES) > 0,
+              "every gcm tag equal to the host GCM's": line["mismatches"] == 0
+              and line["per_mode"]["latency"]["gcm"]["verified"] > 0,
+              "0 auth failures": line["per_mode"]["auth_failed"] == {}}
     log(f"serve D in a fresh process: p50 {line['p50_ms']} ms, p99 {line['p99_ms']} ms, by mode "
         + ", ".join(f"{m} p50 {v['p50_ms']} p99 {v['p99_ms']} ms"
                     for m, v in line["per_mode"]["latency"].items())
@@ -2948,6 +2990,25 @@ def main() -> int:
         f"{wall:.1f} s wall with start-up; card: {card}")
     if not all(checks.values()):
         raise SystemExit(f"serve drive D in a fresh process failed: {checks}")
+    gcm_calls_d = {m: line_d["per_mode"]["engine_calls"][m] for m in GCM_SERVE_MODES}
+    log(f"serve D, the GCM modes: engine calls {gcm_calls_d} (each one ctr_mk launch in the "
+        f"block form and one ghash_at call of two grid launches); launches {counts_d}; ctr_mk "
+        f"by form {forms_d}; card: {card}")
+
+    # The auth-failure rehearsal: OT_FAULTS=tag_mismatch:1 fails one gcm-open
+    # request's tag check at the finisher; the run still exits 0, nothing lost.
+    from our_tree_tpu_torch.resilience import faults
+
+    os.environ["OT_FAULTS"] = "tag_mismatch:1"
+    faults.reset()
+    try:
+        line_auth, counts_auth, _ = serve_drive("rehearsal", DRIVE_AUTH, auth_failed=1)
+    finally:
+        del os.environ["OT_FAULTS"]
+        faults.reset()
+    log(f"serve rehearsal (OT_FAULTS=tag_mismatch:1 {' '.join(DRIVE_AUTH)}): errors "
+        f"{line_auth['errors']}, lost {line_auth['lost']}, auth_failed "
+        f"{line_auth['per_mode']['auth_failed']}, launches {counts_auth}; card: {card}")
 
     # 9. Each kernel at its path's shape: time, plain time, both bounds.
     kernels = []
@@ -4791,6 +4852,120 @@ def main() -> int:
         f"{at_ms:.4f} ms back to back ({at_graph:.4f} in a CUDA graph), ghash_scan {gh_ms:.4f} ms "
         f"({gh_ms_graph:.4f}); plain at this shape (ghash_by_powers) {at_plain_ms:.1f} ms; card: "
         f"{card}")
+    # The GCM serve dispatch at each rung of the serve ladder (drive D's),
+    # K = 8 in the batcher's layout: eight tenants, one request each with 20
+    # bytes of AAD and a 96-bit IV, filling the rung with their J0 rows, laid
+    # out by serve.batcher and keycache (mode "gcm") and staged on the card.
+    # The seam's result is held against the host GCM (each request's tag
+    # finished from its named row) and ghash_at against ghash_at_plain and
+    # ghash_scan's rows; then ctr_mk alone, ghash_at alone (on ctr_mk's
+    # output, the batch's rows) and ghash_scan on the same inputs, each in a
+    # CUDA graph, in alternating turns, beside each call's launch floor (the
+    # empty kernel at each of its grid launches' grid and shared memory,
+    # summed), and the whole dispatch through the seam back to back.
+    from our_tree_tpu_torch.serve import batcher as sbatcher
+    from our_tree_tpu_torch.serve import keycache as skeycache
+    from our_tree_tpu_torch.serve import queue as squeue
+
+    empty_g = ctypes.CDLL(empty_so)
+    empty_g.ot_empty.argtypes = [ci, ci, ci, vp]
+    empty_g.ot_empty.restype = ci
+
+    def floor_ms_of(shapes):
+        """The launch floor of a call: the empty kernel at each launch's
+        (grid, shared memory), 128 threads a block, summed."""
+        total = 0.0
+        for grid, smem in shapes:
+            def fn(grid=grid, smem=smem):
+                if empty_g.ot_empty(grid, 128, smem, torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit("the empty kernel did not launch")
+            total += graph_ms(fn)
+        return total
+
+    def ghash_shapes(n, k, named):
+        shape = (ll * 3)()
+        out = []
+        for which in ((1, 2) if named else (1, 2, 3)):
+            if gvar.ot_ghash_launch_shape(which, int(named), n, k, shape):
+                raise SystemExit("the GHASH launch-shape query failed")
+            out.append((shape[0], shape[1]))
+        return out
+
+    ladder = sbatcher.bucket_ladder(sbatcher.DEFAULT_MIN_BLOCKS, sbatcher.DEFAULT_MAX_BLOCKS)
+    rng_g = np.random.default_rng(1515)
+    gkeys = [rng_g.bytes(16) for _ in range(8)]
+    kc_g = skeycache.KeyCache()
+    gcm_rungs = []
+    for rung_g in ladder:
+        n_req = rung_g // 8 - 1
+        reqs = []
+        for i, key_g in enumerate(gkeys):
+            iv_g = rng_g.bytes(12)
+            reqs.append(squeue.Request(
+                id=i, tenant=f"t{i}", key=key_g, nonce=b"", future=None, mode="gcm", iv=iv_g,
+                aad=rng_g.bytes(20), j0=iv_g + b"\x00\x00\x00\x01",
+                payload=rng_g.integers(0, 256, 16 * n_req, dtype=np.uint8)))
+        (bg,) = sbatcher.form_batches(reqs, ladder, skeycache.key_digest, 8)
+        sched_g = kc_g.stacked(bg.keys, 8, mode="gcm")
+        bg.materialise(sched=sched_g)
+        if bg.bucket != rung_g or len(bg.slots) != 8:
+            raise SystemExit(f"the GCM table's batch at rung {rung_g} formed as {bg.label}")
+        t = lambda a: packing.words_tensor(a, dev)  # noqa: E731
+        w_g, c_g, r_g = t(bg.words).reshape(-1, 4), t(bg.ctr_words).reshape(-1, 4), t(sched_g.rks)
+        s_g = t(bg.slot_index)
+        i_g, k_g = t(bg.inject_words).reshape(-1, 4), t(bg.seg_keep)
+        rows_g = torch.from_numpy(bg.rows).to(dev)
+        hk_g, y0_g = agcm._h_words(sched_g.hmats, dev), torch.zeros(4, dtype=torch.int32,
+                                                                   device=dev)
+        out_g, ys_g = agcm.gcm_crypt_ghash_words(w_g, c_g, r_g, s_g, sched_g.hmats, i_g, k_g, 10,
+                                                 rows=rows_g)
+        out_n, ys_n = packing.words_numpy(out_g).reshape(-1), packing.words_numpy(ys_g)
+        bad_tags = 0
+        for (off, n_b), si, req, y in zip(bg.req_spans, range(8), bg.requests, ys_n):
+            tag = agcm._finish_tag(gf.block_to_int(packing.np_words_to_bytes(y).tobytes()),
+                                   sched_g.h_ints[si], b"", len(req.aad), 16 * n_b,
+                                   packing.np_words_to_bytes(out_n[4 * (off - 1):4 * off]))
+            ct_w, tag_w = aghash.np_gcm_seal(req.key, req.iv, req.aad, req.payload.tobytes())
+            bad_tags += (tag != tag_w) + (packing.np_words_to_bytes(
+                out_n[4 * off:4 * (off + n_b)]).tobytes() != ct_w)
+        mk_fn = lambda: cuda_aes.ctr_scattered_multikey(w_g, c_g, r_g, s_g, 10)  # noqa: E731
+        ct_g = mk_fn()
+        at_fn = lambda: cuda_ghash.ghash_at(ct_g, hk_g, s_g, k_g, y0_g, rows_g,  # noqa: E731
+                                            inject=i_g)
+        scan_fn = lambda: cuda_ghash.ghash_scan(ct_g, hk_g, s_g, k_g, y0_g,  # noqa: E731
+                                                inject=i_g)
+        want_g = cuda_ghash.ghash_at_plain(ct_g, hk_g, s_g, k_g, y0_g, rows_g, inject=i_g)
+        m_g = diff(at_fn(), want_g)[0] + diff(scan_fn()[rows_g], want_g)[0] + diff(ys_g, want_g)[0]
+        if bad_tags or m_g:
+            raise SystemExit(f"the GCM dispatch at rung {rung_g}: {bad_tags} tags or ciphertexts "
+                             f"differ from the host GCM's, {m_g} GHASH words from the plain rows")
+        turns_g = in_turns({"ghash_at": at_fn, "ctr_mk": mk_fn, "ghash_scan": scan_fn})
+        row_g = {"rung": rung_g, "k": 8, "requests": 8, "blocks_a_request": n_req,
+                 "named_rows": int(bg.rows.size), "ctr_mk_form": cuda_aes.MK_FORMS[
+                     cuda_build.load().ot_ctr_mk_form(rung_g, 0)]}
+        for name, shapes in (("ctr_mk", [(-(-rung_g // 128), 8 * 8 * 11 * 4)]),
+                             ("ghash_at", ghash_shapes(rung_g, 8, True)),
+                             ("ghash_scan", ghash_shapes(rung_g, 8, False))):
+            row_g[name] = {"card_ms_graph": turns_g[name]["median_ms"],
+                           "q1_ms": turns_g[name]["q1_ms"], "q3_ms": turns_g[name]["q3_ms"],
+                           "launches_a_call": len(shapes), "floor_ms_graph": floor_ms_of(shapes)}
+        row_g["ghash_at_faster_than_ghash_scan_turns"] = turns_g["ghash_scan"][
+            "kernel_faster_turns"]
+        row_g["dispatch_ms"] = events_ms(lambda: agcm.gcm_crypt_ghash_words(
+            w_g, c_g, r_g, s_g, sched_g.hmats, i_g, k_g, 10, rows=rows_g), 20)
+        gcm_rungs.append(row_g)
+        log(f"GCM serve dispatch at the {rung_g} rung (K = 8, {n_req} blocks a request, "
+            f"{row_g['named_rows']} named rows; CUDA graph medians of {VARIANT_TURNS} alternating "
+            f"turns, launch floors beside): ctr_mk ({row_g['ctr_mk_form']} form) "
+            f"{row_g['ctr_mk']['card_ms_graph'] * 1e3:.3f} us (floor "
+            f"{row_g['ctr_mk']['floor_ms_graph'] * 1e3:.3f}), ghash_at "
+            f"{row_g['ghash_at']['card_ms_graph'] * 1e3:.3f} us (floor of its 2 launches "
+            f"{row_g['ghash_at']['floor_ms_graph'] * 1e3:.3f}), ghash_scan "
+            f"{row_g['ghash_scan']['card_ms_graph'] * 1e3:.3f} us (floor of its 3 launches "
+            f"{row_g['ghash_scan']['floor_ms_graph'] * 1e3:.3f}); ghash_at faster in "
+            f"{row_g['ghash_at_faster_than_ghash_scan_turns']} of {VARIANT_TURNS}; the dispatch "
+            f"through the seam back to back {row_g['dispatch_ms'] * 1e3:.3f} us; card: {card}")
+        del w_g, c_g, ct_g, i_g
     # The every-row seam's path, counted: the seam without rows, as a caller
     # that wants every row makes it.
     reset_counts()
@@ -4841,6 +5016,12 @@ def main() -> int:
         "seal_256MiB": {"seam_ms": seam_ms, "gbps": seal_gbps, "ghash_at_share": at_ms / seam_ms,
                         "launches": gcm_runs[0]["seal_launches"], "wall": gcm_runs,
                         "tag": gcm_tags[0], "tag_plus5": gcm_tags[5]},
+        "gcm_serve": {"rungs": gcm_rungs,
+                      "drive_d": {"engine_calls": gcm_calls_d, "ghash_at_calls": counts_d[
+                          "ghash_at"], "ctr_mk_launches": counts_d["ctr_mk"],
+                          "ctr_mk_launches_by_form": forms_d},
+                      "rehearsal": {"errors": line_auth["errors"], "lost": line_auth["lost"],
+                                    "ghash_at_calls": counts_auth["ghash_at"]}},
     })
     del seam_args, seal_call
 

@@ -71,13 +71,15 @@ def _as_words(a, device) -> torch.Tensor:
 
 def _h_words(hmats, device) -> torch.Tensor:
     """(K, 4) int32 H words from (K, 128, 128) multiply-by-H matrices (numpy
-    u32, as the JAX package's keycache holds them, or a tensor): column 7,
-    the image of the field's one."""
+    u32, as the keycaches hold them, or a tensor): column 7, the image of
+    the field's one. From numpy the words are packed on the host, so only
+    the (K, 4) words reach ``device``."""
     if isinstance(hmats, torch.Tensor):
         col = hmats[:, :, 7].to(device=device, dtype=torch.int64)
-    else:
-        col = torch.from_numpy(np.asarray(hmats)[:, :, 7].astype(np.int64)).to(device)
-    return _words_of(col & 1).contiguous()
+        return _words_of(col & 1).contiguous()
+    bits = (np.asarray(hmats)[:, :, 7] & 1).astype(np.uint32).reshape(-1, 4, 32)
+    words = (bits << np.arange(32, dtype=np.uint32)).sum(axis=2, dtype=np.uint32)
+    return packing.words_tensor(words, device)
 
 
 def _ghash_fn(engine: str, rows: bool):
@@ -136,6 +138,7 @@ def gcm_crypt_ghash_words(words, ctr_le_words, rks, key_slots, hmats, inject_wor
             seg_keep.to(torch.int32).contiguous(),
             torch.zeros(4, dtype=torch.int32, device=words.device))
     inject = inject_words.reshape(-1, 4).contiguous()
+    _aes.note_seam_call("ghash_scan" if rows is None else "ghash_at", engine, 0, words.device)
     if rows is not None:
         return out.reshape(words.shape), _ghash_fn(engine, True)(*args, rows, inject)
     ys = _ghash_fn(engine, False)(*args, inject)

@@ -80,19 +80,27 @@ SEQ_ENCRYPT: dict[str, object] = {}
 #: not have: ``resolve_serve_engine`` refuses it.
 NATIVE_ENGINE = "native"
 #: (seam, engine, nr, device) of every call of the serve seams in this
-#: process, seam ``"ctr"`` or ``"cbc"`` (``set.add`` is atomic, so lane
-#: worker threads add without a lock).
+#: process, seam ``"ctr"``, ``"cbc"``, or ``"ghash_at"``/``"ghash_scan"``
+#: (the GCM seam's GHASH half, nr 0: its kernel has no NR instantiation)
+#: (``set.add`` is atomic, so lane worker threads add without a lock).
 _SEAM_CALLS: set = set()
+
+
+def note_seam_call(seam: str, engine: str, nr: int, device) -> None:
+    """Record one call of a serve seam (``seam_first_calls`` counts the
+    distinct ones)."""
+    _SEAM_CALLS.add((seam, engine, int(nr), str(device)))
 
 
 def seam_first_calls() -> int:
     """How many distinct (seam, engine, nr, device) the serve seams
-    (``ctr_crypt_words_scattered_multikey``, ``cbc_decrypt_words_scattered_multikey``)
-    have been called with in this process. On the card the first launch of
-    a kernel's NR instantiation is when CUDA loads its code into the
-    context (lazy module loading), so each first call stands for the one
-    cost the JAX package's compile counter would see; the CPU counts the
-    same first calls, so the serve contract reads the same on both."""
+    (``ctr_crypt_words_scattered_multikey``, ``cbc_decrypt_words_scattered_multikey``
+    and the GHASH half of ``aead.gcm.gcm_crypt_ghash_words``) have been
+    called with in this process. On the card the first launch of a kernel
+    (of each NR instantiation) is when CUDA loads its code into the context
+    (lazy module loading), so each first call stands for the one cost the
+    JAX package's compile counter would see; the CPU counts the same first
+    calls, so the serve contract reads the same on both."""
     return len(_SEAM_CALLS)
 
 
@@ -169,17 +177,20 @@ def resolve_engine(engine: str, device) -> str:
 
 
 def resolve_serve_engine(name: str | None = "auto", device=None, modes=("ctr",)) -> str:
-    """Engine for the serve dispatch path (the multi-key seams of ``modes``,
-    ``"ctr"`` and ``"cbc"``): ``"auto"`` is the CUDA kernels on a CUDA
-    device and the plain versions on the CPU. ``"native"``, the reference's
-    host tier, raises: the port has no native runtime. Any other name must
-    have a multi-key core for every mode."""
+    """Engine for the serve dispatch path (the multi-key seams of ``modes``:
+    ``"ctr"``, ``"gcm"`` and ``"gcm-open"`` on the multi-key CTR core, the
+    GCM modes' GHASH on the engine's own, ``"cbc"`` on the multi-key CBC
+    core): ``"auto"`` is the CUDA kernels on a CUDA device and the plain
+    versions on the CPU. ``"native"``, the reference's host tier, raises:
+    the port has no native runtime. Any other name must have the multi-key
+    core of every mode."""
     if name == NATIVE_ENGINE:
         raise ValueError("engine 'native' (the native C host tier) is not part of the port")
     engine = resolve_engine("auto" if name is None else name, as_device(device))
-    for mode, cores in (("ctr", MULTIKEY_CTR), ("cbc", MULTIKEY_CBC)):
-        if mode in modes and engine not in cores:
-            raise ValueError(f"engine {engine!r} has no multi-key {mode.upper()} core; "
+    for core, cores, users in (("CTR", MULTIKEY_CTR, ("ctr", "gcm", "gcm-open")),
+                               ("CBC", MULTIKEY_CBC, ("cbc",))):
+        if any(m in modes for m in users) and engine not in cores:
+            raise ValueError(f"engine {engine!r} has no multi-key {core} core; "
                              f"available: {sorted(cores)}")
     return engine
 
@@ -257,7 +268,7 @@ def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.
     The reference's ``native_*`` arguments belong to its host tier, which
     the port does not have."""
     engine = resolve_engine(engine, words.device)
-    _SEAM_CALLS.add(("ctr", engine, nr, str(words.device)))
+    note_seam_call("ctr", engine, nr, words.device)
     out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
     return out.reshape(words.shape)
 
@@ -278,7 +289,7 @@ def cbc_decrypt_words_scattered_multikey(words: torch.Tensor, prev_words: torch.
     only the rungs; (N, 4) or flat (4N,) words, the result in ``words``'
     shape. CBC encrypt is a recurrence and is not servable."""
     engine = resolve_engine(engine, words.device)
-    _SEAM_CALLS.add(("cbc", engine, nr, str(words.device)))
+    note_seam_call("cbc", engine, nr, words.device)
     out = MULTIKEY_CBC[engine](_blocks(words), _blocks(prev_words), rks_dec, key_slots, nr)
     return out.reshape(words.shape)
 

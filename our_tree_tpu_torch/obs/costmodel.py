@@ -16,9 +16,20 @@ bytes of schedules, what the JAX package's device engines move. The
 ``cbc`` dispatch (``cuda_aes.cbc_scattered_multikey``) reads the
 ciphertext, the PREV stream, the decrypt-schedule stack and the slot
 vector, and writes the plaintext: the same bytes, as in the reference. The
-op count is the reference's order-of-magnitude budget (blocks x rounds x 32
-word operations), not the kernel's count. ``gcm``, ``gcm-open`` and ``rc4``
-raise until the slices that serve them.
+``gcm``/``gcm-open`` dispatch (``aead.gcm.gcm_crypt_ghash_words`` with named
+rows: ``ctr_mk``, then ``ghash_at``) reads the ``ctr`` arrays plus the (K, 4)
+H words, the (4N,) inject words, the (N,) keep vector and the (E,) int64
+named rows, and writes the CTR output and the E named rows' states. Here it
+differs from the reference's row, which counts the (K, 128, 128) multiply-by-H
+matrices in and a (2, 4N) stack of output and every row's state out: the
+port stages only H's words and reads back only the named rows. E is one a
+request, known only once a batch is formed; the record, per rung, counts
+E = K (the rung-packer puts at least one request in every slot it uses, so
+a batch of K slots names at least K rows), so a batch of many small
+requests moves 24 bytes more a further request than its record says. The op
+count is the reference's order-of-magnitude budget (blocks x rounds x 32
+word operations, plus ``OPS_PER_GHASH_BLOCK`` a block for GCM), not the
+kernel's count. ``rc4`` raises until the slice that serves it.
 
 Not carried: the XLA half (``jit(...).lower().compile()`` cost and memory
 analyses; PyTorch has no counterpart) and with it ``OT_COST_XLA``, so every
@@ -45,8 +56,11 @@ VERSION = 1
 #: Order-of-magnitude word operations per block per AES round (the
 #: reference's budget: 16 gathers + 12 combining XORs + 4 round-key XORs).
 OPS_PER_BLOCK_ROUND = 32
+#: Extra word operations a block for GHASH (the reference's budget for its
+#: multiply-by-H bit-matrix product: 128 AND and XOR steps over 4-word rows).
+OPS_PER_GHASH_BLOCK = 256
 #: The modes the port serves.
-MODES = ("ctr", "cbc")
+MODES = ("ctr", "gcm", "gcm-open", "cbc")
 
 #: (engine, mode, rung, nr, key_slots) -> record, shared by every server of
 #: the process.
@@ -57,23 +71,29 @@ def analytic_cost(engine: str, mode: str, rung: int, nr: int, key_slots: int) ->
     """The per-dispatch record (the module docstring has the formula).
     Bytes are boundary traffic: what one dispatch reads and writes."""
     if mode not in MODES:
-        raise ValueError(f"mode {mode!r} is not served by the port yet: gcm and gcm-open "
-                         "come with ROADMAP queue 1, \"The gcm/gcm-open serve modes\", rc4 "
-                         "with \"The rc4 serve mode and sessions\"")
+        raise ValueError(f"mode {mode!r} is not served by the port yet: rc4 comes with "
+                         "ROADMAP queue 1, \"The rc4 serve mode and sessions\"")
     n = int(rung)
     k = int(key_slots)
     blk = 16 * n
     sched = k * 4 * (int(nr) + 1) * 4
+    ops = n * int(nr) * OPS_PER_BLOCK_ROUND
     # ctr: payload + counter words; cbc: ciphertext + PREV stream. Both add
     # the schedule stack (cbc's the decrypt one) and the slot vector.
     bytes_in = blk + blk + sched + 4 * n
     bytes_out = blk
+    if mode in ("gcm", "gcm-open"):
+        # H words, inject words, keep vector and E = K named rows in; the
+        # named rows' states out.
+        bytes_in += 16 * k + blk + 4 * n + 8 * k
+        bytes_out += 16 * k
+        ops += n * OPS_PER_GHASH_BLOCK
     return {
         "engine": engine, "exec_engine": engine, "mode": mode,
         "rung": n, "nr": int(nr), "key_slots": k,
         "bytes_in": bytes_in, "bytes_out": bytes_out,
         "hbm_bytes": bytes_in + bytes_out,
-        "ops": n * int(nr) * OPS_PER_BLOCK_ROUND,
+        "ops": ops,
     }
 
 

@@ -33,8 +33,11 @@ sweep backend's completion barrier and chained dispatch
 (``harness.backends.GpuBackend``) and, for ``dispatch_hang``, the sweep's
 timed region (``harness.bench._time_us``); ``unit_crash`` at sweep-unit
 execution (``harness.bench``); ``build_fail`` at the native C build
-(``runtime.native``). The other names belong to seams of the JAX package
-that the port has not ported yet; they parse the same.
+(``runtime.native``); ``tag_mismatch`` at the serve path's GCM finisher
+(``serve.server.Server._gcm_finish``: a firing fails one ``gcm-open``
+request's tag check, so it answers ``auth-failed``). The other names belong
+to seams of the JAX package that the port has not ported yet; they parse the
+same.
 
 Determinism: firings consume counts in call order within one process
 (subprocesses re-parse the inherited environment and count on their own;

@@ -1,10 +1,14 @@
-"""The online CTR serve path of the port (``our_tree_tpu.serve``'s ctr mode).
+"""The online serve path of the port (``our_tree_tpu.serve``'s ``ctr``,
+``gcm``, ``gcm-open`` and ``cbc`` modes).
 
 Many small requests from many tenants coalesce into fixed-shape multi-key
-dispatches of the ``ctr_mk`` kernel:
+dispatches, one mode a dispatch: ``ctr_mk`` for ``ctr``, ``ctr_mk`` and then
+``ghash_at`` for AES-GCM seal (``gcm``) and open (``gcm-open``), ``cbc_mk``
+for CBC decrypt (``cbc``):
 
 * ``queue``    - admission control and backpressure (depth, tenant and
-  priority shedding, per-request deadlines);
+  priority shedding, per-request deadlines), the mode vocabulary and the
+  error codes (``GCM_MODES``, ``ERR_AUTH`` among them);
 * ``batcher``  - the rung-packer: key groups packed up to K slots per batch,
   padded to a power-of-two ladder rung;
 * ``keycache`` - per-tenant LRU of expanded schedules and the memo of
@@ -15,3 +19,9 @@ dispatches of the ``ctr_mk`` kernel:
 * ``server``   - the dispatch loop, warmup and graceful drain;
 * ``loadgen``, ``bench`` - ``python -m our_tree_tpu_torch.serve.bench``.
 """
+
+from .queue import (ERR_AUTH, ERR_BAD_REQUEST, ERR_DEADLINE, ERR_DISPATCH, ERR_SHED,
+                    ERR_SHUTDOWN, ERR_TOO_LARGE, GCM_MODES, MODES, PORTED_MODES)
+
+__all__ = ["ERR_AUTH", "ERR_BAD_REQUEST", "ERR_DEADLINE", "ERR_DISPATCH", "ERR_SHED",
+           "ERR_SHUTDOWN", "ERR_TOO_LARGE", "GCM_MODES", "MODES", "PORTED_MODES"]

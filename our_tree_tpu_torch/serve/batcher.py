@@ -1,10 +1,11 @@
 """Shape-bucketed continuous batching: requests -> fixed-shape dispatches.
 
-Port of ``our_tree_tpu.serve.batcher`` for the ``ctr`` and ``cbc`` modes,
-host numpy as in the reference. Every batch is padded to a rung of a fixed power-of-two
-ladder, so after warmup over the ladder the card only ever sees the warmed
-shapes (the JAX package needs that to avoid recompiles; the port keeps the
-same shapes, so its warmup covers every dispatch shape too).
+Port of ``our_tree_tpu.serve.batcher`` for the ``ctr``, ``gcm``,
+``gcm-open`` and ``cbc`` modes, host numpy as in the reference. Every batch
+is padded to a rung of a fixed power-of-two ladder, so after warmup over the
+ladder the card only ever sees the warmed shapes (the JAX package needs that
+to avoid recompiles; the port keeps the same shapes, so its warmup covers
+every dispatch shape too).
 
 Coalescing is a rung-packer over key groups: requests group by (tenant, key
 digest) in arrival order, each group becomes one key slot with its own
@@ -22,6 +23,17 @@ is laid out like a ``ctr`` one, with ``ctr_words`` carrying the PREV stream
 in place of counters: each request's IV at its first block, then its own
 ciphertext shifted by one block (P_i = D(C_i) ^ C_(i-1) reads only
 ciphertext, which is why the decrypt direction batches at all).
+
+A ``gcm``/``gcm-open`` batch is laid out as the JAX package's, word for word
+(the ``aead/gcm.py`` module docstring has the layout): each request takes
+its J0 row (a zero data word under counter J0, whose CTR output is E_K(J0))
+and then its payload rows under inc32 counters; ``seg_keep`` is 0 at each J0
+row and each first data row, ``inject_words`` holds each request's AAD state
+Y_aad (GHASH of its padded AAD under its slot's H, on the host) at its first
+data row, and ``req_spans`` skip the J0 rows. The port adds ``rows``, the
+sorted (E,) int64 vector of each request's last data row: the only GHASH
+states the finisher reads, and the rows the dispatch names to ``ghash_at``.
+Capacity counts ``span_blocks``, the J0 row included.
 """
 
 from __future__ import annotations
@@ -30,10 +42,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..aead import ghash as aead_ghash
 from ..obs import metrics
+from ..ops import gf
 from ..ops.keyschedule import ROUNDS
 from ..utils import packing
-from .queue import Request
+from .queue import GCM_MODES, Request
 
 #: Default ladder bounds, in 16-byte blocks: floor 32 (one bitsliced group),
 #: ceiling 4096 (64 KiB).
@@ -107,7 +121,13 @@ class Batch:
     words: np.ndarray | None = field(default=None, repr=False)
     ctr_words: np.ndarray | None = field(default=None, repr=False)
     slot_index: np.ndarray | None = field(default=None, repr=False)
-    #: per-request (start_block, nblocks) in ``requests`` order
+    #: GCM only: the (4N,) AAD states, the (N,) carry keep vector and the
+    #: sorted (E,) int64 last data row of each request
+    inject_words: np.ndarray | None = field(default=None, repr=False)
+    seg_keep: np.ndarray | None = field(default=None, repr=False)
+    rows: np.ndarray | None = field(default=None, repr=False)
+    #: per-request (start_block, nblocks) in ``requests`` order (GCM spans
+    #: skip each request's J0 row)
     req_spans: list | None = field(default=None, repr=False)
 
     @property
@@ -131,12 +151,17 @@ class Batch:
         """Slot-ordered (tenant, key) pairs: the keycache.stacked input."""
         return [(s.tenant, s.key) for s in self.slots]
 
-    def materialise(self) -> None:
+    def materialise(self, sched=None) -> None:
         """Build the flat uint32 dispatch arrays: (4N,) payload words, (4N,)
         LE counter words (``cbc``: the PREV stream) and the (N,) slot
         vector, plus ``req_spans``. Requests pack contiguously, so only the
         padding tail is zeroed; a ``ctr`` request that exactly fills its rung
-        is viewed in place."""
+        is viewed in place. A GCM batch needs ``sched``, the keycache's
+        stack with its ``h_ints`` (each request's AAD state is hashed here
+        under its slot's H)."""
+        if self.mode in GCM_MODES:
+            self._materialise_gcm(sched)
+            return
         if self.mode == "cbc":
             self._materialise_cbc()
             return
@@ -171,6 +196,44 @@ class Batch:
         self.words = words
         self.ctr_words = ctr.reshape(-1)
         self.slot_index = slot_index
+
+    def _materialise_gcm(self, sched) -> None:
+        """The GCM layout (the module docstring): per request the J0 row, then
+        its payload rows; ``seg_keep``, ``inject_words``, ``req_spans`` and
+        ``rows``."""
+        if sched is None or sched.h_ints is None:
+            raise ValueError("a GCM batch needs the stack's H "
+                             "(keycache.stacked(..., mode=\"gcm\"))")
+        words = np.zeros(4 * self.bucket, dtype=np.uint32)
+        ctr = np.zeros((self.bucket, 4), dtype=np.uint32)
+        slot_index = np.zeros(self.bucket, dtype=np.uint32)
+        inject = np.zeros((self.bucket, 4), dtype=np.uint32)
+        keep = np.ones(self.bucket, dtype=np.uint32)
+        spans, rows, off = [], [], 0
+        for si, slot in enumerate(self.slots):
+            h = sched.h_ints[si]
+            for req in slot.requests:
+                n = req.nblocks
+                j0 = bytes(req.j0) if req.j0 else bytes(req.iv) + b"\x00\x00\x00\x01"
+                aead_ghash.np_gcm_ctr_blocks(j0, _block_idx(n + 1), out=ctr[off:off + n + 1])
+                words[4 * (off + 1):4 * (off + 1 + n)] = packing.np_bytes_to_words(req.payload)
+                slot_index[off:off + n + 1] = si
+                keep[off] = 0      # the J0 row: its GHASH lane is never read
+                keep[off + 1] = 0  # the first data row starts a fresh chain
+                y_aad = aead_ghash.ghash_int(h, aead_ghash.pad16(req.aad)) if req.aad else 0
+                if y_aad:
+                    inject[off + 1] = packing.np_bytes_to_words(
+                        np.frombuffer(gf.int_to_block(y_aad), np.uint8))
+                spans.append((off + 1, n))
+                rows.append(off + n)
+                off += n + 1
+        self.words = words
+        self.ctr_words = ctr.reshape(-1)
+        self.slot_index = slot_index
+        self.inject_words = inject.reshape(-1)
+        self.seg_keep = keep
+        self.req_spans = spans
+        self.rows = np.asarray(rows, dtype=np.int64)
 
     def _materialise_cbc(self) -> None:
         """The CBC-decrypt layout: ``ctr_words`` carries the PREV stream, each
@@ -217,9 +280,9 @@ def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
     """The rung-packer: group by (mode, tenant, key digest) in arrival order,
     then pack up to ``key_slots`` groups per batch, filling to the ladder
     ceiling and padding to the smallest rung that holds what was packed. A
-    batch is flushed when it runs out of block capacity, when a new group
-    finds all K slots taken, or when the next group's key length (round
-    count) differs."""
+    batch is flushed when it runs out of row capacity (``span_blocks``: a
+    GCM request's J0 row counts), when a new group finds all K slots taken,
+    or when the next group's key length (round count) or mode differs."""
     if key_slots < 1:
         raise ValueError("key_slots must be >= 1")
     ceiling = rungs[-1]
@@ -234,19 +297,20 @@ def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
 
     batches: list[Batch] = []
     cur_slots: list[Slot] = []
-    cur_blocks = 0
+    cur_blocks = 0  # payload blocks packed (the occupancy numerator)
+    cur_span = 0    # batch rows used (payload and GCM J0 rows)
     cur_nr = None
     cur_mode = None
 
     def flush():
-        nonlocal cur_slots, cur_blocks, cur_nr, cur_mode
+        nonlocal cur_slots, cur_blocks, cur_span, cur_nr, cur_mode
         if cur_slots:
-            bucket = bucket_for(cur_blocks, rungs)
+            bucket = bucket_for(cur_span, rungs)
             batches.append(Batch(cur_slots, bucket, cur_blocks, cur_nr, key_slots,
                                  mode=cur_mode))
             metrics.observe("serve_batch_blocks", cur_blocks, rung=bucket, mode=cur_mode)
             metrics.observe("serve_batch_slots", len(cur_slots))
-        cur_slots, cur_blocks = [], 0
+        cur_slots, cur_blocks, cur_span = [], 0, 0
         cur_nr = cur_mode = None
 
     for mode, tenant, digest in order:
@@ -258,7 +322,7 @@ def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
             flush()
         slot = None
         for req in pending:
-            if cur_slots and cur_blocks + req.nblocks > ceiling:
+            if cur_slots and cur_span + req.span_blocks > ceiling:
                 flush()
                 slot = None
             if slot is None:
@@ -269,5 +333,6 @@ def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
             slot.requests.append(req)
             slot.blocks += req.nblocks
             cur_blocks += req.nblocks
+            cur_span += req.span_blocks
     flush()
     return batches

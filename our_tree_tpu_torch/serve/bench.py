@@ -1,10 +1,12 @@
 """``python -m our_tree_tpu_torch.serve.bench``: the serving benchmark.
 
-Port of the ctr and cbc part of ``our_tree_tpu.serve.bench``. Closed-loop
-(or open-loop, ``--arrival-rate``) load against an in-process ``Server``:
-mixed request sizes, multi-tenant keys, the served-mode mix (``--modes``,
-from ``ctr`` and ``cbc``: the server enables and warms exactly these
-ladders, and each request draws its mode uniformly from them),
+Port of the ctr, gcm, gcm-open and cbc part of ``our_tree_tpu.serve.bench``.
+Closed-loop (or open-loop, ``--arrival-rate``) load against an in-process
+``Server``: mixed request sizes, multi-tenant keys, the served-mode mix
+(``--modes``, from ``ctr``, ``gcm``, ``gcm-open`` and ``cbc``: the server
+enables and warms exactly these ladders, and each request draws its mode
+uniformly from them; ``gcm-open`` needs ``--verify-every`` > 0, since open
+traffic replays the sealed probe pairs),
 p50/p95/p99 latency (per mode too, with more than ``ctr``), goodput GB/s,
 the batch-occupancy histogram, the per-lane breakdown with its health
 transitions and the dispatch's stage split. Human-readable ``#`` lines, then
@@ -12,9 +14,11 @@ one JSON line last on stdout: the JAX bench line's keys (``modes``, the
 requests by mode, when the mix is not ``ctr`` alone), plus the artifact's
 sections (``config``, ``load``, ``batches``, ``coalesce``, ``occupancy``,
 ``compiles``, ``keycache``, ``lanes``, ``queue``, ``device``, ``stages``,
-``cost``, ``profile``, ``per_mode``: requests, dispatches and engine calls
-by mode; ``launches``: the multi-key kernels' launches during the run, 0 on
-the CPU). It writes the artifact (those sections and the metrics snapshot)
+``cost``, ``profile``, ``per_mode``: requests, dispatches, engine calls and
+GCM auth failures by mode; ``launches``: the launches during the run of the
+kernels the enabled modes call (``ctr_mk`` always, as warmup's ``ctr``
+ladder is the canary's; ``ghash_at`` with a GCM mode; ``cbc_mk`` with
+``cbc``), 0 on the CPU). It writes the artifact (those sections and the metrics snapshot)
 only to a path given with ``--artifact``.
 
 The roofline sections, as in the reference: ``--ceiling-gbps`` gives the
@@ -30,8 +34,10 @@ the ``cost-*.json`` records land; a window that cannot open is reported as
 not armed and the drive goes on.
 
 Exit 1 on any of: a lost request (accepted, never answered), a kernel
-library build or load after warmup, a probe whose bytes differ from the
-host T-table reference, a coalesce efficiency below ``--min-coalesce``.
+library build or load after warmup, a probe whose bytes (or ``gcm`` tag)
+differ from the host reference, a coalesce efficiency below
+``--min-coalesce``. A request that answers ``auth-failed`` is an answer
+(``errors``), not a failure of the run.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` serves on the plain version.
 """
@@ -44,15 +50,25 @@ import json
 import sys
 
 from ..obs import costmodel, metrics, profiler, trace
-from ..ops import cuda_aes
+from ..ops import cuda_aes, cuda_ghash
 from ..resilience import degrade, watchdog
 from . import batcher, loadgen
-from .queue import not_ported
+from .queue import GCM_MODES, not_ported
 from .server import Server, ServerConfig
 
-#: The kernel wrapper each served mode launches on the card, by kernel name.
+#: The kernel wrappers the served modes launch on the card, by kernel name.
 MODE_KERNELS = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
-                "cbc_mk": cuda_aes.cbc_scattered_multikey}
+                "cbc_mk": cuda_aes.cbc_scattered_multikey,
+                "ghash_at": cuda_ghash.ghash_at}
+
+
+def mode_kernels(modes) -> dict:
+    """The kernels a server of ``modes`` launches, by name: ``ctr_mk`` always
+    (warmup's ``ctr`` ladder), ``ghash_at`` with a GCM mode, ``cbc_mk``
+    with ``cbc``."""
+    used = {"ctr_mk"} | ({"ghash_at"} if set(modes) & set(GCM_MODES) else set()) | (
+        {"cbc_mk"} if "cbc" in modes else set())
+    return {name: fn for name, fn in MODE_KERNELS.items() if name in used}
 
 
 async def _arm_profile_window(start_s: float, dur_s: float, device) -> None:
@@ -110,7 +126,7 @@ def _lane_summary(stats: dict, wall_s: float) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m our_tree_tpu_torch.serve.bench",
                                  description="closed-loop serving benchmark of the port "
-                                             "(ctr, cbc)")
+                                             "(ctr, gcm, gcm-open, cbc)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
     ap.add_argument("--engine", default="auto",
@@ -134,9 +150,10 @@ def parse_args(argv=None):
                     help="many tenants, one key each, sizes "
                          f"{loadgen.TENANT_HEAVY_SIZES}: full rungs only from multi-key packing")
     ap.add_argument("--modes", default="ctr", metavar="M1,M2",
-                    help="served-mode mix (comma list from ctr, cbc): the server enables and "
-                         "warms exactly these ladders, and each request draws its mode "
-                         "uniformly from them")
+                    help="served-mode mix (comma list from ctr, gcm, gcm-open, cbc): the "
+                         "server enables and warms exactly these ladders, and each request "
+                         "draws its mode uniformly from them; gcm probes pin ciphertext and "
+                         "tag against the host GCM")
     ap.add_argument("--key-slots", type=int, default=batcher.DEFAULT_KEY_SLOTS, metavar="K")
     ap.add_argument("--bucket-min", type=int, default=batcher.DEFAULT_MIN_BLOCKS,
                     metavar="BLOCKS")
@@ -179,6 +196,9 @@ def parse_args(argv=None):
     why = not_ported(args.modes)
     if why is not None:
         ap.error(why)
+    if "gcm-open" in args.modes and not args.verify_every:
+        ap.error("--modes gcm-open requires --verify-every > 0: open traffic replays the "
+                 "per-size sealed probe pairs (a made-up tag would answer auth-failed)")
     if args.tenant_heavy:
         args.sizes = loadgen.TENANT_HEAVY_SIZES
         args.tenants = max(args.tenants, 24)
@@ -201,9 +221,10 @@ def main(argv=None) -> int:
     probes = (loadgen.make_probes(args.sizes, args.seed, args.modes) if args.verify_every
               else [])
     profile_before = profiler.last_summary()
-    launches_before = {name: fn.launches for name, fn in MODE_KERNELS.items()}
+    kernels = mode_kernels(args.modes)
+    launches_before = {name: fn.launches for name, fn in kernels.items()}
     server, report = asyncio.run(_drive(args, probes))
-    launches = {name: fn.launches - launches_before[name] for name, fn in MODE_KERNELS.items()}
+    launches = {name: fn.launches - launches_before[name] for name, fn in kernels.items()}
     stats = server.stats()
     lanes = _lane_summary(stats, report.wall_s)
     lost = stats["queue"]["lost"]
@@ -226,6 +247,7 @@ def main(argv=None) -> int:
         "requests": metrics.counter_by_label("serve_requests", "mode"),
         "dispatches": dispatches_by_mode,
         "engine_calls": stats["lanes"]["engine_calls_by_mode"],
+        "auth_failed": metrics.counter_by_label("serve_auth_failed", "mode"),
         "latency": report.modes,
         # A served dispatch's card time (CUDA events; the compute window on
         # the CPU) and its whole window, by mode.
@@ -236,7 +258,9 @@ def main(argv=None) -> int:
     }
     if args.modes != ("ctr",):
         print("# modes: " + "  ".join(
-            f"{m}:{int(n)}" for m, n in per_mode["requests"].items()))
+            f"{m}:{int(n)}" for m, n in per_mode["requests"].items())
+            + ("" if not per_mode["auth_failed"] else "  auth_failed: " + "  ".join(
+                f"{m}:{int(n)}" for m, n in per_mode["auth_failed"].items())))
         for m, r in report.modes.items():
             print(f"#   mode {m}: requests={r['requests']} ok={r['ok']} "
                   f"verified={r['verified']} p50={r['p50_ms']} p95={r['p95_ms']} "
@@ -395,7 +419,7 @@ def main(argv=None) -> int:
 
     rc = 0
     if report.mismatches:
-        print(f"# FAIL: {report.mismatches} probe response(s) mismatched the host T-table "
+        print(f"# FAIL: {report.mismatches} probe response(s) mismatched the host "
               "reference", file=sys.stderr)
         rc = 1
     if lost:

@@ -1,8 +1,8 @@
 """Multi-tenant LRU cache of expanded AES key schedules.
 
-Port of ``our_tree_tpu.serve.keycache`` with the ``cbc`` mode's decrypt
-schedules and without the AEAD memo and the native contexts (the GCM serve
-modes and the host tier are not in the port yet). Key expansion is
+Port of ``our_tree_tpu.serve.keycache`` with the ``gcm``/``gcm-open`` modes'
+AEAD memo and the ``cbc`` mode's decrypt schedules, without the native
+contexts (the host tier is not in the port). Key expansion is
 host-side and per key, so a service where every request names its key makes
 rekeying a lookup. Entries hold the host (numpy) schedule; the lane stages
 it on its device per dispatch.
@@ -20,7 +20,13 @@ work. A stack outlives a per-tenant eviction until ``stacked_capacity``
 churn pushes it out (eviction is capacity management, not revocation).
 ``stacked(..., mode="cbc")`` also attaches the stack's decrypt schedules
 (``rks_dec``), derived from each slot's encrypt schedule once per key digest
-(``_dec``, bounded at four times the stack capacity).
+(``_dec``, bounded at four times the stack capacity); ``mode="gcm"`` or
+``"gcm-open"`` attaches each slot's GHASH subkey H = E_K(0^128) as an int
+(``h_ints``, the host finisher's) and its (128, 128) multiply-by-H matrix
+(``hmats``, the JAX package's layout), derived once per key digest
+(``_aead``, bounded the same way, counted in ``aead_derives``). The lane
+stages only H's words from it (``aead.gcm._h_words`` takes column 7 on the
+host), never the matrix stack.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..aead import ghash as aead_ghash
 from ..obs import metrics, trace
+from ..ops import gf
 from ..ops.keyschedule import dec_schedule_from_enc, expand_key_enc
 
 
@@ -43,15 +51,19 @@ class StackedSchedules:
     """A K-slot schedule stack: ``rks`` is (K, 4*(nr+1)) uint32, row i = slot
     i's schedule, all-zero rows in unused slots. ``rks_dec`` is the same
     stack of InvMixColumns-folded decrypt schedules, attached by the first
-    ``cbc`` use (None until then)."""
+    ``cbc`` use; ``hmats`` ((K, 128, 128) u32) and ``h_ints`` (K ints) the
+    GHASH subkeys, attached by the first GCM use (None until then; unused
+    slots zero)."""
 
-    __slots__ = ("nr", "rks", "digests", "rks_dec")
+    __slots__ = ("nr", "rks", "digests", "rks_dec", "hmats", "h_ints")
 
     def __init__(self, nr: int, rks: np.ndarray, digests: tuple):
         self.nr = int(nr)
         self.rks = rks
         self.digests = digests
         self.rks_dec = None
+        self.hmats = None
+        self.h_ints = None
 
 
 class KeyCache:
@@ -64,13 +76,17 @@ class KeyCache:
         self._tenants: dict[str, OrderedDict] = {}
         self._stacked: OrderedDict = OrderedDict()
         self.stacked_capacity = max(int(stacked_capacity), 1)
-        #: digest -> decrypt-schedule row, bounded at 4 x stacked_capacity
+        #: digest -> decrypt-schedule row, and digest -> (H int, (128, 128)
+        #: multiply-by-H matrix), each bounded at 4 x stacked_capacity (the
+        #: matrix is 64 KiB a key)
         self._dec: OrderedDict = OrderedDict()
+        self._aead: OrderedDict = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.stacked_hits = 0
         self.stacked_misses = 0
+        self.aead_derives = 0
 
     def get(self, tenant: str, key: bytes):
         """(digest, nr, host round-key words) for ``key`` under ``tenant``,
@@ -103,7 +119,8 @@ class KeyCache:
         pairs. Every slot still passes through ``get`` (LRU touch, hit
         accounting), but assembling the stack is memoized per (digests, K).
         Mixed key lengths are refused: ``nr`` is uniform per dispatch.
-        ``mode="cbc"`` attaches the decrypt-schedule stack on first need."""
+        ``mode="cbc"`` attaches the decrypt-schedule stack on first need,
+        ``mode="gcm"``/``"gcm-open"`` the GHASH subkeys."""
         if not slots or len(slots) > key_slots:
             raise ValueError(f"{len(slots)} slot(s) for a {key_slots}-slot stack")
         entries = [self.get(t, k) for t, k in slots]
@@ -134,11 +151,35 @@ class KeyCache:
         self._attach_mode(sched, entries, mode)
         return sched
 
+    def _memo_aead(self, digest: str, nr: int, rk) -> tuple:
+        """(H int, multiply-by-H matrix) of one key, memoized per digest."""
+        hit = self._aead.get(digest)
+        if hit is None:
+            self.aead_derives += 1
+            metrics.counter("keycache", outcome="aead-derive")
+            h = aead_ghash.derive_h(nr, rk)
+            hit = (h, gf.gf128_mul_matrix_words(h))
+            self._aead[digest] = hit
+            if len(self._aead) > 4 * self.stacked_capacity:
+                self._aead.popitem(last=False)
+        return hit
+
     def _attach_mode(self, sched: StackedSchedules, entries: list, mode: str) -> None:
-        """Attach ``mode``'s per-key material to the stack, once: for ``cbc``
-        the decrypt-schedule stack, each row derived from the slot's encrypt
-        schedule (reversed, InvMixColumns; no key bytes touched again) and
-        memoized per digest. Unused slots stay zero."""
+        """Attach ``mode``'s per-key material to the stack, once: for GCM each
+        slot's H and multiply-by-H matrix; for ``cbc`` the decrypt-schedule
+        stack, each row derived from the slot's encrypt schedule (reversed,
+        InvMixColumns; no key bytes touched again). Both memoized per digest.
+        Unused slots stay zero: a GCM batch's padding rows ride slot 0 and
+        are never named, so a zero row is never read as key material."""
+        if mode in ("gcm", "gcm-open") and sched.hmats is None:
+            k = sched.rks.shape[0]
+            hmats = np.zeros((k, 128, 128), dtype=np.uint32)
+            h_ints = [0] * k
+            for i, (digest, nr, rk) in enumerate(entries):
+                h_ints[i], hmats[i] = self._memo_aead(digest, nr, rk)
+            sched.hmats = hmats
+            sched.h_ints = tuple(h_ints)
+            return
         if mode != "cbc" or sched.rks_dec is not None:
             return
         rks_dec = np.zeros_like(sched.rks)
@@ -159,5 +200,6 @@ class KeyCache:
     def stats(self) -> dict:
         return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
                 "stacked_hits": self.stacked_hits, "stacked_misses": self.stacked_misses,
-                "stacked_entries": len(self._stacked), "tenants": len(self._tenants),
+                "stacked_entries": len(self._stacked), "aead_derives": self.aead_derives,
+                "tenants": len(self._tenants),
                 "entries": sum(len(v) for v in self._tenants.values())}

@@ -7,8 +7,9 @@ domain. A failing or hung lane degrades its own health, never the service:
 its batch is re-dispatched bit-exactly on another lane before any rider
 sees an error. CTR with explicit per-block counters, and CBC decrypt with
 its PREV stream laid out by the batcher, make replay free of side effects:
-a batch is a pure function of (words, counters or PREV, schedules, slots)
-and can run anywhere, twice, with identical bytes.
+a batch is a pure function of (words, counters or PREV, schedules, slots,
+and for GCM its segment arrays and named rows) and can run anywhere, twice,
+with identical bytes.
 
 This module is the only place in ``serve/`` that touches a device.
 ``Lane.engine_call`` runs on the lane's worker thread (``serve/dispatch.py``)
@@ -18,11 +19,17 @@ batcher's uint32 arrays; copies from pageable host memory), calls the
 batch's mode's seam (``ctr``: ``aes.ctr_crypt_words_scattered_multikey``,
 the ``ctr_mk`` kernel on the CUDA engine; ``cbc``:
 ``aes.cbc_decrypt_words_scattered_multikey`` with the stack's decrypt
-schedules, the ``cbc_mk`` kernel), records CUDA events around it, fences
-with a stream synchronize and copies the output back. Staging, the
-``device`` stage, failover replay and the (``ctr``-shaped) canary do not
-depend on the mode; the dispatch metrics carry it as a label. The reference's fault seams and
-journal-backed quarantine are not carried over.
+schedules, the ``cbc_mk`` kernel; ``gcm``/``gcm-open``:
+``aead.gcm.gcm_crypt_ghash_words`` sealing or opening, with the batch's
+``inject_words``, ``seg_keep`` and named ``rows`` and the stack's H words,
+``ctr_mk`` and then ``ghash_at``), records CUDA events around it, fences
+with a stream synchronize and copies the output back. A GCM engine call
+returns the CTR output and the named rows' GHASH states, ``(out, ys)``: the
+port's own layout, where the JAX lane returns a (2, 4N) stack of the output
+and every row's state. Staging, the ``device`` stage, failover replay and
+the (``ctr``-shaped) canary do not depend on the mode; the dispatch metrics
+carry it as a label. The reference's fault seams and journal-backed
+quarantine are not carried over.
 
 Health state machine (every transition is a ``lane-state`` trace point;
 quarantine also stamps ``quarantined:lane:<i>`` through ``degrade``)::
@@ -59,11 +66,13 @@ import time
 import numpy as np
 import torch
 
+from ..aead import gcm as aead_gcm
 from ..models import aes
 from ..obs import metrics, trace
 from ..resilience import degrade, watchdog
 from ..resilience.policy import RetryPolicy
 from .dispatch import LaneExecutor
+from .queue import GCM_MODES
 
 HEALTHY = "healthy"
 SUSPECT = "suspect"
@@ -74,8 +83,21 @@ RELEASED = "released"
 #: States that may receive traffic.
 PLACEABLE = (HEALTHY, SUSPECT, PROBATION)
 
+
+def _gcm_seam(direction: str):
+    """The GCM dispatch in one direction: ``(words, ctr, rks, slots, inject,
+    keep, nr, engine, hmats=, rows=)`` -> ``(out, ys)``, the CTR output and
+    the GHASH states at ``rows``."""
+    def seam(w, c, r, s, inject, keep, nr, engine, hmats, rows):
+        return aead_gcm.gcm_crypt_ghash_words(w, c, r, s, hmats, inject, keep, nr, engine,
+                                              direction, rows=rows)
+    return seam
+
+
 #: The seam each served mode dispatches to, and the stack's schedules it reads.
 _SEAMS = {"ctr": (aes.ctr_crypt_words_scattered_multikey, "rks"),
+          "gcm": (_gcm_seam(aead_gcm.SEAL), "rks"),
+          "gcm-open": (_gcm_seam(aead_gcm.OPEN), "rks"),
           "cbc": (aes.cbc_decrypt_words_scattered_multikey, "rks_dec")}
 
 #: The pinned canary batch: inputs, the expected output and its rung.
@@ -94,6 +116,15 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if not a.flags.writeable:
         a = a.copy()
     return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def _check_rows(rows, n: int) -> np.ndarray:
+    """A GCM batch's named rows as (E,) int64, refused unless sorted and in
+    [0, n): on the card a bad vector would read wrong states silently."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if rows.size and (rows[0] < 0 or rows[-1] >= n or bool((rows[1:] < rows[:-1]).any())):
+        raise ValueError(f"GCM rows must be sorted and lie in [0, {n})")
+    return rows
 
 
 class LanesExhausted(RuntimeError):
@@ -126,8 +157,8 @@ class Lane:
                                   retry_on=(RuntimeError,), name=f"lane{idx}-dispatch")
         self.dispatches = 0
         #: every engine call by mode (warmup, traffic, retries, canaries):
-        #: on the CUDA engine, one kernel launch each (``ctr_mk`` for
-        #: ``ctr``, ``cbc_mk`` for ``cbc``)
+        #: on the CUDA engine, one kernel call each (``ctr_mk`` for ``ctr``,
+        #: ``cbc_mk`` for ``cbc``), two for GCM (``ctr_mk``, ``ghash_at``)
         self.engine_calls_by_mode: dict[str, int] = {}
         self.blocks = 0
         self.failures = 0
@@ -209,50 +240,65 @@ class Lane:
     # -- the one device-dispatch seam in serve/ ----------------------------
     def engine_call(self, words, ctr_words, sched, key_slots, label: str,
                     warmup: bool = False, timing: dict | None = None,
-                    mode: str = "ctr") -> np.ndarray:
+                    mode: str = "ctr", inject_words=None, seg_keep=None, rows=None):
         """One multi-key dispatch on this lane's device, on the calling
         (worker) thread, under this lane's watchdog deadline. ``words`` and
         ``ctr_words`` (counters, or ``cbc``'s PREV stream) are flat (4N,)
         uint32, ``sched`` the keycache's ``StackedSchedules`` (with
-        ``rks_dec`` for ``cbc``), ``key_slots`` the (N,) slot vector; ``mode``
-        picks the seam. Returns the (4N,) uint32 output. Warmup runs under
-        the global opt-in deadline (a first contact legitimately dwarfs a
-        steady dispatch), except on a quarantined lane."""
+        ``rks_dec`` for ``cbc``, ``hmats`` for GCM), ``key_slots`` the (N,)
+        slot vector; ``mode`` picks the seam. A GCM call also takes the
+        batch's (4N,) ``inject_words``, (N,) ``seg_keep`` and sorted (E,)
+        ``rows`` (checked here, on the host). Returns the (4N,) uint32
+        output, and for GCM ``(out, ys)`` with the (E, 4) uint32 states at
+        ``rows``. Warmup runs under the global opt-in deadline (a first
+        contact legitimately dwarfs a steady dispatch), except on a
+        quarantined lane."""
         seam, rks_name = _SEAMS[mode]
-        rks = getattr(sched, rks_name)
+        arrays = (words, ctr_words, getattr(sched, rks_name), key_slots)
+        extra = {}
+        if mode in GCM_MODES:
+            arrays += (inject_words, seg_keep)
+            extra = {"hmats": sched.hmats, "rows": _check_rows(rows, len(key_slots))}
         deadline_s = (self.deadline_s if (not warmup or self.state == QUARANTINED)
                       else watchdog.default_deadline_s())
         self.engine_calls_by_mode[mode] = self.engine_calls_by_mode.get(mode, 0) + 1
         with watchdog.deadline(deadline_s, what=f"lane {self.idx} dispatch {label}"):
             if self.stream is None:
-                return self._call_cpu(seam, words, ctr_words, rks, key_slots, sched.nr, timing)
+                return self._call_cpu(seam, arrays, extra, sched.nr, timing)
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-                return self._call_cuda(seam, words, ctr_words, rks, key_slots, sched.nr, timing)
+                return self._call_cuda(seam, arrays, extra, sched.nr, timing)
 
-    def _call_cpu(self, seam, words, ctr_words, rks, key_slots, nr, timing):
+    @staticmethod
+    def _result(out):
+        """The seam's result as host uint32 arrays (GCM: a pair)."""
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy().view(np.uint32) for o in out)
+        return out.cpu().numpy().view(np.uint32)
+
+    def _call_cpu(self, seam, arrays, extra, nr, timing):
         t0 = self._clock()
-        out = seam(_tensor(words, self.device), _tensor(ctr_words, self.device),
-                   _tensor(rks, self.device), _tensor(key_slots, self.device), nr, self.engine)
-        res = out.numpy().view(np.uint32)
+        out = seam(*(_tensor(a, self.device) for a in arrays), nr, self.engine, **extra)
+        res = self._result(out)
         if timing is not None:
             timing["device_us"] = d_us = int((self._clock() - t0) * 1e6)
             self.device_us += d_us
         return res
 
-    def _call_cuda(self, seam, words, ctr_words, rks, key_slots, nr, timing):
+    def _call_cuda(self, seam, arrays, extra, nr, timing):
         t0 = self._clock()
-        w, c = _tensor(words, self.device), _tensor(ctr_words, self.device)
-        r, s = _tensor(rks, self.device), _tensor(key_slots, self.device)
+        staged = [_tensor(a, self.device) for a in arrays]
+        if "rows" in extra:
+            extra = {**extra, "rows": torch.from_numpy(extra["rows"]).to(self.device)}
         t_staged = self._clock()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record(self.stream)
-        out = seam(w, c, r, s, nr, self.engine)
+        out = seam(*staged, nr, self.engine, **extra)
         stop.record(self.stream)
         t_fence = self._clock()
         self.stream.synchronize()
         t_back = self._clock()
-        res = out.cpu().numpy().view(np.uint32)
+        res = self._result(out)
         if timing is not None:
             staging = int((t_staged - t0 + self._clock() - t_back) * 1e6)
             fence = int((t_back - t_fence) * 1e6)
@@ -421,12 +467,15 @@ class LanePool:
 
     # -- dispatch with failover --------------------------------------------
     async def dispatch(self, words, ctr_words, sched, key_slots, label: str, bucket: int,
-                       blocks: int, requests: int, sampled: bool = True, mode: str = "ctr"):
-        """Place and run one batch of ``mode``, failing over across lanes
-        until it succeeds or every lane has been tried. Returns (output,
-        lane, redispatches); raises ``LanesExhausted`` only when no lane
-        could serve it. The dispatch window's parts (worker wait, staging,
-        card, host rest) go to the ``serve_stage_us`` histograms."""
+                       blocks: int, requests: int, sampled: bool = True, mode: str = "ctr",
+                       inject_words=None, seg_keep=None, rows=None):
+        """Place and run one batch of ``mode`` (GCM with its segment arrays
+        and named rows), failing over across lanes until it succeeds or every
+        lane has been tried. Returns (output, lane, redispatches), the
+        output as ``Lane.engine_call`` gives it; raises ``LanesExhausted``
+        only when no lane could serve it. The dispatch window's parts
+        (worker wait, staging, card, host rest) go to the
+        ``serve_stage_us`` histograms."""
         causes: list = []
         tried: set[int] = set()
         while True:
@@ -462,7 +511,7 @@ class LanePool:
                 attempt_timing["worker_wait_us"] = int((lane._clock() - t0) * 1e6)
                 return lane.policy.run(lambda att: lane.engine_call(
                     words, ctr_words, sched, key_slots, label, timing=attempt_timing,
-                    mode=mode))
+                    mode=mode, inject_words=inject_words, seg_keep=seg_keep, rows=rows))
 
             try:
                 out = await lane.run_async(unit)

@@ -1,22 +1,29 @@
 """Closed- and open-loop load generators for the serve path.
 
-Port of ``our_tree_tpu.serve.loadgen`` for the ``ctr`` and ``cbc`` modes.
+Port of ``our_tree_tpu.serve.loadgen`` for the ``ctr``, ``gcm``, ``gcm-open``
+and ``cbc`` modes.
 Closed loop (the default): ``concurrency`` clients each draw a (size, mode,
 tenant, key) from a seeded generator, submit, await, repeat. Open loop
 (``arrival_rate=R``): one request every 1/R seconds whatever the service
 rate, latency measured from each request's scheduled arrival. ``modes`` is
-the mix: each request draws its mode uniformly, so CTR and CBC decrypt
-interleave in one queue. The same seed draws the same sizes, modes, keys,
-nonces, IVs and probes in the same order as the JAX loadgen.
+the mix: each request draws its mode uniformly, so CTR, GCM seal and open
+and CBC decrypt interleave in one queue. The same seed draws the same sizes,
+modes, keys, nonces, IVs, AAD and probes in the same order as the JAX
+loadgen. A ``gcm-open`` request replays its size's sealed probe pair
+(verified or not: a made-up tag would answer ``auth-failed`` by design), so
+a mix with ``gcm-open`` needs a sealed probe for every size and ``run``
+refuses one without.
 
 Correctness rides along: one pinned probe per (mode, request size) (key,
 nonce or IV, and payload from the seed) is computed before the server
 starts, and every ``verify_every``-th request replays a probe and checks the
-bytes. The expected outputs come from the T-table engine on the host
-(``AES(key, engine="ttable", device="cpu")``: CTR, and ``_np_cbc_encrypt``
-for the ciphertext a ``cbc`` probe decrypts back to its plaintext),
-independent of the bitsliced kernels under test: it is the check, not a
-fallback.
+bytes. The expected outputs come from the host, independent of the kernels
+under test: the T-table engine (``AES(key, engine="ttable",
+device="cpu")``: CTR, and ``_np_cbc_encrypt`` for the ciphertext a ``cbc``
+probe decrypts back to its plaintext) and the host GCM
+(``aead.ghash.np_gcm_seal``: a ``gcm`` probe pins ciphertext and tag, and
+the ``gcm-open`` probe opens the sealed pair back to its plaintext). It is
+the check, not a fallback.
 
 Percentiles are nearest-rank over the full sample, and per mode when the mix
 holds more than ``ctr``; goodput counts OK payload bytes only.
@@ -30,6 +37,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..aead import ghash as aead_ghash
 from ..models.aes import AES, AES_ENCRYPT, TTABLE_ENGINE
 from ..obs import metrics as obs_metrics
 
@@ -53,9 +61,13 @@ class Probe:
     nonce: bytes
     payload: np.ndarray
     expected: np.ndarray
-    #: the served mode and, for ``cbc``, the IV (``ctr`` leaves it empty)
+    #: the served mode and its request fields (``ctr`` leaves them empty);
+    #: ``expected_tag`` pins a ``gcm`` probe's tag
     mode: str = "ctr"
     iv: bytes = b""
+    aad: bytes = b""
+    tag: bytes = b""
+    expected_tag: bytes = b""
 
 
 @dataclass
@@ -112,9 +124,11 @@ def _np_cbc_encrypt(key: bytes, iv16: bytes, pt: bytes) -> bytes:
 
 def make_probes(sizes, seed: int, modes=("ctr",)) -> list[Probe]:
     """One pinned request per (mode, size) with its expected output from the
-    host T-table engine: a ``ctr`` probe's ciphertext, or a ``cbc`` probe's
-    plaintext (its payload is ``_np_cbc_encrypt`` of it). The draws follow
-    the JAX loadgen's order. Call before the server starts."""
+    host: a ``ctr`` probe's ciphertext (T-table engine), a ``gcm`` probe's
+    ciphertext and tag (``np_gcm_seal``), the ``gcm-open`` probe's plaintext
+    (the sealed pair replayed), or a ``cbc`` probe's plaintext (its payload
+    is ``_np_cbc_encrypt`` of it). The draws follow the JAX loadgen's order.
+    Call before the server starts."""
     rng = np.random.default_rng(seed ^ 0x9E3779B9)
     probes = []
     for size in sizes:
@@ -126,6 +140,17 @@ def make_probes(sizes, seed: int, modes=("ctr",)) -> list[Probe]:
             expected = ref.crypt_ctr(0, np.frombuffer(nonce, np.uint8), np.zeros(16, np.uint8),
                                      payload)[0]
             probes.append(Probe("probe", key, nonce, payload, np.asarray(expected)))
+        gcm_wanted = [m for m in ("gcm", "gcm-open") if m in modes]
+        if gcm_wanted:
+            iv = rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+            aad = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+            ct, tag = aead_ghash.np_gcm_seal(key, iv, aad, payload.tobytes())
+            if "gcm" in gcm_wanted:
+                probes.append(Probe("probe", key, b"", payload, np.frombuffer(ct, np.uint8),
+                                    mode="gcm", iv=iv, aad=aad, expected_tag=tag))
+            if "gcm-open" in gcm_wanted:
+                probes.append(Probe("probe", key, b"", np.frombuffer(ct, np.uint8), payload,
+                                    mode="gcm-open", iv=iv, aad=aad, tag=tag))
         if "cbc" in modes:
             iv16 = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
             ct = _np_cbc_encrypt(key, iv16, payload.tobytes())
@@ -142,12 +167,19 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     """Drive ``server`` with ``n_requests`` in total; the aggregated report.
     ``arrival_rate=None``: ``concurrency`` closed-loop clients;
     ``arrival_rate=R``: open loop, one request every 1/R seconds. ``modes``:
-    the mix, each request's mode drawn uniformly from it."""
+    the mix, each request's mode drawn uniformly from it; with ``gcm-open``
+    every size needs its sealed probe pair (``ValueError`` otherwise)."""
     sizes = tuple(sizes)
     modes = tuple(modes) or ("ctr",)
     if probes is None:
         probes = make_probes(sizes, seed, modes)
     by_key = {(p.mode, p.payload.size): p for p in probes}
+    if "gcm-open" in modes:
+        missing = [sz for sz in sizes if ("gcm-open", sz) not in by_key]
+        if missing:
+            raise ValueError(f"gcm-open in the mode mix needs a sealed probe pair per size "
+                             f"(missing sizes {missing}): enable verify_every or pass probes "
+                             "covering every size")
     keys = {}
     key_rng = np.random.default_rng(seed)
     for t in range(tenants):
@@ -162,23 +194,30 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     payloads = {s: pool_rng.integers(0, 256, s, dtype=np.uint8) for s in sizes}
 
     def pick(i: int, rng):
-        """Request i's (tenant, key, nonce, payload, probe, mode, iv); the mix
-        depends only on the seed and the request order, not on the loop
-        shape."""
+        """Request i's (tenant, key, nonce, payload, probe, mode, iv, aad,
+        tag); the mix depends only on the seed and the request order, not on
+        the loop shape."""
         size = int(rng.choice(sizes))
         mode = modes[int(rng.integers(len(modes)))]
         probe = by_key.get((mode, size)) if (verify_every and i % verify_every == 0) else None
+        if probe is None and mode == "gcm-open":
+            # Unverified open traffic replays the sealed pair all the same.
+            p = by_key[(mode, size)]
+            return p.tenant, p.key, p.nonce, p.payload, None, p.mode, p.iv, p.aad, p.tag
         if probe is not None:
             return (probe.tenant, probe.key, probe.nonce, probe.payload, probe, probe.mode,
-                    probe.iv)
+                    probe.iv, probe.aad, probe.tag)
         tenant = f"t{int(rng.integers(tenants))}"
         key = keys[(int(tenant[1:]), int(rng.integers(keys_per_tenant)))]
-        nonce = iv = b""
+        nonce = iv = aad = b""
         if mode == "ctr":
             nonce = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        elif mode == "gcm":
+            iv = rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+            aad = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
         elif mode == "cbc":
             iv = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-        return tenant, key, nonce, payloads[size], None, mode, iv
+        return tenant, key, nonce, payloads[size], None, mode, iv, aad, b""
 
     def account(resp, payload, probe, mode, dt_ms: float):
         report.requests += 1
@@ -197,11 +236,13 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
                 m["verified"] += 1
                 if not np.array_equal(np.asarray(resp.payload), probe.expected):
                     report.mismatches += 1
+                elif probe.expected_tag and resp.tag != probe.expected_tag:
+                    report.mismatches += 1  # a gcm probe pins its tag too
         else:
             report.errors[resp.error] = report.errors.get(resp.error, 0) + 1
 
-    async def submit_one(tenant, key, nonce, payload, mode, iv):
-        kw = {} if mode == "ctr" else {"mode": mode, "iv": iv}
+    async def submit_one(tenant, key, nonce, payload, mode, iv, aad, tag):
+        kw = {} if mode == "ctr" else {"mode": mode, "iv": iv, "aad": aad, "tag": tag}
         return await server.submit(tenant, key, nonce, payload, deadline_s=deadline_s, **kw)
 
     async def client(cid: int):
@@ -211,14 +252,14 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
             if i >= n_requests:
                 return
             counter["next"] = i + 1
-            tenant, key, nonce, payload, probe, mode, iv = pick(i, rng)
+            tenant, key, nonce, payload, probe, mode, iv, aad, tag = pick(i, rng)
             t0 = clock()
-            resp = await submit_one(tenant, key, nonce, payload, mode, iv)
+            resp = await submit_one(tenant, key, nonce, payload, mode, iv, aad, tag)
             account(resp, payload, probe, mode, (clock() - t0) * 1e3)
 
     async def open_request(i: int, scheduled: float, rng):
-        tenant, key, nonce, payload, probe, mode, iv = pick(i, rng)
-        resp = await submit_one(tenant, key, nonce, payload, mode, iv)
+        tenant, key, nonce, payload, probe, mode, iv, aad, tag = pick(i, rng)
+        resp = await submit_one(tenant, key, nonce, payload, mode, iv, aad, tag)
         account(resp, payload, probe, mode, (clock() - scheduled) * 1e3)
 
     async def open_loop(t_start: float):

@@ -1,7 +1,7 @@
 """Admission control and backpressure for the serve path.
 
-Port of ``our_tree_tpu.serve.queue`` for the ``ctr`` and ``cbc`` modes. The
-policy:
+Port of ``our_tree_tpu.serve.queue`` for the ``ctr``, ``gcm``, ``gcm-open``
+and ``cbc`` modes. The policy:
 
 * **Bounded depth.** Past ``max_depth`` queued requests new ones are shed
   with an immediate ``"shed"`` answer (degrade kind ``accept->shed``).
@@ -16,11 +16,17 @@ policy:
 * **Admission checks up front**, in the JAX queue's order and with its
   codes: a mode outside the reference's vocabulary (``MODES``), or one this
   server did not enable (its ladder was never warmed), is ``"bad-request"``;
-  payloads are a nonzero multiple of 16 bytes that fits the top rung, keys
-  16/24/32 bytes, ``ctr`` nonces and ``cbc`` IVs 16 bytes. The port serves
-  ``ctr`` and ``cbc`` (``PORTED_MODES``); a server refuses to enable the
-  others at configuration time (``not_ported``), so they reach admission
-  only as modes not enabled.
+  payloads are a nonzero multiple of 16 bytes, keys 16/24/32 bytes, ``ctr``
+  nonces 16 bytes, GCM IVs non-empty, ``gcm-open`` tags 16 bytes, ``cbc``
+  IVs 16 bytes, and the request's rows (``span_blocks``: a GCM request
+  carries its J0 row) must fit the top rung. The port serves ``ctr``,
+  ``gcm``, ``gcm-open`` and ``cbc`` (``PORTED_MODES``); a server refuses to
+  enable ``rc4`` at configuration time (``not_ported``), so it reaches
+  admission only as a mode not enabled.
+* **J0 at admission.** A GCM request's pre-counter block is derived here:
+  IV || 0^31 || 1 for a 96-bit IV, otherwise GHASH of the IV under the
+  key's H on the host (``aead.ghash.j0_from_iv``), so every IV length rides
+  the same dispatch shape.
 
 Every accepted request opens a detached ``request-queued`` span (admission
 to drain), head-sampled once at admission (``trace.sample()``); the metrics
@@ -37,7 +43,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..aead import ghash as aead_ghash
 from ..obs import metrics, trace
+from ..ops.keyschedule import expand_key_enc
 from ..resilience import degrade
 from ..resilience.policy import Budget
 
@@ -48,6 +56,9 @@ ERR_BAD_REQUEST = "bad-request"   #: malformed payload/key/nonce/IV, or a mode n
 ERR_DEADLINE = "deadline"         #: budget exhausted (queued or dispatching)
 ERR_DISPATCH = "dispatch-failed"  #: the batch died on every lane
 ERR_SHUTDOWN = "shutdown"         #: server stopped with the request queued
+#: GCM open: tag mismatch, a refusal of that request only (the batch's other
+#: riders are answered)
+ERR_AUTH = "auth-failed"
 
 #: The served-mode vocabulary, the JAX package's: ``ctr`` is scattered CTR,
 #: ``gcm``/``gcm-open`` AES-GCM seal/open, ``cbc`` parallel CBC decrypt (the
@@ -55,14 +66,16 @@ ERR_SHUTDOWN = "shutdown"         #: server stopped with the request queued
 #: Batches never mix modes (``serve/batcher.py``).
 MODES = ("ctr", "gcm", "gcm-open", "cbc", "rc4")
 
+#: The modes whose batch rows carry each request's J0 row (its CTR output is
+#: E_K(J0), the tag's final pad).
+GCM_MODES = ("gcm", "gcm-open")
+
 #: The modes the port serves so far.
-PORTED_MODES = ("ctr", "cbc")
+PORTED_MODES = ("ctr", "gcm", "gcm-open", "cbc")
 
 #: Where each mode the port does not serve yet is queued: its ROADMAP queue 1
 #: item, by title, so that renumbering the queue leaves the pointer true.
-_QUEUED = {"gcm": "ROADMAP queue 1, \"The gcm/gcm-open serve modes\"",
-           "gcm-open": "ROADMAP queue 1, \"The gcm/gcm-open serve modes\"",
-           "rc4": "ROADMAP queue 1, \"The rc4 serve mode and sessions\""}
+_QUEUED = {"rc4": "ROADMAP queue 1, \"The rc4 serve mode and sessions\""}
 
 
 def not_ported(modes) -> str | None:
@@ -94,6 +107,8 @@ class Response:
     payload: np.ndarray | None = None  #: (len,) u8 output
     error: str | None = None           #: one of the ERR_* codes
     detail: str = ""
+    #: GCM seal only: the 16-byte tag (None elsewhere)
+    tag: bytes | None = None
     queued_s: float = 0.0              #: admission -> drain residency
     batch: str | None = None           #: label of the batch that served it
 
@@ -111,8 +126,14 @@ class Request:
     budget: Budget | None = None
     t_submit: float = 0.0
     mode: str = "ctr"
-    #: cbc: the 16-byte IV
+    #: GCM: the IV (any nonzero length); cbc: the 16-byte IV
     iv: bytes = b""
+    #: GCM: the additional authenticated data
+    aad: bytes = b""
+    #: gcm-open: the 16-byte tag to verify
+    tag: bytes = b""
+    #: GCM: the 16-byte pre-counter block, derived at admission
+    j0: bytes = b""
     #: the admission-time head-sampling decision
     sampled: bool = True
     #: an upstream span id this request's spans chain under
@@ -126,6 +147,12 @@ class Request:
     def nblocks(self) -> int:
         return self.payload.size // 16
 
+    @property
+    def span_blocks(self) -> int:
+        """Batch rows the request takes: a GCM request carries one more, its
+        J0 row."""
+        return self.nblocks + (1 if self.mode in GCM_MODES else 0)
+
     def resolve(self, resp: Response) -> None:
         if not self.future.done():
             self.future.set_result(resp)
@@ -136,6 +163,20 @@ class Request:
 
     def fail(self, code: str, detail: str = "", batch: str | None = None) -> None:
         self.resolve(Response(ok=False, error=code, detail=detail, batch=batch))
+
+
+def _derive_j0(key: bytes, iv: bytes):
+    """(J0, None) for a GCM request, or (b"", (code, why)) when it cannot be
+    derived: IV || 0^31 || 1 for a 96-bit IV; any other length takes the
+    host GHASH path under H = E_K(0^128) (one host key expansion and block,
+    paid at admission by the IV shape that needs it)."""
+    if len(iv) == 12:
+        return iv + b"\x00\x00\x00\x01", None
+    try:
+        nr, rk = expand_key_enc(key)
+        return aead_ghash.j0_from_iv(aead_ghash.derive_h(nr, rk), iv), None
+    except Exception as e:  # noqa: BLE001 - refuse, not crash
+        return b"", (ERR_BAD_REQUEST, f"J0 derivation failed: {e}")
 
 
 class RequestQueue:
@@ -180,7 +221,7 @@ class RequestQueue:
         trace.counter(f"serve_shed{'' if reason == 'depth' else '_' + reason}")
         degrade.degrade(kind, why)
 
-    def _refusal(self, tenant, key, nonce, iv, data, mode, priority):
+    def _refusal(self, tenant, key, nonce, iv, tag, data, mode, priority):
         """(code, why) when admission refuses the request, else None."""
         if self.closed:
             return ERR_SHUTDOWN, "server is draining"
@@ -195,11 +236,15 @@ class RequestQueue:
             return ERR_BAD_REQUEST, f"key must be 16/24/32 bytes, got {len(key)}"
         if mode == "ctr" and len(nonce) != 16:
             return ERR_BAD_REQUEST, "nonce must be 16 bytes"
+        if mode in GCM_MODES and not iv:
+            return ERR_BAD_REQUEST, "GCM iv must be non-empty"
+        if mode == "gcm-open" and len(tag) != 16:
+            return ERR_BAD_REQUEST, f"gcm-open tag must be 16 bytes, got {len(tag)}"
         if mode == "cbc" and len(iv) != 16:
             return ERR_BAD_REQUEST, f"cbc iv must be 16 bytes, got {len(iv)}"
-        if data.size // 16 > self.max_request_blocks:
-            return ERR_TOO_LARGE, (f"{data.size // 16} blocks > bucket ceiling "
-                                   f"{self.max_request_blocks}")
+        span = data.size // 16 + (1 if mode in GCM_MODES else 0)
+        if span > self.max_request_blocks:
+            return ERR_TOO_LARGE, f"{span} blocks > bucket ceiling {self.max_request_blocks}"
         depth = len(self._pending)
         if depth >= self.max_depth:
             self._shed("depth", "accept->shed",
@@ -227,17 +272,24 @@ class RequestQueue:
     def submit(self, tenant: str, key: bytes, nonce: bytes, payload,
                deadline_s: float | None = None, sampled: bool | None = None,
                parent: str | None = None, priority: int | None = None,
-               mode: str = "ctr", iv: bytes = b"") -> asyncio.Future:
+               mode: str = "ctr", iv: bytes = b"", aad: bytes = b"",
+               tag: bytes = b"") -> asyncio.Future:
         """Admit one request; always returns a future (already resolved with
         a coded error Response when admission refuses it). ``priority=0``
         opts one request into the low tier; None defers to
-        ``low_priority_tenants``. ``mode`` is ``ctr`` (``nonce`` required)
-        or ``cbc`` decrypt (``iv`` required), if enabled."""
+        ``low_priority_tenants``. ``mode``, if enabled: ``ctr`` (``nonce``
+        required), ``gcm`` seal or ``gcm-open`` (a non-empty ``iv``, optional
+        ``aad``; open carries the 16-byte ``tag``) or ``cbc`` decrypt (the
+        16-byte ``iv``)."""
         fut = asyncio.get_running_loop().create_future()
         data = np.asarray(payload, dtype=np.uint8).reshape(-1)
         mode = str(mode or "ctr")
         key, nonce, iv = bytes(key), bytes(nonce), bytes(iv)
-        refused = self._refusal(tenant, key, nonce, iv, data, mode, priority)
+        aad, tag = bytes(aad), bytes(tag)
+        refused = self._refusal(tenant, key, nonce, iv, tag, data, mode, priority)
+        j0 = b""
+        if refused is None and mode in GCM_MODES:
+            j0, refused = _derive_j0(key, iv)
         if refused is not None:
             code, why = refused
             if code != ERR_SHED:
@@ -252,7 +304,8 @@ class RequestQueue:
         req = Request(id=next(self._ids), tenant=tenant, key=key, nonce=nonce, payload=data,
                       future=fut,
                       budget=Budget(deadline, clock=self._clock) if deadline > 0 else None,
-                      t_submit=self._clock(), mode=mode, iv=iv, _queue=self,
+                      t_submit=self._clock(), mode=mode, iv=iv, aad=aad, tag=tag, j0=j0,
+                      _queue=self,
                       sampled=trace.sample() if sampled is None else bool(sampled),
                       parent=parent)
         cm = trace.maybe_span(req.sampled, "request-queued", parent=req.parent, req=req.id,

@@ -1,7 +1,7 @@
 """The serve dispatch loop: queue -> shape buckets -> in-flight lanes.
 
-Port of ``our_tree_tpu.serve.server`` for the ``ctr`` and ``cbc`` modes
-(``ServerConfig.modes``; ``ctr`` by default). One asyncio
+Port of ``our_tree_tpu.serve.server`` for the ``ctr``, ``gcm``, ``gcm-open``
+and ``cbc`` modes (``ServerConfig.modes``; ``ctr`` by default). One asyncio
 loop on the main thread owns admission and batch formation; dispatch is
 overlapped. Request coroutines ``submit`` into the bounded queue; the loop
 drains, rung-packs up to K key groups per batch (``batcher``) and submits
@@ -25,22 +25,32 @@ accepted, awaits every in-flight batch and flushes; ``queue.stats()["lost"]``
 Modes: a batch is one mode (the batcher never mixes them). ``ctr`` batches
 go to the multi-key CTR seam (the ``ctr_mk`` kernel on the card), ``cbc``
 batches, parallel CBC decrypt, to the multi-key CBC seam with the stack's
-decrypt schedules (``cbc_mk``). Admission refuses a mode the server did not
-enable. A server configured with a mode the port does not serve yet
-(``gcm``, ``gcm-open``, ``rc4``) refuses to start (``ValueError`` at
-construction, naming the ROADMAP item): it never serves such a mode through
-another path.
+decrypt schedules (``cbc_mk``), ``gcm`` (seal) and ``gcm-open`` batches to
+the GCM seam ``aead.gcm.gcm_crypt_ghash_words`` with each request's last
+data row named (``ctr_mk``, then ``ghash_at``). The GCM finisher
+(``_gcm_finish``) reads each request's E_K(J0) off its J0 row and its
+GHASH state off its named row, folds the length block on the host and, for
+an open, compares tags in constant time (``aead.ghash.np_tag_eq``; the
+``tag_mismatch`` fault point forces a mismatch). A mismatch fails that
+request only, ``auth-failed``, counted in ``serve_auth_failed{mode}``, and
+no plaintext leaves the server for it; the batch's other riders are
+answered. A seal's ``Response`` carries its tag. Admission refuses a mode
+the server did not enable. A server configured with a mode the port does
+not serve yet (``rc4``) refuses to start (``ValueError`` at construction,
+naming the ROADMAP item): it never serves such a mode through another
+path.
 
 The zero-recompile contract: the JAX package counts XLA compiles; the port
 counts builds and loads of the kernel library (``runtime.cuda_build``) plus
-the first call of each multi-key seam for each (engine, nr, device)
+the first call of each serve seam for each (engine, nr, device)
 (``aes.seam_first_calls``: on the card, the first launch of a ``ctr_mk`` or
-``cbc_mk`` NR instantiation, which CUDA loads lazily). Warmup runs every
+``cbc_mk`` NR instantiation, or of ``ghash_at``, which CUDA loads lazily). Warmup runs every
 rung once on every lane's worker thread for each key length in
 ``warmup_key_bits``, the ``ctr`` ladder (the canary's) and then every other
-enabled mode's, which makes the thread's CUDA context current, loads the
-library and launches each mode's kernel at each warmed nr, so the first
-served batch pays none of that; ``steady_compiles()`` must stay 0 after
+enabled mode's (a GCM rung with zero words, every keep 1 and its last row
+named, so that ``ghash_at`` launches too), which makes the thread's CUDA
+context current, loads the library and launches each mode's kernels at each
+warmed nr, so the first served batch pays none of that; ``steady_compiles()`` must stay 0 after
 it. A key length outside
 ``warmup_key_bits`` (only 128 bits by default, as in the reference) pays
 its instantiation's first launch on its first batch, and the steady count
@@ -54,7 +64,8 @@ key length of ``warmup_key_bits``) into ``cost_records`` and stamps them,
 with ``ServerConfig.ceiling_gbps``, into the ``OT_TRACE_DIR`` run layout;
 ``serve.bench`` joins them with the per-rung counters. The reference's
 chunked transfers, sessions, status endpoint, journal, incident recorder
-and pulse analytics are not in the port yet.
+and pulse analytics are not in the port yet; nor is the incident
+recorder's note of an auth failure (``incident.note_auth_failure``).
 
 Obs spans: ``request-queued`` (queue), ``batch-formed``, ``lane-dispatch``,
 ``lane-probe``, ``serve-warmup`` / ``lane-warmup``.
@@ -68,14 +79,18 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..aead import gcm as aead_gcm
+from ..aead import ghash as aead_ghash
 from ..models import aes
 from ..obs import costmodel, metrics, trace
-from ..resilience import watchdog
+from ..ops import gf
+from ..resilience import faults, watchdog
 from ..runtime import cuda_build
 from ..utils import packing
 from . import batcher, lanes
 from .keycache import KeyCache, key_digest
-from .queue import ERR_DEADLINE, ERR_DISPATCH, RequestQueue, Response, not_ported
+from .queue import (ERR_AUTH, ERR_DEADLINE, ERR_DISPATCH, GCM_MODES, RequestQueue, Response,
+                    not_ported)
 
 
 def compile_count() -> int:
@@ -114,8 +129,9 @@ class ServerConfig:
     #: key lengths (bits) warmed per rung
     warmup_key_bits: tuple = (128,)
     #: the enabled served modes, from ``queue.PORTED_MODES`` (``ctr``,
-    #: ``cbc``): warmup walks each one's ladder on every lane and admission
-    #: refuses the others; a mode the port does not serve yet raises here
+    #: ``gcm``, ``gcm-open``, ``cbc``): warmup walks each one's ladder on
+    #: every lane and admission refuses the others; a mode the port does not
+    #: serve yet raises here
     modes: tuple = ("ctr",)
     #: dispatch lanes: None = one per visible card; more share cards
     lanes: int | None = None
@@ -250,10 +266,15 @@ class Server:
                                     [("_warmup", b"\x00" * (bits // 8))], c.key_slots, mode=m)
                                 for rung in self.rungs:
                                     words = np.zeros(4 * rung, np.uint32)
+                                    gcm = ({"inject_words": words,
+                                            "seg_keep": np.ones(rung, np.uint32),
+                                            "rows": np.array([rung - 1], np.int64)}
+                                           if m in GCM_MODES else {})
                                     await lane.run_async(
                                         lambda w=words, s=sched_m, v=slot_vecs[rung], r=rung,
-                                        m=m: lane.engine_call(w, w, s, v, f"warmup:{r}:{m}",
-                                                              warmup=True, mode=m))
+                                        m=m, g=gcm: lane.engine_call(
+                                            w, w, s, v, f"warmup:{r}:{m}", warmup=True, mode=m,
+                                            **g))
                         if mismatch:
                             lane._quarantine("warmup-mismatch")
                         else:
@@ -293,12 +314,14 @@ class Server:
     async def submit(self, tenant: str, key: bytes, nonce: bytes, payload,
                      deadline_s: float | None = None, sampled: bool | None = None,
                      parent: str | None = None, priority: int | None = None,
-                     mode: str = "ctr", iv: bytes = b""):
-        """Admit one request (``ctr`` with its nonce, or ``cbc`` decrypt with
-        its IV) and await its Response."""
+                     mode: str = "ctr", iv: bytes = b"", aad: bytes = b"",
+                     tag: bytes = b""):
+        """Admit one request (``ctr`` with its nonce; ``gcm`` seal or
+        ``gcm-open`` with its IV, AAD and, to open, its tag; ``cbc`` decrypt
+        with its IV) and await its Response."""
         return await self.queue.submit(tenant, key, nonce, payload, deadline_s,
                                        sampled=sampled, parent=parent, priority=priority,
-                                       mode=mode, iv=iv)
+                                       mode=mode, iv=iv, aad=aad, tag=tag)
 
     # -- the batcher loop --------------------------------------------------
     async def _loop(self) -> None:
@@ -345,7 +368,7 @@ class Server:
                                   blocks=b.blocks, slots=len(b.slots),
                                   requests=len(b.requests), mode=b.mode):
                 sched = self.keycache.stacked(b.keys, b.key_slots, mode=b.mode)
-                b.materialise()
+                b.materialise(sched=sched)
                 return sched
         except Exception as e:  # noqa: BLE001 - containment
             self.batches_failed += 1
@@ -360,7 +383,8 @@ class Server:
         try:
             out, _lane, _redispatched = await self.pool.dispatch(
                 b.words, b.ctr_words, sched, b.slot_index, b.label, bucket=b.bucket,
-                blocks=b.blocks, requests=len(b.requests), sampled=b.sampled, mode=b.mode)
+                blocks=b.blocks, requests=len(b.requests), sampled=b.sampled, mode=b.mode,
+                inject_words=b.inject_words, seg_keep=b.seg_keep, rows=b.rows)
         except lanes.LanesExhausted as e:
             if e.timed_out:
                 self.batches_timed_out += 1
@@ -398,8 +422,20 @@ class Server:
             metrics.observe("serve_stage_us", max(int((t_d0 - b.requests[0].t_drain) * 1e6), 0),
                             stage="pack")
         try:
-            for req, data in zip(b.requests, b.split_output(out)):
-                req.resolve(Response(ok=True, payload=data, batch=b.label))
+            tags = auth_ok = None
+            if b.mode in GCM_MODES:
+                out, ys = out
+                tags, auth_ok = self._gcm_finish(b, sched, out, ys)
+            for i, (req, data) in enumerate(zip(b.requests, b.split_output(out))):
+                if auth_ok is not None and not auth_ok[i]:
+                    # A refusal of this request only: no plaintext leaves.
+                    metrics.counter("serve_auth_failed", mode=b.mode)
+                    trace.counter("serve_auth_failed", batch=b.label)
+                    req.fail(ERR_AUTH, "GCM tag mismatch (authentication failed)",
+                             batch=b.label)
+                    continue
+                req.resolve(Response(ok=True, payload=data, batch=b.label,
+                                     tag=tags[i] if b.mode == "gcm" else None))
                 metrics.observe("serve_stage_us", max(int((time.monotonic() - t_d1) * 1e6), 0),
                                 stage="reply")
         except Exception as e:  # noqa: BLE001 - containment
@@ -408,6 +444,28 @@ class Server:
             trace.counter("serve_batch_failed", batch=b.label)
             for req in b.requests:
                 req.fail(ERR_DISPATCH, f"{type(e).__name__}: {e}", batch=b.label)
+
+    def _gcm_finish(self, b: batcher.Batch, sched, out_flat, ys) -> tuple[list, list]:
+        """Each request's tag and, for ``gcm-open``, whether it verifies, in
+        ``b.requests`` order: E_K(J0) from the request's J0 row of the CTR
+        output, its GHASH state Y from its named row (``ys`` holds
+        ``b.rows``' states in order, one a request), the length block folded
+        in with its slot's H on the host. The open's compare is constant
+        time; the ``tag_mismatch`` fault point forces a mismatch."""
+        slot_of = [si for si, slot in enumerate(b.slots) for _ in slot.requests]
+        tags, auth_ok = [], []
+        for (off, n), si, req, y in zip(b.req_spans, slot_of, b.requests, ys):
+            ek_j0 = packing.np_words_to_bytes(np.ascontiguousarray(out_flat[4 * (off - 1):4 * off]))
+            y_int = gf.block_to_int(packing.np_words_to_bytes(np.ascontiguousarray(y)).tobytes())
+            tag = aead_gcm._finish_tag(y_int, sched.h_ints[si], b"", len(req.aad), 16 * n, ek_j0)
+            tags.append(tag)
+            ok = True
+            if b.mode == "gcm-open":
+                ok = aead_ghash.np_tag_eq(tag, req.tag)
+                if faults.fire("tag_mismatch"):
+                    ok = False
+            auth_ok.append(ok)
+        return tags, auth_ok
 
     # -- introspection -----------------------------------------------------
     def occupancy_histogram(self) -> dict:

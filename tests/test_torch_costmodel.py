@@ -38,13 +38,14 @@ def test_analytic_cost_matches_jax_device_engine(nr, key_slots):
 
 
 def test_other_modes_raise():
-    """The modes the port does not serve yet raise; ``cbc`` (served since
-    the cbc slice) has its row, held against the reference's in
-    tests/test_torch_serve_cbc.py."""
-    for mode in ("gcm", "gcm-open", "rc4"):
-        with pytest.raises(ValueError, match="not served by the port"):
-            costmodel.analytic_cost(aes.CUDA_ENGINE, mode, 32, 10, 8)
-    assert costmodel.analytic_cost(aes.CUDA_ENGINE, "cbc", 32, 10, 8)["mode"] == "cbc"
+    """The mode the port does not serve yet, ``rc4``, raises; ``cbc`` and
+    ``gcm``/``gcm-open`` (served since their slices) have their rows, held
+    against the reference's in tests/test_torch_serve_cbc.py and
+    tests/test_torch_serve_gcm.py."""
+    with pytest.raises(ValueError, match="not served by the port"):
+        costmodel.analytic_cost(aes.CUDA_ENGINE, "rc4", 32, 10, 8)
+    for mode in ("cbc", "gcm", "gcm-open"):
+        assert costmodel.analytic_cost(aes.CUDA_ENGINE, mode, 32, 10, 8)["mode"] == mode
 
 
 def test_ladder_costs_match_jax_ladder():

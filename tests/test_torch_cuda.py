@@ -872,3 +872,76 @@ def test_gcm_above_the_block_forms_cap_matches_cpu(card):
     assert cuda_aes.ctr_scattered_multikey.form_launches["group"] == before["group"] + 2
     assert cuda_aes.ctr_scattered_multikey.form_launches["block"] == before["block"]
     assert (ct, tag) == gcm.gcm_seal(key, iv, aad, pt, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+def test_gcm_server_on_card_matches_cpu_server(card, bits):
+    """A ``gcm,gcm-open`` server on the card against the same server on the
+    CPU: at every rung (32-4,096 blocks) one seal batch and one open batch
+    with K = 8 (8 tenants, one request each, filling the rung with their J0
+    rows), one open request tampered; payloads, tags and codes equal, the
+    seals equal to the host GCM, exactly one ``auth-failed`` a rung, each
+    GCM engine call one ``ctr_mk`` launch and one ``ghash_at`` call, no
+    build after warmup."""
+    import asyncio
+
+    from our_tree_tpu_torch.aead import ghash
+    from our_tree_tpu_torch.ops import cuda_ghash
+    from our_tree_tpu_torch.serve import batcher
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    rng = np.random.default_rng(bits + 15)
+    keys = [rng.bytes(bits // 8) for _ in range(8)]
+    rungs = batcher.bucket_ladder(batcher.DEFAULT_MIN_BLOCKS, batcher.DEFAULT_MAX_BLOCKS)
+    rounds = []
+    for rung in rungs:
+        n = rung // 8 - 1
+        seals, opens = [], []
+        for t, key in enumerate(keys):
+            iv, aad, pt = rng.bytes(12), rng.bytes(int(rng.integers(0, 33))), rng.bytes(16 * n)
+            ct, tag = ghash.np_gcm_seal(key, iv, aad, pt)
+            seals.append((f"t{t}", key, "gcm", iv, aad, b"", pt, (ct, tag)))
+            if t == 3:
+                ct = bytes([ct[0] ^ 1]) + ct[1:]
+            opens.append((f"t{t}", key, "gcm-open", iv, aad, tag, ct, None))
+        rounds += [seals, opens]
+
+    def serve(device):
+        async def main():
+            server = Server(ServerConfig(device=device, lanes=1, modes=("gcm", "gcm-open"),
+                                         warmup_key_bits=(bits,)))
+            await server.start()
+            try:
+                before = (cuda_aes.ctr_scattered_multikey.launches, cuda_ghash.ghash_at.launches)
+                out = []
+                for reqs in rounds:
+                    out.append(await asyncio.gather(*(
+                        server.submit(t, k, b"", np.frombuffer(p, np.uint8), mode=m, iv=iv,
+                                      aad=aad, tag=tag) for t, k, m, iv, aad, tag, p, _ in reqs)))
+                after = (cuda_aes.ctr_scattered_multikey.launches, cuda_ghash.ghash_at.launches)
+                return server, out, (after[0] - before[0], after[1] - before[1])
+            finally:
+                await server.stop()
+
+        return asyncio.run(main())
+
+    server, got, launches = serve("cuda")
+    stats = server.stats()  # before the CPU server's first calls count in this process
+    _cpu, want, _ = serve("cpu")
+    for reqs, g_round, w_round in zip(rounds, got, want):
+        assert len({r.batch for r in g_round}) == 1
+        for (_t, _k, mode, *_rest, sealed), g, w in zip(reqs, g_round, w_round):
+            assert (g.ok, g.error, g.tag) == (w.ok, w.error, w.tag)
+            assert (g.payload is None) == (w.payload is None)
+            if g.payload is not None:
+                assert bytes(g.payload) == bytes(w.payload)
+            if mode == "gcm":
+                assert (bytes(g.payload), g.tag) == sealed
+        if reqs[0][2] == "gcm-open":
+            assert [r.error for r in g_round].count("auth-failed") == 1
+    buckets = sorted({int(r.batch.rsplit(":", 2)[1]) for rnd in got for r in rnd})
+    assert buckets == list(rungs)
+    calls = stats["lanes"]["engine_calls_by_mode"]
+    assert calls["gcm"] == calls["gcm-open"] == 2 * len(rungs)
+    assert launches == (len(rounds), len(rounds))
+    assert stats["queue"]["lost"] == 0 and stats["compiles"]["steady"] == 0
