@@ -11,7 +11,9 @@ ladder), the sweep harness (``harness.bench``, with ARC4 and the native C
 tier), the mixed ``ctr,gcm,gcm-open,cbc`` serve path (the JAX package's
 documented mixed-mode drive, and its auth-failure rehearsal) and AES-GCM
 through the models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256
-MiB, on ``ghash_at``), and holds
+MiB, on ``ghash_at``) and chunked transfers with the wire worker
+(``serve.transfer``, ``python -m our_tree_tpu_torch.serve.worker`` and its
+status endpoint), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -215,7 +217,37 @@ is not 0:
    at the int8 tensor-core rate) and the latency bound (the dependent
    path's products at the product's SASS depth); and the seal's dispatch on
    the card in GB/s;
-12. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
+12. chunked transfers and the wire worker, the JAX package's transfer
+   drive size (docs/SERVING.md, STREAM_r01): (a) a ``Server`` in this
+   process (modes ``ctr,cbc``, the default ladder, 128- and 256-bit keys
+   warmed, transfers on with an in-memory ledger), counted: a 64 MiB
+   AES-128 CTR payload (``default_rng(1337)``, key ``bytes(range(16))``,
+   nonce f0..ff) through ``Server.submit``, 1,024 chunks, equal to
+   ``AES.crypt_ctr`` on the card (``ctr_gen``, an independent kernel), with
+   ``ctr_mk`` launches equal to its engine calls, every one in the block
+   form, and no other kernel; a 16 MiB AES-256 CBC decrypt, 256 chunks,
+   equal to ``AES``'s parallel CBC decrypt on the card, with ``cbc_mk``
+   launches equal to its engine calls and no other kernel; an oversized
+   ``gcm`` submit answering ``transfer-unsupported``; 0 lost, 0 builds after
+   warmup; each transfer's wall, GB/s, chunks and dispatches a second;
+   (b) ``python -m our_tree_tpu_torch.serve.worker --device cuda --modes
+   ctr,cbc,gcm,gcm-open --port 0 --status-port 0`` with ``OT_TRACE_DIR`` in
+   a temporary directory and ``OT_INCIDENT_AUTH_SPIKE=1``, over the wire:
+   one request of each mode at 16, 1,024 and 16,384 bytes against the plain
+   versions on the CPU (every ``gcm`` tag against the host GCM), their
+   latencies printed; a 4 MiB ``ctr`` frame (transferred transparently) and
+   a 64 MiB ``tx`` transfer against ``AES.crypt_ctr`` on the card; the
+   resume drill on a second worker (``OT_FAULTS=transfer_abort:1@chunk=1023``,
+   ``--transfer-window 1``): the typed abort carries the token, the resume's
+   begin-ack lists chunks 0-1022, exactly one chunk is sent again, and the
+   splice is byte-identical; a tampered ``gcm-open`` answering
+   ``auth-failed`` with no plaintext, after which ``/incidentz`` lists
+   exactly one ``auth-spike`` bundle that validates; ``/metrics`` parsing
+   as Prometheus text with ``serve_transfer_`` counters and
+   ``serve_auth_failed``; ``/healthz`` with 0 steady builds and a
+   ``transfers`` section; SIGTERM, and each worker's EXIT line with ``lost:
+   0`` and rc 0;
+13. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
    equal to the window's dispatches, a cost row per warmed rung and
@@ -224,8 +256,8 @@ is not 0:
    that the profiler touches none of the timings before it.
 
 Phases 4, 5, 7, each drive of 8 (D and the rehearsal included), the seal
-and the open of 11
-and 12 run with every launch count set to 0 just before and read just after, and each run of phase 10 counts its own
+and the open of 11, each transfer of 12 (a)
+and 13 run with every launch count set to 0 just before and read just after, and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
@@ -237,7 +269,9 @@ Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
 and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``,
 ``seal_256MiB`` and ``gcm_serve``: the per-rung GCM dispatch table and the
-GCM launches of drive D and the rehearsal), the
+GCM launches of drive D and the rehearsal; ``ctr_mk`` and ``cbc_mk`` each
+with the ``transfer`` of phase 12 (a): chunks, launches, wall, GB/s, and
+under ``ctr_mk`` the worker's figures), the
 ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": {...}}``;
 ``ecb_encrypt`` carries its launches by form, the one-block launch by form
 and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
@@ -251,6 +285,7 @@ result.
 
 from __future__ import annotations
 
+import asyncio
 import atexit
 import contextlib
 import datetime
@@ -1996,6 +2031,411 @@ def sass_ghash_former(text: str) -> dict:
                         b == "LDS" for a, b, _t in ins if word[0] <= a <= word[1])}
     loops = sass_round_loops(text, "ghash_carry_kernel", 128)
     out["compose"] = {"int": 32 * loops[0]["int"], "depth": 32 * loops[0]["depth"]}
+    return out
+
+
+#: Phase 12: chunked transfers and the wire worker. The JAX package's transfer
+#: drive size (docs/SERVING.md, STREAM_r01): a 64 MiB payload; the CBC
+#: transfer 16 MiB under AES-256; the request sizes of the worker's one-frame
+#: exchanges; the resume drill's abort at the last chunk's admission.
+TRANSFER_BYTES = 64 << 20
+TRANSFER_CBC_BYTES = 16 << 20
+WORKER_SIZES = (16, 1024, 16384)
+WORKER_MODES = ("ctr", "cbc", "gcm", "gcm-open")
+#: Seconds a worker may take to print its READY line (torch's import, the
+#: kernel library's load and warmup of four modes' ladders), and the longest
+#: wait on any other line or frame.
+WORKER_READY_S = 300
+WORKER_WAIT_S = 120
+#: One Prometheus text sample: a name, optional labels, a value.
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="[^"]*",?)*\})? '
+                         r'(\S+)$')
+
+
+class _Worker:
+    """One ``python -m our_tree_tpu_torch.serve.worker`` process: its
+    stdout lines through a reader thread, its stderr in a file, SIGTERM and a
+    bounded wait to stop it, and a kill at exit whatever happens."""
+
+    def __init__(self, argv: list, env: dict, err_path: str):
+        import queue as queue_mod
+
+        self.err_path = err_path
+        self._err = open(err_path, "w", encoding="utf-8")
+        self.proc = subprocess.Popen([sys.executable, "-m", "our_tree_tpu_torch.serve.worker",
+                                      *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=self._err, text=True)
+        atexit.register(self.kill)
+        self._lines = queue_mod.Queue()
+        self._empty = queue_mod.Empty
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for text in self.proc.stdout:
+            self._lines.put(text)
+        self._lines.put(None)
+
+    def err_tail(self) -> str:
+        if not self._err.closed:
+            self._err.flush()
+        with open(self.err_path, encoding="utf-8", errors="replace") as fh:
+            return fh.read()[-3000:]
+
+    def line(self, timeout_s: float) -> dict:
+        try:
+            text = self._lines.get(timeout=timeout_s)
+        except self._empty:
+            raise SystemExit(f"the worker printed no line within {timeout_s} s: "
+                             f"{self.err_tail()}") from None
+        if text is None:
+            raise SystemExit(f"the worker exited (rc {self.proc.poll()}): {self.err_tail()}")
+        return json.loads(text)
+
+    def stop(self) -> tuple[dict, int]:
+        """SIGTERM, the EXIT line and the return code."""
+        self.proc.terminate()
+        line = self.line(WORKER_WAIT_S)
+        rc = self.proc.wait(WORKER_WAIT_S)
+        self._err.close()
+        return line, rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+async def _wire_request(port: int, header: dict, payload: bytes):
+    """One request frame on its own connection: (header, body, seconds)."""
+    from our_tree_tpu_torch.serve import wire
+
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(wire.encode_frame(header, payload))
+        await writer.drain()
+        h, body = await asyncio.wait_for(wire.read_frame(reader), WORKER_WAIT_S)
+    finally:
+        writer.close()
+    return h, body, time.perf_counter() - t0
+
+
+async def _wire_tx(port: int, header: dict, payload: bytes, step: int):
+    """One ``tx`` exchange: begin, the begin-ack, every chunk the ack does
+    not list, then the out frames to the done frame. (ack, {i: out bytes},
+    done, chunks sent, seconds)."""
+    from our_tree_tpu_torch.serve import wire
+
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(wire.encode_frame(header))
+        await writer.drain()
+        ack, _ = await asyncio.wait_for(wire.read_frame(reader), WORKER_WAIT_S)
+        if ack.get("tx") != "begin-ack":
+            return ack, {}, ack, 0, time.perf_counter() - t0
+        view, sent = memoryview(payload), 0
+        for i in range(ack["chunks"]):
+            if i in ack["acked"]:
+                continue
+            writer.write(wire.encode_frame({"tx": "chunk", "i": i}, view[i * step:(i + 1) * step]))
+            await writer.drain()
+            sent += 1
+        outs = {}
+        while True:
+            h, body = await asyncio.wait_for(wire.read_frame(reader), WORKER_WAIT_S)
+            if h.get("tx") == "out":
+                outs[h["i"]] = body
+            else:
+                return ack, outs, h, sent, time.perf_counter() - t0
+    finally:
+        writer.close()
+
+
+async def _http_get(port: int, path: str) -> tuple[int, str]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+        await writer.drain()
+        raw = await asyncio.wait_for(reader.read(), WORKER_WAIT_S)
+    finally:
+        writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body.decode()
+
+
+def prometheus_errors(text: str) -> list:
+    """Lines of ``text`` that are not Prometheus exposition text (a ``#
+    TYPE`` line of a known type, a comment, or a sample whose value parses)."""
+    bad = []
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            parts = ln.split()
+            if len(parts) != 4 or parts[3] not in ("counter", "gauge", "histogram"):
+                bad.append(ln)
+        elif ln.startswith("#"):
+            continue
+        else:
+            m = PROM_SAMPLE.match(ln)
+            try:
+                float(m.group(3)) if m else float("x")
+            except ValueError:
+                bad.append(ln)
+    return bad
+
+
+def transfer_phase(card: str, reset_counts, counts, form_counts, device: str = "cuda") -> dict:
+    """Phase 12: (a) a ``Server`` in this process with modes ``ctr,cbc``, the
+    default ladder and transfers on: the 64 MiB AES-128 CTR transfer and the
+    16 MiB AES-256 CBC transfer through ``Server.submit``, each counted
+    (every launch count set to 0 just before and read just after), an
+    oversized ``gcm`` submit; (b) the worker process over the wire: one
+    request of each mode and size, a 4 MiB frame, the 64 MiB ``tx``
+    transfer, the resume drill on a second worker, a tampered ``gcm-open``
+    and its ``auth-spike`` bundle, ``/metrics`` and ``/healthz``, SIGTERM.
+    Returns the ``transfer`` entries of ``ctr_mk`` and ``cbc_mk``."""
+    import numpy as np
+
+    from our_tree_tpu_torch.aead import gcm as agcm
+    from our_tree_tpu_torch.aead import ghash as aghash
+    from our_tree_tpu_torch.models.aes import AES, AES_DECRYPT
+    from our_tree_tpu_torch.obs import incident
+    from our_tree_tpu_torch.ops import cuda_aes
+    from our_tree_tpu_torch.serve.queue import ERR_TRANSFER_MODE
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    rng = np.random.default_rng(1337)
+    payload = rng.integers(0, 256, TRANSFER_BYTES, dtype=np.uint8)
+    key, nonce = bytes(range(16)), bytes.fromhex(BLOCK_IV)
+    cbc_key, cbc_iv = bytes(range(32)), bytes(range(16, 32))
+    cbc_ct = rng.integers(0, 256, TRANSFER_CBC_BYTES, dtype=np.uint8)
+    oracle = AES(key, device=device)
+    want_ctr = np.asarray(oracle.crypt_ctr(0, np.frombuffer(nonce, np.uint8),
+                                           np.zeros(16, np.uint8), payload)[0])
+    want_cbc = np.asarray(AES(cbc_key, device=device).crypt_cbc(
+        AES_DECRYPT, np.frombuffer(cbc_iv, np.uint8), cbc_ct)[0])
+    out: dict = {}
+
+    # (a) In process, counted.
+    server = Server(ServerConfig(device=device, modes=("ctr", "cbc"), warmup_key_bits=(128, 256)))
+
+    async def counted(mode, submit):
+        calls0 = dict(server.pool.stats()["engine_calls_by_mode"])
+        batches0 = server.batches
+        reset_counts()
+        t0 = time.perf_counter()
+        resp = await submit()
+        wall = time.perf_counter() - t0
+        got, forms = counts(), form_counts()["ctr_mk"]
+        calls = server.pool.stats()["engine_calls_by_mode"].get(mode, 0) - calls0.get(mode, 0)
+        return resp, wall, got, forms, calls, server.batches - batches0
+
+    async def drive_a():
+        await server.start()
+        try:
+            ctr = await counted("ctr", lambda: server.submit("tenant", key, nonce, payload))
+            cbc = await counted("cbc", lambda: server.submit("tenant", cbc_key, b"", cbc_ct,
+                                                             mode="cbc", iv=cbc_iv))
+            gcm = await server.submit("tenant", key, b"", payload[:1 << 20], mode="gcm",
+                                      iv=bytes(12))
+            return ctr, cbc, gcm
+        finally:
+            await server.stop()
+
+    ctr, cbc, gcm = asyncio.run(drive_a())
+    stats = server.stats()
+    for name, mode, res, want, size in (("ctr_mk", "ctr", ctr, want_ctr, TRANSFER_BYTES),
+                                        ("cbc_mk", "cbc", cbc, want_cbc, TRANSFER_CBC_BYTES)):
+        resp, wall, got, forms, calls, batches = res
+        chunks = size // (16 * server.rungs[-1])
+        checks = {
+            "ok": resp.ok,
+            f"{chunks} chunks": resp.ok and resp.transfer["chunks"] == resp.transfer["sent"]
+            == chunks,
+            "equal to the card's independent path": resp.ok and np.array_equal(
+                np.asarray(resp.payload), want),
+            f"{name} launches == engine calls": got[name] == calls == batches > 0,
+            "no other kernel": all(v == 0 for n, v in got.items() if n != name),
+        }
+        if name == "ctr_mk":
+            checks["every ctr_mk launch in the block form"] = forms.get("block", 0) == got[
+                name] and all(v == 0 for f, v in forms.items() if f != "block")
+        log(f"transfer ({mode}, {size >> 20} MiB, AES-{8 * (len(key) if mode == 'ctr' else 32)}, "
+            f"in process): {chunks} chunks, {wall:.4f} s wall, {size / wall / 1e9:.4f} GB/s, "
+            f"{batches / wall:.1f} dispatches/s, {name} launches {got[name]} "
+            f"({forms if name == 'ctr_mk' else 'one form'}), engine calls {calls}; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"the in-process {mode} transfer failed: {checks}, launches {got}")
+        out[name] = {"chunks": chunks, "chunk_blocks": server.rungs[-1], "bytes": size,
+                     "launches": got[name], "engine_calls": calls, "wall_s": wall,
+                     "gbps": size / wall / 1e9, "dispatches_per_s": batches / wall,
+                     "key_bits": 128 if mode == "ctr" else 256, "card": card}
+    checks = {"oversized gcm: transfer-unsupported": not gcm.ok and gcm.error == ERR_TRANSFER_MODE,
+              "0 lost": stats["queue"]["lost"] == 0,
+              "0 builds after warmup": stats["compiles"]["steady"] == 0,
+              "buffer empty, ledger done": stats["transfers"]["held_bytes"] == 0
+              and stats["transfers"]["ledger_live"] == 0}
+    log(f"transfer server (in process): queue {stats['queue']}, compiles {stats['compiles']}, "
+        f"transfers {stats['transfers']}; oversized gcm answered {gcm.error}")
+    if not all(checks.values()):
+        raise SystemExit(f"the in-process transfer server failed: {checks}")
+
+    # (b) Through the worker process.
+    trace_root = tempfile.mkdtemp(prefix="ot_worker_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+    env.update(OT_TRACE_DIR=trace_root, OT_INCIDENT_AUTH_SPIKE="1")
+    drill_env = {**env, "OT_FAULTS": f"transfer_abort:1@chunk={TRANSFER_BYTES // 65536 - 1}"}
+    drill_env.pop("OT_TRACE_DIR")
+    base = ["--device", device, "--port", "0", "--status-port", "0"]
+    t0 = time.perf_counter()
+    # Both workers start together; the drill's admits one chunk at a time, so
+    # the abort at the last chunk's admission follows every earlier ack.
+    worker = _Worker([*base, "--modes", ",".join(WORKER_MODES)], env,
+                     os.path.join(trace_root, "worker.err"))
+    drill = _Worker([*base, "--transfer-window", "1"], drill_env,
+                    os.path.join(trace_root, "drill.err"))
+    try:
+        ready = worker.line(WORKER_READY_S)
+        ready_s = time.perf_counter() - t0
+        drill_ready = drill.line(WORKER_READY_S)
+        log(f"worker READY after {ready_s:.1f} s: {ready}; drill worker {drill_ready}")
+        port, sport = ready["port"], ready["status_port"]
+        step = 16 * 4096
+        plain = AES(key, device="cpu")
+        lat: dict = {}
+        bad = []
+
+        async def drive_b():
+            wrng = np.random.default_rng(2026)
+            for size in WORKER_SIZES:
+                pt = wrng.integers(0, 256, size, dtype=np.uint8)
+                n16, iv16, iv12 = wrng.bytes(16), wrng.bytes(16), wrng.bytes(12)
+                aad = wrng.bytes(20)
+                ct, tag = aghash.np_gcm_seal(key, iv12, aad, pt.tobytes())
+                reqs = {
+                    "ctr": ({"t": "w", "k": key.hex(), "n": n16.hex()}, pt,
+                            plain.crypt_ctr(0, np.frombuffer(n16, np.uint8),
+                                            np.zeros(16, np.uint8), pt)[0]),
+                    "cbc": ({"t": "w", "k": key.hex(), "m": "cbc", "iv": iv16.hex()}, pt,
+                            plain.crypt_cbc(AES_DECRYPT, np.frombuffer(iv16, np.uint8), pt)[0]),
+                    "gcm": ({"t": "w", "k": key.hex(), "m": "gcm", "iv": iv12.hex(),
+                             "a": aad.hex()}, pt,
+                            np.frombuffer(agcm.gcm_seal(key, iv12, aad, pt.tobytes(),
+                                                        device="cpu")[0], np.uint8)),
+                    "gcm-open": ({"t": "w", "k": key.hex(), "m": "gcm-open", "iv": iv12.hex(),
+                                  "a": aad.hex(), "tg": tag.hex()}, np.frombuffer(ct, np.uint8),
+                                 pt),
+                }
+                for mode in WORKER_MODES:
+                    h, frame_pt, want = reqs[mode]
+                    got_h, body, dt = await _wire_request(port, h, frame_pt.tobytes())
+                    lat[(mode, size)] = dt
+                    ok = got_h.get("ok") and body == np.asarray(want, np.uint8).tobytes()
+                    if mode == "gcm":
+                        ok = ok and got_h.get("tg") == tag.hex() and body == ct
+                    if not ok:
+                        bad.append((mode, size, got_h))
+            big = payload[:wire_max]
+            h, body, dt_4m = await _wire_request(port, {"t": "w", "k": key.hex(),
+                                                        "n": nonce.hex()}, big.tobytes())
+            four = h.get("ok") and body == want_ctr[:wire_max].tobytes()
+            begin = {"tx": "begin", "t": "w", "k": key.hex(), "n": nonce.hex(),
+                     "tid": "transfer-64", "total": TRANSFER_BYTES}
+            tx = await _wire_tx(port, begin, payload.tobytes(), step)
+            d_begin = {**begin, "tid": "drill"}
+            first = await _wire_tx(drill_ready["port"], d_begin, payload.tobytes(), step)
+            second = await _wire_tx(drill_ready["port"], d_begin, payload.tobytes(), step)
+            # The tampered open: auth-failed, no plaintext, one auth-spike bundle.
+            pt = wrng.integers(0, 256, 1024, dtype=np.uint8)
+            iv12 = wrng.bytes(12)
+            ct, tag = aghash.np_gcm_seal(key, iv12, b"", pt.tobytes())
+            th, tbody, _ = await _wire_request(port, {"t": "w", "k": key.hex(), "m": "gcm-open",
+                                                      "iv": iv12.hex(),
+                                                      "tg": bytes([tag[0] ^ 1, *tag[1:]]).hex()},
+                                               ct)
+            inc = await _http_get(sport, "/incidentz")
+            met = await _http_get(sport, "/metrics")
+            hz = await _http_get(sport, "/healthz")
+            return four, dt_4m, tx, first, second, (th, tbody), inc, met, hz
+
+        from our_tree_tpu_torch.serve import wire as wire_mod
+
+        wire_max = wire_mod.MAX_PAYLOAD
+        four, dt_4m, tx, first, second, tamper, inc, met, hz = asyncio.run(drive_b())
+        for mode in WORKER_MODES:
+            log(f"worker {mode}: " + ", ".join(
+                f"{size} B {1e3 * lat[(mode, size)]:.3f} ms" for size in WORKER_SIZES)
+                + f" (one request on its own connection, client wall); card: {card}")
+        ack, outs, done, sent, tx_s = tx
+        tx_ok = (done.get("ok") and sorted(outs) == list(range(TRANSFER_BYTES // step))
+                 and b"".join(outs[i] for i in sorted(outs)) == want_ctr.tobytes())
+        log(f"worker 4 MiB frame: {dt_4m:.4f} s, {wire_max / dt_4m / 1e9:.4f} GB/s; 64 MiB tx: "
+            f"{sent} chunks up, {len(outs)} out, {tx_s:.4f} s, "
+            f"{TRANSFER_BYTES / tx_s / 1e9:.4f} GB/s (upload, dispatch and download); done "
+            f"{done.get('transfer')}; card: {card}")
+        ack1, outs1, done1, sent1, s1 = first
+        ack2, outs2, done2, sent2, s2 = second
+        last = TRANSFER_BYTES // step - 1
+        spliced = b"".join({**outs1, **outs2}[i] for i in range(last + 1)) \
+            if len({**outs1, **outs2}) == last + 1 else b""
+        drill_checks = {
+            "the abort is typed and carries the token": done1.get("error") == "transfer-abort"
+            and done1.get("tid") == "drill" and (done1.get("transfer") or {}).get("token") == "drill",
+            "the resume acks chunks 0-1022": ack2.get("acked") == list(range(last)),
+            "exactly one chunk re-sent": sent2 == 1 and (done2.get("transfer") or {}).get(
+                "sent") == 1 and sorted(outs2) == [last],
+            "the splice is byte-identical": done2.get("ok") and spliced == want_ctr.tobytes(),
+        }
+        log(f"resume drill (OT_FAULTS=transfer_abort:1@chunk={last}, --transfer-window 1): "
+            f"first {sent1} chunks up, {len(outs1)} out, {done1.get('error')} in {s1:.3f} s; "
+            f"resume acked {len(ack2.get('acked', []))}, {sent2} re-sent, {len(outs2)} out in "
+            f"{s2:.3f} s, done {done2.get('transfer')}")
+        th, tbody = tamper
+        icode, ibody = inc
+        idoc = json.loads(ibody) if icode == 200 else {}
+        bundles = idoc.get("bundles", [])
+        bundle = (incident.load_bundle(os.path.join(idoc["run_dir"], bundles[0]["file"]))
+                  if len(bundles) == 1 else None)
+        mcode, mbody = met
+        hcode, hbody = hz
+        hdoc = json.loads(hbody) if hcode == 200 else {}
+        prom_bad = prometheus_errors(mbody)
+        worker_exit, rc = worker.stop()
+        drill_exit, drill_rc = drill.stop()
+        err_tails = (worker.err_tail(), drill.err_tail())
+    finally:
+        worker.kill()
+        drill.kill()
+        shutil.rmtree(trace_root, ignore_errors=True)
+    checks = {
+        "every one-frame request equal to the plain version (gcm tags the host GCM's)": not bad,
+        "the 4 MiB frame transferred transparently": bool(four),
+        "the 64 MiB tx transfer equal to the card's independent path": bool(tx_ok),
+        **drill_checks,
+        "tampered open: auth-failed, no plaintext": th.get("error") == "auth-failed"
+        and tbody == b"",
+        "one auth-spike bundle that validates": len(bundles) == 1
+        and bundles[0]["reason"] == "auth-spike" and bundles[0]["valid"]
+        and incident.validate_bundle(bundle) == [],
+        "/metrics is Prometheus text": mcode == 200 and not prom_bad,
+        "/metrics carries the transfer counters and serve_auth_failed": "serve_transfer_" in mbody
+        and "serve_auth_failed_total" in mbody,
+        "/healthz: 0 steady builds, a transfers section": hcode == 200
+        and hdoc["compiles"]["steady"] == 0 and "transfers" in hdoc,
+        "EXIT: lost 0, rc 0": worker_exit.get("lost") == 0 and rc == 0
+        and worker_exit.get("kind") == "ot-serve-worker-exit",
+        "drill EXIT: lost 0, rc 0": drill_exit.get("lost") == 0 and drill_rc == 0,
+    }
+    log(f"worker: /healthz status {hdoc.get('status')}, compiles {hdoc.get('compiles')}, "
+        f"transfers {hdoc.get('transfers')}; /incidentz {[(b['reason'], b['valid']) for b in bundles]}; "
+        f"EXIT {worker_exit} rc {rc}; drill EXIT {drill_exit} rc {drill_rc}")
+    if not all(checks.values()):
+        raise SystemExit(f"the worker phase failed: {checks}; bad requests {bad[:4]}; "
+                         f"Prometheus lines refused {prom_bad[:4]}; stderr {err_tails}")
+    out["worker"] = {"ready_s": ready_s, "tx_64MiB_s": tx_s,
+                     "tx_64MiB_gbps": TRANSFER_BYTES / tx_s / 1e9, "frame_4MiB_s": dt_4m,
+                     "latency_ms": {f"{m}:{s}": 1e3 * lat[(m, s)] for m, s in lat},
+                     "drill": {"acked": len(ack2.get("acked", [])), "resent": sent2}}
     return out
 
 
@@ -5025,7 +5465,16 @@ def main() -> int:
     })
     del seam_args, seal_call
 
-    # 12. Drive A's mix once more, profiled (torch tier) and costed against
+    # 12. Chunked transfers and the wire worker: in this process, counted,
+    # then through worker processes over the wire.
+    tx_entries = transfer_phase(card, reset_counts, counts, form_counts)
+    for entry in kernels:
+        if entry["name"] in ("ctr_mk", "cbc_mk"):
+            entry["transfer"] = tx_entries[entry["name"]]
+            if entry["name"] == "ctr_mk":
+                entry["transfer"]["worker"] = tx_entries["worker"]
+
+    # 13. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
     # hooks must not touch the timings above.

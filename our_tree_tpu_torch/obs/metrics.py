@@ -8,9 +8,10 @@ dropped and counted). A histogram keeps exact count and sum beside its log2
 buckets and, per bucket, the exemplar of its largest observation (on unless
 ``OT_EXEMPLARS=0``). With ``OT_TRACE_DIR`` set, a daemon thread appends a
 cumulative snapshot line every ``OT_METRICS_FLUSH_S`` seconds (default 2) to
-``metrics-<pid>-<tok>.jsonl`` in the trace run directory. The reference's
-Prometheus rendering, snapshot rotation and ``hist`` export helpers wait for
-the rest of ``obs``.
+``metrics-<pid>-<tok>.jsonl`` in the trace run directory.
+``render_prometheus`` renders the registry as Prometheus text, the status
+endpoint's ``/metrics`` body. The reference's snapshot rotation and ``hist``
+export helpers wait for the rest of ``obs``.
 """
 
 from __future__ import annotations
@@ -289,6 +290,92 @@ def ensure_flusher() -> None:
     if _FLUSHER is None or not _FLUSHER.is_alive():
         _FLUSHER = threading.Thread(target=_flusher_loop, daemon=True, name="ot-metrics-flush")
         _FLUSHER.start()
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text (the /metrics body).
+# ---------------------------------------------------------------------------
+
+
+def _prom_name(name: str) -> str:
+    return "".join(c if c.isalnum() or c == "_" else "_" for c in name)
+
+
+#: Exemplar attribute keys -> their OpenMetrics label names.
+_EXEMPLAR_LABEL = {"span": "span_id", "trace": "trace_id"}
+
+
+def _prom_num(v: float) -> str:
+    """A sample at full precision (``%g`` would hide a large counter's
+    growth between scrapes)."""
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float) and v.is_integer() and abs(v) < 2 ** 63:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _prom_labels(labels, extra: str = "") -> str:
+    parts = [f'{_prom_name(str(k))}="{v}"' for k, v in labels]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def render_prometheus(exemplars: bool = False) -> str:
+    """The registry as Prometheus exposition text (v0.0.4): counters as
+    ``<name>_total``, gauges as they are, histograms as cumulative
+    ``_bucket{le=...}`` series over the log2 bounds with ``_sum`` and
+    ``_count``. ``exemplars=True`` appends each bucket's exemplar in
+    OpenMetrics syntax, legal only in that format: the status endpoint asks
+    for it only when the scraper negotiated ``application/openmetrics-text``."""
+    lines: list[str] = []
+    with _LOCK:
+        counts = sorted(_COUNTS.items())
+        gauges = sorted(_GAUGES.items())
+        hists = sorted((k, {"buckets": dict(h.buckets), "count": h.count, "sum": h.sum,
+                            "exemplars": dict(h.exemplars or {})})
+                       for k, h in _HISTS.items())
+    seen: set[str] = set()
+    for (name, labels), v in counts:
+        pn = _prom_name(name) + "_total"
+        if pn not in seen:
+            seen.add(pn)
+            lines.append(f"# TYPE {pn} counter")
+        lines.append(f"{pn}{_prom_labels(labels)} {_prom_num(v)}")
+    for (name, labels), v in gauges:
+        pn = _prom_name(name)
+        if pn not in seen:
+            seen.add(pn)
+            lines.append(f"# TYPE {pn} gauge")
+        lines.append(f"{pn}{_prom_labels(labels)} {_prom_num(v)}")
+    for (name, labels), h in hists:
+        pn = _prom_name(name)
+        if pn not in seen:
+            seen.add(pn)
+            lines.append(f"# TYPE {pn} histogram")
+        cum = 0
+        for b, c in sorted(h["buckets"].items()):
+            cum += c
+            le = 'le="%d"' % (1 << b if b else 1)
+            # The bucket's exemplar: `# {labels} value timestamp-seconds`.
+            ex = h["exemplars"].get(b) if exemplars else None
+            tail = ""
+            if ex:
+                exl = ",".join(f'{_prom_name(_EXEMPLAR_LABEL.get(k, k))}="{v}"'
+                               for k, v in sorted(ex.items()) if k not in ("v", "ts"))
+                tail = f" # {{{exl}}} {_prom_num(ex['v'])} {ex.get('ts', 0) / 1e6:.6f}"
+            lines.append(f"{pn}_bucket{_prom_labels(labels, le)} {cum}{tail}")
+        inf = _prom_labels(labels, 'le="+Inf"')
+        lines.append(f"{pn}_bucket{inf} {h['count']}")
+        lines.append(f"{pn}_sum{_prom_labels(labels)} {_prom_num(h['sum'])}")
+        lines.append(f"{pn}_count{_prom_labels(labels)} {h['count']}")
+    if _DROPPED:
+        lines.append("# TYPE ot_metrics_dropped_total counter")
+        lines.append(f"ot_metrics_dropped_total {_DROPPED}")
+    return "\n".join(lines) + "\n"
 
 
 def counter_total(name: str) -> float:

@@ -4,10 +4,11 @@ Copy of ``our_tree_tpu.obs.profiler``, trimmed to the windows the port
 arms: ``serve.bench --profile-window START:DUR`` (``armed_by="cli"``), a
 direct ``start_window`` call (``"api"``) and ``harness.bench --profile DIR``
 (``sweep_capture``, ``"sweep"``: one unbounded window over the whole sweep,
-its torch trace in the operator's DIR, allowed with tracing off). The
-reference's ``/profilez``, incident and alert arming wait for the modules
-that call them (``serve/status.py``, ``obs/incident.py``, ``obs/pulse.py``);
-``ARMED_BY`` keeps the reference's vocabulary.
+its torch trace in the operator's DIR, allowed with tracing off), the status
+endpoint's ``/profilez`` (``profilez``, ``"http"``) and the incident recorder
+(``on_incident``, ``"incident"``, one window of ``OT_PROFILE_ON_INCIDENT``
+seconds after a bundle dumps). The reference's alert arming waits for
+``obs/pulse.py``; ``ARMED_BY`` keeps the reference's vocabulary.
 
 Two capture tiers, chosen per window:
 
@@ -99,6 +100,15 @@ def sample_hz() -> float:
 def tier_override() -> str | None:
     v = str(os.environ.get("OT_PROFILE_TIER", "") or "").lower()
     return v if v in TIERS else None
+
+
+def incident_seconds() -> float:
+    """``OT_PROFILE_ON_INCIDENT``: the window the incident recorder arms
+    (0/unset: off)."""
+    try:
+        return max(float(os.environ.get("OT_PROFILE_ON_INCIDENT", 0) or 0), 0.0)
+    except ValueError:
+        return 0.0
 
 
 class _StackSampler(threading.Thread):
@@ -424,6 +434,43 @@ def wait_idle(timeout_s: float = 10.0) -> bool:
 
 def last_summary() -> dict | None:
     return _LAST
+
+
+def profilez(seconds: float, device=None) -> tuple[int, dict]:
+    """The ``/profilez`` body, (HTTP status, JSON doc), for a server on
+    ``device``: 200 armed, 409 a window is open, 503 no window can open
+    (tracing off, or the torch profiler did not start)."""
+    try:
+        secs = min(max(float(seconds), 0.05), 120.0)
+    except (TypeError, ValueError):
+        secs = 1.0
+    try:
+        out = start_window(secs, armed_by="http", device=device)
+    except CaptureBusy as e:
+        return 409, {"error": str(e), "active": active()}
+    except CaptureDisabled as e:
+        return 503, {"error": str(e)}
+    return 200, {"armed": True, "seconds": secs, **out}
+
+
+def on_incident(reason: str, device=None) -> None:
+    """The incident recorder's arming hook, called after a bundle dumps (so
+    the trigger's cooldown is the capture's): one window of
+    ``OT_PROFILE_ON_INCIDENT`` seconds, armed on a short-lived thread so the
+    profiler's start-up does not stall the serve loop. A window already
+    open, or any failure, is fine: a capture never makes a second
+    incident."""
+    secs = incident_seconds()
+    if not secs:
+        return
+
+    def _arm():
+        try:
+            start_window(secs, armed_by="incident", device=device)
+        except Exception:  # noqa: BLE001 - never raises on this path
+            pass
+
+    threading.Thread(target=_arm, daemon=True, name="ot-profile-incident").start()
 
 
 # ---------------------------------------------------------------------------

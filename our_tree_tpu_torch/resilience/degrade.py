@@ -4,7 +4,7 @@ Copy of ``our_tree_tpu.resilience.degrade``. ``degrade(kind, why)`` records
 a demotion (``accept->shed``, ``quarantined:lane:0``, ``dispatch-timeout``)
 in a process-global ledger, once per kind, as a trace point and one stderr
 line; ``events()`` lists the kinds for the bench JSON line, so a degraded
-run never looks like a healthy one.
+run never looks like a healthy one, and ``detail()`` the (kind, why) pairs.
 """
 
 from __future__ import annotations
@@ -30,6 +30,10 @@ def events() -> list[str]:
     """Recorded demotion kinds, first-occurrence order. Empty = healthy."""
     return [k for k, _ in _EVENTS]
 
+
+def detail() -> list[tuple[str, str]]:
+    """(kind, why) pairs, for diagnostics and tests."""
+    return list(_EVENTS)
 
 
 def clear() -> None:

@@ -42,6 +42,12 @@ class Budget:
         """Wall seconds consumed so far, debits included."""
         return self._clock() - self._t0 + self._debited
 
+    def remaining(self) -> float:
+        """Seconds left (``inf`` when unbudgeted, floored at 0)."""
+        if not self.total_s:
+            return float("inf")
+        return max(self.total_s - self.spent(), 0.0)
+
     def exhausted(self) -> bool:
         return bool(self.total_s) and self.spent() >= self.total_s
 

@@ -17,11 +17,22 @@ for CBC decrypt (``cbc``):
 * ``lanes``    - the fault domains (health states, retry, quarantine, canary
   probation, bit-exact failover) and the one device seam;
 * ``server``   - the dispatch loop, warmup and graceful drain;
+* ``transfer`` - chunked transfers: a payload above the top rung as
+  rung-sized riders, reassembled in order, resumable through a ledger;
+* ``status``   - the status endpoint (``/metrics``, ``/healthz``,
+  ``/incidentz``, ``/profilez``);
+* ``wire``     - the framed request/response protocol (JSON header line and
+  raw payload);
+* ``worker``   - ``python -m our_tree_tpu_torch.serve.worker``: one back-end
+  process, a whole Server behind a TCP front end;
 * ``loadgen``, ``bench`` - ``python -m our_tree_tpu_torch.serve.bench``.
 """
 
 from .queue import (ERR_AUTH, ERR_BAD_REQUEST, ERR_DEADLINE, ERR_DISPATCH, ERR_SHED,
-                    ERR_SHUTDOWN, ERR_TOO_LARGE, GCM_MODES, MODES, PORTED_MODES)
+                    ERR_SHUTDOWN, ERR_TOO_LARGE, ERR_TRANSFER_ABORT, ERR_TRANSFER_MODE, GCM_MODES,
+                    MODES, PORTED_MODES, Request, RequestQueue, Response, ServeError)
 
 __all__ = ["ERR_AUTH", "ERR_BAD_REQUEST", "ERR_DEADLINE", "ERR_DISPATCH", "ERR_SHED",
-           "ERR_SHUTDOWN", "ERR_TOO_LARGE", "GCM_MODES", "MODES", "PORTED_MODES"]
+           "ERR_SHUTDOWN", "ERR_TOO_LARGE", "ERR_TRANSFER_ABORT", "ERR_TRANSFER_MODE",
+           "GCM_MODES", "MODES", "PORTED_MODES", "Request", "RequestQueue", "Response",
+           "ServeError"]

@@ -30,6 +30,9 @@ import time
 from ..obs import metrics
 from ..resilience import watchdog
 
+#: How long ``LaneExecutor.close`` waits for its worker to end.
+CLOSE_JOIN_S = 10.0
+
 
 def _resolve(fut: concurrent.futures.Future, result=None, exc=None) -> None:
     """Settle ``fut`` from whichever side got there first (the worker or
@@ -74,12 +77,20 @@ class LaneExecutor:
         return fut
 
     def close(self) -> None:
-        """Stop the current worker after its queued work (idempotent)."""
+        """Stop the current worker after its queued work and wait up to
+        ``CLOSE_JOIN_S`` for it to end (idempotent): a worker thread that is
+        still unwinding out of torch while the interpreter shuts down can
+        abort the process."""
         with self._lock:
-            if self._q is not None and self._thread is not None and self._thread.is_alive():
+            thread = self._thread
+            if self._q is not None and thread is not None and thread.is_alive():
                 self._q.put(None)
+            else:
+                thread = None
             self._thread = None
             self._q = None
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(CLOSE_JOIN_S)
 
     def _run(self, gen: int, q: _queue.SimpleQueue) -> None:
         while True:

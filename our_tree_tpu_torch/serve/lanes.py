@@ -28,8 +28,10 @@ returns the CTR output and the named rows' GHASH states, ``(out, ys)``: the
 port's own layout, where the JAX lane returns a (2, 4N) stack of the output
 and every row's state. Staging, the ``device`` stage, failover replay and
 the (``ctr``-shaped) canary do not depend on the mode; the dispatch metrics
-carry it as a label. The reference's fault seams and journal-backed
-quarantine are not carried over.
+carry it as a label. Every traffic dispatch enters the incident recorder's
+ring (``obs/incident.py``), and a watchdog kill or a quarantine triggers a
+bundle. The reference's fault seams and journal-backed quarantine are not
+carried over.
 
 Health state machine (every transition is a ``lane-state`` trace point;
 quarantine also stamps ``quarantined:lane:<i>`` through ``degrade``)::
@@ -68,7 +70,7 @@ import torch
 
 from ..aead import gcm as aead_gcm
 from ..models import aes
-from ..obs import metrics, trace
+from ..obs import incident, metrics, trace
 from ..resilience import degrade, watchdog
 from ..resilience.policy import RetryPolicy
 from .dispatch import LaneExecutor
@@ -210,6 +212,9 @@ class Lane:
         trace.point("quarantine", unit=lane_unit(self.idx), lane=self.idx, reason=why)
         degrade.degrade(f"quarantined:{lane_unit(self.idx)}",
                         f"lane {self.idx} ({self.device}): {why}")
+        # An incident; the trigger's cooldown makes a kill and the
+        # quarantine it causes one bundle.
+        incident.trigger("quarantine", unit=lane_unit(self.idx), lane=self.idx, why=why)
 
     def note_success(self, blocks: int, redispatch: bool, probation_batches: int) -> None:
         self.dispatches += 1
@@ -523,6 +528,12 @@ class LanePool:
                 outcome = "timeout"
                 metrics.counter("serve_lane_timeout", lane=lane.idx)
                 trace.counter("serve_lane_timeout", lane=lane.idx)
+                # The killed dispatch enters the ring before the bundle
+                # dumps, so the bundle holds the record that caused it.
+                incident.record(lane=lane.idx, rung=bucket, engine=self.engine, mode=mode,
+                                outcome="timeout", device_us=0,
+                                wall_us=int((lane._clock() - t0) * 1e6), batch=label)
+                incident.trigger("watchdog-kill", lane=lane.idx, rung=bucket, batch=label)
                 lane.note_timeout(e)
                 causes.append((lane.idx, e))
                 tried.add(lane.idx)
@@ -532,6 +543,9 @@ class LanePool:
                 outcome = "failed"
                 metrics.counter("serve_lane_failed", lane=lane.idx)
                 trace.counter("serve_lane_failed", lane=lane.idx)
+                incident.record(lane=lane.idx, rung=bucket, engine=self.engine, mode=mode,
+                                outcome="failed", device_us=0,
+                                wall_us=int((lane._clock() - t0) * 1e6), batch=label)
                 lane.note_failure(e)
                 causes.append((lane.idx, e))
                 tried.add(lane.idx)
@@ -561,6 +575,8 @@ class LanePool:
                             mode=mode, nr=int(getattr(sched, "nr", 0) or 0))
             metrics.counter("serve_rung_device_us", device_us, rung=bucket, engine=self.engine,
                             mode=mode, nr=int(getattr(sched, "nr", 0) or 0))
+            incident.record(lane=lane.idx, rung=bucket, engine=self.engine, mode=mode,
+                            outcome="ok", device_us=device_us, wall_us=dt_us, batch=label)
             metrics.observe("serve_stage_us", wait_us, stage="worker_wait", exemplar=ex)
             metrics.observe("serve_stage_us", staging_us, stage="staging", exemplar=ex)
             metrics.observe("serve_stage_us", host_us, stage="dispatch", exemplar=ex)

@@ -25,6 +25,12 @@ probe decrypts back to its plaintext) and the host GCM
 the ``gcm-open`` probe opens the sealed pair back to its plaintext). It is
 the check, not a fallback.
 
+Oversized requests (``transfer_sizes`` with ``transfer_every=N``): every
+N-th request is a pinned ``ctr`` probe above the top rung
+(``make_transfer_probes``), which the server serves as a chunked transfer
+(``serve/transfer.py``), always verified against its single-shot reference
+and tallied in ``LoadReport.transfers``.
+
 Percentiles are nearest-rank over the full sample, and per mode when the mix
 holds more than ``ctr``; goodput counts OK payload bytes only.
 """
@@ -88,6 +94,10 @@ class LoadReport:
     #: mode -> {requests, ok, verified, p50_ms, p95_ms, p99_ms}, set by
     #: ``finish`` when the mix holds more than ``ctr``
     modes: dict = field(default_factory=dict)
+    #: the chunked transfers' tallies (requests whose Response carried a
+    #: ``transfer`` section): requests, ok, chunks_sent, redispatched; empty
+    #: when the drive sent none
+    transfers: dict = field(default_factory=dict)
 
     def finish(self, wall_s: float, ok_bytes: int) -> None:
         self.wall_s = wall_s
@@ -110,7 +120,8 @@ class LoadReport:
                 "errors": dict(sorted(self.errors.items())), "verified": self.verified,
                 "mismatches": self.mismatches, "wall_s": round(self.wall_s, 3),
                 "goodput_gbps": round(self.goodput_gbps, 4), "p50_ms": self.p50_ms,
-                "p95_ms": self.p95_ms, "p99_ms": self.p99_ms}
+                "p95_ms": self.p95_ms, "p99_ms": self.p99_ms,
+                **({"transfers": dict(self.transfers)} if self.transfers else {})}
 
 
 def _np_cbc_encrypt(key: bytes, iv16: bytes, pt: bytes) -> bytes:
@@ -159,20 +170,47 @@ def make_probes(sizes, seed: int, modes=("ctr",)) -> list[Probe]:
     return probes
 
 
+def make_transfer_probes(sizes, seed: int) -> list[Probe]:
+    """One pinned oversized ``ctr`` request a size, with its single-shot
+    reference from the host (the T-table engine on the CPU): every transfer
+    of a drive is one of these, always verified. Call before the server
+    starts."""
+    rng = np.random.default_rng(seed ^ 0x7F4A7C15)
+    probes = []
+    for size in sizes:
+        if size % 16:
+            raise ValueError(f"transfer size {size} is not a multiple of 16 bytes")
+        key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        nonce = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        payload = rng.integers(0, 256, size, dtype=np.uint8)
+        ref = AES(key, engine=TTABLE_ENGINE, device="cpu")
+        expected = ref.crypt_ctr(0, np.frombuffer(nonce, np.uint8), np.zeros(16, np.uint8),
+                                 payload)[0]
+        probes.append(Probe("transfer", key, nonce, payload, np.asarray(expected)))
+    return probes
+
+
 async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
               tenants: int = 4, keys_per_tenant: int = 2, seed: int = 0,
               verify_every: int = 8, deadline_s: float | None = None,
               probes: list[Probe] | None = None, arrival_rate: float | None = None,
-              modes=("ctr",), clock=time.monotonic) -> LoadReport:
+              modes=("ctr",), transfer_sizes=(), transfer_every: int = 0,
+              transfer_probes: list[Probe] | None = None,
+              clock=time.monotonic) -> LoadReport:
     """Drive ``server`` with ``n_requests`` in total; the aggregated report.
     ``arrival_rate=None``: ``concurrency`` closed-loop clients;
     ``arrival_rate=R``: open loop, one request every 1/R seconds. ``modes``:
     the mix, each request's mode drawn uniformly from it; with ``gcm-open``
-    every size needs its sealed probe pair (``ValueError`` otherwise)."""
+    every size needs its sealed probe pair (``ValueError`` otherwise).
+    ``transfer_sizes`` with ``transfer_every=N``: every N-th request is an
+    oversized probe (round robin over the sizes), verified."""
     sizes = tuple(sizes)
     modes = tuple(modes) or ("ctr",)
     if probes is None:
         probes = make_probes(sizes, seed, modes)
+    tprobes = list(transfer_probes or ())
+    if not tprobes and transfer_sizes and transfer_every:
+        tprobes = make_transfer_probes(tuple(transfer_sizes), seed)
     by_key = {(p.mode, p.payload.size): p for p in probes}
     if "gcm-open" in modes:
         missing = [sz for sz in sizes if ("gcm-open", sz) not in by_key]
@@ -197,6 +235,9 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
         """Request i's (tenant, key, nonce, payload, probe, mode, iv, aad,
         tag); the mix depends only on the seed and the request order, not on
         the loop shape."""
+        if tprobes and transfer_every and i % transfer_every == 0:
+            p = tprobes[(i // transfer_every) % len(tprobes)]
+            return p.tenant, p.key, p.nonce, p.payload, p, p.mode, p.iv, p.aad, p.tag
         size = int(rng.choice(sizes))
         mode = modes[int(rng.integers(len(modes)))]
         probe = by_key.get((mode, size)) if (verify_every and i % verify_every == 0) else None
@@ -224,6 +265,13 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
         report.latencies_ms.append(dt_ms)
         m = report.by_mode.setdefault(mode, {"latencies_ms": [], "ok": 0, "verified": 0})
         m["latencies_ms"].append(dt_ms)
+        tx = resp.transfer
+        if tx is not None:
+            t = report.transfers
+            t["requests"] = t.get("requests", 0) + 1
+            t["ok"] = t.get("ok", 0) + (1 if resp.ok else 0)
+            t["chunks_sent"] = t.get("chunks_sent", 0) + int(tx.get("sent", 0))
+            t["redispatched"] = t.get("redispatched", 0) + int(tx.get("redispatched", 0))
         obs_metrics.counter("loadgen_requests", outcome=(resp.error or "ok"))
         obs_metrics.observe("loadgen_latency_us", dt_ms * 1e3, outcome=(resp.error or "ok"))
         if resp.ok:

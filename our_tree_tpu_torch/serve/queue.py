@@ -59,6 +59,13 @@ ERR_SHUTDOWN = "shutdown"         #: server stopped with the request queued
 #: GCM open: tag mismatch, a refusal of that request only (the batch's other
 #: riders are answered)
 ERR_AUTH = "auth-failed"
+#: a chunked transfer died mid-flight (fault or budget); the response's
+#: ``transfer`` dict carries the resume token and the acked count
+ERR_TRANSFER_ABORT = "transfer-abort"
+#: an oversized payload in a mode the chunk decomposition cannot serve
+#: bit-exactly (GCM's tag is a GHASH over the whole message): refused with
+#: the reason, never served another way
+ERR_TRANSFER_MODE = "transfer-unsupported"
 
 #: The served-mode vocabulary, the JAX package's: ``ctr`` is scattered CTR,
 #: ``gcm``/``gcm-open`` AES-GCM seal/open, ``cbc`` parallel CBC decrypt (the
@@ -111,6 +118,9 @@ class Response:
     tag: bytes | None = None
     queued_s: float = 0.0              #: admission -> drain residency
     batch: str | None = None           #: label of the batch that served it
+    #: a chunked transfer's tallies (``serve/transfer.py``: the resume token,
+    #: chunk counts, redispatches and skips); None on a single-rung request
+    transfer: dict | None = None
 
 
 @dataclass

@@ -55,20 +55,32 @@ it. A key length outside
 ``warmup_key_bits`` (only 128 bits by default, as in the reference) pays
 its instantiation's first launch on its first batch, and the steady count
 shows it. ``pool.first_dispatch`` records the first traffic dispatch's
-times, so a run can set them beside the steady ones. A payload above the top rung answers ``too-large``
-(the JAX server with transfers disabled).
+times, so a run can set them beside the steady ones.
+
+Chunked transfers (``serve/transfer.py``): a payload above the top rung is
+split into chunks of ``transfer_chunk_blocks`` (the top rung by default),
+each one ordinary queue admission (``_transfer_chunk``), so chunks batch,
+fail over and meet the zero-build gate like any request; the spliced answer
+equals one giant dispatch's. ``submit_transfer`` is the explicit entry with
+the wire front end's resume hooks. Only ``ctr`` and ``cbc`` are chunkable:
+an oversized GCM request answers ``transfer-unsupported``. With
+``transfer_chunk_blocks=0``, or above ``transfer_max_bytes``, an oversized
+payload answers ``too-large``.
 
 Cost model: at ``start()`` the server builds the analytic cost records of
 its warmed ladder (``obs/costmodel.py``: each enabled mode, every rung, each
 key length of ``warmup_key_bits``) into ``cost_records`` and stamps them,
-with ``ServerConfig.ceiling_gbps``, into the ``OT_TRACE_DIR`` run layout;
-``serve.bench`` joins them with the per-rung counters. The reference's
-chunked transfers, sessions, status endpoint, journal, incident recorder
-and pulse analytics are not in the port yet; nor is the incident
-recorder's note of an auth failure (``incident.note_auth_failure``).
+with ``ServerConfig.ceiling_gbps``, into the ``OT_TRACE_DIR`` run layout,
+and hands them to the incident recorder (``obs/incident.py``), which also
+hears of every auth failure (``incident.note_auth_failure``; a spike dumps a
+bundle). ``ServerConfig.status_port`` starts the status endpoint
+(``serve/status.py``: ``/metrics``, ``/healthz``, ``/incidentz``,
+``/profilez``). The reference's sessions, journal and pulse analytics are
+not in the port yet.
 
 Obs spans: ``request-queued`` (queue), ``batch-formed``, ``lane-dispatch``,
-``lane-probe``, ``serve-warmup`` / ``lane-warmup``.
+``lane-probe``, ``serve-warmup`` / ``lane-warmup``, ``transfer`` /
+``transfer-chunk``.
 """
 
 from __future__ import annotations
@@ -82,15 +94,16 @@ import numpy as np
 from ..aead import gcm as aead_gcm
 from ..aead import ghash as aead_ghash
 from ..models import aes
-from ..obs import costmodel, metrics, trace
+from ..obs import costmodel, incident, metrics, trace
 from ..ops import gf
 from ..resilience import faults, watchdog
 from ..runtime import cuda_build
 from ..utils import packing
-from . import batcher, lanes
+from . import batcher, lanes, transfer
 from .keycache import KeyCache, key_digest
-from .queue import (ERR_AUTH, ERR_DEADLINE, ERR_DISPATCH, GCM_MODES, RequestQueue, Response,
-                    not_ported)
+from .queue import (ERR_AUTH, ERR_BAD_REQUEST, ERR_DEADLINE, ERR_DISPATCH, ERR_TOO_LARGE,
+                    GCM_MODES, RequestQueue, Response, not_ported)
+from .status import StatusServer
 
 
 def compile_count() -> int:
@@ -145,6 +158,27 @@ class ServerConfig:
     #: the card's from ``harness/ceiling.py``'s rates) the cost model reports
     #: utilization against; None records traffic without a utilization
     ceiling_gbps: float | None = None
+    #: the status endpoint (``serve/status.py``): None = off, 0 = an
+    #: ephemeral port (``server.status.port``)
+    status_port: int | None = None
+    #: chunked transfers (``serve/transfer.py``): payloads above the top rung
+    #: split into chunks of this many blocks; None = the top rung, 0 = off
+    #: (such payloads answer ``too-large``)
+    transfer_chunk_blocks: int | None = None
+    #: concurrent transfers admitted before new ones shed
+    max_transfers: int = 8
+    #: chunks in flight a transfer
+    transfer_window: int = 8
+    #: reassembly-buffer bytes past which NEW transfers shed
+    transfer_budget_bytes: int = 64 << 20
+    #: a transfer's payload ceiling (a declared total above it answers
+    #: ``too-large`` before any buffer is sized from it)
+    transfer_max_bytes: int = 1 << 30
+    #: a transfer's wall deadline
+    transfer_deadline_s: float = 300.0
+    #: the transfer ledger's journal path (resume tokens outlive the
+    #: process); None = in memory
+    transfer_ledger: str | None = None
 
 
 class Server:
@@ -184,6 +218,17 @@ class Server:
         self.warmup_compiles = 0
         self._compiles_at_ready = 0
         self.cost_records: list[dict] = []
+        self.status: StatusServer | None = None
+        #: the chunked-transfer engine; None when disabled
+        self.transfers: transfer.TransferManager | None = None
+        if c.transfer_chunk_blocks != 0:
+            self.transfers = transfer.TransferManager(
+                self._transfer_chunk,
+                chunk_blocks=min(c.transfer_chunk_blocks or self.rungs[-1], self.rungs[-1]),
+                max_transfers=c.max_transfers, window=c.transfer_window,
+                reassembly_budget_bytes=c.transfer_budget_bytes,
+                max_payload_bytes=c.transfer_max_bytes, deadline_s=c.transfer_deadline_s,
+                ledger=transfer.TransferLedger(c.transfer_ledger))
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> None:
@@ -206,6 +251,7 @@ class Server:
                                                    key_slots=c.key_slots)
         costmodel.write_run_records(self.cost_records, engine=self.engine,
                                     ceiling_gbps=c.ceiling_gbps)
+        incident.set_cost_records(self.cost_records, device=self.device)
         self._compiles_at_ready = compile_count()
         self.warmup_compiles = self._compiles_at_ready - before
         trace.gauge("serve_warmup_compiles", self.warmup_compiles, engine=self.engine,
@@ -214,6 +260,9 @@ class Server:
                                else max(int(c.max_inflight), 1))
         self._sem = asyncio.Semaphore(self.inflight_limit)
         metrics.ensure_flusher()
+        if c.status_port is not None:
+            self.status = StatusServer(self, c.status_port)
+            await self.status.start()
         self._running = True
         self._task = asyncio.ensure_future(self._loop())
 
@@ -297,8 +346,14 @@ class Server:
         trace.point("serve-drained", answered=self.queue.answered,
                     lost=self.queue.accepted - self.queue.answered,
                     max_inflight=self.max_inflight_seen)
+        if self.status is not None:
+            await self.status.stop()
+            self.status = None
         if self.pool is not None:
-            self.pool.close()
+            # Off the loop: joining a lane's worker can take seconds.
+            await asyncio.to_thread(self.pool.close)
+        if self.transfers is not None:
+            self.transfers.ledger.close()
         metrics.flush_now()
 
     @property
@@ -318,10 +373,41 @@ class Server:
                      tag: bytes = b""):
         """Admit one request (``ctr`` with its nonce; ``gcm`` seal or
         ``gcm-open`` with its IV, AAD and, to open, its tag; ``cbc`` decrypt
-        with its IV) and await its Response."""
+        with its IV) and await its Response. A payload whose rows exceed the
+        top rung goes to ``submit_transfer`` when transfers are on."""
+        data = np.asarray(payload, dtype=np.uint8).reshape(-1)
+        span = data.size // 16 + (1 if mode in GCM_MODES else 0)
+        if (self.transfers is not None and span > self.rungs[-1] and data.size
+                and data.size % 16 == 0):
+            return await self.submit_transfer(tenant, key, nonce, data, deadline_s=deadline_s,
+                                              sampled=sampled, parent=parent, mode=mode, iv=iv)
         return await self.queue.submit(tenant, key, nonce, payload, deadline_s,
                                        sampled=sampled, parent=parent, priority=priority,
                                        mode=mode, iv=iv, aad=aad, tag=tag)
+
+    async def submit_transfer(self, tenant: str, key: bytes, nonce: bytes, payload,
+                              deadline_s: float | None = None, sampled: bool | None = None,
+                              parent: str | None = None, mode: str = "ctr", iv: bytes = b"",
+                              resume_token: str | None = None, tails: dict | None = None,
+                              on_chunk=None):
+        """The explicit chunked-transfer entry (``submit`` takes it for an
+        oversized payload); ``resume_token``, ``tails`` and ``on_chunk`` are
+        the wire front end's resume hooks (``serve/worker.py``)."""
+        if self.transfers is None:
+            return Response(ok=False, error=ERR_TOO_LARGE,
+                            detail="transfers disabled on this server")
+        return await self.transfers.run(tenant, key, nonce, payload, mode=mode, iv=iv,
+                                        deadline_s=deadline_s, sampled=sampled, parent=parent,
+                                        resume_token=resume_token, tails=tails,
+                                        on_chunk=on_chunk)
+
+    async def _transfer_chunk(self, tenant: str, key: bytes, spec: transfer.ChunkSpec, piece, *,
+                              mode: str, deadline_s: float | None, sampled: bool,
+                              parent: str | None):
+        """The transfer engine's submit seam: one chunk is one ordinary queue
+        admission."""
+        return await self.queue.submit(tenant, key, spec.nonce or b"", piece, deadline_s,
+                                       sampled=sampled, parent=parent, mode=mode, iv=spec.iv)
 
     # -- the batcher loop --------------------------------------------------
     async def _loop(self) -> None:
@@ -431,6 +517,8 @@ class Server:
                     # A refusal of this request only: no plaintext leaves.
                     metrics.counter("serve_auth_failed", mode=b.mode)
                     trace.counter("serve_auth_failed", batch=b.label)
+                    # One mismatch is a data event; a spike is an incident.
+                    incident.note_auth_failure()
                     req.fail(ERR_AUTH, "GCM tag mismatch (authentication failed)",
                              batch=b.label)
                     continue
@@ -505,4 +593,5 @@ class Server:
             "keycache": self.keycache.stats(),
             "lanes": self.pool.stats() if self.pool is not None else {"count": 0},
             "compiles": {"warmup": self.warmup_compiles, "steady": self.steady_compiles()},
+            "transfers": self.transfers.stats() if self.transfers is not None else None,
         }

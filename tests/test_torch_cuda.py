@@ -5,7 +5,7 @@ CBC/CFB128 encrypt, the ceiling probe's chain, the GHASH scan) against their
 plain torch versions, the ``AES``
 context on the card against the CPU in every mode, AES-GCM on the card
 against the KATs and the CPU, and the serve path on
-the card. Needs a CUDA card: each test skips, from a
+the card (chunked transfers and the wire worker among it). Needs a CUDA card: each test skips, from a
 fixture at run time, when none is present. Run on the card with
 ``python -m pytest -m gpu --noconftest tests/test_torch_cuda.py``."""
 
@@ -945,3 +945,104 @@ def test_gcm_server_on_card_matches_cpu_server(card, bits):
     assert calls["gcm"] == calls["gcm-open"] == 2 * len(rungs)
     assert launches == (len(rounds), len(rounds))
     assert stats["queue"]["lost"] == 0 and stats["compiles"]["steady"] == 0
+
+
+@pytest.mark.parametrize("mode,bits", [("ctr", 128), ("cbc", 256)])
+def test_transfer_on_card_matches_cpu_server(card, mode, bits):
+    """A payload of three chunks (two full 4,096-block rungs and a ragged
+    tail) through ``Server.submit`` on the card and on the CPU: equal bytes
+    and tallies, each chunk one launch of the mode's kernel (``ctr_mk`` in
+    its block form, or ``cbc_mk``), no build after warmup."""
+    import asyncio
+
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    rng = np.random.default_rng(bits + 16)
+    key, nonce, iv = rng.bytes(bits // 8), bytes.fromhex(WRAP_NONCES[2]), rng.bytes(16)
+    payload = rng.integers(0, 256, 16 * (2 * 4096 + 77), dtype=np.uint8)
+    kernel = cuda_aes.ctr_scattered_multikey if mode == "ctr" else cuda_aes.cbc_scattered_multikey
+
+    def serve(device):
+        async def main():
+            server = Server(ServerConfig(device=device, lanes=1, modes=(mode,),
+                                         warmup_key_bits=(bits,)))
+            await server.start()
+            try:
+                before = kernel.launches
+                resp = await server.submit("t", key, nonce if mode == "ctr" else b"", payload,
+                                           mode=mode, iv=iv if mode == "cbc" else b"")
+                return resp, kernel.launches - before, server.steady_compiles()
+            finally:
+                await server.stop()
+
+        return asyncio.run(main())
+
+    got, launches, steady = serve("cuda")
+    want, _, _ = serve("cpu")
+    assert got.ok and want.ok and got.transfer["chunks"] == 3
+    assert np.array_equal(got.payload, want.payload)
+    assert {k: v for k, v in got.transfer.items() if k != "token"} == \
+        {k: v for k, v in want.transfer.items() if k != "token"}
+    assert launches == 3 and steady == 0
+
+
+def test_worker_on_card_answers_every_mode(card, tmp_path):
+    """``python -m our_tree_tpu_torch.serve.worker --device cuda`` with every
+    served mode: one frame of each mode, equal to the plain versions on the
+    CPU (the ``gcm`` tag to the host GCM's), then SIGTERM, the EXIT line with
+    ``lost: 0`` and rc 0."""
+    import asyncio
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from our_tree_tpu_torch.aead import ghash
+    from our_tree_tpu_torch.serve import wire
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+    with open(tmp_path / "worker.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "our_tree_tpu_torch.serve.worker",
+                                 "--device", "cuda", "--modes", "ctr,cbc,gcm,gcm-open"],
+                                cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        ready = json.loads(proc.stdout.readline())
+        rng = np.random.default_rng(17)
+        key, pt = rng.bytes(16), rng.integers(0, 256, 1024, dtype=np.uint8)
+        nonce, iv16, iv12 = rng.bytes(16), rng.bytes(16), rng.bytes(12)
+        ct, tag = ghash.np_gcm_seal(key, iv12, b"", pt.tobytes())
+        ref = aes.AES(key, device="cpu")
+        frames = [
+            ({"t": "t", "k": key.hex(), "n": nonce.hex()}, pt.tobytes(),
+             ref.crypt_ctr(0, np.frombuffer(nonce, np.uint8), np.zeros(16, np.uint8), pt)[0]),
+            ({"t": "t", "k": key.hex(), "m": "cbc", "iv": iv16.hex()}, pt.tobytes(),
+             ref.crypt_cbc(aes.AES_DECRYPT, np.frombuffer(iv16, np.uint8), pt)[0]),
+            ({"t": "t", "k": key.hex(), "m": "gcm", "iv": iv12.hex()}, pt.tobytes(),
+             np.frombuffer(ct, np.uint8)),
+            ({"t": "t", "k": key.hex(), "m": "gcm-open", "iv": iv12.hex(), "tg": tag.hex()}, ct,
+             pt),
+        ]
+
+        async def ask():
+            reader, writer = await asyncio.open_connection("127.0.0.1", ready["port"])
+            out = []
+            for h, body, _ in frames:
+                writer.write(wire.encode_frame(h, body))
+                await writer.drain()
+                out.append(await asyncio.wait_for(wire.read_frame(reader), 60))
+            writer.close()
+            return out
+
+        answers = asyncio.run(ask())
+        for (h, body), (_, _, want) in zip(answers, frames):
+            assert h["ok"] and body == np.asarray(want, np.uint8).tobytes()
+        assert answers[2][0]["tg"] == tag.hex()
+        proc.send_signal(signal.SIGTERM)
+        exit_line = json.loads(proc.stdout.readline())
+        assert proc.wait(60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert exit_line["lost"] == 0 and exit_line["recompiles"] == 0
