@@ -13,7 +13,10 @@ documented mixed-mode drive, and its auth-failure rehearsal) and AES-GCM
 through the models API (``aead.gcm``: ``gcm_seal``/``gcm_open`` over 256
 MiB, on ``ghash_at``) and chunked transfers with the wire worker
 (``serve.transfer``, ``python -m our_tree_tpu_torch.serve.worker`` and its
-status endpoint), and holds
+status endpoint) and the rc4 serve mode with its sessions and the serve
+side's fault seams and journal (``serve.session``, the session acceptance
+drive with a hung lane, the journal round trip, the worker's ``ss``
+frames), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -247,7 +250,34 @@ is not 0:
    ``serve_auth_failed``; ``/healthz`` with 0 steady builds and a
    ``transfers`` section; SIGTERM, and each worker's EXIT line with ``lost:
    0`` and rc 0;
-13. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
+13. the rc4 sessions: (a) the JAX package's session acceptance drive
+   (``docs/SERVING.md``, ``SESSION_r01.json``) in a child process with
+   ``OT_FAULTS=lane_hang:1 OT_DISPATCH_DEADLINE=2``: ``--requests 200
+   --concurrency 16 --modes ctr,gcm,rc4 --sizes 16,64,256,1024,4096,16384
+   --lanes 2 --sessions 32 --session-chunks 8 --min-session-hit-rate 0.9
+   --min-session-replays 1`` at the JAX server's session defaults; gated: rc
+   0, 0 lost, failed or mismatching, every one of the 256 chunks equal to the
+   host PRGA, 0 steady builds, exactly one quarantine (the watchdog's), at
+   least one replay, hit rate >= 0.9, ``arc4_prga`` launches equal to the
+   ``rc4-prep`` engine calls (two warmups and the prefetch dispatches; the
+   hung call never reaches its kernel), ``ctr_mk`` launches equal to the
+   ``ctr`` and ``gcm`` engine calls, ``ghash_at`` calls to the ``gcm`` ones,
+   and no kernel but these and the XOR's torch elementwise kernel; printed:
+   the p50s by mode, the prefetch dispatches, the card time of an
+   ``rc4-prep`` and of an ``rc4`` dispatch; (b) ``arc4_prga`` at the refill's
+   launch shapes (8 x 4,096 bytes, the served one, and 2 x 2,048), against
+   ``prga_plain`` and the host PRGA, timed in a CUDA graph (and the whole
+   refill, ``prep_batch_words``), beside its bounds and its latency bound;
+   (c) the journal round trip in this process, counted (``--lanes 2
+   --retries 1 --journal J``): ``OT_FAULTS=lane_fail:2@lane=1`` quarantines
+   lane 1 and writes one failure row, a second run starts lane 1 quarantined
+   (``journal:1``), ``--unquarantine lane:1`` clears the row, a third run
+   starts both lanes healthy; (d) ``python -m our_tree_tpu_torch.serve.worker
+   --modes ctr,rc4``: two sessions' ``open``, four ``data`` each and
+   ``close`` over loopback, every chunk equal to the host PRGA, a ``data``
+   on a closed session answering ``bad-request``, ``/healthz`` with its
+   ``sessions`` section, EXIT ``lost: 0`` and rc 0;
+14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
    equal to the window's dispatches, a cost row per warmed rung and
@@ -256,8 +286,9 @@ is not 0:
    that the profiler touches none of the timings before it.
 
 Phases 4, 5, 7, each drive of 8 (D and the rehearsal included), the seal
-and the open of 11, each transfer of 12 (a)
-and 13 run with every launch count set to 0 just before and read just after, and each run of phase 10 counts its own
+and the open of 11, each transfer of 12 (a), each run of 13 (c)
+and 14 run with every launch count set to 0 just before and read just after (13
+(a) reads the child's own count, the bench's ``launches`` section), and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
@@ -265,7 +296,9 @@ Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``design_variants_ms_graph`` and ``group_form_study`` and its
 ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
-``arc4_prga`` with its ``single`` and ``wide`` shapes and the harness rows,
+``arc4_prga`` with its ``single`` and ``wide`` shapes, the harness rows and
+its ``session`` (the drive's launches, engine calls and card times, and the
+refill's launch shapes under ``prefetch_shapes``),
 ``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
 and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``,
 ``seal_256MiB`` and ``gcm_serve``: the per-rung GCM dispatch table and the
@@ -2436,6 +2469,255 @@ def transfer_phase(card: str, reset_counts, counts, form_counts, device: str = "
                      "tx_64MiB_gbps": TRANSFER_BYTES / tx_s / 1e9, "frame_4MiB_s": dt_4m,
                      "latency_ms": {f"{m}:{s}": 1e3 * lat[(m, s)] for m, s in lat},
                      "drill": {"acked": len(ack2.get("acked", [])), "resent": sent2}}
+    return out
+
+
+
+#: The JAX package's session acceptance drive (``docs/SERVING.md``, artifact
+#: ``SESSION_r01.json``), run with ``OT_FAULTS=lane_hang:1
+#: OT_DISPATCH_DEADLINE=2`` in its environment, at the JAX server's session
+#: defaults (window 65,536 B, quantum 4,096 B, 8 prefetch slots, 8 MiB
+#: budget, 16 sessions a tenant).
+SESSION_DRIVE = ["--requests", "200", "--concurrency", "16", "--modes", "ctr,gcm,rc4",
+                 "--sizes", "16,64,256,1024,4096,16384", "--lanes", "2", "--sessions", "32",
+                 "--session-chunks", "8", "--min-session-hit-rate", "0.9",
+                 "--min-session-replays", "1"]
+#: The journal round trip's drive (``--retries 1``: a second failed dispatch
+#: of lane 1 quarantines it) and its faults.
+JOURNAL_DRIVE = ["--requests", "60", "--sizes", "256,1024", "--lanes", "2", "--retries", "1"]
+JOURNAL_FAULTS = "lane_fail:2@lane=1"
+#: The worker's sessions: (sid, chunk sizes), each chunk through ``ss data``.
+WORKER_SESSIONS = {1: (16, 4096, 1008, 256), 2: (2048, 48, 4096, 16)}
+#: The session refill's launch shapes: the served one (8 sessions x the
+#: 4,096-byte quantum) and the CPU tests' (2 x 2,048).
+PREFETCH_SHAPES = {"served": (8, 4096), "tests": (2, 2048)}
+
+
+def session_phase(card: str, reset_counts, counts, device: str = "cuda") -> dict:
+    """Phase 13: (a) the session acceptance drive in a child process with its
+    faults armed, gated on the bench's line; (c) the journal round trip in
+    this process, counted; (d) a worker with ``--modes ctr,rc4`` over the
+    wire. Returns the figures for the ``arc4_prga`` entry's ``session``."""
+    import numpy as np
+
+    from our_tree_tpu_torch.models import arc4
+    from our_tree_tpu_torch.serve import bench as serve_bench
+
+    out: dict = {}
+    # (a) The drive, in a child: the hung lane's worker thread sleeps on in
+    # it, and the faults stay out of this process.
+    crash = tempfile.mkdtemp(prefix="ot_session_crash_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+    env.update(OT_FAULTS="lane_hang:1", OT_DISPATCH_DEADLINE="2", OT_CRASH_DIR=crash)
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench",
+                              "--device", device, *SESSION_DRIVE], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        dumps = sorted(os.listdir(crash))
+    finally:
+        shutil.rmtree(crash, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    try:
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        line = None
+    if res.returncode != 0 or line is None:
+        raise SystemExit(f"the session drive: rc {res.returncode}, out {res.stdout[-3000:]!r}, "
+                         f"err {res.stderr[-3000:]!r}")
+    for text in res.stdout.strip().splitlines()[:-1]:
+        log(f"session drive: {text}")
+    per, sess = line["per_mode"], line["sessions"]
+    calls, lat, launches = per["engine_calls"], per["latency"], line["launches"]
+    load_sess = line["load"]["sessions"]
+    q_lane = [r for r in line["lanes"]["per_lane"] if r["state"] != "healthy"
+              or any(t["why"] == "dispatch-timeout" for t in r["transitions"])]
+    checks = {
+        "rc 0": res.returncode == 0,
+        "CUDA engine": device != "cuda" or line["engine"].startswith("cuda"),
+        "0 lost, 0 failed": line["lost"] == 0 and line["errors"] == {}
+        and line["ok"] == line["requests"] == 200 + 32 * 8,
+        "0 mismatches": line["mismatches"] == 0 and line["verified"] >= 256,
+        "every chunk equal to the host PRGA": load_sess.get("verified") == 256
+        and not load_sess.get("mismatches") and not load_sess.get("chunk_failed"),
+        "32 sessions opened and closed": sess["opened"] == sess["closed"] == 32
+        and sess["chunks"] == 256,
+        "0 steady builds": line["recompiles"] == 0,
+        "exactly one quarantine, by the watchdog": line["quarantines"] == 1 and len(q_lane) == 1
+        and any(t["why"] == "dispatch-timeout" for t in q_lane[0]["transitions"]),
+        "at least one replay": sess["replays"] >= 1,
+        "hit rate >= 0.9": sess["hit_rate"] is not None and sess["hit_rate"] >= 0.9,
+        "arc4_prga launches == rc4-prep engine calls (warmup + prefetches)":
+        launches.get("arc4_prga") == calls.get("rc4-prep")
+        == 2 + sess["prefetch_dispatches"],
+        "ctr_mk launches == ctr and gcm engine calls": launches.get("ctr_mk")
+        == calls.get("ctr", 0) + calls.get("gcm", 0) > 0,
+        "ghash_at calls == gcm engine calls": launches.get("ghash_at") == calls.get("gcm") > 0,
+        # The XOR is a torch elementwise kernel, not a wrapper of the port.
+        "no kernel but ctr_mk, ghash_at, arc4_prga and the XOR's elementwise kernel":
+        set(launches) == {"ctr_mk", "ghash_at", "arc4_prga"},
+        "the hang left its stack dump": len(dumps) >= 1,
+    }
+    if device != "cuda":  # a rehearsal on the CPU launches nothing
+        for name in ("arc4_prga launches == rc4-prep engine calls (warmup + prefetches)",
+                     "ctr_mk launches == ctr and gcm engine calls",
+                     "ghash_at calls == gcm engine calls"):
+            checks[name] = set(launches.values()) == {0}
+    dev_us = per["device_us_per_dispatch"]
+    log(f"session drive (OT_FAULTS=lane_hang:1 OT_DISPATCH_DEADLINE=2 {' '.join(SESSION_DRIVE)}): "
+        f"rc {res.returncode}, {wall:.1f} s wall with start-up; p50 by mode "
+        + ", ".join(f"{m} {v['p50_ms']} ms (p99 {v['p99_ms']})" for m, v in lat.items())
+        + f"; prefetch dispatches {sess['prefetch_dispatches']}, hit rate {sess['hit_rate']}, "
+        f"replays {sess['replays']}, quarantines {line['quarantines']}; card a dispatch: rc4-prep "
+        f"{dev_us.get('rc4-prep')} µs, rc4 {dev_us.get('rc4')} µs, ctr {dev_us.get('ctr')} µs, "
+        f"gcm {dev_us.get('gcm')} µs; engine calls {calls}; launches {launches}; card: {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"the session drive failed: {checks}")
+    out["drive"] = {"argv": SESSION_DRIVE, "faults": "lane_hang:1", "dispatch_deadline_s": 2,
+                    "wall_s": wall, "p50_ms": {m: v["p50_ms"] for m, v in lat.items()},
+                    "p99_ms": {m: v["p99_ms"] for m, v in lat.items()},
+                    "prefetch_dispatches": sess["prefetch_dispatches"],
+                    "hit_rate": sess["hit_rate"], "replays": sess["replays"],
+                    "quarantines": line["quarantines"], "launches": launches,
+                    "engine_calls": calls, "device_us_per_dispatch": dev_us, "card": card}
+
+    # (c) The journal round trip, in this process and counted: faults
+    # quarantine lane 1 and write a row; the next run adopts it; the release
+    # edit clears it; the last run starts healthy.
+    from our_tree_tpu_torch.resilience import faults
+
+    jdir = tempfile.mkdtemp(prefix="ot_journal_")
+    jpath = os.path.join(jdir, "serve_journal.jsonl")
+    argv = ["--device", device, *JOURNAL_DRIVE, "--journal", jpath]
+
+    def run(faults_spec=""):
+        if faults_spec:
+            os.environ["OT_FAULTS"] = faults_spec
+        faults.reset()
+        reset_counts()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = serve_bench.main(argv)
+        finally:
+            os.environ.pop("OT_FAULTS", None)
+            faults.reset()
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), counts()
+
+    def rows():
+        with open(jpath, encoding="utf-8") as fh:
+            return [json.loads(t) for t in fh][1:]
+
+    try:
+        rc1, l1, c1 = run(JOURNAL_FAULTS)
+        rows1 = rows()
+        rc2, l2, c2 = run()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_release = serve_bench.main(["--journal", jpath, "--unquarantine", "lane:1"])
+        released = buf.getvalue().strip()
+        rows3 = rows()
+        rc4, l4, c4 = run()
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    lane1 = [r["per_lane"][1] for r in (l1["lanes"], l2["lanes"], l4["lanes"])]
+    checks = {
+        "rc 0 each": rc1 == rc2 == rc4 == rc_release == 0,
+        "0 lost, 0 failed each": all(ln["lost"] == 0 and ln["errors"] == {} for ln in (l1, l2, l4)),
+        "run 1 quarantines lane 1": l1["quarantines"] == 1
+        and any(t["to"] == "quarantined" for t in lane1[0]["transitions"]),
+        "run 1 writes one failure row": rows1 == [{"unit": "lane:1", "failed": True,
+                                                   "reason": "PolicyExhausted"}],
+        "run 2 starts lane 1 quarantined (journal:1)": lane1[1]["transitions"][0]["to"]
+        == "quarantined" and lane1[1]["transitions"][0]["why"] == "journal:1",
+        "the release clears the row": released == "# unquarantine: lane:1: cleared 1 failure "
+        "row(s)" and rows3 == [],
+        "run 3 starts both lanes healthy": l4["quarantines"] == 0 and all(
+            r["state"] == "healthy" and not r["transitions"] for r in l4["lanes"]["per_lane"]),
+        "ctr_mk launches == engine calls, no other kernel": all(
+            c["ctr_mk"] == (ln["engine_calls"] if device == "cuda" else 0)
+            and all(v == 0 for k, v in c.items() if k != "ctr_mk")
+            for c, ln in ((c1, l1), (c2, l2), (c4, l4))),
+    }
+    log(f"journal round trip ({JOURNAL_FAULTS} then none, {' '.join(JOURNAL_DRIVE)}): run 1 lane 1 "
+        f"{[(t['to'], t['why']) for t in lane1[0]['transitions']]}, rows {rows1}; run 2 lane 1 "
+        f"{[(t['to'], t['why']) for t in lane1[1]['transitions']]}; release: {released!r}; run 3 "
+        f"states {[r['state'] for r in l4['lanes']['per_lane']]}; ctr_mk launches "
+        f"{[c['ctr_mk'] for c in (c1, c2, c4)]}; card: {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"the journal round trip failed: {checks}")
+
+    # (d) A worker with --modes ctr,rc4: two sessions over the wire, each
+    # chunk against the host PRGA, a data frame on a closed session.
+    trace_root = tempfile.mkdtemp(prefix="ot_session_worker_")
+    wenv = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+    worker = _Worker(["--device", device, "--modes", "ctr,rc4", "--port", "0", "--status-port",
+                      "0"], wenv, os.path.join(trace_root, "worker.err"))
+    try:
+        ready = worker.line(WORKER_READY_S)
+        keys = {sid: bytes(range(sid, sid + 16)) for sid in WORKER_SESSIONS}
+        wrng = np.random.default_rng(4242)
+        chunks = {sid: [wrng.integers(0, 256, n, dtype=np.uint8) for n in sizes]
+                  for sid, sizes in WORKER_SESSIONS.items()}
+
+        async def drive_d():
+            reader, writer = await asyncio.open_connection("127.0.0.1", ready["port"])
+            from our_tree_tpu_torch.serve import wire
+
+            async def ask(h, body=b""):
+                writer.write(wire.encode_frame(h, body))
+                await writer.drain()
+                return await asyncio.wait_for(wire.read_frame(reader), WORKER_WAIT_S)
+
+            try:
+                answers = [await ask({"ss": "open", "t": "w", "sid": sid, "k": k.hex()})
+                           for sid, k in keys.items()]
+                for i in range(4):
+                    for sid in WORKER_SESSIONS:
+                        answers.append(await ask({"ss": "data", "t": "w", "sid": sid},
+                                                 chunks[sid][i].tobytes()))
+                answers += [await ask({"ss": "close", "t": "w", "sid": sid}) for sid in keys]
+                closed = await ask({"ss": "data", "t": "w", "sid": 1}, bytes(16))
+            finally:
+                writer.close()
+            hz = await _http_get(ready["status_port"], "/healthz")
+            return answers, closed, hz
+
+        answers, closed, hz = asyncio.run(drive_d())
+        exit_line, rc = worker.stop()
+        err_tail = worker.err_tail()
+    finally:
+        worker.kill()
+        shutil.rmtree(trace_root, ignore_errors=True)
+    states = {sid: (0, 0, arc4.key_schedule(k)) for sid, k in keys.items()}
+    bad = []
+    datas = iter(answers[2:-2])
+    for i in range(4):
+        for sid in WORKER_SESSIONS:
+            h, body = next(datas)
+            ks, states[sid] = arc4.keystream_np(states[sid], chunks[sid][i].size)
+            if not (h.get("ok") and body == (chunks[sid][i] ^ ks).tobytes()):
+                bad.append((sid, i, h))
+    hcode, hbody = hz
+    hdoc = json.loads(hbody) if hcode == 200 else {}
+    checks = {
+        "opens and closes ok": all(h.get("ok") for h, _ in answers[:2] + answers[-2:]),
+        "every chunk equal to the host PRGA": not bad,
+        "data on a closed session: bad-request": closed[0].get("error") == "bad-request"
+        and closed[1] == b"",
+        "/healthz has its sessions section": "sessions" in hdoc
+        and hdoc["compiles"]["steady"] == 0,
+        "EXIT: lost 0, rc 0, sessions 2 opened and closed": exit_line.get("lost") == 0 and rc == 0
+        and (exit_line.get("sessions") or {}).get("opened") == 2
+        and exit_line["sessions"].get("closed") == 2,
+    }
+    log(f"session worker (--modes ctr,rc4): {len(answers)} ss answers, bad {bad[:3]}; closed-sid "
+        f"answer {closed[0]}; /healthz sessions {hdoc.get('sessions')}; EXIT {exit_line} rc {rc}; "
+        f"card: {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"the session worker failed: {checks}; stderr {err_tail}")
+    out["worker"] = {"sessions": len(WORKER_SESSIONS), "chunks": sum(map(len, chunks.values())),
+                     "healthz_sessions": hdoc.get("sessions")}
     return out
 
 
@@ -5474,7 +5756,69 @@ def main() -> int:
             if entry["name"] == "ctr_mk":
                 entry["transfer"]["worker"] = tx_entries["worker"]
 
-    # 13. Drive A's mix once more, profiled (torch tier) and costed against
+    # 13. The rc4 sessions on the card: the session acceptance drive, the
+    # journal round trip and a worker's ss exchanges (session_phase); then
+    # arc4_prga at the refill's launch shapes.
+    sess_entries = session_phase(card, reset_counts, counts)
+    prefetch = {}
+    for label, (s_n, n) in PREFETCH_SHAPES.items():
+        prng = np.random.default_rng(s_n * n)
+        m = np.stack([arc4.key_schedule(prng.bytes(16)) for _ in range(s_n)])
+        xy = prng.integers(0, 256, 2 * s_n)
+        m_words = torch.from_numpy(m.reshape(-1).astype(np.int32)).to(dev)
+        xy_words = torch.from_numpy(xy.astype(np.int32)).to(dev)
+        states = torch.cat([xy_words[:s_n, None], xy_words[s_n:, None],
+                            m_words.reshape(s_n, 256)], 1).contiguous()
+        rows = arc4.prep_batch_words(m_words, xy_words, n)
+        t0 = time.perf_counter()
+        p_state, p_ks = cuda_arc4.prga_plain(states, n)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bad = int((rows[:, :258] != p_state).sum()) + int(
+            (rows[:, 258:].contiguous().view(torch.uint8) != p_ks).sum())
+        host = rows.cpu().numpy().view(np.uint32)
+        for i in range(s_n):
+            ks, (x2, y2, m2) = arc4.keystream_np((int(xy[i]), int(xy[s_n + i]), m[i]), n)
+            bad += int(host[i, 258:].astype("<u4").tobytes() != ks.tobytes())
+            bad += int((host[i, 0], host[i, 1]) != (x2, y2)) + int((host[i, 2:258] != m2).sum())
+        if bad:
+            raise SystemExit(f"arc4_prga at the prefetch shape {s_n} x {n}: {bad} mismatches")
+        ms = graph_ms(lambda st=states, n=n: cuda_arc4.prga(st, n))
+        refill_ms = graph_ms(lambda mw=m_words, xw=xy_words, n=n: arc4.prep_batch_words(mw, xw, n))
+        ev_ms, clocks = sampled_ms(lambda st=states, n=n: cuda_arc4.prga(st, n))
+        nbytes = s_n * n + 2 * s_n * 258 * 4
+        ops = ARC4_OPS_PER_BYTE * s_n * n
+        ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
+        meas_ms, meas_by = measured_bound(ops, nbytes)
+        mhz = clocks["clock_mhz"]
+        lat_b = n * rec_cycles / (mhz * 1e3)
+        prefetch[label] = {
+            "streams": s_n, "bytes_per_stream": n, "ms": ms, "refill_ms": refill_ms,
+            "events_ms": ev_ms, "plain_ms": plain_ms, "max_abs_err": 0,
+            "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes", "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
+            "latency_bound_ms": lat_b, "latency_bound_ms_at_max_clock":
+            n * rec_cycles / (clock_mhz * 1e3), "share_of_latency_bound": lat_b / ms,
+            "sampled_clock_mhz": mhz, "library_ms": None}
+        log(f"arc4_prga at the prefetch shape '{label}' ({s_n} x {n} bytes): {ms:.5f} ms a launch "
+            f"in a CUDA graph ({ev_ms:.5f} ms back to back), the refill "
+            f"(prep_batch_words: the launch and its row assembly) {refill_ms:.5f} ms; plain "
+            f"{plain_ms:.1f} ms; bound {prefetch[label]['bound_ms']:.6f} ms "
+            f"({prefetch[label]['bound_by']}), {meas_ms:.6f} ms at the measured rates; latency "
+            f"bound {n} x {rec_cycles:.2f} cycles at {mhz:.0f} MHz = {lat_b:.5f} ms "
+            f"({prefetch[label]['latency_bound_ms_at_max_clock']:.5f} ms at {clock_mhz:.0f} MHz), "
+            f"kernel at {100 * lat_b / ms:.1f} % of it; 0 mismatching against prga_plain and the "
+            f"host PRGA; nvidia-smi {clocks}; card: {card}")
+    drive = sess_entries["drive"]
+    arc4_entry["session"] = {
+        "launches": drive["launches"]["arc4_prga"],
+        "rc4_prep_engine_calls": drive["engine_calls"]["rc4-prep"],
+        "prefetch_dispatches": drive["prefetch_dispatches"],
+        "refill_device_us": drive["device_us_per_dispatch"].get("rc4-prep"),
+        "xor_device_us": drive["device_us_per_dispatch"].get("rc4"),
+        "prefetch_shapes": prefetch, "drive": drive, "worker": sess_entries["worker"]}
+
+    # 14. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
     # hooks must not touch the timings above.

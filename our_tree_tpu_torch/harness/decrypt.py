@@ -7,6 +7,11 @@ each argument. ``--mode`` and ``--encrypt`` reach every mode, as in
 ``our_tree_tpu.harness.decrypt``, whose arguments, checks and messages this
 keeps. Hex in is the byte order on the wire. ``--device`` picks the card
 (default ``cuda``) or ``cpu``; without a card the default raises.
+``--deadline`` (seconds, default ``OT_DISPATCH_DEADLINE``; 0 disarms) puts
+each crypt, the copy back included, under the dispatch watchdog: a wedged
+card gives exit 1 with ``Dispatch watchdog fired: ...`` and a stack dump in
+``OT_CRASH_DIR``, not a command that never returns (the fault point
+``dispatch_hang`` rehearses it).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import sys
 import numpy as np
 
 from ..models.aes import AES, AES_DECRYPT, AES_ENCRYPT
+from ..resilience import watchdog
 
 
 def main(argv=None) -> int:
@@ -38,6 +44,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the "
                          "plain torch version)")
+    ap.add_argument("--deadline", type=float, metavar="S",
+                    default=watchdog.default_deadline_s(),
+                    help="watchdog deadline per crypt dispatch (seconds): "
+                         "a wedged device turns into a diagnosed error "
+                         "with an all-thread stack dump instead of a CLI "
+                         "that never returns. 0 disables "
+                         "(env OT_DISPATCH_DEADLINE)")
     args = ap.parse_args(argv)
 
     try:
@@ -77,17 +90,24 @@ def main(argv=None) -> int:
             print("Data size must be a multiple of AES block size.",
                   file=sys.stderr)
             return 1
-        if args.mode == "ecb":
-            out = a.crypt_ecb(direction, data)
-        elif args.mode == "cbc":
-            out, _ = a.crypt_cbc(direction, np.frombuffer(iv, np.uint8), data)
-        elif args.mode == "cfb128":
-            out, _, _ = a.crypt_cfb128(direction, args.iv_off,
-                                       np.frombuffer(iv, np.uint8), data)
-        else:  # ctr is symmetric
-            out, _, _, _ = a.crypt_ctr(0, np.frombuffer(iv, np.uint8),
-                                       np.zeros(16, np.uint8), data)
-        print(out.tobytes().hex())
+        try:
+            with watchdog.deadline(args.deadline, what=f"decrypt {args.mode} dispatch"):
+                watchdog.injected_hang("dispatch_hang", "decrypt dispatch")
+                if args.mode == "ecb":
+                    out = a.crypt_ecb(direction, data)
+                elif args.mode == "cbc":
+                    out, _ = a.crypt_cbc(direction, np.frombuffer(iv, np.uint8), data)
+                elif args.mode == "cfb128":
+                    out, _, _ = a.crypt_cfb128(direction, args.iv_off,
+                                               np.frombuffer(iv, np.uint8), data)
+                else:  # ctr is symmetric
+                    out, _, _, _ = a.crypt_ctr(0, np.frombuffer(iv, np.uint8),
+                                               np.zeros(16, np.uint8), data)
+                text = out.tobytes().hex()
+        except watchdog.DispatchTimeout as e:
+            print(f"Dispatch watchdog fired: {e}", file=sys.stderr)
+            return 1
+        print(text)
     return 0
 
 

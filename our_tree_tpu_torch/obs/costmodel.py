@@ -29,7 +29,9 @@ a batch of K slots names at least K rows), so a batch of many small
 requests moves 24 bytes more a further request than its record says. The op
 count is the reference's order-of-magnitude budget (blocks x rounds x 32
 word operations, plus ``OPS_PER_GHASH_BLOCK`` a block for GCM), not the
-kernel's count. ``rc4`` raises until the slice that serves it.
+kernel's count. ``rc4`` has no row and raises: its XOR is key-oblivious, so
+no (bits, nr) record exists for it, and the server leaves it out of its
+cost records, as the reference's does.
 
 Not carried: the XLA half (``jit(...).lower().compile()`` cost and memory
 analyses; PyTorch has no counterpart) and with it ``OT_COST_XLA``, so every
@@ -59,7 +61,7 @@ OPS_PER_BLOCK_ROUND = 32
 #: Extra word operations a block for GHASH (the reference's budget for its
 #: multiply-by-H bit-matrix product: 128 AND and XOR steps over 4-word rows).
 OPS_PER_GHASH_BLOCK = 256
-#: The modes the port serves.
+#: The modes with a cost row (every served mode but the schedule-free rc4).
 MODES = ("ctr", "gcm", "gcm-open", "cbc")
 
 #: (engine, mode, rung, nr, key_slots) -> record, shared by every server of
@@ -71,8 +73,8 @@ def analytic_cost(engine: str, mode: str, rung: int, nr: int, key_slots: int) ->
     """The per-dispatch record (the module docstring has the formula).
     Bytes are boundary traffic: what one dispatch reads and writes."""
     if mode not in MODES:
-        raise ValueError(f"mode {mode!r} is not served by the port yet: rc4 comes with "
-                         "ROADMAP queue 1, \"The rc4 serve mode and sessions\"")
+        raise ValueError(f"mode {mode!r} has no cost row (rc4's XOR is key-oblivious: no "
+                         "(bits, nr) record exists for it)")
     n = int(rung)
     k = int(key_slots)
     blk = 16 * n

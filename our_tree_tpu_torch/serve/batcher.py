@@ -1,7 +1,7 @@
 """Shape-bucketed continuous batching: requests -> fixed-shape dispatches.
 
-Port of ``our_tree_tpu.serve.batcher`` for the ``ctr``, ``gcm``,
-``gcm-open`` and ``cbc`` modes, host numpy as in the reference. Every batch
+Port of ``our_tree_tpu.serve.batcher`` for every served mode, host numpy
+as in the reference. Every batch
 is padded to a rung of a fixed power-of-two ladder, so after warmup over the
 ladder the card only ever sees the warmed shapes (the JAX package needs that
 to avoid recompiles; the port keeps the same shapes, so its warmup covers
@@ -34,6 +34,12 @@ data row, and ``req_spans`` skip the J0 rows. The port adds ``rows``, the
 sorted (E,) int64 vector of each request's last data row: the only GHASH
 states the finisher reads, and the rows the dispatch names to ``ghash_at``.
 Capacity counts ``span_blocks``, the J0 row included.
+
+An ``rc4`` batch carries session chunks: ``ctr_words`` holds each chunk's
+reserved keystream slice, and the dispatch is one key-oblivious XOR, so the
+chunks of many sessions share a batch. They group by session (``s<sid>``
+slots: data chunks carry no key) and take the round-count sentinel 0, so rc4
+and AES work never share a batch; padding keystream is zero.
 """
 
 from __future__ import annotations
@@ -153,7 +159,8 @@ class Batch:
 
     def materialise(self, sched=None) -> None:
         """Build the flat uint32 dispatch arrays: (4N,) payload words, (4N,)
-        LE counter words (``cbc``: the PREV stream) and the (N,) slot
+        LE counter words (``cbc``: the PREV stream; ``rc4``: the keystream)
+        and the (N,) slot
         vector, plus ``req_spans``. Requests pack contiguously, so only the
         padding tail is zeroed; a ``ctr`` request that exactly fills its rung
         is viewed in place. A GCM batch needs ``sched``, the keycache's
@@ -164,6 +171,9 @@ class Batch:
             return
         if self.mode == "cbc":
             self._materialise_cbc()
+            return
+        if self.mode == "rc4":
+            self._materialise_rc4()
             return
         spans, off = [], 0
         for req in self.requests:
@@ -259,6 +269,28 @@ class Batch:
         self.slot_index = slot_index
         self.req_spans = spans
 
+    def _materialise_rc4(self) -> None:
+        """The rc4 layout: ``ctr_words`` carries each chunk's keystream
+        slice, reserved from its session's window; no schedules, and the
+        padding keystream is zero."""
+        words = np.zeros(4 * self.bucket, dtype=np.uint32)
+        ks = np.zeros(4 * self.bucket, dtype=np.uint32)
+        slot_index = np.zeros(self.bucket, dtype=np.uint32)
+        spans, off = [], 0
+        for si, slot in enumerate(self.slots):
+            for req in slot.requests:
+                n = req.nblocks
+                words[4 * off:4 * (off + n)] = packing.np_bytes_to_words(req.payload)
+                ks[4 * off:4 * (off + n)] = packing.np_bytes_to_words(
+                    np.ascontiguousarray(req.ks, dtype=np.uint8))
+                slot_index[off:off + n] = si
+                spans.append((off, n))
+                off += n
+        self.words = words
+        self.ctr_words = ks
+        self.slot_index = slot_index
+        self.req_spans = spans
+
     def split_output(self, out_words: np.ndarray) -> list[np.ndarray]:
         """Per-request output bytes, in ``requests`` order (after
         ``materialise``). Each response is
@@ -277,19 +309,21 @@ class Batch:
 
 def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
                  key_slots: int = DEFAULT_KEY_SLOTS) -> list[Batch]:
-    """The rung-packer: group by (mode, tenant, key digest) in arrival order,
-    then pack up to ``key_slots`` groups per batch, filling to the ladder
-    ceiling and padding to the smallest rung that holds what was packed. A
-    batch is flushed when it runs out of row capacity (``span_blocks``: a
-    GCM request's J0 row counts), when a new group finds all K slots taken,
-    or when the next group's key length (round count) or mode differs."""
+    """The rung-packer: group by (mode, tenant, key digest; an ``rc4`` chunk by
+    its session, ``s<sid>``) in arrival order, then pack up to ``key_slots``
+    groups per batch, filling to the ladder ceiling and padding to the
+    smallest rung that holds what was packed. A batch is flushed when it
+    runs out of row capacity (``span_blocks``: a GCM request's J0 row
+    counts), when a new group finds all K slots taken, or when the next
+    group's key length (round count; 0 for ``rc4``) or mode differs."""
     if key_slots < 1:
         raise ValueError("key_slots must be >= 1")
     ceiling = rungs[-1]
     groups: dict[tuple, list[Request]] = {}
     order: list[tuple] = []
     for req in requests:
-        k = (req.mode, req.tenant, key_digest(req.key))
+        ident = f"s{req.sid}" if req.mode == "rc4" else key_digest(req.key)
+        k = (req.mode, req.tenant, ident)
         if k not in groups:
             groups[k] = []
             order.append(k)
@@ -315,7 +349,7 @@ def form_batches(requests: list[Request], rungs: tuple[int, ...], key_digest,
 
     for mode, tenant, digest in order:
         pending = groups[(mode, tenant, digest)]
-        nr = ROUNDS[len(pending[0].key) * 8]
+        nr = 0 if mode == "rc4" else ROUNDS[len(pending[0].key) * 8]
         if cur_nr is not None and (nr != cur_nr or mode != cur_mode):
             flush()
         if len(cur_slots) >= key_slots:

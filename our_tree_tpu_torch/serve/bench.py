@@ -1,12 +1,13 @@
 """``python -m our_tree_tpu_torch.serve.bench``: the serving benchmark.
 
-Port of the ctr, gcm, gcm-open and cbc part of ``our_tree_tpu.serve.bench``.
+Port of ``our_tree_tpu.serve.bench``.
 Closed-loop (or open-loop, ``--arrival-rate``) load against an in-process
 ``Server``: mixed request sizes, multi-tenant keys, the served-mode mix
-(``--modes``, from ``ctr``, ``gcm``, ``gcm-open`` and ``cbc``: the server
-enables and warms exactly these ladders, and each request draws its mode
-uniformly from them; ``gcm-open`` needs ``--verify-every`` > 0, since open
-traffic replays the sealed probe pairs),
+(``--modes``, from ``ctr``, ``gcm``, ``gcm-open``, ``cbc`` and ``rc4``: the
+server enables and warms exactly these ladders, and each request draws its
+mode uniformly from them, ``rc4`` aside, whose traffic is the sessions;
+``gcm-open`` needs ``--verify-every`` > 0, since open traffic replays the
+sealed probe pairs),
 p50/p95/p99 latency (per mode too, with more than ``ctr``), goodput GB/s,
 the batch-occupancy histogram, the per-lane breakdown with its health
 transitions and the dispatch's stage split. Human-readable ``#`` lines, then
@@ -18,8 +19,20 @@ sections (``config``, ``load``, ``batches``, ``coalesce``, ``occupancy``,
 GCM auth failures by mode; ``launches``: the launches during the run of the
 kernels the enabled modes call (``ctr_mk`` always, as warmup's ``ctr``
 ladder is the canary's; ``ghash_at`` with a GCM mode; ``cbc_mk`` with
-``cbc``), 0 on the CPU). It writes the artifact (those sections and the metrics snapshot)
-only to a path given with ``--artifact``.
+``cbc``; ``arc4_prga`` with ``rc4``), and of any other kernel of the port
+that launched, 0 on the CPU; ``sessions``: the session store's stats). It
+writes the artifact (those sections and the metrics snapshot) only to a
+path given with ``--artifact``.
+
+RC4 sessions (``--sessions N --session-chunks M`` with ``rc4`` in
+``--modes``): N session clients beside the ordinary traffic, every chunk
+verified against the host PRGA; the store's shape is the five
+``--session-*`` options (the JAX server's defaults). ``--min-session-hit-rate``
+and ``--min-session-replays`` gate the prefetch hit rate and the carry
+replays. The lanes' journal: ``--journal PATH`` persists quarantines (lanes
+with failure rows start quarantined), and ``--journal PATH --unquarantine
+lane:<i>`` clears the named lanes' rows (``resilience.journal.clear_failures``)
+and exits without serving.
 
 The roofline sections, as in the reference: ``--ceiling-gbps`` gives the
 ``device`` section a utilization (card-time goodput over the ceiling) and
@@ -33,11 +46,12 @@ window needs ``OT_TRACE_DIR``, where the summary, the exported trace and
 the ``cost-*.json`` records land; a window that cannot open is reported as
 not armed and the drive goes on.
 
-Exit 1 on any of: a lost request (accepted, never answered), a kernel
-library build or load after warmup, a probe whose bytes (or ``gcm`` tag)
-differ from the host reference, a coalesce efficiency below
-``--min-coalesce``. A request that answers ``auth-failed`` is an answer
-(``errors``), not a failure of the run.
+Exit 1 on any of: a lost request (accepted, never answered), a kernel library
+build or load after warmup, a probe or session chunk whose bytes (or ``gcm``
+tag) differ from the host reference, a coalesce efficiency below
+``--min-coalesce``, a prefetch hit rate below ``--min-session-hit-rate``,
+fewer carry replays than ``--min-session-replays``. A request that answers
+``auth-failed`` is an answer (``errors``), not a failure of the run.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` serves on the plain version.
 """
@@ -50,24 +64,35 @@ import json
 import sys
 
 from ..obs import costmodel, metrics, profiler, trace
-from ..ops import cuda_aes, cuda_ghash
+from ..ops import cuda_aes, cuda_arc4, cuda_ghash
 from ..resilience import degrade, watchdog
+from ..resilience import journal as journal_mod
 from . import batcher, loadgen
-from .queue import GCM_MODES, not_ported
+from .queue import GCM_MODES, unknown_modes
 from .server import Server, ServerConfig
 
 #: The kernel wrappers the served modes launch on the card, by kernel name.
 MODE_KERNELS = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
                 "cbc_mk": cuda_aes.cbc_scattered_multikey,
-                "ghash_at": cuda_ghash.ghash_at}
+                "ghash_at": cuda_ghash.ghash_at,
+                "arc4_prga": cuda_arc4.prga}
+
+#: The port's other kernel wrappers: a serve run launches none of them, and
+#: the ``launches`` section names any that did.
+OTHER_KERNELS = {"ctr_gen": cuda_aes.ctr_crypt_words_fused,
+                 "ecb_encrypt": cuda_aes.encrypt_words,
+                 "ecb_decrypt": cuda_aes.decrypt_words,
+                 "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
+                 "seq_encrypt": cuda_aes.seq_encrypt,
+                 "ghash_scan": cuda_ghash.ghash_scan}
 
 
 def mode_kernels(modes) -> dict:
     """The kernels a server of ``modes`` launches, by name: ``ctr_mk`` always
     (warmup's ``ctr`` ladder), ``ghash_at`` with a GCM mode, ``cbc_mk``
-    with ``cbc``."""
+    with ``cbc``, ``arc4_prga`` with ``rc4``."""
     used = {"ctr_mk"} | ({"ghash_at"} if set(modes) & set(GCM_MODES) else set()) | (
-        {"cbc_mk"} if "cbc" in modes else set())
+        {"cbc_mk"} if "cbc" in modes else set()) | ({"arc4_prga"} if "rc4" in modes else set())
     return {name: fn for name, fn in MODE_KERNELS.items() if name in used}
 
 
@@ -88,8 +113,13 @@ async def _drive(args, probes):
         max_bucket_blocks=args.bucket_max, key_slots=args.key_slots,
         max_depth=args.queue_depth, request_deadline_s=args.deadline,
         dispatch_deadline_s=args.dispatch_deadline, retries=args.retries, lanes=args.lanes,
-        probe_every=args.probe_every, max_inflight=args.max_inflight,
-        ceiling_gbps=args.ceiling_gbps, modes=args.modes)
+        probe_every=args.probe_every, journal=args.journal, max_inflight=args.max_inflight,
+        ceiling_gbps=args.ceiling_gbps, modes=args.modes,
+        session_window_bytes=args.session_window_bytes,
+        session_quantum_bytes=args.session_quantum_bytes,
+        session_prefetch_slots=args.session_prefetch_slots,
+        session_budget_bytes=args.session_budget_bytes,
+        session_per_tenant=args.session_per_tenant)
     server = Server(cfg)
     await server.start()
     arm_task = None
@@ -100,7 +130,7 @@ async def _drive(args, probes):
         server, args.requests, concurrency=args.concurrency, sizes=args.sizes,
         tenants=args.tenants, keys_per_tenant=args.keys_per_tenant, seed=args.seed,
         verify_every=args.verify_every, probes=probes, arrival_rate=args.arrival_rate,
-        modes=args.modes)
+        modes=args.mix_modes, session_scripts=args.session_scripts)
     if arm_task is not None and not arm_task.done():
         arm_task.cancel()  # the drive ended before the window's offset
         try:
@@ -126,7 +156,7 @@ def _lane_summary(stats: dict, wall_s: float) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m our_tree_tpu_torch.serve.bench",
                                  description="closed-loop serving benchmark of the port "
-                                             "(ctr, gcm, gcm-open, cbc)")
+                                             "(ctr, gcm, gcm-open, cbc, rc4 sessions)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
     ap.add_argument("--engine", default="auto",
@@ -150,10 +180,10 @@ def parse_args(argv=None):
                     help="many tenants, one key each, sizes "
                          f"{loadgen.TENANT_HEAVY_SIZES}: full rungs only from multi-key packing")
     ap.add_argument("--modes", default="ctr", metavar="M1,M2",
-                    help="served-mode mix (comma list from ctr, gcm, gcm-open, cbc): the "
+                    help="served-mode mix (comma list from ctr, gcm, gcm-open, cbc, rc4): the "
                          "server enables and warms exactly these ladders, and each request "
-                         "draws its mode uniformly from them; gcm probes pin ciphertext and "
-                         "tag against the host GCM")
+                         "draws its mode uniformly from them (rc4 aside: its traffic is "
+                         "--sessions); gcm probes pin ciphertext and tag against the host GCM")
     ap.add_argument("--key-slots", type=int, default=batcher.DEFAULT_KEY_SLOTS, metavar="K")
     ap.add_argument("--bucket-min", type=int, default=batcher.DEFAULT_MIN_BLOCKS,
                     metavar="BLOCKS")
@@ -171,6 +201,29 @@ def parse_args(argv=None):
     ap.add_argument("--lanes", type=int, default=None, metavar="N",
                     help="dispatch lanes (default: one per visible card)")
     ap.add_argument("--probe-every", type=int, default=8, metavar="BATCHES")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="serve journal: lane quarantines persist there, and lanes with "
+                         "failure rows start quarantined")
+    ap.add_argument("--unquarantine", action="append", default=None, metavar="LANE",
+                    help="release the named lane (e.g. lane:1) by clearing its failure rows "
+                         "from --journal (repeatable), then exit without serving")
+    ap.add_argument("--sessions", type=int, default=0, metavar="N",
+                    help="run N concurrent rc4 sessions beside the ordinary traffic (needs rc4 "
+                         "in --modes); every chunk is verified against the host PRGA")
+    ap.add_argument("--session-chunks", type=int, default=8, metavar="M",
+                    help="data chunks a session (default 8)")
+    ap.add_argument("--session-chunk-bytes", default="256,1024,4096", metavar="B1,B2",
+                    help="the chunk sizes the session scripts cycle through (16-byte multiples)")
+    ap.add_argument("--session-window-bytes", type=int, default=65536)
+    ap.add_argument("--session-quantum-bytes", type=int, default=4096)
+    ap.add_argument("--session-prefetch-slots", type=int, default=8)
+    ap.add_argument("--session-budget-bytes", type=int, default=8 << 20)
+    ap.add_argument("--session-per-tenant", type=int, default=16)
+    ap.add_argument("--min-session-hit-rate", type=float, default=None, metavar="FRAC",
+                    help="exit 1 if the keystream prefetch hit rate ends below FRAC")
+    ap.add_argument("--min-session-replays", type=int, default=None, metavar="N",
+                    help="exit 1 unless at least N keystream refills were replayed from a "
+                         "carry on another lane")
     ap.add_argument("--verify-every", type=int, default=8,
                     help="every Nth request replays a pinned probe (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
@@ -193,12 +246,31 @@ def parse_args(argv=None):
         except ValueError:
             ap.error(f"--profile-window wants START:DUR seconds, got {args.profile_window!r}")
     args.modes = tuple(m.strip() for m in args.modes.split(",") if m.strip()) or ("ctr",)
-    why = not_ported(args.modes)
+    why = unknown_modes(args.modes)
     if why is not None:
         ap.error(why)
     if "gcm-open" in args.modes and not args.verify_every:
         ap.error("--modes gcm-open requires --verify-every > 0: open traffic replays the "
                  "per-size sealed probe pairs (a made-up tag would answer auth-failed)")
+    if args.sessions and "rc4" not in args.modes:
+        ap.error("--sessions requires rc4 in --modes: session traffic is the rc4 mode")
+    try:
+        args.session_chunk_bytes = tuple(int(b) for b in args.session_chunk_bytes.split(",")
+                                         if b)
+    except ValueError:
+        ap.error(f"--session-chunk-bytes wants a comma list of byte counts, got "
+                 f"{args.session_chunk_bytes!r}")
+    if any(b <= 0 or b % 16 for b in args.session_chunk_bytes):
+        ap.error("--session-chunk-bytes must be positive 16-byte multiples (the queue refuses "
+                 "partial blocks)")
+    # rc4 never rides the uniform mode draw (a chunk needs an open session):
+    # the server enables it, the random mix and the probes leave it out.
+    args.mix_modes = tuple(m for m in args.modes if m != "rc4") or ("ctr",)
+    if args.modes == ("rc4",) and args.requests:
+        ap.error("--modes rc4 alone serves only session traffic: pass --requests 0, or add a "
+                 "stateless mode for the ordinary mix (e.g. --modes ctr,rc4)")
+    if args.unquarantine and not args.journal:
+        ap.error("--unquarantine requires --journal (the ledger being edited)")
     if args.tenant_heavy:
         args.sizes = loadgen.TENANT_HEAVY_SIZES
         args.tenants = max(args.tenants, 24)
@@ -215,16 +287,31 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.unquarantine:
+        trace.ensure_run()
+        cleared = journal_mod.clear_failures(args.journal, args.unquarantine)
+        for unit, n in sorted(cleared.items()):
+            if n:
+                trace.point("quarantine-release", unit=unit, cleared=n)
+            print(f"# unquarantine: {unit}: cleared {n} failure row(s)"
+                  + ("" if n else " (none recorded)"))
+        return 0
     trace.ensure_run()
     metrics.reset()
-    # Reference outputs before the server starts (host T-table, no kernel).
-    probes = (loadgen.make_probes(args.sizes, args.seed, args.modes) if args.verify_every
+    # Reference outputs before the server starts (host T-table and host
+    # PRGA, no kernel).
+    probes = (loadgen.make_probes(args.sizes, args.seed, args.mix_modes) if args.verify_every
               else [])
+    args.session_scripts = (loadgen.make_session_probes(
+        args.sessions, args.session_chunks, args.seed, chunk_sizes=args.session_chunk_bytes,
+        tenants=args.tenants) if args.sessions else None)
     profile_before = profiler.last_summary()
-    kernels = mode_kernels(args.modes)
+    kernels = {**mode_kernels(args.modes), **OTHER_KERNELS}
     launches_before = {name: fn.launches for name, fn in kernels.items()}
     server, report = asyncio.run(_drive(args, probes))
-    launches = {name: fn.launches - launches_before[name] for name, fn in kernels.items()}
+    used = mode_kernels(args.modes)
+    launches = {name: fn.launches - launches_before[name] for name, fn in kernels.items()
+                if name in used or fn.launches != launches_before[name]}
     stats = server.stats()
     lanes = _lane_summary(stats, report.wall_s)
     lost = stats["queue"]["lost"]
@@ -268,6 +355,19 @@ def main(argv=None) -> int:
                   f"engine calls={per_mode['engine_calls'].get(m, 0)}, device "
                   f"{per_mode['device_us_per_dispatch'].get(m, 0.0)} µs a dispatch, window "
                   f"p50 {per_mode['window_p50_us'].get(m, 0.0)} µs")
+    # The session plane: the store's view beside the scripts' outcomes
+    # (load.sessions); the refills are the rc4-prep dispatches.
+    sess_stats = stats["sessions"]
+    if args.sessions and sess_stats is not None:
+        pf = sess_stats["prefetch"]
+        hr = pf["hit_rate"]
+        print(f"# sessions: opened={sess_stats['opened']} closed={sess_stats['closed']} "
+              f"chunks={sess_stats['chunks']} evicted={sess_stats['evicted']} "
+              f"shed={sess_stats['shed']} prefetch: dispatches={pf['dispatches']} "
+              f"hit_rate={'n/a' if hr is None else f'{hr:.4f}'} stalls={pf['stalls']} "
+              f"replays={pf['replays']}; rc4-prep engine calls="
+              f"{per_mode['engine_calls'].get('rc4-prep', 0)}, device "
+              f"{per_mode['device_us_per_dispatch'].get('rc4-prep', 0.0)} µs a refill")
     print(f"# batches={stats['batches']} failed={stats['batches_failed']} "
           f"timed_out={stats['batches_timed_out']} redispatches={lanes['redispatches']} "
           f"quarantines={lanes['quarantine_events']} engine_calls={lanes['engine_calls']} "
@@ -365,9 +465,15 @@ def main(argv=None) -> int:
                    "lanes": lanes["count"], "probe_every": args.probe_every,
                    "max_inflight": args.max_inflight, "arrival_rate": args.arrival_rate,
                    "seed": args.seed, "ceiling_gbps": args.ceiling_gbps,
-                   "modes": list(args.modes),
+                   "modes": list(args.modes), "journal": args.journal,
                    "profile_window": (list(args.profile_window) if args.profile_window
-                                      else None)},
+                                      else None),
+                   **({"sessions": args.sessions, "session_chunks": args.session_chunks,
+                       "session_chunk_bytes": list(args.session_chunk_bytes),
+                       "session_quantum_bytes": args.session_quantum_bytes,
+                       "session_prefetch_slots": args.session_prefetch_slots,
+                       "session_window_bytes": args.session_window_bytes}
+                      if args.sessions else {})},
         "per_mode": per_mode,
         "launches": launches,
         "load": report.to_json(),
@@ -379,6 +485,7 @@ def main(argv=None) -> int:
         "queue": stats["queue"],
         "keycache": stats["keycache"],
         "compiles": stats["compiles"],
+        "sessions": sess_stats,
         "stages": stages,
         "device": device,
         "cost": cost,
@@ -411,6 +518,15 @@ def main(argv=None) -> int:
                  "verified": report.verified})
     if args.modes != ("ctr",):
         line["modes"] = {m: int(n) for m, n in per_mode["requests"].items()}
+    if args.sessions and sess_stats is not None:
+        pf = sess_stats["prefetch"]
+        line["sessions"] = {
+            "opened": sess_stats["opened"], "closed": sess_stats["closed"],
+            "chunks": sess_stats["chunks"], "evicted": sess_stats["evicted"],
+            "shed": sess_stats["shed"], "hit_rate": pf["hit_rate"], "stalls": pf["stalls"],
+            "replays": pf["replays"], "prefetch_dispatches": pf["dispatches"],
+            **{k: int(v) for k, v in report.sessions.items()
+               if k in ("open_failed", "chunk_failed", "mismatches") and v}}
     if degrade.events():
         line["degraded"] = degrade.events()
     if trace.enabled():
@@ -432,6 +548,18 @@ def main(argv=None) -> int:
     if args.min_coalesce is not None and coal["efficiency"] < args.min_coalesce:
         print(f"# FAIL: coalesce_efficiency {coal['efficiency']:.4f} < {args.min_coalesce}",
               file=sys.stderr)
+        rc = 1
+    pf = (sess_stats or {}).get("prefetch", {})
+    if args.min_session_hit_rate is not None:
+        hr = pf.get("hit_rate")
+        if hr is None or hr < args.min_session_hit_rate:
+            print(f"# FAIL: keystream prefetch hit rate {'n/a' if hr is None else f'{hr:.4f}'} "
+                  f"< {args.min_session_hit_rate}: chunks waited on demand refills",
+                  file=sys.stderr)
+            rc = 1
+    if args.min_session_replays is not None and pf.get("replays", 0) < args.min_session_replays:
+        print(f"# FAIL: {pf.get('replays', 0)} keystream carry replay(s) < "
+              f"{args.min_session_replays}: the replay path never ran", file=sys.stderr)
         rc = 1
     return rc
 

@@ -9,32 +9,52 @@ sees an error. CTR with explicit per-block counters, and CBC decrypt with
 its PREV stream laid out by the batcher, make replay free of side effects:
 a batch is a pure function of (words, counters or PREV, schedules, slots,
 and for GCM its segment arrays and named rows) and can run anywhere, twice,
-with identical bytes.
+with identical bytes. The rc4 session seams are pure functions of their
+arrays too: the XOR of payload and keystream words, and the batched PRGA
+from its carries, so a refill replayed on another lane gives the same
+keystream.
 
 This module is the only place in ``serve/`` that touches a device.
 ``Lane.engine_call`` runs on the lane's worker thread (``serve/dispatch.py``)
 under the lane's watchdog deadline: it makes the lane's card and stream
 current on that thread, stages the batch arrays there (int32 views of the
-batcher's uint32 arrays; copies from pageable host memory), calls the
-batch's mode's seam (``ctr``: ``aes.ctr_crypt_words_scattered_multikey``,
-the ``ctr_mk`` kernel on the CUDA engine; ``cbc``:
+batcher's uint32 arrays; copies from pageable host memory), calls the batch's
+mode's seam (``ctr``: ``aes.ctr_crypt_words_scattered_multikey``, the
+``ctr_mk`` kernel on the CUDA engine; ``cbc``:
 ``aes.cbc_decrypt_words_scattered_multikey`` with the stack's decrypt
 schedules, the ``cbc_mk`` kernel; ``gcm``/``gcm-open``:
 ``aead.gcm.gcm_crypt_ghash_words`` sealing or opening, with the batch's
 ``inject_words``, ``seg_keep`` and named ``rows`` and the stack's H words,
-``ctr_mk`` and then ``ghash_at``), records CUDA events around it, fences
-with a stream synchronize and copies the output back. A GCM engine call
+``ctr_mk`` and then ``ghash_at``; ``rc4``: ``models.arc4.xor_words``, the
+payload words XOR the keystream words the batcher put in ``ctr_words``, a
+torch elementwise op; ``rc4-prep``: ``models.arc4.prep_batch_words`` over the
+(S*256,) permutation stack in ``words`` and the (2S,) x/y stack in
+``ctr_words``, one ``arc4_prga`` launch, returning the (S, 258 + L/4) rows of
+carries and keystream; both ignore ``sched``), records CUDA events around it,
+fences with a stream synchronize and copies the output back. A GCM engine call
 returns the CTR output and the named rows' GHASH states, ``(out, ys)``: the
 port's own layout, where the JAX lane returns a (2, 4N) stack of the output
 and every row's state. Staging, the ``device`` stage, failover replay and
 the (``ctr``-shaped) canary do not depend on the mode; the dispatch metrics
 carry it as a label. Every traffic dispatch enters the incident recorder's
 ring (``obs/incident.py``), and a watchdog kill or a quarantine triggers a
-bundle. The reference's fault seams and journal-backed quarantine are not
-carried over.
+bundle.
+
+The fault seams (``resilience/faults.py``), as in the reference, sit inside
+the watchdog deadline and fire for traffic and canaries, never at warmup:
+``serve_dispatch``, ``dispatch_fail``, ``lane_fail`` (``@lane=<i>`` first,
+then the plain point), ``dispatch_hang``, ``lane_hang`` (scoped shot first,
+the plain one only if it did not fire: one shot a dispatch at most) and
+``dispatch_slow``. A call stopped by a seam never reaches its kernel, so
+``engine_calls_by_mode`` counts a call after the seams: each counted call is
+one launch of its mode's kernels on the card.
 
 Health state machine (every transition is a ``lane-state`` trace point;
-quarantine also stamps ``quarantined:lane:<i>`` through ``degrade``)::
+quarantine also stamps ``quarantined:lane:<i>`` through ``degrade`` and
+appends a failure row to the serve journal, the same record
+``resilience.journal`` keeps for sweep units, so ``clear_failures`` and
+``serve.bench --unquarantine lane:<i>`` release it, and a journal written
+by either package is read and cleared by the other)::
 
     healthy ──failure──> suspect ──failure──> quarantined
        ^                    │ clean batch        │  canary ok
@@ -49,7 +69,10 @@ lane holds one batch at a time. A quarantined lane is probed every
 ``probe_every`` batches with the warmup-shaped canary, whose output was
 pinned at warmup, and released into probation on a bit-exact answer. With
 no placeable lane left, quarantined lanes are probed before a batch fails,
-so a one-lane server heals after a transient hang.
+so a one-lane server heals after a transient hang. A pool built with a
+journal adopts its rows at start (``adopt_journal_quarantines``): a lane
+with a failure row starts quarantined (``journal:<n>``), is warmed after
+the trusted lanes, and a canary can release it.
 
 A hung dispatch: a running CUDA kernel cannot be killed. At the deadline
 the watchdog fails the dispatch's future and the executor abandons the
@@ -69,9 +92,9 @@ import numpy as np
 import torch
 
 from ..aead import gcm as aead_gcm
-from ..models import aes
+from ..models import aes, arc4
 from ..obs import incident, metrics, trace
-from ..resilience import degrade, watchdog
+from ..resilience import degrade, faults, watchdog
 from ..resilience.policy import RetryPolicy
 from .dispatch import LaneExecutor
 from .queue import GCM_MODES
@@ -96,18 +119,34 @@ def _gcm_seam(direction: str):
     return seam
 
 
-#: The seam each served mode dispatches to, and the stack's schedules it reads.
+def _rc4_xor(words, ks_words, nr, engine):
+    """The rc4 crypt phase: payload words XOR keystream words."""
+    aes.note_seam_call("rc4", engine, 0, words.device)
+    return arc4.xor_words(words, ks_words)
+
+
+def _rc4_prep(m_words, xy_words, nr, engine, prep_len):
+    """The rc4 keystream refill: the batched PRGA from the carries."""
+    aes.note_seam_call("rc4-prep", engine, 0, m_words.device)
+    return arc4.prep_batch_words(m_words, xy_words, int(prep_len))
+
+
+#: The seam each served mode dispatches to, and the stack's schedules it reads
+#: (None: the rc4 seams take no schedules).
 _SEAMS = {"ctr": (aes.ctr_crypt_words_scattered_multikey, "rks"),
           "gcm": (_gcm_seam(aead_gcm.SEAL), "rks"),
           "gcm-open": (_gcm_seam(aead_gcm.OPEN), "rks"),
-          "cbc": (aes.cbc_decrypt_words_scattered_multikey, "rks_dec")}
+          "cbc": (aes.cbc_decrypt_words_scattered_multikey, "rks_dec"),
+          "rc4": (_rc4_xor, None),
+          "rc4-prep": (_rc4_prep, None)}
 
 #: The pinned canary batch: inputs, the expected output and its rung.
 _Canary = collections.namedtuple("_Canary", "words ctr_words sched key_slots expected bucket")
 
 
 def lane_unit(idx: int) -> str:
-    """The lane's name in quarantine trace points and degrade kinds."""
+    """The lane's name in the journal's failure rows, quarantine trace
+    points and degrade kinds."""
     return f"lane:{idx}"
 
 
@@ -158,9 +197,11 @@ class Lane:
         self.policy = RetryPolicy(attempts=max(int(retries), 1), base_delay_s=0.0,
                                   retry_on=(RuntimeError,), name=f"lane{idx}-dispatch")
         self.dispatches = 0
-        #: every engine call by mode (warmup, traffic, retries, canaries):
-        #: on the CUDA engine, one kernel call each (``ctr_mk`` for ``ctr``,
-        #: ``cbc_mk`` for ``cbc``), two for GCM (``ctr_mk``, ``ghash_at``)
+        #: every engine call by mode that passed the fault seams (warmup,
+        #: traffic, retries, canaries): on the CUDA engine, one kernel call
+        #: each (``ctr_mk`` for ``ctr``, ``cbc_mk`` for ``cbc``,
+        #: ``arc4_prga`` for ``rc4-prep``, the torch XOR for ``rc4``), two
+        #: for GCM (``ctr_mk``, ``ghash_at``)
         self.engine_calls_by_mode: dict[str, int] = {}
         self.blocks = 0
         self.failures = 0
@@ -204,7 +245,7 @@ class Lane:
         metrics.gauge("serve_lane_placeable", 1 if new in PLACEABLE else 0, lane=self.idx)
         trace.point("lane-state", lane=self.idx, prev=old, to=new, why=why)
 
-    def _quarantine(self, why: str) -> None:
+    def _quarantine(self, why: str, journal) -> None:
         came_from = self.state
         self._to(QUARANTINED, why)
         if came_from == QUARANTINED:
@@ -212,9 +253,23 @@ class Lane:
         trace.point("quarantine", unit=lane_unit(self.idx), lane=self.idx, reason=why)
         degrade.degrade(f"quarantined:{lane_unit(self.idx)}",
                         f"lane {self.idx} ({self.device}): {why}")
+        if journal is not None:
+            journal.record_failure(lane_unit(self.idx), why)
         # An incident; the trigger's cooldown makes a kill and the
         # quarantine it causes one bundle.
         incident.trigger("quarantine", unit=lane_unit(self.idx), lane=self.idx, why=why)
+
+    def adopt_journal_quarantine(self, fails: int) -> None:
+        """Start quarantined from ``fails`` failure rows on the journal (no
+        new row: the evidence is on file). The lane is still warmed, so a
+        canary can release it."""
+        self._to(QUARANTINED, f"journal:{fails}")
+        trace.point("quarantine", unit=lane_unit(self.idx), lane=self.idx,
+                    reason=f"journal:{fails}")
+        degrade.degrade(f"quarantined:{lane_unit(self.idx)}",
+                        f"lane {self.idx}: {fails} failure row(s) on the serve journal "
+                        f"(release: canary probe or serve.bench --unquarantine "
+                        f"{lane_unit(self.idx)})")
 
     def note_success(self, blocks: int, redispatch: bool, probation_batches: int) -> None:
         self.dispatches += 1
@@ -230,48 +285,69 @@ class Lane:
                 trace.point("quarantine-release", unit=lane_unit(self.idx), lane=self.idx)
                 self._to(HEALTHY, "released")
 
-    def note_failure(self, exc: BaseException) -> None:
+    def note_failure(self, exc: BaseException, journal) -> None:
         self.failures += 1
         if self.state == HEALTHY:
             self._to(SUSPECT, type(exc).__name__)
         else:
-            self._quarantine(type(exc).__name__)
+            self._quarantine(type(exc).__name__, journal)
 
-    def note_timeout(self, exc: BaseException) -> None:
+    def note_timeout(self, exc: BaseException, journal) -> None:
         # A hang is never transient: quarantined from any state.
         self.timeouts += 1
-        self._quarantine("dispatch-timeout")
+        self._quarantine("dispatch-timeout", journal)
 
     # -- the one device-dispatch seam in serve/ ----------------------------
     def engine_call(self, words, ctr_words, sched, key_slots, label: str,
                     warmup: bool = False, timing: dict | None = None,
-                    mode: str = "ctr", inject_words=None, seg_keep=None, rows=None):
+                    mode: str = "ctr", inject_words=None, seg_keep=None, rows=None,
+                    prep_len: int | None = None):
         """One multi-key dispatch on this lane's device, on the calling
         (worker) thread, under this lane's watchdog deadline. ``words`` and
-        ``ctr_words`` (counters, or ``cbc``'s PREV stream) are flat (4N,)
-        uint32, ``sched`` the keycache's ``StackedSchedules`` (with
-        ``rks_dec`` for ``cbc``, ``hmats`` for GCM), ``key_slots`` the (N,)
-        slot vector; ``mode`` picks the seam. A GCM call also takes the
-        batch's (4N,) ``inject_words``, (N,) ``seg_keep`` and sorted (E,)
-        ``rows`` (checked here, on the host). Returns the (4N,) uint32
-        output, and for GCM ``(out, ys)`` with the (E, 4) uint32 states at
-        ``rows``. Warmup runs under the global opt-in deadline (a first
-        contact legitimately dwarfs a steady dispatch), except on a
-        quarantined lane."""
+        ``ctr_words`` (counters, or ``cbc``'s PREV stream, or ``rc4``'s
+        keystream words) are flat (4N,) uint32, ``sched`` the keycache's
+        ``StackedSchedules`` (with ``rks_dec`` for ``cbc``, ``hmats`` for
+        GCM; None for the rc4 modes), ``key_slots`` the (N,) slot vector;
+        ``mode`` picks the seam. A GCM call also takes the batch's (4N,)
+        ``inject_words``, (N,) ``seg_keep`` and sorted (E,) ``rows``
+        (checked here, on the host); an ``rc4-prep`` call takes the (S*256,)
+        permutation stack in ``words``, the (2S,) x/y stack in ``ctr_words``
+        and the bytes a session, ``prep_len``. Returns the (4N,) uint32
+        output, for GCM ``(out, ys)`` with the (E, 4) uint32 states at
+        ``rows``, for ``rc4-prep`` the (S, 258 + prep_len/4) uint32 rows.
+        Warmup runs under the global opt-in deadline (a first contact
+        legitimately dwarfs a steady dispatch), except on a quarantined
+        lane; the fault seams fire for every call but warmup's."""
         seam, rks_name = _SEAMS[mode]
-        arrays = (words, ctr_words, getattr(sched, rks_name), key_slots)
-        extra = {}
+        extra, nr = {}, 0
+        if rks_name is None:
+            arrays = (words, ctr_words)
+            if mode == "rc4-prep":
+                extra = {"prep_len": int(prep_len)}
+        else:
+            arrays = (words, ctr_words, getattr(sched, rks_name), key_slots)
+            nr = sched.nr
         if mode in GCM_MODES:
             arrays += (inject_words, seg_keep)
             extra = {"hmats": sched.hmats, "rows": _check_rows(rows, len(key_slots))}
         deadline_s = (self.deadline_s if (not warmup or self.state == QUARANTINED)
                       else watchdog.default_deadline_s())
-        self.engine_calls_by_mode[mode] = self.engine_calls_by_mode.get(mode, 0) + 1
         with watchdog.deadline(deadline_s, what=f"lane {self.idx} dispatch {label}"):
+            if not warmup:
+                faults.check("serve_dispatch", label)
+                faults.check("dispatch_fail", label)
+                faults.check_lane("lane_fail", self.idx, label)
+                watchdog.injected_hang("dispatch_hang", label)
+                # The scoped shot first, the plain one only if it did not
+                # fire: a dispatch takes at most one lane_hang shot.
+                if not watchdog.injected_hang(faults.scoped("lane_hang", self.idx), label):
+                    watchdog.injected_hang("lane_hang", label)
+                faults.injected_slow("dispatch_slow", label)
+            self.engine_calls_by_mode[mode] = self.engine_calls_by_mode.get(mode, 0) + 1
             if self.stream is None:
-                return self._call_cpu(seam, arrays, extra, sched.nr, timing)
+                return self._call_cpu(seam, arrays, extra, nr, timing)
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-                return self._call_cuda(seam, arrays, extra, sched.nr, timing)
+                return self._call_cuda(seam, arrays, extra, nr, timing)
 
     @staticmethod
     def _result(out):
@@ -336,11 +412,12 @@ class LanePool:
 
     ``lanes=None`` gives one lane per visible device of ``device``'s type
     (one lane on the CPU); an explicit count may exceed it, and the lanes
-    then share devices round-robin, each with its own stream."""
+    then share devices round-robin, each with its own stream. ``journal``
+    (a ``resilience.journal.SweepJournal``) persists quarantines."""
 
     def __init__(self, engine: str, device: torch.device, deadline_s: float = 0.0,
                  retries: int = 2, lanes: int | None = None, probe_every: int = 8,
-                 probation_batches: int = 2, clock=time.monotonic):
+                 probation_batches: int = 2, journal=None, clock=time.monotonic):
         device = torch.device(device)
         if device.type == "cuda":
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -350,6 +427,7 @@ class LanePool:
         self.engine = engine
         self.lanes = [Lane(i, devices[i % len(devices)], engine, deadline_s, retries, clock)
                       for i in range(n)]
+        self.journal = journal
         self.probe_every = max(int(probe_every), 1)
         self.probation_batches = max(int(probation_batches), 1)
         self.redispatches = 0
@@ -384,6 +462,20 @@ class LanePool:
         ``_change`` before re-checking placement, so no pulse is missed)."""
         ev, self._change = self._change, asyncio.Event()
         ev.set()
+
+    # -- journal resume ----------------------------------------------------
+    def adopt_journal_quarantines(self) -> list[int]:
+        """Quarantine every lane with a failure row on the journal (serve
+        journals only quarantine-grade events); the adopted indices."""
+        if self.journal is None:
+            return []
+        adopted = []
+        for lane in self.lanes:
+            fails = self.journal.fail_count(lane_unit(lane.idx))
+            if fails > 0:
+                lane.adopt_journal_quarantine(fails)
+                adopted.append(lane.idx)
+        return adopted
 
     # -- placement ---------------------------------------------------------
     def placeable(self, exclude=()) -> list[Lane]:
@@ -473,14 +565,15 @@ class LanePool:
     # -- dispatch with failover --------------------------------------------
     async def dispatch(self, words, ctr_words, sched, key_slots, label: str, bucket: int,
                        blocks: int, requests: int, sampled: bool = True, mode: str = "ctr",
-                       inject_words=None, seg_keep=None, rows=None):
-        """Place and run one batch of ``mode`` (GCM with its segment arrays
-        and named rows), failing over across lanes until it succeeds or every
-        lane has been tried. Returns (output, lane, redispatches), the
-        output as ``Lane.engine_call`` gives it; raises ``LanesExhausted``
-        only when no lane could serve it. The dispatch window's parts
-        (worker wait, staging, card, host rest) go to the
-        ``serve_stage_us`` histograms."""
+                       inject_words=None, seg_keep=None, rows=None,
+                       prep_len: int | None = None):
+        """Place and run one batch of ``mode`` (GCM with its segment arrays and
+        named rows, ``rc4-prep`` with its bytes a session), failing over
+        across lanes until it succeeds or every lane has been tried. Returns
+        (output, lane, redispatches), the output as ``Lane.engine_call``
+        gives it; raises ``LanesExhausted`` only when no lane could serve
+        it. The dispatch window's parts (worker wait, staging, card, host
+        rest) go to the ``serve_stage_us`` histograms."""
         causes: list = []
         tried: set[int] = set()
         while True:
@@ -516,7 +609,8 @@ class LanePool:
                 attempt_timing["worker_wait_us"] = int((lane._clock() - t0) * 1e6)
                 return lane.policy.run(lambda att: lane.engine_call(
                     words, ctr_words, sched, key_slots, label, timing=attempt_timing,
-                    mode=mode, inject_words=inject_words, seg_keep=seg_keep, rows=rows))
+                    mode=mode, inject_words=inject_words, seg_keep=seg_keep, rows=rows,
+                    prep_len=prep_len))
 
             try:
                 out = await lane.run_async(unit)
@@ -534,7 +628,7 @@ class LanePool:
                                 outcome="timeout", device_us=0,
                                 wall_us=int((lane._clock() - t0) * 1e6), batch=label)
                 incident.trigger("watchdog-kill", lane=lane.idx, rung=bucket, batch=label)
-                lane.note_timeout(e)
+                lane.note_timeout(e, self.journal)
                 causes.append((lane.idx, e))
                 tried.add(lane.idx)
                 continue
@@ -546,7 +640,7 @@ class LanePool:
                 incident.record(lane=lane.idx, rung=bucket, engine=self.engine, mode=mode,
                                 outcome="failed", device_us=0,
                                 wall_us=int((lane._clock() - t0) * 1e6), batch=label)
-                lane.note_failure(e)
+                lane.note_failure(e, self.journal)
                 causes.append((lane.idx, e))
                 tried.add(lane.idx)
                 continue

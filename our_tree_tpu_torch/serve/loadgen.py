@@ -1,7 +1,6 @@
 """Closed- and open-loop load generators for the serve path.
 
-Port of ``our_tree_tpu.serve.loadgen`` for the ``ctr``, ``gcm``, ``gcm-open``
-and ``cbc`` modes.
+Port of ``our_tree_tpu.serve.loadgen``, every served mode.
 Closed loop (the default): ``concurrency`` clients each draw a (size, mode,
 tenant, key) from a seeded generator, submit, await, repeat. Open loop
 (``arrival_rate=R``): one request every 1/R seconds whatever the service
@@ -31,6 +30,15 @@ N-th request is a pinned ``ctr`` probe above the top rung
 (``serve/transfer.py``), always verified against its single-shot reference
 and tallied in ``LoadReport.transfers``.
 
+RC4 sessions (``sessions=N``, ``session_chunks=M``): N session clients run
+beside the ordinary ones, each opening its session, sending M data chunks
+and closing it (``session_client``). Every chunk is verified against its
+pinned script (``make_session_probes``: keys and payloads from the seed,
+the expected bytes from the host PRGA ``models.arc4.keystream_np``). The
+stream is stateful, so a failed chunk ends its session's script. The
+chunks join the request totals and the ``rc4`` latencies;
+``LoadReport.sessions`` tallies the scripts.
+
 Percentiles are nearest-rank over the full sample, and per mode when the mix
 holds more than ``ctr``; goodput counts OK payload bytes only.
 """
@@ -45,6 +53,7 @@ import numpy as np
 
 from ..aead import ghash as aead_ghash
 from ..models.aes import AES, AES_ENCRYPT, TTABLE_ENGINE
+from ..models.arc4 import key_schedule, keystream_np
 from ..obs import metrics as obs_metrics
 
 #: The mixed-size menu (bytes): one block to the default bucket ceiling.
@@ -98,6 +107,10 @@ class LoadReport:
     #: ``transfer`` section): requests, ok, chunks_sent, redispatched; empty
     #: when the drive sent none
     transfers: dict = field(default_factory=dict)
+    #: the rc4 session scripts' tallies (sessions, opened, chunks, verified,
+    #: closed, and open_failed, chunk_failed, mismatches when nonzero);
+    #: empty when the drive ran no sessions
+    sessions: dict = field(default_factory=dict)
 
     def finish(self, wall_s: float, ok_bytes: int) -> None:
         self.wall_s = wall_s
@@ -121,7 +134,8 @@ class LoadReport:
                 "mismatches": self.mismatches, "wall_s": round(self.wall_s, 3),
                 "goodput_gbps": round(self.goodput_gbps, 4), "p50_ms": self.p50_ms,
                 "p95_ms": self.p95_ms, "p99_ms": self.p99_ms,
-                **({"transfers": dict(self.transfers)} if self.transfers else {})}
+                **({"transfers": dict(self.transfers)} if self.transfers else {}),
+                **({"sessions": dict(self.sessions)} if self.sessions else {})}
 
 
 def _np_cbc_encrypt(key: bytes, iv16: bytes, pt: bytes) -> bytes:
@@ -190,12 +204,49 @@ def make_transfer_probes(sizes, seed: int) -> list[Probe]:
     return probes
 
 
+@dataclass
+class SessionScript:
+    """One pinned rc4 session: its key, its chunks' payloads and each
+    chunk's expected bytes (the stream is stateful, so the unit of
+    verification is the ordered script)."""
+
+    tenant: str
+    sid: int
+    key: bytes
+    payloads: list
+    expected: list
+
+
+def make_session_probes(sessions: int, chunks: int, seed: int, chunk_sizes=(256, 1024, 4096),
+                        tenants: int = 4) -> list[SessionScript]:
+    """Pinned session scripts with expected bytes from the host PRGA
+    (``keystream_np``). Chunk sizes cycle the menu with a phase a session, so
+    concurrent sessions' chunks land on different rungs; every size is a
+    multiple of 16 bytes. The draws follow the JAX loadgen's."""
+    rng = np.random.default_rng(seed ^ 0x2545F491)
+    scripts = []
+    for s in range(int(sessions)):
+        key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+        state = (0, 0, key_schedule(key))
+        payloads, expected = [], []
+        for c in range(int(chunks)):
+            size = int(chunk_sizes[(s + c) % len(chunk_sizes)])
+            data = rng.integers(0, 256, size, dtype=np.uint8)
+            ks, state = keystream_np(state, size)
+            payloads.append(data)
+            expected.append(np.bitwise_xor(data, ks))
+        scripts.append(SessionScript(f"t{s % max(int(tenants), 1)}", s, key, payloads, expected))
+    return scripts
+
+
 async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
               tenants: int = 4, keys_per_tenant: int = 2, seed: int = 0,
               verify_every: int = 8, deadline_s: float | None = None,
               probes: list[Probe] | None = None, arrival_rate: float | None = None,
               modes=("ctr",), transfer_sizes=(), transfer_every: int = 0,
-              transfer_probes: list[Probe] | None = None,
+              transfer_probes: list[Probe] | None = None, sessions: int = 0,
+              session_chunks: int = 0, session_chunk_bytes=(256, 1024, 4096),
+              session_scripts: list[SessionScript] | None = None,
               clock=time.monotonic) -> LoadReport:
     """Drive ``server`` with ``n_requests`` in total; the aggregated report.
     ``arrival_rate=None``: ``concurrency`` closed-loop clients;
@@ -203,7 +254,9 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     the mix, each request's mode drawn uniformly from it; with ``gcm-open``
     every size needs its sealed probe pair (``ValueError`` otherwise).
     ``transfer_sizes`` with ``transfer_every=N``: every N-th request is an
-    oversized probe (round robin over the sizes), verified."""
+    oversized probe (round robin over the sizes), verified. ``sessions=N``
+    with ``session_chunks=M``: N rc4 session clients beside the others (the
+    module docstring)."""
     sizes = tuple(sizes)
     modes = tuple(modes) or ("ctr",)
     if probes is None:
@@ -211,6 +264,10 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     tprobes = list(transfer_probes or ())
     if not tprobes and transfer_sizes and transfer_every:
         tprobes = make_transfer_probes(tuple(transfer_sizes), seed)
+    scripts = list(session_scripts or ())
+    if not scripts and sessions and session_chunks:
+        scripts = make_session_probes(sessions, session_chunks, seed,
+                                      chunk_sizes=tuple(session_chunk_bytes), tenants=tenants)
     by_key = {(p.mode, p.payload.size): p for p in probes}
     if "gcm-open" in modes:
         missing = [sz for sz in sizes if ("gcm-open", sz) not in by_key]
@@ -310,6 +367,52 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
         resp = await submit_one(tenant, key, nonce, payload, mode, iv, aad, tag)
         account(resp, payload, probe, mode, (clock() - scheduled) * 1e3)
 
+    async def session_client(script: SessionScript):
+        """One session's life: open, its chunks (each verified), close."""
+        t = report.sessions
+        t["sessions"] = t.get("sessions", 0) + 1
+        r = await server.open_session(script.tenant, script.sid, script.key)
+        if not r.ok:
+            t["open_failed"] = t.get("open_failed", 0) + 1
+            err = r.error or "open-failed"
+            report.errors[err] = report.errors.get(err, 0) + 1
+            obs_metrics.counter("loadgen_sessions", outcome="open-failed")
+            return
+        t["opened"] = t.get("opened", 0) + 1
+        obs_metrics.counter("loadgen_sessions", outcome="opened")
+        m = report.by_mode.setdefault("rc4", {"latencies_ms": [], "ok": 0, "verified": 0})
+        for data, want in zip(script.payloads, script.expected):
+            t0 = clock()
+            resp = await server.submit(script.tenant, b"", b"", data, deadline_s=deadline_s,
+                                       mode="rc4", sid=script.sid)
+            dt_ms = (clock() - t0) * 1e3
+            report.requests += 1
+            report.latencies_ms.append(dt_ms)
+            m["latencies_ms"].append(dt_ms)
+            t["chunks"] = t.get("chunks", 0) + 1
+            obs_metrics.counter("loadgen_requests", outcome=(resp.error or "ok"))
+            obs_metrics.observe("loadgen_latency_us", dt_ms * 1e3, outcome=(resp.error or "ok"))
+            if not resp.ok:
+                # The stream position is gone: the rest of the script would
+                # mis-verify by construction.
+                report.errors[resp.error] = report.errors.get(resp.error, 0) + 1
+                t["chunk_failed"] = t.get("chunk_failed", 0) + 1
+                break
+            report.ok += 1
+            m["ok"] += 1
+            counter["ok_bytes"] += int(data.size)
+            obs_metrics.counter("loadgen_ok_bytes", int(data.size))
+            report.verified += 1
+            m["verified"] += 1
+            t["verified"] = t.get("verified", 0) + 1
+            if not np.array_equal(np.asarray(resp.payload, np.uint8).reshape(-1), want):
+                report.mismatches += 1
+                t["mismatches"] = t.get("mismatches", 0) + 1
+            await asyncio.sleep(0)  # the other sessions interleave
+        r = await server.close_session(script.tenant, script.sid)
+        if r.ok:
+            t["closed"] = t.get("closed", 0) + 1
+
     async def open_loop(t_start: float):
         interval = 1.0 / arrival_rate
         rng = np.random.default_rng(seed << 8)
@@ -323,9 +426,12 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
         await asyncio.gather(*pending)
 
     t_start = clock()
+    # The ordinary clients first, then the sessions, as the JAX loadgen
+    # orders them.
+    sess_tasks = [session_client(s) for s in scripts]
     if arrival_rate is not None and arrival_rate > 0:
-        await open_loop(t_start)
+        await asyncio.gather(open_loop(t_start), *sess_tasks)
     else:
-        await asyncio.gather(*(client(c) for c in range(concurrency)))
+        await asyncio.gather(*(client(c) for c in range(concurrency)), *sess_tasks)
     report.finish(clock() - t_start, counter["ok_bytes"])
     return report

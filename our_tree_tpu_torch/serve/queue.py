@@ -1,7 +1,7 @@
 """Admission control and backpressure for the serve path.
 
-Port of ``our_tree_tpu.serve.queue`` for the ``ctr``, ``gcm``, ``gcm-open``
-and ``cbc`` modes. The policy:
+Port of ``our_tree_tpu.serve.queue``, every served mode (``MODES``). The
+policy:
 
 * **Bounded depth.** Past ``max_depth`` queued requests new ones are shed
   with an immediate ``"shed"`` answer (degrade kind ``accept->shed``).
@@ -16,13 +16,13 @@ and ``cbc`` modes. The policy:
 * **Admission checks up front**, in the JAX queue's order and with its
   codes: a mode outside the reference's vocabulary (``MODES``), or one this
   server did not enable (its ladder was never warmed), is ``"bad-request"``;
-  payloads are a nonzero multiple of 16 bytes, keys 16/24/32 bytes, ``ctr``
-  nonces 16 bytes, GCM IVs non-empty, ``gcm-open`` tags 16 bytes, ``cbc``
-  IVs 16 bytes, and the request's rows (``span_blocks``: a GCM request
-  carries its J0 row) must fit the top rung. The port serves ``ctr``,
-  ``gcm``, ``gcm-open`` and ``cbc`` (``PORTED_MODES``); a server refuses to
-  enable ``rc4`` at configuration time (``not_ported``), so it reaches
-  admission only as a mode not enabled.
+  payloads are a nonzero multiple of 16 bytes, keys 16/24/32 bytes (not for
+  ``rc4``: its key went to the host KSA at session open, and a data chunk
+  carries none), ``ctr`` nonces 16 bytes, an ``rc4`` chunk names its session
+  (``sid`` >= 0) and carries its reserved keystream slice (``ks``, as many
+  bytes as the payload), GCM IVs non-empty, ``gcm-open`` tags 16 bytes,
+  ``cbc`` IVs 16 bytes, and the request's rows (``span_blocks``: a GCM
+  request carries its J0 row) must fit the top rung.
 * **J0 at admission.** A GCM request's pre-counter block is derived here:
   IV || 0^31 || 1 for a 96-bit IV, otherwise GHASH of the IV under the
   key's H on the host (``aead.ghash.j0_from_iv``), so every IV length rides
@@ -77,24 +77,13 @@ MODES = ("ctr", "gcm", "gcm-open", "cbc", "rc4")
 #: E_K(J0), the tag's final pad).
 GCM_MODES = ("gcm", "gcm-open")
 
-#: The modes the port serves so far.
-PORTED_MODES = ("ctr", "gcm", "gcm-open", "cbc")
 
-#: Where each mode the port does not serve yet is queued: its ROADMAP queue 1
-#: item, by title, so that renumbering the queue leaves the pointer true.
-_QUEUED = {"rc4": "ROADMAP queue 1, \"The rc4 serve mode and sessions\""}
-
-
-def not_ported(modes) -> str | None:
-    """Why a server may not enable ``modes``, or None when it may: a mode
-    outside the vocabulary, or one the port does not serve yet."""
+def unknown_modes(modes) -> str | None:
+    """Why a server may not enable ``modes`` (none, or one outside the
+    vocabulary), or None when it may."""
     bad = [m for m in modes if m not in MODES]
     if bad or not modes:
         return f"unknown serve mode(s) {bad} (known: {MODES})"
-    later = [m for m in modes if m not in PORTED_MODES]
-    if later:
-        return ("serve mode(s) " + ", ".join(f"{m!r} ({_QUEUED[m]})" for m in later)
-                + f" not ported yet; the port serves {PORTED_MODES}")
     return None
 
 
@@ -144,6 +133,12 @@ class Request:
     tag: bytes = b""
     #: GCM: the 16-byte pre-counter block, derived at admission
     j0: bytes = b""
+    #: rc4 only: the chunk's session id, the keystream slice the session
+    #: store reserved for it (the batcher packs it where counters go) and
+    #: its offset in the session's stream (acked back when answered)
+    sid: int = -1
+    ks: np.ndarray | None = None
+    ks_offset: int = -1
     #: the admission-time head-sampling decision
     sampled: bool = True
     #: an upstream span id this request's spans chain under
@@ -231,7 +226,7 @@ class RequestQueue:
         trace.counter(f"serve_shed{'' if reason == 'depth' else '_' + reason}")
         degrade.degrade(kind, why)
 
-    def _refusal(self, tenant, key, nonce, iv, tag, data, mode, priority):
+    def _refusal(self, tenant, key, nonce, iv, tag, data, mode, priority, sid, ks):
         """(code, why) when admission refuses the request, else None."""
         if self.closed:
             return ERR_SHUTDOWN, "server is draining"
@@ -242,10 +237,17 @@ class RequestQueue:
                                      f"{self.modes}; its ladder was never warmed)")
         if data.size == 0 or data.size % 16:
             return ERR_BAD_REQUEST, "payload must be a nonzero multiple of 16 bytes"
-        if len(key) not in (16, 24, 32):
+        if mode != "rc4" and len(key) not in (16, 24, 32):
             return ERR_BAD_REQUEST, f"key must be 16/24/32 bytes, got {len(key)}"
         if mode == "ctr" and len(nonce) != 16:
             return ERR_BAD_REQUEST, "nonce must be 16 bytes"
+        if mode == "rc4" and int(sid) < 0:
+            return ERR_BAD_REQUEST, "rc4 chunks must name an open session (sid >= 0)"
+        if mode == "rc4" and (ks is None or getattr(ks, "size", 0) != data.size):
+            # The server reserves the slice before admission: a missing or
+            # short one is a broken session handoff.
+            return ERR_BAD_REQUEST, (f"rc4 chunk needs a payload-sized keystream slice "
+                                     f"(got {getattr(ks, 'size', None)}, want {data.size})")
         if mode in GCM_MODES and not iv:
             return ERR_BAD_REQUEST, "GCM iv must be non-empty"
         if mode == "gcm-open" and len(tag) != 16:
@@ -283,20 +285,22 @@ class RequestQueue:
                deadline_s: float | None = None, sampled: bool | None = None,
                parent: str | None = None, priority: int | None = None,
                mode: str = "ctr", iv: bytes = b"", aad: bytes = b"",
-               tag: bytes = b"") -> asyncio.Future:
+               tag: bytes = b"", sid: int = -1, ks=None,
+               ks_offset: int = -1) -> asyncio.Future:
         """Admit one request; always returns a future (already resolved with
         a coded error Response when admission refuses it). ``priority=0``
         opts one request into the low tier; None defers to
         ``low_priority_tenants``. ``mode``, if enabled: ``ctr`` (``nonce``
         required), ``gcm`` seal or ``gcm-open`` (a non-empty ``iv``, optional
         ``aad``; open carries the 16-byte ``tag``) or ``cbc`` decrypt (the
-        16-byte ``iv``)."""
+        16-byte ``iv``) or an ``rc4`` session chunk (``sid``, and the
+        keystream slice ``ks`` reserved at ``ks_offset`` of its stream)."""
         fut = asyncio.get_running_loop().create_future()
         data = np.asarray(payload, dtype=np.uint8).reshape(-1)
         mode = str(mode or "ctr")
         key, nonce, iv = bytes(key), bytes(nonce), bytes(iv)
         aad, tag = bytes(aad), bytes(tag)
-        refused = self._refusal(tenant, key, nonce, iv, tag, data, mode, priority)
+        refused = self._refusal(tenant, key, nonce, iv, tag, data, mode, priority, sid, ks)
         j0 = b""
         if refused is None and mode in GCM_MODES:
             j0, refused = _derive_j0(key, iv)
@@ -315,7 +319,7 @@ class RequestQueue:
                       future=fut,
                       budget=Budget(deadline, clock=self._clock) if deadline > 0 else None,
                       t_submit=self._clock(), mode=mode, iv=iv, aad=aad, tag=tag, j0=j0,
-                      _queue=self,
+                      sid=int(sid), ks=ks, ks_offset=int(ks_offset), _queue=self,
                       sampled=trace.sample() if sampled is None else bool(sampled),
                       parent=parent)
         cm = trace.maybe_span(req.sampled, "request-queued", parent=req.parent, req=req.id,

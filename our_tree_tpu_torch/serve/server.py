@@ -1,14 +1,14 @@
 """The serve dispatch loop: queue -> shape buckets -> in-flight lanes.
 
-Port of ``our_tree_tpu.serve.server`` for the ``ctr``, ``gcm``, ``gcm-open``
-and ``cbc`` modes (``ServerConfig.modes``; ``ctr`` by default). One asyncio
-loop on the main thread owns admission and batch formation; dispatch is
-overlapped. Request coroutines ``submit`` into the bounded queue; the loop
-drains, rung-packs up to K key groups per batch (``batcher``) and submits
-each batch as its own task, so batches keep forming while up to
-``max_inflight`` dispatches (default one per lane) run on the lanes' worker
-threads. The engine comes from ``aes.resolve_serve_engine``: the CUDA
-kernels on a card, the plain version on the CPU.
+Port of ``our_tree_tpu.serve.server`` for every served mode (``ctr``, ``gcm``,
+``gcm-open``, ``cbc`` and ``rc4``; ``ServerConfig.modes``, ``ctr`` by
+default). One asyncio loop on the main thread owns admission and batch
+formation; dispatch is overlapped. Request coroutines ``submit`` into the
+bounded queue; the loop drains, rung-packs up to K key groups per batch
+(``batcher``) and submits each batch as its own task, so batches keep forming
+while up to ``max_inflight`` dispatches (default one per lane) run on the
+lanes' worker threads. The engine comes from ``aes.resolve_serve_engine``: the
+CUDA kernels on a card, the plain version on the CPU.
 
 Failure containment, per batch: a failing dispatch retries on its lane
 (``RetryPolicy``); a lane that still fails, or hangs past its watchdog
@@ -16,7 +16,13 @@ deadline, degrades (suspect, then quarantined; a timeout quarantines at
 once) and the batch is re-dispatched bit-exactly on another lane before any
 rider sees an error. Only when every lane was tried (``LanesExhausted``)
 do the riders get errors (``deadline`` if the last cause was a hang, else
-``dispatch-failed``), and the server keeps serving.
+``dispatch-failed``), and the server keeps serving. With
+``ServerConfig.journal`` the lanes' quarantines persist: the server opens a
+``resilience.journal.SweepJournal`` (config ``{"kind": "serve-lanes",
+...}``) at start, lanes with failure rows start quarantined, each new
+quarantine appends a row, and ``serve.bench --unquarantine lane:<i>``
+clears them (``clear_failures``, the same release edit as the sweep
+harness's).
 
 Shutdown drains: ``stop()`` closes admission, dispatches everything
 accepted, awaits every in-flight batch and flushes; ``queue.stats()["lost"]``
@@ -35,27 +41,39 @@ an open, compares tags in constant time (``aead.ghash.np_tag_eq``; the
 request only, ``auth-failed``, counted in ``serve_auth_failed{mode}``, and
 no plaintext leaves the server for it; the batch's other riders are
 answered. A seal's ``Response`` carries its tag. Admission refuses a mode
-the server did not enable. A server configured with a mode the port does
-not serve yet (``rc4``) refuses to start (``ValueError`` at construction,
-naming the ROADMAP item): it never serves such a mode through another
-path.
+the server did not enable; an unknown mode raises at construction.
+
+``rc4``, the session mode (``serve/session.py``): with ``rc4`` enabled the
+server builds a ``SessionManager``. ``open_session`` runs the host KSA and
+prefills a window of keystream; a data chunk (``submit(..., mode="rc4",
+sid=...)``) reserves its keystream slice, rides the queue and batcher as an
+ordinary schedule-free request (the XOR on the lane) and acks its offset on
+any final answer; ``close_session`` releases the session. The store's
+refills go through ``pool.dispatch(mode="rc4-prep")`` (``_session_prep``),
+so a hung lane's refill is replayed from the same carry on another lane,
+and the attempts come back as the store's replay count. ``stop`` drains the
+store after the batcher.
 
 The zero-recompile contract: the JAX package counts XLA compiles; the port
 counts builds and loads of the kernel library (``runtime.cuda_build``) plus
 the first call of each serve seam for each (engine, nr, device)
 (``aes.seam_first_calls``: on the card, the first launch of a ``ctr_mk`` or
-``cbc_mk`` NR instantiation, or of ``ghash_at``, which CUDA loads lazily). Warmup runs every
+``cbc_mk`` NR instantiation, of ``ghash_at`` or of ``arc4_prga``, which
+CUDA loads lazily, or of the rc4 XOR). Warmup runs every
 rung once on every lane's worker thread for each key length in
 ``warmup_key_bits``, the ``ctr`` ladder (the canary's) and then every other
-enabled mode's (a GCM rung with zero words, every keep 1 and its last row
-named, so that ``ghash_at`` launches too), which makes the thread's CUDA
+enabled AES mode's (a GCM rung with zero words, every keep 1 and its last row
+named, so that ``ghash_at`` launches too), then with ``rc4`` the XOR at
+every rung and one ``rc4-prep`` at the prefetch shape (slots x quantum),
+which makes the thread's CUDA
 context current, loads the library and launches each mode's kernels at each
 warmed nr, so the first served batch pays none of that; ``steady_compiles()`` must stay 0 after
 it. A key length outside
 ``warmup_key_bits`` (only 128 bits by default, as in the reference) pays
 its instantiation's first launch on its first batch, and the steady count
 shows it. ``pool.first_dispatch`` records the first traffic dispatch's
-times, so a run can set them beside the steady ones.
+times, so a run can set them beside the steady ones. Lanes warm trusted
+first: a lane adopted quarantined from the journal never pins the canary.
 
 Chunked transfers (``serve/transfer.py``): a payload above the top rung is
 split into chunks of ``transfer_chunk_blocks`` (the top rung by default),
@@ -75,12 +93,13 @@ and hands them to the incident recorder (``obs/incident.py``), which also
 hears of every auth failure (``incident.note_auth_failure``; a spike dumps a
 bundle). ``ServerConfig.status_port`` starts the status endpoint
 (``serve/status.py``: ``/metrics``, ``/healthz``, ``/incidentz``,
-``/profilez``). The reference's sessions, journal and pulse analytics are
-not in the port yet.
+``/profilez``). ``rc4`` has no cost rows (its XOR is key-oblivious: no
+(bits, nr) row exists for it). The reference's pulse analytics are not in
+the port yet.
 
 Obs spans: ``request-queued`` (queue), ``batch-formed``, ``lane-dispatch``,
 ``lane-probe``, ``serve-warmup`` / ``lane-warmup``, ``transfer`` /
-``transfer-chunk``.
+``transfer-chunk``, ``session-open``, ``keystream-prefetch``.
 """
 
 from __future__ import annotations
@@ -97,12 +116,14 @@ from ..models import aes
 from ..obs import costmodel, incident, metrics, trace
 from ..ops import gf
 from ..resilience import faults, watchdog
+from ..resilience import journal as journal_mod
 from ..runtime import cuda_build
 from ..utils import packing
 from . import batcher, lanes, transfer
+from . import session as session_mod
 from .keycache import KeyCache, key_digest
 from .queue import (ERR_AUTH, ERR_BAD_REQUEST, ERR_DEADLINE, ERR_DISPATCH, ERR_TOO_LARGE,
-                    GCM_MODES, RequestQueue, Response, not_ported)
+                    GCM_MODES, RequestQueue, Response, unknown_modes)
 from .status import StatusServer
 
 
@@ -141,10 +162,9 @@ class ServerConfig:
     keycache_per_tenant: int = 8
     #: key lengths (bits) warmed per rung
     warmup_key_bits: tuple = (128,)
-    #: the enabled served modes, from ``queue.PORTED_MODES`` (``ctr``,
-    #: ``gcm``, ``gcm-open``, ``cbc``): warmup walks each one's ladder on
-    #: every lane and admission refuses the others; a mode the port does not
-    #: serve yet raises here
+    #: the enabled served modes, from ``queue.MODES`` (``ctr``, ``gcm``,
+    #: ``gcm-open``, ``cbc``, ``rc4``): warmup walks each one's ladder on
+    #: every lane and admission refuses the others
     modes: tuple = ("ctr",)
     #: dispatch lanes: None = one per visible card; more share cards
     lanes: int | None = None
@@ -152,6 +172,9 @@ class ServerConfig:
     probe_every: int = 8
     #: clean batches a released lane serves before leaving probation
     probation_batches: int = 2
+    #: the serve journal's path (quarantines persist, ``--unquarantine``
+    #: releases them); None = health in memory only
+    journal: str | None = None
     #: dispatches in flight at once; None = one per lane
     max_inflight: int | None = None
     #: the measured ceiling (GB/s of modeled traffic, ``chip_smoke.py`` derives
@@ -179,6 +202,19 @@ class ServerConfig:
     #: the transfer ledger's journal path (resume tokens outlive the
     #: process); None = in memory
     transfer_ledger: str | None = None
+    #: rc4 sessions (``serve/session.py``; with ``rc4`` in ``modes``): open
+    #: sessions a tenant before the store evicts that tenant's idle rows
+    session_per_tenant: int = 16
+    #: keystream kept ahead of each session's consumed offset (bytes)
+    session_window_bytes: int = 65536
+    #: PRGA bytes a session per refill dispatch (a multiple of 4): the fixed
+    #: prefetch shape
+    session_quantum_bytes: int = 4096
+    #: sessions stacked into one refill dispatch (the fixed S axis)
+    session_prefetch_slots: int = 8
+    #: keystream bytes held across sessions: at the cap non-urgent refills
+    #: pause and new opens shed
+    session_budget_bytes: int = 8 << 20
 
 
 class Server:
@@ -188,7 +224,7 @@ class Server:
         self.config = config or ServerConfig()
         c = self.config
         self.rungs = batcher.bucket_ladder(c.min_bucket_blocks, c.max_bucket_blocks)
-        why = not_ported(tuple(c.modes))
+        why = unknown_modes(tuple(c.modes))
         if why is not None:
             raise ValueError(why)
         self.queue = RequestQueue(max_depth=c.max_depth, max_request_blocks=self.rungs[-1],
@@ -202,6 +238,7 @@ class Server:
         self.pool: lanes.LanePool | None = None
         self._deadline_s = (watchdog.default_deadline_s() if c.dispatch_deadline_s is None
                             else max(float(c.dispatch_deadline_s), 0.0))
+        self._journal = None
         self._task: asyncio.Task | None = None
         self._running = False
         self.inflight_limit = 0
@@ -229,24 +266,37 @@ class Server:
                 reassembly_budget_bytes=c.transfer_budget_bytes,
                 max_payload_bytes=c.transfer_max_bytes, deadline_s=c.transfer_deadline_s,
                 ledger=transfer.TransferLedger(c.transfer_ledger))
+        #: the rc4 session store; None unless ``rc4`` is enabled
+        self.sessions: session_mod.SessionManager | None = None
+        if "rc4" in c.modes:
+            self.sessions = session_mod.SessionManager(
+                self._session_prep, per_tenant=c.session_per_tenant,
+                window_bytes=c.session_window_bytes, quantum_bytes=c.session_quantum_bytes,
+                prefetch_slots=c.session_prefetch_slots, budget_bytes=c.session_budget_bytes)
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> None:
-        """Resolve the device and engine, build the lane pool, warm every
-        lane x rung on the lanes' worker threads, start the batcher loop."""
+        """Resolve the device and engine, build the lane pool, adopt the
+        journal's quarantines, warm every lane x rung on the lanes' worker
+        threads, start the batcher loop."""
         c = self.config
         self.device = aes.as_device(c.device)
         before = compile_count()
         self.engine = aes.resolve_serve_engine(c.engine, self.device, c.modes)
+        if c.journal:
+            self._journal = journal_mod.SweepJournal(
+                c.journal, {"kind": "serve-lanes", "lanes": c.lanes, "engine": c.engine})
         self.pool = lanes.LanePool(engine=self.engine, device=self.device,
                                    deadline_s=self._deadline_s, retries=c.retries,
                                    lanes=c.lanes, probe_every=c.probe_every,
-                                   probation_batches=c.probation_batches)
+                                   probation_batches=c.probation_batches, journal=self._journal)
+        self.pool.adopt_journal_quarantines()
         await self._warmup()
         if not any(ln.warmed for ln in self.pool.lanes):
             raise RuntimeError(f"serve warmup failed on all {len(self.pool.lanes)} lane(s): "
                                f"no lane can dispatch (engine {self.engine})")
-        self.cost_records = costmodel.ladder_costs(self.engine, c.modes, self.rungs,
+        cost_modes = tuple(m for m in c.modes if m != "rc4") or ("ctr",)
+        self.cost_records = costmodel.ladder_costs(self.engine, cost_modes, self.rungs,
                                                    key_bits=c.warmup_key_bits,
                                                    key_slots=c.key_slots)
         costmodel.write_run_records(self.cost_records, engine=self.engine,
@@ -268,11 +318,14 @@ class Server:
 
     async def _warmup(self) -> None:
         """Run every rung of the ``ctr`` ladder, then of every other enabled
-        mode's, once on every lane's worker thread. The smallest ``ctr`` rung
-        is the canary (zero key, zero payload, zero-nonce counters): the
-        first lane's output becomes the canary expectation and every other
-        lane's is compared with it. A lane whose warmup fails, hangs or
-        mismatches starts quarantined and unwarmed."""
+        AES mode's, once on every lane's worker thread; with ``rc4`` also the
+        XOR at every rung and one ``rc4-prep`` at the prefetch shape. The
+        smallest ``ctr`` rung is the canary (zero key, zero payload,
+        zero-nonce counters): the first lane to warm pins the canary
+        expectation and every other lane's is compared with it. Trusted
+        lanes warm first, so a lane adopted quarantined from the journal is
+        never the oracle. A lane whose warmup fails, hangs or mismatches
+        starts quarantined and unwarmed."""
         c = self.config
         canary_rung = self.rungs[0]
         canary_words = np.zeros(4 * canary_rung, dtype=np.uint32)
@@ -280,9 +333,10 @@ class Server:
             b"\x00" * 16, np.arange(canary_rung, dtype=np.uint32)).reshape(-1)
         canary_expected = None
         slot_vecs = {rung: np.zeros(rung, dtype=np.uint32) for rung in self.rungs}
+        order = sorted(self.pool.lanes, key=lambda ln: (ln.state == lanes.QUARANTINED, ln.idx))
         with trace.span("serve-warmup", engine=self.engine, rungs=len(self.rungs),
                         lanes=len(self.pool.lanes)):
-            for lane in self.pool.lanes:
+            for lane in order:
                 with trace.span("lane-warmup", lane=lane.idx, engine=self.engine):
                     try:
                         mismatch = False
@@ -309,7 +363,7 @@ class Server:
                             if mismatch:
                                 break
                             for m in c.modes:
-                                if m == "ctr":
+                                if m in ("ctr", "rc4"):
                                     continue
                                 sched_m = self.keycache.stacked(
                                     [("_warmup", b"\x00" * (bits // 8))], c.key_slots, mode=m)
@@ -324,12 +378,25 @@ class Server:
                                         m=m, g=gcm: lane.engine_call(
                                             w, w, s, v, f"warmup:{r}:{m}", warmup=True, mode=m,
                                             **g))
+                        if "rc4" in c.modes and not mismatch:
+                            # The rc4 seams are schedule-free (``sched`` None).
+                            for rung in self.rungs:
+                                words = np.zeros(4 * rung, np.uint32)
+                                await lane.run_async(
+                                    lambda w=words, v=slot_vecs[rung], r=rung: lane.engine_call(
+                                        w, w, None, v, f"warmup:{r}:rc4", warmup=True,
+                                        mode="rc4"))
+                            slots, q = c.session_prefetch_slots, c.session_quantum_bytes
+                            await lane.run_async(lambda: lane.engine_call(
+                                np.zeros(slots * 256, np.uint32), np.zeros(2 * slots, np.uint32),
+                                None, slot_vecs[self.rungs[0]], "warmup:rc4-prep", warmup=True,
+                                mode="rc4-prep", prep_len=q))
                         if mismatch:
-                            lane._quarantine("warmup-mismatch")
+                            lane._quarantine("warmup-mismatch", self._journal)
                         else:
                             lane.warmed = True
                     except Exception as e:  # noqa: BLE001 - contain per lane
-                        lane._quarantine(f"warmup-failed:{type(e).__name__}")
+                        lane._quarantine(f"warmup-failed:{type(e).__name__}", self._journal)
 
     async def stop(self) -> None:
         """Graceful drain: close admission, let the loop finish everything
@@ -352,6 +419,12 @@ class Server:
         if self.pool is not None:
             # Off the loop: joining a lane's worker can take seconds.
             await asyncio.to_thread(self.pool.close)
+        if self._journal is not None:
+            self._journal.close()
+        if self.sessions is not None:
+            # After the batcher's drain no chunk still rides a session's
+            # keystream: force-close the open ones (counted).
+            await self.sessions.drain()
         if self.transfers is not None:
             self.transfers.ledger.close()
         metrics.flush_now()
@@ -370,12 +443,28 @@ class Server:
                      deadline_s: float | None = None, sampled: bool | None = None,
                      parent: str | None = None, priority: int | None = None,
                      mode: str = "ctr", iv: bytes = b"", aad: bytes = b"",
-                     tag: bytes = b""):
+                     tag: bytes = b"", sid: int = -1):
         """Admit one request (``ctr`` with its nonce; ``gcm`` seal or
         ``gcm-open`` with its IV, AAD and, to open, its tag; ``cbc`` decrypt
-        with its IV) and await its Response. A payload whose rows exceed the
-        top rung goes to ``submit_transfer`` when transfers are on."""
+        with its IV; ``rc4`` a data chunk of the open session ``sid``) and
+        await its Response. A payload whose rows exceed the top rung goes to
+        ``submit_transfer`` when transfers are on."""
         data = np.asarray(payload, dtype=np.uint8).reshape(-1)
+        if mode == "rc4" and self.sessions is not None:
+            # Reserve the chunk's keystream slice (a hit needs no dispatch),
+            # ride the queue with it, and ack on any final answer: a failed
+            # chunk's answer is final too, and its bytes must not pin the
+            # window.
+            resv = await self.sessions.reserve(tenant, sid, data.size)
+            if isinstance(resv, Response):
+                return resv
+            ks, off = resv
+            try:
+                return await self.queue.submit(tenant, key, nonce, data, deadline_s,
+                                               sampled=sampled, parent=parent, priority=priority,
+                                               mode=mode, sid=sid, ks=ks, ks_offset=off)
+            finally:
+                self.sessions.ack(tenant, sid, off, data.size)
         span = data.size // 16 + (1 if mode in GCM_MODES else 0)
         if (self.transfers is not None and span > self.rungs[-1] and data.size
                 and data.size % 16 == 0):
@@ -383,7 +472,7 @@ class Server:
                                               sampled=sampled, parent=parent, mode=mode, iv=iv)
         return await self.queue.submit(tenant, key, nonce, payload, deadline_s,
                                        sampled=sampled, parent=parent, priority=priority,
-                                       mode=mode, iv=iv, aad=aad, tag=tag)
+                                       mode=mode, iv=iv, aad=aad, tag=tag, sid=sid)
 
     async def submit_transfer(self, tenant: str, key: bytes, nonce: bytes, payload,
                               deadline_s: float | None = None, sampled: bool | None = None,
@@ -408,6 +497,35 @@ class Server:
         admission."""
         return await self.queue.submit(tenant, key, spec.nonce or b"", piece, deadline_s,
                                        sampled=sampled, parent=parent, mode=mode, iv=spec.iv)
+
+    # -- session side ------------------------------------------------------
+    async def open_session(self, tenant: str, sid: int, key: bytes):
+        """Open one rc4 session: host KSA and a window of keystream."""
+        if self.sessions is None:
+            return Response(ok=False, error=ERR_BAD_REQUEST,
+                            detail="rc4 mode not enabled on this server")
+        return await self.sessions.open(tenant, sid, key)
+
+    async def close_session(self, tenant: str, sid: int):
+        """Close one rc4 session, releasing its window and state."""
+        if self.sessions is None:
+            return Response(ok=False, error=ERR_BAD_REQUEST,
+                            detail="rc4 mode not enabled on this server")
+        return await self.sessions.close(tenant, sid)
+
+    async def _session_prep(self, m_words, xy_words, sampled: bool):
+        """The session store's refill seam: one batched PRGA (``rc4-prep``)
+        through the same failover pool as traffic. Returns the (S, 258 +
+        quantum/4) rows and the failed-over attempts, each a replay of the
+        same carries on another lane."""
+        q = self.config.session_quantum_bytes
+        s = int(xy_words.shape[0]) // 2
+        out, _lane, replays = await self.pool.dispatch(
+            np.ascontiguousarray(m_words, dtype=np.uint32),
+            np.ascontiguousarray(xy_words, dtype=np.uint32), None,
+            np.zeros(1, dtype=np.uint32), f"rc4-prep:{s}", bucket=q // 16,
+            blocks=s * (q // 16), requests=1, sampled=sampled, mode="rc4-prep", prep_len=q)
+        return np.asarray(out), replays
 
     # -- the batcher loop --------------------------------------------------
     async def _loop(self) -> None:
@@ -440,22 +558,25 @@ class Server:
         """One batch's task: form, dispatch, resolve riders. No exception
         escapes, and the in-flight slot is returned in every outcome."""
         try:
-            sched = self._form_batch(b)
-            if sched is not None:
-                await self._dispatch_batch(b, sched)
+            formed = self._form_batch(b)
+            if formed is not None:
+                await self._dispatch_batch(b, formed[0])
         finally:
             self._sem.release()
 
     def _form_batch(self, b: batcher.Batch):
-        """Schedule stacking and array building; the stack, or None after
-        answering the riders when formation failed."""
+        """Schedule stacking and array building; ``(sched,)`` (``sched``
+        None for the schedule-free ``rc4``), or None after answering the
+        riders when formation failed."""
         try:
             with trace.maybe_span(b.sampled, "batch-formed", batch=b.label, bucket=b.bucket,
                                   blocks=b.blocks, slots=len(b.slots),
                                   requests=len(b.requests), mode=b.mode):
-                sched = self.keycache.stacked(b.keys, b.key_slots, mode=b.mode)
+                # rc4 chunks carry no key: the keycache never sees them.
+                sched = (None if b.mode == "rc4"
+                         else self.keycache.stacked(b.keys, b.key_slots, mode=b.mode))
                 b.materialise(sched=sched)
-                return sched
+                return (sched,)
         except Exception as e:  # noqa: BLE001 - containment
             self.batches_failed += 1
             metrics.counter("serve_batches", outcome="form-failed")
@@ -594,4 +715,5 @@ class Server:
             "lanes": self.pool.stats() if self.pool is not None else {"count": 0},
             "compiles": {"warmup": self.warmup_compiles, "steady": self.steady_compiles()},
             "transfers": self.transfers.stats() if self.transfers is not None else None,
+            "sessions": self.sessions.stats() if self.sessions is not None else None,
         }

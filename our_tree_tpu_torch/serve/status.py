@@ -12,11 +12,14 @@ out, which is itself the signal.
   ``# EOF`` marker.
 * ``GET /healthz``: one JSON object, the lanes' health states, the queue's
   ledger, in-flight against its limit, the batches, the keycache, the build
-  counts (``compiles``: warmup and steady), the degrade ledger and the
-  transfer plane (held bytes against the budget, live ledger rows, sheds).
-  ``status`` is ``"ok"`` while a warmed placeable lane exists and transfers
-  are not shedding under a pinned buffer, ``"draining"`` once admission
-  closed, else ``"degraded"``. Gathered on the loop, which owns the state.
+  counts (``compiles``: warmup and steady), the degrade ledger, the
+  transfer plane (held bytes against the budget, live ledger rows, sheds)
+  and, with ``rc4``, the session plane (open sessions, held keystream bytes
+  against the budget, sheds, refusals, evictions, the prefetch hit rate and
+  replays). ``status`` is ``"ok"`` while a warmed placeable lane exists and
+  neither plane is shedding under a pinned budget (sheds grew since the
+  previous poll while 90 % of the budget is held), ``"draining"`` once
+  admission closed, else ``"degraded"``. Gathered on the loop, which owns the state.
 * ``GET /incidentz``: the flight recorder's counts and an index of the run
   directory's bundles (``obs/incident.py``), built off the loop, since it
   reads every bundle file.
@@ -54,6 +57,8 @@ class StatusServer:
         #: transfer sheds at the previous poll: "shedding" means sheds grew
         #: since then while the reassembly buffer is still pinned
         self._transfer_sheds_seen = 0
+        #: the same watermark for the session plane's keystream budget
+        self._session_sheds_seen = 0
 
     async def start(self) -> None:
         self._srv = await asyncio.start_server(self._handle, self._host, self._port)
@@ -100,6 +105,26 @@ class StatusServer:
                 "refused": int(t["refused"]),
                 "shedding": shedding,
             }
+        sessions_doc = None
+        if s.sessions is not None:
+            st = s.sessions.stats()
+            budget = int(st["budget_bytes"] or 0)
+            sheds = int(st["shed"])
+            pinned = budget > 0 and int(st["held_bytes"]) >= budget * 0.9
+            sess_shedding = pinned and sheds > self._session_sheds_seen
+            self._session_sheds_seen = sheds
+            shedding = shedding or sess_shedding
+            sessions_doc = {
+                "open": int(st["open"]),
+                "held_bytes": int(st["held_bytes"]),
+                "budget_bytes": budget,
+                "shed": sheds,
+                "refused": int(st["refused"]),
+                "evicted": int(st["evicted"]),
+                "hit_rate": st["prefetch"]["hit_rate"],
+                "replays": int(st["prefetch"]["replays"]),
+                "shedding": sess_shedding,
+            }
         if s.queue.closed:
             status = "draining"
         elif placeable > 0 and not shedding:
@@ -120,6 +145,8 @@ class StatusServer:
         }
         if transfers_doc is not None:
             doc["transfers"] = transfers_doc
+        if sessions_doc is not None:
+            doc["sessions"] = sessions_doc
         return doc
 
     def metrics_text(self, exemplars: bool = False) -> str:

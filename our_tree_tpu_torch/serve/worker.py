@@ -27,15 +27,15 @@ answers a typed ``too-large`` frame and the connection goes on; a torn or
 unparseable frame answers ``bad-request`` and closes that connection only.
 A request frame is one exchange in any enabled mode (``m``: ``ctr``,
 ``gcm``, ``gcm-open``, ``cbc``); a ``tx`` frame opens the chunked-transfer
-exchange (``_serve_transfer``). Every ``ss`` frame (the rc4 sessions)
-answers one ``bad-request`` ("rc4 mode not enabled on this server"): the
-port does not serve sessions yet (ROADMAP queue 1, "The rc4 serve mode and
-sessions"). The per-request time ledger (``lg``) is not in the port, so no
-answer carries one.
+exchange (``_serve_transfer``); an ``ss`` frame is one exchange of the rc4
+session sub-protocol (``_serve_session``: ``open``, ``data``, ``close``;
+a server without ``rc4`` answers each with ``bad-request``). The
+per-request time ledger (``lg``) is not in the port, so no answer carries
+one. ``--journal`` persists the lanes' quarantines; the five
+``--session-*`` options shape the session store.
 
-Refused at start (exit 2), with a message naming their ROADMAP item:
-``--journal`` (the lanes' journal-backed quarantine), ``--native-threads``
-other than 0 (the native serve engine) and the ``--session-*`` options.
+Refused at start (exit 2), with a message naming its ROADMAP item:
+``--native-threads`` other than 0 (the native serve engine).
 """
 
 from __future__ import annotations
@@ -56,19 +56,10 @@ from . import batcher, transfer, wire
 from .queue import ERR_BAD_REQUEST, ERR_DEADLINE, ERR_TOO_LARGE, ERR_TRANSFER_MODE
 from .server import Server, ServerConfig
 
-#: Worker options whose feature the port does not have yet, with the ROADMAP
-#: item (by title) that brings it.
-_QUEUED_OPTIONS = {
-    "--journal": "ROADMAP queue 1, \"Resilience, the serve side\" (the lanes' journal-backed "
-                 "quarantine)",
-    "--native-threads": "ROADMAP queue 1, \"Engine selection and the port's entry\" (the native "
-                        "serve engine)",
-}
-_SESSIONS_ITEM = "ROADMAP queue 1, \"The rc4 serve mode and sessions\""
-#: The JAX worker's rc4 session options: refused when given.
-_SESSION_OPTIONS = ("--session-per-tenant", "--session-window-bytes", "--session-quantum-bytes",
-                    "--session-prefetch-slots", "--session-budget-bytes")
-_NO_SESSIONS = "rc4 mode not enabled on this server"
+#: Where the native serve engine, refused by ``--native-threads``, is queued:
+#: its ROADMAP item, by title.
+_NATIVE_ITEM = ("ROADMAP queue 1, \"Engine selection and the port's entry\" (the native serve "
+                "engine)")
 
 
 class RequestFrontend:
@@ -151,12 +142,7 @@ class RequestFrontend:
                     await self._serve_transfer(reader, writer, header)
                     continue
                 if header.get("ss"):
-                    # The rc4 sessions are not in the port: every op answers
-                    # the JAX server's refusal from a server without rc4.
-                    writer.write(wire.encode_frame({"ss": str(header["ss"]), "ok": False,
-                                                    "error": ERR_BAD_REQUEST,
-                                                    "detail": _NO_SESSIONS}))
-                    await writer.drain()
+                    await self._serve_session(writer, header, payload)
                     continue
                 await self._answer(writer, header, payload)
         finally:
@@ -208,6 +194,75 @@ class RequestFrontend:
         out["tr"] = t_rx
         out["ts"] = trace.now_us()
         out["pid"] = os.getpid()
+        writer.write(wire.encode_frame(out, body))
+        await writer.drain()
+
+    async def _serve_session(self, writer, header: dict, payload: bytes) -> None:
+        """The ``ss`` session sub-protocol (mode ``rc4``). Each frame is its
+        own exchange, so one connection interleaves many sessions' frames
+        and ordinary requests, and the batcher coalesces concurrent
+        sessions' chunks:
+
+        * ``{"ss": "open", t, sid, k}``: host KSA and the window prefill;
+          answers ``ok`` or a typed shed or refusal;
+        * ``{"ss": "data", t, sid}`` with the chunk as payload: XOR against
+          the session's next keystream bytes, the output as the answer's
+          payload. The stream does not rewind: after a failed chunk, close
+          the session and open it again;
+        * ``{"ss": "close", t, sid}``: release the session."""
+        t_rx = trace.now_us()
+        op = str(header.get("ss") or "")
+        tenant = str(header.get("t", ""))
+        try:
+            sid = int(header.get("sid"))
+        except (TypeError, ValueError):
+            writer.write(wire.encode_frame({"ss": op, "ok": False, "error": ERR_BAD_REQUEST,
+                                            "detail": "ss frames need an integer sid"}))
+            await writer.drain()
+            return
+        sampled = header.get("sm")
+        sampled = bool(sampled) if sampled is not None else None
+        parent = header.get("ps")
+        parent = str(parent) if parent else None
+        body = b""
+        if op == "open":
+            try:
+                key = bytes.fromhex(str(header.get("k", "")))
+            except ValueError:
+                key = b""
+            resp = await self._server.open_session(tenant, sid, key)
+        elif op == "data":
+            try:
+                deadline = header.get("deadline_s")
+                deadline = float(deadline) if deadline is not None else None
+            except (TypeError, ValueError):
+                writer.write(wire.encode_frame({"ss": op, "ok": False, "error": ERR_BAD_REQUEST,
+                                                "detail": "deadline_s is not a number"}))
+                await writer.drain()
+                return
+            resp = await self._server.submit(tenant, b"", b"", memoryview(payload),
+                                             deadline_s=deadline, sampled=sampled, parent=parent,
+                                             mode="rc4", sid=sid)
+            if resp.ok:
+                body = resp.payload.tobytes()
+        elif op == "close":
+            resp = await self._server.close_session(tenant, sid)
+        else:
+            writer.write(wire.encode_frame({"ss": op, "ok": False, "error": ERR_BAD_REQUEST,
+                                            "detail": f"unknown ss op {op!r} "
+                                                      "(known: open, data, close)"}))
+            await writer.drain()
+            return
+        out = {"ss": op, "ok": resp.ok, "sid": sid, "tr": t_rx, "ts": trace.now_us(),
+               "pid": os.getpid()}
+        if resp.ok:
+            if resp.batch:
+                out["batch"] = resp.batch
+            if resp.detail:
+                out["detail"] = resp.detail
+        else:
+            out["error"] = resp.error
+            out["detail"] = resp.detail
         writer.write(wire.encode_frame(out, body))
         await writer.drain()
 
@@ -341,8 +396,9 @@ class RequestFrontend:
         await writer.drain()
 
 
-async def _amain(args) -> int:
-    cfg = ServerConfig(
+def server_config(args) -> ServerConfig:
+    """The ``ServerConfig`` the worker's options describe."""
+    return ServerConfig(
         device=args.device,
         engine=args.engine,
         min_bucket_blocks=args.bucket_min,
@@ -357,6 +413,7 @@ async def _amain(args) -> int:
         retries=args.retries,
         lanes=args.lanes,
         probe_every=args.probe_every,
+        journal=args.journal,
         max_inflight=args.max_inflight,
         status_port=args.status_port,
         modes=tuple((args.modes or "ctr").split(",")),
@@ -367,8 +424,16 @@ async def _amain(args) -> int:
         transfer_budget_bytes=args.transfer_budget_bytes,
         transfer_max_bytes=args.transfer_max_bytes,
         transfer_deadline_s=args.transfer_deadline,
-        transfer_ledger=args.transfer_ledger)
-    server = Server(cfg)
+        transfer_ledger=args.transfer_ledger,
+        session_per_tenant=args.session_per_tenant,
+        session_window_bytes=args.session_window_bytes,
+        session_quantum_bytes=args.session_quantum_bytes,
+        session_prefetch_slots=args.session_prefetch_slots,
+        session_budget_bytes=args.session_budget_bytes)
+
+
+async def _amain(args) -> int:
+    server = Server(server_config(args))
     await server.start()
     frontend = RequestFrontend(server, args.port, host=args.host)
     await frontend.start()
@@ -396,13 +461,13 @@ async def _amain(args) -> int:
             "batches": stats["batches"], "quarantines": stats["lanes"]["quarantine_events"],
             "recompiles": stats["compiles"]["steady"], "keycache": stats["keycache"],
             "frames": frontend.frames, "protocol_errors": frontend.protocol_errors,
-            "transfers": stats["transfers"], "sessions": None}
+            "transfers": stats["transfers"], "sessions": stats["sessions"]}
     print(json.dumps(line), flush=True)
     trace.point("worker-drained", lost=lost, frames=frontend.frames)
     return 1 if lost else 0
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m our_tree_tpu_torch.serve.worker",
         description="one serve back-end process: a Server behind the framed TCP protocol")
@@ -415,13 +480,14 @@ def main(argv=None) -> int:
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
     ap.add_argument("--engine", default="auto")
     ap.add_argument("--modes", default="ctr", metavar="M1,M2",
-                    help="served modes to enable and warm (ctr, gcm, gcm-open, cbc; default ctr)")
+                    help="served modes to enable and warm (ctr, gcm, gcm-open, cbc, rc4; "
+                         "default ctr)")
     ap.add_argument("--lanes", type=int, default=None, metavar="N")
     ap.add_argument("--bucket-min", type=int, default=32, metavar="BLOCKS")
     ap.add_argument("--bucket-max", type=int, default=4096, metavar="BLOCKS")
     ap.add_argument("--key-slots", type=int, default=None, metavar="K")
     ap.add_argument("--native-threads", type=int, default=0,
-                    help="refused unless 0: " + _QUEUED_OPTIONS["--native-threads"])
+                    help="refused unless 0: " + _NATIVE_ITEM)
     ap.add_argument("--queue-depth", type=int, default=1024)
     ap.add_argument("--tenant-depth-frac", type=float, default=1.0, metavar="FRAC")
     ap.add_argument("--low-priority-tenant", action="append", default=None, metavar="TENANT",
@@ -436,7 +502,8 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-every", type=int, default=8, metavar="BATCHES")
     ap.add_argument("--max-inflight", type=int, default=None, metavar="N")
     ap.add_argument("--journal", default=None, metavar="PATH",
-                    help="refused: " + _QUEUED_OPTIONS["--journal"])
+                    help="serve journal: lane quarantines persist there (serve.bench "
+                         "--unquarantine lane:<i> releases them)")
     ap.add_argument("--transfer-chunk-blocks", type=int, default=None, metavar="BLOCKS",
                     help="chunk size of oversized payloads (default the top rung; 0 refuses "
                          "them too-large)")
@@ -454,26 +521,29 @@ def main(argv=None) -> int:
     ap.add_argument("--transfer-ledger", default=None, metavar="PATH",
                     help="the acked-chunk ledger's journal (JSONL, fsync'd): resume tokens "
                          "outlive the process")
-    for flag in _SESSION_OPTIONS:
-        ap.add_argument(flag, default=None, metavar="N", help="refused: " + _SESSIONS_ITEM)
+    ap.add_argument("--session-per-tenant", type=int, default=16, metavar="N",
+                    help="open rc4 sessions a tenant before the store evicts its idle rows")
+    ap.add_argument("--session-window-bytes", type=int, default=65536, metavar="BYTES",
+                    help="keystream kept ahead of each session's consumed offset")
+    ap.add_argument("--session-quantum-bytes", type=int, default=4096, metavar="BYTES",
+                    help="PRGA bytes a session per refill dispatch (the fixed prefetch shape)")
+    ap.add_argument("--session-prefetch-slots", type=int, default=8, metavar="S",
+                    help="sessions stacked into one refill dispatch")
+    ap.add_argument("--session-budget-bytes", type=int, default=8 << 20, metavar="BYTES",
+                    help="keystream bytes held across sessions: at the cap new opens shed")
     ap.add_argument("--ceiling-gbps", type=float, default=None, metavar="GBPS",
                     help="the measured ceiling the cost model reports utilization against")
     args = ap.parse_args(argv)
-    if args.journal is not None:
-        print(f"--journal is not in the port yet: {_QUEUED_OPTIONS['--journal']}",
-              file=sys.stderr)
-        return 2
-    if args.native_threads != 0:
-        print(f"--native-threads is not in the port yet: {_QUEUED_OPTIONS['--native-threads']}",
-              file=sys.stderr)
-        return 2
-    given = [f for f in _SESSION_OPTIONS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        print(f"{', '.join(given)}: rc4 sessions are not in the port yet: {_SESSIONS_ITEM}",
-              file=sys.stderr)
-        return 2
     if args.key_slots is None:
         args.key_slots = batcher.DEFAULT_KEY_SLOTS
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.native_threads != 0:
+        print(f"--native-threads is not in the port yet: {_NATIVE_ITEM}", file=sys.stderr)
+        return 2
     trace.ensure_run()
     return asyncio.run(_amain(args))
 

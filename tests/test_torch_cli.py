@@ -59,3 +59,33 @@ def test_cli_refusals_match_reference(argv, capsys):
     got = _run(decrypt.main, [*argv, "--device", "cpu"], capsys)
     assert want[0] == 1 and want[2]
     assert got == want
+
+
+@pytest.mark.parametrize("mode", ["ecb", "ctr"])
+def test_cli_deadline_matches_reference(mode, capsys, monkeypatch, tmp_path):
+    """``--deadline``: an injected ``dispatch_hang`` under a short deadline
+    gives exit 1 and the same stderr as the reference CLI up to the stack
+    dump's path (each dump lands in ``OT_CRASH_DIR``); armed and not firing,
+    the output is the reference's."""
+    from our_tree_tpu.resilience import faults as jfaults
+    from our_tree_tpu_torch.resilience import faults
+
+    monkeypatch.setenv("OT_CRASH_DIR", str(tmp_path))
+    argv = [KEY, BLOCKS, "--mode", mode, "--iv", IV, "--deadline", "0.5"]
+    runs = []
+    for fault_mod, main, extra in ((jfaults, jdecrypt.main, []),
+                                   (faults, decrypt.main, ["--device", "cpu"])):
+        monkeypatch.setenv("OT_FAULTS", "dispatch_hang:1")
+        fault_mod.reset()
+        rc, out, err = _run(main, [*argv, *extra], capsys)
+        monkeypatch.delenv("OT_FAULTS")
+        fault_mod.reset()
+        runs.append((rc, out, [line.split(" (stacks: ")[0] for line in err.splitlines()]))
+    want, got = runs
+    assert want[0] == 1 and not want[1] and want[2][-1].startswith("Dispatch watchdog fired: ")
+    assert got == want
+    assert [p.name.startswith("watchdog-") for p in tmp_path.iterdir()] in ([True], [True, True])
+    # Armed with room for the reference's first compile, and not firing.
+    argv[-1] = "60"
+    assert _run(decrypt.main, [*argv, "--device", "cpu"], capsys) == _run(jdecrypt.main, argv,
+                                                                         capsys)

@@ -38,11 +38,11 @@ def test_analytic_cost_matches_jax_device_engine(nr, key_slots):
 
 
 def test_other_modes_raise():
-    """The mode the port does not serve yet, ``rc4``, raises; ``cbc`` and
-    ``gcm``/``gcm-open`` (served since their slices) have their rows, held
-    against the reference's in tests/test_torch_serve_cbc.py and
-    tests/test_torch_serve_gcm.py."""
-    with pytest.raises(ValueError, match="not served by the port"):
+    """``rc4``, whose XOR is key-oblivious, has no cost row and raises (the
+    server leaves it out of its records, as the reference's does); ``cbc``
+    and ``gcm``/``gcm-open`` have their rows, held against the reference's in
+    tests/test_torch_serve_cbc.py and tests/test_torch_serve_gcm.py."""
+    with pytest.raises(ValueError, match="has no cost row"):
         costmodel.analytic_cost(aes.CUDA_ENGINE, "rc4", 32, 10, 8)
     for mode in ("cbc", "gcm", "gcm-open"):
         assert costmodel.analytic_cost(aes.CUDA_ENGINE, mode, 32, 10, 8)["mode"] == mode

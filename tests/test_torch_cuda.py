@@ -1046,3 +1046,94 @@ def test_worker_on_card_answers_every_mode(card, tmp_path):
         if proc.poll() is None:
             proc.kill()
     assert exit_line["lost"] == 0 and exit_line["recompiles"] == 0
+
+
+@pytest.mark.parametrize("s_n,length", [(8, 4096), (2, 2048)])
+def test_arc4_prga_at_the_prefetch_shape(card, s_n, length):
+    """The session refill's launch (``models.arc4.prep_batch_words``, 8
+    sessions x 4,096 bytes at the JAX server's defaults, and the CPU tests'
+    2 x 2,048) from KSA states with random x and y: one ``arc4_prga`` launch,
+    rows equal to ``prga_plain``'s on the card and to the host PRGA."""
+    from our_tree_tpu_torch.models import arc4
+    from our_tree_tpu_torch.ops import cuda_arc4
+
+    rng = np.random.default_rng(s_n + length)
+    m = np.stack([arc4.key_schedule(rng.bytes(16)) for _ in range(s_n)])
+    xy = rng.integers(0, 256, 2 * s_n)
+    m_words = torch.from_numpy(m.reshape(-1).astype(np.int32)).to(card)
+    xy_words = torch.from_numpy(xy.astype(np.int32)).to(card)
+    before = cuda_arc4.prga.launches
+    got = arc4.prep_batch_words(m_words, xy_words, length)
+    torch.cuda.synchronize()
+    assert cuda_arc4.prga.launches == before + 1
+    states = torch.cat([xy_words[:s_n, None], xy_words[s_n:, None], m_words.reshape(s_n, 256)], 1)
+    plain_state, plain_ks = cuda_arc4.prga_plain(states, length)
+    assert torch.equal(got[:, :258], plain_state)
+    assert torch.equal(got[:, 258:].contiguous().view(torch.uint8), plain_ks)
+    rows = got.cpu().numpy().view(np.uint32)
+    for i in range(s_n):
+        ks, (x2, y2, m2) = arc4.keystream_np((int(xy[i]), int(xy[s_n + i]), m[i]), length)
+        assert rows[i, 258:].astype("<u4").tobytes() == ks.tobytes()
+        assert (rows[i, 0], rows[i, 1]) == (x2, y2) and np.array_equal(rows[i, 2:258], m2)
+
+
+def test_session_server_on_card_matches_cpu_server(card):
+    """A ``ctr,rc4`` server on the card (two lanes, the default ladder, the
+    served quantum and slots, a two-quantum window) against the same server
+    on the CPU: six sessions over three tenants, their chunks interleaved
+    with ``ctr`` requests, a chunk on a closed session; every answer equal,
+    every chunk equal to the host PRGA, ``arc4_prga`` launches equal to the
+    ``rc4-prep`` engine calls, no build after warmup."""
+    import asyncio
+
+    from our_tree_tpu_torch.models import arc4
+    from our_tree_tpu_torch.ops import cuda_arc4
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    rng = np.random.default_rng(41)
+    keys = {sid: rng.bytes(16) for sid in range(6)}
+    chunks = [[(sid, rng.integers(0, 256, 16 * int(rng.integers(1, 129)), dtype=np.uint8))
+               for sid in range(6)] for _ in range(3)]
+    ctrs = [(rng.bytes(16), rng.bytes(16), rng.integers(0, 256, 1024, dtype=np.uint8))
+            for _ in range(3)]
+
+    def serve(device):
+        async def main():
+            server = Server(ServerConfig(device=device, lanes=2, modes=("ctr", "rc4"),
+                                         session_window_bytes=8192))
+            await server.start()
+            base = server.steady_compiles()
+            try:
+                before = cuda_arc4.prga.launches
+                out = [await server.open_session(f"t{sid % 3}", sid, k) for sid, k in keys.items()]
+                for step, (key, nonce, pt) in zip(chunks, ctrs):
+                    out += await asyncio.gather(
+                        server.submit("tc", key, nonce, pt),
+                        *(server.submit(f"t{sid % 3}", b"", b"", data, mode="rc4", sid=sid)
+                          for sid, data in step))
+                out += [await server.close_session(f"t{sid % 3}", sid) for sid in keys]
+                out.append(await server.submit("t0", b"", b"", np.zeros(16, np.uint8),
+                                               mode="rc4", sid=0))
+                return (out, server.stats(), cuda_arc4.prga.launches - before,
+                        server.steady_compiles() - base)
+            finally:
+                await server.stop()
+
+        return asyncio.run(main())
+
+    got, stats, launches, steady = serve("cuda")
+    want, _, _, _ = serve("cpu")
+    assert [(r.ok, r.error, None if r.payload is None else bytes(r.payload)) for r in got] == \
+        [(r.ok, r.error, None if r.payload is None else bytes(r.payload)) for r in want]
+    states = {sid: (0, 0, arc4.key_schedule(k)) for sid, k in keys.items()}
+    answers = iter(got[6:])
+    for step in chunks:
+        next(answers)  # the ctr request
+        for sid, data in step:
+            r = next(answers)
+            ks, states[sid] = arc4.keystream_np(states[sid], data.size)
+            assert r.ok and bytes(r.payload) == (data ^ ks).tobytes()
+    assert not got[-1].ok and got[-1].error == "bad-request"
+    calls = stats["lanes"]["engine_calls_by_mode"]
+    assert launches == calls["rc4-prep"] - 2  # warmup's two ran before `before`
+    assert stats["sessions"]["chunks"] == 18 and steady == 0

@@ -4,8 +4,8 @@ keycache's decrypt-schedule stack and memo, the CBC batch layout (words,
 PREV stream, slots, spans), the admission refusals code for code, a mixed
 ``ctr,cbc`` server's answers, and the analytic cost row. Then the port's
 own contracts on the CPU: a two-lane failover replay of a ``cbc`` batch,
-the bench CLI with ``--modes ctr,cbc``, and the configuration-time refusal
-of the modes the port does not serve yet. Integer cryptography: the
+the bench CLI with ``--modes ctr,cbc``, and the configuration of every
+served mode (an unknown one refused). Integer cryptography: the
 tolerance is zero."""
 
 import asyncio
@@ -148,8 +148,11 @@ def test_cbc_batch_layout_matches_reference(key_slots):
 
 def test_admission_refusals_match_reference():
     """Unknown mode, a mode not enabled, a cbc IV of the wrong length, a ctr
-    nonce of the wrong length and good requests of both modes: the same codes
-    and counts from both queues, with ctr,cbc enabled and with ctr alone."""
+    nonce of the wrong length, good requests of both modes, and rc4 session
+    chunks (a good one with no AES key, one without a session id, a negative
+    one, a missing and a short keystream slice): the same codes and counts
+    from both queues, with ctr,cbc enabled, with ctr alone and with
+    ctr,cbc,rc4."""
     async def drive(mod, modes):
         q = mod.RequestQueue(max_depth=64, max_request_blocks=8, modes=modes)
         z = np.zeros(32, np.uint8)
@@ -168,21 +171,30 @@ def test_admission_refusals_match_reference():
             q.submit("t", k, b"", np.zeros(15, np.uint8), mode="cbc", iv=iv),
             q.submit("t", k[:15], b"", z, mode="cbc", iv=iv),
             q.submit("t", k, b"", np.zeros(16 * 9, np.uint8), mode="cbc", iv=iv),
+            q.submit("t", b"", b"", z, mode="rc4", sid=3, ks=z, ks_offset=0),
+            q.submit("t", b"", b"", z, mode="rc4", ks=z),
+            q.submit("t", b"", b"", z, mode="rc4", sid=-2, ks=z),
+            q.submit("t", b"", b"", z, mode="rc4", sid=3),
+            q.submit("t", b"", b"", z, mode="rc4", sid=3, ks=z[:16]),
         ]
         live = q.drain()
         for r in live:
             r.fail(mod.ERR_SHUTDOWN)
-        return [(await f).error for f in futs], [(r.id, r.mode, r.iv) for r in live], q.stats()
+        return ([(await f).error for f in futs],
+                [(r.id, r.mode, r.iv, r.sid, r.ks_offset) for r in live], q.stats())
 
-    for modes in (MODES, ("ctr",)):
+    for modes in (MODES, ("ctr",), MODES + ("rc4",)):
         got = asyncio.run(drive(otq, modes))
         want = asyncio.run(drive(jqueue, modes))
         assert got == want, modes
     codes = asyncio.run(drive(otq, MODES))[0]
     bad = otq.ERR_BAD_REQUEST
     assert codes == [bad, bad, bad, bad, otq.ERR_SHUTDOWN, bad, bad, bad, bad, otq.ERR_SHUTDOWN,
-                     bad, bad, otq.ERR_TOO_LARGE]
+                     bad, bad, otq.ERR_TOO_LARGE] + [bad] * 5  # rc4 not enabled
     assert asyncio.run(drive(otq, ("ctr",)))[0][4] == bad  # cbc not enabled
+    codes, live, _ = asyncio.run(drive(otq, MODES + ("rc4",)))
+    assert codes[13:] == [otq.ERR_SHUTDOWN, bad, bad, bad, bad]
+    assert live[-1][1:] == ("rc4", b"", 3, 0)
 
 
 def test_mixed_server_answers_match_reference_server():
@@ -314,23 +326,30 @@ def test_loadgen_draws_follow_the_reference():
 
 @pytest.mark.parametrize("mode", ["gcm", "gcm-open", "rc4", "bogus"])
 def test_modes_not_ported_are_refused_at_configuration(mode, capsys):
-    """``rc4`` (not ported yet) and ``bogus`` (not a mode) are refused when a
-    server or a bench run is configured; ``gcm`` and ``gcm-open``, served
-    since the gcm slice, start both."""
-    if mode in ("gcm", "gcm-open"):
-        assert otq.not_ported(("ctr", mode)) is None
-        Server(ServerConfig(device="cpu", modes=("ctr", mode)))
+    """``bogus`` (not a mode) is refused when a server or a bench run is
+    configured; ``gcm``, ``gcm-open`` and ``rc4`` (served since their
+    slices) start both, ``rc4`` with its session store and two verified
+    sessions at small session shapes."""
+    if mode != "bogus":
+        assert otq.unknown_modes(("ctr", mode)) is None
+        server = Server(ServerConfig(device="cpu", modes=("ctr", mode)))
+        assert (server.sessions is not None) == (mode == "rc4")
+        extra = (["--sessions", "2", "--session-chunks", "2", "--session-chunk-bytes", "256",
+                  "--session-quantum-bytes", "1024", "--session-prefetch-slots", "2",
+                  "--session-window-bytes", "2048"] if mode == "rc4" else [])
         assert serve_bench.main(["--device", "cpu", "--modes", f"ctr,{mode}", "--requests", "4",
                                  "--sizes", "16", "--bucket-max", "32", "--verify-every",
-                                 "2"]) == 0
+                                 "2", *extra]) == 0
         line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert line["lost"] == 0 and line["ok"] == 4 and set(line["modes"]) <= {"ctr", mode}
+        want_ok = 4 + (4 if mode == "rc4" else 0)
+        assert line["lost"] == 0 and line["ok"] == want_ok and set(line["modes"]) <= {"ctr", mode}
+        if mode == "rc4":
+            assert line["sessions"]["chunks"] == 4 and line["mismatches"] == 0
     else:
-        with pytest.raises(ValueError, match="ROADMAP queue 1, " if mode != "bogus"
-                           else "unknown serve mode"):
+        with pytest.raises(ValueError, match="unknown serve mode"):
             Server(ServerConfig(device="cpu", modes=("ctr", mode)))
         with pytest.raises(SystemExit):
             serve_bench.main(["--device", "cpu", "--modes", f"ctr,{mode}", "--requests", "1"])
-    assert otq.not_ported(MODES) is None
-    assert otq.not_ported(("ctr", "gcm", "gcm-open", "cbc")) is None
-    assert "rc4 serve mode and sessions" in otq.not_ported(("rc4",))
+    assert otq.unknown_modes(otq.MODES) is None
+    assert "unknown serve mode" in otq.unknown_modes(("ctr", "bogus"))
+    assert "unknown serve mode" in otq.unknown_modes(())

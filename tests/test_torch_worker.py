@@ -12,12 +12,16 @@ Prometheus rendering held against the JAX package's on the same inputs:
   clock stamps and pid masked), in process and over loopback: one-frame
   requests of every mode, a tampered ``gcm-open``, ``tx`` exchanges and
   their refusals, a ``transfer_abort`` and its resume, oversized,
-  undrainable and garbage frames, and ``ss`` frames (``bad-request``: no
-  server here serves ``rc4``);
+  undrainable and garbage frames, and ``ss`` session frames (two sessions'
+  ``open``, interleaved ``data`` and ``close``, a ``data`` on a closed
+  session, a bad sid and an unknown op; every chunk also against the host
+  PRGA);
 * ``/healthz`` with the JAX body's keys, ``/incidentz`` with the same body,
   ``/alertz`` and ``/fleetz`` answering 404 with the JAX bodies;
 * ``python -m our_tree_tpu_torch.serve.worker --device cpu`` in a process:
-  READY, one request, SIGTERM, the EXIT line with ``lost: 0``, rc 0.
+  READY, one request, SIGTERM, the EXIT line with ``lost: 0``, rc 0; the
+  worker's options (``--journal``, the ``--session-*`` store shape) reach
+  its ``ServerConfig``, and ``--native-threads`` is refused.
 
 Integer cryptography and byte framing: the tolerance is exact (bytes).
 """
@@ -42,6 +46,7 @@ from our_tree_tpu.serve.server import Server as JServer
 from our_tree_tpu.serve.server import ServerConfig as JServerConfig
 from our_tree_tpu.serve.worker import RequestFrontend as JFrontend
 from our_tree_tpu_torch.aead import ghash
+from our_tree_tpu_torch.models import arc4
 from our_tree_tpu_torch.models.aes import AES, AES_DECRYPT
 from our_tree_tpu_torch.obs import incident, metrics
 from our_tree_tpu_torch.resilience import degrade, faults
@@ -52,8 +57,12 @@ from our_tree_tpu_torch.serve.worker import RequestFrontend
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 64
 CFG = dict(min_bucket_blocks=32, max_bucket_blocks=CHUNK, lanes=1, transfer_window=2,
-           transfer_max_bytes=16 * CHUNK * 16, modes=("ctr", "cbc", "gcm", "gcm-open"),
+           transfer_max_bytes=16 * CHUNK * 16, modes=("ctr", "cbc", "gcm", "gcm-open", "rc4"),
+           session_quantum_bytes=1024, session_prefetch_slots=2, session_window_bytes=2048,
            status_port=0)
+#: The ``session`` sequence's sessions: (sid, key) and each one's chunks.
+SESSION_KEYS = {1: bytes(16), 2: bytes(range(16))}
+SESSION_CHUNKS = {1: (32, 512, 16), 2: (256, 48)}
 #: What a worker's answer frames may differ in: the clocks and the pid.
 MASKED = ("tr", "ts", "pid")
 #: The longest wait on any one line or frame.
@@ -383,12 +392,21 @@ def _sequences():
         + wire.encode_frame({"tx": "chunk", "i": 0}, b"\x00" * 16),
     ])
     seqs["tx-malformed"] = wire.encode_frame({"tx": "begin", "t": "t", "total": "many"})
-    seqs["session"] = b"".join(wire.encode_frame(h, p) for h, p in [
-        ({"ss": "open", "t": "t", "sid": 1, "k": "00" * 16}, b""),
-        ({"ss": "data", "t": "t", "sid": 1}, b"\x00" * 32),
-        ({"ss": "close", "t": "t", "sid": 1}, b""),
-        ({"ss": "open", "t": "t", "sid": "x"}, b""),
-        ({"ss": "rewind", "t": "t", "sid": 1}, b"")])
+    frames = [({"ss": "open", "t": "t", "sid": sid, "k": key.hex()}, b"")
+              for sid, key in SESSION_KEYS.items()]
+    for i in range(3):  # the two sessions' chunks interleaved
+        for sid, sizes in SESSION_CHUNKS.items():
+            if i < len(sizes):
+                frames.append(({"ss": "data", "t": "t", "sid": sid},
+                               bytes(range(sid, sid + sizes[i])) if sizes[i] <= 250
+                               else rng.bytes(sizes[i])))
+    frames += [({"ss": "close", "t": "t", "sid": 1}, b""),
+               ({"ss": "data", "t": "t", "sid": 1}, b"\x00" * 32),   # closed
+               ({"ss": "open", "t": "t", "sid": "x"}, b""),
+               ({"ss": "rewind", "t": "t", "sid": 2}, b""),
+               ({"ss": "data", "t": "t", "sid": 2}, b"\x00" * 15),   # not a block multiple
+               ({"ss": "close", "t": "t", "sid": 2}, b"")]
+    seqs["session"] = b"".join(wire.encode_frame(h, p) for h, p in frames)
     seqs["garbage"] = _req("ctr", key, b"\x02" * 16, nonce=b"\x00" * 16) + b"not json\n" + \
         _req("ctr", key, b"\x02" * 16, nonce=b"\x00" * 16)
     return seqs
@@ -409,15 +427,21 @@ def _answer_both(fronts, blob, how):
 @pytest.mark.parametrize("seq", sorted(SEQUENCES))
 def test_frontend_answers_equal_reference(fronts, seq, how):
     got, want = _answer_both(fronts, SEQUENCES[seq], how)
-    if seq == "session":
-        # The port serves no rc4 sessions: each ss frame gets one refusal of
-        # its own, with the code the JAX server without rc4 answers.
-        assert [(h["ss"], h["ok"], h["error"], b) for h, b in got] == \
-            [(h["ss"], h["ok"], h["error"], b) for h, b in want]
-        assert {h["detail"] for h, _ in got} == {"rc4 mode not enabled on this server"}
-    else:
-        assert got == want
+    assert got == want
     assert got, "no answer frames"
+    if seq == "session":
+        # Each session's chunks against the host PRGA, in stream order.
+        sent = _frames(SEQUENCES[seq])
+        states = {sid: (0, 0, arc4.key_schedule(k)) for sid, k in SESSION_KEYS.items()}
+        datas = [(h, b, ans) for (h, b), ans in zip(sent, got) if h["ss"] == "data"]
+        assert sum(ans[0]["ok"] for _h, _b, ans in datas) == sum(map(len,
+                                                                   SESSION_CHUNKS.values()))
+        for h, body, (ans, out) in datas:
+            if ans["ok"]:
+                ks, states[h["sid"]] = arc4.keystream_np(states[h["sid"]], len(body))
+                assert out == bytes(np.frombuffer(body, np.uint8) ^ ks)
+            else:
+                assert ans["error"] == "bad-request" and out == b""
 
 
 def test_frontend_answers_are_right(fronts):
@@ -649,7 +673,22 @@ def test_worker_process_on_cpu(tmp_path):
                                   ["--session-per-tenant", "16"],
                                   ["--session-budget-bytes", "1024"]])
 def test_worker_refuses_what_the_port_lacks(argv, capsys):
+    """``--native-threads`` (the native serve engine) is still refused with its
+    ROADMAP item; ``--journal`` and the ``--session-*`` options, ported with
+    the lanes' journal and the rc4 sessions, reach the server's config."""
     from our_tree_tpu_torch.serve import worker
 
-    assert worker.main(["--device", "cpu", *argv]) == 2
-    assert "ROADMAP queue 1" in capsys.readouterr().err
+    if argv[0] == "--native-threads":
+        assert worker.main(["--device", "cpu", *argv]) == 2
+        assert "ROADMAP queue 1" in capsys.readouterr().err
+        return
+    cfg = worker.server_config(worker.parse_args(["--device", "cpu", "--modes", "ctr,rc4",
+                                                   *argv]))
+    field = argv[0][2:].replace("-", "_")
+    assert str(getattr(cfg, field)) == argv[1] and cfg.modes == ("ctr", "rc4")
+    # The JAX server's defaults for the options not given.
+    defaults = JServerConfig()
+    for name in ("journal", "session_per_tenant", "session_window_bytes",
+                 "session_quantum_bytes", "session_prefetch_slots", "session_budget_bytes"):
+        if name != field:
+            assert getattr(cfg, name) == getattr(defaults, name), name
