@@ -16,7 +16,9 @@ MiB, on ``ghash_at``) and chunked transfers with the wire worker
 status endpoint) and the rc4 serve mode with its sessions and the serve
 side's fault seams and journal (``serve.session``, the session acceptance
 drive with a hung lane, the journal round trip, the worker's ``ss``
-frames), and holds
+frames) and engine selection with the port's entry (``entry()``, the bench's
+probe stage and device lock, the device key schedules, the native serve
+engine, ``ot_bench``), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -277,6 +279,29 @@ is not 0:
    ``close`` over loopback, every chunk equal to the host PRGA, a ``data``
    on a closed session answering ``bad-request``, ``/healthz`` with its
    ``sessions`` section, EXIT ``lost: 0`` and rc 0;
+15. engine selection and the port's entry (``selection_phase``; it runs
+   before 14): (a) ``entry()`` on the card, ``fn(*args)`` equal to the plain
+   version and to the native C CTR on the same bytes, exactly one
+   ``ctr_gen`` launch; (b) ``python -m our_tree_tpu_torch.bench`` in a child
+   with ``OT_BENCH_ENGINE=probe`` and its own ``OT_ENGINE_RANKING``: digest
+   0xa612a647 on ``cuda``, the file holding ``cuda`` and ``ttable`` under
+   ``cuda:<card name>``, ``cuda`` first, at 256 MiB; a second child on
+   ``auto`` reporting ``engine=cuda``; in this process, ``cuda`` dropped in a
+   temporary ranking, ``resolve_engine("auto", "cuda")`` raising; (c) each
+   child with a marker path of its own (this process holds none), leaving
+   no marker behind; a child with ``OT_FAULTS=lock_busy`` exiting non-zero,
+   naming the holder, printing no line; (d) the device key schedules of
+   1,000 random keys of each size equal to the host ones; (e) drive A's mix
+   and drive D's mix with ``--engine native``, counted: 0 lost, failed or
+   mismatching, no ``ctr_mk`` launch for ``ctr``, ``ctr_mk`` and
+   ``ghash_at`` launches equal to the GCM engine calls, ``cbc_mk`` launches
+   to the ``cbc`` calls; p50 and goodput with the host CPU's model; a
+   worker with ``--engine native --native-threads 4``, one exchange in each
+   mode against the plain versions; (f) ``ot_bench --backend=c`` rows, then
+   ``--backend=gpu`` through the embedded interpreter, whose lines equal a
+   direct ``python -m our_tree_tpu_torch.harness.bench`` run on the same
+   arguments (without ``python3-config`` a line says so and the ``c`` rows
+   still run);
 14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -286,8 +311,9 @@ is not 0:
    that the profiler touches none of the timings before it.
 
 Phases 4, 5, 7, each drive of 8 (D and the rehearsal included), the seal
-and the open of 11, each transfer of 12 (a), each run of 13 (c)
-and 14 run with every launch count set to 0 just before and read just after (13
+and the open of 11, each transfer of 12 (a), each run of 13 (c), 15 (a)
+and each native drive of 15 (e), and 14 run with every launch count set to
+0 just before and read just after (13
 (a) reads the child's own count, the bench's ``launches`` section), and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
 Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
@@ -310,7 +336,9 @@ under ``ctr_mk`` the worker's figures), the
 and its block form (``ecb_encrypt_block_kernel``, with the crossing table),
 ``cbc_mk`` its breakdown and 32-block rung, ``ctr_gen`` its one-block tail
 by form, its launches by form and its block form (``ctr_gen_block_kernel``,
-with the crossing table).
+with the crossing table); ``ctr_gen`` also carries phase 15's ``selection``
+(``entry()``'s launches, the probe's GB/s by engine), and ``ctr_mk``,
+``ghash_at`` and ``cbc_mk`` the native drives' launches under theirs.
 Without a card,
 or without the rest of the repo beside it, it exits non-zero and prints no
 result.
@@ -2718,6 +2746,333 @@ def session_phase(card: str, reset_counts, counts, device: str = "cuda") -> dict
         raise SystemExit(f"the session worker failed: {checks}; stderr {err_tail}")
     out["worker"] = {"sessions": len(WORKER_SESSIONS), "chunks": sum(map(len, chunks.values())),
                      "healthz_sessions": hdoc.get("sessions")}
+    return out
+
+
+#: Phase 15's native-engine drives: A's mix and D's mix on ``--engine native``.
+NATIVE_DRIVE_A = ["--requests", "500", "--mixed-sizes", "--engine", "native"]
+NATIVE_DRIVE_D = [*DRIVE_D, "--engine", "native"]
+#: Keys of each size phase 15 (d) expands on the card.
+SCHEDULE_KEYS = 1000
+#: ``ot_bench`` arguments of phase 15 (f): the C rows and the gpu dispatch.
+OT_BENCH_C = ["--backend=c", "--sizes=1,16", "--threads=1,8", "--iters=3", "--modes=ecb,ctr"]
+OT_BENCH_GPU = ["--sizes=1", "--threads=1", "--iters=2", "--keybits=128", "--modes=ctr"]
+
+
+def _masked_sweep(out: str) -> list[str]:
+    """The sweep's lines with the times masked: a row's fields after its
+    worker count, a keygen line's time, a line of times alone, a ``#
+    derived:`` line whole."""
+    lines = []
+    for line in out.strip().splitlines():
+        if line.startswith("# derived:"):
+            line = "# derived:"
+        elif m := re.match(r"^([^,]*[A-Za-z][^,]*, \d+, \d+,|Generated [^,]* in )(.*)$", line):
+            line = m.group(1) + re.sub(r"[\d.e+-]+", "N", m.group(2))
+        elif re.fullmatch(r"[\d.e+\-, ]+", line):
+            line = re.sub(r"[\d.e+-]+", "N", line)
+        lines.append(line)
+    return lines
+
+
+def selection_phase(card: str, reset_counts, counts, device: str = "cuda") -> dict:
+    """Phase 15, engine selection and the port's entry: (a) ``entry()``; (b)
+    the bench's probe stage in a child, the ``auto`` child and a dropped
+    ``cuda`` in this process; (c) the device lock's children; (d) the device
+    key schedules; (e) the native serve engine's drives and worker; (f)
+    ``ot_bench``. Returns the launches for the ``kernels`` line. This
+    process holds no device-lock marker, and every child gets a marker path
+    of its own."""
+    import numpy as np
+    import sysconfig
+
+    import torch
+
+    from our_tree_tpu_torch import entry as entry_mod
+    from our_tree_tpu_torch.models import aes
+    from our_tree_tpu_torch.ops import cuda_aes, keyschedule
+    from our_tree_tpu_torch.runtime import native
+    from our_tree_tpu_torch.serve import bench as serve_bench
+    from our_tree_tpu_torch.utils import packing, ranking
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cpu = cpu_model()
+    tmp = tempfile.mkdtemp(prefix="ot_selection_")
+    atexit.register(shutil.rmtree, tmp, True)
+
+    # (a) entry(): one ctr_gen launch, equal to the plain version and to the
+    # native C CTR on the same bytes.
+    fn, args = entry_mod.entry(device)
+    reset_counts()
+    got = fn(*args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launched = counts()
+    words, ctr_be, rk = args
+    plain = cuda_aes.ctr_crypt_words_fused_plain(words, ctr_be, rk, 10)
+    data = packing.np_words_to_bytes(packing.words_numpy(words).reshape(-1))
+    c_out, _ = native.NativeAES(entry_mod.KEY).ctr(np.frombuffer(entry_mod.NONCE, np.uint8),
+                                                    np.asarray(data))
+    want_launches = {n: int(n == "ctr_gen" and device == "cuda") for n in launched}
+    checks = {
+        "equal to the plain version": torch.equal(got, plain),
+        "equal to the native C CTR": packing.np_words_to_bytes(
+            packing.words_numpy(got).reshape(-1)).tobytes() == c_out.tobytes(),
+        "one ctr_gen launch and nothing else": launched == want_launches,
+    }
+    log(f"entry(): fn(*args) over {tuple(words.shape)} words, {len(data)} bytes: launches "
+        f"{ {k: v for k, v in launched.items() if v} }, equal to the plain version and the "
+        f"native C CTR {checks}; card: {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"phase 15 (a), entry(): {checks}")
+    out["entry_launches"] = launched["ctr_gen"]
+
+    # (b) and (c): the bench in children, each with its own ranking file and
+    # marker path.
+    rank_path = os.path.join(tmp, "engine_ranking.json")
+
+    def bench_child(engine, busy, extra=None):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+        env.update(OT_BENCH_ENGINE=engine, OT_ENGINE_RANKING=rank_path,
+                   OT_BENCH_BUSY_FILE=busy, **(extra or {}))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.bench"], cwd=ROOT,
+                             env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        try:
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            line = None
+        for text in res.stderr.strip().splitlines():
+            if text.startswith("#"):
+                log(f"bench ({engine}): {text}")
+        return res, line, wall
+
+    probe_gbps: dict = {}
+    if device == "cuda":
+        key = aes.rank_key(device)
+        busy = os.path.join(tmp, "gpu_busy_probe")
+        res, line, wall = bench_child("probe", busy)
+        os.environ["OT_ENGINE_RANKING"] = rank_path
+        try:
+            stored = ranking.load(key)
+            probe_gbps = {r["engine"]: r["gbps"] for r in (stored or {}).get("ranking", [])}
+        finally:
+            del os.environ["OT_ENGINE_RANKING"]
+        res2, line2, wall2 = bench_child("auto", os.path.join(tmp, "gpu_busy_auto"))
+        checks = {
+            "probe child rc 0": res.returncode == 0 and line is not None,
+            f"digest {MAIN_DIGEST:#010x}": line is not None
+            and f"digest={MAIN_DIGEST:#010x}" in line["metric"],
+            "the headline on cuda": line is not None and "engine=cuda," in line["metric"],
+            "the file holds cuda and ttable under the card's key, cuda first":
+            stored is not None and [r["engine"] for r in stored["ranking"]] == ["cuda", "ttable"]
+            and stored["source"] == "bench-probe" and stored["bytes"] == 256 << 20,
+            "the auto child reports engine=cuda": res2.returncode == 0 and line2 is not None
+            and "engine=cuda," in line2["metric"]
+            and f"digest={MAIN_DIGEST:#010x}" in line2["metric"],
+            "a normal child leaves no marker": not os.path.exists(busy)
+            and not os.path.exists(os.path.join(tmp, "gpu_busy_auto")),
+        }
+        # cuda dropped in a temporary ranking: auto raises on the card.
+        drop_path = os.path.join(tmp, "dropped.json")
+        os.environ["OT_ENGINE_RANKING"] = drop_path
+        try:
+            ranking.store(key, {"cuda": 50.0, "ttable": 1.0}, "phase-15", 1)
+            ranking.drop_engines(key, ["cuda"], reason="phase 15: a dropped kernel engine")
+            try:
+                aes.resolve_engine("auto", device)
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+        finally:
+            del os.environ["OT_ENGINE_RANKING"]
+        checks["auto raises with cuda dropped"] = raised is not None and "phase 15" in raised
+        log(f"bench probe child ({wall:.1f} s with start-up): {line}; ranking under {key!r}: "
+            f"{stored}; auto child ({wall2:.1f} s): {line2}; with cuda dropped auto raised: "
+            f"{raised!r}; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 15 (b), the probe: {checks}; probe stderr "
+                             f"{res.stderr[-2000:]!r}; auto stderr {res2.stderr[-2000:]!r}")
+        out["probe"] = {"gbps": probe_gbps, "bytes": stored["bytes"], "headline": line,
+                        "auto": line2, "wall_s": wall, "auto_wall_s": wall2}
+
+        # (c) lock_busy: the child waits out 0.3 x OT_BENCH_DEADLINE, names the
+        # holder, exits non-zero and prints no line.
+        busy_c = os.path.join(tmp, "gpu_busy_c")
+        res3, line3, wall3 = bench_child("auto", busy_c, {"OT_FAULTS": "lock_busy",
+                                                          "OT_BENCH_DEADLINE": "10"})
+        checks = {"non-zero exit": res3.returncode != 0,
+                  "no GB/s line": "GB/s" not in res3.stdout and line3 is None,
+                  "names the holder": "held by injected lock_busy" in res3.stderr,
+                  "no marker left": not os.path.exists(busy_c)}
+        log(f"bench under OT_FAULTS=lock_busy: rc {res3.returncode}, stdout {res3.stdout!r}, "
+            f"{wall3:.1f} s; {checks}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 15 (c), the lock: {checks}; stderr {res3.stderr[-2000:]!r}")
+
+    # (d) The device key schedules against the host ones.
+    sched_bad = {}
+    for bits in (128, 192, 256):
+        rng = np.random.default_rng(bits)
+        keys = rng.integers(0, 256, (SCHEDULE_KEYS, bits // 8), dtype=np.uint8)
+        kw = packing.words_tensor(np.stack([packing.np_bytes_to_words(k) for k in keys]),
+                                  device)
+        nr, enc = keyschedule.expand_key_enc_device(kw, bits)
+        _, dec = keyschedule.expand_key_dec_device(kw, bits)
+        enc, dec = packing.words_numpy(enc), packing.words_numpy(dec)
+        bad = 0
+        for i, k in enumerate(keys):
+            bad += int(not np.array_equal(enc[i], keyschedule.expand_key_enc(k.tobytes())[1]))
+            bad += int(not np.array_equal(dec[i], keyschedule.expand_key_dec(k.tobytes())[1]))
+        sched_bad[bits] = bad
+    log(f"device key schedules on {device}: {SCHEDULE_KEYS} random keys of each size, "
+        f"mismatching encrypt or decrypt schedules by key size {sched_bad}")
+    if any(sched_bad.values()):
+        raise SystemExit(f"phase 15 (d), the device key schedules: {sched_bad}")
+
+    # (e) The native serve engine: A's and D's mixes, counted, then a worker.
+    drives = {}
+    for name, argv in (("native A", NATIVE_DRIVE_A), ("native D", NATIVE_DRIVE_D)):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_bench.main(["--device", device, *argv])
+        wall = time.perf_counter() - t0
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        got = counts()
+        calls = line["per_mode"]["engine_calls"]
+        gcm = sum(calls.get(m, 0) for m in GCM_SERVE_MODES)
+        on_card = device == "cuda"
+        checks = {
+            "rc 0": rc == 0, "the native engine": line["engine"] == aes.NATIVE_ENGINE,
+            "0 lost": line["lost"] == 0,
+            "0 failed": line["errors"] == {} and line["ok"] == line["requests"],
+            "0 mismatches": line["mismatches"] == 0 and line["verified"] > 0,
+            "0 steady builds": line["recompiles"] == 0,
+            "no ctr_mk launch for ctr": got["ctr_mk"] == (gcm if on_card else 0),
+            "ghash_at calls == GCM engine calls": got["ghash_at"] == (gcm if on_card else 0),
+            "cbc_mk launches == cbc engine calls": got["cbc_mk"] == (
+                calls.get("cbc", 0) if on_card else 0),
+            "no other kernel": all(v == 0 for n, v in got.items()
+                                   if n not in ("ctr_mk", "ghash_at", "cbc_mk")),
+        }
+        if "--modes" in argv:
+            checks["every mode served"] = all(calls.get(m, 0) > 0
+                                              for m in ("ctr", "gcm", "gcm-open", "cbc"))
+        lat = line["per_mode"]["latency"]
+        log(f"serve {name} ({' '.join(argv)}): p50 {line['p50_ms']} ms, p99 {line['p99_ms']} ms, "
+            f"goodput {line['goodput_gbps']} GB/s; by mode "
+            + ", ".join(f"{m} p50 {v['p50_ms']} ms" for m, v in lat.items())
+            + f"; engine calls {calls}; launches {got}; {wall:.1f} s wall; host CPU: {cpu}; "
+            f"card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 15 (e), serve {name}: {checks}")
+        drives[name] = {"p50_ms": line["p50_ms"], "p99_ms": line["p99_ms"],
+                        "goodput_gbps": line["goodput_gbps"], "engine_calls": calls,
+                        "launches": got, "wall_s": wall}
+    out["native_drives"] = drives
+
+    from our_tree_tpu_torch.aead import gcm as agcm
+    from our_tree_tpu_torch.aead import ghash as aghash
+    from our_tree_tpu_torch.models.aes import AES, AES_DECRYPT
+
+    wkey = bytes(range(16))
+    wenv = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+    worker = _Worker(["--device", device, "--engine", "native", "--native-threads", "4",
+                      "--modes", "ctr,cbc,gcm,gcm-open", "--port", "0", "--status-port", "0"],
+                     wenv, os.path.join(tmp, "worker.err"))
+    try:
+        ready = worker.line(WORKER_READY_S)
+        wrng = np.random.default_rng(15)
+        pt = wrng.integers(0, 256, 4096, dtype=np.uint8)
+        n16, iv16, iv12, aad = wrng.bytes(16), wrng.bytes(16), wrng.bytes(12), wrng.bytes(20)
+        ct, tag = aghash.np_gcm_seal(wkey, iv12, aad, pt.tobytes())
+        plain_ctx = AES(wkey, device="cpu")
+        reqs = {
+            "ctr": ({"t": "w", "k": wkey.hex(), "n": n16.hex()}, pt, plain_ctx.crypt_ctr(
+                0, np.frombuffer(n16, np.uint8), np.zeros(16, np.uint8), pt)[0].tobytes()),
+            "cbc": ({"t": "w", "k": wkey.hex(), "m": "cbc", "iv": iv16.hex()}, pt,
+                    plain_ctx.crypt_cbc(AES_DECRYPT, np.frombuffer(iv16, np.uint8),
+                                        pt)[0].tobytes()),
+            "gcm": ({"t": "w", "k": wkey.hex(), "m": "gcm", "iv": iv12.hex(), "a": aad.hex()},
+                    pt, agcm.gcm_seal(wkey, iv12, aad, pt.tobytes(), device="cpu")[0]),
+            "gcm-open": ({"t": "w", "k": wkey.hex(), "m": "gcm-open", "iv": iv12.hex(),
+                          "a": aad.hex(), "tg": tag.hex()}, np.frombuffer(ct, np.uint8),
+                         pt.tobytes()),
+        }
+
+        async def exchange():
+            got_w = {}
+            for mode, (h, body, want) in reqs.items():
+                got_h, got_b, _ = await _wire_request(ready["port"], h, body.tobytes())
+                got_w[mode] = bool(got_h.get("ok")) and got_b == bytes(want) and (
+                    mode != "gcm" or got_h.get("tg") == tag.hex())
+            return got_w
+
+        answers = asyncio.run(exchange())
+        exit_line, rc = worker.stop()
+    finally:
+        worker.kill()
+    checks = {"READY on the native engine": ready.get("engine") == aes.NATIVE_ENGINE,
+              "each mode's exchange equal to the plain versions": all(answers.values())
+              and len(answers) == 4,
+              "EXIT lost 0, rc 0": exit_line.get("lost") == 0 and rc == 0}
+    log(f"native worker (--engine native --native-threads 4): {answers}; EXIT {exit_line} rc "
+        f"{rc}; {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"phase 15 (e), the native worker: {checks}; {worker.err_tail()}")
+
+    # (f) ot_bench: the C rows, then the gpu dispatch through the embedded
+    # interpreter against a direct harness run on the same arguments.
+    exe = native.ot_bench_path()
+    res = subprocess.run([str(exe), *OT_BENCH_C], capture_output=True, text=True, timeout=600)
+    c_rows = harness_rows(res.stdout)
+    log(f"ot_bench {' '.join(OT_BENCH_C)}: rc {res.returncode}; "
+        + "; ".join(f"{r['row']}: {r['times_us']} µs" for r in c_rows)
+        + f"; host CPU: {cpu}")
+    arg = dict(a[2:].split("=", 1) for a in OT_BENCH_C)
+    want_rows = (len(arg["sizes"].split(",")) * len(arg["threads"].split(","))
+                 * len(arg["modes"].split(",")))
+    if res.returncode != 0 or len(c_rows) != want_rows:
+        raise SystemExit(f"phase 15 (f), ot_bench --backend=c: rc {res.returncode}, "
+                         f"{res.stdout[-2000:]!r} {res.stderr[-2000:]!r}")
+    out["ot_bench_c"] = c_rows
+    if not native.ot_bench_embeds(exe):
+        log("python3-config --embed does not answer on this machine: ot_bench is built without "
+            "the embedded interpreter, and its --backend=gpu rows are not run")
+        out["ot_bench_gpu"] = "not run: no python3-config"
+    else:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
+        env["PYTHONPATH"] = os.pathsep.join([ROOT, sysconfig.get_paths()["purelib"]] + (
+            [os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))
+        res_g = subprocess.run([str(exe), "--backend=gpu", f"--device={device}", *OT_BENCH_GPU],
+                               capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+        direct_argv = ["--backend", "gpu", "--device", device]
+        for a in OT_BENCH_GPU:
+            flag, val = a[2:].split("=", 1)
+            direct_argv += [{"sizes": "--sizes-mb", "threads": "--workers"}.get(
+                flag, f"--{flag}"), val]
+        res_d = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.harness.bench",
+                                *direct_argv], capture_output=True, text=True, env=env,
+                               timeout=600, cwd=ROOT)
+        g_rows = harness_rows(res_g.stdout)
+        checks = {"rc 0": res_g.returncode == 0 and res_d.returncode == 0,
+                  "GPU rows": any(r["row"].startswith("GPU AES-128 CTR") for r in g_rows),
+                  "lines equal a direct harness run": _masked_sweep(res_g.stdout)
+                  == _masked_sweep(res_d.stdout)}
+        log(f"ot_bench --backend=gpu {' '.join(OT_BENCH_GPU)}: "
+            + "; ".join(f"{r['row']}: {r['times_us']} µs, {r['gbps']} GB/s" for r in g_rows)
+            + f"; {checks}; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 15 (f), ot_bench --backend=gpu: {checks}; "
+                             f"{res_g.stdout[-1500:]!r} {res_g.stderr[-1500:]!r} "
+                             f"{res_d.stdout[-1500:]!r}")
+        out["ot_bench_gpu"] = g_rows
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 (engine selection and entry): {out['wall_s']:.1f} s wall; card: {card}")
     return out
 
 
@@ -5817,6 +6172,19 @@ def main() -> int:
         "refill_device_us": drive["device_us_per_dispatch"].get("rc4-prep"),
         "xor_device_us": drive["device_us_per_dispatch"].get("rc4"),
         "prefetch_shapes": prefetch, "drive": drive, "worker": sess_entries["worker"]}
+
+    # 15. Engine selection and the port's entry (it runs before 14, which
+    # stays last): entry(), the probe, the lock, the device key schedules,
+    # the native serve engine and ot_bench.
+    sel = selection_phase(card, reset_counts, counts)
+    for entry in kernels:
+        if entry["name"] == "ctr_gen":
+            entry["selection"] = {"entry_launches": sel["entry_launches"],
+                                  "probe_gbps": sel["probe"]["gbps"],
+                                  "probe_bytes": sel["probe"]["bytes"]}
+        elif entry["name"] in ("ctr_mk", "ghash_at", "cbc_mk"):
+            entry["selection"] = {"native_drive_launches": {
+                name: d["launches"][entry["name"]] for name, d in sel["native_drives"].items()}}
 
     # 14. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in

@@ -18,10 +18,36 @@ chain never waits on the host. The reported time of ``iters`` steps is
 T(1 + iters) - T(1), timed with CUDA events; the line reports the median of
 ``OT_BENCH_REPS`` (default 3) such measurements with min and max.
 
+Engine (``OT_BENCH_ENGINE``, root ``bench.py:471`` and ``:600-695``): the
+default ``probe`` measures each engine of ``ranking.probe_order`` (the
+kernels ``cuda`` and the T-table oracle ``ttable``; never the plain
+``bitslice``) at ``min(OT_BENCH_BYTES, 256 MiB)``, two iterations, the
+best of two samples; stores the ranking under the card's key
+(``utils/ranking.py``, ``OT_ENGINE_RANKING``) when the operation is
+``ctr``, and measures the headline on ``resolve_engine("auto")``. Two rules
+differ from the reference: probe digests that disagree fail the run (the
+reference drops the minority, ``bench.py:421-445``; every probe here
+holds ``cuda``, so any dissent involves the kernel engine), as does a
+headline digest other than ``DEFAULT_DIGEST`` at the default configuration
+(``ctr``, 256 MiB, 5 iterations), so a 1-1 split never picks an engine;
+and an exception while probing a kernel engine propagates, where a
+``ttable`` failure is data. On the CPU ``probe`` means ``auto`` and writes nothing.
+Any other value names the engine (``auto``, ``cuda``, ``ttable``,
+``bitslice``).
+
+The card is single-tenant for a measurement (``utils/devlock.py``, root
+``bench.py:291-353``): ``main`` waits up to 0.3 x ``OT_BENCH_DEADLINE``
+(default 1200 s) for a holder of ``OT_BENCH_BUSY_FILE`` (default
+``gpu_busy`` under ``TMPDIR``), claims it with a bounded retry and releases
+it at the end. Where a live holder outlasts the wait it exits 3, names the holder and
+prints no line: the reference reports a native CPU number there, and the
+port never measures the CPU in place of the card.
+
 Environment: ``OT_BENCH_BYTES`` (default 256 MiB), ``OT_BENCH_ITERS``
 (default 5), ``OT_BENCH_REPS`` (default 3), ``OT_BENCH_OP`` (``ctr``,
-``ecb`` or ``ecb-dec``). Without a card it raises; tests call
-``run(device="cpu")``, whose line then names the CPU platform.
+``ecb`` or ``ecb-dec``), ``OT_BENCH_ENGINE`` (default ``probe``). Without a
+card it raises; tests call ``run(device="cpu")``, whose line then names
+the CPU platform.
 """
 
 from __future__ import annotations
@@ -35,7 +61,7 @@ import numpy as np
 import torch
 
 from .models import aes as aes_mod
-from .utils import packing
+from .utils import devlock, packing, ranking
 
 #: Reference bars per operation (root bench.py BASELINES, BASELINE.md): the
 #: reference C library's AES-NI CTR (1 GiB, 8 CPU threads) and ECB (8 CPU
@@ -44,6 +70,14 @@ BASELINES = {"ctr": 0.520, "ecb": 0.551, "ecb-dec": 0.551}
 KEY = bytes(range(16))
 NONCE = bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff")
 SEED = 1337
+#: The chain digest at the default configuration (``ctr``, 256 MiB, 5
+#: iterations), the one every correct engine prints.
+DEFAULT_DIGEST = 0xA612A647
+DEFAULT_CONFIG = ("ctr", 256 << 20, 5)
+#: The probe's size cap, its iterations and its samples (root ``bench.py``).
+PROBE_CAP = 256 << 20
+PROBE_ITERS = 2
+PROBE_REPS = 2
 
 
 def u32_sum(out: torch.Tensor) -> torch.Tensor:
@@ -56,7 +90,7 @@ class Chain:
     """The chained measurement of one operation (``ctr``, ``ecb``,
     ``ecb-dec``) over one buffer on one device."""
 
-    def __init__(self, nbytes: int, device, op: str = "ctr"):
+    def __init__(self, nbytes: int, device, op: str = "ctr", engine: str = "auto"):
         if nbytes <= 0 or nbytes % 16:
             raise ValueError(f"buffer size must be a positive multiple of 16, got {nbytes}")
         if op not in BASELINES:
@@ -64,7 +98,7 @@ class Chain:
         self.op = op
         self.device = aes_mod.as_device(device)
         self.nbytes = nbytes
-        self.aes = aes_mod.AES(KEY, device=self.device)
+        self.aes = aes_mod.AES(KEY, engine=engine, device=self.device)
         host = np.random.default_rng(SEED).integers(0, 256, nbytes, dtype=np.uint8)
         self.words = packing.words_tensor(packing.np_bytes_to_words(host), self.device)
         nonce = np.frombuffer(NONCE, np.uint8)
@@ -117,11 +151,13 @@ class Chain:
 def report_line(nbytes: int, platform: str, engine: str, digest: int,
                 samples: list[float], op: str = "ctr") -> dict:
     s, n = samples, len(samples)
-    gbps = s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
+    # The ratio is of the reported (rounded) value, so the line agrees with
+    # itself whatever the measurement's later digits.
+    gbps = round(s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2]), 4)
     return {
         "metric": f"AES-128-{op.upper()} throughput, {nbytes >> 20} MiB buffer, "
                   f"1 {platform} device, engine={engine}, digest={digest:#010x}",
-        "value": round(gbps, 4),
+        "value": gbps,
         "unit": "GB/s",
         "vs_baseline": round(gbps / BASELINES[op], 3),
         "value_min": round(samples[0], 4),
@@ -130,22 +166,103 @@ def report_line(nbytes: int, platform: str, engine: str, digest: int,
     }
 
 
+def probe_stage(key: str, measure, op: str = "ctr", nbytes: int = PROBE_CAP) -> tuple[str, dict]:
+    """Measure each engine of ``ranking.probe_order(key, CORES)`` with
+    ``measure(engine) -> (sorted GB/s samples, digest)``, store the ranking
+    under ``key`` (``ctr`` only) and return (the headline's engine,
+    ``aes.auto_engine(key)``; {engine: best GB/s}). A kernel engine's
+    failure propagates, another engine's is printed and left out; any
+    disagreement of the digests raises."""
+    probes, digests = {}, {}
+    for eng in ranking.probe_order(key, aes_mod.CORES):
+        try:
+            samples, digests[eng] = measure(eng)
+        except Exception as e:
+            if eng in aes_mod.KERNEL_BACKED:
+                raise
+            print(f"# probe {eng}: failed ({type(e).__name__}: {e})"[:500], file=sys.stderr)
+            continue
+        probes[eng] = samples[-1]
+    if len(set(digests.values())) > 1:
+        listed = ", ".join(f"{k}={v:#010x}" for k, v in sorted(digests.items()))
+        raise RuntimeError(f"probe digests disagree ({listed}): the engines compute other "
+                           f"bytes on this device")
+    print("# probe GB/s: " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(probes.items())),
+          file=sys.stderr)
+    if op == "ctr" and ranking.store(key, probes, "bench-probe", nbytes):
+        print(f"# ranking persisted to {ranking.path()}", file=sys.stderr)
+    return aes_mod.auto_engine(key), probes
+
+
 def run(device=None, nbytes: int | None = None, iters: int | None = None,
-        reps: int | None = None) -> dict:
+        reps: int | None = None, engine: str = "auto") -> dict:
     """Measure and return the JSON line (a dict); arguments default to the
-    ``OT_BENCH_*`` environment and then to 256 MiB, 5 iterations, 3 reps."""
+    ``OT_BENCH_*`` environment and then to 256 MiB, 5 iterations, 3 reps.
+    ``engine="probe"`` runs the probe stage first on a card (on the CPU it
+    means ``auto``)."""
     op = os.environ.get("OT_BENCH_OP", "ctr")
     nbytes = nbytes or int(os.environ.get("OT_BENCH_BYTES", 256 << 20))
     iters = iters or int(os.environ.get("OT_BENCH_ITERS", 5))
     reps = reps or int(os.environ.get("OT_BENCH_REPS", 3))
-    chain = Chain(nbytes, device, op)
+    dev = aes_mod.as_device(device)
+    if engine == "probe":
+        engine = "auto"
+        if dev.type == "cuda":
+            probe_bytes = min(nbytes, PROBE_CAP)
+            engine, _ = probe_stage(
+                aes_mod.rank_key(dev),
+                lambda eng: Chain(probe_bytes, dev, op, eng).measure(PROBE_ITERS, PROBE_REPS),
+                op, probe_bytes)
+    chain = Chain(nbytes, dev, op, engine)
     samples, digest = chain.measure(iters, reps)
+    if (op, nbytes, iters) == DEFAULT_CONFIG and digest != DEFAULT_DIGEST:
+        raise RuntimeError(f"engine {chain.aes.engine}: chain digest {digest:#010x} at the default "
+                           f"configuration, expected {DEFAULT_DIGEST:#010x}")
     platform = "gpu" if chain.device.type == "cuda" else chain.device.type
     return report_line(nbytes, platform, chain.aes.engine, digest, samples, op)
 
 
+class CardBusy(RuntimeError):
+    """A live holder of the device lock outlasted the wait."""
+
+
+def claim_card() -> bool:
+    """Wait for a holder of the device lock (0.3 x ``OT_BENCH_DEADLINE``),
+    then claim it with a bounded retry; True when this process owns it.
+    Raises ``CardBusy`` naming the holder when a live one remains. The
+    held-or-owned decision is taken inside the loop on the observation that
+    made ``acquire`` fail, so a holder that leaves in between sends the loop
+    back to ``acquire``."""
+    budget = 0.3 * float(os.environ.get("OT_BENCH_DEADLINE", 1200))
+    devlock.wait(budget, poll_s=min(15.0, max(budget, 0.05)),
+                 on_wait=lambda p: print(f"# waiting for a concurrent card job ({p})",
+                                         file=sys.stderr))
+    held = False
+    for _ in range(3):
+        if devlock.acquire():
+            return True
+        held = devlock.is_held()
+        if held:
+            break
+    if held:
+        raise CardBusy(f"card busy: {devlock.path()} is held by {devlock.holder()}; not "
+                       f"measuring (the port never reports the CPU in place of the card)")
+    return False
+
+
 def main() -> int:
-    print(json.dumps(run()), flush=True)
+    engine = os.environ.get("OT_BENCH_ENGINE", "probe")
+    aes_mod.as_device(None)  # raises without a card
+    try:
+        owned = claim_card()
+    except CardBusy as e:
+        print(f"# {e}", file=sys.stderr)
+        return 3
+    try:
+        line = run(engine=engine)
+    finally:
+        devlock.release(owned)
+    print(json.dumps(line), flush=True)
     return 0
 
 

@@ -33,7 +33,7 @@ from ..resilience import degrade, faults, watchdog
 #: ``--engine`` names of the gpu backend -> the port's engine registry
 #: (``models/aes.py``): ``cuda`` the hand-written kernels, ``bitslice``
 #: their plain versions, ``ttable`` the T-table oracle.
-ENGINES = {"auto": "auto", "cuda": "cuda-ctr-gen-bp", "bitslice": "bitslice",
+ENGINES = {"auto": "auto", "cuda": "cuda", "bitslice": "bitslice",
            "ttable": "ttable"}
 #: ``OT_ARC4_PREP`` values: where a single stream's keystream is made.
 ARC4_PREP = ("auto", "native", "device")

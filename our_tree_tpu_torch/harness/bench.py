@@ -516,8 +516,9 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="gpu", choices=("gpu", "c"))
     ap.add_argument("--engine", default="auto", choices=sorted(ENGINES),
                     help="gpu backend engine: cuda (the hand-written kernels), bitslice "
-                         "(their plain torch versions), ttable (the T-table oracle), auto "
-                         "(cuda on the card, bitslice on the CPU)")
+                         "(their plain torch versions), ttable (the T-table oracle: a gather "
+                         "path, not constant time), auto (on the card the engine ranking's "
+                         "first kernel engine, cuda; bitslice on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="gpu backend device (default cuda; without a card it raises "
                          "unless --device cpu is passed)")

@@ -40,7 +40,10 @@ def main(argv=None) -> int:
     ap.add_argument("--iv-off", type=int, default=0,
                     help="cfb128 resume offset into the feedback register "
                          "(reference aes.h iv_off; 0..15)")
-    ap.add_argument("--engine", default="auto")
+    ap.add_argument("--engine", default="auto",
+                    help="auto (on the card the engine ranking's kernel engine, cuda; "
+                         "bitslice on the CPU), cuda, bitslice, or ttable (the T-table "
+                         "oracle: a gather path, not constant time)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the "
                          "plain torch version)")

@@ -6,13 +6,16 @@ significant), and block i of a call uses counter0 + i, wrapping mod 2^128,
 as the reference C ``aes_crypt_ctr`` does.
 
 Engines (``CORES[name] = (encrypt, decrypt)`` over (N, 4) words):
-``"cuda-ctr-gen-bp"`` is the hand-written CUDA kernels (``ops/cuda_aes.py``:
-ECB encrypt and decrypt, fused CTR, multi-key scattered CTR and its
-single-key explicit-counter entry, the chained CBC/CFB128 encrypt);
-``"bitslice"`` is their plain torch version; ``"ttable"`` is the T-table
-core (``ops/block.py``), the reference's ``"jnp"`` engine, an in-port oracle
-that ``"auto"`` never picks. ``"auto"`` resolves to the kernels for a CUDA
-device and to the plain version for the CPU. ``MULTIKEY_CTR`` holds each
+``"cuda"`` is the hand-written CUDA kernels (``ops/cuda_aes.py``: ECB
+encrypt and decrypt, fused CTR, multi-key scattered CTR and its single-key
+explicit-counter entry, the chained CBC/CFB128 encrypt); ``"bitslice"`` is
+their plain torch version; ``"ttable"`` is the T-table core
+(``ops/block.py``), the reference's ``"jnp"`` engine, an oracle-only engine
+(a gather path, not constant time). ``"auto"`` is the plain version on the
+CPU; on a CUDA device it walks the persisted engine ranking
+(``utils/ranking.py``, written by the bench's probe stage) and returns the
+first engine in ``KERNEL_BACKED``, and raises when the ranking dropped them
+all: nothing falls back to a plain version on a card. ``MULTIKEY_CTR`` holds each
 engine's multi-key scattered-CTR core, the serve path's ``ctr`` dispatch
 (``ctr_crypt_words_scattered_multikey``, engines by ``resolve_serve_engine``),
 and ``MULTIKEY_CBC`` its multi-key CBC-decrypt core, the ``cbc`` dispatch
@@ -37,7 +40,7 @@ import torch
 
 from ..ops import bitslice, block, cuda_aes
 from ..ops.keyschedule import dec_schedule_from_enc, expand_key_enc
-from ..utils import packing
+from ..utils import packing, ranking
 # The reference keeps the counter add here; the port keeps it in utils so
 # that ops/cuda_aes.py's plain version can use it without an import cycle.
 from ..utils.packing import add_counter_be, ctr_le_blocks  # noqa: F401
@@ -45,7 +48,7 @@ from ..utils.packing import add_counter_be, ctr_le_blocks  # noqa: F401
 AES_ENCRYPT = 1
 AES_DECRYPT = 0
 
-CUDA_ENGINE = "cuda-ctr-gen-bp"
+CUDA_ENGINE = "cuda"
 PLAIN_ENGINE = "bitslice"
 TTABLE_ENGINE = "ttable"
 
@@ -76,9 +79,15 @@ MULTIKEY_CBC: dict[str, object] = {}
 #: over (S, N, 4) int32 words and (S, 4) IVs, by engine name; engines
 #: without one run the per-block loop over their ECB core.
 SEQ_ENCRYPT: dict[str, object] = {}
-#: The reference's host tier (the native C runtime), which the port does
-#: not have: ``resolve_serve_engine`` refuses it.
+#: The native C host tier (``runtime/native.py``): the serve path's ``ctr``
+#: dispatch on the CPU through ``ctr_crypt_words_scattered_multikey``
+#: (``resolve_serve_engine``).
 NATIVE_ENGINE = "native"
+#: The engines ``"auto"`` may pick on a card: the hand-written kernels (the
+#: reference's ``PALLAS_BACKED``). ``"bitslice"`` and ``"ttable"`` are
+#: not in it: the first is the kernels' plain version, the second an
+#: oracle the probe measures so that the ranking has two engines.
+KERNEL_BACKED = frozenset({CUDA_ENGINE})
 #: (seam, engine, nr, device) of every call of the serve seams in this
 #: process, seam ``"ctr"``, ``"cbc"``, or ``"ghash_at"``/``"ghash_scan"``
 #: (the GCM seam's GHASH half, nr 0: its kernel has no NR instantiation)
@@ -166,27 +175,107 @@ def as_device(device=None) -> torch.device:
     return dev
 
 
-def resolve_engine(engine: str, device) -> str:
-    """Engine name for a device: ``"auto"`` is the CUDA kernel on a CUDA
-    device and the plain version on the CPU."""
-    if engine == "auto":
-        return CUDA_ENGINE if torch.device(device).type == "cuda" else PLAIN_ENGINE
+def rank_key(device) -> str:
+    """The engine ranking's key for a device (``utils/ranking.device_key``):
+    ``cuda:<card name>``, the bare ``cuda`` where no card answers, or
+    ``cpu``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return ranking.device_key(dev.type)
+    if not torch.cuda.is_available():
+        return ranking.device_key("cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return ranking.device_key("cuda", _card_name(index))
+
+
+_CARD_NAMES: dict[int, str] = {}
+
+
+def _card_name(index: int) -> str:
+    name = _CARD_NAMES.get(index)
+    if name is None:
+        name = _CARD_NAMES[index] = torch.cuda.get_device_name(index)
+    return name
+
+
+def auto_engine(key: str) -> str:
+    """``"auto"`` on a CUDA device whose ranking key is ``key``: the first
+    engine of ``ranking.probe_order`` in ``KERNEL_BACKED``. Where the ranking
+    dropped every kernel engine this raises ``RuntimeError`` naming the drop
+    reasons: the reference demotes to its next ranked Pallas engine there
+    (``_engine_compile_ok``), and on a card the next engine would be a plain
+    version, which the main path never runs."""
+    for eng in ranking.probe_order(key, CORES):
+        if eng in KERNEL_BACKED:
+            return eng
+    why = "; ".join(f"{e}: {ranking.drop_reason(key, e) or 'no reason recorded'}"
+                    for e in sorted(KERNEL_BACKED))
+    raise RuntimeError(f"engine ranking {ranking.path()} drops every kernel engine for {key} "
+                       f"({why}); the card runs no plain version in their place: re-run the "
+                       f"bench's probe stage or remove the drop")
+
+
+def resolve_engine(engine: str | None, device) -> str:
+    """Engine name for a device: ``"auto"`` (or None) is the plain version on
+    the CPU and ``auto_engine(rank_key(device))`` on a CUDA device."""
+    if engine in (None, "auto"):
+        dev = torch.device(device)
+        return auto_engine(rank_key(dev)) if dev.type == "cuda" else PLAIN_ENGINE
     if engine not in CORES:
         raise ValueError(f"unknown engine {engine!r}; available: {sorted(CORES)}")
     return engine
+
+
+_NATIVE_OK: bool | None = None
+
+
+def native_runtime_available() -> bool:
+    """Does the native C runtime load (building it at first use)? Memoized:
+    a failed build is reported once on stderr."""
+    global _NATIVE_OK
+    if _NATIVE_OK is None:
+        try:
+            from ..runtime import native as _native
+
+            _native.load()
+            _NATIVE_OK = True
+        except Exception as e:  # noqa: BLE001 - the probe is the question
+            import sys
+
+            print(f"# native runtime unavailable ({type(e).__name__}: {str(e)[:160]})",
+                  file=sys.stderr)
+            _NATIVE_OK = False
+    return _NATIVE_OK
 
 
 def resolve_serve_engine(name: str | None = "auto", device=None, modes=("ctr",)) -> str:
     """Engine for the serve dispatch path (the multi-key seams of ``modes``:
     ``"ctr"``, ``"gcm"`` and ``"gcm-open"`` on the multi-key CTR core, the
     GCM modes' GHASH on the engine's own, ``"cbc"`` on the multi-key CBC
-    core): ``"auto"`` is the CUDA kernels on a CUDA device and the plain
-    versions on the CPU. ``"native"``, the reference's host tier, raises:
-    the port has no native runtime. Any other name must have the multi-key
-    core of every mode."""
+    core).
+
+    ``"native"`` is the native C host tier (``NATIVE_ENGINE``) and raises
+    when the C runtime cannot build. ``"auto"`` on the CPU prefers it and
+    demotes to the plain version through ``resilience.degrade`` when it
+    cannot build; on a CUDA device ``"auto"`` is ``resolve_engine``. On a
+    native-tier server only ``ctr`` runs in C: the other modes run on the
+    lane's ``resolve_engine("auto", device)``. Any other name must have the
+    multi-key core of every mode."""
+    dev = as_device(device)
     if name == NATIVE_ENGINE:
-        raise ValueError("engine 'native' (the native C host tier) is not part of the port")
-    engine = resolve_engine("auto" if name is None else name, as_device(device))
+        if not native_runtime_available():
+            raise RuntimeError("engine 'native' requested but the native C runtime failed to "
+                               "build or load (see stderr for the build error)")
+        return NATIVE_ENGINE
+    if name in (None, "auto") and dev.type == "cpu":
+        if native_runtime_available():
+            return NATIVE_ENGINE
+        from ..resilience import degrade
+
+        degrade.degrade(f"{NATIVE_ENGINE}->{PLAIN_ENGINE}",
+                        "the native C runtime failed to build or load")
+        return PLAIN_ENGINE
+    engine = resolve_engine(name, dev)
     for core, cores, users in (("CTR", MULTIKEY_CTR, ("ctr", "gcm", "gcm-open")),
                                ("CBC", MULTIKEY_CBC, ("cbc",))):
         if any(m in modes for m in users) and engine not in cores:
@@ -254,9 +343,9 @@ def ctr_crypt_words_scattered(words: torch.Tensor, ctr_le_words: torch.Tensor,
     return (words.reshape(-1) ^ ks.reshape(-1)).reshape(words.shape)
 
 
-def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.Tensor,
-                                       rks: torch.Tensor, key_slots: torch.Tensor, nr: int,
-                                       engine: str = "auto") -> torch.Tensor:
+def ctr_crypt_words_scattered_multikey(words, ctr_le_words, rks, key_slots, nr: int,
+                                       engine: str = "auto", *, native_ctxs=None,
+                                       native_threads: int = 0, native_runs=None):
     """Scattered CTR where one call carries K independent keys.
 
     The multi-key serve seam: ``rks`` is a (K, 4*(nr+1)) int32 stack of
@@ -265,12 +354,51 @@ def ctr_crypt_words_scattered_multikey(words: torch.Tensor, ctr_le_words: torch.
     block to its slot. The slot vector is public: it comes from batch
     layout, never from key or payload bytes. ``words``/``ctr_le_words``
     are (N, 4) or flat (4N,) int32 words; the result has ``words``' shape.
-    The reference's ``native_*`` arguments belong to its host tier, which
-    the port does not have."""
+
+    ``engine="native"`` runs the host tier on CPU tensors or uint32 numpy
+    arrays (the result is of the same kind): per-slot threaded ECB runs over
+    the contiguous key segments, then one XOR
+    (``runtime.native.ctr_scattered_words``). ``native_ctxs`` hands in
+    contexts built beforehand (the serve key cache's), so a steady dispatch
+    does no key setup, ``native_threads`` overrides the size-based thread
+    count, and ``native_runs``, the batch's request layout ``[(slot,
+    start_block, nblocks, nonce16), ...]``, switches to the per-request C
+    CTR (``runtime.native.ctr_requests_words``): the counters are made in C
+    and ``ctr_le_words`` may be None. The other engines ignore them."""
+    if engine == NATIVE_ENGINE:
+        return _ctr_native(words, ctr_le_words, rks, key_slots, nr, native_ctxs,
+                           native_threads, native_runs)
     engine = resolve_engine(engine, words.device)
     note_seam_call("ctr", engine, nr, words.device)
     out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
     return out.reshape(words.shape)
+
+
+def _host_u32(a) -> np.ndarray | None:
+    """A CPU tensor or an array as host uint32 (the same bits); None stays
+    None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"the native engine runs on host arrays, got a tensor on {a.device}")
+        return a.contiguous().numpy().view(np.uint32)
+    return np.asarray(a).astype(np.uint32, copy=False)
+
+
+def _ctr_native(words, ctr_le_words, rks, key_slots, nr, ctxs, nthreads, runs):
+    from ..runtime import native
+
+    w = _host_u32(words)
+    if ctxs is None:
+        ctxs = [native.aes_ctx_from_schedule(int(nr), r) for r in _host_u32(rks)]
+    if runs is not None:
+        out = native.ctr_requests_words(ctxs, w.reshape(-1), runs, nthreads=nthreads)
+    else:
+        out = native.ctr_scattered_words(ctxs, w.reshape(-1), _host_u32(ctr_le_words).reshape(-1),
+                                         _host_u32(key_slots), nthreads=nthreads)
+    out = out.reshape(w.shape)
+    return torch.from_numpy(out.view(np.int32)) if isinstance(words, torch.Tensor) else out
 
 
 def cbc_decrypt_words_scattered_multikey(words: torch.Tensor, prev_words: torch.Tensor,

@@ -15,8 +15,15 @@ carries the ``build_fail`` injection point. A failed build raises.
 Buffers cross the boundary as numpy arrays, zero-copy. Bulk calls are
 pthread-parallel with the reference harnesses' contiguous-chunk split, and
 use AES-NI when the CPU has it (``OT_C_FORCE_PORTABLE`` pins the portable
-core). The reference's ``ot_bench_main.c`` (the C sweep) is not carried
-over.
+core).
+
+``ot_bench_path()`` builds the C sweep (``csrc/ot_bench_main.c``: ``ot_bench
+--backend=c`` sweeps the C tier, ``--backend=gpu`` embeds CPython and hands
+the same arguments to ``our_tree_tpu_torch.harness.bench``) into the same
+directory, under the same hash key, lock and deadline. It links libpython,
+with ``-DOT_WITH_PYTHON``, only where ``python3-config --embed`` answers;
+without it the ``c`` sweep still builds and ``--backend=gpu`` exits 1 with a
+message.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import hashlib
 import os
 import pathlib
 import shutil
+import subprocess
 
 import numpy as np
 
@@ -89,6 +97,74 @@ def build(so: pathlib.Path) -> None:
             policy.RetryPolicy(attempts=2, base_delay_s=0.5, retry_on=(RuntimeError,),
                                name="native-build").run(attempt)
         os.replace(tmp / "lib.so", so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _python_embed_flags() -> tuple[list[str], list[str]] | None:
+    """(compile flags, link flags) for embedding CPython, from
+    ``python3-config --includes`` and ``--ldflags --embed``; None where it
+    does not answer."""
+    cfg = shutil.which("python3-config")
+    if cfg is None:
+        return None
+    try:
+        inc = subprocess.run([cfg, "--includes"], capture_output=True, text=True, timeout=60)
+        ld = subprocess.run([cfg, "--ldflags", "--embed"], capture_output=True, text=True,
+                            timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if inc.returncode or ld.returncode or not inc.stdout.strip():
+        return None
+    return ["-DOT_WITH_PYTHON", *inc.stdout.split()], ld.stdout.split()
+
+
+def ot_bench_path(build_dir: pathlib.Path | None = None) -> pathlib.Path:
+    """Build (if needed) the C sweep ``ot_bench`` beside the library and
+    return its path. Its name carries the library's hash and the embedding
+    flags' (or ``noembed``), so another Python rebuilds it;
+    ``ot_bench_embeds(path)`` says whether it takes ``--backend=gpu``."""
+    embed = _python_embed_flags()
+    tag = hashlib.sha256(repr(embed).encode()).hexdigest()[:8] if embed else "noembed"
+    lib = library_path(build_dir)
+    exe = lib.with_name(f"{lib.stem.replace('libotcrypt_', 'ot_bench_')}_{tag}")
+    exe.parent.mkdir(parents=True, exist_ok=True)
+    with open(exe.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not exe.exists():
+                _build_ot_bench(exe, embed)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return exe
+
+
+def ot_bench_embeds(exe: pathlib.Path) -> bool:
+    """Whether the built ``ot_bench`` carries the embedded interpreter."""
+    return not exe.name.endswith("_noembed")
+
+
+def _build_ot_bench(exe: pathlib.Path, embed) -> None:
+    tmp = exe.with_name(f"{exe.name}.tmp{os.getpid()}")
+    tmp.mkdir(parents=True, exist_ok=True)
+
+    def attempt(_attempt):
+        faults.check("build_fail", "native ot_bench build")
+        objs = []
+        for src in SOURCES:
+            obj = tmp / (pathlib.Path(src).stem + ".o")
+            extra = ["-maes"] if src == "ot_aesni.c" else []
+            _run([_cc(), *CFLAGS, *extra, "-c", "-o", str(obj), str(CSRC / src)], src)
+            objs.append(str(obj))
+        cflags, ldflags = embed or ([], [])
+        _run([_cc(), *CFLAGS, *cflags, "-o", str(tmp / "ot_bench"), str(CSRC / "ot_bench_main.c"),
+              *objs, *ldflags, "-lpthread"], "ot_bench")
+
+    try:
+        with trace.span("native-build", target=exe.name):
+            policy.RetryPolicy(attempts=2, base_delay_s=0.5, retry_on=(RuntimeError,),
+                               name="native-build").run(attempt)
+        os.replace(tmp / "ot_bench", exe)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

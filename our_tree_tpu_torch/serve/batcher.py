@@ -135,6 +135,10 @@ class Batch:
     #: per-request (start_block, nblocks) in ``requests`` order (GCM spans
     #: skip each request's J0 row)
     req_spans: list | None = field(default=None, repr=False)
+    #: ``ctr`` only: the request layout [(slot, start_block, nblocks,
+    #: nonce16)], which the native tier's per-request C CTR reads in place
+    #: of the counter array (``models.aes`` ``native_runs``)
+    runs: list | None = field(default=None, repr=False)
 
     @property
     def label(self) -> str:
@@ -157,13 +161,18 @@ class Batch:
         """Slot-ordered (tenant, key) pairs: the keycache.stacked input."""
         return [(s.tenant, s.key) for s in self.slots]
 
-    def materialise(self, sched=None) -> None:
+    def materialise(self, counters: bool = True, sched=None) -> None:
         """Build the flat uint32 dispatch arrays: (4N,) payload words, (4N,)
         LE counter words (``cbc``: the PREV stream; ``rc4``: the keystream)
         and the (N,) slot
         vector, plus ``req_spans``. Requests pack contiguously, so only the
         padding tail is zeroed; a ``ctr`` request that exactly fills its rung
-        is viewed in place. A GCM batch needs ``sched``, the keycache's
+        is viewed in place. ``counters=False`` (the native tier's ``ctr``)
+        builds neither the counter array nor the slot vector but the request
+        layout ``runs``, from which the C tier makes each request's counters
+        (the reference builds ``runs`` for every ``ctr`` batch; only the
+        native tier reads it). A GCM batch needs
+        ``sched``, the keycache's
         stack with its ``h_ints`` (each request's AAD state is hashed here
         under its slot's H)."""
         if self.mode in GCM_MODES:
@@ -175,37 +184,45 @@ class Batch:
         if self.mode == "rc4":
             self._materialise_rc4()
             return
-        spans, off = [], 0
-        for req in self.requests:
-            spans.append((off, req.nblocks))
-            off += req.nblocks
+        runs, spans, off = [], [], 0
+        for si, slot in enumerate(self.slots):
+            for req in slot.requests:
+                if not counters:
+                    runs.append((si, off, req.nblocks, req.nonce))
+                spans.append((off, req.nblocks))
+                off += req.nblocks
+        self.runs = None if counters else runs
         self.req_spans = spans
         reqs = self.requests
         if len(reqs) == 1 and reqs[0].nblocks == self.bucket:
             req = reqs[0]
             self.words = packing.np_bytes_to_words(np.ascontiguousarray(req.payload, np.uint8))
-            ctr = np.empty((self.bucket, 4), dtype=np.uint32)
-            packing.np_ctr_le_blocks(req.nonce, _block_idx(self.bucket), out=ctr)
-            self.ctr_words = ctr.reshape(-1)
-            self.slot_index = np.zeros(self.bucket, dtype=np.uint32)
+            if counters:
+                ctr = np.empty((self.bucket, 4), dtype=np.uint32)
+                packing.np_ctr_le_blocks(req.nonce, _block_idx(self.bucket), out=ctr)
+                self.ctr_words = ctr.reshape(-1)
+                self.slot_index = np.zeros(self.bucket, dtype=np.uint32)
             return
         words = np.empty(4 * self.bucket, dtype=np.uint32)
-        ctr = np.empty((self.bucket, 4), dtype=np.uint32)
-        slot_index = np.zeros(self.bucket, dtype=np.uint32)
+        ctr = np.empty((self.bucket, 4), dtype=np.uint32) if counters else None
+        slot_index = np.zeros(self.bucket, dtype=np.uint32) if counters else None
         off = 0
         for si, slot in enumerate(self.slots):
             for req in slot.requests:
                 n = req.nblocks
                 words[4 * off:4 * (off + n)] = packing.np_bytes_to_words(req.payload)
-                packing.np_ctr_le_blocks(req.nonce, _block_idx(n), out=ctr[off:off + n])
-                slot_index[off:off + n] = si
+                if counters:
+                    packing.np_ctr_le_blocks(req.nonce, _block_idx(n), out=ctr[off:off + n])
+                    slot_index[off:off + n] = si
                 off += n
         if off < self.bucket:  # the padding tail
             words[4 * off:] = 0
-            ctr[off:] = 0
+            if counters:
+                ctr[off:] = 0
         self.words = words
-        self.ctr_words = ctr.reshape(-1)
-        self.slot_index = slot_index
+        if counters:
+            self.ctr_words = ctr.reshape(-1)
+            self.slot_index = slot_index
 
     def _materialise_gcm(self, sched) -> None:
         """The GCM layout (the module docstring): per request the J0 row, then

@@ -111,7 +111,8 @@ async def _drive(args, probes):
     cfg = ServerConfig(
         device=args.device, engine=args.engine, min_bucket_blocks=args.bucket_min,
         max_bucket_blocks=args.bucket_max, key_slots=args.key_slots,
-        max_depth=args.queue_depth, request_deadline_s=args.deadline,
+        native_threads=args.native_threads, max_depth=args.queue_depth,
+        request_deadline_s=args.deadline,
         dispatch_deadline_s=args.dispatch_deadline, retries=args.retries, lanes=args.lanes,
         probe_every=args.probe_every, journal=args.journal, max_inflight=args.max_inflight,
         ceiling_gbps=args.ceiling_gbps, modes=args.modes,
@@ -160,8 +161,12 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
     ap.add_argument("--engine", default="auto",
-                    help="serve engine: auto (the kernels on a card, the plain version on the "
-                         "CPU) or a registered engine name")
+                    help="serve engine: auto (the kernels on a card, the native C tier on the "
+                         "CPU, the plain version where it cannot build), native (ctr in C on "
+                         "the host, the other modes on the device's auto engine), or a "
+                         "registered engine (ttable: a gather path, not constant time)")
+    ap.add_argument("--native-threads", type=int, default=0, metavar="N",
+                    help="native-tier ECB threads a slot run (0 = one per 256 KiB)")
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--concurrency", type=int, default=32)
     ap.add_argument("--arrival-rate", type=float, default=None, metavar="REQ_PER_S",

@@ -1,8 +1,8 @@
 """Multi-tenant LRU cache of expanded AES key schedules.
 
 Port of ``our_tree_tpu.serve.keycache`` with the ``gcm``/``gcm-open`` modes'
-AEAD memo and the ``cbc`` mode's decrypt schedules, without the native
-contexts (the host tier is not in the port). Key expansion is
+AEAD memo, the ``cbc`` mode's decrypt schedules and the native tier's C
+contexts (``StackedSchedules.native_ctxs``). Key expansion is
 host-side and per key, so a service where every request names its key makes
 rekeying a lookup. Entries hold the host (numpy) schedule; the lane stages
 it on its device per dispatch.
@@ -53,17 +53,29 @@ class StackedSchedules:
     stack of InvMixColumns-folded decrypt schedules, attached by the first
     ``cbc`` use; ``hmats`` ((K, 128, 128) u32) and ``h_ints`` (K ints) the
     GHASH subkeys, attached by the first GCM use (None until then; unused
-    slots zero)."""
+    slots zero). ``native_ctxs()`` builds the native tier's C contexts, one
+    memmove a slot (``runtime.native.aes_ctx_from_schedule``), at its first
+    call and keeps them: lazy because a kernel-engine server never needs
+    them, kept because the stack itself is memoized."""
 
-    __slots__ = ("nr", "rks", "digests", "rks_dec", "hmats", "h_ints")
+    __slots__ = ("nr", "rks", "digests", "_native_ctxs", "rks_dec", "hmats", "h_ints")
 
     def __init__(self, nr: int, rks: np.ndarray, digests: tuple):
         self.nr = int(nr)
         self.rks = rks
         self.digests = digests
+        self._native_ctxs = None
         self.rks_dec = None
         self.hmats = None
         self.h_ints = None
+
+    def native_ctxs(self) -> tuple:
+        if self._native_ctxs is None:
+            from ..runtime import native
+
+            self._native_ctxs = tuple(native.aes_ctx_from_schedule(self.nr, row)
+                                      for row in self.rks)
+        return self._native_ctxs
 
 
 class KeyCache:

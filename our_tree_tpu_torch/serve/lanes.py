@@ -36,9 +36,13 @@ returns the CTR output and the named rows' GHASH states, ``(out, ys)``: the
 port's own layout, where the JAX lane returns a (2, 4N) stack of the output
 and every row's state. Staging, the ``device`` stage, failover replay and
 the (``ctr``-shaped) canary do not depend on the mode; the dispatch metrics
-carry it as a label. Every traffic dispatch enters the incident recorder's
-ring (``obs/incident.py``), and a watchdog kill or a quarantine triggers a
-bundle.
+carry it as a label. On a native-tier server (engine ``native``) a ``ctr``
+call runs in C on the host (``_call_native``: the batch's request layout,
+``runs``, and the stack's cached C contexts), and every other mode runs on
+the lane device's ``auto`` engine (``Lane.kernel_engine``), where the
+reference runs them on its ``jnp`` engine. Every traffic dispatch enters
+the incident recorder's ring (``obs/incident.py``), and a watchdog kill or
+a quarantine triggers a bundle.
 
 The fault seams (``resilience/faults.py``), as in the reference, sit inside
 the watchdog deadline and fire for traffic and canaries, never at warmup:
@@ -186,10 +190,16 @@ class Lane:
     guarded engine-call seam."""
 
     def __init__(self, idx: int, device: torch.device, engine: str, deadline_s: float,
-                 retries: int, clock=time.monotonic):
+                 retries: int, clock=time.monotonic, native_threads: int = 0):
         self.idx = idx
         self.device = device
         self.engine = engine
+        #: the engine of every seam but the native tier's ``ctr``: on a
+        #: native-tier server the lane device's ``auto`` engine (the
+        #: kernels on a card, the plain versions on the CPU)
+        self.kernel_engine = (aes.resolve_engine("auto", device)
+                              if engine == aes.NATIVE_ENGINE else engine)
+        self.native_threads = int(native_threads)
         self.stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
         self.deadline_s = deadline_s
         self.state = HEALTHY
@@ -301,7 +311,7 @@ class Lane:
     def engine_call(self, words, ctr_words, sched, key_slots, label: str,
                     warmup: bool = False, timing: dict | None = None,
                     mode: str = "ctr", inject_words=None, seg_keep=None, rows=None,
-                    prep_len: int | None = None):
+                    prep_len: int | None = None, runs=None):
         """One multi-key dispatch on this lane's device, on the calling
         (worker) thread, under this lane's watchdog deadline. ``words`` and
         ``ctr_words`` (counters, or ``cbc``'s PREV stream, or ``rc4``'s
@@ -312,7 +322,11 @@ class Lane:
         ``inject_words``, (N,) ``seg_keep`` and sorted (E,) ``rows``
         (checked here, on the host); an ``rc4-prep`` call takes the (S*256,)
         permutation stack in ``words``, the (2S,) x/y stack in ``ctr_words``
-        and the bytes a session, ``prep_len``. Returns the (4N,) uint32
+        and the bytes a session, ``prep_len``. On the native tier a ``ctr``
+        call runs in C on the host (``sched.native_ctxs()``); ``runs``, the
+        batch's request layout, makes it the per-request C CTR, where
+        ``ctr_words`` and ``key_slots`` may be None (warmup and canaries
+        pass arrays and no ``runs``). Returns the (4N,) uint32
         output, for GCM ``(out, ys)`` with the (E, 4) uint32 states at
         ``rows``, for ``rc4-prep`` the (S, 258 + prep_len/4) uint32 rows.
         Warmup runs under the global opt-in deadline (a first contact
@@ -344,6 +358,8 @@ class Lane:
                     watchdog.injected_hang("lane_hang", label)
                 faults.injected_slow("dispatch_slow", label)
             self.engine_calls_by_mode[mode] = self.engine_calls_by_mode.get(mode, 0) + 1
+            if mode == "ctr" and self.engine == aes.NATIVE_ENGINE:
+                return self._call_native(words, ctr_words, sched, key_slots, runs, timing)
             if self.stream is None:
                 return self._call_cpu(seam, arrays, extra, nr, timing)
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
@@ -356,9 +372,22 @@ class Lane:
             return tuple(o.cpu().numpy().view(np.uint32) for o in out)
         return out.cpu().numpy().view(np.uint32)
 
+    def _call_native(self, words, ctr_words, sched, key_slots, runs, timing):
+        """The native tier's ``ctr``: C on the host, the numpy arrays as
+        they are; the C window is the ``device`` stage."""
+        t0 = self._clock()
+        out = aes.ctr_crypt_words_scattered_multikey(
+            words, ctr_words, sched.rks, key_slots, sched.nr, aes.NATIVE_ENGINE,
+            native_ctxs=sched.native_ctxs(), native_threads=self.native_threads,
+            native_runs=runs)
+        if timing is not None:
+            timing["device_us"] = d_us = int((self._clock() - t0) * 1e6)
+            self.device_us += d_us
+        return out
+
     def _call_cpu(self, seam, arrays, extra, nr, timing):
         t0 = self._clock()
-        out = seam(*(_tensor(a, self.device) for a in arrays), nr, self.engine, **extra)
+        out = seam(*(_tensor(a, self.device) for a in arrays), nr, self.kernel_engine, **extra)
         res = self._result(out)
         if timing is not None:
             timing["device_us"] = d_us = int((self._clock() - t0) * 1e6)
@@ -374,7 +403,7 @@ class Lane:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record(self.stream)
-        out = seam(*staged, nr, self.engine, **extra)
+        out = seam(*staged, nr, self.kernel_engine, **extra)
         stop.record(self.stream)
         t_fence = self._clock()
         self.stream.synchronize()
@@ -417,7 +446,8 @@ class LanePool:
 
     def __init__(self, engine: str, device: torch.device, deadline_s: float = 0.0,
                  retries: int = 2, lanes: int | None = None, probe_every: int = 8,
-                 probation_batches: int = 2, journal=None, clock=time.monotonic):
+                 probation_batches: int = 2, journal=None, clock=time.monotonic,
+                 native_threads: int = 0):
         device = torch.device(device)
         if device.type == "cuda":
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -425,7 +455,8 @@ class LanePool:
             devices = [device]
         n = len(devices) if lanes is None else max(int(lanes), 1)
         self.engine = engine
-        self.lanes = [Lane(i, devices[i % len(devices)], engine, deadline_s, retries, clock)
+        self.lanes = [Lane(i, devices[i % len(devices)], engine, deadline_s, retries, clock,
+                           native_threads=native_threads)
                       for i in range(n)]
         self.journal = journal
         self.probe_every = max(int(probe_every), 1)
@@ -566,9 +597,10 @@ class LanePool:
     async def dispatch(self, words, ctr_words, sched, key_slots, label: str, bucket: int,
                        blocks: int, requests: int, sampled: bool = True, mode: str = "ctr",
                        inject_words=None, seg_keep=None, rows=None,
-                       prep_len: int | None = None):
+                       prep_len: int | None = None, runs=None):
         """Place and run one batch of ``mode`` (GCM with its segment arrays and
-        named rows, ``rc4-prep`` with its bytes a session), failing over
+        named rows, ``rc4-prep`` with its bytes a session, the native tier's
+        ``ctr`` with its request layout ``runs``), failing over
         across lanes until it succeeds or every lane has been tried. Returns
         (output, lane, redispatches), the output as ``Lane.engine_call``
         gives it; raises ``LanesExhausted`` only when no lane could serve
@@ -610,7 +642,7 @@ class LanePool:
                 return lane.policy.run(lambda att: lane.engine_call(
                     words, ctr_words, sched, key_slots, label, timing=attempt_timing,
                     mode=mode, inject_words=inject_words, seg_keep=seg_keep, rows=rows,
-                    prep_len=prep_len))
+                    prep_len=prep_len, runs=runs))
 
             try:
                 out = await lane.run_async(unit)

@@ -8,7 +8,10 @@ bounded queue; the loop drains, rung-packs up to K key groups per batch
 (``batcher``) and submits each batch as its own task, so batches keep forming
 while up to ``max_inflight`` dispatches (default one per lane) run on the
 lanes' worker threads. The engine comes from ``aes.resolve_serve_engine``: the
-CUDA kernels on a card, the plain version on the CPU.
+CUDA kernels on a card; on the CPU the native C tier (``native``: ``ctr`` in
+C, each batch's counters made in C from its request layout, the other modes
+on the plain versions), or the plain version where the C tier cannot
+build.
 
 Failure containment, per batch: a failing dispatch retries on its lane
 (``RetryPolicy``); a lane that still fails, or hangs past its watchdog
@@ -140,12 +143,16 @@ class ServerConfig:
     #: without a card) or ``"cpu"`` (the plain version)
     device: str = "cuda"
     #: through ``aes.resolve_serve_engine``: "auto" is the CUDA kernels on a
-    #: card and the plain version on the CPU; "native" raises
+    #: card and the native C tier on the CPU (the plain version where it
+    #: cannot build); "native" pins the C tier and raises where it cannot
+    #: build; any other name pins that engine
     engine: str = "auto"
     min_bucket_blocks: int = batcher.DEFAULT_MIN_BLOCKS
     max_bucket_blocks: int = batcher.DEFAULT_MAX_BLOCKS
     #: the fixed K dimension: key slots per dispatch
     key_slots: int = batcher.DEFAULT_KEY_SLOTS
+    #: native-tier ECB threads a slot run (0 = one per 256 KiB)
+    native_threads: int = 0
     max_depth: int = 1024
     #: one tenant's max share of the queue depth (1.0 = no per-tenant cap)
     tenant_depth_frac: float = 1.0
@@ -289,7 +296,8 @@ class Server:
         self.pool = lanes.LanePool(engine=self.engine, device=self.device,
                                    deadline_s=self._deadline_s, retries=c.retries,
                                    lanes=c.lanes, probe_every=c.probe_every,
-                                   probation_batches=c.probation_batches, journal=self._journal)
+                                   probation_batches=c.probation_batches, journal=self._journal,
+                                   native_threads=c.native_threads)
         self.pool.adopt_journal_quarantines()
         await self._warmup()
         if not any(ln.warmed for ln in self.pool.lanes):
@@ -575,7 +583,10 @@ class Server:
                 # rc4 chunks carry no key: the keycache never sees them.
                 sched = (None if b.mode == "rc4"
                          else self.keycache.stacked(b.keys, b.key_slots, mode=b.mode))
-                b.materialise(sched=sched)
+                # The native tier's ctr makes each request's counters in C
+                # from the batch's runs: no counter array is built for it.
+                b.materialise(counters=b.mode != "ctr" or self.engine != aes.NATIVE_ENGINE,
+                              sched=sched)
                 return (sched,)
         except Exception as e:  # noqa: BLE001 - containment
             self.batches_failed += 1
@@ -591,7 +602,8 @@ class Server:
             out, _lane, _redispatched = await self.pool.dispatch(
                 b.words, b.ctr_words, sched, b.slot_index, b.label, bucket=b.bucket,
                 blocks=b.blocks, requests=len(b.requests), sampled=b.sampled, mode=b.mode,
-                inject_words=b.inject_words, seg_keep=b.seg_keep, rows=b.rows)
+                inject_words=b.inject_words, seg_keep=b.seg_keep, rows=b.rows,
+                runs=b.runs)
         except lanes.LanesExhausted as e:
             if e.timed_out:
                 self.batches_timed_out += 1

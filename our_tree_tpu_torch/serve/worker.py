@@ -32,10 +32,9 @@ session sub-protocol (``_serve_session``: ``open``, ``data``, ``close``;
 a server without ``rc4`` answers each with ``bad-request``). The
 per-request time ledger (``lg``) is not in the port, so no answer carries
 one. ``--journal`` persists the lanes' quarantines; the five
-``--session-*`` options shape the session store.
-
-Refused at start (exit 2), with a message naming its ROADMAP item:
-``--native-threads`` other than 0 (the native serve engine).
+``--session-*`` options shape the session store; ``--native-threads`` sets
+the native tier's ECB threads a slot run (``--engine native``, or ``auto``
+on the CPU).
 """
 
 from __future__ import annotations
@@ -55,12 +54,6 @@ from ..resilience.policy import Budget
 from . import batcher, transfer, wire
 from .queue import ERR_BAD_REQUEST, ERR_DEADLINE, ERR_TOO_LARGE, ERR_TRANSFER_MODE
 from .server import Server, ServerConfig
-
-#: Where the native serve engine, refused by ``--native-threads``, is queued:
-#: its ROADMAP item, by title.
-_NATIVE_ITEM = ("ROADMAP queue 1, \"Engine selection and the port's entry\" (the native serve "
-                "engine)")
-
 
 class RequestFrontend:
     """The TCP listener that feeds ``Server.submit`` from wire frames;
@@ -404,6 +397,7 @@ def server_config(args) -> ServerConfig:
         min_bucket_blocks=args.bucket_min,
         max_bucket_blocks=args.bucket_max,
         key_slots=args.key_slots,
+        native_threads=args.native_threads,
         max_depth=args.queue_depth,
         tenant_depth_frac=args.tenant_depth_frac,
         low_priority_tenants=tuple(args.low_priority_tenant or ()),
@@ -478,7 +472,11 @@ def parse_args(argv=None):
                     help="/metrics + /healthz port (0 = ephemeral, on the READY line)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu (the plain version)")
-    ap.add_argument("--engine", default="auto")
+    ap.add_argument("--engine", default="auto",
+                    help="serve engine: auto (the kernels on a card, the native C tier on the "
+                         "CPU), native (ctr in C on the host, the other modes on the device's "
+                         "auto engine), or a registered engine (ttable: a gather path, not "
+                         "constant time)")
     ap.add_argument("--modes", default="ctr", metavar="M1,M2",
                     help="served modes to enable and warm (ctr, gcm, gcm-open, cbc, rc4; "
                          "default ctr)")
@@ -486,8 +484,8 @@ def parse_args(argv=None):
     ap.add_argument("--bucket-min", type=int, default=32, metavar="BLOCKS")
     ap.add_argument("--bucket-max", type=int, default=4096, metavar="BLOCKS")
     ap.add_argument("--key-slots", type=int, default=None, metavar="K")
-    ap.add_argument("--native-threads", type=int, default=0,
-                    help="refused unless 0: " + _NATIVE_ITEM)
+    ap.add_argument("--native-threads", type=int, default=0, metavar="N",
+                    help="native-tier ECB threads a slot run (0 = one per 256 KiB)")
     ap.add_argument("--queue-depth", type=int, default=1024)
     ap.add_argument("--tenant-depth-frac", type=float, default=1.0, metavar="FRAC")
     ap.add_argument("--low-priority-tenant", action="append", default=None, metavar="TENANT",
@@ -541,9 +539,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.native_threads != 0:
-        print(f"--native-threads is not in the port yet: {_NATIVE_ITEM}", file=sys.stderr)
-        return 2
     trace.ensure_run()
     return asyncio.run(_amain(args))
 

@@ -1137,3 +1137,106 @@ def test_session_server_on_card_matches_cpu_server(card):
     calls = stats["lanes"]["engine_calls_by_mode"]
     assert launches == calls["rc4-prep"] - 2  # warmup's two ran before `before`
     assert stats["sessions"]["chunks"] == 18 and steady == 0
+
+
+# -- engine selection and the port's entry -------------------------------------
+
+
+def test_entry_on_card_is_one_ctr_gen_launch(card):
+    from our_tree_tpu_torch import entry as entry_mod
+
+    fn, args = entry_mod.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    before = cuda_aes.ctr_crypt_words_fused.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert cuda_aes.ctr_crypt_words_fused.launches == before + 1
+    assert torch.equal(got, cuda_aes.ctr_crypt_words_fused_plain(*args, 10))
+
+
+def test_auto_on_card_reads_the_ranking(card, tmp_path, monkeypatch):
+    from our_tree_tpu_torch.utils import ranking
+
+    monkeypatch.setenv("OT_ENGINE_RANKING", str(tmp_path / "ranking.json"))
+    key = aes.rank_key(card)
+    assert key == f"cuda:{torch.cuda.get_device_name(0)}"
+    assert aes.resolve_engine("auto", card) == aes.CUDA_ENGINE
+    ranking.store(key, {"ttable": 99.0, "cuda": 1.0}, "test", 1)
+    assert aes.resolve_engine("auto", card) == aes.CUDA_ENGINE
+    ranking.drop_engines(key, ["cuda"], reason="a test drop")
+    with pytest.raises(RuntimeError, match="a test drop"):
+        aes.resolve_engine("auto", card)
+    with pytest.raises(RuntimeError, match="a test drop"):
+        aes.AES(bytes(16), device=card)
+
+
+@pytest.mark.parametrize("bits", [128, 192, 256])
+def test_device_key_schedules_on_card(card, bits):
+    from our_tree_tpu_torch.ops import keyschedule
+
+    rng = np.random.default_rng(bits)
+    keys = rng.integers(0, 256, (200, bits // 8), dtype=np.uint8)
+    kw = packing.words_tensor(np.stack([packing.np_bytes_to_words(k) for k in keys]), card)
+    nr, enc = keyschedule.expand_key_enc_device(kw, bits)
+    _, dec = keyschedule.expand_key_dec_device(kw, bits)
+    assert enc.device.type == "cuda"
+    enc, dec = packing.words_numpy(enc), packing.words_numpy(dec)
+    for i, k in enumerate(keys):
+        np.testing.assert_array_equal(enc[i], expand_key_enc(k.tobytes())[1])
+        np.testing.assert_array_equal(dec[i], expand_key_dec(k.tobytes())[1])
+
+
+def test_bench_probe_on_card(card, tmp_path, monkeypatch):
+    """The probe stage at 16 MiB: ``cuda`` and ``ttable`` measured and stored
+    under the card's key, ``cuda`` first, the headline on ``cuda``."""
+    from our_tree_tpu_torch import bench
+    from our_tree_tpu_torch.utils import ranking
+
+    monkeypatch.setenv("OT_ENGINE_RANKING", str(tmp_path / "ranking.json"))
+    line = bench.run(device=card, nbytes=16 << 20, iters=2, reps=1, engine="probe")
+    assert "engine=cuda," in line["metric"] and line["value"] > 0
+    entry = ranking.load(aes.rank_key(card))
+    assert [r["engine"] for r in entry["ranking"]] == ["cuda", "ttable"]
+    assert entry["bytes"] == 16 << 20
+
+
+def test_native_server_on_card_matches_cpu_server(card):
+    """A native-tier server on the card (``ctr`` in C, ``cbc`` and GCM on
+    the kernels) answers as a CPU server on the plain engine."""
+    import asyncio
+
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    rng = np.random.default_rng(18)
+    keys = [rng.bytes(16) for _ in range(3)]
+    specs = []
+    for i in range(60):
+        mode = ("ctr", "cbc", "gcm")[i % 3]
+        data = rng.integers(0, 256, 16 * int(rng.integers(1, 200)), dtype=np.uint8)
+        extra = {"mode": mode, "iv": rng.bytes(16 if mode == "cbc" else 12)} if mode != "ctr" \
+            else {}
+        specs.append((f"t{i % 2}", keys[i % 3], rng.bytes(16) if mode == "ctr" else b"", data,
+                      extra))
+
+    def run(cfg):
+        async def main():
+            server = Server(cfg)
+            await server.start()
+            try:
+                got = await asyncio.gather(*(server.submit(t, k, n, p, **kw)
+                                             for t, k, n, p, kw in specs))
+                return server, got
+            finally:
+                await server.stop()
+        return asyncio.run(main())
+
+    modes = ("ctr", "cbc", "gcm")
+    before = cuda_aes.ctr_scattered_multikey.launches
+    server, got = run(ServerConfig(engine="native", native_threads=2, modes=modes, lanes=1))
+    calls = server.stats()["lanes"]["engine_calls_by_mode"]
+    assert server.engine == aes.NATIVE_ENGINE
+    assert cuda_aes.ctr_scattered_multikey.launches - before == calls["gcm"]
+    _, want = run(ServerConfig(device="cpu", engine=aes.PLAIN_ENGINE, modes=modes, lanes=1))
+    for g, w in zip(got, want):
+        assert (g.ok, g.error, g.tag) == (w.ok, w.error, w.tag)
+        np.testing.assert_array_equal(np.asarray(g.payload), np.asarray(w.payload))

@@ -267,15 +267,22 @@ def test_launch_counts_lose_nothing_across_threads(monkeypatch):
     assert cuda_aes.ctr_scattered_multikey.launches == 0
 
 
-def test_resolve_serve_engine(monkeypatch):
-    assert aes.resolve_serve_engine("auto", "cpu") == aes.PLAIN_ENGINE
-    assert aes.resolve_serve_engine(None, "cpu") == aes.PLAIN_ENGINE
+def test_resolve_serve_engine(monkeypatch, tmp_path):
+    # On the CPU "auto" is the native C tier (the plain version where it
+    # cannot build, tests/test_torch_serve_native.py); "native" pins it.
+    assert aes.resolve_serve_engine("auto", "cpu") == aes.NATIVE_ENGINE
+    assert aes.resolve_serve_engine(None, "cpu") == aes.NATIVE_ENGINE
+    assert aes.resolve_serve_engine("native", "cpu") == aes.NATIVE_ENGINE
+    assert aes.resolve_serve_engine("bitslice", "cpu") == aes.PLAIN_ENGINE
     assert aes.resolve_serve_engine("ttable", "cpu") == aes.TTABLE_ENGINE
-    with pytest.raises(ValueError, match="native"):
-        aes.resolve_serve_engine("native", "cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         aes.resolve_serve_engine("pallas", "cpu")
+    # On a card "auto" reads the card's engine ranking (none here: the
+    # static order).
+    monkeypatch.setenv("OT_ENGINE_RANKING", str(tmp_path / "ranking.json"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(aes, "_CARD_NAMES", {0: "a test card"})
     assert aes.resolve_serve_engine("auto", "cuda") == aes.CUDA_ENGINE
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -213,7 +213,8 @@ def test_queue_admission_shedding_and_deadlines_match_reference():
 def test_server_answers_match_reference_server(engine, monkeypatch):
     """Seeded mixed sizes up to the 256-block rung plus one above it, 6 keys
     over 3 tenants, through the JAX server (jnp engine) and the port's on
-    the CPU. ``cuda-ctr-gen-bp`` with CPU tensors takes the kernels' plain
+    the CPU. ``auto`` on the CPU is the native C tier (its ``ctr`` makes no
+    first seam call); ``cuda`` with CPU tensors takes the kernels' plain
     versions through the same wrappers. Every response's bytes and code
     must be equal."""
     specs = _request_specs(11, n=36, sizes=(16, 48, 256, 1024, 4096))
@@ -230,7 +231,7 @@ def test_server_answers_match_reference_server(engine, monkeypatch):
     server = Server(ServerConfig(device="cpu", engine=engine, lanes=1, transfer_chunk_blocks=0,
                                  **LADDER))
     got = _run(server, drive)
-    assert server.engine == (aes.PLAIN_ENGINE if engine == "auto" else engine)
+    assert server.engine == (aes.NATIVE_ENGINE if engine == "auto" else engine)
     for g, w in zip(got, want):
         assert (g.ok, g.error) == (w.ok, w.error)
         if g.ok:
@@ -240,8 +241,10 @@ def test_server_answers_match_reference_server(engine, monkeypatch):
     for (_t, k, n, p), g in zip(specs[:5], got[:5]):
         np.testing.assert_array_equal(np.asarray(g.payload), _ref_ctr(k, n, p))
     stats = server.stats()
-    # Warmup made the one first seam call (128-bit keys, nr 10); traffic none.
-    assert stats["queue"]["lost"] == 0 and stats["compiles"] == {"warmup": 1, "steady": 0}
+    # Warmup made the one first seam call (128-bit keys, nr 10), none on the
+    # native tier; traffic none.
+    warm = 0 if server.engine == aes.NATIVE_ENGINE else 1
+    assert stats["queue"]["lost"] == 0 and stats["compiles"] == {"warmup": warm, "steady": 0}
     assert stats["lanes"]["engine_calls"] == len(server.rungs) + stats["batches"]
 
 
@@ -316,7 +319,8 @@ def test_steady_compile_gate_sees_an_unwarmed_key_length(monkeypatch, warm_bits,
     async def drive(server):
         return await server.submit("t0", key, nonce, payload)
 
-    server = Server(ServerConfig(device="cpu", lanes=1, warmup_key_bits=warm_bits, **LADDER))
+    server = Server(ServerConfig(device="cpu", engine=aes.PLAIN_ENGINE, lanes=1,
+                                 warmup_key_bits=warm_bits, **LADDER))
     resp = _run(server, drive)
     assert resp.ok
     np.testing.assert_array_equal(np.asarray(resp.payload), _ref_ctr(key, nonce, payload))
@@ -351,8 +355,8 @@ def test_deadline_hang_answers_deadline_and_server_stays_up(monkeypatch, tmp_pat
         later = await asyncio.gather(*futs)
         return first, key, reqs, later
 
-    server = Server(ServerConfig(device="cpu", lanes=1, retries=1, dispatch_deadline_s=0.3,
-                                 **LADDER))
+    server = Server(ServerConfig(device="cpu", engine=aes.PLAIN_ENGINE, lanes=1, retries=1,
+                                 dispatch_deadline_s=0.3, **LADDER))
     first, key, reqs, later = _run(server, drive)
     assert [r.error for r in first] == [otq.ERR_DEADLINE] * 2
     assert all(r.ok for r in later)
@@ -395,7 +399,8 @@ def test_stop_drains_with_nothing_lost():
 
 def test_bench_cli_on_cpu(capsys, tmp_path):
     art = tmp_path / "serve.json"
-    rc = serve_bench.main(["--device", "cpu", "--requests", "40", "--concurrency", "8",
+    rc = serve_bench.main(["--device", "cpu", "--engine", "bitslice", "--requests", "40",
+                           "--concurrency", "8",
                            "--sizes", "16,256,1024,4096", "--bucket-max", "256",
                            "--verify-every", "4", "--artifact", str(art)])
     out = capsys.readouterr().out.strip().splitlines()
@@ -429,5 +434,7 @@ def test_default_config_without_card_raises_at_start(monkeypatch):
         asyncio.run(server.start())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_bench.main(["--requests", "1"])
-    with pytest.raises(ValueError, match="native"):
-        asyncio.run(Server(ServerConfig(device="cpu", engine="native")).start())
+    # The native tier does not move a card's server to the CPU: without a
+    # card it raises as the kernels do.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(Server(ServerConfig(engine="native")).start())

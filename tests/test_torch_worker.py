@@ -20,8 +20,8 @@ Prometheus rendering held against the JAX package's on the same inputs:
   ``/alertz`` and ``/fleetz`` answering 404 with the JAX bodies;
 * ``python -m our_tree_tpu_torch.serve.worker --device cpu`` in a process:
   READY, one request, SIGTERM, the EXIT line with ``lost: 0``, rc 0; the
-  worker's options (``--journal``, the ``--session-*`` store shape) reach
-  its ``ServerConfig``, and ``--native-threads`` is refused.
+  worker's options (``--journal``, the ``--session-*`` store shape,
+  ``--native-threads``) reach its ``ServerConfig``.
 
 Integer cryptography and byte framing: the tolerance is exact (bytes).
 """
@@ -637,7 +637,8 @@ def _line(proc):
 def test_worker_process_on_cpu(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith("OT_")}
     proc = subprocess.Popen([sys.executable, "-m", "our_tree_tpu_torch.serve.worker",
-                             "--device", "cpu", "--port", "0", "--status-port", "0"],
+                             "--device", "cpu", "--engine", "bitslice", "--port", "0",
+                             "--status-port", "0"],
                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
@@ -672,16 +673,13 @@ def test_worker_process_on_cpu(tmp_path):
 @pytest.mark.parametrize("argv", [["--journal", "j.jsonl"], ["--native-threads", "4"],
                                   ["--session-per-tenant", "16"],
                                   ["--session-budget-bytes", "1024"]])
-def test_worker_refuses_what_the_port_lacks(argv, capsys):
-    """``--native-threads`` (the native serve engine) is still refused with its
-    ROADMAP item; ``--journal`` and the ``--session-*`` options, ported with
-    the lanes' journal and the rc4 sessions, reach the server's config."""
+def test_worker_refuses_what_the_port_lacks(argv):
+    """``--journal`` and the ``--session-*`` options, ported with the lanes'
+    journal and the rc4 sessions, and ``--native-threads``, ported with the
+    native serve engine, reach the server's config: the worker refuses none
+    of them now."""
     from our_tree_tpu_torch.serve import worker
 
-    if argv[0] == "--native-threads":
-        assert worker.main(["--device", "cpu", *argv]) == 2
-        assert "ROADMAP queue 1" in capsys.readouterr().err
-        return
     cfg = worker.server_config(worker.parse_args(["--device", "cpu", "--modes", "ctr,rc4",
                                                    *argv]))
     field = argv[0][2:].replace("-", "_")
