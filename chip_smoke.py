@@ -302,13 +302,45 @@ is not 0:
    direct ``python -m our_tree_tpu_torch.harness.bench`` run on the same
    arguments (without ``python3-config`` a line says so and the ``c`` rows
    still run);
+16. the rest of observability (``observability_phase``; it runs after 15
+   and before 14): (a) drive D's mix in this process with ``OT_TRACE_DIR``
+   set, ``OT_TRACE_MAX_MB`` sized from drive D's requests and batches so
+   that the trace rotates and keeps every segment (the snapshot stream
+   rotates too: the poller flushes it every 20 ms until it has), a pulse
+   tick every 0.5 s and ``--status-port``, whose ``/alertz`` (200, no row)
+   and ``/healthz`` (with ``capacity``) a thread polls during the drive;
+   gated as drive D and with 0 alerts; (b) ``python -m
+   our_tree_tpu_torch.obs.report <run> --check --trace-json`` rc 0 with
+   Chrome JSON that loads, every ``lane-dispatch`` span closed, ``python -m
+   our_tree_tpu_torch.obs.pulse <run> --check`` rc 0; (c) the alert drill
+   in a child (``DRILL_ENV``: ``OT_FAULTS=dispatch_slow OT_SLOW_S=0.4``, a
+   tick every 50 ms over 1 s and 2 s windows; ``DRILL_DRIVE``: a ``ctr``
+   server with one lane, 32-64 blocks, a 0.2 s watchdog, 60 requests at 20 a
+   second, ``--slo`` drive A's line): ``burn_rate`` fired,
+   ``pulse_alerts{rule=burn_rate,severity=page}`` >= 1, exactly one
+   incident bundle that validates, ``obs.report --incidents --check`` rc 0,
+   0 lost, exit 1 from the SLO gate alone; (d) the SLO gate green (phase
+   8's fresh drive A runs with ``--slo`` drive A's line at
+   ``SLO_CARD_TOLERANCE`` and exits 0) and red (``slo.gate`` of the drill
+   against drive A: 1, naming ``alerts_total``), ``obs.history --check``
+   over drive A, the fresh drive A, the drill's healthy twin (its flags,
+   no fault) and the drill: red on the drill alone, naming
+   ``errors_total``; (e) drive A's mix with ``OT_PULSE=0`` and ``1`` (a
+   tick every 50 ms) in turns, twice each, p50 and goodput side by side,
+   a tick's cost at the end-of-drive registry, and the fresh drive A's
+   ``# compile:`` line: its 2 warmup builds (the library load, the first
+   ``ctr_mk<10>`` launch) at the canary rung, 0 steady. A ``{"pulse":
+   ...}`` line before the ``kernels`` line carries the phase's figures;
 14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
    equal to the window's dispatches, a cost row per warmed rung and
    ``ctr_mk`` kernels in the exported trace, whose kernel time over the
-   window is the card's busy share under the profiler. It comes last, so
-   that the profiler touches none of the timings before it.
+   window is the card's busy share under the profiler, and ``python -m
+   our_tree_tpu_torch.obs.report <run> --profile --check`` reads the capture
+   back (rc 0: the summary joined with the cost records, every slowest
+   exemplar a whole span chain). It comes last, so that the profiler
+   touches none of the timings before it.
 
 Phases 4, 5, 7, each drive of 8 (D and the rehearsal included), the seal
 and the open of 11, each transfer of 12 (a), each run of 13 (c), 15 (a)
@@ -1543,8 +1575,13 @@ WRAP_NONCES = [
 ]
 
 
+#: The script's start: every log line leads with the seconds since it, so a
+#: run's output is its own timeline against the time limit.
+T_START = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def cfb_steps(iv_off: int, chunks) -> list:
@@ -3076,6 +3113,373 @@ def selection_phase(card: str, reset_counts, counts, device: str = "cuda") -> di
     return out
 
 
+#: Phase 16's SLO bands for drive A's mix run twice on one card in one call,
+#: in this process and in a fresh one: the host loop sets these latencies,
+#: and the same drive's figures have moved up to 1.5x between runs (PERF.md
+#: §6), the cost rows' card windows and the single stages more.
+SLO_CARD_TOLERANCE = ("p50_ms=1.0,p95_ms=1.0,p99_ms=2.0,goodput_gbps=0.6,stage_p95_us=3.0,"
+                      "cost_gbps=0.9")
+#: The alert drill, the JAX package's (``tests/test_pulse.py:429-441``)
+#: through the bench: every dispatch slowed 0.4 s past a 0.2 s watchdog, a
+#: pulse tick every 50 ms over 1 s and 2 s windows, one event enough; open
+#: loop at 20 requests a second, so the drive outlasts the slow window.
+DRILL_ENV = {"OT_FAULTS": "dispatch_slow", "OT_SLOW_S": "0.4", "OT_PULSE_EVERY_S": "0.05",
+             "OT_PULSE_FAST_S": "1.0", "OT_PULSE_SLOW_S": "2.0", "OT_PULSE_MIN_EVENTS": "1",
+             "OT_METRICS_FLUSH_S": "0.05"}
+DRILL_DRIVE = ["--requests", "60", "--sizes", "64", "--bucket-min", "32", "--bucket-max", "64",
+               "--lanes", "1", "--retries", "1", "--dispatch-deadline", "0.2",
+               "--arrival-rate", "20"]
+#: Phase 16 (e)'s drive: drive A's mix.
+PULSE_COST_DRIVE = ["--requests", "500", "--mixed-sizes"]
+#: Trace bytes a request (``request-queued``, its keycache counters) and a
+#: batch (``batch-formed``, ``lane-dispatch``, two in-flight gauges, the
+#: watchdog's arm) write, from the event sizes of a CPU run of drive D's
+#: mix: phase 16 (a) sizes ``OT_TRACE_MAX_MB`` from drive D's counts so the
+#: trace rotates (above a quarter of the cap) and keeps every segment
+#: (under the whole cap).
+OBS_TRACE_BYTES = (320, 960)
+#: Environment phase 16 sets and restores.
+OBS_ENV = ("OT_TRACE_DIR", "OT_TRACE_RUN", "OT_TRACE_MAX_MB", "OT_PULSE", "OT_PULSE_EVERY_S",
+           "OT_METRICS_FLUSH_S")
+
+
+def trace_now_us() -> int:
+    return time.time_ns() // 1000
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_json(port: int, path: str):
+    """(status, JSON body) of one GET on the status endpoint; (None, None)
+    while nothing listens."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+    except (OSError, ValueError):
+        return None, None
+
+
+class StatusPoller(threading.Thread):
+    """Phase 16 (a)'s observer while the drive runs: GETs ``/alertz`` and
+    ``/healthz`` every 20 ms and keeps the last answers, and until the
+    snapshot stream has rotated flushes the metrics registry at the same
+    cadence (the drive lasts about a second; the flusher's own cadence is
+    ``OT_METRICS_FLUSH_S``)."""
+
+    def __init__(self, port: int, run_dir: str):
+        super().__init__(daemon=True, name="phase16-poll")
+        self.port, self.run_dir = port, run_dir
+        self.alertz = self.healthz = None
+        self.polls = 0
+        self._halt = threading.Event()
+
+    def run(self):
+        import glob
+
+        from our_tree_tpu_torch.obs import metrics
+
+        while not self._halt.wait(0.02):
+            if len(glob.glob(os.path.join(self.run_dir, "metrics-*.jsonl"))) < 2:
+                metrics.flush_now()
+            code, doc = _get_json(self.port, "/alertz")
+            if code is None:
+                continue
+            self.polls += 1
+            self.alertz = (code, doc)
+            self.healthz = _get_json(self.port, "/healthz")
+
+    def stop(self):
+        self._halt.set()
+        self.join(10)
+
+
+def observability_phase(card: str, serve_drive, line_a: dict, line_d: dict, fresh_a: dict,
+                        device: str = "cuda") -> dict:
+    """Phase 16, the rest of observability over the serve drives: (a) drive
+    D traced and rotated, its status endpoint polled; (b) the run read
+    offline (``obs.report --check --trace-json``, ``obs.pulse --check``);
+    (c) the ``dispatch_slow`` alert drill in a child; (d) the SLO gate green
+    (phase 8's fresh drive A against drive A) and red (the drill), and the
+    history ledger over the phase's artifacts; (e) drive A's mix with pulse
+    off and on, alternating, and the fresh drive A's build line. Returns the
+    ``pulse`` entry and the launches of (a) and (e) for the ``kernels``
+    line."""
+    import glob
+
+    from our_tree_tpu_torch.obs import export, history, incident, slo
+    from our_tree_tpu_torch.serve import bench as serve_bench
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="ot_obs_")
+    saved = {k: os.environ.get(k) for k in OBS_ENV}
+    dev_args = [] if device == "cuda" else ["--device", device]
+    out: dict = {}
+    try:
+        # (a) Drive D traced: the cap from drive D's requests and batches.
+        est = (OBS_TRACE_BYTES[0] * line_d["requests"]
+               + OBS_TRACE_BYTES[1] * line_d["batches"]["batches"])
+        cap_mb = 2.0 * est / (1 << 20)
+        run_a = os.path.join(scratch, "a", "obs-a")
+        os.environ.update({"OT_TRACE_DIR": os.path.join(scratch, "a"), "OT_TRACE_RUN": "obs-a",
+                           "OT_TRACE_MAX_MB": f"{cap_mb:.6f}", "OT_PULSE_EVERY_S": "0.5",
+                           "OT_METRICS_FLUSH_S": "0.05"})
+        os.environ.pop("OT_PULSE", None)
+        port = free_port()
+        poller = StatusPoller(port, run_a)
+        poller.start()
+        t0 = time.perf_counter()
+        try:
+            line, got, _forms = serve_drive("16 (a)", [*DRIVE_D, "--status-port", str(port)])
+        finally:
+            poller.stop()
+        wall_a = time.perf_counter() - t0
+        for k in ("OT_TRACE_DIR", "OT_TRACE_RUN", "OT_TRACE_MAX_MB", "OT_METRICS_FLUSH_S"):
+            os.environ.pop(k, None)
+        trace_files = sorted(glob.glob(os.path.join(run_a, "trace-*.jsonl")))
+        metric_files = sorted(glob.glob(os.path.join(run_a, "metrics-*.jsonl")))
+        a_code, a_doc = poller.alertz or (None, None)
+        h_code, h_doc = poller.healthz or (None, None)
+        checks = {
+            "alerts 0": (line["alerts"] or {}).get("total") == 0,
+            "/alertz 200 with no row": a_code == 200 and a_doc["total"] == 0
+            and a_doc["alerts"] == [],
+            "/healthz with capacity": h_code == 200 and "capacity" in (h_doc or {}),
+            "the trace rotated, every segment kept": len(trace_files) >= 2 and any(
+                re.search(r"trace-\d+-[0-9a-f]+\.jsonl$", f) for f in trace_files),
+            "the snapshots rotated": len(metric_files) >= 2,
+        }
+        log(f"phase 16 (a) drive D traced (OT_TRACE_MAX_MB {cap_mb:.4f} from an estimated "
+            f"{est} trace bytes): {len(trace_files)} trace and {len(metric_files)} snapshot "
+            f"segment(s), {sum(os.path.getsize(f) for f in trace_files)} trace bytes; status "
+            f"polled {poller.polls} times, /alertz {a_code} total "
+            f"{(a_doc or {}).get('total')} frames {(a_doc or {}).get('frames')}, /healthz "
+            f"{h_code} capacity {json.dumps((h_doc or {}).get('capacity'))}; pulse "
+            f"{json.dumps(line['alerts'])}; p50 {line['p50_ms']} ms; launches {got}; "
+            f"{wall_a:.1f} s wall; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 16 (a): {checks}")
+        out["launches_a"] = got
+        out["a"] = {"trace_segments": len(trace_files), "metrics_segments": len(metric_files),
+                    "trace_max_mb": cap_mb, "alertz_frames": a_doc["frames"],
+                    "capacity": h_doc["capacity"]}
+
+        # (b) The run read offline.
+        env = {k: v for k, v in os.environ.items() if k not in OBS_ENV}
+        env["OT_PULSE_EVERY_S"] = "0.5"
+        chrome = os.path.join(scratch, "a.trace.json")
+        rep = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.obs.report", run_a,
+                              "--check", "--trace-json", chrome], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        rpl = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.obs.pulse", run_a,
+                              "--check"], cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=300)
+        run = export.load_run(run_a)
+        dispatch = [s for s in run.spans.values() if s.name == "lane-dispatch"]
+        try:
+            with open(chrome) as fh:
+                n_events = len(json.load(fh)["traceEvents"])
+        except (OSError, ValueError, KeyError):
+            n_events = None
+        try:
+            replay = json.loads(rpl.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            replay = {}
+        checks = {
+            "report --check rc 0": rep.returncode == 0,
+            "the Chrome JSON loads": bool(n_events),
+            "every lane-dispatch span closed": bool(dispatch) and all(
+                s.end_ts is not None for s in dispatch),
+            "pulse --check rc 0 (replay == live)": rpl.returncode == 0
+            and replay.get("fired") == replay.get("live_fired") == {},
+        }
+        log(f"phase 16 (b) offline: report --check rc {rep.returncode}, {len(run.spans)} spans "
+            f"({len(dispatch)} lane-dispatch, {len(run.orphans())} orphaned), "
+            f"{len(run.violations)} violations, {len(run.snapshots)} snapshots; Chrome trace "
+            f"{n_events} events; pulse replay rc {rpl.returncode}: {replay.get('frames')} "
+            f"frames, fired {replay.get('fired')}, live {replay.get('live_fired')}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 16 (b): {checks}; report {rep.stderr[-1500:]!r}; pulse "
+                             f"{rpl.stdout[-1500:]!r}")
+
+        # (d) first half: drive A's line as the SLO baseline and the drill's
+        # healthy twin (its flags without the fault) for the history ledger.
+        hist = os.path.join(scratch, "hist")
+        os.makedirs(hist)
+        paths = {name: os.path.join(hist, f"SERVE_r0{i}.json") for i, name in
+                 enumerate(("a", "fresh_a", "twin", "drill"), 1)}
+        with open(paths["a"], "w") as fh:
+            json.dump(line_a, fh)
+        with open(paths["fresh_a"], "w") as fh:
+            json.dump(fresh_a["line"], fh)
+        twin, _, _ = serve_drive("16 (d) twin", [*DRILL_DRIVE, "--artifact", paths["twin"]])
+
+        # (c) The alert drill in a child: a fresh incident recorder and faults.
+        env_c = {**env, **DRILL_ENV, "OT_TRACE_DIR": os.path.join(scratch, "c"),
+                 "OT_TRACE_RUN": "obs-c", "OT_CRASH_DIR": os.path.join(scratch, "crash")}
+        t0 = time.perf_counter()
+        drill = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench",
+                                *DRILL_DRIVE, *dev_args, "--slo", paths["a"], "--artifact",
+                                paths["drill"]], cwd=ROOT, env=env_c, capture_output=True,
+                               text=True, timeout=300)
+        wall_c = time.perf_counter() - t0
+        run_c = os.path.join(scratch, "c", "obs-c")
+        try:
+            with open(paths["drill"]) as fh:
+                art = json.load(fh)
+            d_line = json.loads(drill.stdout.strip().splitlines()[-1])
+        except (OSError, ValueError, IndexError) as e:
+            raise SystemExit(f"phase 16 (c): no artifact or line ({e}); rc {drill.returncode}, "
+                             f"err {drill.stderr[-2000:]!r}")
+        bundles = incident.list_bundles(run_c)
+        inc = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.obs.report", run_c,
+                              "--incidents", "--check"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        fails = [ln for ln in drill.stderr.splitlines() if ln.startswith("# FAIL")]
+        page = art["metrics"]["counters"].get("pulse_alerts{rule=burn_rate,severity=page}", 0)
+        checks = {
+            "burn_rate fired": (art["alerts"] or {}).get("fired", {}).get("burn_rate", 0) >= 1,
+            "pulse_alerts{rule=burn_rate,severity=page} >= 1": page >= 1,
+            "exactly one bundle": len(bundles) == 1,
+            "the bundle validates": len(bundles) == 1 and incident.validate_bundle(
+                incident.load_bundle(bundles[0])) == [],
+            "report --incidents --check rc 0": inc.returncode == 0,
+            "0 lost": d_line["lost"] == 0,
+            "exit 1 from the SLO gate alone": drill.returncode == 1 and len(fails) == 1
+            and "SLO regression" in fails[0] and d_line.get("slo") == "fail",
+        }
+        reasons = [incident.load_bundle(b).get("reason") for b in bundles]
+        log(f"phase 16 (c) drill ({' '.join(f'{k}={v}' for k, v in DRILL_ENV.items())} "
+            f"{' '.join(DRILL_DRIVE)}): rc {drill.returncode}, alerts "
+            f"{json.dumps(art['alerts']['fired'] if art['alerts'] else None)} over "
+            f"{(art['alerts'] or {}).get('frames')} frames, pulse_alerts page {page}, errors "
+            f"{d_line['errors']}, lost {d_line['lost']}, bundles {reasons}, report --incidents "
+            f"rc {inc.returncode}; {wall_c:.1f} s wall with start-up; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 16 (c): {checks}; stderr {drill.stderr[-2000:]!r}")
+
+        # (d) The SLO gate green (phase 8's fresh drive A) and red (the drill),
+        # then the history ledger over the four artifacts.
+        buf = io.StringIO()
+        red_rc = slo.gate(paths["a"], art, None, out=buf)
+        named = sorted({m.group(1) for m in re.finditer(r"REGRESSION (\S+?):", buf.getvalue())})
+        hout, herr = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(hout), contextlib.redirect_stderr(herr):
+            hist_rc = history.main(["--root", hist, "--check", "--tolerance",
+                                    "goodput_gbps=0.9,utilization=0.9"])
+        regress = [ln for ln in herr.getvalue().splitlines() if "REGRESSION" in ln]
+        checks = {
+            "green: the fresh drive A's --slo rc 0": fresh_a["rc"] == 0
+            and fresh_a["line"].get("slo") == "pass",
+            "red: slo.gate(drive A, the drill) rc 1": red_rc == 1,
+            "red names alerts_total or a latency": bool(
+                set(named) & {"alerts_total", "p50_ms", "p95_ms", "p99_ms"}),
+            "history renders the four artifacts": all(
+                os.path.basename(p) in hout.getvalue() for p in paths.values()),
+            "history --check red on the drill alone": hist_rc == 1 and bool(regress) and all(
+                "SERVE_r04.json" in ln for ln in regress)
+            and any("errors_total" in ln for ln in regress),
+            "twin healthy": twin["lost"] == 0 and twin["errors"] == {}
+            and (twin["alerts"] or {}).get("total") == 0,
+        }
+        log(f"phase 16 (d) SLO: green rc {fresh_a['rc']} (tolerance {SLO_CARD_TOLERANCE}), red "
+            f"rc {red_rc} naming {named}; history --check rc {hist_rc}: "
+            + " | ".join(ln.split('REGRESSION ')[-1] for ln in regress))
+        if not all(checks.values()):
+            raise SystemExit(f"phase 16 (d): {checks}; slo {buf.getvalue()[-1500:]!r}; history "
+                             f"{herr.getvalue()[-1500:]!r}")
+
+        # (e) Pulse's cost: drive A's mix, pulse off and on, two turns each.
+        turns = []
+        # The on turns tick every 50 ms, 40 times the default cadence, so a
+        # tick's cost shows inside a drive of a second or two.
+        os.environ["OT_PULSE_EVERY_S"] = "0.05"
+        for i, on in enumerate((0, 1, 0, 1)):
+            os.environ["OT_PULSE"] = str(on)
+            ln, got_e, _ = serve_drive(f"16 (e) pulse={on} #{i // 2 + 1}", PULSE_COST_DRIVE)
+            turns.append({"pulse": on, "p50_ms": ln["p50_ms"], "p99_ms": ln["p99_ms"],
+                          "goodput_gbps": ln["goodput_gbps"], "ctr_mk": got_e["ctr_mk"],
+                          "frames": (ln["alerts"] or {}).get("frames"),
+                          "alerts": (ln["alerts"] or {}).get("total")})
+        os.environ.pop("OT_PULSE", None)
+        off = [t for t in turns if not t["pulse"]]
+        on_ = [t for t in turns if t["pulse"]]
+        comp = fresh_a["compile"]
+        checks = {
+            "pulse off: no alerts section": all(t["alerts"] is None for t in off),
+            "pulse on: 0 alerts": all(t["alerts"] == 0 for t in on_),
+            "fresh A: 2 warmup builds by rung": comp["count"] == 2
+            == fresh_a["line"]["compiles"]["warmup"] and comp["rungs"]
+            and all(r != "0" for r in comp["rungs"]),
+            "fresh A: 0 steady": fresh_a["line"]["compiles"]["steady"] == 0,
+        }
+        d50 = statistics.median(t["p50_ms"] for t in on_) - statistics.median(
+            t["p50_ms"] for t in off)
+        # A tick's own cost at the end-of-drive registry: the snapshot holds
+        # the registry's lock; the frame and the rules run outside it.
+        from our_tree_tpu_torch.obs import metrics, pulse
+
+        eng = pulse.PulseEngine(emit=False)
+        snap_us, tick_us = [], []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            snap = metrics.snapshot()
+            t1 = time.perf_counter()
+            eng.observe(pulse.frame_from_snapshot(snap, trace_now_us()))
+            t2 = time.perf_counter()
+            snap_us.append((t1 - t0) * 1e6)
+            tick_us.append((t2 - t0) * 1e6)
+        tick = {"snapshot_us_p50": statistics.median(snap_us),
+                "tick_us_p50": statistics.median(tick_us), "series": sum(
+                    len(snap[k]) for k in ("counters", "gauges", "hists"))}
+        log("phase 16 (e) pulse cost, drive A's mix in turns (off, on, off, on): "
+            + "; ".join(f"pulse={t['pulse']} p50 {t['p50_ms']} ms p99 {t['p99_ms']} ms goodput "
+                        f"{t['goodput_gbps']} GB/s frames {t['frames']}" for t in turns)
+            + f"; median p50 on - off {d50:+.3f} ms; a tick at the end-of-drive registry "
+            f"({tick['series']} series): snapshot (the lock held) {tick['snapshot_us_p50']:.1f} "
+            f"µs, whole tick {tick['tick_us_p50']:.1f} µs (median of 200); fresh A's build line: "
+            f"{comp['text']}; card: {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"phase 16 (e): {checks}")
+        out["turns"] = turns
+        out["launches_e"] = [t["ctr_mk"] for t in turns]
+        out["pulse"] = {
+            "a": {"alerts": line["alerts"]["total"], "frames": line["alerts"]["frames"],
+                  "alertz": a_code, "trace_segments": len(trace_files),
+                  "metrics_segments": len(metric_files)},
+            "replay_ok": rpl.returncode == 0, "report_check_rc": rep.returncode,
+            "drill": {"fired": art["alerts"]["fired"], "page_alerts": page,
+                      "bundles": reasons, "incidents_check_rc": inc.returncode},
+            "slo": {"green_rc": fresh_a["rc"], "red_rc": red_rc, "red_named": named,
+                    "drill_bench_rc": drill.returncode},
+            "history_rc": hist_rc,
+            "compile": {"fresh_a": comp, "steady": fresh_a["line"]["compiles"]["steady"]},
+            "pulse_cost": {"turns": turns, "median_p50_delta_ms": d50, "every_s": 0.05,
+                           **tick},
+        }
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["pulse"]["wall_s"] = out["wall_s"]
+    log(f"phase 16 (observability): {out['wall_s']:.1f} s wall; card: {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4005,7 +4409,14 @@ def main() -> int:
                                           "--min-coalesce", "0.5"])
     # Drive A's mix in a fresh process: there the lane's warmup is the first
     # contact with the card (context, library load, first ctr_mk<10> launch).
-    argv = ["--requests", "500", "--mixed-sizes"]
+    # It is phase 16 (d)'s green SLO pair too: gated against drive A's line.
+    slo_dir = tempfile.mkdtemp(prefix="ot_slo_")
+    atexit.register(shutil.rmtree, slo_dir, True)
+    slo_base = os.path.join(slo_dir, "drive_a.json")
+    with open(slo_base, "w") as fh:
+        json.dump(line_a, fh)
+    argv = ["--requests", "500", "--mixed-sizes", "--slo", slo_base, "--slo-tolerance",
+            SLO_CARD_TOLERANCE]
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench", *argv],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -4027,9 +4438,17 @@ def main() -> int:
         f"builds/loads/first launches: warmup {line['compiles']['warmup']}, steady "
         f"{line['compiles']['steady']}; {wall:.1f} s wall with start-up; card: {card}")
     log_first_dispatch("A (fresh process)", line)
+    for text in res.stdout.splitlines():
+        if text.startswith(("# slo:", "# compile:", "# pulse:")):
+            log(f"serve A in a fresh process: {text}")
     if not all(checks.values()):
         raise SystemExit(f"serve bench in a fresh process failed: {checks}")
     warmup_a = line["compiles"]["warmup"]
+    comp_text = next((t for t in res.stdout.splitlines() if t.startswith("# compile:")), "")
+    fresh_a = {"rc": res.returncode, "line": line, "compile": {
+        "text": comp_text, "count": sum(v["count"] for v in line["compiles_by_rung"].values()),
+        "rungs": {r: v["count"] for r, v in line["compiles_by_rung"].items()},
+        "seconds": sum(v["total_us"] for v in line["compiles_by_rung"].values()) / 1e6}}
 
     # Drive D, the mixed ctr,gcm,gcm-open,cbc drive, counted; then in a fresh
     # process, where warmup must count two first launches more than A's
@@ -6186,6 +6605,20 @@ def main() -> int:
             entry["selection"] = {"native_drive_launches": {
                 name: d["launches"][entry["name"]] for name, d in sel["native_drives"].items()}}
 
+    # 16. The rest of observability over the serve drives (before 14, which
+    # stays last): drive D traced and rotated with its status endpoint
+    # polled, the run read offline, the alert drill, the SLO gate green and
+    # red, the history ledger, pulse's cost and the warmup's build line.
+    obs = observability_phase(card, serve_drive, line_a, line_d, fresh_a)
+    for entry in kernels:
+        if entry["name"] == "ctr_mk":
+            entry["observability"] = {"drive_d_traced_launches": obs["launches_a"]["ctr_mk"],
+                                      "pulse_cost_drive_a_launches": obs["launches_e"]}
+        elif entry["name"] == "ghash_at":
+            entry["observability"] = {"drive_d_traced_launches": obs["launches_a"]["ghash_at"]}
+        elif entry["name"] == "cbc_mk":
+            entry["observability"] = {"drive_d_traced_launches": obs["launches_a"]["cbc_mk"]}
+
     # 14. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
@@ -6204,6 +6637,13 @@ def main() -> int:
         cost_rungs = [r["rung"] for r in line_c["cost"]["rows"]]
         tk = (trace_kernels(os.path.join(trace_root, cap["run"], cap["torch_dir"], "trace.json"),
                             cap["t0_us"], cap["t1_us"]) if cap.get("torch_dir") else {})
+        # The offline reading of the card's capture (PR 19): the report joins
+        # the torch tier's summary with the cost records, and every slowest
+        # exemplar must resolve to a whole span chain.
+        rep_c = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.obs.report",
+                                os.path.join(trace_root, cap.get("run", "")), "--profile",
+                                "--check"], cwd=ROOT, capture_output=True, text=True,
+                               timeout=300)
     finally:
         del os.environ["OT_TRACE_DIR"]
         os.environ.pop("OT_TRACE_RUN", None)
@@ -6219,7 +6659,12 @@ def main() -> int:
         "crosscheck rows modeled": all(r["modeled_dispatch_bytes"] for r in xrows),
         "a cost row per warmed rung": cost_rungs == line_c["config"]["rungs"],
         "trace holds ctr_mk kernels": tk.get("ctr_mk_in_trace", 0) > 0,
+        "obs.report --profile --check rc 0": rep_c.returncode == 0,
     }
+    prof_text = rep_c.stdout.partition("\nprofile ")[2]
+    log(f"serve C obs.report --profile --check: rc {rep_c.returncode}; profile "
+        + " | ".join(t.strip() for t in prof_text.splitlines())[:1500]
+        + (f"; stderr {rep_c.stderr[-600:]!r}" if rep_c.returncode else "") + f"; card: {card}")
     if tk:
         busy = tk["kernel_us"] / (cap["t1_us"] - cap["t0_us"])
         log(f"serve C profiled window: {cap['seconds']} s, {window_disp} dispatches; trace: "
@@ -6239,6 +6684,7 @@ def main() -> int:
     if not all(checks.values()):
         raise SystemExit(f"serve drive C's profile failed: {checks}")
 
+    print(json.dumps({"pulse": obs["pulse"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

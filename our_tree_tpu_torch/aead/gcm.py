@@ -138,10 +138,10 @@ def gcm_crypt_ghash_words(words, ctr_le_words, rks, key_slots, hmats, inject_wor
             seg_keep.to(torch.int32).contiguous(),
             torch.zeros(4, dtype=torch.int32, device=words.device))
     inject = inject_words.reshape(-1, 4).contiguous()
-    _aes.note_seam_call("ghash_scan" if rows is None else "ghash_at", engine, 0, words.device)
-    if rows is not None:
-        return out.reshape(words.shape), _ghash_fn(engine, True)(*args, rows, inject)
-    ys = _ghash_fn(engine, False)(*args, inject)
+    with _aes.seam_call("ghash_scan" if rows is None else "ghash_at", engine, 0, words.device):
+        if rows is not None:
+            return out.reshape(words.shape), _ghash_fn(engine, True)(*args, rows, inject)
+        ys = _ghash_fn(engine, False)(*args, inject)
     return out.reshape(words.shape), ys.reshape(words.shape)
 
 

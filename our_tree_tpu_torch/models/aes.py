@@ -35,11 +35,16 @@ loop is the kernel's plain version, ``cuda_aes.seq_encrypt_plain``).
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
+
 import numpy as np
 import torch
 
 from ..ops import bitslice, block, cuda_aes
 from ..ops.keyschedule import dec_schedule_from_enc, expand_key_enc
+from ..runtime import cuda_build, monitoring
 from ..utils import packing, ranking
 # The reference keeps the counter add here; the port keeps it in utils so
 # that ops/cuda_aes.py's plain version can use it without an import cycle.
@@ -89,16 +94,35 @@ NATIVE_ENGINE = "native"
 #: oracle the probe measures so that the ranking has two engines.
 KERNEL_BACKED = frozenset({CUDA_ENGINE})
 #: (seam, engine, nr, device) of every call of the serve seams in this
-#: process, seam ``"ctr"``, ``"cbc"``, or ``"ghash_at"``/``"ghash_scan"``
-#: (the GCM seam's GHASH half, nr 0: its kernel has no NR instantiation)
-#: (``set.add`` is atomic, so lane worker threads add without a lock).
+#: process, seam ``"ctr"``, ``"cbc"``, ``"ghash_at"``/``"ghash_scan"`` (the
+#: GCM seam's GHASH half, nr 0: its kernel has no NR instantiation),
+#: ``"rc4"`` or ``"rc4-prep"``. A known key is read without the lock; a
+#: first call adds its key under ``_SEAM_LOCK``.
 _SEAM_CALLS: set = set()
+_SEAM_LOCK = threading.Lock()
 
 
-def note_seam_call(seam: str, engine: str, nr: int, device) -> None:
-    """Record one call of a serve seam (``seam_first_calls`` counts the
-    distinct ones)."""
-    _SEAM_CALLS.add((seam, engine, int(nr), str(device)))
+@contextlib.contextmanager
+def seam_call(seam: str, engine: str, nr: int, device):
+    """Wrap one call of a serve seam. The first call of each (seam, engine,
+    nr, device) counts (``seam_first_calls``) and emits its host seconds, less
+    any kernel-library load it triggered, as a ``SEAM_FIRST_CALL`` duration
+    event; a call that raises counts too."""
+    key = (seam, engine, int(nr), str(device))
+    if key in _SEAM_CALLS:
+        yield
+        return
+    t0, load0 = time.perf_counter(), cuda_build.load_seconds()
+    try:
+        yield
+    finally:
+        with _SEAM_LOCK:
+            first = key not in _SEAM_CALLS
+            _SEAM_CALLS.add(key)
+        if first:
+            monitoring.record_event_duration_secs(
+                monitoring.SEAM_FIRST_CALL,
+                time.perf_counter() - t0 - (cuda_build.load_seconds() - load0))
 
 
 def seam_first_calls() -> int:
@@ -369,8 +393,8 @@ def ctr_crypt_words_scattered_multikey(words, ctr_le_words, rks, key_slots, nr: 
         return _ctr_native(words, ctr_le_words, rks, key_slots, nr, native_ctxs,
                            native_threads, native_runs)
     engine = resolve_engine(engine, words.device)
-    note_seam_call("ctr", engine, nr, words.device)
-    out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
+    with seam_call("ctr", engine, nr, words.device):
+        out = MULTIKEY_CTR[engine](_blocks(words), _blocks(ctr_le_words), rks, key_slots, nr)
     return out.reshape(words.shape)
 
 
@@ -417,8 +441,8 @@ def cbc_decrypt_words_scattered_multikey(words: torch.Tensor, prev_words: torch.
     only the rungs; (N, 4) or flat (4N,) words, the result in ``words``'
     shape. CBC encrypt is a recurrence and is not servable."""
     engine = resolve_engine(engine, words.device)
-    note_seam_call("cbc", engine, nr, words.device)
-    out = MULTIKEY_CBC[engine](_blocks(words), _blocks(prev_words), rks_dec, key_slots, nr)
+    with seam_call("cbc", engine, nr, words.device):
+        out = MULTIKEY_CBC[engine](_blocks(words), _blocks(prev_words), rks_dec, key_slots, nr)
     return out.reshape(words.shape)
 
 

@@ -8,10 +8,13 @@ dropped and counted). A histogram keeps exact count and sum beside its log2
 buckets and, per bucket, the exemplar of its largest observation (on unless
 ``OT_EXEMPLARS=0``). With ``OT_TRACE_DIR`` set, a daemon thread appends a
 cumulative snapshot line every ``OT_METRICS_FLUSH_S`` seconds (default 2) to
-``metrics-<pid>-<tok>.jsonl`` in the trace run directory.
-``render_prometheus`` renders the registry as Prometheus text, the status
-endpoint's ``/metrics`` body. The reference's snapshot rotation and ``hist``
-export helpers wait for the rest of ``obs``.
+``metrics-<pid>-<tok>.jsonl`` in the trace run directory; under
+``OT_TRACE_MAX_MB`` that file rotates into ``-s<k>`` segments as the trace
+does (``obs/trace.py``), the oldest deleted and their bytes counted
+(``evicted_bytes``, in every later snapshot line and on ``/metrics``).
+Snapshots are cumulative, so eviction loses the early time axis, never the
+totals. ``render_prometheus`` renders the registry as Prometheus text, the
+status endpoint's ``/metrics`` body.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ VERSION = 1
 _MAX_SERIES = 64
 _EXEMPLAR_MAX = 6
 
+#: The time-attribution waterfall's stages in request-path order: the
+#: router's, then the backend's (``obs.report``'s stage table reads it).
+WATERFALL_STAGES = ("router_queue", "retry", "wire", "backend_queue",
+                    "pack", "worker_wait", "dispatch", "device", "reply")
+
 _LOCK = threading.Lock()
 _COUNTS: dict[tuple, float] = {}
 _GAUGES: dict[tuple, float] = {}
@@ -38,6 +46,10 @@ _HISTS: dict[tuple, "_Hist"] = {}
 _SERIES: dict[str, int] = {}
 _DROPPED = 0
 _SINK: dict | None = None
+#: Serialises snapshot writes and rotation: the flusher thread and an
+#: explicit ``flush_now`` (a server's stop, a test) may meet.
+_SINK_LOCK = threading.Lock()
+_EVICTED_BYTES = 0
 _FLUSHER: threading.Thread | None = None
 _ATEXIT_REGISTERED = False
 
@@ -188,9 +200,13 @@ def merge_buckets(hists) -> dict:
     return out
 
 
+def _label_str(labels: tuple) -> str:
+    return ",".join(f"{k}={v}" for k, v in labels)
+
+
 def flat_name(name: str, labels: tuple) -> str:
     """``name{k=v,...}``, the series key of the artifact JSON."""
-    return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}" if labels else name
+    return f"{name}{{{_label_str(labels)}}}" if labels else name
 
 
 def _hist_doc(h: _Hist) -> dict:
@@ -223,7 +239,84 @@ def _snapshot_rec(ts_us: int) -> dict:
                "hists": [[n, dict(lb), _hist_doc(h)] for (n, lb), h in sorted(_HISTS.items())]}
     if _DROPPED:
         rec["dropped"] = _DROPPED
+    if _EVICTED_BYTES:
+        rec["evicted_bytes"] = _EVICTED_BYTES
     return rec
+
+
+def _max_bytes() -> int:
+    """The snapshot file's cap, the trace's ``OT_TRACE_MAX_MB``; 0 (unset)
+    is unbounded."""
+    try:
+        mb = float(os.environ.get("OT_TRACE_MAX_MB", 0) or 0)
+    except ValueError:
+        return 0
+    return max(int(mb * (1 << 20)), 0)
+
+
+def _segment_path(sink: dict) -> str:
+    suffix = f"-s{sink['seg']}" if sink["seg"] else ""
+    return os.path.join(sink["dir"], f"metrics-{sink['pid']}-{sink['proc']}{suffix}.jsonl")
+
+
+def _open_segment(sink: dict) -> None:
+    """Open the current segment and write its header (the same proc token in
+    every segment); ``sink`` changes only when the whole open succeeded."""
+    path = _segment_path(sink)
+    fh = open(path, "a", encoding="utf-8")
+    try:
+        header = {"kind": KIND, "v": VERSION, "run": sink["run"], "pid": sink["pid"],
+                  "proc": sink["proc"], "interval_s": flush_interval_s(),
+                  "start_us": time.time_ns() // 1000}
+        if sink["seg"]:
+            header["seg"] = sink["seg"]
+        fh.write(json.dumps(header, separators=(",", ":")) + "\n")
+        fh.flush()
+    except OSError:
+        try:
+            fh.close()
+        except OSError:
+            pass
+        raise
+    sink["fh"], sink["path"] = fh, path
+
+
+def _rotate_sink(sink: dict) -> None:
+    """Open the next segment, retire the full one, then delete the oldest
+    past the cap, counting the bytes deleted. A failed open keeps the
+    current segment live (the next flush tries again)."""
+    global _EVICTED_BYTES
+    old_fh, old_path = sink["fh"], sink["path"]
+    sink["seg"] += 1
+    try:
+        _open_segment(sink)
+    except OSError:
+        sink["seg"] -= 1
+        return
+    try:
+        old_fh.close()
+    except OSError:
+        pass
+    sink["segments"].append(old_path)
+    keep = max(int(sink["cap_bytes"] // sink["seg_bytes"]) - 1, 1)
+    while len(sink["segments"]) > keep:
+        victim = sink["segments"].pop(0)
+        try:
+            size = os.path.getsize(victim)
+            os.unlink(victim)
+            _EVICTED_BYTES += size
+        except OSError:
+            break
+
+
+def _close_sink() -> None:
+    global _SINK
+    if _SINK is not None:
+        try:
+            _SINK["fh"].close()
+        except OSError:
+            pass
+        _SINK = None
 
 
 def _sink() -> dict | None:
@@ -235,22 +328,16 @@ def _sink() -> dict | None:
     run = trace.ensure_run()
     if _SINK is not None and _SINK["run"] == run:
         return _SINK
-    if _SINK is not None:
-        try:
-            _SINK["fh"].close()
-        except OSError:
-            pass
-        _SINK = None
+    _close_sink()
     try:
         d = trace.run_dir()
         os.makedirs(d, exist_ok=True)
-        proc = uuid.uuid4().hex[:8]
-        fh = open(os.path.join(d, f"metrics-{os.getpid()}-{proc}.jsonl"), "a", encoding="utf-8")
-        fh.write(json.dumps({"kind": KIND, "v": VERSION, "run": run, "pid": os.getpid(),
-                             "proc": proc, "interval_s": flush_interval_s(),
-                             "start_us": time.time_ns() // 1000}, separators=(",", ":")) + "\n")
-        fh.flush()
-        _SINK = {"run": run, "fh": fh}
+        cap = _max_bytes()
+        sink = {"run": run, "dir": d, "pid": os.getpid(), "proc": uuid.uuid4().hex[:8],
+                "seg": 0, "segments": [], "cap_bytes": cap,
+                "seg_bytes": max(cap // 4, 4096) if cap else 0}
+        _open_segment(sink)
+        _SINK = sink
         return _SINK
     except OSError:
         _DROPPED += 1
@@ -258,15 +345,19 @@ def _sink() -> dict | None:
 
 
 def flush_now() -> bool:
-    """Append one cumulative snapshot line (True on success)."""
+    """Append one cumulative snapshot line (True on success), rotating the
+    file past its segment size."""
     global _DROPPED
     try:
-        sink = _sink()
-        if sink is None:
-            return False
-        sink["fh"].write(json.dumps(_snapshot_rec(time.time_ns() // 1000),
-                                    separators=(",", ":")) + "\n")
-        sink["fh"].flush()
+        with _SINK_LOCK:
+            sink = _sink()
+            if sink is None:
+                return False
+            sink["fh"].write(json.dumps(_snapshot_rec(time.time_ns() // 1000),
+                                        separators=(",", ":")) + "\n")
+            sink["fh"].flush()
+            if sink["seg_bytes"] and sink["fh"].tell() >= sink["seg_bytes"]:
+                _rotate_sink(sink)
         return True
     except (OSError, TypeError, ValueError):
         _DROPPED += 1
@@ -375,6 +466,9 @@ def render_prometheus(exemplars: bool = False) -> str:
     if _DROPPED:
         lines.append("# TYPE ot_metrics_dropped_total counter")
         lines.append(f"ot_metrics_dropped_total {_DROPPED}")
+    if _EVICTED_BYTES:
+        lines.append("# TYPE ot_metrics_evicted_bytes_total counter")
+        lines.append(f"ot_metrics_evicted_bytes_total {_EVICTED_BYTES}")
     return "\n".join(lines) + "\n"
 
 
@@ -382,6 +476,21 @@ def counter_total(name: str) -> float:
     """One counter name summed across its label sets."""
     with _LOCK:
         return sum(v for (n, _), v in _COUNTS.items() if n == name)
+
+
+def hist_merged(name: str) -> dict:
+    """One histogram name's buckets merged across its label sets."""
+    with _LOCK:
+        parts = [dict(h.buckets) for (n, _), h in _HISTS.items() if n == name]
+    return merge_buckets(parts)
+
+
+def hist_items(name: str) -> list:
+    """[(labels dict, {"buckets", "count", "sum"})] for one histogram name
+    (the per-(engine, rung) warmup build-cost table)."""
+    with _LOCK:
+        return [(dict(labels), {"buckets": dict(h.buckets), "count": h.count, "sum": h.sum})
+                for (n, labels), h in _HISTS.items() if n == name]
 
 
 def counter_by_label(name: str, label_key: str) -> dict:
@@ -421,6 +530,15 @@ def stage_percentiles(names=("serve_stage_us",)) -> dict:
             for stage, b in sorted(merged.items())}
 
 
+def dropped() -> int:
+    return _DROPPED
+
+
+def evicted_bytes() -> int:
+    """Bytes of snapshot history deleted by the ``OT_TRACE_MAX_MB`` cap."""
+    return _EVICTED_BYTES
+
+
 def reset() -> None:
     """Clear every series: a bench drive counts from zero, as it would in a
     fresh process."""
@@ -431,3 +549,13 @@ def reset() -> None:
         _HISTS.clear()
         _SERIES.clear()
     _DROPPED = 0
+
+
+def reset_for_tests() -> None:
+    """``reset`` plus the snapshot file closed and the evicted bytes cleared
+    (tests only)."""
+    global _EVICTED_BYTES
+    with _SINK_LOCK:
+        _close_sink()
+    reset()
+    _EVICTED_BYTES = 0

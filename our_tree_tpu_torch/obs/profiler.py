@@ -7,8 +7,9 @@ direct ``start_window`` call (``"api"``) and ``harness.bench --profile DIR``
 its torch trace in the operator's DIR, allowed with tracing off), the status
 endpoint's ``/profilez`` (``profilez``, ``"http"``) and the incident recorder
 (``on_incident``, ``"incident"``, one window of ``OT_PROFILE_ON_INCIDENT``
-seconds after a bundle dumps). The reference's alert arming waits for
-``obs/pulse.py``; ``ARMED_BY`` keeps the reference's vocabulary.
+seconds after a bundle dumps) and the pulse engine (``on_alert``,
+``"alert"``, one window of ``OT_PROFILE_ON_ALERT`` seconds after an alert
+fires, on the server's device).
 
 Two capture tiers, chosen per window:
 
@@ -107,6 +108,16 @@ def incident_seconds() -> float:
     (0/unset: off)."""
     try:
         return max(float(os.environ.get("OT_PROFILE_ON_INCIDENT", 0) or 0), 0.0)
+    except ValueError:
+        return 0.0
+
+
+def alert_seconds() -> float:
+    """``OT_PROFILE_ON_ALERT``: the window a pulse alert arms (0/unset:
+    off). A knob apart from the incident one: a warn alert dumps no bundle
+    but may still want a window."""
+    try:
+        return max(float(os.environ.get("OT_PROFILE_ON_ALERT", 0) or 0), 0.0)
     except ValueError:
         return 0.0
 
@@ -471,6 +482,24 @@ def on_incident(reason: str, device=None) -> None:
             pass
 
     threading.Thread(target=_arm, daemon=True, name="ot-profile-incident").start()
+
+
+def on_alert(rule: str, device=None) -> None:
+    """The pulse engine's arming hook (``obs/pulse.py``, at each alert's
+    edge): one window of ``OT_PROFILE_ON_ALERT`` seconds on ``device``,
+    armed on a short-lived thread so the profiler's start-up does not stall
+    the pulse tick. A window already open, or any failure, is fine."""
+    secs = alert_seconds()
+    if not secs:
+        return
+
+    def _arm():
+        try:
+            start_window(secs, armed_by="alert", device=device)
+        except Exception:  # noqa: BLE001 - never raises on this path
+            pass
+
+    threading.Thread(target=_arm, daemon=True, name="ot-profile-alert").start()
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,17 @@ materialises, with its original timestamp, when it fails or is forced.
 ``OT_TRACE_RUN`` names the run (minted by ``ensure_run`` when unset) and
 ``OT_TRACE_PARENT`` gives root spans a parent; ``child_env`` hands both to a
 child process, so its root spans nest under the caller's live span (the
-sweep's isolated children). The reference's segment rotation
-(``OT_TRACE_MAX_MB``) is not carried over.
+sweep's isolated children).
+
+``OT_TRACE_MAX_MB`` caps a process's trace on disk: its event file rotates
+into segments of a quarter of the cap (``trace-<pid>-<tok>.jsonl``, then
+``-s1``, ``-s2``, ...; each opens with its own header, the later ones naming
+their ``seg``) and the oldest closed segments are deleted, so at most the cap
+stays on disk. The bytes deleted are counted (``evicted_bytes`` in
+``metrics_snapshot``). A rotation opens the next segment before it retires
+the full one, so a failed open keeps the current segment live and rotation
+tries again on a later write. ``obs.export`` stitches the segments in the
+order they were written.
 
 Event schema (the reference's v1)::
 
@@ -43,12 +52,15 @@ VERSION = 1
 
 _SPANS_STARTED = 0
 _DROPPED = 0
+#: Bytes of trace history deleted by segment rotation (``OT_TRACE_MAX_MB``).
+_EVICTED_BYTES = 0
 _COUNTS: dict[str, float] = {}
 _GAUGES: dict[str, float] = {}
 _TIDS: dict[int, int] = {}
 _LOCK = threading.Lock()
 _TLS = threading.local()
-#: Lazily opened per-process state {"run", "dir", "fh", "proc", "pid", "seq"}.
+#: Lazily opened per-process state {"run", "dir", "fh", "path", "proc", "pid",
+#: "seq", "seg", "segments", "cap_bytes", "seg_bytes"}.
 _STATE: dict | None = None
 
 
@@ -134,6 +146,82 @@ def run_dir() -> str | None:
     return os.path.join(os.environ["OT_TRACE_DIR"], ensure_run())
 
 
+def _max_bytes() -> int:
+    """The per-process trace cap (``OT_TRACE_MAX_MB``) in bytes; 0 (unset)
+    is unbounded."""
+    try:
+        mb = float(os.environ.get("OT_TRACE_MAX_MB", 0) or 0)
+    except ValueError:
+        return 0
+    return max(int(mb * (1 << 20)), 0)
+
+
+def _segment_path(state: dict) -> str:
+    suffix = f"-s{state['seg']}" if state["seg"] else ""
+    return os.path.join(state["dir"], f"trace-{state['pid']}-{state['proc']}{suffix}.jsonl")
+
+
+def _open_segment_locked(state: dict) -> None:
+    """Open the current segment and write its header; the caller holds
+    ``_LOCK``. ``state`` changes only when the whole open succeeded."""
+    path = _segment_path(state)
+    fh = open(path, "a", encoding="utf-8")
+    try:
+        header = {"kind": KIND, "v": VERSION, "run": state["run"], "pid": state["pid"],
+                  "proc": state["proc"], "argv": " ".join(sys.argv[:6])[:300],
+                  "start_us": now_us()}
+        if state["seg"]:
+            header["seg"] = state["seg"]
+        fh.write(json.dumps(header, separators=(",", ":"), default=repr) + "\n")
+        fh.flush()
+    except OSError:
+        try:
+            fh.close()
+        except OSError:
+            pass
+        raise
+    state["fh"], state["path"] = fh, path
+
+
+def _rotate_locked(state: dict) -> None:
+    """Open the next segment, retire the full one, then delete the oldest
+    past the cap; the caller holds ``_LOCK``. A failed open keeps the
+    current segment live (the next write tries again)."""
+    global _EVICTED_BYTES
+    old_fh, old_path = state["fh"], state["path"]
+    state["seg"] += 1
+    try:
+        _open_segment_locked(state)
+    except OSError:
+        state["seg"] -= 1
+        return
+    try:
+        old_fh.close()
+    except OSError:
+        pass
+    state["segments"].append(old_path)
+    # A quarter of the cap a segment: the live one and three closed.
+    keep = max(int(state["cap_bytes"] // state["seg_bytes"]) - 1, 1)
+    while len(state["segments"]) > keep:
+        victim = state["segments"].pop(0)
+        try:
+            size = os.path.getsize(victim)
+            os.unlink(victim)
+            _EVICTED_BYTES += size
+        except OSError:
+            break
+
+
+def _close_state_locked() -> None:
+    global _STATE
+    if _STATE is not None:
+        try:
+            _STATE["fh"].close()
+        except OSError:
+            pass
+        _STATE = None
+
+
 def _state() -> dict | None:
     """Open this process's event file, header first, on first use."""
     global _STATE, _DROPPED
@@ -141,24 +229,16 @@ def _state() -> dict | None:
         if _STATE is not None:
             if _STATE["run"] == os.environ.get("OT_TRACE_RUN", _STATE["run"]):
                 return _STATE
-            try:
-                _STATE["fh"].close()
-            except OSError:
-                pass
-            _STATE = None
+            _close_state_locked()
         try:
             d = run_dir()
             os.makedirs(d, exist_ok=True)
+            cap = _max_bytes()
             state = {"run": os.environ["OT_TRACE_RUN"], "dir": d,
-                     "proc": uuid.uuid4().hex[:8], "pid": os.getpid(), "seq": 0}
-            fh = open(os.path.join(d, f"trace-{state['pid']}-{state['proc']}.jsonl"), "a",
-                      encoding="utf-8")
-            fh.write(json.dumps({"kind": KIND, "v": VERSION, "run": state["run"],
-                                 "pid": state["pid"], "proc": state["proc"],
-                                 "argv": " ".join(sys.argv[:6])[:300],
-                                 "start_us": now_us()}, separators=(",", ":")) + "\n")
-            fh.flush()
-            state["fh"] = fh
+                     "proc": uuid.uuid4().hex[:8], "pid": os.getpid(), "seq": 0, "seg": 0,
+                     "segments": [], "cap_bytes": cap,
+                     "seg_bytes": max(cap // 4, 4096) if cap else 0}
+            _open_segment_locked(state)
             _STATE = state
             return _STATE
         except OSError:
@@ -177,7 +257,10 @@ def _write(rec: dict) -> None:
         with _LOCK:
             state["fh"].write(line + "\n")
             state["fh"].flush()
+            if state["seg_bytes"] and state["fh"].tell() >= state["seg_bytes"]:
+                _rotate_locked(state)
     except (TypeError, ValueError, OSError):
+        # ValueError covers a racing reopen ("I/O operation on closed file").
         _DROPPED += 1
 
 
@@ -417,8 +500,8 @@ def gauge(name: str, value: float, **attrs) -> None:
 
 
 def metrics_snapshot() -> dict:
-    """Run id, span count, counter totals, gauges and drops, for the bench
-    JSON line."""
+    """Run id, span count, counter totals, gauges, drops and evicted bytes,
+    for the bench JSON line."""
     snap: dict = {"run": run_id(), "spans": _SPANS_STARTED}
     with _LOCK:
         if _COUNTS:
@@ -427,4 +510,20 @@ def metrics_snapshot() -> dict:
             snap["gauges"] = dict(sorted(_GAUGES.items()))
     if _DROPPED:
         snap["dropped"] = _DROPPED
+    if _EVICTED_BYTES:
+        snap["evicted_bytes"] = _EVICTED_BYTES
     return snap
+
+
+def reset_for_tests() -> None:
+    """Close the event file and clear every aggregate (tests only)."""
+    global _SPANS_STARTED, _DROPPED, _EVICTED_BYTES
+    with _LOCK:
+        _close_state_locked()
+        _COUNTS.clear()
+        _GAUGES.clear()
+        _TIDS.clear()
+    _SPANS_STARTED = 0
+    _DROPPED = 0
+    _EVICTED_BYTES = 0
+    _TLS.stack = []

@@ -17,7 +17,8 @@ unchanged tree reuses the build. An ``fcntl`` lock keeps concurrent
 processes from racing on one build, and a thread lock concurrent threads.
 ``load_count()`` counts
 builds and loads, the port's counterpart of the JAX package's compile
-counter. ``ptxas -v`` output (registers, spills per kernel) is kept beside
+counter; each is timed and emitted as a ``monitoring.LIBRARY_LOAD`` duration
+event (``load_seconds()`` is their sum). ``ptxas -v`` output (registers, spills per kernel) is kept beside
 the library and returned by ``ptxas_report()``.
 
 A build failure raises; there is no other route to the kernels.
@@ -33,7 +34,10 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from . import monitoring
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -45,6 +49,7 @@ _lib: ctypes.CDLL | None = None
 _LOAD_LOCK = threading.Lock()
 _builds = 0
 _loads = 0
+_load_s = 0.0
 
 
 def sources() -> list[Path]:
@@ -102,15 +107,23 @@ def load_count() -> int:
     return _builds + _loads
 
 
+def load_seconds() -> float:
+    """Host seconds spent building and loading the library in this process
+    (a seam's first call subtracts the load it triggered)."""
+    return _load_s
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed. Safe to call
     from several threads at once (one builds and loads, the rest wait)."""
-    global _lib, _builds, _loads
+    global _lib, _builds, _loads, _load_s
     if _lib is not None:
         return _lib
     with _LOAD_LOCK:
         if _lib is not None:
             return _lib
+        events = []
+        t0 = time.perf_counter()
         so = library_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(BUILD_DIR / "build.lock", "w") as lock:
@@ -119,10 +132,17 @@ def load() -> ctypes.CDLL:
                 if not so.exists():
                     _build(so)
                     _builds += 1
+                    events.append(time.perf_counter() - t0)
             finally:
                 fcntl.flock(lock, fcntl.LOCK_UN)
+        t1 = time.perf_counter()
         _lib = _bind(ctypes.CDLL(str(so)))
         _loads += 1
+        events.append(time.perf_counter() - t1)
+        _load_s += time.perf_counter() - t0
+    # One event a build and one a load, as ``load_count`` counts them.
+    for dt in events:
+        monitoring.record_event_duration_secs(monitoring.LIBRARY_LOAD, dt)
     return _lib
 
 

@@ -46,12 +46,29 @@ window needs ``OT_TRACE_DIR``, where the summary, the exported trace and
 the ``cost-*.json`` records land; a window that cannot open is reported as
 not armed and the drive goes on.
 
+Observability, as in the reference: ``--status-port PORT`` serves the status
+endpoint for the drive (``serve/status.py``: ``/metrics``, ``/healthz`` with
+its ``capacity``, ``/alertz``; 0 is an ephemeral port); the ``# compile:``
+line and the ``compiles_by_rung`` section count and time the warmup's builds
+(``serve_compile_us``: library loads and seams' first calls) by rung; the
+``# pulse:`` and ``# capacity:`` lines, the ``alerts`` section (one last
+pulse tick over the end-of-run registry: total, fired rules, rows, frames;
+on the line too) and the ``capacity`` section give the live pulse engine's
+verdict (``obs/pulse.py``; absent with ``OT_PULSE=0``). ``--slo BASELINE``
+gates the run against a baseline artifact or bench line (``obs/slo.py``,
+tolerances ``--slo-tolerance``) before the JSON line is printed; a breach
+also dumps an ``slo-breach`` incident bundle. Admission's tenant shares:
+``--tenant-depth-frac``, ``--low-priority-tenant`` (repeatable) and
+``--priority-depth-frac``.
+
 Exit 1 on any of: a lost request (accepted, never answered), a kernel library
-build or load after warmup, a probe or session chunk whose bytes (or ``gcm``
-tag) differ from the host reference, a coalesce efficiency below
-``--min-coalesce``, a prefetch hit rate below ``--min-session-hit-rate``,
-fewer carry replays than ``--min-session-replays``. A request that answers
-``auth-failed`` is an answer (``errors``), not a failure of the run.
+build or load after warmup (unless ``--allow-recompiles``), a probe or
+session chunk whose bytes (or ``gcm`` tag) differ from the host reference, a
+coalesce efficiency below ``--min-coalesce``, a measured in-flight
+concurrency below ``--min-inflight``, an SLO regression against ``--slo``, a
+prefetch hit rate below ``--min-session-hit-rate``, fewer carry replays than
+``--min-session-replays``. A request that answers ``auth-failed`` is an
+answer (``errors``), not a failure of the run.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` serves on the plain version.
 """
@@ -61,9 +78,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 
-from ..obs import costmodel, metrics, profiler, trace
+from ..obs import costmodel, incident, metrics, profiler, slo, trace
 from ..ops import cuda_aes, cuda_arc4, cuda_ghash
 from ..resilience import degrade, watchdog
 from ..resilience import journal as journal_mod
@@ -112,6 +130,9 @@ async def _drive(args, probes):
         device=args.device, engine=args.engine, min_bucket_blocks=args.bucket_min,
         max_bucket_blocks=args.bucket_max, key_slots=args.key_slots,
         native_threads=args.native_threads, max_depth=args.queue_depth,
+        tenant_depth_frac=args.tenant_depth_frac,
+        low_priority_tenants=tuple(args.low_priority_tenant or ()),
+        priority_depth_frac=args.priority_depth_frac, status_port=args.status_port,
         request_deadline_s=args.deadline,
         dispatch_deadline_s=args.dispatch_deadline, retries=args.retries, lanes=args.lanes,
         probe_every=args.probe_every, journal=args.journal, max_inflight=args.max_inflight,
@@ -173,6 +194,8 @@ def parse_args(argv=None):
                     help="open loop: submit at this fixed rate (--concurrency ignored)")
     ap.add_argument("--max-inflight", type=int, default=None, metavar="N",
                     help="dispatches in flight at once (default: one per lane)")
+    ap.add_argument("--min-inflight", type=int, default=None, metavar="N",
+                    help="exit 1 if the measured max in-flight concurrency ends below N")
     ap.add_argument("--mixed-sizes", action="store_true",
                     help=f"request sizes drawn from {loadgen.MIXED_SIZES}")
     ap.add_argument("--sizes", default=None, metavar="B1,B2",
@@ -195,6 +218,16 @@ def parse_args(argv=None):
     ap.add_argument("--bucket-max", type=int, default=batcher.DEFAULT_MAX_BLOCKS,
                     metavar="BLOCKS")
     ap.add_argument("--queue-depth", type=int, default=1024)
+    ap.add_argument("--tenant-depth-frac", type=float, default=1.0, metavar="FRAC",
+                    help="one tenant's max share of the queue depth: past FRAC*depth its "
+                         "requests shed (serve_shed{reason=tenant}) while other tenants are "
+                         "admitted (1.0 = global shed only)")
+    ap.add_argument("--low-priority-tenant", action="append", default=None, metavar="TENANT",
+                    help="mark TENANT low priority: it sheds first, past --priority-depth-frac "
+                         "of the queue (serve_shed{reason=priority}; repeatable)")
+    ap.add_argument("--priority-depth-frac", type=float, default=0.5, metavar="FRAC",
+                    help="queue-depth fraction past which low-priority requests shed (1.0 "
+                         "disables the split)")
     ap.add_argument("--deadline", type=float, default=30.0,
                     help="per-request residency deadline, seconds")
     ap.add_argument("--dispatch-deadline", type=float,
@@ -241,6 +274,20 @@ def parse_args(argv=None):
                          "OT_TRACE_DIR, where the summary and trace land")
     ap.add_argument("--min-coalesce", type=float, default=None, metavar="FRAC",
                     help="exit 1 if coalesce efficiency ends below FRAC")
+    ap.add_argument("--allow-recompiles", action="store_true",
+                    help="do not fail on kernel-library builds, loads or first seam calls "
+                         "after warmup")
+    ap.add_argument("--status-port", type=int, default=None, metavar="PORT",
+                    help="serve the status endpoint on 127.0.0.1:PORT during the drive "
+                         "(/metrics, /healthz, /incidentz, /profilez, /alertz; 0 = ephemeral)")
+    ap.add_argument("--slo", default=None, metavar="BASELINE.json",
+                    help="after the drive, gate p50/p95/p99, goodput and the error, lost, "
+                         "recompile, mismatch and alert counts against a baseline artifact or "
+                         "bench line (obs/slo.py) and exit 1 on any regression")
+    ap.add_argument("--slo-tolerance", default=None, metavar="SPEC",
+                    help="per-metric tolerance overrides for --slo, e.g. "
+                         "'p95_ms=2.0,goodput_gbps=0.5' (fractions of the baseline; counts "
+                         "are never tolerated)")
     ap.add_argument("--artifact", default=None, metavar="PATH",
                     help="write the run's artifact JSON here (nothing is written otherwise)")
     args = ap.parse_args(argv)
@@ -439,6 +486,22 @@ def main(argv=None) -> int:
               f"{row['dispatches']} disp x {row['modeled_dispatch_bytes'] / 1e6:.3f} MB modeled, "
               f"device {row['device_s']:.6f}s -> {row['achieved_gbps']:.3f} GB/s moved{util}")
 
+    # The warmup build cost (serve_compile_us{engine, rung}: library loads
+    # and seams' first calls), by rung.
+    compile_by_rung: dict = {}
+    for labels, h in metrics.hist_items("serve_compile_us"):
+        agg = compile_by_rung.setdefault(str(labels.get("rung", 0)), {"count": 0, "us": 0.0})
+        agg["count"] += h["count"]
+        agg["us"] += h["sum"]
+    if compile_by_rung:
+        total_us = sum(a["us"] for a in compile_by_rung.values())
+        print(f"# compile: {sum(a['count'] for a in compile_by_rung.values())} compile(s), "
+              f"{total_us / 1e6:.2f}s total  " + "  ".join(
+                  f"r{k}:{a['count']}x{a['us'] / 1e6:.2f}s"
+                  for k, a in sorted(compile_by_rung.items(), key=lambda kv: int(kv[0]))))
+        compile_by_rung = {k: {"count": a["count"], "total_us": round(a["us"], 1)}
+                           for k, a in compile_by_rung.items()}
+
     # The profile section: the window's summary joined with the cost
     # records; present iff a window captured during this drive.
     profile_doc = profiler.last_summary()
@@ -460,6 +523,22 @@ def main(argv=None) -> int:
                   f"{row['dispatches']} disp in-window -> {row['window_gbps']:.3f} GB/s "
                   f"moved{util}")
 
+    # The live pulse verdict: one last tick over the end-of-run registry,
+    # then the alert ledger and the measured capacity.
+    pulse_section = capacity_section = None
+    if server.pulse is not None:
+        server.pulse.tick()
+        adoc = server.pulse.engine.alerts_doc()
+        pulse_section = {"total": adoc["total"], "fired": adoc["fired"], "rows": adoc["alerts"],
+                         "frames": adoc["frames"]}
+        capacity_section = server.pulse.engine.capacity()
+        fired_s = " ".join(f"{r}:{n}" for r, n in adoc["fired"].items()) or "none"
+        print(f"# pulse: {adoc['total']} alert(s) over {adoc['frames']} frame(s) ({fired_s})")
+        for row in capacity_section["rows"]:
+            print(f"# capacity: {row['engine']}/{row['mode']}: "
+                  f"{row['ewma_blocks_per_s']:.1f} blocks/s baseline "
+                  f"({row['blocks_per_s']:.1f} last window)")
+
     artifact = {
         "config": {"requests": args.requests, "concurrency": args.concurrency,
                    "sizes": list(args.sizes), "tenants": args.tenants,
@@ -469,6 +548,9 @@ def main(argv=None) -> int:
                    "retries": args.retries, "dispatch_deadline_s": args.dispatch_deadline,
                    "lanes": lanes["count"], "probe_every": args.probe_every,
                    "max_inflight": args.max_inflight, "arrival_rate": args.arrival_rate,
+                   "tenant_depth_frac": args.tenant_depth_frac,
+                   "low_priority_tenants": list(args.low_priority_tenant or ()),
+                   "priority_depth_frac": args.priority_depth_frac,
                    "seed": args.seed, "ceiling_gbps": args.ceiling_gbps,
                    "modes": list(args.modes), "journal": args.journal,
                    "profile_window": (list(args.profile_window) if args.profile_window
@@ -494,6 +576,9 @@ def main(argv=None) -> int:
         "stages": stages,
         "device": device,
         "cost": cost,
+        "compiles_by_rung": compile_by_rung,
+        "alerts": pulse_section,
+        "capacity": capacity_section,
         "profile": profile_section,
         "degraded": degrade.events(),
         "metrics": metrics.snapshot(),
@@ -505,6 +590,17 @@ def main(argv=None) -> int:
             json.dump(artifact, fh, indent=2, sort_keys=True)
             fh.write("\n")
         print(f"# artifact: {args.artifact}", file=sys.stderr)
+
+    # The SLO gate, before the JSON line so that the line stays last.
+    slo_rc = 0
+    if args.slo:
+        try:
+            slo_rc = slo.gate(args.slo, artifact, args.slo_tolerance)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"# slo: gate unusable: {e}", file=sys.stderr)
+            slo_rc = 1
+        if slo_rc:
+            incident.trigger("slo-breach", baseline=os.path.basename(args.slo))
 
     # The artifact's sections (``batches``, ``lanes`` and ``device`` are
     # sections here, as in the JAX artifact), then the JAX line's scalar keys.
@@ -532,6 +628,8 @@ def main(argv=None) -> int:
             "replays": pf["replays"], "prefetch_dispatches": pf["dispatches"],
             **{k: int(v) for k, v in report.sessions.items()
                if k in ("open_failed", "chunk_failed", "mismatches") and v}}
+    if args.slo:
+        line["slo"] = "fail" if slo_rc else "pass"
     if degrade.events():
         line["degraded"] = degrade.events()
     if trace.enabled():
@@ -546,12 +644,20 @@ def main(argv=None) -> int:
     if lost:
         print(f"# FAIL: {lost} request(s) lost: accepted but never answered", file=sys.stderr)
         rc = 1
-    if stats["compiles"]["steady"]:
+    if stats["compiles"]["steady"] and not args.allow_recompiles:
         print(f"# FAIL: {stats['compiles']['steady']} kernel-library build(s) or load(s) "
-              "after warmup", file=sys.stderr)
+              "after warmup (--allow-recompiles to waive)", file=sys.stderr)
         rc = 1
     if args.min_coalesce is not None and coal["efficiency"] < args.min_coalesce:
         print(f"# FAIL: coalesce_efficiency {coal['efficiency']:.4f} < {args.min_coalesce}",
+              file=sys.stderr)
+        rc = 1
+    if args.min_inflight is not None and overlap["max_inflight"] < args.min_inflight:
+        print(f"# FAIL: max in-flight concurrency {overlap['max_inflight']} < "
+              f"{args.min_inflight}: dispatches never overlapped", file=sys.stderr)
+        rc = 1
+    if slo_rc:
+        print(f"# FAIL: SLO regression against {args.slo} (see the # slo table above)",
               file=sys.stderr)
         rc = 1
     pf = (sess_stats or {}).get("prefetch", {})

@@ -125,14 +125,14 @@ def _gcm_seam(direction: str):
 
 def _rc4_xor(words, ks_words, nr, engine):
     """The rc4 crypt phase: payload words XOR keystream words."""
-    aes.note_seam_call("rc4", engine, 0, words.device)
-    return arc4.xor_words(words, ks_words)
+    with aes.seam_call("rc4", engine, 0, words.device):
+        return arc4.xor_words(words, ks_words)
 
 
 def _rc4_prep(m_words, xy_words, nr, engine, prep_len):
     """The rc4 keystream refill: the batched PRGA from the carries."""
-    aes.note_seam_call("rc4-prep", engine, 0, m_words.device)
-    return arc4.prep_batch_words(m_words, xy_words, int(prep_len))
+    with aes.seam_call("rc4-prep", engine, 0, m_words.device):
+        return arc4.prep_batch_words(m_words, xy_words, int(prep_len))
 
 
 #: The seam each served mode dispatches to, and the stack's schedules it reads

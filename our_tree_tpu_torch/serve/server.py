@@ -97,8 +97,16 @@ hears of every auth failure (``incident.note_auth_failure``; a spike dumps a
 bundle). ``ServerConfig.status_port`` starts the status endpoint
 (``serve/status.py``: ``/metrics``, ``/healthz``, ``/incidentz``,
 ``/profilez``). ``rc4`` has no cost rows (its XOR is key-oblivious: no
-(bits, nr) row exists for it). The reference's pulse analytics are not in
-the port yet.
+(bits, nr) row exists for it).
+
+Compile cost and pulse: each build or load of the kernel library and each
+seam's first call is timed (``runtime/monitoring.py``) into
+``serve_compile_us{engine, rung}``, the warmup walk naming the rung it is
+on (``compile_context``) and everything outside the walk ``rung=0``, as a
+steady recompile is in the reference. After warmup the server starts the
+live pulse engine (``obs/pulse.py``: alerts, the capacity model;
+``self.pulse``, None with ``OT_PULSE=0``) and ``stop()`` stops and joins
+its thread.
 
 Obs spans: ``request-queued`` (queue), ``batch-formed``, ``lane-dispatch``,
 ``lane-probe``, ``serve-warmup`` / ``lane-warmup``, ``transfer`` /
@@ -116,11 +124,11 @@ import numpy as np
 from ..aead import gcm as aead_gcm
 from ..aead import ghash as aead_ghash
 from ..models import aes
-from ..obs import costmodel, incident, metrics, trace
+from ..obs import costmodel, incident, metrics, pulse, trace
 from ..ops import gf
 from ..resilience import faults, watchdog
 from ..resilience import journal as journal_mod
-from ..runtime import cuda_build
+from ..runtime import cuda_build, monitoring
 from ..utils import packing
 from . import batcher, lanes, transfer
 from . import session as session_mod
@@ -128,6 +136,31 @@ from .keycache import KeyCache, key_digest
 from .queue import (ERR_AUTH, ERR_BAD_REQUEST, ERR_DEADLINE, ERR_DISPATCH, ERR_TOO_LARGE,
                     GCM_MODES, RequestQueue, Response, unknown_modes)
 from .status import StatusServer
+
+
+#: Seconds ``stop()`` waits for the pulse thread to end (a tick is a
+#: registry snapshot and some arithmetic).
+PULSE_JOIN_S = 10.0
+
+#: What the process is building for: the warmup walk names (engine, rung)
+#: before each lane call, so a library load or a seam's first call lands in
+#: ``serve_compile_us{engine, rung}``; rung 0 is outside the walk.
+_COMPILE_CTX = {"engine": "?", "rung": 0}
+
+
+def compile_context(engine: str, rung: int) -> None:
+    """Label the build events that follow (the warmup walk's seam)."""
+    _COMPILE_CTX["engine"] = str(engine)
+    _COMPILE_CTX["rung"] = int(rung)
+
+
+def _on_event(name: str, seconds: float) -> None:
+    if name in (monitoring.LIBRARY_LOAD, monitoring.SEAM_FIRST_CALL):
+        metrics.observe("serve_compile_us", float(seconds) * 1e6,
+                        engine=_COMPILE_CTX["engine"], rung=_COMPILE_CTX["rung"])
+
+
+monitoring.register_event_duration_listener(_on_event)
 
 
 def compile_count() -> int:
@@ -263,6 +296,9 @@ class Server:
         self._compiles_at_ready = 0
         self.cost_records: list[dict] = []
         self.status: StatusServer | None = None
+        #: the live pulse thread (``obs/pulse.py``), started after warmup;
+        #: None with ``OT_PULSE=0``
+        self.pulse: pulse.PulseThread | None = None
         #: the chunked-transfer engine; None when disabled
         self.transfers: transfer.TransferManager | None = None
         if c.transfer_chunk_blocks != 0:
@@ -318,6 +354,9 @@ class Server:
                                else max(int(c.max_inflight), 1))
         self._sem = asyncio.Semaphore(self.inflight_limit)
         metrics.ensure_flusher()
+        # After warmup, so the build ramp lies behind every frame it sees.
+        self.pulse = pulse.start_live("serve", cost_records=self.cost_records,
+                                      device=self.device)
         if c.status_port is not None:
             self.status = StatusServer(self, c.status_port)
             await self.status.start()
@@ -342,6 +381,7 @@ class Server:
         canary_expected = None
         slot_vecs = {rung: np.zeros(rung, dtype=np.uint32) for rung in self.rungs}
         order = sorted(self.pool.lanes, key=lambda ln: (ln.state == lanes.QUARANTINED, ln.idx))
+        compile_context(self.engine, 0)
         with trace.span("serve-warmup", engine=self.engine, rungs=len(self.rungs),
                         lanes=len(self.pool.lanes)):
             for lane in order:
@@ -355,6 +395,7 @@ class Server:
                                 canary = rung == canary_rung and bits == c.warmup_key_bits[0]
                                 words = canary_words if canary else np.zeros(4 * rung, np.uint32)
                                 ctr = canary_ctr if canary else words
+                                compile_context(self.engine, rung)
                                 out = await lane.run_async(
                                     lambda w=words, ct=ctr, s=sched, v=slot_vecs[rung], r=rung:
                                     lane.engine_call(w, ct, s, v, f"warmup:{r}", warmup=True))
@@ -381,6 +422,7 @@ class Server:
                                             "seg_keep": np.ones(rung, np.uint32),
                                             "rows": np.array([rung - 1], np.int64)}
                                            if m in GCM_MODES else {})
+                                    compile_context(self.engine, rung)
                                     await lane.run_async(
                                         lambda w=words, s=sched_m, v=slot_vecs[rung], r=rung,
                                         m=m, g=gcm: lane.engine_call(
@@ -390,11 +432,13 @@ class Server:
                             # The rc4 seams are schedule-free (``sched`` None).
                             for rung in self.rungs:
                                 words = np.zeros(4 * rung, np.uint32)
+                                compile_context(self.engine, rung)
                                 await lane.run_async(
                                     lambda w=words, v=slot_vecs[rung], r=rung: lane.engine_call(
                                         w, w, None, v, f"warmup:{r}:rc4", warmup=True,
                                         mode="rc4"))
                             slots, q = c.session_prefetch_slots, c.session_quantum_bytes
+                            compile_context(self.engine, q // 16)
                             await lane.run_async(lambda: lane.engine_call(
                                 np.zeros(slots * 256, np.uint32), np.zeros(2 * slots, np.uint32),
                                 None, slot_vecs[self.rungs[0]], "warmup:rc4-prep", warmup=True,
@@ -405,6 +449,8 @@ class Server:
                             lane.warmed = True
                     except Exception as e:  # noqa: BLE001 - contain per lane
                         lane._quarantine(f"warmup-failed:{type(e).__name__}", self._journal)
+        # Builds past this point (a steady first call) land at rung 0.
+        compile_context(self.engine, 0)
 
     async def stop(self) -> None:
         """Graceful drain: close admission, let the loop finish everything
@@ -424,6 +470,11 @@ class Server:
         if self.status is not None:
             await self.status.stop()
             self.status = None
+        if self.pulse is not None:
+            # Joined as the lanes' workers are: no thread of ours outlives the
+            # server. ``self.pulse`` stays, so its verdict can still be read.
+            self.pulse.stop()
+            await asyncio.to_thread(self.pulse.join, PULSE_JOIN_S)
         if self.pool is not None:
             # Off the loop: joining a lane's worker can take seconds.
             await asyncio.to_thread(self.pool.close)

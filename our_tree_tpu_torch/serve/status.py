@@ -16,7 +16,9 @@ out, which is itself the signal.
   transfer plane (held bytes against the budget, live ledger rows, sheds)
   and, with ``rc4``, the session plane (open sessions, held keystream bytes
   against the budget, sheds, refusals, evictions, the prefetch hit rate and
-  replays). ``status`` is ``"ok"`` while a warmed placeable lane exists and
+  replays) and, while the server runs a pulse engine, ``capacity`` (its
+  measured blocks/s by engine and mode, ``obs/pulse.py``). ``status`` is
+  ``"ok"`` while a warmed placeable lane exists and
   neither plane is shedding under a pinned budget (sheds grew since the
   previous poll while 90 % of the budget is held), ``"draining"`` once
   admission closed, else ``"degraded"``. Gathered on the loop, which owns the state.
@@ -26,9 +28,11 @@ out, which is itself the signal.
 * ``GET /profilez?seconds=S``: arms one capture window
   (``obs/profiler.py``) for the server's device, off the loop: 200 armed,
   409 a window is open, 503 none can open.
-* ``GET /alertz`` and ``/fleetz`` answer 404 with the JAX package's bodies:
-  the port has no pulse engine or fleet supervisor yet (ROADMAP queue 1,
-  "Observability, the rest" and "Routing").
+* ``GET /alertz``: the pulse engine's alert rows and fired-rule counts
+  (``alerts_doc``); 404 with the JAX package's body where the server runs
+  none (``OT_PULSE=0``).
+* ``GET /fleetz`` answers 404 with the JAX package's body: the port has no
+  fleet supervisor yet (ROADMAP queue 1, "Routing").
 
 Reads only, and a handler failure answers 500 to that connection alone.
 Binds 127.0.0.1 by default; ``port=0`` binds an ephemeral port published as
@@ -147,7 +151,13 @@ class StatusServer:
             doc["transfers"] = transfers_doc
         if sessions_doc is not None:
             doc["sessions"] = sessions_doc
+        if s.pulse is not None:
+            doc["capacity"] = s.pulse.engine.capacity()
         return doc
+
+    def alertz(self) -> dict | None:
+        """The ``/alertz`` body, None without a pulse engine."""
+        return self._server.pulse.engine.alerts_doc() if self._server.pulse is not None else None
 
     def metrics_text(self, exemplars: bool = False) -> str:
         """The registry with the queue depth and in-flight sampled now, so a
@@ -215,9 +225,18 @@ class StatusServer:
                 body = json.dumps(doc, indent=1, sort_keys=True) + "\n"
                 ctype = "application/json"
                 reason = {200: "OK", 409: "Conflict", 503: "Service Unavailable"}.get(code, "OK")
-            elif route in ("/alertz", "/fleetz"):
-                body = ("no pulse engine on this endpoint\n" if route == "/alertz"
-                        else "no fleet supervisor on this endpoint\n")
+            elif route == "/alertz":
+                doc = self.alertz()
+                if doc is None:
+                    body = "no pulse engine on this endpoint\n"
+                    ctype = "text/plain"
+                    code, reason = 404, "Not Found"
+                else:
+                    body = json.dumps(doc, indent=1, sort_keys=True) + "\n"
+                    ctype = "application/json"
+                    code, reason = 200, "OK"
+            elif route == "/fleetz":
+                body = "no fleet supervisor on this endpoint\n"
                 ctype = "text/plain"
                 code, reason = 404, "Not Found"
             else:

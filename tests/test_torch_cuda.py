@@ -1240,3 +1240,70 @@ def test_native_server_on_card_matches_cpu_server(card):
     for g, w in zip(got, want):
         assert (g.ok, g.error, g.tag) == (w.ok, w.error, w.tag)
         np.testing.assert_array_equal(np.asarray(g.payload), np.asarray(w.payload))
+
+
+def test_alertz_and_capacity_on_a_card_server(card, monkeypatch):
+    """A ``ctr`` server on the card runs a pulse engine: ``/alertz`` answers
+    200 with no alert after healthy traffic, ``/healthz`` carries its
+    ``capacity``, and ``stop()`` joins the pulse thread."""
+    import asyncio
+    import json
+    import urllib.request
+
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+
+    monkeypatch.setenv("OT_PULSE_EVERY_S", "0.05")
+    monkeypatch.delenv("OT_PULSE", raising=False)
+    rng = np.random.default_rng(19)
+
+    def fetch(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, json.loads(r.read().decode())
+
+    async def main():
+        server = Server(ServerConfig(lanes=1, status_port=0))
+        await server.start()
+        try:
+            before = cuda_aes.ctr_scattered_multikey.launches
+            got = await asyncio.gather(*(server.submit(f"t{i % 3}", rng.bytes(16), rng.bytes(16),
+                                                       rng.integers(0, 256, 16 * (1 + i % 40),
+                                                                    dtype=np.uint8))
+                                         for i in range(64)))
+            launched = cuda_aes.ctr_scattered_multikey.launches - before
+            server.pulse.tick()
+            loop = asyncio.get_running_loop()
+            alertz = await loop.run_in_executor(None, fetch, server.status.port, "/alertz")
+            healthz = await loop.run_in_executor(None, fetch, server.status.port, "/healthz")
+            return server, got, launched, alertz, healthz
+        finally:
+            await server.stop()
+
+    server, got, launched, (code, doc), (hcode, health) = asyncio.run(main())
+    assert all(r.ok for r in got) and launched > 0
+    assert code == 200 and doc["total"] == 0 and doc["alerts"] == [] and doc["frames"] >= 1
+    assert hcode == 200 and health["status"] == "ok" and "capacity" in health
+    assert not server.pulse.is_alive()
+
+
+def test_serve_compile_us_counts_warmup_builds_by_rung(card, tmp_path):
+    """In a fresh process on the card, warmup's library load and first
+    ``ctr_mk<10>`` launch land in ``serve_compile_us`` at the canary rung:
+    the bench's ``compiles_by_rung`` counts the warmup's builds, and none is
+    steady."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.serve.bench",
+                          "--requests", "60", "--sizes", "16,256,4096"], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = res.stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    by_rung = line["compiles_by_rung"]
+    assert line["compiles"] == {"warmup": 2, "steady": 0}
+    assert by_rung == {str(line["config"]["rungs"][0]): by_rung[str(line["config"]["rungs"][0])]}
+    assert by_rung[str(line["config"]["rungs"][0])]["count"] == 2
+    assert any(ln.startswith("# compile: 2 compile(s)") for ln in out)
