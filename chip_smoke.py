@@ -18,7 +18,9 @@ side's fault seams and journal (``serve.session``, the session acceptance
 drive with a hung lane, the journal round trip, the worker's ``ss``
 frames) and engine selection with the port's entry (``entry()``, the bench's
 probe stage and device lock, the device key schedules, the native serve
-engine, ``ot_bench``), and holds
+engine, ``ot_bench``) and the routing tier (``python -m
+our_tree_tpu_torch.route.bench``, a consistent-hash router in front of port
+workers on this card), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -28,7 +30,9 @@ is not 0:
    (auto, group forced, block forced), its block form also at N in {1, 2,
    31, 33, 4096} and the auto form either side of its crossing, and both ECB
    kernels, for nr 10/12/14 at N in {1, 31, 33, 1000, 2^20, 2^24 + 7} (the
-   last a 256 MiB launch with a ragged tail), encrypt in each form (auto,
+   last a 256 MiB launch with a ragged tail; from 2^20 up, and every
+   kernel's 2^20-block cases below, with ``LARGE_BITS`` = 128 only, every
+   key size at the smaller N), encrypt in each form (auto,
    group forced, block forced), and the encrypt block form at N in {1, 2,
    31, 33, 4096}; ``ctr_mk``
    for nr 10/12/14, K in {1, 3, 8, 64}, N in {1, 31, 33, 1000, 4096, 2^20},
@@ -148,13 +152,7 @@ is not 0:
    issue diagnostic (integer SASS a block at one a cycle) beside the
    integer pipe's rate for one warp (its integer-pipe SASS at 2 cycles
    each, IMAD on the FMA pipe beside them); the one-block
-   ECB encrypt launch in each form; the design variants
-   (``VARIANTS_SOURCE``: ``cbc_mk``'s former form, with the loads after
-   the prologue, unrolled with the key planes a round ahead,
-   at 64 and 32 threads a thread block; the ECB block form with its load
-   after the barrier, and unrolled) in 12 turns with the kernels in CUDA
-   graphs (median, quartiles, turns the kernel won), each equal to the
-   kernel; both encrypt forms from 1 to 2^20
+   ECB encrypt launch in each form; both encrypt forms from 1 to 2^20
    blocks (the crossing, ``kEcbBlockFormMax``), and ``ctr_gen``'s one-block
    tail launch (``crypt_ctr`` ending mid-block) in each form, its block
    form's SASS, ``crypt_ctr`` in chunks ending mid-block, counted (block-form
@@ -162,15 +160,13 @@ is not 0:
    ``kCtrGenBlockFormMax``) and ``ctr_gen`` at 256 MiB beside its time
    before the block form (``CTR_GEN_256MIB_MS``); and the block form beside
    ``ecb_decrypt_kernel`` (32 blocks a thread) from 4,096 blocks to 2^24,
-   where a group form would pay; ``ctr_mk``'s group form beside
-   the parent's (``CTR_MK_FORMER_SOURCE``) and its own design steps one at
-   a time (``ctr_mk.cu`` built once a code with ``OT_CTR_MK_PROBE``) at the
-   seal's launch (2^24 + 1 blocks, K = 1, all-zero slots), the K = 1 entry
-   (2^24 blocks) and 256 MiB at K = 8 in runs of 1-300: each equal to the
-   plain version, 12 alternating turns in CUDA graphs, the launch floor at
-   its grid and shared memory, registers, spills and resident blocks, the
-   stamped phases per warp (and the warps by key form), the SASS of each
-   key form and of the prologue;
+   where a group form would pay; ``ctr_mk``'s group form at the seal's
+   launch (2^24 + 1 blocks, K = 1, all-zero slots), the K = 1 entry (2^24
+   blocks) and 256 MiB at K = 8 in runs of 1-300: each equal to the plain
+   version, its card time in CUDA graphs against its bound. The finished
+   redesigns' comparisons (the design variants of ``cbc_mk`` and the ECB
+   block form, ``ctr_mk``'s parent kernel and design steps, PRs 11 and 14)
+   are findings in PERF.md and are no longer built or timed here;
 10. the sweep harness, ``python -m our_tree_tpu_torch.harness.bench`` in
    processes of its own with ``OT_ARC4_PREP=native``: ``--timing device
    --iters 5 --keybits 128`` over ecb, ecb-dec, ctr, cbc-dec and rc4 at 1,
@@ -186,8 +182,7 @@ is not 0:
    with K = 8 (random slots, keep, y0 and inject, and x ^ inject given
    without it), ``ghash_at`` at random named rows of the same inputs against
    the plain rows and ``ghash_scan``'s (and ``ghash_at_plain`` itself at
-   4,096 rows), the parent's kernel (``GHASH_FORMER_SOURCE``) against the
-   same plain rows, and through the seam ``gcm_crypt_ghash_words`` (CUDA
+   4,096 rows), and through the seam ``gcm_crypt_ghash_words`` (CUDA
    engine against the plain engine on the card, ``out`` and every row of
    ``ys``, and with ``rows`` each request's last row) at every serve rung
    with K = 8 in the batcher's layout, sealing and opening, AES-128/192/256;
@@ -210,14 +205,9 @@ is not 0:
    blocks) with K = 8 in the batcher's layout (``serve.batcher`` and
    ``serve.keycache``), its tags and ciphertexts against the host GCM and
    ``ghash_at`` against its plain rows, then ``ctr_mk``, ``ghash_at`` and
-   ``ghash_scan`` each in a CUDA graph in 12 alternating turns beside their
-   launch floors, and the dispatch through the seam; each call's
-   launches alone (map, carry, rows; the parent's kernel's and the
-   kernel's own: ``GHASH_VARIANTS_SOURCE``) beside the launch floor at their
-   grid and shared memory, their registers, spills and resident thread
-   blocks; ``ghash_at``, ``ghash_scan``, the parent's kernel and three design
-   variants in 12 alternating turns at both shapes; the SASS of a product
-   (both pipes) and of the parent's kernel; bounds for the work itself (a
+   ``ghash_scan`` each in a CUDA graph in 12 alternating turns (``ctr_mk``
+   beside its launch floor), and the dispatch through the seam; the SASS
+   of a product (both pipes); bounds for the work itself (a
    row's bytes at phase 7's stream rate, one 128 x 128 GF(2) product a row
    at the int8 tensor-core rate) and the latency bound (the dependent
    path's products at the product's SASS depth); and the seal's dispatch on
@@ -315,8 +305,8 @@ is not 0:
    our_tree_tpu_torch.obs.pulse <run> --check`` rc 0; (c) the alert drill
    in a child (``DRILL_ENV``: ``OT_FAULTS=dispatch_slow OT_SLOW_S=0.4``, a
    tick every 50 ms over 1 s and 2 s windows; ``DRILL_DRIVE``: a ``ctr``
-   server with one lane, 32-64 blocks, a 0.2 s watchdog, 60 requests at 20 a
-   second, ``--slo`` drive A's line): ``burn_rate`` fired,
+   server with one lane, 32-64 blocks, a 0.2 s watchdog, 60 requests one
+   at a time, ``--slo`` drive A's line): ``burn_rate`` fired,
    ``pulse_alerts{rule=burn_rate,severity=page}`` >= 1, exactly one
    incident bundle that validates, ``obs.report --incidents --check`` rc 0,
    0 lost, exit 1 from the SLO gate alone; (d) the SLO gate green (phase
@@ -331,6 +321,26 @@ is not 0:
    ``# compile:`` line: its 2 warmup builds (the library load, the first
    ``ctr_mk<10>`` launch) at the canary rung, 0 steady. A ``{"pulse":
    ...}`` line before the ``kernels`` line carries the phase's figures;
+17. the routing tier (``route_phase``; after 16, before 14): four
+   ``route.bench`` drives in child processes (``ROUTE_DRIVES``), each
+   spawning port workers with ``--device cuda``: (a) the acceptance drive,
+   3 workers, 1,500 requests at 250 a second, mixed sizes, 12 tenants, with
+   the affinity A/B (affinity's keycache hit ratio above random routing's);
+   (b) the backend kill (``OT_FAULTS=backend_hang:1@backend=1``: exactly one
+   quarantine and one release, a redispatch, zero errors); (c) ``ctr``,
+   ``gcm`` and ``gcm-open`` through the router, every mode's probes
+   verified (each ``gcm`` tag against the host GCM); (d) the elasticity
+   drive (a scale-up and a scale-down, one roll through the canary
+   handoff, a router replica killed, a stale pooled socket redispatched,
+   zero errors, no alert). Each drive: rc 0, 0 lost at the router and in
+   every worker's EXIT line, 0 builds after warmup, in every worker
+   ``ctr_mk`` launches equal to its ``ctr``, ``gcm`` and ``gcm-open``
+   engine calls and ``ghash_at`` calls to its ``gcm`` and ``gcm-open``
+   ones (the EXIT line's diagnostic keys) and no other kernel, and no CUDA
+   context in the router's process; the per-backend dispatch table, the
+   workers' times to READY, p50/p99, goodput and the router's
+   ``router_queue`` and ``wire`` p50s are printed. The ``kernels`` line's
+   ``ctr_mk`` and ``ghash_at`` gain ``route`` (their launches by drive);
 14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -348,17 +358,17 @@ and each native drive of 15 (e), and 14 run with every launch count set to
 0 just before and read just after (13
 (a) reads the child's own count, the bench's ``launches`` section), and each run of phase 10 counts its own
 launches by unit: each path must have launched each of its kernels.
-Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
+A ``{"phase_wall_s": {...}, "total_s": ...}`` line before the ``kernels``
+line gives each phase's wall seconds (``start-up`` is the time before
+phase 1). Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
 ``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
 ``ctr_mk`` with its ``k1_entry``, its ``seal_shape``, its
-``design_variants_ms_graph`` and ``group_form_study`` and its
-``block_form``, ``cbc_mk`` with its
+``group_form_study`` and its ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
 ``arc4_prga`` with its ``single`` and ``wide`` shapes, the harness rows and
 its ``session`` (the drive's launches, engine calls and card times, and the
 refill's launch shapes under ``prefetch_shapes``),
-``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, split
-and alternating turns, ``ghash_at`` at the seal's shape with its ``rung``,
+``ghash_scan`` at the 4,096 rung with K = 8 with its ``seal_rows``, ``ghash_at`` at the seal's shape with its ``rung``,
 ``seal_256MiB`` and ``gcm_serve``: the per-rung GCM dispatch table and the
 GCM launches of drive D and the rehearsal; ``ctr_mk`` and ``cbc_mk`` each
 with the ``transfer`` of phase 12 (a): chunks, launches, wall, GB/s, and
@@ -532,989 +542,10 @@ extern "C" int ot_empty(int grid, int threads, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 """
-#: The design variants of phase 9, timed in turns beside the kernels in one
-#: run: cbc_mk's former form (its inverse round MixColumns after the
-#: pre-transform with the shifts on the integer pipe, and the block's loads
-#: after the key-plane prologue), with the loads after the prologue, with
-#: the rounds unrolled and each round's key planes loaded one round ahead,
-#: and at 32 or 64 threads a thread block;
-#: the ECB block form with its load after the barrier, and unrolled ahead.
-#: Built with its own nvcc beside the kernels, from the kernels' headers; a
-#: measurement probe, not a kernel of the port.
-VARIANTS_SOURCE = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "aes_block_inv.cuh"
-
-namespace {
-using namespace aes_block;
-
-// The former inverse round: the pre-transform a ^= 4(a ^ a_(r+2)), then
-// mix_columns, then the key, every shift on the integer pipe.
-__device__ __forceinline__ void int_pipe_inv_mix_columns(uint32_t (&s)[8]) {
-  uint32_t w[8], x2[8], x4[8];
-#pragma unroll
-  for (int b = 0; b < 8; ++b) w[b] = s[b] ^ row_after_next(s[b]);
-  aes_bitslice::xtime(w, x2);
-  aes_bitslice::xtime(x2, x4);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= x4[b];
-  mix_columns(s);
-}
-
-template <bool LAST>
-__device__ __forceinline__ void int_pipe_round(uint32_t (&s)[8], const uint32_t* k) {
-  aes_bitslice::inv_sbox(s);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] = inv_shift_rows(s[b]);
-  if (!LAST) int_pipe_inv_mix_columns(s);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= k[b];
-}
-
-// ROUND 0: the former round, rolled; 1: the kernel's rolled; 2: the kernel's unrolled,
-// each round's key planes loaded one round ahead.
-template <int NR, int ROUND>
-__device__ __forceinline__ void decrypt(uint32_t (&s)[8], const uint32_t* kp) {
-  if constexpr (ROUND == 0) {
-  #pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
-#pragma unroll 1
-    for (int r = 1; r < NR; ++r) int_pipe_round<false>(s, kp + 8 * r);
-    int_pipe_round<true>(s, kp + 8 * NR);
-  } else if constexpr (ROUND == 1) {
-    decrypt_block<NR>(s, kp);
-  } else {
-    uint32_t k[8];
-  #pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
-  #pragma unroll
-  for (int b = 0; b < 8; ++b) k[b] = kp[8 + b];
-#pragma unroll
-    for (int r = 1; r < NR; ++r) {
-      uint32_t next[8];
-    #pragma unroll
-  for (int b = 0; b < 8; ++b) next[b] = kp[8 * (r + 1) + b];
-      inv_block_round<false>(s, k);
-    #pragma unroll
-  for (int b = 0; b < 8; ++b) k[b] = next[b];
-    }
-    inv_block_round<true>(s, k);
-  }
-}
-
-template <int ROUND, bool FIRST, int T>
-__global__ void __launch_bounds__(T)
-cbc_variant(const uint4* __restrict__ in, uint4* __restrict__ out, const uint4* __restrict__ prev,
-            const int32_t* __restrict__ slots, const uint32_t* __restrict__ rks_dec,
-            long long n, int k) {
-  constexpr int NR = 10, kRounds = NR + 1;
-  extern __shared__ uint32_t kp[];
-  const long long j = blockIdx.x * (long long)T + threadIdx.x;
-  const bool live = j < n;
-  int raw = 0;
-  uint4 c = make_uint4(0u, 0u, 0u, 0u), p = c;
-  if (FIRST && live) {
-    raw = slots[j];
-    c = in[j];
-    p = prev[j];
-  }
-  for (int i = threadIdx.x; i < k * kRounds; i += T)
-    round_key_planes(rks_dec + (i / kRounds) * 4 * kRounds, i % kRounds, kp + 8 * i);
-  __syncthreads();
-  if (!live) return;
-  if (!FIRST) {
-    raw = slots[j];
-    c = in[j];
-    p = prev[j];
-  }
-  const int sl = min(max(raw, 0), k - 1);
-  uint32_t s[8];
-  pack(c, s);
-  decrypt<NR, ROUND>(s, kp + 8 * kRounds * sl);
-  const uint4 d = unpack(s);
-  out[j] = make_uint4(d.x ^ p.x, d.y ^ p.y, d.z ^ p.z, d.w ^ p.w);
-}
-
-// The ECB block form with its load after the barrier (FIRST false), or
-// with the rounds unrolled and the key planes loaded a round ahead.
-template <bool FIRST, bool AHEAD>
-__global__ void __launch_bounds__(128)
-ecb_variant(const uint4* __restrict__ in, uint4* __restrict__ out,
-            const uint32_t* __restrict__ rk, long long n) {
-  constexpr int NR = 10;
-  __shared__ uint32_t kp[8 * (NR + 1)];
-  const long long j = blockIdx.x * 128ll + threadIdx.x;
-  const bool live = j < n;
-  uint4 x = make_uint4(0u, 0u, 0u, 0u);
-  if (FIRST && live) x = in[j];
-  if (threadIdx.x <= NR) round_key_planes(rk, threadIdx.x, kp + 8 * threadIdx.x);
-  __syncthreads();
-  if (!live) return;
-  if (!FIRST) x = in[j];
-  uint32_t s[8];
-  pack(x, s);
-  if constexpr (AHEAD) {
-    uint32_t k[8];
-  #pragma unroll
-  for (int b = 0; b < 8; ++b) s[b] ^= kp[b];
-  #pragma unroll
-  for (int b = 0; b < 8; ++b) k[b] = kp[8 + b];
-#pragma unroll
-    for (int r = 1; r < NR; ++r) {
-      uint32_t next[8];
-    #pragma unroll
-  for (int b = 0; b < 8; ++b) next[b] = kp[8 * (r + 1) + b];
-      block_round<false>(s, k);
-    #pragma unroll
-  for (int b = 0; b < 8; ++b) k[b] = next[b];
-    }
-    block_round<true>(s, k);
-  } else {
-    encrypt_block<NR>(s, kp);
-  }
-  out[j] = unpack(s);
-}
-
-template <int ROUND, bool FIRST, int T>
-int cbc_go(const void* in, void* out, const void* prev, const void* slots, const void* rks,
-           long long n, int k, void* stream) {
-  cbc_variant<ROUND, FIRST, T><<<(unsigned)((n + T - 1) / T), T, (size_t)k * 8 * 11 * 4,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(in), static_cast<uint4*>(out), static_cast<const uint4*>(prev),
-      static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(rks), n, k);
-  return (int)cudaGetLastError();
-}
-}  // namespace
-
-// nr 10. code: 0 the former kernel (its round, the loads after the barrier), 1
-// the loads after the barrier, 2 unrolled ahead, 3 64 threads a thread
-// block, 4 32 threads; 2-4 with the loads first, as the kernel.
-extern "C" int ot_cbc_variant(int code, const void* in, void* out, const void* prev,
-                              const void* slots, const void* rks, long long n, int k,
-                              void* stream) {
-  switch (code) {
-    case 0: return cbc_go<0, false, 128>(in, out, prev, slots, rks, n, k, stream);
-    case 1: return cbc_go<1, false, 128>(in, out, prev, slots, rks, n, k, stream);
-    case 2: return cbc_go<2, true, 128>(in, out, prev, slots, rks, n, k, stream);
-    case 3: return cbc_go<1, true, 64>(in, out, prev, slots, rks, n, k, stream);
-    case 4: return cbc_go<1, true, 32>(in, out, prev, slots, rks, n, k, stream);
-    default: return -1;
-  }
-}
-
-// nr 10. code: 0 load after the barrier, 1 unrolled ahead.
-extern "C" int ot_ecb_variant(int code, const void* in, void* out, const void* rk, long long n,
-                              void* stream) {
-  const unsigned grid = (unsigned)((n + 127) / 128);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint4* src = static_cast<const uint4*>(in);
-  uint4* dst = static_cast<uint4*>(out);
-  const uint32_t* keys = static_cast<const uint32_t*>(rk);
-  if (code == 0) ecb_variant<false, false><<<grid, 128, 0, st>>>(src, dst, keys, n);
-  else if (code == 1) ecb_variant<true, true><<<grid, 128, 0, st>>>(src, dst, keys, n);
-  else return -1;
-  return (int)cudaGetLastError();
-}
-"""
-#: Turns of the design variants' timing (phase 9), the order reversed every
-#: other turn: one launch's card time varies by a few percent from one
-#: measurement to the next, about what the variants differ by.
+#: Turns of a timing in turns (phase 11's GCM serve dispatch), the order
+#: reversed every other turn: one launch's card time varies by a few percent
+#: from one measurement to the next.
 VARIANT_TURNS = 12
-#: The variants by code (VARIANTS_SOURCE's C entries).
-CBC_VARIANTS = {"former_kernel": 0, "loads_after_barrier": 1, "unrolled_ahead": 2,
-                "threads_64": 3, "threads_32": 4}
-ECB_VARIANTS = {"load_after_barrier": 0, "unrolled_ahead": 1}
-#: The parent's GHASH kernel (phase 11): the GHASH scan as it was before its
-#: redesign (a column table of H in shared memory, masked XORs on the integer
-#: pipe, three products a row: ghash.cuh and ghash.cu of the parent commit,
-#: comments dropped), with C entries that run the whole call or one of its
-#: three launches alone, and give each launch's grid, shared memory and
-#: resident thread blocks an SM. Built with its own nvcc beside the kernels
-#: and timed in turns with them; a measurement probe, not a kernel of the
-#: port.
-GHASH_FORMER_SOURCE = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#ifndef __CUDACC__
-#define __device__
-#define __forceinline__ inline
-#endif
-
-namespace former_ghash {
-
-constexpr int kMaxSlots = 64;
-constexpr int kColumns = 128;
-
-struct alignas(16) Elem {
-  uint32_t w[4];
-};
-
-__device__ __forceinline__ Elem zero() { return Elem{{0u, 0u, 0u, 0u}}; }
-
-__device__ __forceinline__ Elem one() { return Elem{{0x80u, 0u, 0u, 0u}}; }
-
-__device__ __forceinline__ Elem exor(const Elem& a, const Elem& b) {
-  return Elem{{a.w[0] ^ b.w[0], a.w[1] ^ b.w[1], a.w[2] ^ b.w[2], a.w[3] ^ b.w[3]}};
-}
-
-__device__ __forceinline__ Elem masked(const Elem& a, uint32_t m) {
-  return Elem{{a.w[0] & m, a.w[1] & m, a.w[2] & m, a.w[3] & m}};
-}
-
-__device__ __forceinline__ uint32_t flip_word(uint32_t v) {
-  v = ((v >> 1) & 0x55555555u) | ((v & 0x55555555u) << 1);
-  v = ((v >> 2) & 0x33333333u) | ((v & 0x33333333u) << 2);
-  return ((v >> 4) & 0x0F0F0F0Fu) | ((v & 0x0F0F0F0Fu) << 4);
-}
-
-__device__ __forceinline__ Elem flip(const Elem& a) {
-  return Elem{{flip_word(a.w[0]), flip_word(a.w[1]), flip_word(a.w[2]), flip_word(a.w[3])}};
-}
-
-__device__ __forceinline__ void mul_x(uint32_t* v) {
-  const uint32_t carry = 0u - (v[3] >> 31);
-  v[3] = (v[3] << 1) | (v[2] >> 31);
-  v[2] = (v[2] << 1) | (v[1] >> 31);
-  v[1] = (v[1] << 1) | (v[0] >> 31);
-  v[0] = (v[0] << 1) ^ (carry & 0x87u);
-}
-
-__device__ __forceinline__ void mul_x32(uint32_t* v) {
-  const uint32_t t = v[3];
-  const uint32_t lo = t ^ (t << 1) ^ (t << 2) ^ (t << 7);
-  const uint32_t hi = (t >> 31) ^ (t >> 30) ^ (t >> 25);
-  v[3] = v[2];
-  v[2] = v[1];
-  v[1] = v[0] ^ hi;
-  v[0] = lo;
-}
-
-__device__ __forceinline__ void build_columns(const uint32_t* hkeys, int k, Elem* col, int tid,
-                                              int nthreads) {
-  for (int i = tid; i < 32 * k; i += nthreads) {
-    const int s = i >> 5, q = i & 31;
-    uint32_t v[4];
-    for (int c = 0; c < 4; ++c) v[c] = flip_word(hkeys[4 * s + c]);
-    for (int j = 0; j < q; ++j) mul_x(v);
-    for (int m = 0; m < 4; ++m) {
-      col[kColumns * s + ((32 * m + q) ^ 7)] =
-          Elem{{flip_word(v[0]), flip_word(v[1]), flip_word(v[2]), flip_word(v[3])}};
-      mul_x32(v);
-    }
-  }
-}
-
-__device__ __forceinline__ Elem mul_h(const Elem& y, const Elem* col) {
-  uint32_t z0[4] = {0u, 0u, 0u, 0u}, z1[4] = {0u, 0u, 0u, 0u};
-  uint32_t cur = y.w[0], n1 = y.w[1], n2 = y.w[2], n3 = y.w[3];
-#pragma unroll 1
-  for (int w = 0; w < 4; ++w) {
-    const Elem* c = col + 32 * w;
-#pragma unroll
-    for (int b = 0; b < 32; b += 2) {
-      const uint32_t m0 = 0u - ((cur >> b) & 1u), m1 = 0u - ((cur >> (b + 1)) & 1u);
-      const Elem c0 = c[b], c1 = c[b + 1];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        z0[i] ^= c0.w[i] & m0;
-        z1[i] ^= c1.w[i] & m1;
-      }
-    }
-    cur = n1;
-    n1 = n2;
-    n2 = n3;
-  }
-  return Elem{{z0[0] ^ z1[0], z0[1] ^ z1[1], z0[2] ^ z1[2], z0[3] ^ z1[3]}};
-}
-
-__device__ __forceinline__ void mul_h2(Elem& a, Elem& b, const Elem* col) {
-  uint32_t za[4] = {0u, 0u, 0u, 0u}, zb[4] = {0u, 0u, 0u, 0u};
-  uint32_t ca = a.w[0], a1 = a.w[1], a2 = a.w[2], a3 = a.w[3];
-  uint32_t cb = b.w[0], b1 = b.w[1], b2 = b.w[2], b3 = b.w[3];
-#pragma unroll 1
-  for (int w = 0; w < 4; ++w) {
-    const Elem* c = col + 32 * w;
-#pragma unroll
-    for (int bit = 0; bit < 32; ++bit) {
-      const uint32_t ma = 0u - ((ca >> bit) & 1u), mb = 0u - ((cb >> bit) & 1u);
-      const Elem cv = c[bit];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        za[i] ^= cv.w[i] & ma;
-        zb[i] ^= cv.w[i] & mb;
-      }
-    }
-    ca = a1;
-    a1 = a2;
-    a2 = a3;
-    cb = b1;
-    b1 = b2;
-    b2 = b3;
-  }
-  a = Elem{{za[0], za[1], za[2], za[3]}};
-  b = Elem{{zb[0], zb[1], zb[2], zb[3]}};
-}
-
-template <int N>
-__device__ __forceinline__ void mul_g(const Elem* a, const Elem& g, Elem* r) {
-  uint32_t pa[N][4], z[N][4], v[4][4];
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      pa[n][c] = flip_word(a[n].w[c]);
-      z[n][c] = 0u;
-    }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) v[0][c] = flip_word(g.w[c]);
-#pragma unroll
-  for (int m = 1; m < 4; ++m) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[m][c] = v[m - 1][c];
-    mul_x32(v[m]);
-  }
-#pragma unroll 1
-  for (int i = 0; i < 32; ++i) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const uint32_t bm = 0u - ((pa[n][m] >> i) & 1u);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) z[n][c] ^= v[m][c] & bm;
-      }
-      mul_x(v[m]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-    r[n] = Elem{{flip_word(z[n][0]), flip_word(z[n][1]), flip_word(z[n][2]), flip_word(z[n][3])}};
-}
-
-__device__ __forceinline__ void compose(Elem& a, Elem& b, const Elem& ag, const Elem& bg) {
-  const Elem in[2] = {a, b};
-  Elem out[2];
-  mul_g<2>(in, ag, out);
-  a = out[0];
-  b = exor(out[1], bg);
-}
-
-__device__ __forceinline__ Elem apply(const Elem& y, const Elem& a, const Elem& b) {
-  Elem r;
-  mul_g<1>(&y, a, &r);
-  return exor(r, b);
-}
-
-__device__ __forceinline__ Elem load_row(const uint32_t* p, long long r) {
-#ifdef __CUDACC__
-  const uint4 v = reinterpret_cast<const uint4*>(p)[r];
-  return Elem{{v.x, v.y, v.z, v.w}};
-#else
-  return Elem{{p[4 * r], p[4 * r + 1], p[4 * r + 2], p[4 * r + 3]}};
-#endif
-}
-
-__device__ __forceinline__ void store_row(uint32_t* p, long long r, const Elem& e) {
-#ifdef __CUDACC__
-  reinterpret_cast<uint4*>(p)[r] = make_uint4(e.w[0], e.w[1], e.w[2], e.w[3]);
-#else
-  for (int c = 0; c < 4; ++c) p[4 * r + c] = e.w[c];
-#endif
-}
-
-struct Rows {
-  const uint32_t* x;
-  const uint32_t* inject;
-  const int32_t* slots;
-  const int32_t* keep;
-  int k;
-};
-
-__device__ __forceinline__ Elem row_x(const Rows& in, long long r) {
-  const Elem x = load_row(in.x, r);
-  return in.inject ? exor(x, load_row(in.inject, r)) : x;
-}
-
-__device__ __forceinline__ int row_slot(const Rows& in, long long r) {
-  const int s = in.slots[r];
-  return s < 0 ? 0 : (s >= in.k ? in.k - 1 : s);
-}
-
-__device__ __forceinline__ void chunk_map(const Rows& in, const Elem* col, long long r0,
-                                          long long r1, Elem& a, Elem& b) {
-  a = one();
-  b = zero();
-  for (long long r = r0; r < r1; ++r) {
-    const uint32_t km = 0u - ((uint32_t)in.keep[r] & 1u);
-    a = masked(a, km);
-    b = exor(masked(b, km), row_x(in, r));
-    mul_h2(a, b, col + kColumns * row_slot(in, r));
-  }
-}
-
-__device__ __forceinline__ void chunk_run(const Rows& in, const Elem* col, long long r0,
-                                          long long r1, Elem y, uint32_t* ys) {
-  for (long long r = r0; r < r1; ++r) {
-    const uint32_t km = 0u - ((uint32_t)in.keep[r] & 1u);
-    y = mul_h(exor(masked(y, km), row_x(in, r)), col + kColumns * row_slot(in, r));
-    store_row(ys, r, y);
-  }
-}
-
-}  // namespace former_ghash
-
-
-
-namespace {
-
-using former_ghash::Elem;
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr long long kTargetThreads = 1ll << 16;
-constexpr long long kMaxRowsPerThread = 64;
-
-struct Plan {
-  long long rows;     // rows a thread
-  long long blocks;   // thread blocks of launches 1 and 3
-};
-
-Plan plan(long long n) {
-  long long rows = (n + kTargetThreads - 1) / kTargetThreads;
-  rows = rows < 1 ? 1 : (rows > kMaxRowsPerThread ? kMaxRowsPerThread : rows);
-  const long long threads = (n + rows - 1) / rows;
-  return Plan{rows, (threads + kThreads - 1) / kThreads};
-}
-
-__device__ __forceinline__ Elem shfl_up(const Elem& e, int d) {
-  Elem r;
-  for (int c = 0; c < 4; ++c) r.w[c] = __shfl_up_sync(0xffffffffu, e.w[c], d);
-  return r;
-}
-
-__device__ __forceinline__ void block_scan(Elem& a, Elem& b, Elem* warp_maps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    Elem pa = shfl_up(a, d), pb = shfl_up(b, d);
-    if (lane >= d) {
-      former_ghash::compose(pa, pb, a, b);
-      a = pa;
-      b = pb;
-    }
-  }
-  if (lane == 31) {
-    warp_maps[2 * warp] = a;
-    warp_maps[2 * warp + 1] = b;
-  }
-  Elem ea = shfl_up(a, 1), eb = shfl_up(b, 1);
-  if (lane == 0) {
-    ea = former_ghash::one();
-    eb = former_ghash::zero();
-  }
-  __syncthreads();
-  Elem wa = former_ghash::one(), wb = former_ghash::zero();
-  for (int w = 0; w < warp; ++w) former_ghash::compose(wa, wb, warp_maps[2 * w], warp_maps[2 * w + 1]);
-  former_ghash::compose(wa, wb, ea, eb);
-  a = wa;
-  b = wb;
-}
-
-template <int T>
-__global__ void __launch_bounds__(T)
-ghash_map_kernel(former_ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows, long long n,
-                 Elem* __restrict__ prefix, Elem* __restrict__ block_maps) {
-  extern __shared__ Elem col[];
-  __shared__ Elem warp_maps[2 * kWarps];
-  former_ghash::build_columns(hkeys, in.k, col, threadIdx.x, T);
-  __syncthreads();
-  const long long t = blockIdx.x * (long long)T + threadIdx.x;
-  const long long r0 = t * rows < n ? t * rows : n;
-  const long long r1 = r0 + rows < n ? r0 + rows : n;
-  Elem a, b;
-  former_ghash::chunk_map(in, col, r0, r1, a, b);
-  Elem ea = a, eb = b;
-  block_scan(ea, eb, warp_maps);
-  prefix[2 * t] = ea;
-  prefix[2 * t + 1] = eb;
-  if (threadIdx.x == T - 1) {
-    former_ghash::compose(ea, eb, a, b);
-    block_maps[2 * blockIdx.x] = ea;
-    block_maps[2 * blockIdx.x + 1] = eb;
-  }
-}
-
-template <int T>
-__global__ void __launch_bounds__(T)
-ghash_carry_kernel(const Elem* __restrict__ block_maps, long long blocks,
-                   const uint32_t* __restrict__ y0, Elem* __restrict__ carry) {
-  __shared__ Elem warp_maps[2 * kWarps];
-  const long long per = (blocks + T - 1) / T;
-  const long long g0 = threadIdx.x * per < blocks ? threadIdx.x * per : blocks;
-  const long long g1 = g0 + per < blocks ? g0 + per : blocks;
-  Elem a = former_ghash::one(), b = former_ghash::zero();
-  for (long long g = g0; g < g1; ++g) former_ghash::compose(a, b, block_maps[2 * g], block_maps[2 * g + 1]);
-  block_scan(a, b, warp_maps);
-  Elem y = former_ghash::apply(Elem{{y0[0], y0[1], y0[2], y0[3]}}, a, b);
-  for (long long g = g0; g < g1; ++g) {
-    carry[g] = y;
-    y = former_ghash::apply(y, block_maps[2 * g], block_maps[2 * g + 1]);
-  }
-}
-
-template <int T>
-__global__ void __launch_bounds__(T)
-ghash_rows_kernel(former_ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows, long long n,
-                  const Elem* __restrict__ prefix, const Elem* __restrict__ carry,
-                  uint32_t* __restrict__ ys) {
-  extern __shared__ Elem col[];
-  former_ghash::build_columns(hkeys, in.k, col, threadIdx.x, T);
-  __syncthreads();
-  const long long t = blockIdx.x * (long long)T + threadIdx.x;
-  const long long r0 = t * rows;
-  if (r0 >= n) return;
-  const long long r1 = r0 + rows < n ? r0 + rows : n;
-  const Elem y = former_ghash::apply(carry[blockIdx.x], prefix[2 * t], prefix[2 * t + 1]);
-  former_ghash::chunk_run(in, col, r0, r1, y, ys);
-}
-
-long long scratch_elems(const Plan& p) { return 2 * p.blocks * kThreads + 3 * p.blocks; }
-
-Plan former_plan(long long n) { return plan(n < 1 ? 1 : n); }
-
-size_t former_smem(int k) { return (size_t)k * former_ghash::kColumns * sizeof(Elem); }
-
-}  // namespace
-
-extern "C" long long ot_former_scratch_words(long long n) { return 4 * scratch_elems(former_plan(n)); }
-
-// which: 0 the former call (three launches), 1 the map launch, 2 the carry
-// launch, 3 the rows launch alone (2 and 3 read the scratch a map launch
-// left). Arguments as the former ot_ghash_scan.
-extern "C" int ot_former_ghash(int which, const void* x, const void* inject, const void* slots,
-                               const void* keep, const void* hkeys, const void* y0, void* ys,
-                               void* scratch, long long n, int k, void* stream) {
-  const Plan p = former_plan(n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = former_smem(k);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute((const void*)ghash_map_kernel<kThreads>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaFuncSetAttribute((const void*)ghash_rows_kernel<kThreads>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const former_ghash::Rows in{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(inject),
-                              static_cast<const int32_t*>(slots), static_cast<const int32_t*>(keep), k};
-  const uint32_t* h = static_cast<const uint32_t*>(hkeys);
-  Elem* prefix = static_cast<Elem*>(scratch);
-  Elem* block_maps = prefix + 2 * p.blocks * kThreads;
-  Elem* carry = block_maps + 2 * p.blocks;
-  const unsigned int grid = (unsigned int)p.blocks;
-  if (which == 0 || which == 1)
-    ghash_map_kernel<kThreads><<<grid, kThreads, smem, st>>>(in, h, p.rows, n, prefix, block_maps);
-  if (which == 0 || which == 2)
-    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks,
-                                                         static_cast<const uint32_t*>(y0), carry);
-  if (which == 0 || which == 3)
-    ghash_rows_kernel<kThreads><<<grid, kThreads, smem, st>>>(in, h, p.rows, n, prefix, carry,
-                                                              static_cast<uint32_t*>(ys));
-  return (int)cudaGetLastError();
-}
-
-// Launch `which` (1 map, 2 carry, 3 rows) over n rows and k keys: out[0]
-// its grid, out[1] its dynamic shared memory, out[2] its resident thread
-// blocks an SM (the occupancy API).
-extern "C" int ot_former_launch_shape(int which, long long n, int k, long long* out) {
-  const Plan p = former_plan(n);
-  const size_t smem = which == 2 ? 0 : former_smem(k);
-  const void* fn = which == 1 ? (const void*)ghash_map_kernel<kThreads>
-                 : which == 2 ? (const void*)ghash_carry_kernel<kThreads>
-                              : (const void*)ghash_rows_kernel<kThreads>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
-  out[0] = which == 2 ? 1 : p.blocks;
-  out[1] = (long long)smem;
-  out[2] = blocks;
-  return (int)e;
-}
-"""
-#: The GHASH kernel's launches one at a time, and its design variants
-#: (phase 11): the package's ghash.cu included whole, with C entries that run
-#: one launch alone (map, carry or rows, of either form) and give its shape,
-#: and three variants of the whole call: the every-row form with each
-#: chunk's a made by a product a row (no table of powers), ghash_at with at
-#: most 64 rows a thread, and the every-row form with its rows launch's
-#: stores one row a thread, not staged. Built with its own nvcc beside the kernels; a
-#: measurement probe, not a kernel of the port.
-GHASH_VARIANTS_SOURCE = r"""
-#include "ghash.cu"
-
-namespace {
-
-// The map launch with each chunk's a made by a product a row (a <- a H_s),
-// no table of powers: two products a row in the map launch.
-template <int T>
-__global__ void __launch_bounds__(T)
-map_by_products_kernel(ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows,
-                       long long n, Elem* __restrict__ prefix, Elem* __restrict__ block_maps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Elem warp_maps[2 * kWarps];
-  Prep* h = reinterpret_cast<Prep*>(smem);
-  ghash::build_keys(hkeys, in.k, (int)rows, h, nullptr, threadIdx.x, T);
-  const long long t = blockIdx.x * (long long)T + threadIdx.x;
-  const long long r0 = t * rows < n ? t * rows : n;
-  const long long r1 = r0 + rows < n ? r0 + rows : n;
-  Elem a = ghash::one(), b = ghash::zero();
-  for (long long r = r0; r < r1; ++r) {
-    const ghash::RawRow row = ghash::load_raw(in, r);
-    const uint32_t km = 0u - ((uint32_t)row.keep & 1u);
-    const Prep& hs = h[ghash::clamp_slot(row.slot, in.k)];
-    a = ghash::mul(ghash::masked(a, km), hs);
-    b = ghash::mul(ghash::exor(ghash::masked(b, km), ghash::raw_x(row)), hs);
-  }
-  Elem ea = a, eb = b;
-  block_scan(ea, eb, warp_maps);
-  prefix[2 * t] = ea;
-  prefix[2 * t + 1] = eb;
-  if (threadIdx.x == T - 1) {
-    ghash::compose(ea, eb, a, b);
-    block_maps[2 * blockIdx.x] = ea;
-    block_maps[2 * blockIdx.x + 1] = eb;
-  }
-}
-
-// The rows launch with each row's y stored by its own thread (16 bytes a
-// lane, the lanes rows_per_thread rows apart), not staged as whole lines.
-template <int T>
-__global__ void __launch_bounds__(T)
-rows_direct_kernel(ghash::Rows in, const uint32_t* __restrict__ hkeys, long long rows,
-                   long long n, const Elem* __restrict__ prefix, const Elem* __restrict__ carry,
-                   uint32_t* __restrict__ ys) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Prep* h = reinterpret_cast<Prep*>(smem);
-  ghash::build_keys(hkeys, in.k, (int)rows, h, nullptr, threadIdx.x, T);
-  const long long t = blockIdx.x * (long long)T + threadIdx.x;
-  const long long r0 = t * rows, r1 = r0 + rows < n ? r0 + rows : n;
-  if (r0 < r1)
-    ghash::chunk_run(in, h, r0, r1, ghash::apply(carry[blockIdx.x], prefix[2 * t],
-                                                 prefix[2 * t + 1]), ys);
-}
-
-struct Args {
-  ghash::Rows in;
-  const uint32_t* h;
-  const uint32_t* y0;
-  const long long* named;
-  uint32_t* out;
-  long long n, n_named;
-  int k;
-};
-
-// One launch (1 map, 2 carry, 3 rows) of the every-row form (named 0) or
-// of ghash_at (named 1) under plan p, the scratch laid out as the C entries
-// lay it out; which 0 runs the whole call.
-cudaError_t launch(int which, int named, const Args& a, const Plan& p, void* scratch,
-                   cudaStream_t st) {
-  const size_t map_smem = keys_smem(a.k, p.rows, true), prod_smem = keys_smem(a.k, p.rows, false),
-               row_smem = rows_smem(a.k, p.rows);
-  allow_smem((const void*)ghash_map_kernel<kThreads, 0>, map_smem);
-  allow_smem((const void*)ghash_map_kernel<kThreads, 1>, map_smem);
-  allow_smem((const void*)ghash_rows_kernel<kThreads>, row_smem);
-  const unsigned int grid = (unsigned int)p.blocks;
-  if (named) {
-    Elem* named_maps = static_cast<Elem*>(scratch);
-    int* named_blk = reinterpret_cast<int*>(named_maps + 2 * a.n_named);
-    Elem* block_maps = named_maps + 2 * a.n_named + (a.n_named + 3) / 4;
-    Elem* carry = block_maps + 2 * p.blocks;
-    if (which == 0 || which == 1)
-      ghash_map_kernel<kThreads, 1><<<grid, kThreads, map_smem, st>>>(
-          a.in, a.h, p.rows, a.n, a.named, a.n_named, named_maps, named_blk, nullptr, block_maps);
-    if (which == 0 || which == 2)
-      ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
-                                                           named_maps, named_blk, a.n_named, a.out);
-    return cudaGetLastError();
-  }
-  Elem* prefix = static_cast<Elem*>(scratch);
-  Elem* block_maps = prefix + 2 * p.blocks * kThreads;
-  Elem* carry = block_maps + 2 * p.blocks;
-  if (which == 0 || which == 1)
-    ghash_map_kernel<kThreads, 0><<<grid, kThreads, map_smem, st>>>(
-        a.in, a.h, p.rows, a.n, nullptr, 0, nullptr, nullptr, prefix, block_maps);
-  if (which == 4)
-    map_by_products_kernel<kThreads><<<grid, kThreads, prod_smem, st>>>(a.in, a.h, p.rows, a.n,
-                                                                        prefix, block_maps);
-  if (which == 0 || which == 2 || which == 4)
-    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
-                                                         nullptr, nullptr, 0, nullptr);
-  if (which == 5) {
-    ghash_map_kernel<kThreads, 0><<<grid, kThreads, map_smem, st>>>(
-        a.in, a.h, p.rows, a.n, nullptr, 0, nullptr, nullptr, prefix, block_maps);
-    ghash_carry_kernel<kThreads><<<1, kThreads, 0, st>>>(block_maps, p.blocks, a.y0, carry,
-                                                         nullptr, nullptr, 0, nullptr);
-    rows_direct_kernel<kThreads><<<grid, kThreads, prod_smem, st>>>(a.in, a.h, p.rows, a.n,
-                                                                    prefix, carry, a.out);
-  }
-  if (which == 0 || which == 3 || which == 4)
-    ghash_rows_kernel<kThreads><<<grid, kThreads, row_smem, st>>>(a.in, a.h, p.rows, a.n,
-                                                                   prefix, carry, a.out);
-  return cudaGetLastError();
-}
-
-Args args(const void* x, const void* inject, const void* slots, const void* keep,
-          const void* hkeys, const void* y0, const void* rows_out, void* out, long long n,
-          long long n_named, int k) {
-  return Args{ghash::Rows{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(inject),
-                          static_cast<const int32_t*>(slots), static_cast<const int32_t*>(keep), k},
-              static_cast<const uint32_t*>(hkeys), static_cast<const uint32_t*>(y0),
-              static_cast<const long long*>(rows_out), static_cast<uint32_t*>(out), n, n_named, k};
-}
-
-}  // namespace
-
-// One launch of the kernels' own plan: which 1 map, 2 carry, 3 rows (the
-// every-row form, named 0, or ghash_at, named 1, whose rows_out and n_named
-// are read); scratch as ot_ghash_scratch_words gives it.
-extern "C" int ot_ghash_launch(int which, int named, const void* x, const void* inject,
-                               const void* slots, const void* keep, const void* hkeys,
-                               const void* y0, const void* rows_out, void* out, void* scratch,
-                               long long n, long long n_named, int k, void* stream) {
-  return (int)launch(which, named, args(x, inject, slots, keep, hkeys, y0, rows_out, out, n,
-                                        n_named, k),
-                     plan(n, k), scratch, static_cast<cudaStream_t>(stream));
-}
-
-// The design variants, a whole call each: code 0 the every-row form with
-// its map's a by a product a row (no table); code 1 ghash_at with at most 64
-// rows a thread (the former kernel's cap; 4x the threads at 2^24 rows);
-// code 2 the every-row form with the rows launch's stores one row a thread
-// (not staged).
-extern "C" int ot_ghash_variant(int code, const void* x, const void* inject, const void* slots,
-                                const void* keep, const void* hkeys, const void* y0,
-                                const void* rows_out, void* out, void* scratch, long long n,
-                                long long n_named, int k, void* stream) {
-  const Args a = args(x, inject, slots, keep, hkeys, y0, rows_out, out, n, n_named, k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (code == 0) return (int)launch(4, 0, a, plan(n, k), scratch, st);
-  if (code == 2) return (int)launch(5, 0, a, plan(n, k), scratch, st);
-  if (code == 1) {
-    Plan p = plan(n, k);
-    if (p.rows > 64) {
-      p.rows = 64;
-      p.blocks = ((n + 63) / 64 + kThreads - 1) / kThreads;
-    }
-    return (int)launch(0, 1, a, p, scratch, st);
-  }
-  return -1;
-}
-
-// u32 words of scratch variant code 1 needs (more blocks than the plan's).
-extern "C" long long ot_ghash_variant_scratch_words(long long n, long long n_named) {
-  const long long blocks = ((n + 63) / 64 + kThreads - 1) / kThreads;
-  return 4 * (2 * n_named + (n_named + 3) / 4 + 3 * blocks);
-}
-
-// Launch `which` (1 map, 2 carry, 3 rows; named 1 the map of ghash_at) over
-// n rows and k keys: out[0] its grid, out[1] its dynamic shared memory,
-// out[2] its resident thread blocks an SM (the occupancy API).
-extern "C" int ot_ghash_launch_shape(int which, int named, long long n, int k, long long* out) {
-  const Plan p = plan(n, k);
-  const size_t smem = which == 2 ? 0 : which == 1 ? keys_smem(k, p.rows, true) : rows_smem(k, p.rows);
-  const void* fn = which == 1 ? (named ? (const void*)ghash_map_kernel<kThreads, 1>
-                                       : (const void*)ghash_map_kernel<kThreads, 0>)
-                 : which == 2 ? (const void*)ghash_carry_kernel<kThreads>
-                              : (const void*)ghash_rows_kernel<kThreads>;
-  allow_smem(fn, smem);
-  int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
-  out[0] = which == 2 ? 1 : p.blocks;
-  out[1] = (long long)smem;
-  out[2] = blocks;
-  return (int)e;
-}
-"""
-#: The parent's group form of ctr_mk (phase 9): ctr_mk_kernel as it was
-#: before its redesign (the slots as 32 scalar loads and 32 offsets written
-#: before the warp's vote, the keys as words with each round's masks made on
-#: the fly; ctr_mk.cu of the parent commit, comments dropped), on the word
-#: forms that aes_bitslice.cuh still holds, with a stamped instantiation
-#: (phases as ctr_mk.cu's probe build stamps them, in this kernel's order:
-#: key prologue, slots, counters, vote, rounds, store) and a C entry for each
-#: launch's shape. Built with its own nvcc beside the kernels and timed in
-#: turns with them; a measurement probe, not a kernel of the port.
-CTR_MK_FORMER_SOURCE = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "aes_bitslice.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ long long clock_now() {
-  long long t;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : : "memory");
-  return t;
-}
-
-__device__ __forceinline__ long long clock_after(uint32_t dep, long long* sink) {
-  long long t;
-  asm volatile("st.volatile.global.u32 [%1], %2;\n\tmov.u64 %0, %%clock64;"
-               : "=l"(t) : "l"(sink), "r"(dep) : "memory");
-  return t;
-}
-
-template <int NR, int STAMP>
-__global__ void __launch_bounds__(kThreads)
-former_ctr_mk_kernel(const uint4* __restrict__ data, uint4* __restrict__ out,
-                     const uint4* __restrict__ ctr, const int32_t* __restrict__ slots,
-                     const uint32_t* __restrict__ rks, long long n_blocks, int k,
-                     long long* stamps) {
-  constexpr int kWords = 4 * (NR + 1);
-  extern __shared__ uint32_t smem[];
-  uint32_t* keys = smem;
-  uint16_t* offs = reinterpret_cast<uint16_t*>(smem + k * kWords);
-  long long t[7] = {0, 0, 0, 0, 0, 0, 0};
-  long long* row = nullptr;
-  if constexpr (STAMP) {
-    row = stamps + 8 * ((blockIdx.x * (long long)kThreads + threadIdx.x) / 32);
-    t[0] = clock_now();
-  }
-  for (int i = threadIdx.x; i < k * kWords; i += kThreads) keys[i] = rks[i];
-  __syncthreads();
-  if constexpr (STAMP) t[1] = clock_now();
-
-  const unsigned long long g = blockIdx.x * (unsigned long long)kThreads + threadIdx.x;
-  const long long first = (long long)(g * 32ull);
-  if (first >= n_blocks) return;
-
-  bool uniform = true;
-  uint32_t off0 = 0;
-  if (slots != nullptr) {
-    const int s0 = min(max(slots[first], 0), k - 1);
-    off0 = (uint32_t)(s0 * kWords);
-#pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const long long j = first + t;
-      const int sl = j < n_blocks ? min(max(slots[j], 0), k - 1) : s0;
-      offs[t * kThreads + threadIdx.x] = (uint16_t)(sl * kWords);
-      uniform &= sl == s0;
-    }
-  }
-  if constexpr (STAMP) t[2] = clock_after(off0 ^ (uint32_t)uniform, row + 7);
-
-  uint32_t s[128];
-#pragma unroll
-  for (int t = 0; t < 32; ++t) {
-    const long long j = first + t;
-    const uint4 c = j < n_blocks ? ctr[j] : make_uint4(0u, 0u, 0u, 0u);
-    s[t] = c.x;
-    s[32 + t] = c.y;
-    s[64 + t] = c.z;
-    s[96 + t] = c.w;
-  }
-  if constexpr (STAMP) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int i = 0; i < 128; ++i) x ^= s[i];
-    t[3] = clock_after(x, row + 7);
-  }
-
-  uniform = __all_sync(__activemask(), uniform);
-  if constexpr (STAMP) t[4] = clock_now();
-  if (uniform) aes_bitslice::mk_encrypt_group<NR, true>(s, keys, off0, offs, kThreads);
-  else aes_bitslice::mk_encrypt_group<NR, false>(s, keys, off0, offs + threadIdx.x, kThreads);
-  if constexpr (STAMP) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int i = 0; i < 128; ++i) x ^= s[i];
-    t[5] = clock_after(x, row + 7);
-  }
-
-#pragma unroll
-  for (int t = 0; t < 32; ++t) {
-    const long long j = first + t;
-    if (j < n_blocks) {
-      const uint4 d = data[j];
-      out[j] = make_uint4(d.x ^ s[t], d.y ^ s[32 + t], d.z ^ s[64 + t], d.w ^ s[96 + t]);
-    }
-  }
-  if constexpr (STAMP) {
-    __threadfence();
-    t[6] = clock_now();
-    if ((threadIdx.x & 31) == 0) {
-      unsigned int sm;
-      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-      for (int i = 0; i < 7; ++i) row[i] = t[i];
-      row[7] = 4ll * sm + (uniform ? 1 : 3);
-    }
-  }
-}
-
-size_t former_smem(int k, bool slots) {
-  return (size_t)k * 4 * 11 * sizeof(uint32_t) + (slots ? 32 * kThreads * sizeof(uint16_t) : 0);
-}
-
-}  // namespace
-
-// The parent's group-form launch at nr 10 (stamped: stamps, one zeroed row
-// of 8 int64 a warp).
-extern "C" int ot_former_ctr_mk(int stamped, const void* data, void* out, const void* ctr,
-                                const void* slots, const void* rks, long long n_blocks, int k,
-                                void* stamps, void* stream) {
-  const long long groups = (n_blocks + 31) / 32;
-  const unsigned int grid = (unsigned int)((groups + kThreads - 1) / kThreads);
-  const size_t smem = former_smem(k, slots != nullptr);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint4* d = static_cast<const uint4*>(data);
-  const uint4* c = static_cast<const uint4*>(ctr);
-  const int32_t* sl = static_cast<const int32_t*>(slots);
-  const uint32_t* rk = static_cast<const uint32_t*>(rks);
-  if (stamped)
-    former_ctr_mk_kernel<10, 1><<<grid, kThreads, smem, st>>>(
-        d, static_cast<uint4*>(out), c, sl, rk, n_blocks, k, static_cast<long long*>(stamps));
-  else
-    former_ctr_mk_kernel<10, 0><<<grid, kThreads, smem, st>>>(
-        d, static_cast<uint4*>(out), c, sl, rk, n_blocks, k, nullptr);
-  return (int)cudaGetLastError();
-}
-
-// shape[0..2]: grid, dynamic shared memory, resident thread blocks an SM.
-extern "C" int ot_former_ctr_mk_shape(int stamped, long long n_blocks, int k, int slots,
-                                      long long* shape) {
-  const size_t smem = former_smem(k, slots != 0);
-  int blocks = 0;
-  const cudaError_t e = stamped
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, former_ctr_mk_kernel<10, 1>,
-                                                      kThreads, smem)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, former_ctr_mk_kernel<10, 0>,
-                                                      kThreads, smem);
-  shape[0] = ((n_blocks + 31) / 32 + kThreads - 1) / kThreads;
-  shape[1] = (long long)smem;
-  shape[2] = blocks;
-  return (int)e;
-}
-"""
-#: ctr_mk.cu built again for phase 9's measurements, once for each code of
-#: CTR_MK_PROBE (OT_CTR_MK_PROBE: its steps one at a time, its stamped
-#: instantiation, each launch's shape), beside the kernels; not in the port's
-#: library.
-CTR_MK_PROBE_SOURCE = '#define OT_CTR_MK_PROBE {code}\n#include "ctr_mk.cu"\n'
-#: The probe builds' codes (ctr_mk.cu kProbeSteps): the kernel, then the
-#: design with one step left out or changed, and the stamped kernel.
-CTR_MK_PROBE = {"kernel": 0, "prologue_only": 1, "no_select": 2, "select_2_slots": 3,
-                "no_prmt": 4, "scalar_slot_loads": 5, "stamped": 6, "k1_consecutive": 7,
-                "k1_pipelined": 8}
-#: The phases of a stamped warp, in the order each kernel runs them (the
-#: differences of its stamps 0..6).
-CTR_MK_PHASES = {"former": ("keys", "slots", "loads", "vote", "rounds", "store"),
-                 "kernel": ("slots", "keys", "loads", "form", "rounds", "store")}
-#: A warp's key form as its stamps record it (ctr_mk.cu KeyForm).
-CTR_MK_KEY_FORMS = ("uniform_masks", "uniform_words", "select_masks", "mixed_words")
 #: Phase 2's ECB block-form sizes (one block a thread): one block, ragged
 #: warps, and a serve rung's worth.
 ECB_BLOCK_SIZES = (1, 2, 31, 33, 4096)
@@ -1542,6 +573,11 @@ CBC_MK_FORMER_US = 4.204
 #: Phase 2's ECB sizes: ragged tails around one group and one thread block,
 #: 16 MiB, and a 256 MiB launch whose last group holds 7 blocks.
 ECB_SIZES = (1, 31, 33, 1000, 1 << 20, (1 << 24) + 7)
+#: Phase 2 holds its largest shapes (2^20 blocks and up, seq_encrypt's 4,096
+#: streams of 4,096 blocks) against the plain versions for this key size
+#: only, and every key size at the smaller shapes: the time goes to the
+#: routing tier's drives (phase 17).
+LARGE_BITS = 128
 SP800_PT = ("6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
             "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
 SP800_IV = "000102030405060708090a0b0c0d0e0f"
@@ -1725,14 +761,13 @@ def sass_mk_per_thread(text: str, nr: int, kernel: str = "ctr_mk_kernel", targs=
     rolled round loop per key form (its largest loops) and small set-up
     loops: four (the mixed word form, the most instructions; of
     the other three the select form reads the most from shared memory, the
-    uniform word form the least, and the uniform mask form is the last),
-    two in the parent's kernel (``kernel`` in CTR_MK_FORMER_SOURCE: the
-    mixed word form reads the more). Per group, a form runs its loop body
+    uniform word form the least, and the uniform mask form is the last).
+    Per group, a form runs its loop body
     nr - 1 times plus straight-line code; the straight-line code holds every
     form's first and last rounds, and the set-up loops are counted once, so
     ``*_group`` is an upper bound for one group of that form.
     ``uniform_group`` and ``mixed_group`` are the forms a uniform and a
-    mixed warp take at K up to the mask cap (the parent: the word forms).
+    mixed warp take at K up to the mask cap.
     ``targs``: the kernel's template arguments, if not (nr,)."""
     ins, back = sass_function(text, kernel, nr if targs is None else targs)
     loops = []
@@ -2098,37 +1133,6 @@ def sass_ghash(text: str) -> dict:
                     "int_pipe": (lp["int"] - fma) / trips, "imad_wide": wide(lp) / trips,
                     "depth": lp["depth"] / trips, "per_loop_trip": trips,
                     "hist": dict(list(lp["hist"].items())[:12])}
-    return out
-
-
-def sass_ghash_former(text: str) -> dict:
-    """The parent's GHASH scan kernels' integer SASS (``GHASH_FORMER_SOURCE``,
-    128 threads a thread block), each as integer instructions and dependency
-    depth:
-    ``row``, one row of ``ghash_rows_kernel`` (a multiply by H: the word
-    loop, four trips, the one inner loop that reads columns from shared
-    memory, and the rest of the row loop around it); ``map_row``, one row
-    of ``ghash_map_kernel`` (two multiplies by H sharing the column reads);
-    ``compose``, the largest inner loop of ``ghash_carry_kernel`` (the
-    general multiply's 32-trip loop, two products at once) times 32."""
-    out = {}
-    for key, kernel in (("row", "ghash_rows_kernel"), ("map_row", "ghash_map_kernel")):
-        ins, back = sass_function(text, kernel, 128)
-        inner = [(lo, hi) for lo, hi in back
-                 if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back)]
-        word = max(inner, key=lambda lp: sum(b == "LDS" for a, b, _t in ins
-                                             if lp[0] <= a <= lp[1]))
-        row = min((lp for lp in back if lp != word and lp[0] <= word[0] and word[1] <= lp[1]),
-                  key=lambda lp: lp[1] - lp[0])
-        ints = lambda lo, hi, skip=(1, 0): sum(  # noqa: E731
-            _is_int_op(b) for a, b, _t in ins if lo <= a <= hi and not skip[0] <= a <= skip[1])
-        rest = [t for t in ins if not word[0] <= t[0] <= word[1]]
-        out[key] = {"int": 4 * ints(*word) + ints(*row, skip=word),
-                    "depth": 4 * sass_dep_depth(ins, *word) + sass_dep_depth(rest, *row),
-                    "word_loop_int": ints(*word), "word_loop_lds": sum(
-                        b == "LDS" for a, b, _t in ins if word[0] <= a <= word[1])}
-    loops = sass_round_loops(text, "ghash_carry_kernel", 128)
-    out["compose"] = {"int": 32 * loops[0]["int"], "depth": 32 * loops[0]["depth"]}
     return out
 
 
@@ -3121,14 +2125,20 @@ SLO_CARD_TOLERANCE = ("p50_ms=1.0,p95_ms=1.0,p99_ms=2.0,goodput_gbps=0.6,stage_p
                       "cost_gbps=0.9")
 #: The alert drill, the JAX package's (``tests/test_pulse.py:429-441``)
 #: through the bench: every dispatch slowed 0.4 s past a 0.2 s watchdog, a
-#: pulse tick every 50 ms over 1 s and 2 s windows, one event enough; open
-#: loop at 20 requests a second, so the drive outlasts the slow window.
+#: pulse tick every 50 ms over 1 s and 2 s windows, one event enough; closed
+#: loop with one request in flight, as the JAX drill submits, so each
+#: request fails in a batch of its own (the burn rate counts failed batches
+#: over requests: about 20 in every window, against the page's 8) and the
+#: drive (about 0.2 s a request) outlasts the slow window. An open loop at
+#: 20 a second coalesced requests behind the failing canaries: 5 failed
+#: batches a second over 20 requests, a burn of 5, which paged only on the
+#: drive's tail and missed it when the tail was short.
 DRILL_ENV = {"OT_FAULTS": "dispatch_slow", "OT_SLOW_S": "0.4", "OT_PULSE_EVERY_S": "0.05",
              "OT_PULSE_FAST_S": "1.0", "OT_PULSE_SLOW_S": "2.0", "OT_PULSE_MIN_EVENTS": "1",
              "OT_METRICS_FLUSH_S": "0.05"}
 DRILL_DRIVE = ["--requests", "60", "--sizes", "64", "--bucket-min", "32", "--bucket-max", "64",
                "--lanes", "1", "--retries", "1", "--dispatch-deadline", "0.2",
-               "--arrival-rate", "20"]
+               "--concurrency", "1"]
 #: Phase 16 (e)'s drive: drive A's mix.
 PULSE_COST_DRIVE = ["--requests", "500", "--mixed-sizes"]
 #: Trace bytes a request (``request-queued``, its keycache counters) and a
@@ -3172,10 +2182,11 @@ def _get_json(port: int, path: str):
 
 class StatusPoller(threading.Thread):
     """Phase 16 (a)'s observer while the drive runs: GETs ``/alertz`` and
-    ``/healthz`` every 20 ms and keeps the last answers, and until the
-    snapshot stream has rotated flushes the metrics registry at the same
-    cadence (the drive lasts about a second; the flusher's own cadence is
-    ``OT_METRICS_FLUSH_S``)."""
+    ``/healthz`` every 20 ms and keeps each one's last answer (a GET that
+    found the endpoint already stopped at the drive's end is no answer and
+    replaces none), and until the snapshot stream has rotated flushes the
+    metrics registry at the same cadence (the drive lasts about a second;
+    the flusher's own cadence is ``OT_METRICS_FLUSH_S``)."""
 
     def __init__(self, port: int, run_dir: str):
         super().__init__(daemon=True, name="phase16-poll")
@@ -3197,7 +2208,9 @@ class StatusPoller(threading.Thread):
                 continue
             self.polls += 1
             self.alertz = (code, doc)
-            self.healthz = _get_json(self.port, "/healthz")
+            health = _get_json(self.port, "/healthz")
+            if health[0] is not None:
+                self.healthz = health
 
     def stop(self):
         self._halt.set()
@@ -3480,6 +2493,139 @@ def observability_phase(card: str, serve_drive, line_a: dict, line_d: dict, fres
     return out
 
 
+#: Phase 17: the routing tier, ``python -m our_tree_tpu_torch.route.bench``
+#: in a child process a drive, each spawning its own port workers (``python
+#: -m our_tree_tpu_torch.serve.worker --device cuda``) on this card. (a) The
+#: acceptance drive (docs/SERVING.md, the routing tier's cookbook) at its
+#: published size with the affinity A/B; (b) the backend-kill drive
+#: (ROUTE_r01's flags, without its ``--slo`` baseline, which is the JAX
+#: package's on another device); (c) the AEAD modes through the router
+#: (ROUTE_r03's configuration); (d) the elasticity drive (ROUTE_r04's flags,
+#: without ``--max-wire-p50-us 973``: the measured wire p50 is printed in
+#: its place). (d)'s timeline is moved for the card, every gate kept: a port
+#: worker comes ready in 9-12 s, and the autoscaler's one growth (decided by
+#: the static triad, anywhere in the drive's first 13 s on the card) joins
+#: 9-12 s after its decision, so the pool_stale fault is armed at +30 s
+#: (not +6), after the join, and the drive is 8,000 requests at 150 a
+#: second (not 4,000) so that traffic still flows then; the roll starts at
+#: +34 s (not +28) and the settle window is 60 s (not 45). The router kill
+#: stays at +14 s. Each drive: (argv, environment, time limit in seconds).
+ROUTE_DRIVES = {
+    "a": (["--backends", "3", "--requests", "1500", "--arrival-rate", "250", "--mixed-sizes",
+           "--tenants", "12", "--ab"], {}, 240),
+    "b": (["--backends", "3", "--requests", "1500", "--arrival-rate", "250", "--mixed-sizes",
+           "--attempt-timeout", "1.5", "--gossip-every", "0.25", "--require-zero-errors",
+           "--expect-quarantines", "1", "--expect-releases", "1", "--min-redispatch", "1"],
+          {"OT_FAULTS": "backend_hang:1@backend=1"}, 180),
+    "c": (["--backends", "3", "--requests", "600", "--modes", "ctr,gcm,gcm-open", "--sizes",
+           "16,64,256,1024,4096,16384", "--attempt-timeout", "1.5", "--gossip-every", "0.25"],
+          {}, 180),
+    "d": (["--autoscale", "--backends", "1", "--fleet-max", "2", "--fleet-policy", "headroom",
+           "--requests", "8000", "--arrival-rate", "150", "--sizes", "1024,4096,16384",
+           "--worker-queue-depth", "8", "--deadline", "60", "--up-depth", "0.5",
+           "--down-depth", "0.0", "--settle-ticks", "3", "--down-settle-ticks", "100",
+           "--cooldown", "3.0", "--poll-every", "0.2", "--roll-after", "34", "--routers", "1",
+           "--kill-router-after", "14", "--drive-faults", "pool_stale:1@backend=0",
+           "--drive-faults-after", "30", "--settle-timeout", "60", "--require-zero-errors",
+           "--min-scale-ups", "1", "--min-scale-downs", "1", "--expect-rolls", "1",
+           "--min-client-failovers", "1", "--min-redispatch", "1"], {}, 300),
+}
+#: The serve kernels a worker of each drive's modes may launch, by the engine
+#: calls (mode) each launch stands for; any other kernel launched fails.
+ROUTE_KERNEL_CALLS = {"ctr_mk": ("ctr", "gcm", "gcm-open"), "ghash_at": ("gcm", "gcm-open")}
+
+
+def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
+    """Phase 17: each drive of ``ROUTE_DRIVES`` through the routing tier in a
+    child process, its artifact written to a temporary file and read back.
+    Gates, every drive: rc 0 (the bench's own gates: zero lost at the router
+    and in every worker's EXIT line, bit-exact probes, zero builds after
+    warmup across the fleet, and each drive's fault and elasticity gates);
+    no request error; every worker, both arms of the A/B included, drained
+    with rc 0 and lost 0; in each worker ``ctr_mk`` launches equal to its
+    ``ctr``, ``gcm`` and ``gcm-open`` engine calls, ``ghash_at`` calls equal
+    to its ``gcm`` and ``gcm-open`` ones, and no other kernel (on the CPU:
+    no launch at all); the router's process made no CUDA context. (a) must
+    show affinity's keycache hit ratio above random routing's; (c) every
+    mode's probes verified; (d) no alert fired. Returns each drive's line,
+    its workers' launches and the phase's wall."""
+    t_phase = time.perf_counter()
+    drives = ROUTE_DRIVES if drives is None else drives
+    scratch = tempfile.mkdtemp(prefix="ot_route_")
+    out = {"drives": {}}
+    try:
+        for name, (argv, env, limit) in drives.items():
+            art = os.path.join(scratch, f"{name}.json")
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "our_tree_tpu_torch.route.bench", *argv, "--device",
+                 device, "--artifact", art], cwd=ROOT, capture_output=True, text=True,
+                timeout=limit, env={**os.environ, **env})
+            wall = time.perf_counter() - t0
+            try:
+                line = json.loads(res.stdout.strip().splitlines()[-1])
+                doc = json.load(open(art, encoding="utf-8"))
+            except (IndexError, ValueError, OSError) as e:
+                raise SystemExit(f"phase 17 ({name}): no line or artifact ({e}); rc "
+                                 f"{res.returncode}; stderr {res.stderr[-3000:]!r}")
+            workers = list(doc["workers"]) + list((doc.get("control") or {}).get("workers") or [])
+            bad_launch = []
+            launches = {}
+            for w in workers:
+                calls = w.get("diag_engine_calls") or {}
+                got = w.get("diag_launches") or {}
+                for kname, n in got.items():
+                    launches[kname] = launches.get(kname, 0) + n
+                # On the card each serve kernel once an engine call of its
+                # modes and no other kernel; on the CPU no launch at all.
+                want = {k: sum(calls.get(m, 0) for m in ROUTE_KERNEL_CALLS.get(k, ()))
+                        if device == "cuda" else 0 for k in got}
+                if not got or got != want:
+                    bad_launch.append((w.get("name"), calls, got))
+            checks = {
+                "rc 0": res.returncode == 0,
+                "0 lost": line.get("lost") == 0,
+                "0 request errors": not line.get("errors"),
+                "probes bit-exact": line.get("mismatches") == 0
+                and doc["load"].get("verified", 0) > 0,
+                "0 builds after warmup": line.get("recompiles") == 0,
+                "every worker drained, rc 0, lost 0": bool(workers) and all(
+                    w.get("rc") == 0 and w.get("lost") == 0 for w in workers),
+                "launches = engine calls, no other kernel": not bad_launch,
+                "router made no CUDA context": line.get("router_cuda_initialized") in (False, None),
+            }
+            if name == "a":
+                checks["affinity's keycache hit ratio above random's"] = (
+                    line["keycache_hit_ratio"] > line.get("keycache_hit_ratio_random", 1.0))
+            if name == "c":
+                modes = doc["load"].get("modes") or {}
+                checks["every mode's probes verified"] = all(
+                    (modes.get(m) or {}).get("verified", 0) > 0 for m in ("ctr", "gcm", "gcm-open"))
+                log(f"route c: verified probes by mode (each gcm probe's ciphertext and tag "
+                    f"against the host GCM) " + ", ".join(
+                        f"{m} {v.get('verified')}/{v.get('requests')}" for m, v in modes.items()))
+            if name == "d":
+                checks["no alert fired"] = not (doc.get("alerts") or {}).get("total")
+            tail = [ln for ln in res.stdout.splitlines() if ln.startswith("#")]
+            for ln in tail:
+                log(f"route {name}: {ln}")
+            log(f"route {name} ({' '.join(argv)}{' ' + str(env) if env else ''}): rc "
+                f"{res.returncode}, {wall:.1f} s wall; p50 {line.get('p50_ms')} ms, p99 "
+                f"{line.get('p99_ms')} ms, goodput {line.get('goodput_gbps')} GB/s; router "
+                f"stages p50 {line.get('stage_p50_us') or {'wire': line.get('wire_p50_us')}} us; "
+                f"workers' launches {launches}; checks {checks}; card: {card}")
+            if not all(checks.values()):
+                raise SystemExit(f"phase 17 ({name}): {checks}; bad launches {bad_launch}; stderr "
+                                 f"{res.stderr[-3000:]!r}")
+            out["drives"][name] = {"line": line, "launches": launches, "wall_s": wall,
+                                   "workers": len(workers)}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 (routing tier): {out['wall_s']:.1f} s wall; card: {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3531,22 +2677,25 @@ def main() -> int:
         ran, per wrapper."""
         return {name: dict(fn.form_launches) for name, fn in mk_wrappers.items()}
 
+    # Each phase's wall time, printed on one line before the kernels line.
+    walls: dict = {}
+    mark = {"name": "start-up", "t": T_START}
+
+    def phase(name: str | None) -> None:
+        now = time.perf_counter()
+        walls[mark["name"]] = round(now - mark["t"], 1)
+        mark.update(name=name, t=now)
+
     # 1. Build.
+    phase("1")
     t0 = time.perf_counter()
     lib_path = str(cuda_build.library_path())
-    # Phase 9's and 11's probes (the shared-memory chase, the empty kernel,
-    # the design variants, the parent's GHASH kernel and the GHASH kernel's
-    # per-launch entries and variants, the parent's ctr_mk group form and
-    # ctr_mk's probe build) build beside the kernels, at once, one nvcc each.
+    # Phase 9's probes (the shared-memory chase and the empty kernel) build
+    # beside the kernels, at once, one nvcc each.
     probe_dir = tempfile.mkdtemp(prefix="ot_probes_")
     atexit.register(shutil.rmtree, probe_dir, True)
     probe_builds = {}
-    for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE),
-                         ("variants", VARIANTS_SOURCE), ("ghash_former", GHASH_FORMER_SOURCE),
-                         ("ghash_variants", GHASH_VARIANTS_SOURCE),
-                         ("ctr_mk_former", CTR_MK_FORMER_SOURCE),
-                         *((f"ctr_mk_probe_{c}", CTR_MK_PROBE_SOURCE.format(code=c))
-                           for c in CTR_MK_PROBE.values())):
+    for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE)):
         cu, so = os.path.join(probe_dir, f"{name}.cu"), os.path.join(probe_dir, f"{name}.so")
         with open(cu, "w", encoding="utf-8") as fh:
             fh.write(source)
@@ -3555,22 +2704,13 @@ def main() -> int:
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{cuda_build.CSRC}",
              "-o", so, cu], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     cuda_build.load()
-    probe_ptxas = {}
     for name, (so, proc) in probe_builds.items():
         _, err = proc.communicate(timeout=600)
         if proc.returncode:
             raise SystemExit(f"the {name} probe did not build:\n{err[-3000:]}")
-        probe_ptxas[name] = cuda_build.ptxas_kernels(err)
-    chase_so, empty_so, variants_so, former_so, ghash_var_so, mk_former_so = (
-        probe_builds[k][0] for k in ("chase", "empty", "variants", "ghash_former",
-                                     "ghash_variants", "ctr_mk_former"))
-    mk_probe_sos = {c: probe_builds[f"ctr_mk_probe_{c}"][0] for c in CTR_MK_PROBE.values()}
+    chase_so, empty_so = (probe_builds[k][0] for k in ("chase", "empty"))
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
-        f"shared-memory chase, the empty kernel, the design variants, the parent's GHASH kernel, "
-        f"the GHASH kernel's per-launch entries, the parent's ctr_mk group form and ctr_mk's "
-        f"probe build)")
-    for name in ("ctr_mk_former", *(f"ctr_mk_probe_{c}" for c in CTR_MK_PROBE.values())):
-        log(f"ptxas ({name} probe): {probe_ptxas[name]}")
+        f"shared-memory chase and the empty kernel)")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
@@ -3648,6 +2788,7 @@ def main() -> int:
         nr, rk = expand_key_enc(key)
         return nr, packing.words_tensor(rk, dev), packing.words_tensor(expand_key_dec(key)[1], dev)
 
+    phase("2")
     # 2. Kernels vs plain versions on the card.
     mismatches = 0
     cases = block_cases = 0
@@ -3655,8 +2796,8 @@ def main() -> int:
         key = np.random.default_rng(bits).integers(0, 256, bits // 8, dtype=np.uint8).tobytes()
         for hexnonce in WRAP_NONCES:
             for n in (1, 31, 33, 1000, 1 << 20):
-                if n == 1 << 20 and hexnonce != WRAP_NONCES[1]:
-                    continue  # 16 MiB once per key size, across a 64-bit carry
+                if n == 1 << 20 and (hexnonce != WRAP_NONCES[1] or bits != LARGE_BITS):
+                    continue  # 16 MiB once, across a 64-bit carry
                 by_form = compare(*tensors(n, key, hexnonce, seed=n + bits))
                 mismatches += sum(by_form.values())
                 cases += 1
@@ -3674,7 +2815,7 @@ def main() -> int:
                 if any(by_form.values()):
                     log(f"MISMATCH ctr_gen bits={bits} nonce={hexnonce} n={n}: {by_form} words")
     log(f"ctr_gen vs plain: {cases} cases in each form (auto, group forced, block forced) at N in "
-        f"(1, 31, 33, 1000, 2^20), {block_cases} more (the block form at N in {CTR_BLOCK_SIZES}, "
+        f"(1, 31, 33, 1000; 2^20 with AES-{LARGE_BITS} only), {block_cases} more (the block form at N in {CTR_BLOCK_SIZES}, "
         f"the auto form at {top} and {top + 1} blocks, either side of the crossing), every "
         f"counter wrap: {mismatches} mismatching words")
     if mismatches:
@@ -3685,6 +2826,8 @@ def main() -> int:
         nr, rk, rk_dec = schedules(np.random.default_rng(bits).integers(
             0, 256, bits // 8, dtype=np.uint8).tobytes())
         for n in ECB_SIZES:
+            if n >= 1 << 20 and bits != LARGE_BITS:
+                continue
             w = random_words(n, seed=3 * n + bits)
             want = bitslice.encrypt_words(w, rk, nr)
             for form in cuda_aes.ECB_FORMS:
@@ -3707,7 +2850,8 @@ def main() -> int:
             ecb_form_mismatches["block"] += m
             if m:
                 log(f"MISMATCH ecb_encrypt block form bits={bits} n={n}: {m} words")
-    log(f"ECB kernels vs plain: {3 * len(ECB_SIZES)} cases each (nr 10/12/14, N in {ECB_SIZES}), "
+    log(f"ECB kernels vs plain: {len(ECB_SIZES) + 2 * sum(n < 1 << 20 for n in ECB_SIZES)} cases "
+        f"each (nr 10/12/14, N in {ECB_SIZES}, from 2^20 up with AES-{LARGE_BITS} only), "
         f"encrypt in each form (auto, group forced, block forced), and the block form at N in "
         f"{ECB_BLOCK_SIZES}: mismatching words {ecb_mismatches}, encrypt by form "
         f"{ecb_form_mismatches}")
@@ -3742,6 +2886,8 @@ def main() -> int:
             zero_rks = rks.clone()
             zero_rks[(k + 1) // 2:] = 0
             for n in (1, 31, 33, 1000, 4096, 1 << 20):
+                if n == 1 << 20 and bits != LARGE_BITS:
+                    continue
                 rng = np.random.default_rng(n * k + bits)
                 patterns = {
                     "one slot": (rks, torch.full((n,), k - 1, dtype=torch.int32, device=dev)),
@@ -3769,7 +2915,7 @@ def main() -> int:
             0, 256, bits // 8, dtype=np.uint8).tobytes())
         for hexnonce in WRAP_NONCES:
             for n in (1, 33, 1000, 1 << 20):
-                if n == 1 << 20 and hexnonce != WRAP_NONCES[1]:
+                if n == 1 << 20 and (hexnonce != WRAP_NONCES[1] or bits != LARGE_BITS):
                     continue
                 ctr = packing.words_tensor(packing.np_ctr_le_blocks(
                     bytes.fromhex(hexnonce), np.arange(n)), dev)
@@ -3783,7 +2929,8 @@ def main() -> int:
                         log(f"MISMATCH ctr_mk K=1 entry, {form} form, bits={bits} "
                             f"nonce={hexnonce} n={n}: {m} words")
                 k1_cases += 1
-    log(f"ctr_mk vs plain: {mk_cases} cases, {mk_mismatch} mismatching words; its K = 1 entry "
+    log(f"ctr_mk vs plain: {mk_cases} cases (2^20 blocks with AES-{LARGE_BITS} only), "
+        f"{mk_mismatch} mismatching words; its K = 1 entry "
         f"(ctr_crypt_words_explicit): {k1_cases} cases, {k1_mismatch} mismatching words; every "
         f"case in each form (auto, group forced, block forced), mismatching words by form "
         f"{mk_form_mismatch}; launches by form {form_counts()}")
@@ -3825,6 +2972,8 @@ def main() -> int:
     for bits in (128, 192, 256):
         for k in (1, 3, 8, 64):
             for n in (1, 31, 33, 1000, 4096, 1 << 20):
+                if n == 1 << 20 and bits != LARGE_BITS:
+                    continue
                 c, m = cbc_check("", bits, k, n, seed=bits + 100 * k + n)
                 cbc_cases, cbc_bad = cbc_cases + c, cbc_bad + m
     rung_cases = rung_bad = 0
@@ -3833,7 +2982,7 @@ def main() -> int:
         c, m = cbc_check("rung", 128, 8, rung, seed=7 * rung)
         rung_cases, rung_bad = rung_cases + c, rung_bad + m
     log(f"cbc_mk vs plain: {cbc_cases} cases (nr 10/12/14, K in 1, 3, 8, 64, N in 1, 31, 33, "
-        f"1000, 4096, 2^20; one slot, runs 1-300, random per block; the upper half of each stack "
+        f"1000, 4096, and 2^20 with AES-{LARGE_BITS} only; one slot, runs 1-300, random per block; the upper half of each stack "
         f"unused and zero), {cbc_bad} mismatching words; at the serve ladder's rungs "
         f"{serve_rungs} with K = 8: {rung_cases} cases, {rung_bad} mismatching words")
     if cbc_bad or rung_bad:
@@ -3857,6 +3006,8 @@ def main() -> int:
             0, 256, bits // 8, dtype=np.uint8).tobytes())
         for cfb in (False, True):
             for s_n, n in ((s_n, n) for s_n in (1, 3, SEQ_BLOCKS) for n in (1, 2, 33, SEQ_BLOCKS)):
+                if s_n == n == SEQ_BLOCKS and bits != LARGE_BITS:
+                    continue
                 w = random_words(s_n * n, seed=s_n + 13 * n + bits).reshape(s_n, n, 4)
                 ivs = random_words(s_n, seed=s_n + bits + cfb)
                 out, iv_out = cuda_aes.seq_encrypt(w, ivs, rk, nr, cfb)
@@ -3872,7 +3023,8 @@ def main() -> int:
                         f"N={n}: {m} words")
                 del w, out
     log(f"seq_encrypt vs plain: {seq_cases} cases (nr 10/12/14, CBC and CFB128, S in 1, 3, "
-        f"{SEQ_BLOCKS}, N in 1, 2, 33, {SEQ_BLOCKS}), {seq_mismatch} mismatching words")
+        f"{SEQ_BLOCKS}, N in 1, 2, 33, {SEQ_BLOCKS}; S = N = {SEQ_BLOCKS} with AES-{LARGE_BITS} "
+        f"only), {seq_mismatch} mismatching words")
     if seq_mismatch:
         raise SystemExit("seq_encrypt disagrees with its plain version")
     chain_words = ceiling.words(PROBE_BYTES)
@@ -3953,6 +3105,7 @@ def main() -> int:
     if arc4_bad:
         raise SystemExit("arc4_prga disagrees with its plain version")
 
+    phase("3")
     # 3. KATs and chunked resume through the AES context on the card.
     kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
     ctr0 = np.frombuffer(bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff"), np.uint8)
@@ -4071,6 +3224,7 @@ def main() -> int:
     log("NIST SP800-38A F.2.2, F.2.4, F.2.6 (CBC-AES128/192/256 decrypt) in slot 3 of 8 "
         "(cbc_decrypt_words_scattered_multikey, CUDA engine, one cbc_mk launch each): pass")
 
+    phase("4")
     # 4. The CTR main path, counted.
     reset_counts()
     line = bench.run(device=dev, nbytes=MAIN_BYTES, iters=5, reps=3)
@@ -4089,6 +3243,7 @@ def main() -> int:
         f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}, ctr_gen by form "
         f"{ctr_forms}; card: {card}")
 
+    phase("5")
     # 5. The block-mode path at 256 MiB, counted.
     nr, rk, rk_dec = schedules(bench.KEY)
     host = np.random.default_rng(bench.SEED).integers(0, 256, MAIN_BYTES, dtype=np.uint8)
@@ -4190,6 +3345,7 @@ def main() -> int:
     if not all(checks.values()):
         raise SystemExit(f"block-mode path check failed: {checks}")
 
+    phase("6")
     # 6. The hex CLI on the card: F.1.2, ECB-AES128 decrypt.
     key_hex, ecb_hex, _ = SP800_ECB_CBC[128]
     res = subprocess.run([sys.executable, "-m", "our_tree_tpu_torch.harness.decrypt", key_hex,
@@ -4199,6 +3355,7 @@ def main() -> int:
                          f"err {res.stderr[-2000:]!r}")
     log(f"CLI on the card: decrypt F.1.2 block 1 -> {res.stdout.strip()}: pass")
 
+    phase("7")
     # 7. The ceiling probe: its entry point counted in this process, the CLI
     # in its own, then each regime's kernel alone with the clock sampled.
     reset_counts()
@@ -4302,6 +3459,7 @@ def main() -> int:
         ops_ms, bytes_ms = ops / int_per_s * 1e3, nbytes / stream_bytes_per_s * 1e3
         return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
+    phase("8")
     # 8. The serve path: the JAX package's two documented drives, counted.
     from our_tree_tpu_torch.serve import bench as serve_bench
 
@@ -4506,6 +3664,7 @@ def main() -> int:
         f"{line_auth['errors']}, lost {line_auth['lost']}, auth_failed "
         f"{line_auth['per_mode']['auth_failed']}, launches {counts_auth}; card: {card}")
 
+    phase("9")
     # 9. Each kernel at its path's shape: time, plain time, both bounds.
     kernels = []
 
@@ -4660,15 +3819,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return issue
 
-    # The design variants (VARIANTS_SOURCE), timed in turns with the kernels.
-    variants = ctypes.CDLL(variants_so)
-    vp = ctypes.c_void_p
-    variants.ot_cbc_variant.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                        ctypes.c_int, vp]
-    variants.ot_cbc_variant.restype = ctypes.c_int
-    variants.ot_ecb_variant.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong, vp]
-    variants.ot_ecb_variant.restype = ctypes.c_int
-
     def in_turns(fns, turns=VARIANT_TURNS, reps=100):
         """Each of ``fns`` (the first is the kernel) timed by ``graph_ms``
         (``reps`` calls a graph) in ``turns`` turns, the order reversed every
@@ -4774,28 +3924,6 @@ def main() -> int:
     m, _ = diff(cuda_aes.encrypt_words(one, rk, nr, form="block"), bitslice.encrypt_words(one, rk, nr))
     if m:
         raise SystemExit(f"ecb_encrypt block form vs plain at one block: {m} mismatching words")
-    ecb_variants = {}
-    for n_v in (1, 32):
-        w_v = words[:n_v]
-        want_v = bitslice.encrypt_words(w_v, rk, nr)
-        fns = {"kernel": lambda w_v=w_v: cuda_aes.encrypt_words(w_v, rk, nr, form="block")}
-        for name, code in ECB_VARIANTS.items():
-
-            def fn(code=code, w_v=w_v, n_v=n_v):
-                o = torch.empty_like(w_v)  # a new output a call, as the wrapper's
-                if variants.ot_ecb_variant(code, w_v.data_ptr(), o.data_ptr(), rk.data_ptr(),
-                                           ctypes.c_longlong(n_v),
-                                           torch.cuda.current_stream().cuda_stream):
-                    raise SystemExit(f"the ECB variant {code} did not launch")
-                return o
-            fns[name] = fn
-        bad = {name: diff(fns[name](), want_v)[0] for name in ECB_VARIANTS}
-        if any(bad.values()):
-            raise SystemExit(f"an ECB block-form design variant disagrees with plain: {bad}")
-        ecb_variants[n_v] = in_turns(fns)
-        log(f"ecb_encrypt block-form design variants at {n_v} blocks, in {VARIANT_TURNS} turns "
-            f"(CUDA graph): {turns_line(ecb_variants[n_v])}; card: {card}")
-    ecb_entry["block_form"]["design_variants_ms_graph"] = ecb_variants
     # ctr_gen's one-block tail launch: a crypt_ctr call that ends mid-block
     # makes its last keystream block with one ctr_gen launch over one block
     # (models/aes.py AES.crypt_ctr), in the auto form (the block form) and
@@ -4977,199 +4105,54 @@ def main() -> int:
         "sass_int_per_block": {"cbc": seq_int[0], "cfb128": seq_int[1]},
         "single_stream": single})
 
-    # ctr_mk's group form, redesigned, against the parent's
-    # (CTR_MK_FORMER_SOURCE) and its own steps one at a time (ctr_mk.cu's
-    # probe build), at three shapes: (S) the seal's launch, 2^24 + 1 blocks,
-    # K = 1, an all-zero slot vector; (E) the K = 1 entry, 2^24 blocks, no
-    # slot vector; (M) 256 MiB, K = 8 in runs of 1-300. Each kernel alone:
-    # equal to the plain version, its card time in 12 alternating turns (CUDA
-    # graphs), the launch floor at its grid and shared memory, registers and
-    # spills, resident thread blocks an SM, and its stamped phases per warp;
-    # the SASS of each key form and of the prologue.
-    vp_, ll_, ci_ = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    mk_former = ctypes.CDLL(mk_former_so)
-    mk_former.ot_former_ctr_mk.argtypes = [ci_, vp_, vp_, vp_, vp_, vp_, ll_, ci_, vp_, vp_]
-    mk_former.ot_former_ctr_mk.restype = ci_
-    mk_former.ot_former_ctr_mk_shape.argtypes = [ci_, ll_, ci_, ci_, ctypes.POINTER(ll_)]
-    mk_former.ot_former_ctr_mk_shape.restype = ci_
-    mk_probes = {}
-    for code, so in mk_probe_sos.items():
-        lib_c = mk_probes[code] = ctypes.CDLL(so)
-        lib_c.ot_ctr_mk_probe.argtypes = [vp_, vp_, vp_, vp_, vp_, ll_, ci_, vp_, vp_]
-        lib_c.ot_ctr_mk_probe.restype = ci_
-        lib_c.ot_ctr_mk_probe_shape.argtypes = [ll_, ci_, ci_, ctypes.POINTER(ll_)]
-        lib_c.ot_ctr_mk_probe_shape.restype = ci_
-    mk_empty = ctypes.CDLL(empty_so)
-    mk_empty.ot_empty.argtypes = [ci_, ci_, ci_, vp_]
-    mk_empty.ot_empty.restype = ci_
-
-    class MkCall:
-        """One group-form launch's inputs at nr 10 (``sl`` None: the K = 1
-        entry), with each way of running it as a function of no arguments:
-        the wrapper (the port's kernel), the parent's kernel, a probe code."""
-
-        def __init__(self, w, c, rks_, sl):
-            self.w, self.c, self.rks, self.sl = w, c, rks_, sl
-            self.n, self.k = w.shape[0], rks_.shape[0]
-            self.out = torch.empty_like(w)
-            grid = -(-(-(-self.n // 32)) // 128)
-            self.stamps = torch.zeros((4 * grid, 8), dtype=torch.int64, device=dev)
-            self.ptrs = [None if t is None else t.data_ptr() for t in (w, self.out, c, sl, rks_)]
-
-        def kernel(self):
-            if self.sl is None:
-                return cuda_aes.ctr_crypt_words_explicit(self.w, self.c, self.rks[0], 10,
-                                                         form="group")
-            return cuda_aes.ctr_scattered_multikey(self.w, self.c, self.rks, self.sl, 10,
-                                                   form="group")
-
-        def former(self, stamped=0):
-            if mk_former.ot_former_ctr_mk(stamped, *self.ptrs, self.n, self.k,
-                                          self.stamps.data_ptr() if stamped else None,
-                                          torch.cuda.current_stream().cuda_stream):
-                raise SystemExit("the parent's ctr_mk did not launch")
-            return self.out
-
-        def probe(self, code):
-            stamped = code == CTR_MK_PROBE["stamped"]
-            if mk_probes[code].ot_ctr_mk_probe(*self.ptrs, self.n, self.k,
-                                               self.stamps.data_ptr() if stamped else None,
-                                               torch.cuda.current_stream().cuda_stream):
-                raise SystemExit(f"ctr_mk probe code {code} did not launch")
-            return self.out
-
-        def shape(self, which):
-            """(grid, dynamic shared memory, resident thread blocks an SM) of
-            the parent's kernel ("former") or probe code ``which``."""
-            out = (ll_ * 3)()
-            rc = (mk_former.ot_former_ctr_mk_shape(0, self.n, self.k, self.sl is not None, out)
-                  if which == "former" else
-                  mk_probes[which].ot_ctr_mk_probe_shape(self.n, self.k, self.sl is not None,
-                                                         out))
-            if rc:
-                raise SystemExit(f"the occupancy query of ctr_mk {which} failed: {rc}")
-            return tuple(out)
-
-    def stamped_phases(call, fn, names, mhz):
-        """Each phase's SM cycles per warp over 5 warm launches of the
-        stamped ``fn`` (median and largest across warps, µs at ``mhz``), each
-        median's share of their sum, and the warps by key form."""
-        runs = []
-        for i in range(6):
-            call.stamps.zero_()
-            fn()
-            torch.cuda.synchronize()
-            if i:
-                a = call.stamps.cpu().numpy()
-                runs.append(a[a[:, 0] != 0])
-        a = np.concatenate(runs)
-        d = np.diff(a[:, :7], axis=1)
-        med = {nm: float(np.median(d[:, i])) for i, nm in enumerate(names)}
-        total = sum(med.values())
-        return {"phases": {nm: {"median_us": med[nm] / mhz, "max_us": float(d[:, i].max()) / mhz,
-                                "median_cycles": med[nm], "share_of_sum": med[nm] / total}
-                           for i, nm in enumerate(names)},
-                "entry_to_store_median_us": float(np.median(a[:, 6] - a[:, 0])) / mhz,
-                "warps": int(a.shape[0] // len(runs)),
-                "warps_by_key_form": {f: int((a[:, 7] % 4 == i).sum()) // len(runs)
-                                      for i, f in enumerate(CTR_MK_KEY_FORMS)}}
-
+    # ctr_mk's group form at three shapes: (S) the seal's launch, 2^24 + 1
+    # blocks, K = 1, an all-zero slot vector; (E) the K = 1 entry, 2^24
+    # blocks, no slot vector; (M) 256 MiB, K = 8 in runs of 1-300. The
+    # kernel alone: equal to the plain version, its card time (the median of
+    # 5 CUDA graphs), back to back at the sampled clock, against its bound.
+    # Its redesign's comparisons with the parent's kernel and its own steps
+    # one at a time (PR 14) are findings in PERF.md and are not rerun.
     def ctr_mk_study(w_m, c_m, s_m, rk1s):
         n_s = (1 << 24) + 1
         w_s, c_s = random_words(n_s, seed=61), random_words(n_s, seed=62)
-        calls = {"S": MkCall(w_s, c_s, rk1s, torch.zeros(n_s, dtype=torch.int32, device=dev)),
-                 "E": MkCall(w_m, c_m, rk1s, None), "M": MkCall(w_m, c_m, rks8, s_m)}
+        shapes = {"S": (w_s, c_s, rk1s, torch.zeros(n_s, dtype=torch.int32, device=dev)),
+                  "E": (w_m, c_m, rk1s, None), "M": (w_m, c_m, rks8, s_m)}
         labels = {"S": "the seal's launch, 2^24 + 1 blocks, K = 1, all-zero slots",
                   "E": "the K = 1 entry, 2^24 blocks, no slot vector",
                   "M": "256 MiB, K = 8, runs of 1-300"}
-        former_text = sass(mk_former_so)
-        sass_k = {"kernel": mk, "former": sass_mk_per_thread(former_text, 10,
-                                                              "former_ctr_mk_kernel", (10, 0))}
-        regs = {"kernel": ptxas.get("ctr_mk_kernel<10>", {}),
-                "former": probe_ptxas["ctr_mk_former"].get("former_ctr_mk_kernel<10,0>", {})}
-        log(f"ctr_mk group form SASS at nr 10, the kernel: {sass_k['kernel']}; the parent's: "
-            f"{sass_k['former']}; ptxas kernel {regs['kernel']}, parent {regs['former']}, probe "
-            f"builds " + "; ".join(f"{name} {probe_ptxas[f'ctr_mk_probe_{c}']}"
-                                   for name, c in CTR_MK_PROBE.items()))
         bad, out = 0, {}
-        for key, call in calls.items():
-            want = (cuda_aes.ctr_crypt_words_explicit_plain(call.w, call.c, call.rks[0], 10)
-                    if call.sl is None else
-                    cuda_aes.ctr_scattered_multikey_plain(call.w, call.c, call.rks, call.sl, 10))
-            m, err = diff(call.kernel(), want)
-            got = {"kernel": m, "former": diff(call.former(), want)[0],
-                   "former_stamped": diff(call.former(1), want)[0]}
-            for name, code in CTR_MK_PROBE.items():
-                got[f"probe_{name}"] = diff(call.probe(code), want)[0]
-            bad += sum(got.values())
-            if any(got.values()):
-                log(f"MISMATCH ctr_mk group form at ({key}) {labels[key]}: {got}")
+        for key, (w_k, c_k, rks_k, sl) in shapes.items():
+            if sl is None:
+                def kernel(w_k=w_k, c_k=c_k, rks_k=rks_k):
+                    return cuda_aes.ctr_crypt_words_explicit(w_k, c_k, rks_k[0], 10, form="group")
+                want = cuda_aes.ctr_crypt_words_explicit_plain(w_k, c_k, rks_k[0], 10)
+            else:
+                def kernel(w_k=w_k, c_k=c_k, rks_k=rks_k, sl=sl):
+                    return cuda_aes.ctr_scattered_multikey(w_k, c_k, rks_k, sl, 10, form="group")
+                want = cuda_aes.ctr_scattered_multikey_plain(w_k, c_k, rks_k, sl, 10)
+            m, err = diff(kernel(), want)
+            bad += m
+            if m:
+                log(f"MISMATCH ctr_mk group form at ({key}) {labels[key]}: {m} words")
             del want
-            fns = {"kernel": call.kernel, "former": call.former}
-            variants = (("prologue_only", "no_prmt", "k1_consecutive", "k1_pipelined")
-                        if key != "M" else
-                        ("prologue_only", "no_select", "select_2_slots", "no_prmt",
-                         "scalar_slot_loads"))
-            for name in variants:
-                fns[name] = lambda code=CTR_MK_PROBE[name], call=call: call.probe(code)
-            turns = in_turns(fns, reps=5)
-            ms, clocks = sampled_ms(call.kernel)
-            mhz = clocks["clock_mhz"]
-            groups = -(-call.n // 32)
-            nbytes = 48 * call.n + (4 * call.n if call.sl is not None else 0) + 4 * call.k * 44
-            bound, bound_by = measured_bound(groups * mk_ops, nbytes)
-            row = {"shape": labels[key], "n_blocks": call.n, "k": call.k, "ms": ms,
-                   "sampled_clock_mhz": mhz, "card_ms_graph": turns["kernel"]["median_ms"],
-                   "former_card_ms_graph": turns["former"]["median_ms"],
-                   "bound_ms_measured": bound, "bound_by_measured": bound_by,
-                   "share_of_bound": bound / turns["kernel"]["median_ms"],
-                   "former_share_of_bound": bound / turns["former"]["median_ms"],
-                   "kernel_faster_turns": turns["former"]["kernel_faster_turns"],
-                   "turns": turns, "mismatching_words": got, "max_abs_err": err}
-            for which, code, stamped, names in (
-                    ("former", "former", lambda call=call: call.former(1), CTR_MK_PHASES["former"]),
-                    ("kernel", CTR_MK_PROBE["kernel"],
-                     lambda call=call: call.probe(CTR_MK_PROBE["stamped"]),
-                     CTR_MK_PHASES["kernel"])):
-                grid, smem, resident = call.shape(code)
-
-                def floor_fn(grid=grid, smem=smem):
-                    if mk_empty.ot_empty(grid, 128, smem, torch.cuda.current_stream().cuda_stream):
-                        raise SystemExit("the empty kernel did not launch")
-                row[which] = {"grid": grid, "smem_bytes": smem, "resident_blocks_per_sm": resident,
-                              "registers": regs[which].get("registers"),
-                              "spill_bytes": regs[which].get("spill_stores", 0)
-                              + regs[which].get("spill_loads", 0),
-                              "floor_ms_graph": graph_ms(floor_fn, 20),
-                              "stamped": stamped_phases(call, stamped, names, mhz)}
-                st = row[which]["stamped"]
-                log(f"ctr_mk group form at ({key}) {labels[key]}, {which}: "
-                    f"{turns[which]['median_ms']:.4f} ms card (graph median), launch floor "
-                    f"{row[which]['floor_ms_graph'] * 1e3:.3f} us at grid {grid}, {smem} B shared, "
-                    f"{resident} resident blocks an SM, {row[which]['registers']} registers, "
-                    f"{row[which]['spill_bytes']} B spills; stamped phases per warp "
-                    f"({st['warps']} warps, {mhz:.0f} MHz; median / largest, share of the "
-                    f"medians' sum): " + "; ".join(
-                        f"{nm} {v['median_us']:.3f} / {v['max_us']:.3f} us "
-                        f"({100 * v['share_of_sum']:.1f} %)" for nm, v in st["phases"].items())
-                    + f"; entry to store {st['entry_to_store_median_us']:.3f} us; warps by key "
-                    f"form {st['warps_by_key_form']}; card: {card}")
-            log(f"ctr_mk group form at ({key}) {labels[key]}: the kernel {ms:.4f} ms back to back "
-                f"({call.n * 16 / ms / 1e6:.2f} GB/s), bound {bound:.4f} ms ({bound_by}, measured "
-                f"rates): {100 * row['share_of_bound']:.1f} % (the parent "
-                f"{100 * row['former_share_of_bound']:.1f} %); in {VARIANT_TURNS} alternating "
-                f"turns (CUDA graph): {turns_line(turns)}; card: {card}")
-            out[key] = row
-        log(f"ctr_mk group form, the kernel, its probes and the parent's against the plain "
-            f"version at (S), (E), (M): {bad} mismatching words")
+            card_ms = statistics.median(graph_ms(kernel, 5) for _ in range(5))
+            ms, clocks = sampled_ms(kernel)
+            n, k = w_k.shape[0], rks_k.shape[0]
+            nbytes = 48 * n + (4 * n if sl is not None else 0) + 4 * k * 44
+            bound, bound_by = measured_bound(-(-n // 32) * mk_ops, nbytes)
+            out[key] = {"shape": labels[key], "n_blocks": n, "k": k, "ms": ms,
+                        "sampled_clock_mhz": clocks["clock_mhz"], "card_ms_graph": card_ms,
+                        "bound_ms_measured": bound, "bound_by_measured": bound_by,
+                        "share_of_bound": bound / card_ms, "mismatching_words": m,
+                        "max_abs_err": err}
+            log(f"ctr_mk group form at ({key}) {labels[key]}: {card_ms:.4f} ms card (median of 5 "
+                f"CUDA graphs), {ms:.4f} ms back to back ({n * 16 / ms / 1e6:.2f} GB/s), bound "
+                f"{bound:.4f} ms ({bound_by}, measured rates): {100 * bound / card_ms:.1f} %; "
+                f"card: {card}")
         if bad:
-            raise SystemExit("a ctr_mk group-form kernel disagrees with its plain version")
-        for key in ("S", "M"):
-            if out[key]["card_ms_graph"] >= out[key]["former_card_ms_graph"]:
-                raise SystemExit(f"the redesigned ctr_mk group form is not faster than the "
-                                 f"parent's at ({key})")
-        del calls, w_s, c_s
-        return {"shapes": out, "sass": sass_k}
+            raise SystemExit("a ctr_mk group-form launch disagrees with its plain version")
+        del shapes, w_s, c_s
+        return {"shapes": out, "sass": {"kernel": mk}}
 
     # ctr_mk: the serve path's shape (the 4,096-block rung, K = 8, drive B's
     # pattern of 1-64-block requests on random slots) in each form, then 256
@@ -5318,11 +4301,7 @@ def main() -> int:
                        "bound_ms": study["shapes"]["S"]["bound_ms_measured"],
                        "bound_by": study["shapes"]["S"]["bound_by_measured"],
                        "share": study["shapes"]["S"]["share_of_bound"],
-                       "former_ms": study["shapes"]["S"]["former_card_ms_graph"],
-                       "kernel_faster_turns": study["shapes"]["S"]["kernel_faster_turns"],
                        "shape": study["shapes"]["S"]["shape"]},
-        "design_variants_ms_graph": {key: {name: v["median_ms"] for name, v in row["turns"].items()}
-                                     for key, row in study["shapes"].items()},
         "group_form_study": study,
         "at_256MiB_k8_runs": {**bulk, "library_ms": None},
         "k1_entry": {"entry": "ops/cuda_aes.py:ctr_crypt_words_explicit",
@@ -5485,30 +4464,6 @@ def main() -> int:
             f"instructions x 2 cycles, {cbc_sass['fma']} IMAD on the FMA pipe beside them) "
             f"{pipe_ms * 1e3:.4f} us, card time above floor plus that "
             f"{a1[n_r]['above_floor_plus_integer_pipe_us']:.3f} us; card: {card}")
-    # The design variants in turns with the kernel, at the 4,096- and
-    # 32-block rungs; each variant's words equal the kernel's.
-    cbc_variants = {}
-    for n_r in (rung, 32):
-        w_v, p_v, s_v = w_r[:n_r], c_r[:n_r], s_r[:n_r]
-        want_v = cbc_fn(w_v, p_v, s_v)()
-        fns = {"kernel": cbc_fn(w_v, p_v, s_v)}
-        for name, code in CBC_VARIANTS.items():
-
-            def fn(code=code, w_v=w_v, p_v=p_v, s_v=s_v, n_r=n_r):
-                o = torch.empty_like(w_v)  # a new output a call, as the wrapper's
-                if variants.ot_cbc_variant(code, w_v.data_ptr(), o.data_ptr(), p_v.data_ptr(),
-                                           s_v.data_ptr(), rksd8.data_ptr(),
-                                           ctypes.c_longlong(n_r), 8,
-                                           torch.cuda.current_stream().cuda_stream):
-                    raise SystemExit(f"the cbc_mk variant {code} did not launch")
-                return o
-            fns[name] = fn
-        bad = {name: diff(fns[name](), want_v)[0] for name in CBC_VARIANTS}
-        if any(bad.values()):
-            raise SystemExit(f"a cbc_mk design variant disagrees with the kernel: {bad}")
-        cbc_variants[n_r] = in_turns(fns)
-        log(f"cbc_mk design variants at the {n_r}-block rung, K = 8, in {VARIANT_TURNS} turns "
-            f"(CUDA graph): {turns_line(cbc_variants[n_r])}; card: {card}")
     w_c, p_c = random_words(n_big, seed=61), random_words(n_big, seed=62)
     s_c = slot_runs(n_big, 8, np.arange(1, 301), seed=63)
     cbc_bulk = timing("cbc_mk_block K=8 runs 1-300", cbc_fn(w_c, p_c, s_c),
@@ -5561,7 +4516,6 @@ def main() -> int:
         "rolled_rounds": cbc_sass["rolled"], "sass_hist": cbc_sass["hist"],
         "sass_int_per_block": cbc_int, "sass_path_dependent_instructions": cbc_sass_depth,
         "rung32_card_ms_graph": a1[32]["card_ms_graph"], "breakdown": a1,
-        "design_variants_ms_graph": cbc_variants,
         "issue_diagnostic_ms": issue_ms, "integer_pipe_ms": pipe_ms,
         "sass_fma_per_block": cbc_sass["fma"],
         "at_256MiB_k8_runs": {**cbc_bulk, "library_ms": None},
@@ -5689,6 +4643,7 @@ def main() -> int:
         "sass_main_loop": {k: group[k] for k in ("int", "lds", "sts", "depth", "hist")}}
     kernels.append(arc4_entry)
 
+    phase("10")
     # 10. The sweep harness (harness.bench) in processes of its own, as a user
     # runs it: the device rows with the native keystream prep, the sequential
     # and batch rows, the same rows on the native C tier, the keystream on the
@@ -5770,6 +4725,7 @@ def main() -> int:
     arc4_entry["harness"] = {"rows": harness_table, "launches_by_unit": harness_launches,
                              "ctr_chain_gbps": ctr_gbps, "native_tier_cpu": cpu_model()}
 
+    phase("11")
     # 11. AES-GCM through the models API (aead/gcm.py): the GHASH scan kernel
     # against its plain version (random layouts, and the serve rungs through
     # the seam in both directions), the SP 800-38D KATs, the 256 MiB seal and
@@ -5808,33 +4764,13 @@ def main() -> int:
         return (t(x), t(hk), torch.from_numpy(slots).to(dev), torch.from_numpy(keep).to(dev),
                 t(y0), t(inj))
 
-    # The parent's GHASH kernel (GHASH_FORMER_SOURCE) and the GHASH kernel's
-    # per-launch entries and design variants (GHASH_VARIANTS_SOURCE).
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    former = ctypes.CDLL(former_so)
-    former.ot_former_ghash.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ll, ci, vp]
-    former.ot_former_ghash.restype = ci
-    former.ot_former_scratch_words.argtypes = [ll]
-    former.ot_former_scratch_words.restype = ll
-    former.ot_former_launch_shape.argtypes = [ci, ll, ci, ctypes.POINTER(ll)]
-    former.ot_former_launch_shape.restype = ci
-    gvar = ctypes.CDLL(ghash_var_so)
-    gvar.ot_ghash_launch.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ci, vp]
-    gvar.ot_ghash_launch.restype = ci
-    gvar.ot_ghash_variant.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ci, vp]
-    gvar.ot_ghash_variant.restype = ci
-    gvar.ot_ghash_variant_scratch_words.argtypes = [ll, ll]
-    gvar.ot_ghash_variant_scratch_words.restype = ll
-    gvar.ot_ghash_launch_shape.argtypes = [ci, ci, ll, ci, ctypes.POINTER(ll)]
-    gvar.ot_ghash_launch_shape.restype = ci
-    glib = cuda_build.load()
 
     class GhashCall:
-        """One GHASH call's inputs on the card, with each way of running it
-        as a function of no arguments (scratch and outputs allocated once,
-        so each can be captured in a CUDA graph): the wrappers, the parent's
-        kernel whole or one launch alone, the kernel's own launches alone,
-        and the design variants."""
+        """One GHASH call's inputs on the card, with the wrappers as
+        functions of no arguments (so each can be captured in a CUDA graph).
+        The parent's kernel and the design variants of the GHASH redesign
+        (PR 13) are findings in PERF.md and are not rerun."""
 
         def __init__(self, x, hk, sl, kp, y0, inj, rows):
             self.args = (x, hk, sl, kp, y0)
@@ -5844,41 +4780,12 @@ def main() -> int:
             self.rows_t = torch.tensor(self.rows, dtype=torch.int64, device=dev)
             self.out = torch.empty_like(x)
             self.out_at = torch.empty((len(self.rows), 4), dtype=torch.int32, device=dev)
-            words = lambda c: torch.empty(c, dtype=torch.int32, device=dev)  # noqa: E731
-            self.s_former = words(former.ot_former_scratch_words(n))
-            self.s_scan = words(glib.ot_ghash_scratch_words(n, k, -1))
-            self.s_at = words(glib.ot_ghash_scratch_words(n, k, len(self.rows)))
-            self.s_var = words(gvar.ot_ghash_variant_scratch_words(n, len(self.rows)))
-            self.ptrs = [t.data_ptr() for t in (x, inj, sl, kp, hk, y0)]
 
         def scan(self):
             return cuda_ghash.ghash_scan(*self.args, inject=self.inj)
 
         def at(self):
             return cuda_ghash.ghash_at(*self.args, self.rows_t, inject=self.inj)
-
-        def former(self, which=0):
-            if former.ot_former_ghash(which, *self.ptrs, self.out.data_ptr(),
-                                      self.s_former.data_ptr(), self.n, self.k,
-                                      torch.cuda.current_stream().cuda_stream):
-                raise SystemExit("the parent's GHASH kernel did not launch")
-            return self.out
-
-        def launch(self, which, named):
-            if gvar.ot_ghash_launch(which, named, *self.ptrs, self.rows_t.data_ptr(),
-                                    (self.out_at if named else self.out).data_ptr(),
-                                    (self.s_at if named else self.s_scan).data_ptr(), self.n,
-                                    len(self.rows), self.k, torch.cuda.current_stream().cuda_stream):
-                raise SystemExit(f"GHASH launch {which} (named {named}) did not launch")
-            return self.out_at if named else self.out
-
-        def variant(self, code):
-            out, scratch = (self.out_at, self.s_var) if code == 1 else (self.out, self.s_scan)
-            if gvar.ot_ghash_variant(code, *self.ptrs, self.rows_t.data_ptr(), out.data_ptr(),
-                                     scratch.data_ptr(), self.n, len(self.rows), self.k,
-                                     torch.cuda.current_stream().cuda_stream):
-                raise SystemExit(f"GHASH variant {code} did not launch")
-            return out
 
     def named_rows(n, seed):
         """Sorted random named rows of N rows: the first, the last, up to 40
@@ -5888,7 +4795,7 @@ def main() -> int:
         return sorted(rows + rows[len(rows) // 2:len(rows) // 2 + 1])
 
     gh_bad, gh_cases, gh_err, gh_plain_ms = 0, 0, 0, {}
-    at_bad, at_cases, former_bad = 0, 0, 0
+    at_bad, at_cases = 0, 0
     for n in GHASH_SIZES:
         for k in ((8,) if n > 4096 else (1, 8, 64)):
             x, hk, sl, kp, y0, inj = ghash_inputs(n, k, seed=100 * n + k)
@@ -5911,10 +4818,6 @@ def main() -> int:
             at_bad, at_cases = at_bad + m, at_cases + 1
             if m:
                 log(f"MISMATCH ghash_at n={n} k={k}: {m} words")
-            m = diff(call.former(), want)[0]
-            former_bad += m
-            if m:
-                log(f"MISMATCH the parent's ghash_scan n={n} k={k}: {m} words")
     # ghash_at_plain itself, at the smaller sizes.
     x, hk, sl, kp, y0, inj = ghash_inputs(4096, 8, seed=4097)
     rows = named_rows(4096, seed=5)
@@ -5924,8 +4827,7 @@ def main() -> int:
     log(f"ghash_scan vs plain: {gh_cases} cases (N in {GHASH_SIZES}, K 1/8/64, 8 at 65,537; "
         f"random slots, keep, y0, inject, and x ^ inject without it): {gh_bad} mismatching "
         f"words; ghash_at at random named rows (up to 42, one twice) against the plain rows and "
-        f"ghash_scan's: {at_cases} cases, {at_bad} mismatching words; the parent's kernel "
-        f"{former_bad}; the plain row loop {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows; "
+        f"ghash_scan's: {at_cases} cases, {at_bad} mismatching words; the plain row loop {gh_plain_ms[(65537, 8)]:.0f} ms at 65,537 rows; "
         f"card: {card}")
     # The serve rungs through the seam, K = 8 in the batcher's layout, both
     # directions, nr 10/12/14: the CUDA engine (ctr_mk, ghash_scan) against
@@ -5959,7 +4861,7 @@ def main() -> int:
         f"{serve_rungs}, K = 8 in the batcher's layout, seal and open, AES-128/192/256, every "
         f"row and with rows = each request's last row (ghash_at): {seam_cases} cases, "
         f"{seam_bad} mismatching words of out and ys")
-    if gh_bad or seam_bad or at_bad or former_bad:
+    if gh_bad or seam_bad or at_bad:
         raise SystemExit("a GHASH kernel disagrees with its plain version")
     with open(os.path.join(ROOT, "tests", "golden", "gcm_kats.json"), encoding="utf-8") as fh:
         gcm_kats = json.load(fh)["kats"]
@@ -6127,8 +5029,7 @@ def main() -> int:
         "seal_dispatch_ms": seam_ms, "share_of_seal_dispatch": seal_mk_ms / seam_ms})
     log(f"the seal's ctr_mk launch on the seal's arrays: {seal_mk_ms:.4f} ms back to back "
         f"({seal_mk_graph:.4f} in a CUDA graph), {100 * seal_mk_ms / seam_ms:.1f} % of the seal's "
-        f"dispatch ({seam_ms:.4f} ms); the parent's group form at this shape "
-        f"{mk_entry['seal_shape']['former_ms']:.4f} ms in a CUDA graph (phase 9); launches a seal "
+        f"dispatch ({seam_ms:.4f} ms); launches a seal "
         f"{gcm_runs[0]['seal_launches']['ctr_mk']}, an open "
         f"{gcm_runs[0]['open_launches']['ctr_mk']}; card: {card}")
     # The GHASH call alone on the seal's rows: the input words stand for x
@@ -6136,11 +5037,9 @@ def main() -> int:
     seal_call = GhashCall(seam_args[0], agcm._h_words(hmat_m[None], dev), seam_args[3],
                           seam_args[6], torch.zeros(4, dtype=torch.int32, device=dev),
                           seam_args[5], [nfull_m])
-    m = (diff(seal_call.at(), seal_call.scan()[seal_call.rows_t])[0]
-         + diff(seal_call.former(), seal_call.scan())[0])
+    m = diff(seal_call.at(), seal_call.scan()[seal_call.rows_t])[0]
     if m:
-        raise SystemExit(f"at the seal's shape ghash_at, ghash_scan and the parent's kernel "
-                         f"disagree: {m} words")
+        raise SystemExit(f"at the seal's shape ghash_at and ghash_scan disagree: {m} words")
     at_ms, at_clocks = sampled_ms(seal_call.at)
     at_graph = graph_ms(seal_call.at, reps=5)
     gh_ms, gh_clocks = sampled_ms(seal_call.scan)
@@ -6177,113 +5076,14 @@ def main() -> int:
         x_r4, hk_r4, sl_r4, kp_r4, y0_r4, rung_call.rows_t, inject=inj_r4), 1)
     want_r4 = cuda_ghash.ghash_scan_plain(x_r4, hk_r4, sl_r4, kp_r4, y0_r4, inject=inj_r4)
     m, e = diff(rung_call.scan(), want_r4)
-    m += diff(rung_call.at(), want_r4[rung_call.rows_t])[0] + diff(rung_call.former(), want_r4)[0]
+    m += diff(rung_call.at(), want_r4[rung_call.rows_t])[0]
     if m:
         raise SystemExit("a GHASH kernel disagrees with its plain version at the 4,096 rung")
     # SASS: the product as the rows launch's row loop runs it (one product a
-    # row; 144 IMAD.WIDE a product), both pipes; the parent's counts.
+    # row; 144 IMAD.WIDE a product), both pipes.
     gs = sass_ghash(sass_text)
-    former_text = sass(former_so)
-    gs_former = sass_ghash_former(former_text)
     log(f"ghash SASS, the product: {gs['product']}; a composition {gs['compose']}; ptxas "
-        f"{ {k_: v for k_, v in ptxas.items() if k_.startswith('ghash')} }; the parent's kernel: "
-        f"one row of ghash_rows_kernel {gs_former['row']}, of ghash_map_kernel "
-        f"{gs_former['map_row']}, a composition {gs_former['compose']}, ptxas "
-        f"{probe_ptxas['ghash_former']}")
-
-    # Where each call's time goes (item 0 on the parent's kernel, then the
-    # kernel's own): each launch alone in a CUDA graph, beside the launch
-    # floor at its grid and shared memory (EMPTY_SOURCE), its registers and
-    # spills (ptxas -v) and its resident thread blocks an SM (the occupancy
-    # API; achieved occupancy is not measured).
-    def launch_split(call, reps):
-        shape = (ll * 3)()
-        parts = {"former": [("map", 1, "ghash_map_kernel<128>"), ("carry", 2, "ghash_carry_kernel<128>"),
-                            ("rows", 3, "ghash_rows_kernel<128>")],
-                 "ghash_scan": [("map", 1, "ghash_map_kernel<128,0>"),
-                                ("carry", 2, "ghash_carry_kernel<128>"),
-                                ("rows", 3, "ghash_rows_kernel<128>")],
-                 "ghash_at": [("map", 1, "ghash_map_kernel<128,1>"),
-                              ("carry", 2, "ghash_carry_kernel<128>")]}
-        out = {}
-        for form, launches in parts.items():
-            whole = (call.former if form == "former" else
-                     call.scan if form == "ghash_scan" else call.at)
-            row = {"whole_ms_graph": graph_ms(whole, reps)}
-            for label, which, kname in launches:
-                if form == "former":
-                    fn = lambda which=which: call.former(which)  # noqa: E731
-                    rc = former.ot_former_launch_shape(which, call.n, call.k, shape)
-                    regs = probe_ptxas["ghash_former"].get(kname, {})
-                else:
-                    named = int(form == "ghash_at")
-                    fn = lambda which=which, named=named: call.launch(which, named)  # noqa: E731
-                    rc = gvar.ot_ghash_launch_shape(which, named, call.n, call.k, shape)
-                    regs = ptxas.get(kname, {})
-                if rc:
-                    raise SystemExit(f"the occupancy query of {form} {label} failed: {rc}")
-                grid, smem, resident = shape[0], shape[1], shape[2]
-
-                def floor_fn(grid=grid, smem=smem):
-                    if empty.ot_empty(grid, 128, smem, torch.cuda.current_stream().cuda_stream):
-                        raise SystemExit("the empty kernel did not launch")
-                row[label] = {"ms_graph": graph_ms(fn, reps), "floor_ms_graph": graph_ms(floor_fn),
-                              "grid": grid, "smem": smem, "resident_blocks_per_sm": resident,
-                              "registers": regs.get("registers"),
-                              "spill_bytes": regs.get("spill_stores", 0) + regs.get("spill_loads", 0)}
-            out[form] = row
-            log(f"{form} launches alone ({call.n} rows, K = {call.k}), CUDA graph: whole call "
-                f"{row['whole_ms_graph'] * 1e3:.3f} us; " + "; ".join(
-                    f"{label} {row[label]['ms_graph'] * 1e3:.3f} us (floor "
-                    f"{row[label]['floor_ms_graph'] * 1e3:.3f} us, grid {row[label]['grid']}, "
-                    f"smem {row[label]['smem']} B, {row[label]['registers']} registers, spills "
-                    f"{row[label]['spill_bytes']} B, {row[label]['resident_blocks_per_sm']} "
-                    f"resident blocks an SM)" for label, _w, _k in launches) + f"; card: {card}")
-        return out
-
-    split = {"seal": launch_split(seal_call, 5), "rung": launch_split(rung_call, 100)}
-    # The comparisons in alternating turns, one call: at the seal's shape
-    # ghash_at and ghash_scan against the parent's kernel and the variants
-    # (a by a product a row; ghash_at with at most 64 rows a thread; the rows
-    # launch's stores not staged); at the rung ghash_scan against the
-    # parent's kernel and the first variant.
-    seal_turns = in_turns({"ghash_at": seal_call.at, "former_ghash_scan": seal_call.former,
-                           "ghash_scan": seal_call.scan,
-                           "variant_scan_a_by_products": lambda: seal_call.variant(0),
-                           "variant_ghash_at_rows_64": lambda: seal_call.variant(1),
-                           "variant_scan_stores_unstaged": lambda: seal_call.variant(2)}, reps=3)
-    rung_turns = in_turns({"ghash_scan": rung_call.scan, "former_ghash_scan": rung_call.former,
-                           "variant_scan_a_by_products": lambda: rung_call.variant(0),
-                           "ghash_at": rung_call.at})
-
-    def pair(turns, a, b):
-        """(median of b / median of a, turns in which a was the faster)."""
-        return (turns[b]["median_ms"] / turns[a]["median_ms"],
-                sum(x < y for x, y in zip(turns[a]["times_ms"], turns[b]["times_ms"])))
-
-    comparisons = {
-        "seal: ghash_at vs the parent's ghash_scan": pair(seal_turns, "ghash_at", "former_ghash_scan"),
-        "seal: ghash_scan vs the parent's ghash_scan": pair(seal_turns, "ghash_scan",
-                                                           "former_ghash_scan"),
-        "seal: ghash_scan vs a by products": pair(seal_turns, "ghash_scan",
-                                                  "variant_scan_a_by_products"),
-        "seal: ghash_at vs at most 64 rows a thread": pair(seal_turns, "ghash_at",
-                                                           "variant_ghash_at_rows_64"),
-        "seal: ghash_scan vs stores unstaged": pair(seal_turns, "ghash_scan",
-                                                    "variant_scan_stores_unstaged"),
-        "rung: ghash_scan vs the parent's ghash_scan": pair(rung_turns, "ghash_scan",
-                                                           "former_ghash_scan"),
-        "rung: ghash_scan vs a by products": pair(rung_turns, "ghash_scan",
-                                                  "variant_scan_a_by_products"),
-    }
-    log(f"GHASH in {VARIANT_TURNS} alternating turns at the seal's shape ({n_m} rows, K = 1, "
-        f"CUDA graph): {turns_line(seal_turns)}; card: {card}")
-    log(f"GHASH in {VARIANT_TURNS} alternating turns at the 4,096 rung (K = 8, CUDA graph): "
-        f"{turns_line(rung_turns)}; card: {card}")
-    log("GHASH comparisons (the other's median over the first's, turns the first won of "
-        f"{VARIANT_TURNS}): " + "; ".join(f"{k_}: {r:.3f}x, {w}" for k_, (r, w) in comparisons.items()))
-    if comparisons["seal: ghash_at vs the parent's ghash_scan"][0] < 3:
-        raise SystemExit("ghash_at is not 3x the parent's ghash_scan at the seal's shape")
+        f"{ {k_: v for k_, v in ptxas.items() if k_.startswith('ghash')} }")
 
     def ghash_bounds(n, k, row_bytes, ms, clocks, path_products):
         """The least time for the work itself, whatever the formulation: the
@@ -6378,15 +5178,6 @@ def main() -> int:
             total += graph_ms(fn)
         return total
 
-    def ghash_shapes(n, k, named):
-        shape = (ll * 3)()
-        out = []
-        for which in ((1, 2) if named else (1, 2, 3)):
-            if gvar.ot_ghash_launch_shape(which, int(named), n, k, shape):
-                raise SystemExit("the GHASH launch-shape query failed")
-            out.append((shape[0], shape[1]))
-        return out
-
     ladder = sbatcher.bucket_ladder(sbatcher.DEFAULT_MIN_BLOCKS, sbatcher.DEFAULT_MAX_BLOCKS)
     rng_g = np.random.default_rng(1515)
     gkeys = [rng_g.bytes(16) for _ in range(8)]
@@ -6439,12 +5230,15 @@ def main() -> int:
         row_g = {"rung": rung_g, "k": 8, "requests": 8, "blocks_a_request": n_req,
                  "named_rows": int(bg.rows.size), "ctr_mk_form": cuda_aes.MK_FORMS[
                      cuda_build.load().ot_ctr_mk_form(rung_g, 0)]}
-        for name, shapes in (("ctr_mk", [(-(-rung_g // 128), 8 * 8 * 11 * 4)]),
-                             ("ghash_at", ghash_shapes(rung_g, 8, True)),
-                             ("ghash_scan", ghash_shapes(rung_g, 8, False))):
+        # The GHASH calls' floors came from the launch-shape queries of the
+        # design-variant build (PR 13), not rerun; ctr_mk's one launch keeps
+        # its floor.
+        for name, launches, shapes in (("ctr_mk", 1, [(-(-rung_g // 128), 8 * 8 * 11 * 4)]),
+                                       ("ghash_at", 2, None), ("ghash_scan", 3, None)):
             row_g[name] = {"card_ms_graph": turns_g[name]["median_ms"],
                            "q1_ms": turns_g[name]["q1_ms"], "q3_ms": turns_g[name]["q3_ms"],
-                           "launches_a_call": len(shapes), "floor_ms_graph": floor_ms_of(shapes)}
+                           "launches_a_call": launches,
+                           "floor_ms_graph": floor_ms_of(shapes) if shapes else None}
         row_g["ghash_at_faster_than_ghash_scan_turns"] = turns_g["ghash_scan"][
             "kernel_faster_turns"]
         row_g["dispatch_ms"] = events_ms(lambda: agcm.gcm_crypt_ghash_words(
@@ -6455,10 +5249,8 @@ def main() -> int:
             f"turns, launch floors beside): ctr_mk ({row_g['ctr_mk_form']} form) "
             f"{row_g['ctr_mk']['card_ms_graph'] * 1e3:.3f} us (floor "
             f"{row_g['ctr_mk']['floor_ms_graph'] * 1e3:.3f}), ghash_at "
-            f"{row_g['ghash_at']['card_ms_graph'] * 1e3:.3f} us (floor of its 2 launches "
-            f"{row_g['ghash_at']['floor_ms_graph'] * 1e3:.3f}), ghash_scan "
-            f"{row_g['ghash_scan']['card_ms_graph'] * 1e3:.3f} us (floor of its 3 launches "
-            f"{row_g['ghash_scan']['floor_ms_graph'] * 1e3:.3f}); ghash_at faster in "
+            f"{row_g['ghash_at']['card_ms_graph'] * 1e3:.3f} us (2 launches), ghash_scan "
+            f"{row_g['ghash_scan']['card_ms_graph'] * 1e3:.3f} us (3 launches); ghash_at faster in "
             f"{row_g['ghash_at_faster_than_ghash_scan_turns']} of {VARIANT_TURNS}; the dispatch "
             f"through the seam back to back {row_g['dispatch_ms'] * 1e3:.3f} us; card: {card}")
         del w_g, c_g, ct_g, i_g
@@ -6481,15 +5273,12 @@ def main() -> int:
         "plain_ms": rung_plain_ms, **rung_b, "library_ms": None,
         "shape": "4,096 rows, K = 8, the serve batcher's GCM layout (kernel and plain version on "
                  "the same inputs)",
-        "grid_launches_per_call": 3, "sass": gs, "sass_former": gs_former,
+        "grid_launches_per_call": 3, "sass": gs,
         "plain_ms_65537_rows": gh_plain_ms[(65537, 8)],
         "seal_rows": {"ms": gh_ms, "card_ms_graph": gh_ms_graph, **main_b, "library_ms": None,
                       "shape": f"{n_m} rows, K = 1 (the 256 MiB seal: J0 row, then the "
                                f"ciphertext), held against the matrix-power formulation",
                       "plain_ms": "not measured (a row loop of several launches a row)"},
-        "split_ms_graph": split, "design_variants_ms_graph": {"seal": seal_turns, "rung": rung_turns},
-        "comparisons": {k_: {"ratio_of_medians": r, "first_faster_turns": w}
-                        for k_, (r, w) in comparisons.items()},
         "every_row_seam_256MiB_ms": seam_every_ms,
         "tag_formulation": "chunked matrix powers in float32 matmuls (64-block chunks, runs of "
                            "512 chunks), host gf128_mul_matrix_words",
@@ -6521,6 +5310,7 @@ def main() -> int:
     })
     del seam_args, seal_call
 
+    phase("12")
     # 12. Chunked transfers and the wire worker: in this process, counted,
     # then through worker processes over the wire.
     tx_entries = transfer_phase(card, reset_counts, counts, form_counts)
@@ -6530,6 +5320,7 @@ def main() -> int:
             if entry["name"] == "ctr_mk":
                 entry["transfer"]["worker"] = tx_entries["worker"]
 
+    phase("13")
     # 13. The rc4 sessions on the card: the session acceptance drive, the
     # journal round trip and a worker's ss exchanges (session_phase); then
     # arc4_prga at the refill's launch shapes.
@@ -6592,6 +5383,7 @@ def main() -> int:
         "xor_device_us": drive["device_us_per_dispatch"].get("rc4"),
         "prefetch_shapes": prefetch, "drive": drive, "worker": sess_entries["worker"]}
 
+    phase("15")
     # 15. Engine selection and the port's entry (it runs before 14, which
     # stays last): entry(), the probe, the lock, the device key schedules,
     # the native serve engine and ot_bench.
@@ -6605,6 +5397,7 @@ def main() -> int:
             entry["selection"] = {"native_drive_launches": {
                 name: d["launches"][entry["name"]] for name, d in sel["native_drives"].items()}}
 
+    phase("16")
     # 16. The rest of observability over the serve drives (before 14, which
     # stays last): drive D traced and rotated with its status endpoint
     # polled, the run read offline, the alert drill, the SLO gate green and
@@ -6619,6 +5412,17 @@ def main() -> int:
         elif entry["name"] == "cbc_mk":
             entry["observability"] = {"drive_d_traced_launches": obs["launches_a"]["cbc_mk"]}
 
+    # 17. The routing tier on the card (before 14, which stays last): the
+    # route bench's acceptance drive, the backend kill, the AEAD modes and the
+    # elasticity drive, each spawning port workers on this card.
+    phase("17")
+    route = route_phase(card)
+    for entry in kernels:
+        if entry["name"] in ("ctr_mk", "ghash_at"):
+            entry["route"] = {name: d["launches"].get(entry["name"], 0)
+                              for name, d in route["drives"].items()}
+
+    phase("14")
     # 14. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
     # a temporary run layout, removed after. It runs last: the profiler's
@@ -6684,7 +5488,11 @@ def main() -> int:
     if not all(checks.values()):
         raise SystemExit(f"serve drive C's profile failed: {checks}")
 
+    phase(None)
+    walls.pop(None, None)
     print(json.dumps({"pulse": obs["pulse"]}), flush=True)
+    print(json.dumps({"phase_wall_s": walls, "total_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -364,9 +364,8 @@ def flush_now() -> bool:
         return False
 
 
-def _flusher_loop() -> None:
-    while True:
-        time.sleep(flush_interval_s())
+def _flusher_loop(stop: threading.Event) -> None:
+    while not stop.wait(flush_interval_s()):
         if enabled() and (_COUNTS or _GAUGES or _HISTS):
             flush_now()
 
@@ -379,8 +378,21 @@ def ensure_flusher() -> None:
         _ATEXIT_REGISTERED = True
         atexit.register(lambda: enabled() and (_COUNTS or _GAUGES or _HISTS) and flush_now())
     if _FLUSHER is None or not _FLUSHER.is_alive():
-        _FLUSHER = threading.Thread(target=_flusher_loop, daemon=True, name="ot-metrics-flush")
+        stop = threading.Event()
+        _FLUSHER = threading.Thread(target=_flusher_loop, args=(stop,), daemon=True,
+                                    name="ot-metrics-flush")
+        _FLUSHER.stop = stop
         _FLUSHER.start()
+
+
+def _stop_flusher() -> None:
+    """Stop the daemon flusher and wait for it (a flush in progress ends
+    first); the next ``ensure_flusher`` starts a new one."""
+    global _FLUSHER
+    if _FLUSHER is not None:
+        _FLUSHER.stop.set()
+        _FLUSHER.join()
+        _FLUSHER = None
 
 
 # ---------------------------------------------------------------------------
@@ -552,9 +564,13 @@ def reset() -> None:
 
 
 def reset_for_tests() -> None:
-    """``reset`` plus the snapshot file closed and the evicted bytes cleared
-    (tests only)."""
+    """``reset`` plus the daemon flusher stopped, the snapshot file closed and
+    the evicted bytes cleared (tests only). A flusher left running by an
+    earlier test's server would otherwise flush whenever it wakes: between a
+    test's trace reset and this one it opens a snapshot file of its own
+    under the new run and writes the old registry into it."""
     global _EVICTED_BYTES
+    _stop_flusher()
     with _SINK_LOCK:
         _close_sink()
     reset()

@@ -22,8 +22,10 @@ rules (``RULES``) and a per-worker capacity model.
   ``pressure_frac`` of ``serve_transfer_budget_bytes`` for
   ``pressure_ticks`` frames in a row.
 
-The router's series (``route_*``) are read where present; the port has no
-router yet, so they read as zero. A firing is edge-triggered (a held
+The router's series (``route_*``: router sheds, back-end state
+transitions) are read where present, so a router's own pulse engine
+(``route/proxy.py`` starts one with ``source="route"``) watches the routing
+tier with the same rules; in a worker they read as zero. A firing is edge-triggered (a held
 condition fires once and re-arms only after it clears) and is emitted as a
 ``pulse_alerts{rule,severity}`` counter, a ``pulse-alert`` trace point, a
 row of ``/alertz`` and, for a page, an incident bundle

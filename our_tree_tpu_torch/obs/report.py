@@ -22,8 +22,10 @@ Flags:
   (``obs/profiler.py``, the port's ``torch`` and ``stack`` tiers) joined
   with its cost records; with ``--check``, exit 2 unless a capture exists,
   every summary validates and every slowest-exemplar row resolves.
-* ``--min-join-frac FRAC``: the routed fleet's trace-join gate (no-op
-  without ``route-request`` spans; the port has no router yet).
+* ``--min-join-frac FRAC``: the routed fleet's trace-join gate: the share of
+  the router's ``route-request`` roots with a worker span chained under
+  them across processes (``fleet_join_stats``); a no-op on a run without
+  ``route-request`` spans (the port's router writes them, ``route/proxy.py``).
 
 Tables, where the run has their spans or series: per unit, per engine (spans
 with an ``engine`` attr), per lane (``lane-dispatch``/``lane-probe``: kills

@@ -19,10 +19,15 @@ when the deadline expires:
   failure row, and a unit that fails ``quarantine_after`` times is
   quarantined: skipped now and on every resumed run, with
   ``quarantined:<unit>`` stamped through ``degrade``. The parent re-emits
-  completed units' lines from the journal.
+  completed units' lines from the journal;
+* ``spawn_service``: start a long-running service child (a
+  ``serve.worker`` back end behind the router, ``route.bench`` and
+  ``route.fleet``) in its own session and hand back a ``ServiceChild``
+  that reads its READY line with a deadline and stops it SIGTERM first,
+  SIGKILL past the deadline.
 
-The reference's ``spawn_service`` and ``run_streamed`` (long-running
-service children and streamed logs) have no caller in the port yet.
+The reference's ``run_streamed`` (streamed logs) has no caller in the port
+yet.
 """
 
 from __future__ import annotations
@@ -134,6 +139,111 @@ def run_child(argv, timeout_s: float | None = None, *, env=None, cwd=None,
         attempts=max(attempts, 1), base_delay_s=base_delay_s, retry_on=(_ChildFailed,), log=log,
         on_exhausted=lambda e: last["r"],
         name=name or f"run_child:{os.path.basename(str(argv[0]))}").run(op)
+
+
+class ServiceChild:
+    """A long-running child started by ``spawn_service``: a service meant to
+    outlive the call, such as a serve back end behind the router. It runs in
+    its own session, so the group kill never reaches the caller, and its
+    stdout and stderr are piped, read on purpose:
+
+    * ``read_line(deadline_s)``: one stdout line within a wall deadline (a
+      worker's READY line carries its ports), never blocking past it;
+    * ``stop(term_deadline_s)``: SIGTERM to the session (the drain signal),
+      a wait up to the deadline, SIGKILL to the group past it; returns the
+      exit rc (negative for a signal death);
+    * ``kill()``: SIGKILL to the group at once, no drain signal first.
+    """
+
+    __slots__ = ("name", "proc", "_buf")
+
+    def __init__(self, name: str, proc):
+        self.name = name
+        self.proc = proc
+        self._buf = b""
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def read_line(self, deadline_s: float) -> str | None:
+        """The next stdout line within ``deadline_s`` wall seconds, or None
+        on the deadline or EOF: a select() loop over the pipe, since a
+        blocking readline() on a child that hangs before printing would hang
+        the spawner too."""
+        import select
+
+        fd = self.proc.stdout.fileno()
+        end = time.monotonic() + max(deadline_s, 0.0)
+        while b"\n" not in self._buf:
+            left = end - time.monotonic()
+            if left <= 0:
+                return None
+            ready, _, _ = select.select([fd], [], [], min(left, 0.25))
+            if not ready:
+                continue
+            chunk = os.read(fd, 65536)
+            if not chunk:  # EOF: the child died before its line
+                return None
+            self._buf += chunk
+        line, self._buf = self._buf.split(b"\n", 1)
+        return line.decode("utf-8", "replace")
+
+    def stop(self, term_deadline_s: float = 30.0) -> int:
+        """SIGTERM the session, await a graceful exit, SIGKILL the group past
+        the deadline; reaps and returns the exit rc."""
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            except (OSError, AttributeError):
+                try:
+                    self.proc.terminate()
+                except OSError:
+                    pass
+            try:
+                self.proc.wait(timeout=max(term_deadline_s, 0.0))
+            except subprocess.TimeoutExpired:
+                _kill_group(self.proc)
+                self.proc.wait()
+        trace.point("service-stopped", label=self.name, rc=self.proc.returncode)
+        return self.proc.returncode
+
+    def kill(self) -> int:
+        """SIGKILL the whole group now, with no drain signal first (the
+        chaos drive's process that vanishes mid-frame). Reaps and returns
+        the rc."""
+        if self.proc.poll() is None:
+            _kill_group(self.proc)
+            self.proc.wait()
+        trace.point("service-killed", label=self.name, rc=self.proc.returncode)
+        return self.proc.returncode
+
+    def drain_output(self) -> tuple[str, str]:
+        """What stdout and stderr hold after exit, the buffered tail of a
+        READY read included; call only once the child is dead."""
+        out, err = b"", b""
+        try:
+            o, e = self.proc.communicate(timeout=5)
+            out, err = o or b"", e or b""
+        except (ValueError, OSError, subprocess.TimeoutExpired):
+            pass
+        return ((self._buf + out).decode("utf-8", "replace"), err.decode("utf-8", "replace"))
+
+
+def spawn_service(argv, *, env=None, cwd=None, name: str = "") -> ServiceChild:
+    """Start ``argv`` as a long-running service child in its own session with
+    stdout and stderr piped, and return its ``ServiceChild``. The spawn is
+    traced (``service-spawned``) and the trace run is handed down through
+    ``trace.child_env``, so the service's spans join the caller's run."""
+    label = name or os.path.basename(str(argv[0]))
+    cenv = trace.child_env(dict(env if env is not None else os.environ))
+    proc = subprocess.Popen(argv, env=cenv, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=False, start_new_session=True)
+    trace.point("service-spawned", label=label, pid=proc.pid)
+    return ServiceChild(label, proc)
 
 
 def run_isolated_sweep(*, units, child_argv, journal_path: str, config: dict, emit,

@@ -265,6 +265,14 @@ def deadline(seconds: float | None, what: str = "device dispatch",
 
 #: Injected hangs fired so far in this process (``hangs_injected``).
 _INJECTED_HANGS = 0
+#: Idents of the threads asleep in an injected hang (``parked``).
+_PARKED: set[int] = set()
+
+
+def parked(thread: threading.Thread) -> bool:
+    """Whether ``thread`` sleeps in an injected hang: a stand-in for a
+    wedged call that nothing waits out (``LaneExecutor.close``)."""
+    return thread.ident in _PARKED
 
 
 def hangs_injected() -> int:
@@ -287,5 +295,10 @@ def injected_hang(point: str, detail: str = "", budget=None) -> bool:
         return True
     print(f"# OT_FAULTS: {point} sleeping {hang_s:.0f}s" + (f" ({detail})" if detail else ""),
           file=sys.stderr, flush=True)
-    time.sleep(hang_s)
+    ident = threading.get_ident()
+    _PARKED.add(ident)
+    try:
+        time.sleep(hang_s)
+    finally:
+        _PARKED.discard(ident)
     return True

@@ -15,7 +15,9 @@ with ``DispatchTimeout`` (the waiter fails over at once) and marks this
 worker abandoned. The wedged thread is left behind; a fresh worker is
 spawned on the lane's next use. If the abandoned thread wakes, it sees its
 generation is stale, discards its result, fails whatever was still queued
-behind it and exits.
+behind it and exits. ``close`` waits for abandoned threads still at work
+(not those parked in an injected hang): one that woke while the
+interpreter shut down would unwind out of torch and abort the process.
 
 Stdlib only: the device contact stays in ``serve/lanes.py``.
 """
@@ -61,6 +63,7 @@ class LaneExecutor:
         self._gen = 0
         self._q: _queue.SimpleQueue | None = None
         self._thread: threading.Thread | None = None
+        self._abandoned_threads: list[threading.Thread] = []
         self.abandoned = 0
 
     def submit(self, unit) -> concurrent.futures.Future:
@@ -78,9 +81,10 @@ class LaneExecutor:
 
     def close(self) -> None:
         """Stop the current worker after its queued work and wait up to
-        ``CLOSE_JOIN_S`` for it to end (idempotent): a worker thread that is
-        still unwinding out of torch while the interpreter shuts down can
-        abort the process."""
+        ``CLOSE_JOIN_S`` in all for it and for the abandoned workers still at
+        work to end (idempotent): a worker thread that is still unwinding
+        out of torch while the interpreter shuts down can abort the process.
+        A worker parked in an injected hang is not waited for."""
         with self._lock:
             thread = self._thread
             if self._q is not None and thread is not None and thread.is_alive():
@@ -89,8 +93,12 @@ class LaneExecutor:
                 thread = None
             self._thread = None
             self._q = None
-        if thread is not None and thread is not threading.current_thread():
-            thread.join(CLOSE_JOIN_S)
+            abandoned, self._abandoned_threads = self._abandoned_threads, []
+        end = time.monotonic() + CLOSE_JOIN_S
+        for t in [thread, *abandoned]:
+            if (t is not None and t is not threading.current_thread()
+                    and not watchdog.parked(t)):
+                t.join(max(end - time.monotonic(), 0.0))
 
     def _run(self, gen: int, q: _queue.SimpleQueue) -> None:
         while True:
@@ -139,6 +147,8 @@ class LaneExecutor:
             if self._gen != gen:
                 return
             self._gen += 1
+            if self._thread is not None:
+                self._abandoned_threads.append(self._thread)
             self._thread = None
             q, self._q = self._q, None
             self.abandoned += 1

@@ -98,6 +98,9 @@ class LoadReport:
     p95_ms: float = 0.0
     p99_ms: float = 0.0
     latencies_ms: list = field(default_factory=list, repr=False)
+    #: the time ledgers of sampled responses (``Response.ledger``, which the
+    #: router attaches): the population ``route.bench``'s waterfall reads
+    ledgers: list = field(default_factory=list, repr=False)
     #: mode -> its requests' latencies (ms), ok count and verified probes
     by_mode: dict = field(default_factory=dict, repr=False)
     #: mode -> {requests, ok, verified, p50_ms, p95_ms, p99_ms}, set by
@@ -135,7 +138,8 @@ class LoadReport:
                 "goodput_gbps": round(self.goodput_gbps, 4), "p50_ms": self.p50_ms,
                 "p95_ms": self.p95_ms, "p99_ms": self.p99_ms,
                 **({"transfers": dict(self.transfers)} if self.transfers else {}),
-                **({"sessions": dict(self.sessions)} if self.sessions else {})}
+                **({"sessions": dict(self.sessions)} if self.sessions else {}),
+                **({"modes": dict(self.modes)} if self.modes else {})}
 
 
 def _np_cbc_encrypt(key: bytes, iv16: bytes, pt: bytes) -> bytes:
@@ -320,6 +324,8 @@ async def run(server, n_requests: int, concurrency: int = 32, sizes=MIXED_SIZES,
     def account(resp, payload, probe, mode, dt_ms: float):
         report.requests += 1
         report.latencies_ms.append(dt_ms)
+        if resp.ledger is not None:
+            report.ledgers.append(resp.ledger)
         m = report.by_mode.setdefault(mode, {"latencies_ms": [], "ok": 0, "verified": 0})
         m["latencies_ms"].append(dt_ms)
         tx = resp.transfer

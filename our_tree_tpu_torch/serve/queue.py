@@ -110,6 +110,9 @@ class Response:
     #: a chunked transfer's tallies (``serve/transfer.py``: the resume token,
     #: chunk counts, redispatches and skips); None on a single-rung request
     transfer: dict | None = None
+    #: the per-request time ledger (stage -> µs) the router attaches to a
+    #: sampled request (``route/proxy.py``); the port's server builds none
+    ledger: dict | None = None
 
 
 @dataclass

@@ -20,7 +20,11 @@ Lifecycle:
   then ``Server.stop()`` drains every accepted request.
 * **EXIT line and rc.** One last JSON line, ``{"kind":
   "ot-serve-worker-exit", "lost": L, ...}``, and exit 0 only if ``lost ==
-  0``.
+  0``. Two diagnostic keys the JAX worker's line lacks:
+  ``diag_engine_calls`` (the lanes' engine calls by mode) and
+  ``diag_launches`` (each kernel wrapper's launches in this process, 0 on
+  the CPU), so a router drive can hold each worker's launches against its
+  engine calls.
 
 Per-connection containment: a ``FrameTooLarge`` whose payload can be drained
 answers a typed ``too-large`` frame and the connection goes on; a torn or
@@ -78,17 +82,20 @@ class RequestFrontend:
     async def stop(self, grace_s: float = 5.0) -> None:
         """Close the listener, let open connections finish their exchanges,
         then cancel those still open after ``grace_s`` (an idle client holds
-        no request in flight)."""
+        no request in flight). The listener's ``wait_closed`` comes last: on
+        Python 3.12 it waits for every open connection, so awaited first it
+        would wait forever on an idle client (a router's pooled socket)."""
         if self._srv is not None:
             self._srv.close()
-            await self._srv.wait_closed()
-            self._srv = None
         if self._conns:
             _done, pending = await asyncio.wait(list(self._conns), timeout=max(grace_s, 0.0))
             for task in pending:
                 task.cancel()
             if pending:
                 await asyncio.gather(*pending, return_exceptions=True)
+        if self._srv is not None:
+            await self._srv.wait_closed()
+            self._srv = None
 
     def _on_conn(self, reader, writer) -> None:
         self.connections += 1
@@ -426,6 +433,13 @@ def server_config(args) -> ServerConfig:
         session_budget_bytes=args.session_budget_bytes)
 
 
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process, by kernel name
+    (the serve bench's table of wrappers)."""
+    from .bench import MODE_KERNELS, OTHER_KERNELS
+    return {name: int(fn.launches) for name, fn in {**MODE_KERNELS, **OTHER_KERNELS}.items()}
+
+
 async def _amain(args) -> int:
     server = Server(server_config(args))
     await server.start()
@@ -455,7 +469,9 @@ async def _amain(args) -> int:
             "batches": stats["batches"], "quarantines": stats["lanes"]["quarantine_events"],
             "recompiles": stats["compiles"]["steady"], "keycache": stats["keycache"],
             "frames": frontend.frames, "protocol_errors": frontend.protocol_errors,
-            "transfers": stats["transfers"], "sessions": stats["sessions"]}
+            "transfers": stats["transfers"], "sessions": stats["sessions"],
+            "diag_engine_calls": stats["lanes"]["engine_calls_by_mode"],
+            "diag_launches": kernel_launches()}
     print(json.dumps(line), flush=True)
     trace.point("worker-drained", lost=lost, frames=frontend.frames)
     return 1 if lost else 0

@@ -1307,3 +1307,77 @@ def test_serve_compile_us_counts_warmup_builds_by_rung(card, tmp_path):
     assert by_rung == {str(line["config"]["rungs"][0]): by_rung[str(line["config"]["rungs"][0])]}
     assert by_rung[str(line["config"]["rungs"][0])]["count"] == 2
     assert any(ln.startswith("# compile: 2 compile(s)") for ln in out)
+
+
+def test_router_on_card_matches_cpu_router(card):
+    """The port's router over two port servers on the card, each behind its
+    frontend, against the same router over two CPU servers: the NIST F.5.1
+    KAT and 200 mixed requests (12 tenants, 16 B to 16 KiB, seeded) give the
+    same bytes from the same back ends; on the card every ``ctr`` engine call
+    (warmup's included) is one ``ctr_mk`` launch, no build after warmup, and
+    nothing is lost."""
+    import asyncio
+
+    from our_tree_tpu_torch.route.proxy import BackendSpec, Router, RouterConfig
+    from our_tree_tpu_torch.serve.server import Server, ServerConfig
+    from our_tree_tpu_torch.serve.worker import RequestFrontend
+
+    kat_key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
+    kat_ctr = bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff")
+    kat_pt = bytes.fromhex("6bc1bee22e409f96e93d7e117393172aae2d8a571e03ac9c9eb76fac45af8e51"
+                           "30c81c46a35ce411e5fbc1191a0a52eff69f2445df4f9b17ad2b417be66c3710")
+    kat_ct = bytes.fromhex("874d6191b620e3261bef6864990db6ce9806f66b7970fdff8617187bb9fffdff"
+                           "5ae4df3edbd5d35e5b4f09020db03eab1e031dda2fbe03d1792170a0f3009cee")
+    rng = np.random.default_rng(2024)
+    keys = {f"t{t}": rng.bytes(16) for t in range(12)}
+    reqs = [("t0", kat_key, kat_ctr, kat_pt)]
+    for _ in range(200):
+        t = f"t{int(rng.integers(12))}"
+        reqs.append((t, keys[t], rng.bytes(16), rng.bytes(int(rng.choice([16, 64, 256, 1024,
+                                                                          4096, 16384])))))
+
+    def route(device):
+        async def main():
+            before = cuda_aes.ctr_scattered_multikey.launches
+            servers, fronts, specs = [], [], []
+            for i in range(2):
+                s = Server(ServerConfig(device=device, lanes=1, status_port=0))
+                await s.start()
+                f = RequestFrontend(s, 0)
+                await f.start()
+                servers.append(s)
+                fronts.append(f)
+                specs.append(BackendSpec(f"b{i}", "127.0.0.1", f.port, s.status.port))
+            router = Router(specs, RouterConfig(gossip_every_s=0.0, attempt_timeout_s=10.0))
+            await router.start()
+            out = []
+            try:
+                for t, k, n, p in reqs:
+                    d0 = {name: b.dispatches for name, b in router.backends.items()}
+                    r = await router.submit(t, k, n, np.frombuffer(p, np.uint8))
+                    by = [name for name, b in router.backends.items()
+                          if b.dispatches != d0[name]]
+                    out.append((r.ok, r.error, bytes(np.asarray(r.payload)) if r.ok else None,
+                                by))
+            finally:
+                await router.stop()
+                for f in fronts:
+                    await f.stop(grace_s=1.0)
+                for s in servers:
+                    await s.stop()
+            launches = cuda_aes.ctr_scattered_multikey.launches - before
+            calls = sum(s.stats()["lanes"]["engine_calls_by_mode"].get("ctr", 0) for s in servers)
+            steady = sum(s.stats()["compiles"]["steady"] for s in servers)
+            return out, router.stats(), launches, calls, steady
+
+        return asyncio.run(main())
+
+    got, gst, launches, calls, steady = route("cuda")
+    want, wst, _, _, _ = route("cpu")
+    assert got == want
+    assert got[0][:3] == (True, None, kat_ct)
+    assert all(ok for ok, *_ in got)
+    assert gst["lost"] == wst["lost"] == 0 and gst["affinity"]["ratio"] == 1.0
+    assert {n: b["dispatches"] for n, b in gst["backends"].items()} == \
+        {n: b["dispatches"] for n, b in wst["backends"].items()}
+    assert launches == calls > 0 and steady == 0

@@ -33,8 +33,11 @@ def traced(tmp_path, monkeypatch):
         monkeypatch.setenv("OT_TRACE_RUN", run)
         monkeypatch.setenv("OT_TRACE_MAX_MB", str(cap_mb))
         monkeypatch.delenv("OT_TRACE_PARENT", raising=False)
-        trace.reset_for_tests()
+        # Metrics first: their reset stops a daemon flusher that an earlier
+        # test's server left running, which would otherwise open a snapshot
+        # file of its own under the new run before the registry is cleared.
         metrics.reset_for_tests()
+        trace.reset_for_tests()
         return tmp_path / "tr" / run
 
     yield _set

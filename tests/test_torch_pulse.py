@@ -477,3 +477,119 @@ def test_on_alert_arms_a_capture_window(traced, monkeypatch):
     assert summary is not None and summary["armed_by"] == "alert"
     assert profiler.validate_summary(summary) == []
     profiler.reset_for_tests()
+
+
+# ---------------------------------------------------------------------------
+# The routing tier's alert view and the fleet's headroom policy (the JAX
+# package's tests/test_pulse.py router cases, through both packages).
+# ---------------------------------------------------------------------------
+
+
+def test_router_alertz_always_answers():
+    """The router's ``/alertz`` is the fleet view: a merged document even
+    with no pulse engine and no back ends, as the JAX router's."""
+    import route_pair as rp
+
+    class _Router:
+        pulse = None
+        backends: dict = {}
+
+    docs = [asyncio.run(p.RouterStatus(_Router(), 0).alertz_async()) for p in rp.PKGS]
+    assert docs[0] == docs[1] == {"router": None, "federated": {}, "fired": {}, "total": 0}
+
+
+class _FakeHealth:
+    state = "healthy"
+    draining = False
+
+    def placeable(self):
+        return True
+
+
+class _FakeBackend:
+    def __init__(self, cap_bps):
+        self.last_healthz = {"queue": {"depth": 0.0}, "lanes": {"inflight": 0.0, "count": 1},
+                             "capacity": {"total_blocks_per_s": cap_bps}}
+        self.health = _FakeHealth()
+        self.bytes_out = 0
+
+
+class _FakeRouter:
+    def __init__(self, caps):
+        self.backends = {f"w{i}": _FakeBackend(c) for i, c in enumerate(caps)}
+        self.shed_retries = 0
+        self.router_sheds = 0
+
+
+def _fleet_sup(pkg, policy, clk, caps=(100.0,)):
+    cfg = pkg.fleet.FleetConfig(min_workers=1, max_workers=2, settle_ticks=1, cooldown_s=0.0,
+                                refresh_gossip=False, policy=policy, headroom_frac=0.8)
+    router = _FakeRouter(caps)
+    sup = pkg.fleet.FleetSupervisor(router, lambda name: None, cfg, clock=lambda: clk["t"])
+    ups = []
+
+    async def fake_up():
+        ups.append(1)
+        return True
+
+    sup.scale_up = fake_up
+    return sup, router, ups
+
+
+@pytest.mark.parametrize("policy", ["headroom", "static"])
+def test_fleet_policy_on_measured_capacity_matches_reference(policy):
+    """90 blocks/s offered against a measured 100: the headroom policy grows,
+    the static one stays idle; the port's supervisor decides as the JAX
+    one and publishes the same signals and gauges."""
+    import route_pair as rp
+
+    out = []
+    for pkg in rp.PKGS:
+        rp.reset_state()
+        clk = {"t": 0.0}
+        sup, router, ups = _fleet_sup(pkg, policy, clk)
+
+        async def main():
+            first = await sup.tick()
+            clk["t"] += 1.0
+            router.backends["w0"].bytes_out = 90 * 16
+            return first, await sup.tick()
+
+        ticks = asyncio.run(main())
+        doc = sup.fleetz()
+        gauges = {k: v for k, v in pkg.metrics.snapshot()["gauges"].items()
+                  if k.startswith("route_fleet_")}
+        out.append((ticks, ups, doc["signals"], doc["policy"], doc["headroom_frac"], gauges))
+    rp.reset_state()
+    assert out[1] == out[0]
+    ticks, ups, sig, pol, frac, _ = out[1]
+    if policy == "headroom":
+        assert ticks == ("idle", "scaled-up") and ups == [1]
+        assert sig["capacity_bps"] == 100.0 and sig["offered_bps"] == pytest.approx(90.0)
+        assert sig["headroom_used"] == pytest.approx(0.9)
+    else:
+        assert ticks == ("idle", "idle") and ups == []
+    assert (pol, frac) == (policy, 0.8)
+
+
+def test_fleet_signals_publish_shed_rate_and_capacity_gauges():
+    import route_pair as rp
+
+    out = []
+    for pkg in rp.PKGS:
+        rp.reset_state()
+        clk = {"t": 0.0}
+        sup, router, _ups = _fleet_sup(pkg, "static", clk)
+        sup.signals()
+        clk["t"] += 2.0
+        router.shed_retries = 6
+        sig = sup.signals()
+        g = pkg.metrics.snapshot()["gauges"]
+        out.append((sig, {k: g[k] for k in g if k.startswith("route_fleet_")}))
+    rp.reset_state()
+    assert out[1] == out[0]
+    sig, g = out[1]
+    assert sig["shed_rate"] == pytest.approx(3.0)
+    assert g["route_fleet_shed_rate"] == pytest.approx(3.0)
+    assert g["route_fleet_capacity_blocks"] == pytest.approx(100.0)
+    assert "route_fleet_offered_blocks" in g

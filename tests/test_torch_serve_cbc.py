@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from our_tree_tpu.obs import costmodel as jcost
+from our_tree_tpu.obs import metrics as jmetrics
 from our_tree_tpu.resilience import degrade as jdegrade
 from our_tree_tpu.serve import batcher as jbatcher
 from our_tree_tpu.serve import keycache as jkeycache
@@ -49,6 +50,9 @@ def _clean(monkeypatch):
     yield
     degrade.clear()
     jdegrade.clear()
+    # The JAX servers' counters stay with this file: a JAX test later in
+    # the same process reads the registry's modes.
+    jmetrics.reset_for_tests()
 
 
 def _specs(seed, n=40, sizes=(16, 48, 256, 1024, 2048, 4096), key_bytes=(16,)):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from our_tree_tpu.obs import metrics as jmetrics
 from our_tree_tpu.resilience import degrade as jdegrade
 from our_tree_tpu.serve import batcher as jbatcher
 from our_tree_tpu.serve import keycache as jkeycache
@@ -50,6 +51,9 @@ def _clean(monkeypatch):
     yield
     degrade.clear()
     jdegrade.clear()
+    # The JAX servers' counters stay with this file: a JAX test later in
+    # the same process reads the registry's modes.
+    jmetrics.reset_for_tests()
 
 
 def _script(seed=17):

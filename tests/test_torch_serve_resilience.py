@@ -11,7 +11,10 @@ held against the JAX package's on the CPU:
 * the journal round trip across packages: rows the port's server writes are
   adopted by the JAX server and cleared by the JAX ``clear_failures``, and
   the reverse through ``serve.bench --unquarantine``; a third run starts with
-  both lanes healthy.
+  both lanes healthy;
+* the port's lane executor at close: it waits for a worker the watchdog
+  abandoned in the ``dispatch_slow`` seam, and not for one parked in an
+  injected hang.
 
 The JAX server runs its default engine on this host (the native tier), the
 port's the plain version: health and failover do not depend on the engine.
@@ -19,6 +22,8 @@ Tolerance: exact."""
 
 import asyncio
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -29,9 +34,10 @@ from our_tree_tpu.resilience import journal as jjournal
 from our_tree_tpu.serve.server import Server as JServer
 from our_tree_tpu.serve.server import ServerConfig as JServerConfig
 from our_tree_tpu_torch.models.aes import AES
-from our_tree_tpu_torch.resilience import degrade, faults, journal
+from our_tree_tpu_torch.resilience import degrade, faults, journal, watchdog
 from our_tree_tpu_torch.serve import bench as serve_bench
 from our_tree_tpu_torch.serve import lanes
+from our_tree_tpu_torch.serve.dispatch import LaneExecutor
 from our_tree_tpu_torch.serve.server import Server, ServerConfig
 
 CFG = dict(min_bucket_blocks=32, max_bucket_blocks=64, lanes=2, probe_every=10_000,
@@ -166,3 +172,36 @@ def test_journal_round_trip_across_packages(writer, monkeypatch, tmp_path, capsy
     _answers, health, _kinds = _serve(writer == "port", cfg, "", monkeypatch, reqs)
     assert [ln["state"] for ln in health["lanes"]] == [lanes.HEALTHY, lanes.HEALTHY]
     assert all(not ln["transitions"] for ln in health["lanes"])
+
+
+@pytest.mark.parametrize("seam", ["dispatch_slow", "dispatch_hang"])
+def test_close_waits_for_abandoned_workers_but_not_parked_hangs(seam, monkeypatch):
+    """A worker the watchdog abandoned wakes later and still runs its unit's
+    rest; ``close`` waits for it, so no worker of a stopped server is left in
+    torch while the interpreter shuts down. A worker parked in an injected
+    hang (24 h by default) is not waited for."""
+    monkeypatch.setenv("OT_FAULTS", seam)
+    monkeypatch.setenv("OT_SLOW_S", "0.6")
+    monkeypatch.delenv("OT_HANG_S", raising=False)
+    faults.reset()
+    ex = LaneExecutor("t-close")
+    workers = []
+
+    def unit():
+        workers.append(threading.current_thread())
+        with watchdog.deadline(0.1, what="slowed unit"):
+            watchdog.injected_hang("dispatch_hang")
+            faults.injected_slow("dispatch_slow")
+        return "late"
+
+    with pytest.raises(watchdog.DispatchTimeout):
+        ex.submit(unit).result(5)
+    assert ex.abandoned == 1
+    (worker,) = workers
+    t0 = time.monotonic()
+    ex.close()
+    waited = time.monotonic() - t0
+    if seam == "dispatch_slow":
+        assert not worker.is_alive()
+    else:
+        assert worker.is_alive() and watchdog.parked(worker) and waited < 1.0

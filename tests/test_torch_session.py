@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from our_tree_tpu.models import arc4 as jarc4
+from our_tree_tpu.obs import metrics as jmetrics
 from our_tree_tpu.resilience import degrade as jdegrade
 from our_tree_tpu.resilience import faults as jfaults
 from our_tree_tpu.serve import queue as jqueue
@@ -61,6 +62,9 @@ def _clean(monkeypatch):
         mod.reset()
     degrade.clear()
     jdegrade.clear()
+    # The JAX servers' counters stay with this file: a JAX test later in
+    # the same process reads the registry's modes.
+    jmetrics.reset_for_tests()
 
 
 def _oracle_rows(m_words, xy_words, length: int) -> np.ndarray:
@@ -492,3 +496,67 @@ def test_lane_hang_mid_refill_replays_carry_bit_exact(monkeypatch):
     # and the refills that ran.
     assert lanes_st["engine_calls_by_mode"]["rc4-prep"] == \
         2 + stats["sessions"]["prefetch"]["dispatches"]
+
+
+# ---------------------------------------------------------------------------
+# Sessions through the router: the pin (the JAX package's
+# tests/test_session.py router case, and a pinned session end to end).
+# ---------------------------------------------------------------------------
+
+
+def test_router_session_data_requires_a_pin():
+    import route_pair as rp
+
+    out = []
+    for pkg in rp.PKGS:
+        router = pkg.Router([pkg.BackendSpec("b0", "127.0.0.1", 1)], pkg.RouterConfig())
+        r = asyncio.run(router.submit_session("t", 3, b"\x00" * 16))
+        c = asyncio.run(router.close_session("t", 3))
+        out.append((r.ok, r.error, "not open" in r.detail, c.ok, c.error,
+                    router.stats()["accepted"]))
+    assert out[1] == out[0] == (False, "bad-request", True, False, "bad-request", 0)
+
+
+def test_router_pins_a_session_to_one_backend_bit_exact():
+    """An rc4 session through the port's router over port servers: every
+    frame walks the session's one replica sequence (the JAX router's
+    ``session_order``), each chunk equal to the host PRGA's keystream XOR,
+    and the pin is dropped at close."""
+    import route_pair as rp
+
+    key = b"\x77" * 16
+    rng = np.random.default_rng(23)
+    chunks = [rng.integers(0, 256, 16 * n, dtype=np.uint8) for n in (4, 32, 7)]
+    ks, _ = arc4.keystream_np((0, 0, arc4.key_schedule(key)), sum(c.size for c in chunks))
+    ks = np.asarray(ks, np.uint8)
+
+    async def main():
+        async with rp.Cluster(rp.PORT, n=3, server_kw=dict(
+                modes=("ctr", "rc4"), session_quantum_bytes=1024, session_prefetch_slots=2,
+                session_window_bytes=2048)) as c:
+            jr = rp.JAX.Router([rp.JAX.BackendSpec(s.name, s.host, s.port) for s in c.specs],
+                               rp.JAX.RouterConfig())
+            for s in c.specs:
+                jr._register(rp.JAX.BackendSpec(s.name, s.host, s.port))
+            assert c.router.session_order("wt", 5) == jr.session_order("wt", 5)
+            opened = await c.router.open_session("wt", 5, key)
+            assert opened.ok
+            pin = c.router._session_pins[("wt", 5)]
+            assert pin == c.router.session_order("wt", 5)[0]
+            off = 0
+            for chunk in chunks:
+                before = rp.dispatches(c.router)
+                r = await c.router.submit("wt", b"", b"", chunk, mode="rc4", sid=5)
+                assert r.ok, (r.error, r.detail)
+                assert bytes(np.asarray(r.payload)) == np.bitwise_xor(
+                    chunk, ks[off:off + chunk.size]).tobytes()
+                assert rp.dispatches(c.router) == before  # session frames are not dispatches
+                off += chunk.size
+            closed = await c.router.close_session("wt", 5)
+            assert closed.ok
+            st = c.router.stats()["sessions"]
+            assert st == {"opened": 1, "closed": 1, "chunks": 3, "pinned": 0, "pin_misses": 0}
+            again = await c.router.submit("wt", b"", b"", chunks[0], mode="rc4", sid=5)
+            assert not again.ok and again.error == "bad-request"
+
+    asyncio.run(main())

@@ -464,3 +464,114 @@ def test_loadgen_transfer_mix_verified():
     assert report.ok == report.requests == 12 and report.mismatches == 0
     assert report.transfers == {"requests": 4, "ok": 4, "chunks_sent": 16, "redispatched": 0}
     assert report.verified >= 4 and report.to_json()["transfers"] == report.transfers
+
+
+# ---------------------------------------------------------------------------
+# Transfers at the router: the replica router's frame hardening, the chunk
+# spray, and a routed transfer against the JAX router's (the JAX package's
+# tests/test_transfer.py router cases, through both packages).
+# ---------------------------------------------------------------------------
+
+
+async def _send_raw(pkg, port: int, blob: bytes, then: bytes = b""):
+    """Write raw bytes and read one frame; optionally one more frame on the
+    same connection and its answer."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(blob)
+        await writer.drain()
+        first = await pkg.wire.read_frame(reader, max_len=1 << 24)
+        second = None
+        if then:
+            writer.write(then)
+            await writer.drain()
+            second = await pkg.wire.read_frame(reader, max_len=1 << 24)
+        return first, second
+    finally:
+        writer.close()
+
+
+def test_router_frontend_hardening_typed_errors():
+    import route_pair as rp
+
+    async def script(pkg):
+        router = pkg.Router([pkg.BackendSpec("b0", "127.0.0.1", 1, None)], pkg.RouterConfig())
+        srv = pkg.fleet.RouterServer(router, max_frame_bytes=4096)
+        await srv.start()
+        try:
+            declared = 4096 + 16
+            hdr = json.dumps({"t": "t", "len": declared}).encode() + b"\n"
+            (h1, _), second = await _send_raw(pkg, srv.port, hdr + b"\x00" * declared,
+                                              then=pkg.wire.encode_frame({"g": 1}))
+            (h2, _), _ = await _send_raw(pkg, srv.port, b"garbage header\n")
+            return ((h1["ok"], h1["error"]), second[0].get("g"), (h2["ok"], h2["error"]),
+                    srv.protocol_errors)
+        finally:
+            await srv.stop()
+
+    jax_out, port_out = rp.run_both(script)
+    assert port_out == jax_out
+    assert port_out == ((False, otq.ERR_TOO_LARGE), 1, (False, otq.ERR_BAD_REQUEST), 2)
+
+
+def test_router_rotate_spreads_chunks_across_replica_set():
+    import route_pair as rp
+
+    orders = []
+    for pkg in rp.PKGS:
+        specs = [pkg.BackendSpec(f"b{i}", "127.0.0.1", i + 1, None) for i in range(3)]
+        router = pkg.Router(specs, pkg.RouterConfig(vnodes=16, seed=3))
+        for s in specs:
+            router._register(s)
+        orders.append(router._order_for("tenant/deadbeef"))
+    assert orders[0] == orders[1]
+    base = orders[1]
+    heads = {(base[i:] + base[:i])[0] for i in range(len(base))}
+    assert sorted(base) == ["b0", "b1", "b2"] and len(heads) == 3
+
+
+def test_routed_transfer_sprays_chunks_and_resumes_like_reference(monkeypatch):
+    """A 5-chunk CTR transfer through each package's router over its own
+    three servers: the same output (equal to the plain AES over the whole
+    payload), the same chunks on the same back ends, and a ``transfer_abort``
+    at the last chunk resumed by token with only the unacked chunks sent."""
+    import route_pair as rp
+
+    rng = np.random.default_rng(31)
+    key, nonce = rng.bytes(16), rng.bytes(16)
+    payload = np.frombuffer(rng.bytes(5 * 256 * 16 - 48), np.uint8)
+    want, *_ = AES(key, device="cpu").crypt_ctr(0, np.frombuffer(nonce, np.uint8).copy(),
+                                                 np.zeros(16, np.uint8), payload)
+
+    async def script(pkg):
+        # A window of one chunk: the abort at the last chunk's admission
+        # comes after every earlier chunk was acked.
+        async with rp.Cluster(pkg, n=3, router_kw=dict(transfer_chunk_blocks=256,
+                                                      transfer_window=1)) as c:
+            resp = await c.router.submit("tx", key, nonce, payload)
+            spray = rp.dispatches(c.router)
+            out = np.zeros(payload.size, np.uint8)
+
+            def collect(spec, r):
+                out[spec.offset:spec.offset + spec.nbytes] = np.asarray(r.payload)[:spec.nbytes]
+
+            monkeypatch.setenv("OT_FAULTS", "transfer_abort:1@chunk=4")
+            pkg.faults.reset()
+            first = await c.router.submit_transfer("tx", key, nonce, payload, resume_token="tok",
+                                                   on_chunk=collect)
+            monkeypatch.delenv("OT_FAULTS")
+            pkg.faults.reset()
+            second = await c.router.submit_transfer("tx", key, nonce, payload,
+                                                    resume_token="tok", on_chunk=collect)
+            t2 = second.transfer or {}
+            return (rp.answer(resp), spray, (first.ok, first.error), second.ok,
+                    (t2.get("resumed"), t2.get("skipped"), t2.get("sent")), out.tobytes(),
+                    c.router.stats()["lost"])
+
+    jax_out, port_out = rp.run_both(script)
+    assert port_out == jax_out
+    ans, spray, first, ok, (resumed, skipped, sent), spliced, lost = port_out
+    assert ans[0] and ans[2] == np.asarray(want, np.uint8).tobytes() == spliced
+    assert sum(1 for n in spray.values() if n) >= 2 and sum(spray.values()) == 5
+    assert first == (False, otq.ERR_TRANSFER_ABORT) and ok and resumed
+    assert skipped > 0 and sent < 5 and lost == 0

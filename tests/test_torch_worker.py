@@ -82,6 +82,9 @@ def _clean(monkeypatch):
     faults.reset()
     jfaults.reset()
     degrade.clear()
+    # The JAX servers' counters stay with this file: a JAX test later in
+    # the same process reads the registry's modes.
+    jmetrics.reset_for_tests()
 
 
 # ---------------------------------------------------------------------------
@@ -690,3 +693,32 @@ def test_worker_refuses_what_the_port_lacks(argv):
                  "session_quantum_bytes", "session_prefetch_slots", "session_budget_bytes"):
         if name != field:
             assert getattr(cfg, name) == getattr(defaults, name), name
+
+
+def test_frontend_stop_ends_with_an_idle_connection_open():
+    """A router keeps idle pooled connections to its workers: the frontend's
+    drain cancels them after its grace and ends (awaiting the listener's
+    ``wait_closed`` first would wait on them for good on Python 3.12)."""
+
+    async def main():
+        server = Server(ServerConfig(device="cpu", lanes=1, min_bucket_blocks=32,
+                                     max_bucket_blocks=64))
+        await server.start()
+        front = RequestFrontend(server, 0)
+        await front.start()
+        reader, writer = await asyncio.open_connection("127.0.0.1", front.port)
+        writer.write(wire.encode_frame({"t": "t0", "k": (b"\x01" * 16).hex(),
+                                        "n": (b"\x02" * 16).hex()}, b"\x00" * 64))
+        await writer.drain()
+        h, body = await wire.read_frame(reader)
+        assert h["ok"] and len(body) == 64
+        server.queue.close()
+        t0 = time.monotonic()
+        await asyncio.wait_for(front.stop(grace_s=0.2), timeout=WAIT_S)
+        stopped_s = time.monotonic() - t0
+        assert await reader.read(16) == b""  # the idle connection was closed
+        writer.close()
+        await server.stop()
+        return stopped_s
+
+    assert asyncio.run(main()) < 5.0
