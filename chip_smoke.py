@@ -50,9 +50,13 @@ is not 0:
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
    at 64 MiB, and its 65,536-step latency chain over one word (mismatching
    words must be 0); ``arc4_prga`` for S in {1, 7, 32, 4096} streams x {1,
-   255, 4096, 2^16, 2^20} bytes, each as keystream, fused XOR and a resume
+   255, 4096, 2^16, 2^18} bytes, each as keystream, fused XOR and a resume
    across two calls, against the first S rows of one timed plain run a
-   length on 4,096 streams (mismatching bytes must be 0);
+   length on 4,096 streams (mismatching bytes must be 0), and for S in {1,
+   7, 32} at 2^20 bytes (the sweep's length) its first 2^18 bytes against
+   that plain run and the rest against a resume from them (the plain
+   version's depth is cut to 2^18 bytes since PR 21: its per-byte loop took
+   about 100 s at 2^20);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
    the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
@@ -62,7 +66,9 @@ is not 0:
    multi-key CBC seam (``cbc_mk``);
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
    must be 0xa612a647, the reference's digest for this chain, and every
-   ``ctr_gen`` launch in the group form;
+   ``ctr_gen`` launch in the group form; then at 1 GiB (BASELINE.json's
+   buffer, the root ``bench.py``'s other defaults), whose digest must be
+   0x3fee5832, the reference's (docs/PERF.md:22), counted the same way;
 5. the block-mode path at 256 MiB: ECB encrypt and decrypt (round trip, each
    kernel equal to its plain version), the parallel CBC and CFB128 decrypts
    (equal to their plain versions), the sequential CBC and CFB128 encrypts of
@@ -175,8 +181,13 @@ is not 0:
    e2e`` (staging included); the same three on ``--backend c``; rc4 at 1 MiB with
    ``OT_ARC4_PREP=device``; gated on every self-test, parity and XOR line,
    no ``# degraded:`` line, each unit's kernel launched (the harness's
-   ``# launches:`` lines) and ``--workers 2`` refused; each row's GB/s is
-   printed beside the CTR chain's;
+   ``# launches:`` lines); a two-rank gloo world sharing the card (``python
+   -m torch.distributed.run --nproc-per-node 2 -m
+   our_tree_tpu_torch.harness.bench --dist-backend gloo --workers 1,2
+   --sizes-mb 1,16 --modes ecb,ecb-dec,ctr,cbc-dec,cbc-batch,rc4-batch``),
+   whose shard-invariance lines must pass and whose every unit must launch
+   its kernel on both ranks; and ``--workers 2`` without a world refused,
+   naming that launch; each row's GB/s is printed beside the CTR chain's;
 11. AES-GCM: ``ghash_scan`` against ``ghash_scan_plain`` (zero mismatching
    words) at N in {1, 2, 31, 33, 4096} rows with K 1/8/64 and at 65,537
    with K = 8 (random slots, keep, y0 and inject, and x ^ inject given
@@ -341,6 +352,25 @@ is not 0:
    workers' times to READY, p50/p99, goodput and the router's
    ``router_queue`` and ``wire`` p50s are printed. The ``kernels`` line's
    ``ctr_mk`` and ``ghash_at`` gain ``route`` (their launches by drive);
+18. multi-device (``multidevice_phase``; after 17, before 14), in child
+   processes so that no process group outlives its step: (a) a world of one
+   on NCCL (``dryrun_multichip(1)`` in a world of its own, then one joined
+   through ``multihost.initialize``) and (b) worlds of 2 and 4 gloo ranks
+   (``python -m torch.distributed.run``), every rank launching its kernels
+   on this card, each running ``dryrun_multichip`` at its tiny shapes and
+   then the full-width steps: CTR over the 256 MiB headline buffer (the
+   bench's key, nonce and data), ECB, CBC and CFB128 decrypts over it, the
+   CBC batch of 4,096 streams x 64 blocks, ARC4 over rc4-batch's 32 x 2^20
+   bytes and the all-to-all over 64 MiB; each step's gathered output equal
+   to the unsharded call on the card, byte for byte, and each rank one
+   launch of the step's kernel (``ctr_gen``, ``ecb_decrypt``,
+   ``ecb_encrypt``, ``seq_encrypt``, ``arc4_prga``) and no other. Printed:
+   each step's wall and the collectives' share, each rank's launches, the
+   sharded CTR's GB/s beside phase 4's headline. The ``kernels`` line's
+   ``ctr_gen``, ``ecb_encrypt``, ``ecb_decrypt``, ``seq_encrypt`` and
+   ``arc4_prga`` gain ``sharded`` (their launches over every world and
+   rank) and ``sharded_by_world``. No run spans two cards: the machine
+   has one, and NCCL takes no two ranks on one device;
 14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -415,6 +445,25 @@ SAMPLED_S = 1.0
 #: window (1 s in, 2 s long) with the profiler running.
 PROFILED_REQUESTS = 10000
 MAIN_DIGEST = 0xA612A647
+#: The main path at BASELINE.json's 1 GiB buffer and the reference's digest
+#: of its chain there (docs/PERF.md:22).
+GIB_BYTES = 1 << 30
+GIB_DIGEST = 0x3FEE5832
+#: Phase 18: the gloo worlds (every rank on this card; the world of one runs
+#: on NCCL), each world's time limit, and the full-width steps' shapes: phase
+#: 5's CBC batch, rc4-batch's streams and bytes, the all-to-all's bytes.
+GLOO_WORLDS = (2, 4)
+MULTI_TIMEOUT = 300
+BATCH_STREAMS, BATCH_BLOCKS = 4096, 64
+ARC4_BATCH = (32, 1 << 20)
+A2A_BYTES = 64 << 20
+#: The kernel each full-width step launches once a rank (None: no kernel).
+MULTI_STEP_KERNEL = {"ctr": "ctr_gen", "ecb-dec": "ecb_decrypt", "cbc-dec": "ecb_decrypt",
+                     "cfb128-dec": "ecb_encrypt", "cbc-batch": "seq_encrypt",
+                     "arc4-batch": "arc4_prga", "all-to-all": None}
+MULTI_KERNELS = ("ctr_gen", "ecb_encrypt", "ecb_decrypt", "seq_encrypt", "arc4_prga")
+#: Phase 10's modes under two ranks.
+MULTI_SWEEP_MODES = "ecb,ecb-dec,ctr,cbc-dec,cbc-batch,rc4-batch"
 #: H100 SXM HBM3 rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer add/logic/shift results per clock per SM on compute
@@ -471,8 +520,14 @@ SEQ_BLOCKS = 4096
 #: is the harness's length (rc4-batch: 32 streams; rc4 with the keystream on
 #: the card: one), 2^16 that of the wide timing shape.
 ARC4_STREAMS = (1, 7, 32, 4096)
-ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 20)
+ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 18)
 ARC4_PLAIN_STREAMS = max(ARC4_STREAMS)
+#: The sweep's length: launches on ARC4_LONG_STREAMS streams are held
+#: against the plain run at the longest of ARC4_LENGTHS for its bytes, and
+#: against a resume from there for the rest (the plain version's per-byte
+#: loop takes about 100 s at this length).
+ARC4_LONG = 1 << 20
+ARC4_LONG_STREAMS = (1, 7, 32)
 #: Phase 9's timing shapes, (streams, bytes): the rc4-batch rows' launch
 #: (the head of the kernels entry), one stream, and 4,096 streams (one warp
 #: on each of 128 SMs).
@@ -618,6 +673,25 @@ T_START = time.perf_counter()
 
 def log(*a) -> None:
     print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
+
+
+def run_group(argv: list, timeout: float, env=None):
+    """Run ``argv`` in a session of its own (a launcher and the ranks it
+    spawns), output captured; past ``timeout`` the whole session is killed.
+    Returns (the completed process, wall seconds)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\n[killed after {timeout} s]"
+    return (subprocess.CompletedProcess(argv, proc.returncode, out, err),
+            time.perf_counter() - t0)
 
 
 def cfb_steps(iv_off: int, chunks) -> list:
@@ -2626,6 +2700,213 @@ def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
     return out
 
 
+def multi_rank(transport: str, out_dir: str) -> int:
+    """One rank of phase 18, in a child process: ``transport`` ``nccl`` is
+    the world of one (``dryrun_multichip(1)`` in a world of its own, then a
+    world of one joined through ``multihost.initialize``), ``gloo`` a rank
+    under ``python -m torch.distributed.run`` on this card. Runs
+    ``dryrun_multichip`` and the full-width steps, each counted, timed and
+    gathered against the unsharded call, and writes ``rank<r>.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch.distributed as tdist
+
+    from our_tree_tpu_torch import bench, entry
+    from our_tree_tpu_torch.models import aes, arc4
+    from our_tree_tpu_torch.ops import cuda_aes, cuda_arc4
+    from our_tree_tpu_torch.parallel import dist, multihost
+    from our_tree_tpu_torch.utils import packing
+
+    wrappers = {"ctr_gen": cuda_aes.ctr_crypt_words_fused, "ecb_encrypt": cuda_aes.encrypt_words,
+                "ecb_decrypt": cuda_aes.decrypt_words, "seq_encrypt": cuda_aes.seq_encrypt,
+                "arc4_prga": cuda_arc4.prga}
+    t0 = time.perf_counter()
+    store = None
+    if transport == "nccl":
+        entry.dryrun_multichip(1)  # no world yet: one of its own, on NCCL
+        store = tempfile.mkdtemp(prefix="ot_multi_")
+        multihost.initialize(f"file://{os.path.join(store, 'store')}", 1, 0)
+    else:
+        multihost.initialize_from_env(device="cuda", backend="gloo")
+        entry.dryrun_multichip(tdist.get_world_size())
+    mesh = multihost.global_mesh()
+    dev = mesh.device
+    # The transport's first collective sets it up (NCCL makes its
+    # communicator): outside the timed steps.
+    dist.gather_for_verification(torch.zeros(4, dtype=torch.int32, device=dev), mesh)
+    rec = {"world": mesh.size, "rank": mesh.rank, "backend": mesh.backend, "device": str(dev),
+           "dryrun_s": time.perf_counter() - t0, "steps": {}}
+
+    def step(name, run, want, rows):
+        """``run()`` gives this rank's output shard: counted, timed, then
+        gathered and compared with the unsharded call's ``want``."""
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        dist.reset_collectives()
+        t0 = time.perf_counter()
+        local = run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        whole = dist.gather_for_verification(local, mesh, rows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll = dist.COLLECTIVES
+        rec["steps"][name] = {"wall_s": wall, "call_s": t1 - t0, "collective_s": coll["seconds"],
+                              "collective_share": coll["seconds"] / wall,
+                              "collectives": {k: v["calls"] for k, v in coll["by_name"].items()},
+                              "launches": launches, "equal": bool(torch.equal(whole, want))}
+        return local
+
+    def words_of(hexbytes):
+        return packing.words_tensor(packing.np_bytes_to_words(
+            np.frombuffer(bytes.fromhex(hexbytes), np.uint8)), dev)
+
+    # CTR over the 256 MiB headline buffer: the bench's key, nonce and data.
+    host = np.random.default_rng(bench.SEED).integers(0, 256, MAIN_BYTES, dtype=np.uint8)
+    words = packing.words_tensor(packing.np_bytes_to_words(host), dev).reshape(-1, 4)
+    del host
+    n = words.shape[0]
+    a = aes.AES(bench.KEY, device=dev)
+    ctr = packing.words_tensor(packing.np_bytes_to_words(
+        np.frombuffer(bench.NONCE, np.uint8)).byteswap(), dev)
+    local = dist.shard_rows(words, mesh, words=True)
+    want = aes.ctr_crypt_words(words, ctr, a.rk_enc, a.nr)
+    step("ctr", lambda: dist.ctr_crypt_sharded(local, ctr, a.rk_enc, a.nr, mesh), want, n)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        dist.ctr_crypt_sharded(local, ctr, a.rk_enc, a.nr, mesh)
+    stop.record()
+    stop.synchronize()
+    rec["ctr_ms"] = start.elapsed_time(stop) / 20
+    rec["ctr_gbps"] = local.numel() * 4 / rec["ctr_ms"] / 1e6
+
+    # The decrypts over the same buffer: ECB, and the CBC and CFB128 halos.
+    iv = words_of(BLOCK_IV)
+    want = aes.ecb_decrypt_words(words, a.rk_dec, a.nr)
+    step("ecb-dec", lambda: dist.ecb_crypt_sharded(local, a.rk_dec, a.nr, mesh, encrypt=False),
+         want, n)
+    chained = dist.shard_rows(words, mesh, words=True, chained=True)
+    want = aes.cbc_decrypt_words(words, iv, a.rk_dec, a.nr)[0]
+    step("cbc-dec", lambda: dist.cbc_decrypt_sharded(chained, iv, a.rk_dec, a.nr, mesh), want, n)
+    want = aes.cfb128_decrypt_words(words, iv, a.rk_enc, a.nr)[0]
+    step("cfb128-dec", lambda: dist.cfb128_decrypt_sharded(chained, iv, a.rk_enc, a.nr, mesh),
+         want, n)
+    del want, words, local, chained
+    torch.cuda.empty_cache()
+
+    # Phase 5's CBC batch: 4,096 streams of 64 blocks.
+    gen = torch.Generator(dev).manual_seed(5)
+    bw = torch.randint(-2**31, 2**31, (BATCH_STREAMS, BATCH_BLOCKS, 4), dtype=torch.int32,
+                       device=dev, generator=gen)
+    bivs = torch.randint(-2**31, 2**31, (BATCH_STREAMS, 4), dtype=torch.int32, device=dev,
+                         generator=gen)
+    want = aes.cbc_encrypt_words_batch(bw, bivs, a.rk_enc, a.nr)[0]
+    step("cbc-batch", lambda: dist.cbc_encrypt_batch_sharded(
+        dist.shard_rows(bw, mesh), dist.shard_rows(bivs, mesh), a.rk_enc, a.nr, mesh)[0],
+         want, BATCH_STREAMS)
+
+    # rc4-batch's keystreams: 32 streams of 2^20 bytes.
+    rng = np.random.default_rng(7)
+    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in range(ARC4_BATCH[0])]
+    states = arc4.ARC4.batch_states(keys, dev)
+    want = arc4.keystream_scan_batch(states, ARC4_BATCH[1])[1]
+    step("arc4-batch", lambda: dist.arc4_prep_batch_sharded(
+        dist.shard_rows(states, mesh), ARC4_BATCH[1], mesh)[1], want, ARC4_BATCH[0])
+
+    # The all-to-all over 64 MiB: round-robin rows in, the contiguous range out.
+    g = torch.randint(-2**31, 2**31, (A2A_BYTES // 16, 4), dtype=torch.int32, device=dev,
+                      generator=gen)
+    cyclic = g[mesh.rank::mesh.size].contiguous()
+    step("all-to-all", lambda: dist.block_cyclic_to_contiguous(cyclic, mesh), g, g.shape[0])
+
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w", encoding="utf-8") as fh:
+        json.dump(rec, fh)
+    multihost.shutdown()
+    if store is not None:
+        shutil.rmtree(store, ignore_errors=True)
+    return 0
+
+
+def multidevice_phase(card: str, headline_gbps: float) -> dict:
+    """Phase 18: the world of one on NCCL and the gloo worlds of
+    ``GLOO_WORLDS`` ranks on this card, each in child processes
+    (``multi_rank``). Gates, every world and rank: rc 0, every step's gathered
+    output equal to the unsharded call's, each step one launch of its
+    kernel and no other. Returns each world's ranks' records and the
+    kernels' launches by world."""
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="ot_multi_")
+    me = os.path.join(ROOT, "chip_smoke.py")
+    worlds = {"1 nccl": (1, [sys.executable, me, "--multi-rank", "nccl"])}
+    for n in GLOO_WORLDS:
+        worlds[f"{n} gloo"] = (n, [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                   "--nproc-per-node", str(n), me, "--multi-rank", "gloo"])
+    out = {"worlds": {}, "launches_by_world": {}}
+    try:
+        for name, (n, argv) in worlds.items():
+            d = os.path.join(scratch, name.replace(" ", "_"))
+            os.makedirs(d)
+            res, wall = run_group(argv + [d], MULTI_TIMEOUT)
+            ranks = []
+            for r in range(n):
+                try:
+                    with open(os.path.join(d, f"rank{r}.json"), encoding="utf-8") as fh:
+                        ranks.append(json.load(fh))
+                except (OSError, ValueError) as e:
+                    raise SystemExit(f"phase 18 ({name}): rank {r} wrote no record ({e}); rc "
+                                     f"{res.returncode}; stderr {res.stderr[-4000:]!r}")
+            bad = []
+            for r in ranks:
+                for step_name, st in r["steps"].items():
+                    kernel = MULTI_STEP_KERNEL[step_name]
+                    want = {k: int(k == kernel) for k in st["launches"]}
+                    if not st["equal"] or st["launches"] != want:
+                        bad.append((r["rank"], step_name, st["equal"], st["launches"]))
+            checks = {"rc 0": res.returncode == 0,
+                      "every step on every rank": all(set(r["steps"]) == set(MULTI_STEP_KERNEL)
+                                                      for r in ranks),
+                      "gathered equal to unsharded, one launch of the step's kernel": not bad,
+                      "transport": all(r["backend"] == name.split()[1] for r in ranks)}
+            for step_name in MULTI_STEP_KERNEL:
+                walls = [r["steps"][step_name]["wall_s"] for r in ranks if step_name in r["steps"]]
+                shares = [r["steps"][step_name]["collective_share"] for r in ranks
+                          if step_name in r["steps"]]
+                if walls:
+                    log(f"multi-device {name} {step_name}: wall {max(walls) * 1e3:.2f} ms "
+                        f"(slowest rank), collectives {100 * min(shares):.1f}-"
+                        f"{100 * max(shares):.1f} % of it; launches by rank "
+                        + "; ".join(f"r{r['rank']} " + str({k: v for k, v in
+                                    r['steps'][step_name]['launches'].items() if v})
+                                    for r in ranks) + f"; card: {card}")
+            gbps = [r["ctr_gbps"] for r in ranks]
+            log(f"multi-device {name}: {wall:.1f} s wall (dryrun_multichip and start-up "
+                f"{max(r['dryrun_s'] for r in ranks):.1f} s); sharded CTR "
+                + ", ".join(f"r{r['rank']} {g:.2f} GB/s ({r['ctr_ms']:.4f} ms a shard)"
+                            for r, g in zip(ranks, gbps))
+                + f" beside phase 4's headline {headline_gbps} GB/s; checks {checks}; card: {card}")
+            if not all(checks.values()):
+                raise SystemExit(f"phase 18 ({name}): {checks}; bad {bad[:8]}; stderr "
+                                 f"{res.stderr[-3000:]!r}")
+            out["worlds"][name] = {"ranks": ranks, "wall_s": wall}
+            out["launches_by_world"][name] = {
+                k: sum(st["launches"][k] for r in ranks for st in r["steps"].values())
+                for k in MULTI_KERNELS}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 (multi-device): {out['wall_s']:.1f} s wall; launches by world "
+        f"{out['launches_by_world']}; no run across cards (one card; NCCL takes no two ranks "
+        f"on one device); card: {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3095,11 +3376,34 @@ def main() -> int:
                 log(f"MISMATCH arc4_prga S={s_n} bytes={n}: {bad} bytes or state words")
             del got, fused, first, second
         arc4_inputs[n] = {"states": st, "plain_ms": plain_s * 1e3, "max_abs_err": err}
+        if n == ARC4_LENGTHS[-1]:
+            long_want = want[:max(ARC4_LONG_STREAMS)].clone()
         del data, want, want_x, want_st
+    # The sweep's length: the first bytes against the plain run, the rest
+    # against a resume from them.
+    deep = ARC4_LENGTHS[-1]
+    for s_n in ARC4_LONG_STREAMS:
+        st_s = arc4_inputs[deep]["states"][:s_n]
+        got_st, got = cuda_arc4.prga(st_s, ARC4_LONG)
+        mid, first = cuda_arc4.prga(st_s, deep)
+        end, rest = cuda_arc4.prga(mid, ARC4_LONG - deep)
+        torch.cuda.synchronize()
+        diffs = [byte_diff(got[:, :deep], long_want[:s_n]), byte_diff(first, long_want[:s_n]),
+                 byte_diff(got[:, deep:], rest)]
+        bad = sum(m for m, _ in diffs) + byte_diff(got_st, end)[0]
+        arc4_bad += bad
+        arc4_cases += 1
+        if bad:
+            log(f"MISMATCH arc4_prga S={s_n} bytes={ARC4_LONG}: {bad} bytes or state words")
+        del got, first, rest
+    arc4_inputs[ARC4_LONG] = {**arc4_inputs[deep], "plain_bytes": deep}
+    del long_want
     torch.cuda.empty_cache()
     log(f"arc4_prga vs plain: {arc4_cases} cases (S in {ARC4_STREAMS} x bytes in {ARC4_LENGTHS}, "
-        f"against the plain version's first S of {ARC4_PLAIN_STREAMS} streams), each keystream, "
-        f"fused XOR and a resume across two calls: {arc4_bad} mismatching bytes or state words; "
+        f"against the plain version's first S of {ARC4_PLAIN_STREAMS} streams, each keystream, "
+        f"fused XOR and a resume across two calls; S in {ARC4_LONG_STREAMS} x {ARC4_LONG} bytes, "
+        f"the first {ARC4_LENGTHS[-1]} against the plain run, the rest against a resume): "
+        f"{arc4_bad} mismatching bytes or state words; "
         f"the plain version on {ARC4_PLAIN_STREAMS} streams "
         f"{ {n: round(v['plain_ms'], 1) for n, v in arc4_inputs.items()} } ms by length")
     if arc4_bad:
@@ -3242,6 +3546,22 @@ def main() -> int:
     log(f"CTR main path: {line['value']} GB/s median (min {line['value_min']}, max "
         f"{line['value_max']}, {line['reps']} reps), launches {ctr_counts}, ctr_gen by form "
         f"{ctr_forms}; card: {card}")
+    # The main path at BASELINE.json's 1 GiB, counted, on the reference's digest.
+    reset_counts()
+    line_gib = bench.run(device=dev, nbytes=GIB_BYTES, iters=5, reps=3)
+    gib_counts = counts()
+    log(json.dumps(line_gib))
+    if f"digest={GIB_DIGEST:#010x}" not in line_gib["metric"]:
+        raise SystemExit(f"main path digest at 1 GiB is not {GIB_DIGEST:#010x}: "
+                         f"{line_gib['metric']}")
+    if gib_counts["ctr_gen"] <= 0 or any(v for k, v in gib_counts.items() if k != "ctr_gen"):
+        raise SystemExit(f"the 1 GiB main path's launches were not ctr_gen's alone: {gib_counts}")
+    main_gib = {"bytes": GIB_BYTES, "gbps": line_gib["value"], "gbps_min": line_gib["value_min"],
+                "gbps_max": line_gib["value_max"], "reps": line_gib["reps"],
+                "digest": f"{GIB_DIGEST:#010x}", "launches": gib_counts["ctr_gen"]}
+    log(f"CTR main path at 1 GiB: {line_gib['value']} GB/s median (min {line_gib['value_min']}, "
+        f"max {line_gib['value_max']}), digest {GIB_DIGEST:#010x}, {gib_counts['ctr_gen']} "
+        f"ctr_gen launches, beside {ctr_gbps} GB/s at 256 MiB; card: {card}")
 
     phase("5")
     # 5. The block-mode path at 256 MiB, counted.
@@ -4607,6 +4927,7 @@ def main() -> int:
         arc4_shapes[label] = {
             "streams": s_n, "bytes_per_stream": n, "ms": ms,
             "plain_ms": arc4_inputs[n]["plain_ms"], "plain_streams": ARC4_PLAIN_STREAMS,
+            "plain_bytes_per_stream": arc4_inputs[n].get("plain_bytes", n),
             "max_abs_err": arc4_inputs[n]["max_abs_err"],
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -4618,7 +4939,8 @@ def main() -> int:
         e = arc4_shapes[label]
         log(f"arc4_prga {label} at {s_n} x {n} bytes: {ms:.4f} ms/launch ({s_n * n / ms / 1e6:.3f} "
             f"GB/s of keystream); plain {e['plain_ms']:.1f} ms (on {ARC4_PLAIN_STREAMS} streams of "
-            f"{n} bytes, the first {s_n} of them these); bound {e['bound_ms']:.5f} ms "
+            f"{e['plain_bytes_per_stream']} bytes, the first {s_n} of them these); bound "
+            f"{e['bound_ms']:.5f} ms "
             f"({e['bound_by']}, table rates), {meas_ms:.5f} ms at the measured rates ({meas_by}), "
             f"latency bound {n} x {rec_cycles:.2f} cycles at {mhz:.0f} MHz = {lat_b:.4f} ms; "
             f"kernel at {100 * e['share_of_larger_bound']:.1f} % of the larger of the "
@@ -4713,9 +5035,39 @@ def main() -> int:
                 f"{keygen} beside the CTR chain's {ctr_gbps} GB/s; "
                 + (f"CPU: {cpu_model()}" if "--backend" in argv else f"card: {card}"))
         log(f"harness {name}: {wall:.1f} s wall; launches by unit {units}")
-    res, _, _ = harness("two workers", common + ["--workers", "2", "--sizes-mb", "1", "--modes",
-                                                 "ecb"], expect_rc=1)
-    harness_checks["--workers 2 refused (queue 1 item 9)"] = "queue 1 item 9" in res.stderr
+    # Two gloo ranks sharing the card: every row on both ranks, a row of two
+    # workers sharded over them, rank 0 printing.
+    t0 = time.perf_counter()
+    res, _ = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "2", "-m", "our_tree_tpu_torch.harness.bench",
+                        "--dist-backend", "gloo", "--workers", "1,2", "--sizes-mb", "1,16",
+                        "--modes", MULTI_SWEEP_MODES, "--iters", "3"], 600, harness_env)
+    wall = time.perf_counter() - t0
+    for text in res.stdout.strip().splitlines():
+        log(f"harness two ranks: {text}")
+    rank_launches = {}
+    # The ranks share one stderr, so their lines can interleave: scan, not match lines.
+    for m in re.finditer(r"# launches(?: rank (\d+))?: (\S+) (\{[^{}]*\})", res.stderr):
+        rank_launches.setdefault(int(m.group(1) or 0), {})[m.group(2)] = json.loads(m.group(3))
+    invariance = ("Shard invariance [1, 2]: passed", "CBC-batch shard invariance [1, 2]: passed",
+                  "RC4-batch shard invariance [1, 2]: passed")
+    harness_checks["two ranks: rc 0"] = res.returncode == 0
+    harness_checks["two ranks: shard-invariance lines passed"] = all(
+        ln in res.stdout.splitlines() for ln in invariance) and not re.search(
+        r"FAILED|MISMATCH", res.stdout)
+    harness_checks["two ranks: every unit launched its kernel on both ranks"] = (
+        sorted(rank_launches) == [0, 1] and all(
+            cnt.get(HARNESS_KERNEL[unit.split(":")[0]], 0) > 0
+            for units in rank_launches.values() for unit, cnt in units.items()
+            if unit.split(":")[0] in HARNESS_KERNEL))
+    harness_launches["two ranks"] = rank_launches
+    log(f"harness two ranks: {wall:.1f} s wall; launches by rank and unit {rank_launches}; "
+        f"rc {res.returncode}" + (f"; stderr {res.stderr[-2000:]!r}" if res.returncode else ""))
+    res, _, _ = harness("two workers without a world", common + ["--workers", "2", "--sizes-mb",
+                                                                 "1", "--modes", "ecb"],
+                        expect_rc=1)
+    harness_checks["--workers 2 without a world refused, naming the launch"] = (
+        "torch.distributed.run --nproc-per-node 2" in res.stderr and "Multi-device" in res.stderr)
     log(f"harness checks: {harness_checks}")
     if not all(harness_checks.values()):
         raise SystemExit(f"the sweep harness failed: {harness_checks}")
@@ -5422,6 +5774,20 @@ def main() -> int:
             entry["route"] = {name: d["launches"].get(entry["name"], 0)
                               for name, d in route["drives"].items()}
 
+    # 18. Multi-device (before 14, which stays last): a world of one on NCCL
+    # and gloo worlds of 2 and 4 ranks on this card, in child processes.
+    phase("18")
+    multi = multidevice_phase(card, ctr_gbps)
+    for entry in kernels:
+        if entry["name"] in MULTI_KERNELS:
+            by_world = {w: c[entry["name"]] for w, c in multi["launches_by_world"].items()}
+            entry["sharded"] = sum(by_world.values())
+            entry["sharded_by_world"] = by_world
+        if entry["name"] == "ctr_gen":
+            entry["main_path_1gib"] = main_gib
+            entry["sharded_ctr_gbps"] = {w: [r["ctr_gbps"] for r in d["ranks"]]
+                                         for w, d in multi["worlds"].items()}
+
     phase("14")
     # 14. Drive A's mix once more, profiled (torch tier) and costed against
     # the ceiling the probe implies; its summary, trace and records land in
@@ -5502,4 +5868,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-rank"]:
+        sys.exit(multi_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -9,10 +9,26 @@ A backend is an object with a small protocol (``ecb`` / ``ctr`` / ``cbc`` /
   ``models/aes.py``: on the card ECB is ``ecb_encrypt_kernel``, ECB and CBC
   decrypt ``ecb_decrypt_kernel``, CTR ``ctr_gen``, the CBC/CFB128 encrypts
   and the CBC batch ``seq_encrypt_kernel``, the ARC4 keystreams
-  ``arc4_prga_kernel``. Workers map to devices; the port runs one, and
-  sharding across cards waits for ``parallel/dist.py`` (ROADMAP.md queue 1
-  item 9), so a worker count above 1 raises.
+  ``arc4_prga_kernel``. Workers map to ranks of a ``torch.distributed``
+  world, one device each (ROADMAP.md, "Multi-device"): a row of W > 1
+  workers shards over the first W ranks through ``parallel/dist.py``, as
+  the JAX backend shards over W devices; without a world it raises and
+  names the launch (``python -m torch.distributed.run --nproc-per-node W -m
+  our_tree_tpu_torch.harness.bench ...``).
 * ``"c"``: the native C tier (``runtime/native.py``), pthread workers.
+
+Under a world every rank runs each row on the same global data (the same
+seed), and a sharded call takes its rank's shard of it (``shard_rows``) and
+returns its rank's output shard; ``gather`` assembles the whole for the
+checks, outside the timed calls. A rank outside a row's first W ranks runs
+that row unsharded. A sharded row's times are its slowest rank's
+(``row_times``, an all-reduce MAX). By ``--timing``: ``e2e`` stages the
+whole message on every rank's device, then takes the shard; ``device-sync``
+times each rank's call to its synchronize; ``device`` takes each rank's
+chained difference, its carry XORed into the whole message on every rank.
+On a gloo world over card tensors (ranks sharing one card) the collectives
+run through host memory, which a CUDA graph cannot capture, so there the
+chained passes run eagerly.
 
 Nothing here imports torch until a ``GpuBackend`` is made, so a ``--backend
 c`` sweep (and the ``--isolate`` supervisor) never loads it.
@@ -54,15 +70,23 @@ class GpuBackend:
 
         from ..models import aes, arc4
         from ..ops import cuda_aes, cuda_arc4
+        from ..parallel import dist
         from ..utils import packing
 
         self._torch, self._aes, self._arc4, self._packing = torch, aes, arc4, packing
+        self._dist = dist
         self.device = aes.as_device(device)
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; the gpu backend takes "
                              f"{sorted(ENGINES)}")
         self.engine = aes.resolve_engine(ENGINES[engine], self.device)
-        self.max_workers = (torch.cuda.device_count() if self.device.type == "cuda" else 1)
+        import torch.distributed as tdist
+
+        self._world = tdist.is_available() and tdist.is_initialized()
+        # The world's ranks are the workers: 1 without a world.
+        self.max_workers = tdist.get_world_size() if self._world else 1
+        self._meshes: dict = {}
+        self._graphs = not (self._world and tdist.get_backend() == "gloo")
         self._wrappers = {"ctr_gen": cuda_aes.ctr_crypt_words_fused,
                           "ecb_encrypt": cuda_aes.encrypt_words,
                           "ecb_decrypt": cuda_aes.decrypt_words,
@@ -93,16 +117,41 @@ class GpuBackend:
                       "rows will time the ARC4 kernel", file=sys.stderr)
 
     # -- helpers -----------------------------------------------------------
-    def _one(self, workers: int) -> None:
-        """The port drives one device: any other worker count raises."""
+    def _mesh(self, workers: int):
+        """The mesh a row of ``workers`` shards over (``make_mesh``, cached),
+        or None where it runs unsharded: one worker, or this rank outside the
+        first ``workers`` ranks. Without a world of that many ranks it raises
+        and names the launch."""
         if workers == 1:
-            return
+            return None
+        launch = (f"launch python -m torch.distributed.run --nproc-per-node {workers} -m "
+                  "our_tree_tpu_torch.harness.bench ... (ROADMAP.md, \"Multi-device\")")
+        if not self._world:
+            raise ValueError(f"{workers} workers need a torch.distributed world of {workers} "
+                             f"ranks, one a device: {launch}")
         if workers > self.max_workers:
-            raise ValueError(f"{workers} workers exceed the {self.max_workers} visible "
-                             f"{self.device.type} device(s); multi-worker sharding waits for "
-                             "parallel/dist.py (ROADMAP.md queue 1 item 9)")
-        raise ValueError(f"{workers} workers: multi-worker sharding waits for "
-                         "parallel/dist.py (ROADMAP.md queue 1 item 9)")
+            raise ValueError(f"{workers} workers exceed the world of {self.max_workers} "
+                             f"ranks: {launch}")
+        mesh = self._meshes.get(workers)
+        if mesh is None:
+                mesh = self._meshes[workers] = self._dist.make_mesh(workers)
+        return mesh if mesh.member else None
+
+    def gather(self, out, workers: int, n: int):
+        """A call's whole output from this rank's output shard (the first
+        ``n`` rows of the all-gather); an unsharded output as it is."""
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return out
+        return self._dist.gather_for_verification(out, mesh, n)
+
+    def row_times(self, times: list, workers: int) -> list:
+        """A sharded row's times, each its slowest rank's."""
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return times
+        t = self._torch.tensor(times, dtype=self._torch.int64)
+        return [int(v) for v in self._dist.all_reduce_max(t, mesh)]
 
     def launch_counts(self) -> dict[str, int]:
         """Kernel launches so far, by kernel (the sweep's proof of route)."""
@@ -137,9 +186,9 @@ class GpuBackend:
         CPU the chain runs eagerly and k is clamped to 4, as the reference
         clamps its CPU rows."""
         torch = self._torch
-        cuda = self.device.type == "cuda"
-        if not cuda:
+        if self.device.type != "cuda":
             k = min(k, 4)
+        cuda = self.device.type == "cuda" and self._graphs
 
         def chain(kk):
             acc = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -187,22 +236,38 @@ class GpuBackend:
         return self._aes.AES(key, engine=self.engine, device=self.device)
 
     def ecb(self, ctx, words, workers: int):
-        self._one(workers)
-        return self._aes.ecb_encrypt_words(words, ctx.rk_enc, ctx.nr, self.engine)
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return self._aes.ecb_encrypt_words(words, ctx.rk_enc, ctx.nr, self.engine)
+        return self._dist.ecb_crypt_sharded(self._dist.shard_rows(words, mesh, words=True),
+                                            ctx.rk_enc, ctx.nr, mesh, engine=self.engine)
 
     def ecb_dec(self, ctx, words, workers: int):
-        self._one(workers)
-        return self._aes.ecb_decrypt_words(words, ctx.rk_dec, ctx.nr, self.engine)
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return self._aes.ecb_decrypt_words(words, ctx.rk_dec, ctx.nr, self.engine)
+        return self._dist.ecb_crypt_sharded(self._dist.shard_rows(words, mesh, words=True),
+                                            ctx.rk_dec, ctx.nr, mesh, encrypt=False,
+                                            engine=self.engine)
 
     def cbc_dec(self, ctx, words, iv_words, workers: int):
-        """CBC decrypt: one batched inverse cipher and a shifted XOR."""
-        self._one(workers)
-        out, _ = self._aes.cbc_decrypt_words(words, iv_words, ctx.rk_dec, ctx.nr, self.engine)
-        return out
+        """CBC decrypt: one batched inverse cipher and a shifted XOR; sharded,
+        the one-block halo from the left neighbour (``cbc_decrypt_sharded``)."""
+        mesh = self._mesh(workers)
+        if mesh is None:
+            out, _ = self._aes.cbc_decrypt_words(words, iv_words, ctx.rk_dec, ctx.nr,
+                                                 self.engine)
+            return out
+        local = self._dist.shard_rows(words, mesh, words=True, chained=True)
+        return self._dist.cbc_decrypt_sharded(local, iv_words, ctx.rk_dec, ctx.nr, mesh,
+                                              engine=self.engine)
 
     def ctr(self, ctx, words, ctr_be, workers: int):
-        self._one(workers)
-        return self._aes.ctr_crypt_words(words, ctr_be, ctx.rk_enc, ctx.nr, self.engine)
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return self._aes.ctr_crypt_words(words, ctr_be, ctx.rk_enc, ctx.nr, self.engine)
+        return self._dist.ctr_crypt_sharded(self._dist.shard_rows(words, mesh, words=True),
+                                            ctr_be, ctx.rk_enc, ctx.nr, mesh, engine=self.engine)
 
     def ctr_stream(self, ctx, msg: np.ndarray, nonce: np.ndarray, chunk_bytes: int,
                    workers: int) -> np.ndarray:
@@ -210,9 +275,10 @@ class GpuBackend:
         read back chunk by chunk, carrying the 128-bit counter across the
         seams on the host. Double-buffered over two CUDA streams: chunk i's
         copy in, kernel and copy out run on one stream while chunk i - 1's
-        readback drains on the other."""
+        readback drains on the other. Sharded, each chunk is cut over the
+        ranks and gathered at its readback."""
         torch = self._torch
-        self._one(workers)
+        self._mesh(workers)
         chunk_bytes -= chunk_bytes % 16
         if chunk_bytes <= 0:
             raise ValueError("chunk_bytes must be at least one 16-byte block")
@@ -229,7 +295,7 @@ class GpuBackend:
         def drain(p):
             off_p, nfull_p, o, stream = p
             with on(stream):
-                words = self._packing.words_numpy(o).reshape(-1)
+                words = self._packing.words_numpy(self.gather(o, workers, nfull_p * 4)).reshape(-1)
             out[off_p: off_p + nfull_p * 16] = self._packing.np_words_to_bytes(words).reshape(-1)
 
         for i, off in enumerate(range(0, msg.size, chunk_bytes)):
@@ -278,10 +344,16 @@ class GpuBackend:
         return p.words_tensor(w.reshape(data2d.shape[0], -1), self.device)
 
     def cbc_batch(self, ctx, words_2d, ivs_2d, workers: int):
-        """S independent CBC-encrypt streams in one chained-encrypt call."""
-        self._one(workers)
-        out, _ = self._aes.cbc_encrypt_words_batch(words_2d, ivs_2d, ctx.rk_enc, ctx.nr,
-                                                   self.engine)
+        """S independent CBC-encrypt streams in one chained-encrypt call;
+        sharded, each rank its streams (``cbc_encrypt_batch_sharded``)."""
+        mesh = self._mesh(workers)
+        if mesh is None:
+            out, _ = self._aes.cbc_encrypt_words_batch(words_2d, ivs_2d, ctx.rk_enc, ctx.nr,
+                                                       self.engine)
+            return out
+        out, _ = self._dist.cbc_encrypt_batch_sharded(
+            self._dist.shard_rows(words_2d, mesh), self._dist.shard_rows(ivs_2d, mesh),
+            ctx.rk_enc, ctx.nr, mesh, engine=self.engine)
         return out
 
     def arc4_batch_states(self, keys: list[bytes]):
@@ -290,9 +362,13 @@ class GpuBackend:
 
     def arc4_prep_batch(self, states, length: int, workers: int):
         """S independent keystreams, (S, length) uint8 on the device: one
-        ARC4 kernel launch on the card."""
-        self._one(workers)
-        _, ks = self._arc4.keystream_scan_batch(states, length)
+        ARC4 kernel launch on the card (a rank, sharded)."""
+        mesh = self._mesh(workers)
+        if mesh is None:
+            _, ks = self._arc4.keystream_scan_batch(states, length)
+            return ks
+        _, ks = self._dist.arc4_prep_batch_sharded(self._dist.shard_rows(states, mesh), length,
+                                                   mesh)
         return ks
 
     def ctr_be_words(self, nonce: np.ndarray):
@@ -313,8 +389,13 @@ class GpuBackend:
         return self._arc4.ARC4(key, device=self.device).prep(length)
 
     def arc4_crypt(self, data_dev, ks_dev, workers: int):
-        self._one(workers)
-        return self._arc4.crypt(data_dev, ks_dev)
+        mesh = self._mesh(workers)
+        if mesh is None:
+            return self._arc4.crypt(data_dev, ks_dev)
+        if data_dev.shape != ks_dev.shape:  # refused before any padding
+            return self._dist.xor_sharded(data_dev, ks_dev, mesh)
+        return self._dist.xor_sharded(self._dist.shard_rows(data_dev, mesh),
+                                      self._dist.shard_rows(ks_dev, mesh), mesh)
 
     def to_device(self, arr):
         if isinstance(arr, self._torch.Tensor):

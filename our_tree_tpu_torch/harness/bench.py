@@ -30,10 +30,16 @@ convention (kernel plus a synchronize).
 Differences from the JAX harness: the device backend is named ``gpu``
 (``tpu`` there) and its rows say ``GPU``; ``--engine`` takes the port's
 engines (``auto``, ``cuda``, ``bitslice``, ``ttable``); ``--device`` picks
-the device; one device is driven, so ``--workers`` above 1 raises (sharding
-waits for ``parallel/dist.py``, ROADMAP.md queue 1 item 9). On the gpu
-backend each unit's kernel launches go to stderr as ``# launches: <unit>
-{...}``. Resilience is the reference's: ``--journal`` checkpoints and
+the device. A worker is a rank of a ``torch.distributed`` world, one device
+each (ROADMAP.md, "Multi-device"): ``python -m torch.distributed.run
+--nproc-per-node N -m our_tree_tpu_torch.harness.bench --workers 1,...,N
+...`` runs every row on every rank, a row of W workers sharded over the
+first W ranks (``harness/backends.py`` says how each ``--timing`` treats
+it), and rank 0 alone prints and writes; ``--dist-backend gloo`` puts ranks
+that share one card on gloo. Without a world ``--workers`` above 1 raises
+and names that launch. On the gpu backend each unit's kernel launches go to
+stderr as ``# launches: <unit> {...}`` (``# launches rank R: ...`` from the
+other ranks). Resilience is the reference's: ``--journal`` checkpoints and
 resumes, ``--isolate`` runs each unit in a child with a deadline and
 quarantines repeat offenders, ``--unquarantine`` releases one,
 ``--dispatch-deadline`` arms the watchdog around each unit, ``--profile
@@ -67,12 +73,14 @@ IV = np.frombuffer(bytes.fromhex("000102030405060708090a0b0c0d0e0f"), np.uint8)
 
 
 class Emitter:
-    def __init__(self, path: str | None):
+    def __init__(self, path: str | None, quiet: bool = False):
         self.f = open(path, "w") if path else None
         self._capture: list[str] | None = None
+        self._quiet = quiet  # a rank other than 0 of a world
 
     def line(self, text: str):
-        print(text, flush=True)
+        if not self._quiet:
+            print(text, flush=True)
         if self.f:
             self.f.write(text + "\n")
             self.f.flush()
@@ -108,6 +116,19 @@ def _csv(times_us: list[int]) -> str:
 def _host(x) -> np.ndarray:
     """A backend's output (a device tensor or a numpy array) on the host."""
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def _whole(backend, x, workers: int, n: int) -> np.ndarray:
+    """A call's whole output on the host: a sharded call's rank shards
+    gathered (the first ``n`` rows), anything else as it is."""
+    gather = getattr(backend, "gather", None)
+    return _host(gather(x, workers, n) if gather is not None else x)
+
+
+def _slowest(backend, times: list, workers: int) -> list:
+    """A row's times: under a world, each its slowest rank's."""
+    fn = getattr(backend, "row_times", None)
+    return fn(times, workers) if fn is not None else times
 
 
 def _derived(em, nbytes: int, times_us: list[int], floor_us: int = 0):
@@ -207,7 +228,8 @@ def run_aes_mode(em, backend, mode, size, workers_list, iters, keybits, rng, tim
             backend.block_until_ready(words)
             k = (_chain_k(size, 8, max_k=4, min_k=1)
                  if mode in ("cbc", "cfb128") else _chain_k(size))
-            times = backend.chained_device_times_us(crypt, words, iters, k)
+            times = _slowest(backend, backend.chained_device_times_us(crypt, words, iters, k),
+                             workers)
             label = backend.name.upper()
             em.line(f"{label} AES-{keybits} {mode.upper()}, {size}, "
                     f"{workers}, {_csv(times)}")
@@ -244,6 +266,7 @@ def run_aes_mode(em, backend, mode, size, workers_list, iters, keybits, rng, tim
                 us, out = _time_us(
                     lambda: backend.block_until_ready(run(backend.stage_words(msg))))
             times.append(us)
+        times = _slowest(backend, times, workers)
         label = backend.name.upper()
         em.line(f"{label} AES-{keybits} {mode.upper()}, {size}, {workers}, {_csv(times)}")
         _derived(em, size, times)
@@ -304,14 +327,15 @@ def run_cbc_batch(em, backend, size, workers_list, iters, keybits, rng, timing, 
                     us, _ = _time_us(lambda: backend.block_until_ready(
                         run(backend.stage_batch_words(msg))))
                 times.append(us)
+        times = _slowest(backend, times, workers)
         em.line(f"{backend.name.upper()} AES-{keybits} CBC-BATCHx{streams}, "
                 f"{used}, {workers}, {_csv(times)}")
         _derived(em, used, times, getattr(backend, "FLOOR_US", 0) if chained_ok else 0)
         # Worker-count invariance on a fixed key and IV set.
         ctx = backend.make_key(inv_key)
-        got = _host(backend.block_until_ready(
+        got = _whole(backend, backend.block_until_ready(
             backend.cbc_batch(ctx, backend.stage_batch_words(msg),
-                              backend.stage_batch_words(inv_ivs), workers)))
+                              backend.stage_batch_words(inv_ivs), workers)), workers, streams)
         if inv_ref is None:
             inv_ref = got
         elif not np.array_equal(got, inv_ref):
@@ -345,9 +369,10 @@ def run_rc4_batch(em, backend, size, workers_list, iters, rng, streams):
             us, out = _time_us(lambda: backend.block_until_ready(
                 backend.arc4_prep_batch(states, per, workers)))
             times.append(us)
+        times = _slowest(backend, times, workers)
         em.line(f"RC4-KEYGEN-BATCHx{streams}, {used}, {workers}, {_csv(times)}")
         _derived(em, used, times)
-        got = _host(out)
+        got = _whole(backend, out, workers, streams)
         if inv_ref is None:
             inv_ref = got
         elif not np.array_equal(got, inv_ref):
@@ -373,8 +398,10 @@ def check_shard_invariance(em, backend, size, workers_list, keybits, rng):
     ctr_be = backend.ctr_be_words(NONCE)
     ref_ecb = ref_ctr = None
     for workers in workers_list:
-        e = _host(backend.block_until_ready(backend.ecb(ctx, words, workers)))
-        c = _host(backend.block_until_ready(backend.ctr(ctx, words, ctr_be, workers)))
+        n = words.shape[0]
+        e = _whole(backend, backend.block_until_ready(backend.ecb(ctx, words, workers)), workers, n)
+        c = _whole(backend, backend.block_until_ready(backend.ctr(ctx, words, ctr_be, workers)),
+                   workers, n)
         if ref_ecb is None:
             ref_ecb, ref_ctr = e, c
         elif not (np.array_equal(e, ref_ecb) and np.array_equal(c, ref_ctr)):
@@ -410,10 +437,12 @@ def run_rc4(em, backend, size, workers_list, iters, rng, timing="e2e", rows=None
                 us, out = _time_us(lambda: backend.block_until_ready(
                     backend.arc4_crypt(data_dev, ks_dev, workers)))
                 times.append(us)
+        times = _slowest(backend, times, workers)
         em.line(f"{_csv(times)}")
         _derived(em, size, times, getattr(backend, "FLOOR_US", 0) if chained_ok else 0)
         # The XOR phase checked against numpy.
-        if out is not None and not np.array_equal(_host(out), msg ^ _host(ks)):
+        if out is not None and not np.array_equal(_whole(backend, out, workers, size),
+                                                  msg ^ _host(ks)):
             em.line(f"RC4 XOR MISMATCH at workers={workers}")
             raise SystemExit(2)
 
@@ -579,6 +608,10 @@ def main(argv=None) -> int:
                          "requires --journal; no sweep runs")
     ap.add_argument("--isolate-child", default=None, metavar="UNIT",
                     help=argparse.SUPPRESS)  # internal: run exactly UNIT
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under python -m torch.distributed.run: the ranks' transport (default "
+                         "nccl on a card, gloo on the CPU; gloo on a card for ranks that share "
+                         "it)")
     args = ap.parse_args(argv)
 
     sizes = []
@@ -672,6 +705,28 @@ def main(argv=None) -> int:
             em.close()
         return 0
 
+    rank = None
+    if "WORLD_SIZE" in os.environ and args.isolate_child is None:
+        # A rank of a world launched by python -m torch.distributed.run.
+        if args.backend != "gpu" or journal_path or args.isolate:
+            ap.error("a torch.distributed world drives the gpu backend only, without "
+                     "--journal or --isolate")
+        from ..parallel import multihost
+
+        multihost.initialize_from_env(device=args.device, backend=args.dist_backend)
+        import torch.distributed as tdist
+
+        rank = tdist.get_rank()
+    try:
+        return _sweep(args, sizes, modes, journal_path, workers_list if args.workers else None,
+                      rank=rank or 0)
+    finally:
+        if rank is not None:
+            multihost.shutdown()
+
+
+def _sweep(args, sizes, modes, journal_path, workers_list, rank: int = 0) -> int:
+    """The sweep in this process (rank ``rank`` of a world, or alone)."""
     backend = make_backend(args.backend, args.engine, args.device)
     if not args.workers:
         cap = getattr(backend, "max_workers", 8)
@@ -680,7 +735,7 @@ def main(argv=None) -> int:
     out_path = args.out
     if args.default_out and not out_path:
         out_path = f"results.{socket.gethostname().split('.')[0]}.{args.backend}"
-    em = Emitter(out_path)
+    em = Emitter(out_path if rank == 0 else None, quiet=rank != 0)
     rng = np.random.default_rng(args.seed)  # the reference's srand(1337)
 
     journal = None
@@ -789,7 +844,7 @@ def main(argv=None) -> int:
                 lines = em.end_capture()
             if counts:
                 now = counts()
-                print(f"# launches: {name} "
+                print(f"# launches{f' rank {rank}' if rank else ''}: {name} "
                       + json.dumps({k: now[k] - launched[k] for k in now}),
                       file=sys.stderr, flush=True)
             if journal is not None:

@@ -1,7 +1,7 @@
 """The port's entry (``our_tree_tpu_torch.entry``) against the root
 ``__graft_entry__.entry()`` on the CPU: the same example arguments, bit for
-bit, and the same output of ``fn``; ``dryrun_multichip`` refuses, naming its
-ROADMAP item."""
+bit, and the same output of ``fn``; ``dryrun_multichip`` without a world
+above one rank refuses, naming the launch and its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -33,5 +33,5 @@ def test_entry_defaults_to_the_card(monkeypatch):
 
 
 def test_dryrun_multichip_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='"Multi-device"'):
+    with pytest.raises(RuntimeError, match='--nproc-per-node 4 .*"Multi-device"'):
         port_entry.dryrun_multichip(4)

@@ -197,7 +197,7 @@ def test_arc4_prep_device_and_demotion(monkeypatch, capsys):
 
 
 def test_refusals(monkeypatch, tmp_path):
-    with pytest.raises(ValueError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc-per-node 2 .*Multi-device"):
         bench.main(COMMON[:2] + ["--workers", "2", "--iters", "1", "--modes", "ecb",
                                  "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown backend"):
