@@ -49,10 +49,12 @@ is not 0:
    whole plain loop, at 4,096 against every plain step at once);
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
    at 64 MiB, and its 65,536-step latency chain over one word (mismatching
-   words must be 0); ``arc4_prga`` for S in {1, 7, 32, 4096} streams x {1,
+   words must be 0); ``arc4_prga`` for S in {1, 7, 32, 33, 4096} streams x {1,
    255, 4096, 2^16, 2^18} bytes, each as keystream, fused XOR and a resume
    across two calls, against the first S rows of one timed plain run a
-   length on 4,096 streams (mismatching bytes must be 0), and for S in {1,
+   length on 4,096 streams, from random permutations and again from the
+   states on which the kernel's lookahead corrections fire often
+   (``tests/arc4_states.py``) (mismatching bytes must be 0), and for S in {1,
    7, 32} at 2^20 bytes (the sweep's length) its first 2^18 bytes against
    that plain run and the rest against a resume from them (the plain
    version's depth is cut to 2^18 bytes since PR 21: its per-byte loop took
@@ -138,12 +140,17 @@ is not 0:
    kernel's redesign (``FORWARD_SASS``), which it must leave as they were;
    both ``ctr_mk`` forms at 32 to 2^24 blocks, one slot and a random slot
    per block (the auto form's threshold table); a shared-memory load's
-   latency by a dependent-load chase (``CHASE_SOURCE``, built beside the
-   kernels), and ``arc4_prga`` at its timing shapes (32 x 2^20 bytes, the
-   rc4-batch rows' launch; 1 x 2^20; 4,096 x 2^16): time, plain time, the
-   table and measured-rate bounds, and the latency bound (the step's
-   recurrence, two dependent LDS and two dependent integer steps a byte, at
-   the measured latencies; the compiled main loop's longest path beside it);
+   latency by a dependent-load chase and the shared-memory issue rate of 1,
+   2 and 4 warps of an SM (``CHASE_SOURCE``, built beside the kernels), and
+   ``arc4_prga`` at its timing shapes (32 x 2^20 bytes, the rc4-batch rows'
+   launch; 1 x 2^20; 4,096 x 2^16): time, plain time, the table and
+   measured-rate bounds, and the latency bound, the larger of the issue
+   bound of the kernel's word-per-byte layout (five shared-memory accesses
+   a byte at the measured rate for the warps each SM holds) and one
+   dependent integer step a byte (a share above 100 % fails the phase);
+   beside it, as diagnostics, the step's recurrence as written (two
+   dependent LDS and two dependent integer steps a byte) and the compiled
+   main loop's longest path;
    ``cbc_mk`` at the 4,096-block rung with K = 8 (card time in a CUDA graph)
    and at 256 MiB with K = 8 in runs of 1-300: time, plain time, the
    measured-rate bound, the latency bound (the inverse round circuit's own
@@ -270,7 +277,8 @@ is not 0:
    ``rc4-prep`` and of an ``rc4`` dispatch; (b) ``arc4_prga`` at the refill's
    launch shapes (8 x 4,096 bytes, the served one, and 2 x 2,048), against
    ``prga_plain`` and the host PRGA, timed in a CUDA graph (and the whole
-   refill, ``prep_batch_words``), beside its bounds and its latency bound;
+   refill, ``prep_batch_words``), beside its bounds and its latency bound
+   (phase 9's, a share above 100 % fails the phase);
    (c) the journal round trip in this process, counted (``--lanes 2
    --retries 1 --journal J``): ``OT_FAULTS=lane_fail:2@lane=1`` quarantines
    lane 1 and writes one failure row, a second run starts lane 1 quarantined
@@ -519,7 +527,7 @@ SEQ_BLOCKS = 4096
 #: held against its first S rows (the streams are independent). 2^20 bytes
 #: is the harness's length (rc4-batch: 32 streams; rc4 with the keystream on
 #: the card: one), 2^16 that of the wide timing shape.
-ARC4_STREAMS = (1, 7, 32, 4096)
+ARC4_STREAMS = (1, 7, 32, 33, 4096)
 ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 18)
 ARC4_PLAIN_STREAMS = max(ARC4_STREAMS)
 #: The sweep's length: launches on ARC4_LONG_STREAMS streams are held
@@ -534,23 +542,39 @@ ARC4_LONG_STREAMS = (1, 7, 32)
 ARC4_TIMED = {"path": (32, 1 << 20), "single": (1, 1 << 20), "wide": (4096, 1 << 16)}
 #: Integer operations of one PRGA step that the function needs: three adds
 #: and three masks (x + 1, y + a, a + b, each & 255). Its five shared-memory
-#: accesses are neither device-memory bytes nor table operations; their
-#: latency is what the latency bound counts.
+#: accesses are neither device-memory bytes nor table operations; the latency
+#: bound counts them.
 ARC4_OPS_PER_BYTE = 6
-#: The step's dependent recurrence from one byte to the next, as the step is
-#: written (the next byte's load of m[x] follows this byte's stores, which
-#: wait on b): the load of a = m[x], the add y + a, one address step (mask
-#: and offset), the load of b = m[y]. Two dependent shared-memory loads and
-#: two dependent integer steps a byte; the latency bound counts these.
-ARC4_RECURRENCE = {"lds": 2, "int": 2}
+#: The latency bound of one stream, the larger of two figures. The issue
+#: bound of the kernel's word-per-byte layout: each byte needs three loads
+#: and two stores in shared memory (the state is indexed by data, so it
+#: cannot live in registers), one warp-wide access each, at the SM's
+#: measured rate for the warps it holds at the launch's shape
+#: (``smem_issue``). It is this layout's floor, not the function's: a layout
+#: of four bytes a word could load the consecutive m[x] four at a time. And
+#: the one integer step that must wait for the byte before, y + a, at the
+#: measured dependent-issue latency.
+ARC4_ACCESSES_PER_BYTE = 5
+ARC4_DEPENDENT_STEPS = 1
+#: The step's dependent recurrence from one byte to the next as the step is
+#: written (the next byte's load of m[x] after this byte's stores, which wait
+#: on b): the load of a = m[x], the add y + a, one address step, the load of
+#: b = m[y]. A diagnostic since the lookahead schedule (the kernel runs
+#: under it), printed beside the bound.
+ARC4_WRITTEN_STEP = {"lds": 2, "int": 2}
+#: Warps of one SM the issue-rate probe runs (``smem_issue``).
+SMEM_RATE_WARPS = (1, 2, 4)
 #: The sweep harness's rows (phase 10): each mode's kernel, by mode.
 HARNESS_KERNEL = {"ecb": "ecb_encrypt", "ecb-dec": "ecb_decrypt", "ctr": "ctr_gen",
                   "cbc-dec": "ecb_decrypt", "cbc": "seq_encrypt", "cfb128": "seq_encrypt",
                   "cbc-batch": "seq_encrypt", "rc4-batch": "arc4_prga"}
 #: The dependent shared-memory load chase (phase 9): one thread walks a
 #: cycle of shared-memory addresses, each load's address the previous load's
-#: value, timed with the SM's cycle counter. Built with its own nvcc beside
-#: the kernels' build; a measurement probe, not a kernel of the port.
+#: value, timed with the SM's cycle counter; and the shared-memory issue
+#: rate (``smem_issue``: independent warp-wide accesses from 1 to 4 warps of
+#: one SM), the rate of the ARC4 kernel's issue bound. Built with their own
+#: nvcc beside the kernels' build; measurement probes, not kernels of the
+#: port.
 CHASE_SOURCE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -572,6 +596,44 @@ __global__ void smem_chase(int steps, unsigned* out, long long* cycles) {
 
 extern "C" int ot_smem_chase(int steps, void* out, void* cycles) {
   smem_chase<<<1, 32>>>(steps, static_cast<unsigned*>(out), static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
+}
+
+// The shared-memory issue rate: each warp of one block runs independent
+// warp-wide accesses in the ARC4 step's mix, three loads and two stores,
+// every lane in its own bank, each store's value loaded 40 accesses before;
+// its cycles are timed with the SM's cycle counter.
+__global__ void smem_issue(int reps, unsigned* out, long long* cycles) {
+  __shared__ unsigned s[4 * 64 * 32];
+  volatile unsigned* p = s + (threadIdx.x >> 5) * 64 * 32 + (threadIdx.x & 31);
+  for (int k = 0; k < 64; ++k) p[32 * k] = threadIdx.x + k;
+  unsigned r[48];
+#pragma unroll
+  for (int k = 0; k < 48; ++k) r[k] = k;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < reps; ++i) {
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      r[3 * g] = p[32 * (3 * g)];
+      r[3 * g + 1] = p[32 * (3 * g + 1)];
+      r[3 * g + 2] = p[32 * (3 * g + 2)];
+      p[32 * (48 + (2 * g) % 16)] = r[3 * ((g + 8) % 16)];
+      p[32 * (48 + (2 * g + 1) % 16)] = r[3 * ((g + 8) % 16) + 1];
+    }
+  }
+  const long long t1 = clock64();
+  unsigned acc = 0;
+#pragma unroll
+  for (int k = 0; k < 48; ++k) acc ^= r[k];
+  out[threadIdx.x] = acc;
+  if ((threadIdx.x & 31) == 0) cycles[threadIdx.x >> 5] = t1 - t0;
+}
+
+extern "C" int ot_smem_issue(int reps, int warps, void* out, void* cycles) {
+  if (warps < 1 || warps > 4) return (int)cudaErrorInvalidValue;
+  smem_issue<<<1, 32 * warps>>>(reps, static_cast<unsigned*>(out),
+                                static_cast<long long*>(cycles));
   return (int)cudaGetLastError();
 }
 """
@@ -669,6 +731,16 @@ WRAP_NONCES = [
 #: The script's start: every log line leads with the seconds since it, so a
 #: run's output is its own timeline against the time limit.
 T_START = time.perf_counter()
+
+
+def tests_module(name: str):
+    """A helper module of ``tests/`` (not a package), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tests", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def log(*a) -> None:
@@ -3332,7 +3404,11 @@ def main() -> int:
     # streams x bytes pair. The plain version runs once a length on 4,096
     # streams (timed for the kernels line); a launch on S streams is held
     # against its first S rows.
-    def arc4_states(s_n, seed):
+    collision_states = tests_module("arc4_states").collision_states
+
+    def arc4_states(s_n, seed, kind="random"):
+        if kind == "collisions":
+            return arc4.state_from_numpy(collision_states(s_n, seed), dev)
         rng = np.random.default_rng(seed)
         m = np.stack([rng.permutation(256) for _ in range(s_n)])
         return arc4.state_from_numpy((rng.integers(0, 256, s_n), rng.integers(0, 256, s_n), m),
@@ -3347,8 +3423,8 @@ def main() -> int:
         return bad, int((got[ne].to(torch.int64) - want[ne].to(torch.int64)).abs().max())
 
     arc4_bad, arc4_cases, arc4_inputs = 0, 0, {}
-    for n in ARC4_LENGTHS:
-        st = arc4_states(ARC4_PLAIN_STREAMS, seed=31 + n)
+    for n, kind in ((n, kind) for n in ARC4_LENGTHS for kind in ("random", "collisions")):
+        st = arc4_states(ARC4_PLAIN_STREAMS, seed=31 + n, kind=kind)
         data = torch.randint(0, 256, (ARC4_PLAIN_STREAMS, n), dtype=torch.uint8, device=dev,
                              generator=torch.Generator(dev).manual_seed(n))
         torch.cuda.synchronize()
@@ -3373,10 +3449,14 @@ def main() -> int:
             arc4_bad += bad
             arc4_cases += 1
             if bad:
-                log(f"MISMATCH arc4_prga S={s_n} bytes={n}: {bad} bytes or state words")
+                log(f"MISMATCH arc4_prga S={s_n} bytes={n} ({kind} states): {bad} bytes or "
+                    "state words")
             del got, fused, first, second
-        arc4_inputs[n] = {"states": st, "plain_ms": plain_s * 1e3, "max_abs_err": err}
-        if n == ARC4_LENGTHS[-1]:
+        if kind == "random":
+            arc4_inputs[n] = {"states": st, "plain_ms": plain_s * 1e3, "max_abs_err": err}
+        else:
+            arc4_inputs[n]["max_abs_err"] = max(arc4_inputs[n]["max_abs_err"], err)
+        if n == ARC4_LENGTHS[-1] and kind == "random":
             long_want = want[:max(ARC4_LONG_STREAMS)].clone()
         del data, want, want_x, want_st
     # The sweep's length: the first bytes against the plain run, the rest
@@ -3400,6 +3480,7 @@ def main() -> int:
     del long_want
     torch.cuda.empty_cache()
     log(f"arc4_prga vs plain: {arc4_cases} cases (S in {ARC4_STREAMS} x bytes in {ARC4_LENGTHS}, "
+        f"from random permutations and from collision states, "
         f"against the plain version's first S of {ARC4_PLAIN_STREAMS} streams, each keystream, "
         f"fused XOR and a resume across two calls; S in {ARC4_LONG_STREAMS} x {ARC4_LONG} bytes, "
         f"the first {ARC4_LENGTHS[-1]} against the plain run, the rest against a resume): "
@@ -4119,6 +4200,40 @@ def main() -> int:
     log(f"shared-memory load latency: {lds_cycles:.3f} cycles a dependent LDS (chase of "
         f"{chase_steps} loads, best of {per_load}); dependent integer step {lat_cycles:.4f} "
         f"cycles; card: {card}")
+    # The shared-memory issue rate: warp-wide accesses a cycle of one SM, at
+    # 1, 2 and 4 warps (the best of three launches each).
+    chase.ot_smem_issue.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    chase.ot_smem_issue.restype = ctypes.c_int
+    issue_reps = 1 << 14
+    issue_out = torch.zeros(32 * max(SMEM_RATE_WARPS), dtype=torch.int32, device=dev)
+    issue_cycles = torch.zeros(max(SMEM_RATE_WARPS), dtype=torch.int64, device=dev)
+    smem_rate = {}
+    for w in SMEM_RATE_WARPS:
+        rates = []
+        for _ in range(3):
+            if chase.ot_smem_issue(issue_reps, w, issue_out.data_ptr(), issue_cycles.data_ptr()):
+                raise SystemExit("the shared-memory issue probe did not launch")
+            torch.cuda.synchronize()
+            rates.append(w * issue_reps * 80 / int(issue_cycles[:w].max()))
+        smem_rate[w] = max(rates)
+    log("shared-memory issue rate (independent warp-wide accesses, 3 loads to 2 stores): " + ", ".join(
+        f"{w} warp{'s' if w > 1 else ''} {r:.4f} a cycle" for w, r in smem_rate.items())
+        + f" of one SM; card: {card}")
+
+    def arc4_bound_cycles(s_n: int) -> dict:
+        """The ARC4 kernel's latency bound a byte at ``s_n`` streams (one
+        warp a block of 32): the issue bound of the word-per-byte layout at
+        the measured rate for the warps each SM holds, and the dependent
+        step; the larger bounds."""
+        warps = -(-(-(-s_n // 32)) // sm_count)
+        if warps not in smem_rate:
+            raise SystemExit(f"no shared-memory issue rate measured at {warps} warps an SM")
+        issue = ARC4_ACCESSES_PER_BYTE * warps / smem_rate[warps]
+        dep = ARC4_DEPENDENT_STEPS * lat_cycles
+        return {"warps_per_sm": warps, "smem_accesses_per_cycle": smem_rate[warps],
+                "issue_cycles_per_byte": issue, "dependent_cycles_per_byte": dep,
+                "bound_cycles_per_byte": max(issue, dep),
+                "bound_by": "shared-memory issue" if issue >= dep else "dependent step"}
 
     def latency_ms(depth: int, mhz: float) -> float:
         """The latency bound: ``depth`` dependent integer instructions at the
@@ -4892,26 +5007,28 @@ def main() -> int:
         lo, hi = lp["range"]
         lp["lds"] = sum(b == "LDS" for a, b, _t in arc4_ins if lo <= a <= hi)
         lp["sts"] = sum(b == "STS" for a, b, _t in arc4_ins if lo <= a <= hi)
-    # The main loop: the PRGA loop (it stores to shared memory, the state's
-    # copy-out loop does not) with the most steps a trip.
-    group = max(arc4_loops, key=lambda lp: (lp["sts"] > 0, lp["lds"]))
+        lp["keystream_words"] = not any(b == "LDG" for a, b, _t in arc4_ins if lo <= a <= hi) and any(
+            b == "STG" and ".U8" not in t for a, b, t in arc4_ins if lo <= a <= hi)
+    # The main loop: the PRGA loop (three loads to two stores in shared
+    # memory; the state's copy loops hold other mixes) with the most bytes a
+    # trip that stores keystream words and reads no data (the unfused path).
+    prga_loops = [lp for lp in arc4_loops if lp["sts"] and 2 * lp["lds"] == 3 * lp["sts"]]
+    if not prga_loops:
+        raise SystemExit(f"arc4_prga_kernel has no loop of three LDS to two STS: {arc4_loops}")
+    group = max(prga_loops, key=lambda lp: (lp["lds"], lp["keystream_words"], -lp["int"]))
     bytes_per_trip = group["lds"] // 3
-    if bytes_per_trip < 1 or group["lds"] % 3:
-        raise SystemExit(f"arc4_prga_kernel's main loop holds {group['lds']} LDS, not three a "
-                         f"byte: {group}")
-    # The latency bound counts the function's recurrence (ARC4_RECURRENCE);
-    # the longest path through the compiled loop, which also counts this
-    # build's address arithmetic and each byte's off-recurrence tail, is a
-    # diagnostic beside it.
-    rec_cycles = ARC4_RECURRENCE["lds"] * lds_cycles + ARC4_RECURRENCE["int"] * lat_cycles
+    # The diagnostics beside the bound: the step's recurrence as written
+    # (ARC4_WRITTEN_STEP) and the longest path through the compiled loop.
+    written_cycles = ARC4_WRITTEN_STEP["lds"] * lds_cycles + ARC4_WRITTEN_STEP["int"] * lat_cycles
     sass_path = sass_weighted_path(arc4_ins, *group["range"], lds_cycles, lat_cycles)
     sass_cycles = sass_path / bytes_per_trip
     log(f"arc4_prga SASS: main loop {bytes_per_trip} bytes a trip, {group['int']} integer "
         f"instructions, {group['lds']} LDS, {group['sts']} STS, opcodes {group['hist']}; its "
-        f"longest dependent path {sass_path:.1f} cycles a trip = {sass_cycles:.2f} cycles a byte; "
-        f"the step's recurrence {ARC4_RECURRENCE['lds']} x {lds_cycles:.2f} (a dependent LDS) + "
-        f"{ARC4_RECURRENCE['int']} x {lat_cycles:.3f} (a dependent integer step) = "
-        f"{rec_cycles:.2f} cycles a byte; ptxas {ptxas.get('arc4_prga_kernel<32>')}")
+        f"longest dependent path {sass_path:.1f} cycles a trip = {sass_cycles:.2f} cycles a byte "
+        f"(diagnostic); the step's recurrence as written {ARC4_WRITTEN_STEP['lds']} x "
+        f"{lds_cycles:.2f} (a dependent LDS) + {ARC4_WRITTEN_STEP['int']} x {lat_cycles:.3f} (a "
+        f"dependent integer step) = {written_cycles:.2f} cycles a byte (diagnostic); ptxas "
+        f"{ptxas.get('arc4_prga_kernel<32>')}")
     log("arc4_prga main loop SASS: " + " | ".join(
         t for a, _b, t in arc4_ins if group["range"][0] <= a <= group["range"][1]))
     arc4_shapes = {}
@@ -4923,7 +5040,8 @@ def main() -> int:
         ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
         meas_ms, meas_by = measured_bound(ops, nbytes)
         mhz = clocks["clock_mhz"]
-        lat_b = n * rec_cycles / (mhz * 1e3)
+        bc = arc4_bound_cycles(s_n)
+        lat_b = n * bc["bound_cycles_per_byte"] / (mhz * 1e3)
         arc4_shapes[label] = {
             "streams": s_n, "bytes_per_stream": n, "ms": ms,
             "plain_ms": arc4_inputs[n]["plain_ms"], "plain_streams": ARC4_PLAIN_STREAMS,
@@ -4932,20 +5050,31 @@ def main() -> int:
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
-            "latency_bound_ms": lat_b, "larger_bound_ms": max(meas_ms, lat_b),
+            "latency_bound_ms": lat_b, "latency_bound": bc,
+            "larger_bound_ms": max(meas_ms, lat_b),
             "share_of_larger_bound": max(meas_ms, lat_b) / ms,
+            "cycles_per_byte": ms * mhz * 1e3 / n,
+            "written_step_latency_ms": n * written_cycles / (mhz * 1e3),
             "sass_path_latency_ms": n * sass_cycles / (mhz * 1e3),
             "sampled_clock_mhz": mhz, "library_ms": None}
         e = arc4_shapes[label]
         log(f"arc4_prga {label} at {s_n} x {n} bytes: {ms:.4f} ms/launch ({s_n * n / ms / 1e6:.3f} "
-            f"GB/s of keystream); plain {e['plain_ms']:.1f} ms (on {ARC4_PLAIN_STREAMS} streams of "
+            f"GB/s of keystream, {e['cycles_per_byte']:.2f} cycles a byte); plain "
+            f"{e['plain_ms']:.1f} ms (on {ARC4_PLAIN_STREAMS} streams of "
             f"{e['plain_bytes_per_stream']} bytes, the first {s_n} of them these); bound "
-            f"{e['bound_ms']:.5f} ms "
-            f"({e['bound_by']}, table rates), {meas_ms:.5f} ms at the measured rates ({meas_by}), "
-            f"latency bound {n} x {rec_cycles:.2f} cycles at {mhz:.0f} MHz = {lat_b:.4f} ms; "
-            f"kernel at {100 * e['share_of_larger_bound']:.1f} % of the larger of the "
-            f"measured-rate and latency bounds (the compiled loop's path: "
-            f"{e['sass_path_latency_ms']:.4f} ms); nvidia-smi {clocks}; card: {card}")
+            f"{e['bound_ms']:.5f} ms ({e['bound_by']}, table rates), {meas_ms:.5f} ms at the "
+            f"measured rates ({meas_by}); latency bound {n} x max(word-per-byte issue "
+            f"{ARC4_ACCESSES_PER_BYTE} "
+            f"x {bc['warps_per_sm']} warp(s) / {bc['smem_accesses_per_cycle']:.4f} = "
+            f"{bc['issue_cycles_per_byte']:.2f}, dependent step {ARC4_DEPENDENT_STEPS} x "
+            f"{lat_cycles:.3f} = {bc['dependent_cycles_per_byte']:.2f}) cycles at {mhz:.0f} MHz = "
+            f"{lat_b:.4f} ms ({bc['bound_by']}); kernel at "
+            f"{100 * e['share_of_larger_bound']:.1f} % of the larger of the measured-rate and "
+            f"latency bounds; diagnostics: the step as written {e['written_step_latency_ms']:.4f} "
+            f"ms, the compiled loop's path {e['sass_path_latency_ms']:.4f} ms; nvidia-smi "
+            f"{clocks}; card: {card}")
+        if e["share_of_larger_bound"] > 1:
+            raise SystemExit(f"arc4_prga {label} runs under its bound: the bound is wrong")
     head = arc4_shapes["path"]
     arc4_entry = {
         "name": "arc4_prga", "route": "cuda", "source": "our_tree_tpu_torch/csrc/arc4.cu",
@@ -4955,13 +5084,16 @@ def main() -> int:
         "launches": None,
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "plain_streams", "bound_ms",
                                 "bound_by", "bound_ms_measured", "bound_by_measured",
-                                "latency_bound_ms", "larger_bound_ms", "share_of_larger_bound",
-                                "sass_path_latency_ms", "sampled_clock_mhz", "library_ms")},
+                                "latency_bound_ms", "latency_bound", "larger_bound_ms",
+                                "share_of_larger_bound", "cycles_per_byte",
+                                "written_step_latency_ms", "sass_path_latency_ms",
+                                "sampled_clock_mhz", "library_ms")},
         "shape": "{0} streams x {1} bytes (rc4-batch's launch); 'single' and 'wide' below".format(
             *ARC4_TIMED["path"]),
         "single": arc4_shapes["single"], "wide": arc4_shapes["wide"],
         "lds_latency_cycles": lds_cycles, "dependent_issue_cycles": lat_cycles,
-        "recurrence_cycles_per_byte": rec_cycles, "sass_path_cycles_per_byte": sass_cycles,
+        "smem_accesses_per_cycle_by_warps": smem_rate,
+        "written_step_cycles_per_byte": written_cycles, "sass_path_cycles_per_byte": sass_cycles,
         "sass_main_loop": {k: group[k] for k in ("int", "lds", "sts", "depth", "hist")}}
     kernels.append(arc4_entry)
 
@@ -5708,24 +5840,33 @@ def main() -> int:
         ops_ms, bytes_ms = ops / int_ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
         meas_ms, meas_by = measured_bound(ops, nbytes)
         mhz = clocks["clock_mhz"]
-        lat_b = n * rec_cycles / (mhz * 1e3)
+        bc = arc4_bound_cycles(s_n)
+        lat_b = n * bc["bound_cycles_per_byte"] / (mhz * 1e3)
         prefetch[label] = {
             "streams": s_n, "bytes_per_stream": n, "ms": ms, "refill_ms": refill_ms,
             "events_ms": ev_ms, "plain_ms": plain_ms, "max_abs_err": 0,
             "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
             else "bytes", "bound_ms_measured": meas_ms, "bound_by_measured": meas_by,
-            "latency_bound_ms": lat_b, "latency_bound_ms_at_max_clock":
-            n * rec_cycles / (clock_mhz * 1e3), "share_of_latency_bound": lat_b / ms,
+            "latency_bound_ms": lat_b, "latency_bound": bc, "latency_bound_ms_at_max_clock":
+            n * bc["bound_cycles_per_byte"] / (clock_mhz * 1e3),
+            "share_of_latency_bound": lat_b / ms, "cycles_per_byte": ms * mhz * 1e3 / n,
+            "written_step_latency_ms": n * written_cycles / (mhz * 1e3),
             "sampled_clock_mhz": mhz, "library_ms": None}
         log(f"arc4_prga at the prefetch shape '{label}' ({s_n} x {n} bytes): {ms:.5f} ms a launch "
             f"in a CUDA graph ({ev_ms:.5f} ms back to back), the refill "
             f"(prep_batch_words: the launch and its row assembly) {refill_ms:.5f} ms; plain "
             f"{plain_ms:.1f} ms; bound {prefetch[label]['bound_ms']:.6f} ms "
             f"({prefetch[label]['bound_by']}), {meas_ms:.6f} ms at the measured rates; latency "
-            f"bound {n} x {rec_cycles:.2f} cycles at {mhz:.0f} MHz = {lat_b:.5f} ms "
+            f"bound {n} x {bc['bound_cycles_per_byte']:.2f} cycles ({bc['bound_by']}) at "
+            f"{mhz:.0f} MHz = {lat_b:.5f} ms "
             f"({prefetch[label]['latency_bound_ms_at_max_clock']:.5f} ms at {clock_mhz:.0f} MHz), "
-            f"kernel at {100 * lat_b / ms:.1f} % of it; 0 mismatching against prga_plain and the "
-            f"host PRGA; nvidia-smi {clocks}; card: {card}")
+            f"kernel at {100 * lat_b / ms:.1f} % of it ({prefetch[label]['cycles_per_byte']:.2f} "
+            f"cycles a byte; the step as written "
+            f"{prefetch[label]['written_step_latency_ms']:.5f} ms, a diagnostic); 0 mismatching "
+            f"against prga_plain and the host PRGA; nvidia-smi {clocks}; card: {card}")
+        if lat_b > ms:
+            raise SystemExit(f"arc4_prga at the prefetch shape '{label}' runs under its latency "
+                             "bound: the bound is wrong")
     drive = sess_entries["drive"]
     arc4_entry["session"] = {
         "launches": drive["launches"]["arc4_prga"],

@@ -12,28 +12,41 @@
 // the card, one launch a call.
 //
 // Bound. Within a stream every byte depends on the one before through the
-// state: a step is three shared-memory loads, two stores and a few integer
-// operations, and from one byte to the next the load of m[x] waits on the
-// stores, which wait on the load of b = m[y], whose address waits on the
-// load of a = m[x]. So one stream runs at the latency of that recurrence,
-// two dependent loads and two dependent integer steps (y + a, the address)
-// a byte, whatever the bytes. Across streams the work is independent, so
-// with many streams the card is bound by its shared-memory and integer
-// issue rates or, for the keystream it writes, by device memory.
-// chip_smoke.py reports the latency bound (that recurrence at the measured
-// latencies; the longest path through this kernel's compiled loop beside
-// it) and the bytes bound.
+// state, but only y + a has to wait for the byte before: the loads can run
+// ahead of the stores they would otherwise wait on and be corrected
+// afterwards (arc4.cuh). What this layout cannot escape is the issue of the
+// work itself: the state is indexed by data, so it lives in shared memory,
+// a word a byte, and each byte of each stream needs three loads and two
+// stores there, which an SM serves at about one warp-wide access a cycle
+// over four warps but one warp at about one every four cycles (chip_smoke.py
+// measures both); and one dependent integer step, the add y + a.
+// chip_smoke.py reports the larger of the two (the issue bound of this
+// word-per-byte layout, at a measured shared-memory rate for the warps each
+// SM holds at the launch's shape; the dependent step, at a measured latency)
+// as the latency bound, beside the bytes bound. It is the layout's floor,
+// not the function's: with four bytes a word, the loads of m[x], which walk
+// consecutive indices, could be fetched four at a time. The recurrence of
+// the step as written (two dependent loads and two dependent integer steps
+// a byte) and the longest path through this kernel's compiled loop are
+// printed as diagnostics.
 //
 // Design.
 //   * One thread a stream, one warp a thread block, so 4,096 streams fill
-//     128 SMs with a warp each and a single stream owns an SM's scheduler.
+//     128 SMs with a warp each and a single stream owns an SM's scheduler:
+//     with one warp, the time a byte is what the warp issues a byte.
 //   * The 256-byte permutation lives in shared memory, a 32-bit word a
 //     byte, interleaved across the warp's 32 lanes (arc4.cuh), so the lanes
-//     never share a bank and an address is one multiply-add from its index:
-//     32 KB a block.
-//   * The state comes from and goes back to device memory once a launch;
-//     keystream and data move four bytes a load or store when the rows are
-//     4-byte aligned.
+//     never share a bank; a byte is held as v << 24, so that it wraps by
+//     itself and is its own address after one shift: 32 KB a block.
+//   * The lookahead schedule (arc4.cuh): the chain of y runs two bytes
+//     ahead of the stores, the load of m[x] four and the load of m[y] two,
+//     each corrected by compare-and-selects against the stores it passed;
+//     the byte-to-byte path is one compare and one select, and the loop
+//     runs 32 bytes a trip.
+//   * The states move in and out of device memory once a launch, a warp at
+//     a time through a padded stage (coalesced on one side, conflict-free on
+//     the other); keystream and data move four bytes a load or store once a
+//     row is 4-byte aligned.
 // Not constant time: the state is indexed by secret bytes, as in the
 // reference (ROADMAP.md queue 3).
 
@@ -46,21 +59,43 @@ namespace {
 
 constexpr int kLanes = 32;
 
-// state_in and state_out may be one buffer: a thread reads its whole row
-// before the loop and writes it after.
+// state_in and state_out may be one buffer: the warp reads all of its rows
+// before the loop and writes them after.
 template <int LANES>
 __global__ void __launch_bounds__(LANES)
 arc4_prga_kernel(const uint32_t* state_in, uint32_t* state_out,
                  const uint8_t* __restrict__ data, uint8_t* __restrict__ out, int s,
                  long long len) {
   __shared__ uint32_t smem[arc4::kSharedWords<LANES>];
-  const long long j = (long long)blockIdx.x * LANES + threadIdx.x;
-  if (j >= s) return;
-  const arc4::Lane<LANES> m = arc4::lane_of<LANES>(smem, threadIdx.x);
-  uint32_t x, y;
-  arc4::load_state(m, state_in + j * arc4::kStateWords, x, y);
-  arc4::run(m, x, y, data ? data + j * len : nullptr, out + j * len, len);
-  arc4::store_state(m, state_out + j * arc4::kStateWords, x, y);
+  __shared__ uint32_t stage[arc4::kStageWords<LANES>];
+  const int lane = threadIdx.x;
+  const long long j0 = (long long)blockIdx.x * LANES;
+  const int nrows = (int)(s - j0 < LANES ? s - j0 : LANES);
+  const arc4::Lane<LANES> m = arc4::lane_of<LANES>(smem, lane);
+  const uint32_t* rows_in = state_in + j0 * arc4::kStateWords;
+  uint32_t* rows_out = state_out + j0 * arc4::kStateWords;
+  uint32_t x = 0, y = 0;
+  for (int c = 0; c < arc4::kChunks<LANES>; ++c) {
+    arc4::stage_in<LANES>(rows_in, nrows, c, lane, stage);
+    __syncwarp();
+    if (lane < nrows) arc4::unstage_in<LANES>(stage, c, m, lane, x, y);
+    __syncwarp();
+  }
+  if (lane < nrows) {
+    const long long j = j0 + lane;
+    if (data) {
+      arc4::run<true>(m, x, y, data + j * len, out + j * len, len);
+    } else {
+      arc4::run<false>(m, x, y, nullptr, out + j * len, len);
+    }
+  }
+  __syncwarp();
+  for (int c = 0; c < arc4::kChunks<LANES>; ++c) {
+    if (lane < nrows) arc4::stage_out<LANES>(stage, c, m, lane, x, y);
+    __syncwarp();
+    arc4::unstage_out<LANES>(stage, nrows, c, lane, rows_out);
+    __syncwarp();
+  }
 }
 
 }  // namespace

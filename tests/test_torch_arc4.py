@@ -20,6 +20,8 @@ from our_tree_tpu.models import rc4 as jrc4
 from our_tree_tpu_torch.models import arc4, rc4
 from our_tree_tpu_torch.ops import cuda_arc4
 
+from arc4_states import collision_states
+
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "golden.json"
 RESCORLA = [
     ("0123456789abcdef", "0123456789abcdef", "75b7878099e0c596"),
@@ -65,6 +67,22 @@ def test_batch_scan_matches_reference(s, length):
     new2, ks2 = cuda_arc4.prga_plain(st, length)
     assert torch.equal(new2, new) and torch.equal(ks2, ks)
     assert cuda_arc4.prga.launches == before
+
+
+@pytest.mark.parametrize("length", [1, 15, 1024])
+def test_batch_scan_matches_reference_on_collision_states(length):
+    """The states on which the kernel's lookahead corrections fire often
+    (``arc4_states.collision_states``: the identity permutation, mostly-1 and
+    mostly-0 bytes) through the port's batch scan and the JAX package's."""
+    x, y, m = collision_states(18, seed=length)
+    (wx, wy, wm), wks = jarc4.keystream_scan_batch(
+        (jnp.asarray(x), jnp.asarray(y), jnp.asarray(m)), length)
+    new, ks = arc4.keystream_scan_batch(arc4.state_from_numpy((x, y, m), "cpu"), length)
+    np.testing.assert_array_equal(ks.numpy(), np.asarray(wks))
+    gx, gy, gm = arc4.state_to_numpy(new)
+    np.testing.assert_array_equal(gx, np.asarray(wx))
+    np.testing.assert_array_equal(gy, np.asarray(wy))
+    np.testing.assert_array_equal(gm, np.asarray(wm))
 
 
 @pytest.mark.parametrize("length", [1, 255])
@@ -168,3 +186,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
         arc4.ARC4(b"k")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rc4.RC4(b"k")
+
+
+def test_arc4_turns_needs_a_card(monkeypatch, capsys, tmp_path):
+    """The turns harness times two builds of the kernel on the card only:
+    without one it exits 1 and prints nothing on stdout."""
+    from our_tree_tpu_torch.harness import arc4_turns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert arc4_turns.main(["--other", str(tmp_path)]) == 1
+    assert capsys.readouterr().out == ""
+    assert set(arc4_turns.SHAPES) == {"path", "single", "wide", "refill"}
+

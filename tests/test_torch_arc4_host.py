@@ -2,8 +2,11 @@
 interleaved shared-memory layout and the per-stream loop with its
 four-byte groups and byte tail) compiled as host C++ with g++ and held
 bit-exact against the plain torch version (``cuda_arc4.prga_plain``) on
-random states: keystream and fused XOR, aligned and unaligned rows, and a
-resume seam inside a 32-byte run. The kernel's launch runs only on the card
+random states and on states where the lookahead schedule's corrections
+fire often (``arc4_states.collision_states``): keystream and fused XOR,
+aligned and unaligned rows, every length up to three trips of the main loop
+and three bytes, resumes at every offset within a trip, and the JAX
+package's scan. The kernel's launch runs only on the card
 (``tests/test_torch_cuda.py``). Integer cryptography: the tolerance is
 zero."""
 
@@ -11,30 +14,58 @@ import ctypes
 import shutil
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from our_tree_tpu.models import arc4 as jarc4
+from our_tree_tpu_torch.models import arc4
 from our_tree_tpu_torch.ops import cuda_arc4
 from our_tree_tpu_torch.runtime import cuda_build
+
+from arc4_states import collision_states
 
 HOST_SOURCE = r"""
 #include "arc4.cuh"
 
-// S streams, each run in lane (j % LANES) of an interleaved buffer laid out
-// as one thread block's shared memory, the kernel's layout.
+// S streams in thread blocks of kLanes, as the kernel runs them: each
+// block's rows copied into an interleaved buffer laid out as one block's
+// shared memory through the stage, a chunk at a time (each phase for every
+// lane in turn, where the kernel puts a warp barrier), each lane's stream
+// run under the lookahead schedule, and the rows copied back.
 extern "C" int host_prga(const uint32_t* state_in, uint32_t* state_out, const uint8_t* data,
                          uint8_t* out, int s, long long len, long long data_stride,
                          long long out_stride, long long offset) {
   constexpr int kLanes = 32;
   static uint32_t smem[arc4::kSharedWords<kLanes>];
-  for (int j = 0; j < s; ++j) {
-    const arc4::Lane<kLanes> m = arc4::lane_of<kLanes>(smem, j % kLanes);
-    uint32_t x, y;
-    arc4::load_state(m, state_in + j * arc4::kStateWords, x, y);
-    arc4::run(m, x, y, data ? data + j * data_stride + offset : nullptr,
-              out + j * out_stride + offset, len);
-    arc4::store_state(m, state_out + j * arc4::kStateWords, x, y);
+  static uint32_t stage[arc4::kStageWords<kLanes>];
+  for (int j0 = 0; j0 < s; j0 += kLanes) {
+    const int nrows = s - j0 < kLanes ? s - j0 : kLanes;
+    uint32_t x[kLanes] = {}, y[kLanes] = {};
+    for (int c = 0; c < arc4::kChunks<kLanes>; ++c) {
+      for (int t = 0; t < kLanes; ++t)
+        arc4::stage_in<kLanes>(state_in + (long long)j0 * arc4::kStateWords, nrows, c, t, stage);
+      for (int t = 0; t < nrows; ++t)
+        arc4::unstage_in<kLanes>(stage, c, arc4::lane_of<kLanes>(smem, t), t, x[t], y[t]);
+    }
+    for (int t = 0; t < nrows; ++t) {
+      const long long j = j0 + t;
+      const arc4::Lane<kLanes> m = arc4::lane_of<kLanes>(smem, t);
+      if (data) {
+        arc4::run<true>(m, x[t], y[t], data + j * data_stride + offset,
+                        out + j * out_stride + offset, len);
+      } else {
+        arc4::run<false>(m, x[t], y[t], nullptr, out + j * out_stride + offset, len);
+      }
+    }
+    for (int c = 0; c < arc4::kChunks<kLanes>; ++c) {
+      for (int t = 0; t < nrows; ++t)
+        arc4::stage_out<kLanes>(stage, c, arc4::lane_of<kLanes>(smem, t), t, x[t], y[t]);
+      for (int t = 0; t < kLanes; ++t)
+        arc4::unstage_out<kLanes>(stage, nrows, c, t,
+                                  state_out + (long long)j0 * arc4::kStateWords);
+    }
   }
   return 0;
 }
@@ -111,6 +142,76 @@ def test_resume_seam_inside_a_32_byte_run(host_lib, seam):
                                               None if d is None else torch.from_numpy(d))
         np.testing.assert_array_equal(np.concatenate([first, second], axis=1), one.numpy())
         np.testing.assert_array_equal(end, one_state.numpy())
+
+
+def _collisions(s, seed):
+    """``arc4_states.collision_states`` as (S, 258) int32 rows, and the (x, y, m) form."""
+    ref = collision_states(s, seed)
+    return arc4.state_from_numpy(ref, "cpu").numpy(), ref
+
+
+#: Bytes of one trip of the kernel's main loop: eight four-byte groups.
+TRIP = 32
+#: Every length up to three trips and three bytes (the loads run up to four
+#: bytes ahead, and a group's word is written a group late), then longer
+#: runs, where each kind of collision recurs many times.
+COLLISION_LENGTHS = list(range(0, 3 * TRIP + 3 + 1)) + [300, 1024]
+
+
+@pytest.mark.parametrize("length", COLLISION_LENGTHS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("fused", [False, True])
+def test_host_build_on_collision_states(host_lib, length, offset, fused):
+    """33 streams, the six kinds of ``arc4_states.collision_states`` in
+    turn, at every row alignment: keystream, fused XOR and the state after,
+    against the plain version and, for the keystream and state, the host
+    oracle."""
+    state, (x, y, m) = _collisions(33, seed=length)
+    data = (np.random.default_rng(length + 1).integers(0, 256, (33, length), dtype=np.uint8)
+            if fused else None)
+    new, out = _host(host_lib, state, length, data, offset)
+    want_state, want = cuda_arc4.prga_plain(torch.from_numpy(state), length,
+                                            None if data is None else torch.from_numpy(data))
+    np.testing.assert_array_equal(out, want.numpy())
+    np.testing.assert_array_equal(new, want_state.numpy())
+    ks = out ^ data if fused else out
+    for i in range(33):
+        oracle, (ox, oy, om) = arc4.keystream_np((int(x[i]), int(y[i]), m[i]), length)
+        np.testing.assert_array_equal(ks[i], oracle)
+        assert (new[i, 0], new[i, 1]) == (ox, oy)
+        np.testing.assert_array_equal(new[i, 2:], om)
+
+
+@pytest.mark.parametrize("seam", range(0, TRIP + 1))
+@pytest.mark.parametrize("fused", [False, True])
+def test_resume_at_every_offset_within_a_trip(host_lib, seam, fused):
+    """On collision states, two calls of ``seam`` and ``2 * TRIP + 8 -
+    seam`` bytes, the state carried, equal one call: the second call starts
+    its lookahead afresh at every offset within a trip of the main loop."""
+    total = 2 * TRIP + 8
+    state, _ = _collisions(12, seed=100 + seam)
+    data = (np.random.default_rng(seam).integers(0, 256, (12, total), dtype=np.uint8)
+            if fused else None)
+    mid, first = _host(host_lib, state, seam, None if data is None else data[:, :seam])
+    end, second = _host(host_lib, mid, total - seam, None if data is None else data[:, seam:])
+    one_state, one = cuda_arc4.prga_plain(torch.from_numpy(state), total,
+                                          None if data is None else torch.from_numpy(data))
+    np.testing.assert_array_equal(np.concatenate([first, second], axis=1), one.numpy())
+    np.testing.assert_array_equal(end, one_state.numpy())
+
+
+@pytest.mark.parametrize("length", [15, 99, 300])
+def test_host_build_matches_jax_scan_on_collision_states(host_lib, length):
+    """The host build against the JAX package's ``keystream_scan_batch`` on
+    the collision states."""
+    state, (x, y, m) = _collisions(12, seed=7 + length)
+    (wx, wy, wm), wks = jarc4.keystream_scan_batch(
+        (jnp.asarray(x), jnp.asarray(y), jnp.asarray(m)), length)
+    new, out = _host(host_lib, state, length)
+    np.testing.assert_array_equal(out, np.asarray(wks))
+    np.testing.assert_array_equal(new[:, 0], np.asarray(wx))
+    np.testing.assert_array_equal(new[:, 1], np.asarray(wy))
+    np.testing.assert_array_equal(new[:, 2:], np.asarray(wm))
 
 
 def test_ptxas_report_keys_the_arc4_kernel():

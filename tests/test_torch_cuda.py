@@ -18,6 +18,8 @@ from our_tree_tpu_torch.ops import bitslice, cuda_aes
 from our_tree_tpu_torch.ops.keyschedule import dec_schedule_from_enc, expand_key_dec, expand_key_enc
 from our_tree_tpu_torch.utils import packing
 
+from arc4_states import collision_states
+
 pytestmark = pytest.mark.gpu
 
 WRAP_NONCES = [
@@ -599,13 +601,20 @@ def test_latency_chain_matches_plain(card):
 @pytest.mark.parametrize("s", [1, 7, 32, 33, 4096])
 @pytest.mark.parametrize("length", [1, 255, 4096])
 @pytest.mark.parametrize("fused", [False, True])
-def test_arc4_kernel_matches_plain(card, s, length, fused):
+@pytest.mark.parametrize("kind", ["random", "collisions"])
+def test_arc4_kernel_matches_plain(card, s, length, fused, kind):
+    """Random permutations, and the states on which the kernel's lookahead
+    corrections fire often (``arc4_states.collision_states``)."""
     from our_tree_tpu_torch.models import arc4
     from our_tree_tpu_torch.ops import cuda_arc4
 
     rng = np.random.default_rng(s * 7 + length)
-    m = np.stack([rng.permutation(256) for _ in range(s)])
-    state = arc4.state_from_numpy((rng.integers(0, 256, s), rng.integers(0, 256, s), m), card)
+    if kind == "collisions":
+        state = arc4.state_from_numpy(collision_states(s, s * 7 + length), card)
+    else:
+        m = np.stack([rng.permutation(256) for _ in range(s)])
+        state = arc4.state_from_numpy((rng.integers(0, 256, s), rng.integers(0, 256, s), m),
+                                      card)
     data = (torch.from_numpy(rng.integers(0, 256, (s, length), dtype=np.uint8)).to(card)
             if fused else None)
     before = cuda_arc4.prga.launches
