@@ -50,15 +50,16 @@ is not 0:
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
    at 64 MiB, and its 65,536-step latency chain over one word (mismatching
    words must be 0); ``arc4_prga`` for S in {1, 7, 32, 33, 4096} streams x {1,
-   255, 4096, 2^16, 2^18} bytes, each as keystream, fused XOR and a resume
+   255, 4096, 2^16, 2^17} bytes, each as keystream, fused XOR and a resume
    across two calls, against the first S rows of one timed plain run a
    length on 4,096 streams, from random permutations and again from the
    states on which the kernel's lookahead corrections fire often
    (``tests/arc4_states.py``) (mismatching bytes must be 0), and for S in {1,
-   7, 32} at 2^20 bytes (the sweep's length) its first 2^18 bytes against
+   7, 32} at 2^20 bytes (the sweep's length) its first 2^17 bytes against
    that plain run and the rest against a resume from them (the plain
-   version's depth is cut to 2^18 bytes since PR 21: its per-byte loop took
-   about 100 s at 2^20);
+   version's depth is cut to 2^17 bytes: its per-byte loop takes about 31 s
+   there over both kinds of states, 61 s at 2^18 and about 100 s a kind at
+   2^20, which would take the script past 1,080 s);
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
    the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
@@ -340,26 +341,40 @@ is not 0:
    ``# compile:`` line: its 2 warmup builds (the library load, the first
    ``ctr_mk<10>`` launch) at the canary rung, 0 steady. A ``{"pulse":
    ...}`` line before the ``kernels`` line carries the phase's figures;
-17. the routing tier (``route_phase``; after 16, before 14): four
+17. the routing tier (``route_phase``; after 16, before 14): five
    ``route.bench`` drives in child processes (``ROUTE_DRIVES``), each
    spawning port workers with ``--device cuda``: (a) the acceptance drive,
    3 workers, 1,500 requests at 250 a second, mixed sizes, 12 tenants, with
-   the affinity A/B (affinity's keycache hit ratio above random routing's);
+   the affinity A/B (affinity's keycache hit ratio above random routing's),
+   also the fleet-causal drive (``OT_TRACE_SAMPLE=0.25``, ``--status-port
+   0``, waterfalls complete on 0.99 of the sampled requests and within 5 %
+   on 0.95, then ``obs.report --min-join-frac 0.9`` over its trace rc 0);
    (b) the backend kill (``OT_FAULTS=backend_hang:1@backend=1``: exactly one
    quarantine and one release, a redispatch, zero errors); (c) ``ctr``,
-   ``gcm`` and ``gcm-open`` through the router, every mode's probes
+   ``gcm``, ``gcm-open`` and ``cbc`` through the router, every mode's probes
    verified (each ``gcm`` tag against the host GCM); (d) the elasticity
    drive (a scale-up and a scale-down, one roll through the canary
    handoff, a router replica killed, a stale pooled socket redispatched,
-   zero errors, no alert). Each drive: rc 0, 0 lost at the router and in
-   every worker's EXIT line, 0 builds after warmup, in every worker
-   ``ctr_mk`` launches equal to its ``ctr``, ``gcm`` and ``gcm-open``
-   engine calls and ``ghash_at`` calls to its ``gcm`` and ``gcm-open``
-   ones (the EXIT line's diagnostic keys) and no other kernel, and no CUDA
-   context in the router's process; the per-backend dispatch table, the
-   workers' times to READY, p50/p99, goodput and the router's
-   ``router_queue`` and ``wire`` p50s are printed. The ``kernels`` line's
-   ``ctr_mk`` and ``ghash_at`` gain ``route`` (their launches by drive);
+   zero errors, no alert); (e) the mid-transfer kill drive (STREAM_r01's
+   cookbook flags: 64 MiB transfers riding mixed traffic, a worker
+   SIGKILLed at +2 s, a hung lane, a lost chunk result, the resume drill;
+   zero errors and lost, bit-exact, a chunk redispatched, one quarantine,
+   the drill byte-identical). Each drive: rc 0, 0 lost at the router and in
+   every worker's EXIT line (a SIGKILLed worker has none and is skipped,
+   said so), 0 builds after warmup, in every worker ``ctr_mk`` launches
+   equal to its ``ctr``, ``gcm`` and ``gcm-open`` engine calls, ``ghash_at``
+   calls to its ``gcm`` and ``gcm-open`` ones and ``cbc_mk`` launches to its
+   ``cbc`` ones (the EXIT line's diagnostic keys, printed a worker) and no
+   other kernel, and no CUDA context in the router's process; the
+   per-backend dispatch table, the workers' times to READY, p50/p99,
+   goodput and the stage p50s of the complete waterfalls (the router's
+   stages and the worker's own) are printed; a failed drive's record (its
+   given-up requests with every attempt, the client's failovers, each
+   router's outcomes by back end, the fleet events around it) is logged
+   before its artifact is removed. The ``kernels`` line's ``ctr_mk``,
+   ``ghash_at`` and ``cbc_mk`` gain ``route`` (their launches by drive).
+   ``python3 chip_smoke.py --route-only d 5`` builds the kernels and runs
+   drive (d) alone five times in a row (any drives, comma separated);
 18. multi-device (``multidevice_phase``; after 17, before 14), in child
    processes so that no process group outlives its step: (a) a world of one
    on NCCL (``dryrun_multichip(1)`` in a world of its own, then one joined
@@ -526,9 +541,11 @@ SEQ_BLOCKS = 4096
 #: once a length, on ARC4_PLAIN_STREAMS streams; a launch on S streams is
 #: held against its first S rows (the streams are independent). 2^20 bytes
 #: is the harness's length (rc4-batch: 32 streams; rc4 with the keystream on
-#: the card: one), 2^16 that of the wide timing shape.
+#: the card: one), 2^16 that of the wide timing shape. The longest plain run
+#: is 2^17 bytes a stream: the plain version's per-byte loop takes about 15 s
+#: a kind there, and the sweep's length is held through a resume.
 ARC4_STREAMS = (1, 7, 32, 33, 4096)
-ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 18)
+ARC4_LENGTHS = (1, 255, 4096, 1 << 16, 1 << 17)
 ARC4_PLAIN_STREAMS = max(ARC4_STREAMS)
 #: The sweep's length: launches on ARC4_LONG_STREAMS streams are held
 #: against the plain run at the longest of ARC4_LENGTHS for its bytes, and
@@ -2655,15 +2672,25 @@ def observability_phase(card: str, serve_drive, line_a: dict, line_d: dict, fres
 #: (not +6), after the join, and the drive is 8,000 requests at 150 a
 #: second (not 4,000) so that traffic still flows then; the roll starts at
 #: +34 s (not +28) and the settle window is 60 s (not 45). The router kill
-#: stays at +14 s. Each drive: (argv, environment, time limit in seconds).
+#: stays at +14 s. (a) is also the fleet-causal drive (docs/SERVING.md,
+#: the cookbook's sampled cross-process tracing: ``OT_TRACE_SAMPLE=0.25``,
+#: ``--status-port 0``, waterfalls gated complete on 0.99 and within 5 % on
+#: 0.95, then ``obs.report --min-join-frac 0.9``); (c) sends ``cbc`` too;
+#: (e) is the mid-transfer kill drive (STREAM_r01's cookbook flags, with
+#: its CI step's sizing: ``--worker-lanes 2 --dispatch-deadline 2``, so the
+#: hung lane fails over inside its worker before the router's 5 s attempt
+#: timeout). Each drive: (argv, environment, time limit in seconds);
+#: ``{scratch}`` in either stands for the phase's temporary directory.
 ROUTE_DRIVES = {
     "a": (["--backends", "3", "--requests", "1500", "--arrival-rate", "250", "--mixed-sizes",
-           "--tenants", "12", "--ab"], {}, 240),
+           "--tenants", "12", "--ab", "--status-port", "0", "--min-waterfall-complete", "0.99",
+           "--min-stage-sum-ok", "0.95"],
+          {"OT_TRACE_SAMPLE": "0.25", "OT_TRACE_DIR": "{scratch}/a_trace"}, 240),
     "b": (["--backends", "3", "--requests", "1500", "--arrival-rate", "250", "--mixed-sizes",
            "--attempt-timeout", "1.5", "--gossip-every", "0.25", "--require-zero-errors",
            "--expect-quarantines", "1", "--expect-releases", "1", "--min-redispatch", "1"],
           {"OT_FAULTS": "backend_hang:1@backend=1"}, 180),
-    "c": (["--backends", "3", "--requests", "600", "--modes", "ctr,gcm,gcm-open", "--sizes",
+    "c": (["--backends", "3", "--requests", "600", "--modes", "ctr,gcm,gcm-open,cbc", "--sizes",
            "16,64,256,1024,4096,16384", "--attempt-timeout", "1.5", "--gossip-every", "0.25"],
           {}, 180),
     "d": (["--autoscale", "--backends", "1", "--fleet-max", "2", "--fleet-policy", "headroom",
@@ -2675,10 +2702,81 @@ ROUTE_DRIVES = {
            "--drive-faults-after", "30", "--settle-timeout", "60", "--require-zero-errors",
            "--min-scale-ups", "1", "--min-scale-downs", "1", "--expect-rolls", "1",
            "--min-client-failovers", "1", "--min-redispatch", "1"], {}, 300),
+    "e": (["--backends", "2", "--requests", "600", "--arrival-rate", "120", "--sizes",
+           "1024,16384,262144", "--bucket-max", "262144", "--transfer-sizes", "67108864",
+           "--transfer-every", "64", "--transfer-ledger", "{scratch}/tx.jsonl",
+           "--kill-backend-after", "2.0", "--worker-faults", "lane_hang:1", "--resume-drill",
+           "--min-chunk-redispatch", "1", "--require-zero-errors", "--expect-quarantines", "1",
+           "--worker-lanes", "2", "--dispatch-deadline", "2"],
+          {"OT_FAULTS": "chunk_lost:1"}, 240),
 }
+#: Drives whose trace directory (``OT_TRACE_DIR``) ``python -m
+#: our_tree_tpu_torch.obs.report`` reads after the drive, with these flags;
+#: it must exit 0.
+ROUTE_REPORTED = {"a": ["--min-join-frac", "0.9"]}
 #: The serve kernels a worker of each drive's modes may launch, by the engine
 #: calls (mode) each launch stands for; any other kernel launched fails.
-ROUTE_KERNEL_CALLS = {"ctr_mk": ("ctr", "gcm", "gcm-open"), "ghash_at": ("gcm", "gcm-open")}
+ROUTE_KERNEL_CALLS = {"ctr_mk": ("ctr", "gcm", "gcm-open"), "ghash_at": ("gcm", "gcm-open"),
+                      "cbc_mk": ("cbc",)}
+#: The modes drive (c) sends, each of whose probes must verify.
+ROUTE_AEAD_MODES = ("ctr", "gcm", "gcm-open", "cbc")
+
+
+#: Fleet events within this many seconds of a given-up request are logged
+#: with a failed drive's record.
+EVIDENCE_WINDOW_S = 15.0
+
+
+def route_evidence(name: str, doc: dict) -> None:
+    """Log a failed phase 17 drive's record from its artifact, before the
+    scratch directory that holds it is removed: the request errors; each
+    request the failover client gave up on (its detail, every attempt's
+    peer, outcome and seconds, and its time since the drive began); the
+    client's failovers and backpressure retries; each router's attempt
+    outcomes by back end and its redispatches; each worker's exit; and
+    the fleet events within ``EVIDENCE_WINDOW_S`` of a given-up request
+    (all of them when none was recorded)."""
+    load = doc.get("load") or {}
+    log(f"route {name} record: errors {load.get('errors')}, requests {load.get('requests')}, "
+        f"ok {load.get('ok')}")
+    client = (doc.get("routers") or {}).get("client") or {}
+    if client:
+        log(f"route {name} record: client failovers {client.get('failovers')}, "
+            f"backpressure_retries {client.get('backpressure_retries')}, peers "
+            f"{client.get('peers')}, attempt timeout {client.get('attempt_timeout_s')} s")
+    if client:
+        log(f"route {name} record: client attempts by outcome {client.get('attempt_outcomes')}; "
+            f"slow attempts (+s since the drive began, peer, outcome, s) "
+            f"{client.get('slow_attempts')}")
+    gave_up = client.get("failures") or []
+    for f in gave_up:
+        log(f"route {name} record: gave up at +{f['t_s']} s after {f['wall_s']} s (deadline "
+            f"{f['deadline_s']} s): {f['detail']}; attempts " + ", ".join(
+                f"{p} {o} {t} s" for p, o, t in f["attempts"]))
+    router = doc.get("router") or {}
+    log(f"route {name} record: router redispatches {router.get('redispatches')}, shed retries "
+        f"{router.get('shed_retries')}, quarantine events {router.get('quarantine_events')}; by "
+        f"back end " + "; ".join(
+            f"{b}: dispatches {st.get('dispatches')} failures {st.get('failures')} timeouts "
+            f"{st.get('timeouts')} redispatches_in {st.get('redispatches_in')} pool "
+            f"{st.get('pool')} state {st.get('state')}"
+            for b, st in (router.get("backends") or {}).items()))
+    for r in (doc.get("routers") or {}).get("docs") or []:
+        log(f"route {name} record: replica {r.get('name')} killed {r.get('killed')} rc "
+            f"{r.get('rc')} accepted {r.get('accepted')} answered {r.get('answered')} "
+            f"redispatches {r.get('redispatches')} by back end {r.get('backends')}")
+    for w in doc.get("workers") or []:
+        log(f"route {name} record: worker {w.get('name')} rc {w.get('rc')} lost {w.get('lost')} "
+            f"engine calls {w.get('diag_engine_calls')}")
+    fleet = doc.get("fleet") or {}
+    t0 = fleet.get("t0")
+    for ev in fleet.get("events") or []:
+        at = ev["t_s"] - t0 if t0 is not None else None
+        if at is None or not gave_up or any(
+                abs(at - f["t_s"]) <= EVIDENCE_WINDOW_S for f in gave_up):
+            log(f"route {name} record: fleet event {ev.get('kind')} worker {ev.get('worker')} "
+                f"size {ev.get('size')} epoch {ev.get('epoch')}"
+                + (f" at +{at:.1f} s" if at is not None else ""))
 
 
 def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
@@ -2686,15 +2784,22 @@ def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
     child process, its artifact written to a temporary file and read back.
     Gates, every drive: rc 0 (the bench's own gates: zero lost at the router
     and in every worker's EXIT line, bit-exact probes, zero builds after
-    warmup across the fleet, and each drive's fault and elasticity gates);
-    no request error; every worker, both arms of the A/B included, drained
-    with rc 0 and lost 0; in each worker ``ctr_mk`` launches equal to its
-    ``ctr``, ``gcm`` and ``gcm-open`` engine calls, ``ghash_at`` calls equal
-    to its ``gcm`` and ``gcm-open`` ones, and no other kernel (on the CPU:
-    no launch at all); the router's process made no CUDA context. (a) must
-    show affinity's keycache hit ratio above random routing's; (c) every
-    mode's probes verified; (d) no alert fired. Returns each drive's line,
-    its workers' launches and the phase's wall."""
+    warmup across the fleet, and each drive's fault, elasticity and
+    waterfall gates); no request error; every worker, both arms of the A/B
+    included, drained with rc 0 and lost 0, but for a worker the drive
+    SIGKILLed, which has no EXIT line and is skipped, and said so; in each
+    worker ``ctr_mk`` launches equal to its ``ctr``, ``gcm`` and ``gcm-open``
+    engine calls, ``ghash_at`` calls equal to its ``gcm`` and ``gcm-open``
+    ones, ``cbc_mk`` launches equal to its ``cbc`` ones, and no other kernel
+    (on the CPU: no launch at all); the router's process made no CUDA
+    context. (a) must show affinity's keycache hit ratio above random
+    routing's and complete waterfalls, and ``obs.report --min-join-frac
+    0.9`` over its trace must exit 0; (c) every mode's probes verified; (d)
+    no alert fired; (e) a chunk redispatched, every transfer served, the
+    resume drill byte-identical with only unacked chunks re-sent, no bytes
+    held and no live ledger entry. A failed drive's record is logged
+    (``route_evidence``) before the temporary directory is removed. Returns
+    each drive's line, its workers' launches and the phase's wall."""
     t_phase = time.perf_counter()
     drives = ROUTE_DRIVES if drives is None else drives
     scratch = tempfile.mkdtemp(prefix="ot_route_")
@@ -2702,6 +2807,8 @@ def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
     try:
         for name, (argv, env, limit) in drives.items():
             art = os.path.join(scratch, f"{name}.json")
+            argv = [a.replace("{scratch}", scratch) for a in argv]
+            env = {k: v.replace("{scratch}", scratch) for k, v in env.items()}
             t0 = time.perf_counter()
             res = subprocess.run(
                 [sys.executable, "-m", "our_tree_tpu_torch.route.bench", *argv, "--device",
@@ -2714,14 +2821,23 @@ def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
             except (IndexError, ValueError, OSError) as e:
                 raise SystemExit(f"phase 17 ({name}): no line or artifact ({e}); rc "
                                  f"{res.returncode}; stderr {res.stderr[-3000:]!r}")
-            workers = list(doc["workers"]) + list((doc.get("control") or {}).get("workers") or [])
+            every = list(doc["workers"]) + list((doc.get("control") or {}).get("workers") or [])
+            killed = [w for w in every if w.get("killed")]
+            workers = [w for w in every if not w.get("killed")]
+            if killed:
+                log(f"route {name}: the worker checks skip {len(killed)} worker(s) SIGKILLed by "
+                    f"the drive ({doc.get('killed_backend')}, rc "
+                    f"{[w.get('rc') for w in killed]}), which print no EXIT line")
             bad_launch = []
             launches = {}
-            for w in workers:
+            per_worker = []
+            for i, w in enumerate(workers):
                 calls = w.get("diag_engine_calls") or {}
                 got = w.get("diag_launches") or {}
                 for kname, n in got.items():
                     launches[kname] = launches.get(kname, 0) + n
+                per_worker.append(f"{w.get('name') or f'#{i}'}: launches "
+                                  f"{ {k: n for k, n in got.items() if n} } engine calls {calls}")
                 # On the card each serve kernel once an engine call of its
                 # modes and no other kernel; on the CPU no launch at all.
                 want = {k: sum(calls.get(m, 0) for m in ROUTE_KERNEL_CALLS.get(k, ()))
@@ -2746,25 +2862,55 @@ def route_phase(card: str, device: str = "cuda", drives=None) -> dict:
             if name == "c":
                 modes = doc["load"].get("modes") or {}
                 checks["every mode's probes verified"] = all(
-                    (modes.get(m) or {}).get("verified", 0) > 0 for m in ("ctr", "gcm", "gcm-open"))
+                    (modes.get(m) or {}).get("verified", 0) > 0 for m in ROUTE_AEAD_MODES)
                 log(f"route c: verified probes by mode (each gcm probe's ciphertext and tag "
                     f"against the host GCM) " + ", ".join(
                         f"{m} {v.get('verified')}/{v.get('requests')}" for m, v in modes.items()))
             if name == "d":
                 checks["no alert fired"] = not (doc.get("alerts") or {}).get("total")
+            if name == "e":
+                tx = (doc.get("transfers") or {}).get("router") or {}
+                resume = doc.get("resume") or {}
+                checks.update({
+                    "a chunk redispatched": line.get("chunk_redispatches", 0) >= 1,
+                    "every transfer served": (line.get("transfers") or {}).get("ok")
+                    == (line.get("transfers") or {}).get("requests", -1) > 0,
+                    "resume drill byte-identical, only unacked re-sent": line.get("resume")
+                    == "pass" and bool(resume.get("byte_identical"))
+                    and bool(resume.get("resent_only_unacked")),
+                    "no bytes held, no live ledger entry": tx.get("held_bytes") == 0
+                    and tx.get("ledger_live") == 0})
+                log(f"route e: transfers {line.get('transfers')}, chunk redispatches "
+                    f"{line.get('chunk_redispatches')}, resume {resume.get('first')} then "
+                    f"{resume.get('second')}, killed {doc.get('killed_backend')}")
+            if name in ROUTE_REPORTED:
+                rep = subprocess.run(
+                    [sys.executable, "-m", "our_tree_tpu_torch.obs.report", env["OT_TRACE_DIR"],
+                     *ROUTE_REPORTED[name]], cwd=ROOT, capture_output=True, text=True,
+                    timeout=300)
+                joined = [ln.strip() for ln in rep.stdout.splitlines()
+                          if ln.startswith("fleet join")]
+                checks[f"obs.report {' '.join(ROUTE_REPORTED[name])} rc 0"] = rep.returncode == 0
+                log(f"route {name}: obs.report rc {rep.returncode}: {joined}"
+                    + (f"; stderr {rep.stderr[-600:]!r}" if rep.returncode else ""))
+            wf = doc.get("waterfall") or {}
+            stage_p50 = {st: v.get("p50_us") for st, v in (wf.get("stages") or {}).items()}
             tail = [ln for ln in res.stdout.splitlines() if ln.startswith("#")]
             for ln in tail:
                 log(f"route {name}: {ln}")
             log(f"route {name} ({' '.join(argv)}{' ' + str(env) if env else ''}): rc "
                 f"{res.returncode}, {wall:.1f} s wall; p50 {line.get('p50_ms')} ms, p99 "
-                f"{line.get('p99_ms')} ms, goodput {line.get('goodput_gbps')} GB/s; router "
-                f"stages p50 {line.get('stage_p50_us') or {'wire': line.get('wire_p50_us')}} us; "
-                f"workers' launches {launches}; checks {checks}; card: {card}")
+                f"{line.get('p99_ms')} ms, goodput {line.get('goodput_gbps')} GB/s; waterfalls "
+                f"complete {wf.get('complete')}/{wf.get('sampled')}, stage sum within 5 % on "
+                f"{wf.get('sum_within_tol_frac')}; stage p50s of the complete waterfalls "
+                f"{stage_p50} us; workers' launches {launches}; per worker "
+                f"{'; '.join(per_worker)}; checks {checks}; card: {card}")
             if not all(checks.values()):
+                route_evidence(name, doc)
                 raise SystemExit(f"phase 17 ({name}): {checks}; bad launches {bad_launch}; stderr "
                                  f"{res.stderr[-3000:]!r}")
             out["drives"][name] = {"line": line, "launches": launches, "wall_s": wall,
-                                   "workers": len(workers)}
+                                   "workers": len(workers), "stage_p50_us": stage_p50}
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
@@ -5911,7 +6057,7 @@ def main() -> int:
     phase("17")
     route = route_phase(card)
     for entry in kernels:
-        if entry["name"] in ("ctr_mk", "ghash_at"):
+        if entry["name"] in ROUTE_KERNEL_CALLS:
             entry["route"] = {name: d["launches"].get(entry["name"], 0)
                               for name, d in route["drives"].items()}
 
@@ -6008,7 +6154,37 @@ def main() -> int:
     return 0
 
 
+def route_only(names: str, repeat: int) -> int:
+    """``python3 chip_smoke.py --route-only d [REPEAT]``: build the kernels,
+    then run phase 17's drives named in ``names`` (comma separated) alone,
+    ``repeat`` times in a row, stopping at the first failure, whose record
+    ``route_evidence`` logs. Prints one JSON line of the passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from our_tree_tpu_torch.runtime import cuda_build
+
+    card = smi("name,power.limit")
+    t0 = time.perf_counter()
+    cuda_build.load()
+    log(f"build: {time.perf_counter() - t0:.1f} s; card: {card}")
+    drives = {n: ROUTE_DRIVES[n] for n in names.split(",")}
+    walls = []
+    for i in range(repeat):
+        res = route_phase(card, drives=drives)
+        walls.append({n: round(d["wall_s"], 1) for n, d in res["drives"].items()})
+        log(f"route-only pass {i + 1} of {repeat}: {walls[-1]}")
+    print(json.dumps({"route_only": names, "passes": len(walls), "walls_s": walls}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-rank"]:
         sys.exit(multi_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--route-only"]:
+        sys.exit(route_only(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 1))
     sys.exit(main())

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from .models import aes as aes_mod
+from .resilience import watchdog
 from .utils import devlock, packing, ranking
 
 #: Reference bars per operation (root bench.py BASELINES, BASELINE.md): the
@@ -123,13 +124,16 @@ class Chain:
     def timed(self, k: int) -> tuple[float, int]:
         """(seconds, digest) of a k-step chain."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            acc = self.run(k)
-            stop.record()
-            stop.synchronize()
+            # The card's waits under the opt-in dispatch deadline
+            # (``OT_DISPATCH_DEADLINE``): a wedged card raises, not hangs.
+            with watchdog.deadline(watchdog.default_deadline_s(), what="bench chain"):
+                torch.cuda.synchronize(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                acc = self.run(k)
+                stop.record()
+                stop.synchronize()
             secs = start.elapsed_time(stop) / 1e3
         else:
             t0 = time.perf_counter()

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .models import aes as aes_mod
+from .resilience import watchdog
 from .utils import packing
 
 KEY = bytes(range(16))
@@ -142,8 +143,10 @@ def _dryrun_steps(n: int) -> None:
 
     # The XOR phase over a keystream from the ARC4 path.
     nbytes = 64 * n
-    ks = torch.from_numpy(arc4.ARC4(b"dryrun-key", device=dev).prep(nbytes)).to(dev)
-    data = torch.from_numpy(np.random.default_rng(7).integers(0, 256, nbytes, np.uint8)).to(dev)
+    with watchdog.deadline(watchdog.default_deadline_s(), what="dryrun staging"):
+        ks = torch.from_numpy(arc4.ARC4(b"dryrun-key", device=dev).prep(nbytes)).to(dev)
+        data = torch.from_numpy(np.random.default_rng(7).integers(0, 256, nbytes,
+                                                                  np.uint8)).to(dev)
     check("XOR", dist.xor_sharded(dist.shard_rows(data, mesh), dist.shard_rows(ks, mesh), mesh),
           data ^ ks, nbytes)
 

@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_arc4
+from ..resilience import isolate, watchdog
 from ..runtime import cuda_build
 
 #: (streams, bytes a stream) by label.
@@ -42,11 +42,10 @@ SECONDS = 0.3
 SEED = 22
 
 
-def build(csrc: Path, out: Path) -> subprocess.Popen:
-    """Start an nvcc of ``csrc/arc4.cu`` into the library ``out``."""
-    return subprocess.Popen([cuda_build._nvcc(), *cuda_build.FLAGS, "-shared", f"-I{csrc}",
-                             "-o", str(out), str(csrc / "arc4.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+def build_argv(csrc: Path, out: Path) -> list:
+    """The nvcc of ``csrc/arc4.cu`` into the library ``out``."""
+    return [cuda_build._nvcc(), *cuda_build.FLAGS, "-shared", f"-I{csrc}", "-o", str(out),
+            str(csrc / "arc4.cu")]
 
 
 def bind(so: Path) -> ctypes.CDLL:
@@ -67,29 +66,30 @@ def launch(lib, state, new_state, out, length) -> None:
 def graph_ms(fn, seconds: float) -> float:
     """Card ms a call of ``fn``: calls captured in one CUDA graph, enough to
     last about ``seconds``, replayed and timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    stop.synchronize()
-    reps = max(1, min(200, int(seconds * 1e3 / max(start.elapsed_time(stop), 1e-3))))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with watchdog.deadline(watchdog.default_deadline_s(), what="arc4_turns timing"):
         fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        reps = max(1, min(200, int(seconds * 1e3 / max(start.elapsed_time(stop), 1e-3))))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    stop.record()
-    stop.synchronize()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
     return start.elapsed_time(stop) / reps
 
 
@@ -108,29 +108,31 @@ def main(argv=None) -> int:
 def turns(other: Path, tmp: Path) -> int:
     """Build both trees' kernels into ``tmp``, compare and time them."""
     trees = {"other": other / "our_tree_tpu_torch" / "csrc", "this": cuda_build.CSRC}
-    procs = {name: build(csrc, tmp / f"{name}.so") for name, csrc in trees.items()}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc of {trees[name]}/arc4.cu failed:\n{err[-3000:]}")
+    results = cuda_build.run_all([build_argv(csrc, tmp / f"{name}.so")
+                                  for name, csrc in trees.items()], "nvcc")
+    for name, r in zip(trees, results):
+        if not r.ok:
+            raise SystemExit(f"nvcc of {trees[name]}/arc4.cu failed ({r.kind}):\n{r.err[-3000:]}")
     libs = {name: bind(tmp / f"{name}.so") for name in trees}
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     rows, failures = {}, []
     for label, (s, n) in SHAPES.items():
         m = np.stack([rng.permutation(256) for _ in range(s)])
-        state = torch.from_numpy(np.concatenate(
-            [rng.integers(0, 256, (s, 2)), m], axis=1).astype(np.int32)).to(dev)
-        bufs = {name: (torch.empty_like(state), torch.empty((s, n), dtype=torch.uint8, device=dev))
-                for name in libs}
-        for name, lib in libs.items():
-            launch(lib, state, *bufs[name], n)
-        torch.cuda.synchronize()
-        same = all(torch.equal(bufs["this"][i], bufs["other"][i]) for i in (0, 1))
-        if label == "refill":
-            p_state, p_ks = cuda_arc4.prga_plain(state, n)
-            same = same and torch.equal(bufs["this"][0], p_state) and torch.equal(
-                bufs["this"][1], p_ks)
+        with watchdog.deadline(watchdog.default_deadline_s(), what="arc4_turns check"):
+            state = torch.from_numpy(np.concatenate(
+                [rng.integers(0, 256, (s, 2)), m], axis=1).astype(np.int32)).to(dev)
+            bufs = {name: (torch.empty_like(state),
+                           torch.empty((s, n), dtype=torch.uint8, device=dev))
+                    for name in libs}
+            for name, lib in libs.items():
+                launch(lib, state, *bufs[name], n)
+            torch.cuda.synchronize()
+            same = all(torch.equal(bufs["this"][i], bufs["other"][i]) for i in (0, 1))
+            if label == "refill":
+                p_state, p_ks = cuda_arc4.prga_plain(state, n)
+                same = same and torch.equal(bufs["this"][0], p_state) and torch.equal(
+                    bufs["this"][1], p_ks)
         if not same:
             failures.append(label)
         times = {name: [] for name in libs}
@@ -145,8 +147,8 @@ def turns(other: Path, tmp: Path) -> int:
               f"{med['this']:.5f} ms a launch (medians of {2 * TURNS} graph timings each, "
               f"in turns other, this, this, other); this/other {med['this'] / med['other']:.4f}; "
               f"outputs {'equal' if same else 'DIFFER'}", flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = isolate.run_child(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], 60, name="nvidia-smi").out.strip()
     print(card)
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0),
                       "other": str(other), "turns": TURNS, "shapes": rows}))

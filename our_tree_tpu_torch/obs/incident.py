@@ -90,7 +90,7 @@ def _ring() -> collections.deque | None:
     if cap <= 0:
         return None
     if _RING is None or _RING.maxlen != cap:
-        _RING = collections.deque(_RING or (), maxlen=cap)
+        _RING = collections.deque(_RING or (), maxlen=cap)  # ot-san: owner=gil-ref-swap
     return _RING
 
 
@@ -130,6 +130,7 @@ def counts() -> dict:
     return {"dumped": _BUNDLES, "suppressed": _SUPPRESSED, "ring": len(ring) if ring else 0}
 
 
+# ot-san: absorb=rate-capped-evidence-dump (cooldown + per-process cap)
 def trigger(reason: str, **attrs) -> str | None:
     """Dump one bundle and return its path; None when suppressed (tracing
     off, within the cooldown of the last bundle, or past the per-process

@@ -31,6 +31,13 @@ from . import trace
 
 KIND = "ot-metrics"
 VERSION = 1
+#: The label keys a metric may carry: the contract the ``metrics-labels``
+#: rule of ``python -m our_tree_tpu_torch.analysis`` enforces statically
+#: (no request ids, no tenant digests).
+ALLOWED_LABEL_KEYS = ("lane", "rung", "engine", "outcome", "bucket",
+                      "code", "state", "slots", "point", "kind", "mode",
+                      "backend", "reason", "stage", "nr", "rule",
+                      "severity")
 _MAX_SERIES = 64
 _EXEMPLAR_MAX = 6
 
@@ -281,6 +288,7 @@ def _open_segment(sink: dict) -> None:
     sink["fh"], sink["path"] = fh, path
 
 
+# ot-san: absorb=amortized-cap-rotation (segment-full cadence only)
 def _rotate_sink(sink: dict) -> None:
     """Open the next segment, retire the full one, then delete the oldest
     past the cap, counting the bytes deleted. A failed open keeps the
@@ -319,6 +327,7 @@ def _close_sink() -> None:
         _SINK = None
 
 
+# ot-san: absorb=amortized-snapshot-sink (open once; flusher-cadence writes)
 def _sink() -> dict | None:
     """The per-process snapshot file, reopened on a run-id change; None
     while disabled or unwritable."""

@@ -333,18 +333,18 @@ def stop_window(expected_seq: int | None = None) -> str | None:
         try:
             doc = _summarise(entry, after, stacks, samples)
             if entry["path"] is None:  # tracing off: the trace is the artifact
-                _LAST = doc
+                _LAST = doc  # ot-san: owner=gil-ref-swap
                 return None
             with open(entry["path"], "w", encoding="utf-8") as fh:
                 json.dump(doc, fh, separators=(",", ":"), sort_keys=True)
                 fh.write("\n")
-            _LAST = doc
+            _LAST = doc  # ot-san: owner=gil-ref-swap
             trace.point("profile-captured", seq=entry["seq"], tier=entry["tier"],
                         file=os.path.basename(entry["path"]))
             metrics.counter("profile_captures", kind=entry["tier"])
             return entry["path"]
         except Exception:  # noqa: BLE001 - a lost summary must not take the caller
-            _DROPPED += 1
+            _DROPPED += 1  # ot-san: owner=gil-counter
             return None
     finally:
         with _LOCK:

@@ -668,11 +668,13 @@ def from_planes(planes: torch.Tensor) -> torch.Tensor:
 
 def key_planes(rk: torch.Tensor, nr: int) -> torch.Tensor:
     """(4*(nr+1),) int32 round keys -> (nr+1, 8, 16, 1) full-lane bit masks."""
-    w = rk.to(torch.int64).reshape(nr + 1, 4) & 0xFFFFFFFF
-    sh = torch.arange(4, device=rk.device) * 8
+    # In int32 throughout: the arithmetic right shift is safe, each byte and
+    # bit is masked off below the sign.
+    w = rk.to(torch.int32).reshape(nr + 1, 4)
+    sh = torch.arange(4, dtype=torch.int32, device=rk.device) * 8
     by = ((w[:, :, None] >> sh[None, None, :]) & 0xFF).reshape(nr + 1, 16)
-    bits = (by[:, None, :] >> torch.arange(8, device=rk.device)[None, :, None]) & 1
-    return (-bits).to(torch.int32)[..., None]
+    bits = (by[:, None, :] >> torch.arange(8, dtype=torch.int32, device=rk.device)[None, :, None]) & 1
+    return (-bits)[..., None]
 
 
 def multikey_planes(rk_blocks: torch.Tensor, nr: int) -> torch.Tensor:

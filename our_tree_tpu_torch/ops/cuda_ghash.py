@@ -44,15 +44,18 @@ _SHIFTS = torch.arange(32, dtype=torch.int64)
 
 
 def bits_of(w: torch.Tensor) -> torch.Tensor:
-    """(N, 4) int32 block words -> (N, 128) 0/1 int64 bits in word-bit order
-    (bit k = bit k % 32 of word k // 32)."""
-    return ((w.to(torch.int64)[:, :, None] >> _SHIFTS.to(w.device)) & 1).reshape(w.shape[0], 128)
+    """(N, 4) int32 block words -> (N, 128) 0/1 int32 bits in word-bit order
+    (bit k = bit k % 32 of word k // 32); in int32 throughout (the
+    arithmetic right shift is safe under the mask)."""
+    sh = _SHIFTS.to(device=w.device, dtype=torch.int32)
+    return ((w.to(torch.int32)[:, :, None] >> sh) & 1).reshape(w.shape[0], 128)
 
 
 def words_of(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 128) 0/1 bits in word-bit order -> (N, 4) int32 block words."""
-    v = (bits.to(torch.int64).reshape(-1, 4, 32) << _SHIFTS.to(bits.device)).sum(-1)
-    return (v - ((v & 0x80000000) << 1)).to(torch.int32)
+    """(N, 128) 0/1 bits in word-bit order -> (N, 4) int32 block words: the
+    bits are disjoint, so their int32 sum is the word (bit 31 as the sign)."""
+    sh = _SHIFTS.to(device=bits.device, dtype=torch.int32)
+    return (bits.to(torch.int32).reshape(-1, 4, 32) << sh).sum(-1, dtype=torch.int32)
 
 
 def h_matrices(hkeys: torch.Tensor) -> torch.Tensor:

@@ -120,6 +120,7 @@ class SweepJournal:
     # The crash-safety contract: a record must be on disk before the
     # next admission decision, so the fsync is deliberately inline —
     # failure/lifecycle cadence only, never the per-request path.
+    # ot-san: absorb=journal-fsync-durability
     def _append(self, rec: dict) -> None:
         self._fh.write(json.dumps(rec, separators=(",", ":")).encode()
                        + b"\n")

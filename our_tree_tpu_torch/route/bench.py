@@ -52,7 +52,7 @@ from ..serve import loadgen, wire
 from ..serve.queue import ERR_TRANSFER_ABORT
 from .fleet import (REPLICA_EXIT_KIND, REPLICA_KIND, FailoverClient,
                     FleetConfig, FleetSupervisor, ProcessWorkerHandle,
-                    RouterServer, worker_argv)
+                    RouterServer, client_attempt_timeout, worker_argv)
 from .proxy import BackendSpec, Router, RouterConfig
 from .status import RouterStatus
 
@@ -245,20 +245,6 @@ def waterfall_stats(ledgers: list, tolerance: float = 0.05) -> dict:
         "tolerance": tolerance,
         "stages": stages_out,
     }
-
-
-def router_stage_p50s(ledgers: list) -> dict:
-    """p50 (µs) of the router's own stages, ``router_queue`` and ``wire``,
-    over every sampled ledger, complete or not. The port's workers return
-    no per-request ledger (``lg``), so no waterfall is complete and each
-    ``wire`` is the whole attempt wall, the worker's residency inside it."""
-    out = {}
-    for s in ("router_queue", "wire"):
-        vals = sorted(l["stages"][s] for l in ledgers
-                      if s in (l.get("stages") or {}))
-        out[s] = metrics.percentile_exact(vals, 50) if vals else None
-    out["n"] = len(ledgers)
-    return out
 
 
 def _keycache_ratio(exit_docs: list[dict]) -> float:
@@ -590,7 +576,8 @@ async def _drive_fleet(args, probes) -> dict:
                       ("127.0.0.1", owner_server.port)]
                      + [("127.0.0.1", r["port"]) for r in replicas[1:]])
             client = FailoverClient(
-                peers, attempt_timeout_s=args.attempt_timeout,
+                peers,
+                attempt_timeout_s=client_attempt_timeout(args.attempt_timeout),
                 deadline_s=args.deadline, max_frame_bytes=max_frame)
 
         # -- the chaos timeline, next to the supervisor loop.
@@ -702,7 +689,20 @@ async def _drive_fleet(args, probes) -> dict:
         client_stats = {"submitted": client.submitted,
                         "failovers": client.failovers,
                         "backpressure_retries": client.backpressure_retries,
-                        "peers": len(client.peers)}
+                        "peers": len(client.peers),
+                        "attempt_timeout_s": client.attempt_timeout_s,
+                        "attempt_outcomes": dict(client.attempt_outcomes),
+                        "slow_attempts": [
+                            (round(ta - t0, 3), peer, outcome, took)
+                            for ta, peer, outcome, took
+                            in client.slow_attempts],
+                        "failures": [
+                            {"t_s": round(f["t_start"] - t0, 3),
+                             "wall_s": round(f["t_end"] - f["t_start"], 3),
+                             "deadline_s": f["deadline_s"],
+                             "detail": f["detail"],
+                             "attempts": f["attempts"]}
+                            for f in client.failures]}
     return {"report": report, "router": rstats, "healthz": healthz,
             "releases": releases, "fleet": fleet_doc, "t0": t0,
             "events": list(sup.events), "workers": sup.exit_docs,
@@ -727,11 +727,7 @@ def _main_fleet(args, probes) -> int:
     lost_router = rstats["lost"]
     recompiles = sum(int(d.get("recompiles") or 0) for d in exit_docs)
     waterfall = waterfall_stats(report.ledgers)
-    stage_p50 = router_stage_p50s(report.ledgers)
-    wire = waterfall["stages"].get("wire") or {}
-    # No complete waterfall (the port's workers return no ``lg``): the
-    # wire p50 over every sampled ledger, the worker's residency inside.
-    wire_p50 = wire["p50_us"] if wire.get("count") else stage_p50["wire"]
+    wire_p50 = (waterfall["stages"].get("wire") or {}).get("p50_us")
     pool = dict(rstats.get("pool_retired")
                 or {"hits": 0, "dials": 0, "stale": 0})
     for b in rstats["backends"].values():
@@ -776,13 +772,20 @@ def _main_fleet(args, probes) -> int:
                          f"{'KILLED' if d['killed'] else d.get('rc')}"
                          f"/lost={d.get('lost')}"
                          for d in res["routers"]))
+        print(f"#   client attempts by outcome: "
+              f"{client['attempt_outcomes']} (attempt timeout "
+              f"{client['attempt_timeout_s']:g}s); slow attempts "
+              + (", ".join(f"+{t:.1f}s {p} {o} {w:g}s"
+                           for t, p, o, w in client["slow_attempts"])
+                 or "none"))
+        for f in client["failures"]:
+            print(f"#   client gave up at +{f['t_s']:.1f}s after "
+                  f"{f['wall_s']:.1f}s: {f['detail']}; attempts "
+                  + ", ".join(f"{p} {o} {t:g}s" for p, o, t in f["attempts"]))
     print(f"# pool: hits={pool['hits']} dials={pool['dials']} "
           f"stale={pool['stale']}  wire_p50={wire_p50}µs  "
           f"redispatches={rstats['redispatches']}")
     if waterfall["sampled"]:
-        print(f"# router stages: router_queue p50="
-              f"{stage_p50['router_queue']}µs wire p50={stage_p50['wire']}µs "
-              f"(n={stage_p50['n']} sampled)")
         print(f"# waterfall: {waterfall['complete']}/"
               f"{waterfall['sampled']} sampled requests complete "
               f"({waterfall['complete_frac']:.1%}), stage sum within "
@@ -846,7 +849,7 @@ def _main_fleet(args, probes) -> int:
                   "lost_workers": lost_workers},
         "compiles": {"steady": recompiles},
         "workers": exit_docs,
-        "fleet": {**fleet, "events": res["events"]},
+        "fleet": {**fleet, "events": res["events"], "t0": res["t0"]},
         "routers": {"count": args.routers, "docs": res["routers"],
                     "client": client},
         "pool": {**pool, "wire_p50_us": wire_p50},
@@ -1371,7 +1374,6 @@ def main(argv=None) -> int:
     kc_ratio = _keycache_ratio(exit_docs)
     releases = router.release_events()
     waterfall = waterfall_stats(report.ledgers)
-    stage_p50 = router_stage_p50s(report.ledgers)
     pulse_doc = _pulse_section(router.pulse)
     capacity = _fleet_capacity(healthz)
 
@@ -1422,9 +1424,6 @@ def main(argv=None) -> int:
     print(f"# router process: torch.cuda.is_initialized()={cuda_init}"
           + (" (torch not imported)" if cuda_init is None else ""))
     if waterfall["sampled"]:
-        print(f"# router stages: router_queue p50="
-              f"{stage_p50['router_queue']}µs wire p50={stage_p50['wire']}µs "
-              f"(n={stage_p50['n']} sampled)")
         print(f"# waterfall: {waterfall['complete']}/"
               f"{waterfall['sampled']} sampled requests complete "
               f"({waterfall['complete_frac']:.1%}), stage sum within "
@@ -1533,8 +1532,6 @@ def main(argv=None) -> int:
             "keycache_hit_ratio": kc_ratio,
             "waterfall_complete_frac": waterfall["complete_frac"],
             "waterfall_sum_ok_frac": waterfall["sum_within_tol_frac"],
-            "stage_p50_us": {s: stage_p50[s]
-                             for s in ("router_queue", "wire")},
             "ready_s": [d.get("ready_s") for d in exit_docs],
             "router_cuda_initialized": cuda_init}
     if control:

@@ -930,6 +930,25 @@ async def adopt_view(router: Router, doc: dict) -> dict:
     return {"joined": joined, "left": left}
 
 
+#: How many given-up requests (and slow attempts) a ``FailoverClient``
+#: keeps the record of.
+FAILURES_KEPT = 32
+#: An attempt this slow is kept in ``FailoverClient.slow_attempts``.
+SLOW_ATTEMPT_S = 1.0
+#: The room a client attempt leaves above the router's own attempt and its
+#: one failover (``client_attempt_timeout``).
+ROUTER_MARGIN_S = 1.0
+
+
+def client_attempt_timeout(router_attempt_s: float) -> float:
+    """A ``FailoverClient`` attempt deadline that lets the router behind it
+    finish one failover of its own: its attempt on a hung back end, its
+    redispatch, and ``ROUTER_MARGIN_S``. A client that gives up on a live
+    router at the router's own attempt deadline abandons it just as the
+    router moves to a healthy back end."""
+    return 2.0 * float(router_attempt_s) + ROUTER_MARGIN_S
+
+
 class FailoverClient:
     """The loadgen-compatible submit facade over N router peers.
 
@@ -948,6 +967,13 @@ class FailoverClient:
     retried here too, after ``retry_backoff_s``: both mean "not now",
     not "never", and the client's retry budget is the request deadline.
     Only a mismatch-class error (bad tag, bad frame) surfaces at once.
+
+    The give-up streak counts transport failures in a row, up to twice the
+    peers; a refused connect to a peer that already refused in this request
+    (known dead) does not count again, and every peer refusing ends the
+    request at once (the whole tier is dead). ``attempt_outcomes`` counts
+    every attempt by outcome, ``slow_attempts`` keeps the first attempts
+    that took a second or more, and ``failures`` the requests given up on.
     """
 
     def __init__(self, peers: list, attempt_timeout_s: float = 5.0,
@@ -966,6 +992,16 @@ class FailoverClient:
         self.submitted = 0
         self.failovers = 0
         self.backpressure_retries = 0
+        #: the requests this client gave up on, each with its attempts
+        #: (peer, outcome, seconds) and its clock at start and end; the
+        #: first ``FAILURES_KEPT`` are kept
+        self.failures: list[dict] = []
+        #: attempts by outcome ("ok", an answered error code, or the
+        #: transport exception's name)
+        self.attempt_outcomes: dict[str, int] = {}
+        #: (clock at start, peer, outcome, seconds) of the first
+        #: ``FAILURES_KEPT`` attempts that took ``SLOW_ATTEMPT_S`` or more
+        self.slow_attempts: list[tuple] = []
 
     async def _exchange(self, host: str, port: int, header: dict,
                         data: bytes):
@@ -983,6 +1019,14 @@ class FailoverClient:
                 writer.close()
             except Exception:  # noqa: BLE001 - peer already gone
                 pass
+
+    def _note(self, attempts: list, t_start: float, peer: str,
+              outcome: str) -> None:
+        took = round(self._clock() - t_start, 3)
+        attempts.append((peer, outcome, took))
+        self.attempt_outcomes[outcome] = self.attempt_outcomes.get(outcome, 0) + 1
+        if took >= SLOW_ATTEMPT_S and len(self.slow_attempts) < FAILURES_KEPT:
+            self.slow_attempts.append((t_start, peer, outcome, took))
 
     async def submit(self, tenant: str, key: bytes, nonce: bytes, payload,
                      deadline_s: float | None = None, mode: str = "ctr",
@@ -1005,25 +1049,44 @@ class FailoverClient:
         self.submitted += 1
         t0 = self._clock()
         last: Exception | None = None
+        attempts: list = []
+        refused: set[int] = set()
         dead_streak = 0
-        while dead_streak < 2 * len(self.peers):
+        while (dead_streak < 2 * len(self.peers)
+               and len(refused) < len(self.peers)):
             left = total_s - (self._clock() - t0)
             if left <= 0:
                 break
-            host, port = self.peers[self._cur % len(self.peers)]
+            idx = self._cur % len(self.peers)
+            host, port = self.peers[idx]
+            ta = self._clock()
             try:
                 rh, body = await asyncio.wait_for(
                     self._exchange(host, port, header, data),
                     timeout=max(min(self.attempt_timeout_s, left), 0.001))
             except Exception as e:  # noqa: BLE001 - fail over, then resend
+                self._note(attempts, ta, f"{host}:{port}", type(e).__name__)
                 last = e
-                dead_streak += 1
+                if isinstance(e, ConnectionRefusedError):
+                    # A refusal is instant and says the peer is dead: it
+                    # counts once a request, so neither the shared cursor
+                    # bouncing concurrent requests back onto a dead peer
+                    # nor a dead peer between two slow answers of a live
+                    # one can end a request.
+                    if idx not in refused:
+                        dead_streak += 1
+                    refused.add(idx)
+                else:
+                    dead_streak += 1
                 self._cur += 1
                 self.failovers += 1
                 metrics.counter("route_client_failover")
                 trace.point("client-failover", peer=f"{host}:{port}",
                             why=type(e).__name__)
                 continue
+            refused.discard(idx)
+            self._note(attempts, ta, f"{host}:{port}",
+                       "ok" if rh.get("ok") else str(rh.get("error")))
             # An ANSWER — whatever it says, this peer (and the tier) is
             # alive, so the whole-tier-dead streak resets.
             dead_streak = 0
@@ -1062,6 +1125,10 @@ class FailoverClient:
                             batch=rh.get("batch"), ledger=rh.get("lg"))
         detail = (f"{type(last).__name__}: {last}" if last is not None
                   else "request deadline spent before any peer answered")
+        if len(self.failures) < FAILURES_KEPT:
+            self.failures.append({"t_start": t0, "t_end": self._clock(),
+                                  "deadline_s": total_s, "detail": detail,
+                                  "attempts": attempts})
         return Response(ok=False, error=ERR_DISPATCH,
                         detail=f"no router peer answered ({detail})")
 
@@ -1141,6 +1208,12 @@ async def _replica_amain(args) -> int:
                       "accepted": stats["accepted"],
                       "answered": stats["answered"],
                       "routed_ok": stats["routed_ok"],
+                      "redispatches": stats["redispatches"],
+                      "backends": {
+                          name: {k: b[k] for k in ("dispatches", "failures",
+                                                   "timeouts",
+                                                   "redispatches_in")}
+                          for name, b in stats["backends"].items()},
                       "adopts": st.adopts,
                       "frames": server.frames,
                       "gossip_frames": server.gossip_frames}), flush=True)

@@ -32,11 +32,12 @@ import hashlib
 import os
 import re
 import shutil
-import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..resilience import isolate
 from . import monitoring
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -72,30 +73,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libot_kernels_{h.hexdigest()[:16]}.so"
 
 
+def run_all(commands: list, name: str) -> list:
+    """Run every command at once, each through ``isolate.run_child`` (its
+    own session, a wall deadline of ``OT_BUILD_DEADLINE`` seconds, default
+    600) on a thread of its own; the ``ChildResult``s in order."""
+    deadline = float(os.environ.get("OT_BUILD_DEADLINE", 600))
+    with ThreadPoolExecutor(max_workers=max(len(commands), 1)) as pool:
+        return list(pool.map(lambda argv: isolate.run_child(argv, deadline, name=name),
+                             commands))
+
+
 def _build(so: Path) -> None:
     nvcc = _nvcc()
     tmp = so.with_suffix(f".tmp{os.getpid()}")
     tmp.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for cu in sorted(CSRC.glob("*.cu")):
-        obj = tmp / f"{cu.stem}.o"
-        jobs.append((obj, subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(obj), str(cu)],
-                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True)))
-    report, failed = [], []
-    for obj, proc in jobs:
-        _, err = proc.communicate()
-        report.append(err)
-        if proc.returncode != 0:
-            failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{err[-4000:]}")
+    objs = [tmp / f"{cu.stem}.o" for cu in sorted(CSRC.glob("*.cu"))]
+    results = run_all([[nvcc, *FLAGS, "-c", "-o", str(obj), str(CSRC / f"{obj.stem}.cu")]
+                       for obj in objs], "nvcc")
+    failed = [f"{obj.stem}.cu ({r.kind}, rc {r.rc}):\n{r.err[-4000:]}"
+              for obj, r in zip(objs, results) if not r.ok]
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     lib = tmp / "lib.so"
-    res = subprocess.run([nvcc, ARCH, "-shared", "-o", str(lib), *(str(o) for o, _ in jobs)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    so.with_suffix(".ptxas.txt").write_text("".join(report))
+    (res,) = run_all([[nvcc, ARCH, "-shared", "-o", str(lib), *(str(o) for o in objs)]],
+                     "nvcc-link")
+    if not res.ok:
+        raise RuntimeError(f"nvcc link failed ({res.kind}, rc {res.rc}):\n{res.err[-4000:]}")
+    so.with_suffix(".ptxas.txt").write_text("".join(r.err for r in results))
     os.replace(lib, so)
     shutil.rmtree(tmp, ignore_errors=True)
 

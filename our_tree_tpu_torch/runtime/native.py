@@ -34,7 +34,6 @@ import hashlib
 import os
 import pathlib
 import shutil
-import subprocess
 
 import numpy as np
 
@@ -109,14 +108,13 @@ def _python_embed_flags() -> tuple[list[str], list[str]] | None:
     if cfg is None:
         return None
     try:
-        inc = subprocess.run([cfg, "--includes"], capture_output=True, text=True, timeout=60)
-        ld = subprocess.run([cfg, "--ldflags", "--embed"], capture_output=True, text=True,
-                            timeout=60)
-    except (OSError, subprocess.SubprocessError):
+        inc = isolate.run_child([cfg, "--includes"], 60, name="python3-config")
+        ld = isolate.run_child([cfg, "--ldflags", "--embed"], 60, name="python3-config")
+    except OSError:
         return None
-    if inc.returncode or ld.returncode or not inc.stdout.strip():
+    if not (inc.ok and ld.ok and inc.out.strip()):
         return None
-    return ["-DOT_WITH_PYTHON", *inc.stdout.split()], ld.stdout.split()
+    return ["-DOT_WITH_PYTHON", *inc.out.split()], ld.out.split()
 
 
 def ot_bench_path(build_dir: pathlib.Path | None = None) -> pathlib.Path:

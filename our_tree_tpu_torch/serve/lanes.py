@@ -597,7 +597,7 @@ class LanePool:
     async def dispatch(self, words, ctr_words, sched, key_slots, label: str, bucket: int,
                        blocks: int, requests: int, sampled: bool = True, mode: str = "ctr",
                        inject_words=None, seg_keep=None, rows=None,
-                       prep_len: int | None = None, runs=None):
+                       prep_len: int | None = None, runs=None, timing: dict | None = None):
         """Place and run one batch of ``mode`` (GCM with its segment arrays and
         named rows, ``rc4-prep`` with its bytes a session, the native tier's
         ``ctr`` with its request layout ``runs``), failing over
@@ -605,9 +605,15 @@ class LanePool:
         (output, lane, redispatches), the output as ``Lane.engine_call``
         gives it; raises ``LanesExhausted`` only when no lane could serve
         it. The dispatch window's parts (worker wait, staging, card, host
-        rest) go to the ``serve_stage_us`` histograms."""
+        rest) go to the ``serve_stage_us`` histograms. ``timing``, when a
+        dict, is filled from the attempt that served (µs):
+        ``worker_wait_us`` (the executor's queue), ``staging_us`` (the
+        host-to-card copies), ``device_us`` (the card's window) and
+        ``total_us`` (first placement to success, failover included); the
+        server folds them into the per-request ledger."""
         causes: list = []
         tried: set[int] = set()
+        t_place0 = self.lanes[0]._clock() if self.lanes else 0.0
         while True:
             change = self._change
             lane = self.place(exclude=tried)
@@ -707,6 +713,10 @@ class LanePool:
             metrics.observe("serve_stage_us", staging_us, stage="staging", exemplar=ex)
             metrics.observe("serve_stage_us", host_us, stage="dispatch", exemplar=ex)
             metrics.observe("serve_stage_us", device_us, stage="device", exemplar=ex)
+            if timing is not None:
+                timing.update(worker_wait_us=wait_us, staging_us=staging_us,
+                              device_us=device_us,
+                              total_us=int((lane._clock() - t_place0) * 1e6))
             if tried:
                 self.redispatches += 1
                 metrics.counter("serve_redispatch", lane=lane.idx)

@@ -110,8 +110,13 @@ class Response:
     #: a chunked transfer's tallies (``serve/transfer.py``: the resume token,
     #: chunk counts, redispatches and skips); None on a single-rung request
     transfer: dict | None = None
-    #: the per-request time ledger (stage -> µs) the router attaches to a
-    #: sampled request (``route/proxy.py``); the port's server builds none
+    #: the per-request time ledger of a sampled request, built by the
+    #: server: ``{"stages": {backend_queue, pack, worker_wait, dispatch,
+    #: device, reply}, "total_us"}`` in µs, the stages contiguous by clock
+    #: and summing to ``total_us`` (the port's staging is inside
+    #: ``dispatch``); a worker ships it as ``lg`` when the frame asks, and
+    #: the router prepends its own stages. None on unsampled or refused
+    #: requests.
     ledger: dict | None = None
 
 

@@ -649,12 +649,13 @@ class Server:
 
     async def _dispatch_batch(self, b: batcher.Batch, sched) -> None:
         t_d0 = time.monotonic()
+        timing: dict = {}
         try:
             out, _lane, _redispatched = await self.pool.dispatch(
                 b.words, b.ctr_words, sched, b.slot_index, b.label, bucket=b.bucket,
                 blocks=b.blocks, requests=len(b.requests), sampled=b.sampled, mode=b.mode,
                 inject_words=b.inject_words, seg_keep=b.seg_keep, rows=b.rows,
-                runs=b.runs)
+                runs=b.runs, timing=timing)
         except lanes.LanesExhausted as e:
             if e.timed_out:
                 self.batches_timed_out += 1
@@ -687,7 +688,15 @@ class Server:
         self._dispatched_blocks += b.bucket
         self._slots_used += len(b.slots)
         self._slot_capacity += b.key_slots
+        # The dispatch window split for the ledger: the worker's wait and
+        # the card's window from the lane, the host's rest (the port's
+        # staging copies included) as ``dispatch``; with pack before it and
+        # reply after, a rider's stages are contiguous by clock and sum to
+        # its residency.
         t_d1 = time.monotonic()
+        wait_us = int(timing.get("worker_wait_us", 0))
+        device_us = int(timing.get("device_us", 0))
+        host_us = max(int((t_d1 - t_d0) * 1e6) - wait_us - device_us, 0)
         if b.requests:
             metrics.observe("serve_stage_us", max(int((t_d0 - b.requests[0].t_drain) * 1e6), 0),
                             stage="pack")
@@ -706,10 +715,18 @@ class Server:
                     req.fail(ERR_AUTH, "GCM tag mismatch (authentication failed)",
                              batch=b.label)
                     continue
-                req.resolve(Response(ok=True, payload=data, batch=b.label,
+                t_now = time.monotonic()
+                reply_us = max(int((t_now - t_d1) * 1e6), 0)
+                ledger = None
+                if req.sampled:
+                    ledger = {"stages": {"backend_queue": req.queued_us,
+                                         "pack": max(int((t_d0 - req.t_drain) * 1e6), 0),
+                                         "worker_wait": wait_us, "dispatch": host_us,
+                                         "device": device_us, "reply": reply_us},
+                              "total_us": int((t_now - req.t_submit) * 1e6)}
+                req.resolve(Response(ok=True, payload=data, batch=b.label, ledger=ledger,
                                      tag=tags[i] if b.mode == "gcm" else None))
-                metrics.observe("serve_stage_us", max(int((time.monotonic() - t_d1) * 1e6), 0),
-                                stage="reply")
+                metrics.observe("serve_stage_us", reply_us, stage="reply")
         except Exception as e:  # noqa: BLE001 - containment
             self.batches_failed += 1
             metrics.counter("serve_batches", outcome="split-failed")

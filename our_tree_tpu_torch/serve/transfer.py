@@ -226,6 +226,7 @@ class TransferLedger:
         elif op == "done":
             self._live.pop(tid, None)
 
+    # ot-san: absorb=journal-fsync-durability
     def _append(self, row: dict) -> None:
         """One durable row: on disk before the chunk is acknowledged to the
         client, hence the inline fsync."""

@@ -33,9 +33,9 @@ A request frame is one exchange in any enabled mode (``m``: ``ctr``,
 ``gcm``, ``gcm-open``, ``cbc``); a ``tx`` frame opens the chunked-transfer
 exchange (``_serve_transfer``); an ``ss`` frame is one exchange of the rc4
 session sub-protocol (``_serve_session``: ``open``, ``data``, ``close``;
-a server without ``rc4`` answers each with ``bad-request``). The
-per-request time ledger (``lg``) is not in the port, so no answer carries
-one. ``--journal`` persists the lanes' quarantines; the five
+a server without ``rc4`` answers each with ``bad-request``). A frame that
+asks (``lg``) gets a sampled request's time ledger back as ``lg``, in both
+exchanges. ``--journal`` persists the lanes' quarantines; the five
 ``--session-*`` options shape the session store; ``--native-threads`` sets
 the native tier's ECB threads a slot run (``--engine native``, or ``auto``
 on the CPU).
@@ -190,10 +190,13 @@ class RequestFrontend:
         else:
             out = {"ok": False, "error": resp.error, "detail": resp.detail, "batch": resp.batch}
             body = b""
-        # The server's clock at receipt and at reply, and its pid.
+        # The server's clock at receipt and at reply, its pid, and the
+        # request's time ledger when the frame asked and one exists.
         out["tr"] = t_rx
         out["ts"] = trace.now_us()
         out["pid"] = os.getpid()
+        if header.get("lg") and resp.ledger is not None:
+            out["lg"] = resp.ledger
         writer.write(wire.encode_frame(out, body))
         await writer.drain()
 
@@ -263,6 +266,8 @@ class RequestFrontend:
         else:
             out["error"] = resp.error
             out["detail"] = resp.detail
+        if header.get("lg") and resp.ledger is not None:
+            out["lg"] = resp.ledger
         writer.write(wire.encode_frame(out, body))
         await writer.drain()
 

@@ -96,17 +96,19 @@ def test_port_router_builds_complete_waterfalls_over_jax_frontends():
 
 
 def test_router_stages_over_port_frontends_match_the_reference_routers():
-    """The port's workers send no ``lg``: both packages' routers build the
-    same incomplete ledger shape over them, with the router's own stages."""
+    """The port's workers send their ``lg``: both packages' routers build
+    complete ledgers over them, of the same shape, whose stages are the
+    router's own and the worker's and sum to the end-to-end latency."""
     port, _ = asyncio.run(_ledgers(rp.PORT, rp.PORT, n=6))
     rp.reset_state()
     ref, _ = asyncio.run(_ledgers(rp.JAX, rp.PORT, n=6))
     for got in (port, ref):
-        assert all(l is not None and not l["complete"] for l in got)
-        assert all(set(l["stages"]) == {"router_queue", "retry", "wire"} for l in got)
+        assert all(l is not None and l["complete"] for l in got)
+        assert all(set(l["stages"]) == set(rp.route_bench.WATERFALL_STAGES) for l in got)
+        wf = rp.route_bench.waterfall_stats(got)
+        assert wf["sampled"] == wf["complete"] == 6 and wf["sum_within_tol_frac"] == 1.0
+        assert wf["stages"]["wire"]["p50_us"] > 0 and wf["stages"]["device"]["count"] == 6
     assert [rp.shape(l) for l in port] == [rp.shape(l) for l in ref]
-    p50 = rp.route_bench.router_stage_p50s(port)
-    assert p50["n"] == 6 and p50["wire"] > 0 and p50["router_queue"] >= 0
 
 
 def test_sampling_decision_propagates_over_wire(monkeypatch, tmp_path):
