@@ -46,7 +46,8 @@ is not 0:
    blocks) with K = 8 in the same three patterns;
    ``seq_encrypt`` (chained CBC and CFB128) for nr 10/12/14, S in {1, 3,
    4096} streams, N in {1, 2, 33, 4096} blocks (up to 33 blocks against the
-   whole plain loop, at 4,096 against every plain step at once);
+   whole plain loop, at 4,096 against every plain step at once), each case
+   in every form (auto, thread, lanes4, lanes8, lanes16);
    ``chain`` in its four regimes at N in {1, 31, 4097, 2^20 + 3} words and
    at 64 MiB, and its 65,536-step latency chain over one word (mismatching
    words must be 0); ``arc4_prga`` for S in {1, 7, 32, 33, 4096} streams x {1,
@@ -63,8 +64,9 @@ is not 0:
 3. NIST SP800-38A F.5.1 CTR KAT and a chunked ``crypt_ctr`` resume; F.1,
    F.2 and F.3.13 (ECB, CBC, CFB128) in both directions through ``AES`` on
    the card, whose engine must be the CUDA one (each CBC/CFB128 encrypt one
-   ``seq_encrypt`` launch), and F.2.1 and F.3.13 through the chained
-   kernel's own entries; F.5.1 in slot 3 of 8 through the multi-key serve
+   ``seq_encrypt`` launch), F.2.1 and F.3.13 through the chained
+   kernel's own entries, and F.2.1/F.2.3/F.2.5 and F.3.13 through each of
+   its forms; F.5.1 in slot 3 of 8 through the multi-key serve
    seam, and F.2.2, F.2.4 and F.2.6 (CBC decrypt) in slot 3 of 8 through the
    multi-key CBC seam (``cbc_mk``);
 4. the CTR main path: ``bench.run`` at 256 MiB, iters 5, reps 3; the digest
@@ -124,8 +126,17 @@ is not 0:
    word, cycles per dependent LOP3 at the sampled clock); per kernel at its
    path's shape (256 MiB; ``ctr_mk`` at the 4,096-block rung in each form,
    and at 256 MiB with K = 8 in each form and with its K = 1 entry;
-   ``seq_encrypt`` as the batch of 4,096 streams x 64 blocks and as the two
-   single-stream encrypts of 4,096 blocks; the one-block ECB launch;
+   ``seq_encrypt`` as the batch of 4,096 streams x 64 blocks, as the two
+   single-stream encrypts of 4,096 blocks and as the sweep's cbc-batch
+   launch of 32 x 65,536 blocks, each in turns against its parent kernel
+   (``SEQ_PARENT_SOURCE``, built beside the kernels: the new kernel must be
+   faster in every turn at one stream and no slower in the median of turns
+   at the other two), with its bound restated for the form that runs (the
+   larger of the block's dependent path, counted from the circuits at the
+   measured integer and shuffle latencies, and the issue floor of the warps
+   each sub-partition holds, by pipe from the SASS; the former SASS-depth
+   bound beside it), and every form at 1 to 16,384 streams (the auto form's
+   crossings); the one-block ECB launch;
    ``chain`` in each regime at 64 MiB): time per launch (CUDA events, the SM
    clock sampled), the plain version's time, the least time the card could
    take at the table's rates (the bytes the function moves over the HBM rate
@@ -141,7 +152,8 @@ is not 0:
    kernel's redesign (``FORWARD_SASS``), which it must leave as they were;
    both ``ctr_mk`` forms at 32 to 2^24 blocks, one slot and a random slot
    per block (the auto form's threshold table); a shared-memory load's
-   latency by a dependent-load chase and the shared-memory issue rate of 1,
+   latency by a dependent-load chase, a shuffle's latency by a
+   dependent-shuffle chase, and the shared-memory issue rate of 1,
    2 and 4 warps of an SM (``CHASE_SOURCE``, built beside the kernels), and
    ``arc4_prga`` at its timing shapes (32 x 2^20 bytes, the rc4-batch rows'
    launch; 1 x 2^20; 4,096 x 2^16): time, plain time, the table and
@@ -414,7 +426,9 @@ launches by unit: each path must have launched each of its kernels.
 A ``{"phase_wall_s": {...}, "total_s": ...}`` line before the ``kernels``
 line gives each phase's wall seconds (``start-up`` is the time before
 phase 1). Standard output ends with the ``kernels`` JSON line (``ctr_gen``,
-``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``,
+``ecb_encrypt`` with its one-block launch, ``ecb_decrypt``, ``seq_encrypt``
+with its ``single_stream`` encrypts, its ``turns`` against the parent
+kernel, its ``forms_table`` and ``launches_by_form``,
 ``ctr_mk`` with its ``k1_entry``, its ``seal_shape``, its
 ``group_form_study`` and its ``block_form``, ``cbc_mk`` with its
 256 MiB row and the group-form table, ``chain``,
@@ -652,6 +666,87 @@ extern "C" int ot_smem_issue(int reps, int warps, void* out, void* cycles) {
   smem_issue<<<1, 32 * warps>>>(reps, static_cast<unsigned*>(out),
                                 static_cast<long long*>(cycles));
   return (int)cudaGetLastError();
+}
+
+// A shuffle's latency: one warp, each shuffle's value the one before it
+// read from the next lane, timed with the SM's cycle counter.
+__global__ void shfl_chase(int steps, unsigned* out, long long* cycles) {
+  unsigned v = threadIdx.x * 0x9E3779B9u;
+  const int src = (threadIdx.x + 1) & 31;
+  const long long t0 = clock64();
+#pragma unroll 32
+  for (int k = 0; k < steps; ++k) v = __shfl_sync(0xFFFFFFFFu, v, src);
+  const long long t1 = clock64();
+  out[threadIdx.x] = v;
+  if (threadIdx.x == 0) cycles[0] = t1 - t0;
+}
+
+extern "C" int ot_shfl_chase(int steps, void* out, void* cycles) {
+  shfl_chase<<<1, 32>>>(steps, static_cast<unsigned*>(out), static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
+}
+"""
+#: ``seq_encrypt``'s lane forms by name: Q, the lanes a column (4Q lanes a
+#: stream, ``csrc/aes_lanes.cuh``).
+SEQ_LANES_Q = {"lanes4": 1, "lanes8": 2, "lanes16": 4}
+#: Phase 9's ``seq_encrypt`` forms table: every form at these stream counts,
+#: 64 blocks a stream (the auto form's crossings, ``csrc/seq_form.cuh``).
+SEQ_FORM_STREAMS = (1, 32, 1024, 2048, 4096, 8192, 16384)
+#: Phase 9's turns of ``seq_encrypt`` against its parent kernel: rounds of
+#: parent, new, new, parent; each timing a CUDA graph of about SEQ_TURN_S.
+SEQ_TURNS = 3
+SEQ_TURN_S = 0.1
+#: ``seq_encrypt``'s kernel before its lane forms, as it was (one thread a
+#: stream, 32 a thread block, ``aes_block::chain_stream``), built with its own
+#: nvcc beside the kernels only so that phase 9 can time the new kernel
+#: against it in turns; a probe, not a kernel of the port.
+SEQ_PARENT_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "aes_block.cuh"
+
+namespace {
+
+constexpr int kThreads = 32;
+
+template <int NR, int CFB>
+__global__ void __launch_bounds__(kThreads)
+seq_parent_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+                  const uint4* __restrict__ iv, uint4* __restrict__ iv_out,
+                  const uint32_t* __restrict__ rk, int s, long long n) {
+  __shared__ uint32_t kp[8 * (NR + 1)];
+  if (threadIdx.x <= NR) aes_block::round_key_planes(rk, threadIdx.x, kp + 8 * threadIdx.x);
+  __syncthreads();
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (j >= s) return;
+  iv_out[j] = aes_block::chain_stream<NR, CFB>(in + j * n, out + j * n, n, iv[j], kp);
+}
+
+template <int NR, int CFB>
+int launch(const void* in, void* out, const void* iv, void* iv_out, const void* rk, int s,
+           long long n, cudaStream_t st) {
+  seq_parent_kernel<NR, CFB><<<(s + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const uint4*>(in), static_cast<uint4*>(out), static_cast<const uint4*>(iv),
+      static_cast<uint4*>(iv_out), static_cast<const uint32_t*>(rk), s, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ot_seq_parent(const void* in, void* out, const void* iv, void* iv_out,
+                             const void* rk, int s, long long n, int cfb, int nr, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  switch (nr * 2 + cfb) {
+    case 20: return launch<10, 0>(in, out, iv, iv_out, rk, s, n, st);
+    case 21: return launch<10, 1>(in, out, iv, iv_out, rk, s, n, st);
+    case 24: return launch<12, 0>(in, out, iv, iv_out, rk, s, n, st);
+    case 25: return launch<12, 1>(in, out, iv, iv_out, rk, s, n, st);
+    case 28: return launch<14, 0>(in, out, iv, iv_out, rk, s, n, st);
+    case 29: return launch<14, 1>(in, out, iv, iv_out, rk, s, n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 """
 #: The launch floor (phase 9): a kernel that does nothing, with cbc_mk's
@@ -1052,6 +1147,50 @@ def sass_round_loops(text: str, kernel: str, targs) -> list:
     if not loops:
         raise RuntimeError(f"no loop in {kernel}<{targs}>")
     return sorted(loops, key=lambda lp: -lp["int"])
+
+
+def seq_lane_path(nr: int, q: int) -> dict:
+    """The dependent path of one block in a lane form of ``seq_encrypt``
+    with ``q`` lanes a column, counted from its circuits (``aes_lanes.cuh``).
+    A round: SubBytes' register lookup, 8 integer steps (the selector's
+    LOP3 and IMAD.HI, one PRMT, five levels of bit selects, log2 q of them
+    each after a shuffle); ShiftRows, a shuffle and two PRMTs; MixColumns
+    with AddRoundKey, 5 steps (rot8, t, t's sign bytes, xtime's half, the
+    XOR of all). The last round ends with AddRoundKey's XOR instead of
+    MixColumns, and a block starts with the whitening XOR (CBC's P ^ C in
+    the same LOP3; CFB128's P ^ E in the last one). Returns the integer
+    steps and the shuffles."""
+    lanes = q.bit_length() - 1
+    sub_bytes, shift_rows, mix_columns = 8, 2, 5
+    alu = (nr - 1) * (sub_bytes + shift_rows + mix_columns) + sub_bytes + shift_rows + 1 + 1
+    return {"alu_steps": alu, "shuffles": nr * (lanes + 1)}
+
+
+def sass_seq_lanes(text: str, nr: int, cfb: int, q: int) -> dict:
+    """A lane form's SASS (``seq_lanes_kernel``<nr, cfb, q>) for one block:
+    the instructions of its block loop (its one loop; the rounds are
+    unrolled) of one warp by pipe, ``alu`` the integer pipe, ``fma`` the
+    IMADs on the FMA pipe, ``shfl`` the shuffles; the loop's dependency
+    depth (``sass_dep_depth``, a shuffle counted as one step); its memory
+    reads by opcode; and ``table_reads``, the kernel's reads that a table
+    in memory would need (local or shared memory, or constant memory at a
+    register's offset), which must be none."""
+    ins, back = sass_function(text, "seq_lanes_kernel", (nr, cfb, q))
+    if len(back) != 1:
+        raise RuntimeError(f"expected one loop (the blocks) in seq_lanes_kernel, found {back}")
+    lo, hi = back[0]
+    out = {"alu": 0, "fma": 0, "shfl": 0, "loads": {}, "table_reads": {}}
+    for a, base, t in ins:
+        if base in ("LDL", "LDS") or (base == "LDC" and re.search(r"c\[0x[0-9a-f]+\]\[R", t)):
+            out["table_reads"][base] = out["table_reads"].get(base, 0) + 1
+        if not lo <= a <= hi:
+            continue
+        if base.startswith("LD"):
+            out["loads"][base] = out["loads"].get(base, 0) + 1
+        elif _is_int_op(base):
+            out["shfl" if base == "SHFL" else "fma" if base == "IMAD" else "alu"] += 1
+    out["depth"] = sass_dep_depth(ins, lo, hi)
+    return out
 
 
 def sass_block_kernel(text: str, kernel: str, targs, nr: int) -> dict:
@@ -3160,7 +3299,8 @@ def main() -> int:
     mk_wrappers = {"ctr_mk": cuda_aes.ctr_scattered_multikey,
                    "ctr_mk_k1": cuda_aes.ctr_crypt_words_explicit,
                    "ecb_encrypt": cuda_aes.encrypt_words,
-                   "ctr_gen": cuda_aes.ctr_crypt_words_fused}
+                   "ctr_gen": cuda_aes.ctr_crypt_words_fused,
+                   "seq_encrypt": cuda_aes.seq_encrypt}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -3172,8 +3312,8 @@ def main() -> int:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     def form_counts():
-        """``ctr_mk``, ECB encrypt and ``ctr_gen`` launches by the form that
-        ran, per wrapper."""
+        """``ctr_mk``, ECB encrypt, ``ctr_gen`` and ``seq_encrypt`` launches
+        by the form that ran, per wrapper."""
         return {name: dict(fn.form_launches) for name, fn in mk_wrappers.items()}
 
     # Each phase's wall time, printed on one line before the kernels line.
@@ -3194,7 +3334,8 @@ def main() -> int:
     probe_dir = tempfile.mkdtemp(prefix="ot_probes_")
     atexit.register(shutil.rmtree, probe_dir, True)
     probe_builds = {}
-    for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE)):
+    for name, source in (("chase", CHASE_SOURCE), ("empty", EMPTY_SOURCE),
+                         ("seq_parent", SEQ_PARENT_SOURCE)):
         cu, so = os.path.join(probe_dir, f"{name}.cu"), os.path.join(probe_dir, f"{name}.so")
         with open(cu, "w", encoding="utf-8") as fh:
             fh.write(source)
@@ -3207,9 +3348,10 @@ def main() -> int:
         _, err = proc.communicate(timeout=600)
         if proc.returncode:
             raise SystemExit(f"the {name} probe did not build:\n{err[-3000:]}")
-    chase_so, empty_so = (probe_builds[k][0] for k in ("chase", "empty"))
+    chase_so, empty_so, seq_parent_so = (probe_builds[k][0]
+                                         for k in ("chase", "empty", "seq_parent"))
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(lib_path)} (and the "
-        f"shared-memory chase and the empty kernel)")
+        f"shared-memory and shuffle chases, the empty kernel and seq_encrypt's parent kernel)")
     ptxas = cuda_build.ptxas_kernels()
     for name, info in sorted(ptxas.items()):
         log(f"ptxas: {name}: {info}")
@@ -3499,7 +3641,11 @@ def main() -> int:
             return w ^ bitslice.encrypt_words(prev.reshape(-1, 4), rk, nr).reshape(w.shape)
         return bitslice.encrypt_words((w ^ prev).reshape(-1, 4), rk, nr).reshape(w.shape)
 
-    seq_mismatch, seq_cases = 0, 0
+    # Each case runs in every form (and auto): the first form's output is
+    # held against the plain version (the whole loop, or its every step),
+    # every other form's against the same words, so each form agrees with
+    # the plain version exactly when its words equal the first's.
+    seq_mismatch, seq_cases = {f: 0 for f in cuda_aes.SEQ_FORMS}, 0
     for bits in (128, 192, 256):
         nr, rk, _ = schedules(np.random.default_rng(bits + 2).integers(
             0, 256, bits // 8, dtype=np.uint8).tobytes())
@@ -3509,22 +3655,25 @@ def main() -> int:
                     continue
                 w = random_words(s_n * n, seed=s_n + 13 * n + bits).reshape(s_n, n, 4)
                 ivs = random_words(s_n, seed=s_n + bits + cfb)
-                out, iv_out = cuda_aes.seq_encrypt(w, ivs, rk, nr, cfb)
-                if n <= 33:
-                    want, want_iv = cuda_aes.seq_encrypt_plain(w, ivs, rk, nr, cfb)
-                else:
-                    want, want_iv = seq_plain_steps(w, ivs, out, rk, nr, cfb), out[:, -1]
-                m = diff(out, want)[0] + diff(iv_out, want_iv)[0]
-                seq_mismatch += m
+                want = None
+                for form in cuda_aes.SEQ_FORMS:
+                    out, iv_out = cuda_aes.seq_encrypt(w, ivs, rk, nr, cfb, form=form)
+                    if want is None and n <= 33:
+                        want = cuda_aes.seq_encrypt_plain(w, ivs, rk, nr, cfb)
+                    elif want is None:
+                        want = seq_plain_steps(w, ivs, out, rk, nr, cfb), out[:, -1]
+                    m = diff(out, want[0])[0] + diff(iv_out, want[1])[0]
+                    seq_mismatch[form] += m
+                    if m:
+                        log(f"MISMATCH seq_encrypt form {form} bits={bits} "
+                            f"{'cfb128' if cfb else 'cbc'} S={s_n} N={n}: {m} words")
+                    del out
                 seq_cases += 1
-                if m:
-                    log(f"MISMATCH seq_encrypt bits={bits} {'cfb128' if cfb else 'cbc'} S={s_n} "
-                        f"N={n}: {m} words")
-                del w, out
+                del w, want
     log(f"seq_encrypt vs plain: {seq_cases} cases (nr 10/12/14, CBC and CFB128, S in 1, 3, "
         f"{SEQ_BLOCKS}, N in 1, 2, 33, {SEQ_BLOCKS}; S = N = {SEQ_BLOCKS} with AES-{LARGE_BITS} "
-        f"only), {seq_mismatch} mismatching words")
-    if seq_mismatch:
+        f"only), in each form: mismatching words by form {seq_mismatch}")
+    if any(seq_mismatch.values()):
         raise SystemExit("seq_encrypt disagrees with its plain version")
     chain_words = ceiling.words(PROBE_BYTES)
     chain_mismatch, chain_cases = 0, 0
@@ -3692,19 +3841,39 @@ def main() -> int:
         "F.2.1": (cuda_aes.cbc_encrypt_words_seq, SP800_ECB_CBC[128][2]),
         "F.3.13": (cuda_aes.cfb128_encrypt_words_seq, SP800_CFB128),
     }
+
+    def kat_hex(ct_w, iv_out):
+        got = packing.np_words_to_bytes(packing.words_numpy(ct_w).reshape(-1)).tobytes().hex()
+        new_iv = packing.np_words_to_bytes(packing.words_numpy(iv_out).reshape(-1)).tobytes().hex()
+        return got if got[-32:] == new_iv else f"{got} (new IV {new_iv})"
+
     for name, (fn, want_hex) in straight.items():
-        ct_w, iv_out = fn(pt_w.reshape(4, 4), iv_w, rk, nr)
-        got_hex = packing.np_words_to_bytes(packing.words_numpy(ct_w).reshape(-1)).tobytes().hex()
-        if got_hex != want_hex or got_hex[-32:] != packing.np_words_to_bytes(
-                packing.words_numpy(iv_out)).tobytes().hex():
+        if kat_hex(*fn(pt_w.reshape(4, 4), iv_w, rk, nr)) != want_hex:
             raise SystemExit(f"NIST SP800-38A {name} through seq_encrypt failed")
-    if kat_seq != 4 or cuda_aes.seq_encrypt.launches - seq_before != 6:
-        raise SystemExit(f"the CBC/CFB128 KATs made {kat_seq} seq_encrypt launches, not 4")
+    # And the CBC (F.2.1, F.2.3, F.2.5) and CFB128 (F.3.13) encrypts through
+    # each form of the chained kernel.
+    kat_forms = {}
+    for form in cuda_aes.SEQ_FORMS[1:]:
+        for bits, (key_hex, _ecb_hex, cbc_hex) in SP800_ECB_CBC.items():
+            nr_k, rk_k, _ = schedules(bytes.fromhex(key_hex))
+            got = kat_hex(*cuda_aes.seq_encrypt(pt_w.reshape(1, 4, 4), iv_w.reshape(1, 4), rk_k,
+                                                nr_k, False, form=form))
+            kat_forms[f"{form} CBC-AES{bits}"] = got == cbc_hex
+        got = kat_hex(*cuda_aes.seq_encrypt(pt_w.reshape(1, 4, 4), iv_w.reshape(1, 4), rk, nr,
+                                            True, form=form))
+        kat_forms[f"{form} CFB128-AES128"] = got == SP800_CFB128
+    if not all(kat_forms.values()):
+        raise SystemExit(f"NIST SP800-38A through the seq_encrypt forms failed: {kat_forms}")
+    kat_launches = 6 + 4 * len(cuda_aes.SEQ_FORMS[1:])
+    if kat_seq != 4 or cuda_aes.seq_encrypt.launches - seq_before != kat_launches:
+        raise SystemExit(f"the CBC/CFB128 KATs made {kat_seq} seq_encrypt launches, not 4 (and "
+                         f"{cuda_aes.seq_encrypt.launches - seq_before} in all, not {kat_launches})")
     log("NIST SP800-38A F.1 and F.2 (ECB, CBC; 128/192/256, both directions) and F.3.13 "
         "(CFB128-AES128, both directions) through AES on the card: pass; its CBC and CFB128 "
         f"encrypts made {kat_seq} seq_encrypt launches (one a call); F.2.1 and F.3.13 through "
         "cbc_encrypt_words_seq and cfb128_encrypt_words_seq (the chained kernel), ciphertext and "
-        "new IV: pass")
+        f"new IV: pass; F.2.1/F.2.3/F.2.5 and F.3.13 through each seq_encrypt form "
+        f"({', '.join(cuda_aes.SEQ_FORMS[1:])}): pass")
     # F.5.1 in slot 3 of 8 through the serve seam, other tenants interleaved
     # and slots 6-7 empty.
     others = [np.random.default_rng(29 + i).integers(0, 256, 16, dtype=np.uint8).tobytes()
@@ -3857,13 +4026,15 @@ def main() -> int:
     path_s = time.perf_counter() - t0
     block_counts = counts()
     block_forms = form_counts()["ecb_encrypt"]
+    block_seq_forms = form_counts()["seq_encrypt"]
     log(f"byte-granular CFB128 from iv_off {CFB_IV_OFF} in chunks {CFB_CHUNKS} through AES on the "
         f"card: steps {steps}; {cfb_runs}; card: {card}")
     if not all(r["equal to the CPU"] and r["ecb_encrypt by form"] == r["expected by form"]
                and r["seq_encrypt as expected"] for r in cfb_runs.values()):
         raise SystemExit(f"byte-granular CFB128 on the card: {cfb_runs}")
     log(f"block-mode path at {MAIN_BYTES >> 20} MiB: {path_s:.3f} s, launches {block_counts}, "
-        f"ecb_encrypt by form {block_forms}; the sequential encrypts' own launches {seq_calls}")
+        f"ecb_encrypt by form {block_forms}, seq_encrypt by form {block_seq_forms}; the "
+        f"sequential encrypts' own launches {seq_calls}")
     if block_counts["ecb_encrypt"] <= 0 or block_counts["ecb_decrypt"] <= 0 or min(
             block_forms.values()) <= 0:
         raise SystemExit(f"the block-mode path did not launch both ECB kernels, encrypt in both "
@@ -4346,6 +4517,20 @@ def main() -> int:
     log(f"shared-memory load latency: {lds_cycles:.3f} cycles a dependent LDS (chase of "
         f"{chase_steps} loads, best of {per_load}); dependent integer step {lat_cycles:.4f} "
         f"cycles; card: {card}")
+    # A shuffle's latency (seq_encrypt's lane forms): the dependent-shuffle
+    # chase, one warp, its own cycle counter.
+    chase.ot_shfl_chase.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    chase.ot_shfl_chase.restype = ctypes.c_int
+    shfl_out = torch.zeros(32, dtype=torch.int32, device=dev)
+    per_shfl = []
+    for _ in range(3):
+        if chase.ot_shfl_chase(chase_steps, shfl_out.data_ptr(), chase_cycles.data_ptr()):
+            raise SystemExit("the shuffle chase did not launch")
+        torch.cuda.synchronize()
+        per_shfl.append(int(chase_cycles.item()) / chase_steps)
+    shfl_cycles = min(per_shfl)
+    log(f"shuffle latency: {shfl_cycles:.3f} cycles a dependent SHFL (chase of {chase_steps} "
+        f"shuffles, best of {per_shfl}); card: {card}")
     # The shared-memory issue rate: warp-wide accesses a cycle of one SM, at
     # 1, 2 and 4 warps (the best of three launches each).
     chase.ot_smem_issue.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -4620,29 +4805,181 @@ def main() -> int:
         f"{ctr_entry['within_2_percent_of_former_256MiB']}; card: {card}")
 
     # seq_encrypt: the two sequential encrypts of phase 5 (one stream of
-    # 4,096 blocks) and the batch (4,096 streams of 64 blocks), each one launch.
+    # 4,096 blocks), the batch (4,096 streams of 64 blocks) and the sweep's
+    # cbc-batch launch (32 streams of 65,536 blocks), each one launch in the
+    # form the auto form picks. Each is timed in turns against the parent
+    # kernel (SEQ_PARENT_SOURCE, one thread a stream); its bound is the larger
+    # of its form's dependent path and its issue floor (seq_bound), the
+    # thread form's SASS depth beside it as the former bound.
     seq_int, seq_depth, seq_loop = {}, {}, {}
+    seq_pipes = {}
     for c in (0, 1):
         blk = sass_block_kernel(sass_text, "seq_encrypt_kernel", (nr, c), nr)
         seq_int[c], seq_depth[c], seq_loop[c] = blk["int"], blk["depth"], blk["round_loop"]
-    log(f"seq_encrypt SASS (nr {nr}): round loop {seq_loop[0]['int']} (CBC) / {seq_loop[1]['int']} "
-        f"(CFB128) integer instructions, dependency depth {seq_loop[0]['depth']} / "
-        f"{seq_loop[1]['depth']}; about {seq_int[0]} / {seq_int[1]} integer instructions a block; "
-        f"ptxas {ptxas.get(f'seq_encrypt_kernel<{nr},0>')} / {ptxas.get(f'seq_encrypt_kernel<{nr},1>')}")
+        seq_pipes[("thread", c)] = {"alu": blk["int"] - blk["fma"], "fma": blk["fma"], "shfl": 0}
+        for form, q in SEQ_LANES_Q.items():
+            seq_pipes[(form, c)] = sass_seq_lanes(sass_text, nr, c, q)
+    log(f"seq_encrypt SASS (nr {nr}): thread form round loop {seq_loop[0]['int']} (CBC) / "
+        f"{seq_loop[1]['int']} (CFB128) integer instructions, dependency depth "
+        f"{seq_loop[0]['depth']} / {seq_loop[1]['depth']}; about {seq_int[0]} / {seq_int[1]} "
+        f"integer instructions a block; ptxas {ptxas.get(f'seq_encrypt_kernel<{nr},0>')} / "
+        f"{ptxas.get(f'seq_encrypt_kernel<{nr},1>')}")
+    for (form, c), p in seq_pipes.items():
+        log(f"seq_encrypt {form} form, {'CFB128' if c else 'CBC'}, a block of one warp: "
+            f"{p['alu']} integer-pipe, {p['fma']} FMA-pipe (IMAD) and {p['shfl']} shuffle "
+            f"instructions" + (f", dependency depth {p['depth']} (SASS)" if "depth" in p else "")
+            + (f"; memory reads in the block loop {p['loads']}" if "loads" in p else ""))
+        if p.get("table_reads"):
+            raise SystemExit(f"seq_encrypt {form}: the block loop reads {p['table_reads']} "
+                             f"(local, shared or constant memory: a table)")
+    shfl_cycles_seq = shfl_cycles
+
+    def seq_bound(form: str, c: int, s_n: int, n: int, mhz: float) -> dict:
+        """The latency bound of ``s_n`` streams of ``n`` blocks in ``form``:
+        n times the larger of the block's dependent path (the lane forms: the
+        circuit's integer steps at the measured dependent latency and its
+        shuffles at the measured shuffle latency; the thread form: its SASS
+        depth) and the issue floor of the warps each sub-partition holds (a
+        warp instruction every 2 cycles on the integer pipe and on the FMA
+        pipe; the shuffles' rate is not counted)."""
+        p = seq_pipes[(form, c)]
+        if form == "thread":
+            path = {"sass_depth": seq_depth[c]}
+            path_cycles = seq_depth[c] * lat_cycles
+            warps = -(-s_n // 32)
+        else:
+            path = seq_lane_path(nr, SEQ_LANES_Q[form])
+            path_cycles = path["alu_steps"] * lat_cycles + path["shuffles"] * shfl_cycles_seq
+            warps = -(-s_n // (8 // SEQ_LANES_Q[form]))
+        per_smsp = max(1, -(-warps // (4 * sm_count)))
+        issue_cycles = per_smsp * 2 * max(p["alu"], p["fma"])
+        cycles = max(path_cycles, issue_cycles)
+        return {"form": form, "path": path, "path_cycles_per_block": path_cycles,
+                "warps": warps, "warps_per_subpartition": per_smsp,
+                "issue_cycles_per_block": issue_cycles,
+                "bound_by": "dependent path" if path_cycles >= issue_cycles else "issue",
+                "bound_ms": n * cycles / (mhz * 1e3), "sampled_clock_mhz": mhz,
+                "former_bound_ms": latency_ms(n * seq_depth[c], mhz)}
+
+    parent = ctypes.CDLL(seq_parent_so)
+    vp = ctypes.c_void_p
+    parent.ot_seq_parent.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int, vp]
+    parent.ot_seq_parent.restype = ctypes.c_int
+
+    def seq_parent(w, ivs, cfb, out, iv_out):
+        rc = parent.ot_seq_parent(w.data_ptr(), out.data_ptr(), ivs.data_ptr(), iv_out.data_ptr(),
+                                  rk.data_ptr(), w.shape[0], w.shape[1], int(cfb), nr,
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"seq_encrypt's parent kernel did not launch: cudaError {rc}")
+
+    def turn_ms(fn) -> float:
+        """Card ms a call of ``fn``: calls captured in one CUDA graph lasting
+        about SEQ_TURN_S, replayed once to warm it, then timed once."""
+        reps = max(1, min(200, int(SEQ_TURN_S * 1e3 / events_ms(fn, 1))))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        del graph
+        return start.elapsed_time(stop) / reps
+
     first = cbc_pt[:SEQ_BLOCKS].contiguous()
+    sweep_streams = words[:32 * 65536].reshape(32, 65536, 4)
+    sweep_ivs = words[-32:].contiguous()
+    seq_shapes = {"single_cbc": (first.reshape(1, -1, 4), ivw.reshape(1, 4), False),
+                  "single_cfb128": (first.reshape(1, -1, 4), ivw.reshape(1, 4), True),
+                  "batch": (streams, stream_ivs, False),
+                  "sweep_cbc_batch": (sweep_streams, sweep_ivs, False)}
+    seq_turns, seq_turn_fail = {}, []
+    for label, (w_t, iv_t, cfb) in seq_shapes.items():
+        s_n, n = w_t.shape[0], w_t.shape[1]
+        out_p, iv_p = torch.empty_like(w_t), torch.empty_like(iv_t)
+        seq_parent(w_t, iv_t, cfb, out_p, iv_p)
+        got, got_iv = cuda_aes.seq_encrypt(w_t, iv_t, rk, nr, cfb)
+        m = diff(got, out_p)[0] + diff(got_iv, iv_p)[0]
+        del got, got_iv
+        form = cuda_aes.seq_encrypt_form(s_n)
+        times = {"parent": [], "new": []}
+        for _ in range(SEQ_TURNS):
+            for who in ("parent", "new", "new", "parent"):
+                if who == "parent":
+                    times[who].append(turn_ms(lambda: seq_parent(w_t, iv_t, cfb, out_p, iv_p)))
+                else:
+                    times[who].append(turn_ms(lambda: cuda_aes.seq_encrypt(w_t, iv_t, rk, nr, cfb)))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        won_every_turn = all(max(times["new"][2 * t:2 * t + 2]) < min(times["parent"][2 * t:2 * t + 2])
+                             for t in range(SEQ_TURNS))
+        ms, clocks = sampled_ms(lambda: cuda_aes.seq_encrypt(w_t, iv_t, rk, nr, cfb))
+        b = seq_bound(form, int(cfb), s_n, n, clocks["clock_mhz"])
+        seq_turns[label] = {"streams": s_n, "blocks_per_stream": n, "mode": "cfb128" if cfb else "cbc",
+                            "form": form, "mismatching_words_vs_parent": m, "ms": times,
+                            "median_ms": med, "new_over_parent": med["new"] / med["parent"],
+                            "new_faster_in_every_turn": won_every_turn,
+                            "back_to_back_ms": ms, "us_per_block": 1e3 * med["new"] / n,
+                            "bound": b, "share_of_bound": b["bound_ms"] / med["new"]}
+        log(f"seq_encrypt {label} ({s_n} x {n} blocks, {'CFB128' if cfb else 'CBC'}, form {form}): "
+            f"parent {med['parent']:.5f} ms, new {med['new']:.5f} ms a launch (medians of "
+            f"{2 * SEQ_TURNS} CUDA-graph timings each, in turns parent, new, new, parent), "
+            f"new/parent {med['new'] / med['parent']:.4f}, faster in every turn {won_every_turn}; "
+            f"{1e3 * med['new'] / n:.4f} us a block step; bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']}: path {b['path_cycles_per_block']:.1f} cycles a block "
+            f"{b['path']}, issue {b['issue_cycles_per_block']} cycles a block at "
+            f"{b['warps_per_subpartition']} warp(s) a sub-partition, at "
+            f"{clocks['clock_mhz']:.0f} MHz), kernel at {100 * b['bound_ms'] / med['new']:.1f} %; "
+            f"the former bound (the thread form's SASS depth, {n} x {seq_depth[int(cfb)]} x "
+            f"{lat_cycles:.3f} cycles) {b['former_bound_ms']:.5f} ms; outputs equal to the "
+            f"parent's: {m == 0}; card: {card}")
+        if m:
+            seq_turn_fail.append(f"{label}: {m} words differ from the parent's")
+        if label.startswith("single") and not won_every_turn:
+            seq_turn_fail.append(f"{label}: not faster than the parent in every turn {times}")
+        if not label.startswith("single") and med["new"] > med["parent"]:
+            seq_turn_fail.append(f"{label}: slower than the parent in the median of turns {med}")
+        del out_p, iv_p
+    del sweep_streams
+    if seq_turn_fail:
+        raise SystemExit("seq_encrypt against its parent: " + "; ".join(seq_turn_fail))
+    # Every form at 1 to 16,384 streams of 64 blocks (the auto form's
+    # crossings, seq_form.cuh), each the card time of a CUDA graph.
+    seq_table = []
+    for s_n in SEQ_FORM_STREAMS:
+        w_t = words[:s_n * 64].reshape(s_n, 64, 4)
+        iv_t = words[-s_n:].contiguous()
+        row = {"streams": s_n, "auto_form": cuda_aes.seq_encrypt_form(s_n)}
+        for form in cuda_aes.SEQ_FORMS[1:]:
+            row[f"{form}_ms"] = turn_ms(
+                lambda form=form: cuda_aes.seq_encrypt(w_t, iv_t, rk, nr, False, form=form))
+        row["fastest"] = min(cuda_aes.SEQ_FORMS[1:], key=lambda f: row[f"{f}_ms"])
+        seq_table.append(row)
+        log(f"seq_encrypt forms at {s_n} streams x 64 blocks (CBC): " + ", ".join(
+            f"{f} {row[f + '_ms'] * 1e3:.2f} us" for f in cuda_aes.SEQ_FORMS[1:])
+            + f" (fastest {row['fastest']}; auto {row['auto_form']}); card: {card}")
+    log(f"seq_encrypt auto form picks the fastest form at every size of the table: "
+        f"{all(r['auto_form'] == r['fastest'] for r in seq_table)}")
     single = {}
-    for mode, fn, c in (("cbc_encrypt", aes.cbc_encrypt_words, 0),
-                        ("cfb128_encrypt", aes.cfb128_encrypt_words, 1)):
-        ms, clocks = sampled_ms(lambda fn=fn: fn(first, ivw, rk, nr, eng))
-        lat_b = latency_ms(SEQ_BLOCKS * seq_depth[c], clocks["clock_mhz"])
-        single[mode] = {"ms": ms, "us_per_block": 1e3 * ms / SEQ_BLOCKS, "latency_bound_ms": lat_b,
-                        "dependent_instructions_per_block": seq_depth[c],
-                        "sampled_clock_mhz": clocks["clock_mhz"]}
-        log(f"{mode}_words, {SEQ_BLOCKS} blocks in sequence (one seq_encrypt launch): {ms:.4f} ms, "
-            f"{1e3 * ms / SEQ_BLOCKS:.4f} us per block; latency bound {SEQ_BLOCKS} blocks x "
-            f"{seq_depth[c]} dependent instructions x {lat_cycles:.3f} cycles at "
-            f"{clocks['clock_mhz']:.0f} MHz = {lat_b:.4f} ms, kernel at {100 * lat_b / ms:.1f} %; "
-            f"card: {card}")
+    for mode, label in (("cbc_encrypt", "single_cbc"), ("cfb128_encrypt", "single_cfb128")):
+        t = seq_turns[label]
+        single[mode] = {"ms": t["median_ms"]["new"], "parent_ms": t["median_ms"]["parent"],
+                        "us_per_block": t["us_per_block"], "form": t["form"],
+                        "latency_bound_ms": t["bound"]["bound_ms"],
+                        "former_latency_bound_ms": t["bound"]["former_bound_ms"],
+                        "share_of_bound": t["share_of_bound"],
+                        "dependent_instructions_per_block": seq_depth[int(label.endswith("cfb128"))],
+                        "sampled_clock_mhz": t["bound"]["sampled_clock_mhz"]}
     batch_got = cuda_aes.seq_encrypt(streams, stream_ivs, rk, nr, False)
     batch_want = cuda_aes.seq_encrypt_plain(streams, stream_ivs, rk, nr, False)
     m, batch_err = diff(batch_got[0], batch_want[0])
@@ -4658,18 +4995,21 @@ def main() -> int:
     seq_bytes = 2 * streams.numel() * 4 + 2 * stream_ivs.numel() * 4 + rk.numel() * 4
     seq_ops_ms, seq_bytes_ms = seq_ops / int_ops_per_ms, seq_bytes / HBM_BYTES_PER_S * 1e3
     seq_meas, seq_meas_by = measured_bound(seq_ops, seq_bytes)
-    batch_lat = latency_ms(streams.shape[1] * seq_depth[0], batch_smi["clock_mhz"])
-    log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks (one seq_encrypt launch): "
-        f"{batch_ms:.4f} ms, {1e3 * batch_ms / 64:.4f} us per step of {SEQ_BLOCKS} blocks; plain "
-        f"{batch_plain_ms:.2f} ms; roofline bound {max(seq_ops_ms, seq_bytes_ms):.6f} ms at the "
-        f"table rates, {seq_meas:.6f} ms ({seq_meas_by}) at the measured ones; latency bound 64 x "
-        f"{seq_depth[0]} x {lat_cycles:.3f} cycles at {batch_smi['clock_mhz']:.0f} MHz = "
-        f"{batch_lat:.4f} ms; kernel at {100 * max(seq_meas, batch_lat) / batch_ms:.1f} % of the "
-        f"larger; card: {card}")
+    batch_b = seq_bound(seq_turns["batch"]["form"], 0, streams.shape[0], streams.shape[1],
+                        batch_smi["clock_mhz"])
+    log(f"cbc_encrypt_words_batch, {SEQ_BLOCKS} streams x 64 blocks (one seq_encrypt launch, "
+        f"form {batch_b['form']}): {batch_ms:.4f} ms back to back, {1e3 * batch_ms / 64:.4f} us per "
+        f"step of {SEQ_BLOCKS} blocks; plain {batch_plain_ms:.2f} ms; roofline bound "
+        f"{max(seq_ops_ms, seq_bytes_ms):.6f} ms at the table rates, {seq_meas:.6f} ms "
+        f"({seq_meas_by}) at the measured ones; latency bound {batch_b['bound_ms']:.4f} ms "
+        f"({batch_b['bound_by']}), kernel at {100 * batch_b['bound_ms'] / batch_ms:.1f} %; the "
+        f"former bound 64 x {seq_depth[0]} x {lat_cycles:.3f} cycles = "
+        f"{batch_b['former_bound_ms']:.4f} ms; card: {card}")
     del batch_got, batch_want
     kernels.append({
         "name": "seq_encrypt", "route": "cuda", "source": "our_tree_tpu_torch/csrc/seq.cu",
         "replaces": "our_tree_tpu/ops/pallas_aes.py:259", "launches": block_counts["seq_encrypt"],
+        "launches_by_form": block_seq_forms,
         "max_abs_err": batch_err, "ms": batch_ms, "plain_ms": batch_plain_ms,
         "bound_ms": max(seq_ops_ms, seq_bytes_ms),
         "bound_by": "operations" if seq_ops_ms >= seq_bytes_ms else "bytes",
@@ -4678,13 +5018,18 @@ def main() -> int:
         "sampled_clock_mhz": batch_smi["clock_mhz"], "bound_ms_measured": seq_meas,
         "bound_by_measured": seq_meas_by,
         "measured_int_results_per_clk_per_sm": measured["int_results_per_clk_per_sm"],
-        "latency_bound_ms": batch_lat, "dependent_issue_cycles": lat_cycles,
+        "latency_bound_ms": batch_b["bound_ms"], "latency_bound": batch_b,
+        "former_latency_bound_ms": batch_b["former_bound_ms"],
+        "dependent_issue_cycles": lat_cycles, "shuffle_latency_cycles": shfl_cycles_seq,
         "dependent_instructions_per_block": seq_depth[0], "library_ms": None,
         "shape": f"{SEQ_BLOCKS} CBC streams x 64 blocks (cbc_encrypt_words_batch); the "
-                 f"single-stream encrypts of {SEQ_BLOCKS} blocks under 'single_stream'",
+                 f"single-stream encrypts of {SEQ_BLOCKS} blocks under 'single_stream'; the "
+                 f"parent kernel in turns under 'turns', the forms under 'forms_table'",
         "sass_round_loop": {"cbc": seq_loop[0], "cfb128": seq_loop[1]},
         "sass_int_per_block": {"cbc": seq_int[0], "cfb128": seq_int[1]},
-        "single_stream": single})
+        "sass_by_pipe": {f"{form},{'cfb128' if c else 'cbc'}": p
+                         for (form, c), p in seq_pipes.items()},
+        "single_stream": single, "turns": seq_turns, "forms_table": seq_table})
 
     # ctr_mk's group form at three shapes: (S) the seal's launch, 2^24 + 1
     # blocks, K = 1, an all-zero slot vector; (E) the K = 1 entry, 2^24

@@ -1,5 +1,5 @@
-// Per-block bitsliced AES arithmetic (seq.cu, the block forms of ctr_mk.cu
-// and ecb.cu):
+// Per-block bitsliced AES arithmetic (seq.cu's thread form, the block forms
+// of ctr_mk.cu and ecb.cu):
 // one thread holds one 16-byte block as 8 bit planes in 8 registers. Plane b
 // holds bit b of each state byte, lane p = byte p of the block in memory
 // order, so lane 4c + r is row r of column c. Each plane's 16 lanes are kept
@@ -7,9 +7,13 @@
 // then one 32-bit rotate, and every operation below keeps the two copies
 // equal. Where aes_bitslice.cuh's group form does 32 blocks per logic
 // instruction and pays off only with thousands of groups, this form has one
-// block's work per thread and the shortest path through a block: the
-// sequential CBC/CFB128 encrypts and the serve rungs (at most 128 groups)
-// are bound by that path, not by issue slots.
+// block's work per thread. Its path through a block is short, but a block
+// costs its thread about 2,600 integer instructions, and a warp issues one
+// every 2 cycles on its sub-partition's integer pipe: with one warp on a
+// sub-partition (one stream of seq.cu's thread form, a serve rung of at most
+// 128 warps) a block is bound by that warp's issue slots, not by its path
+// (chip_smoke.py phase 9). seq.cu's lane forms (aes_lanes.cuh) spread a
+// block over lanes for that reason.
 //
 //   SubBytes     aes_bitslice::sbox_bp_circuit<true> on the 8 planes (the
 //                Boyar-Peralta circuit the group form runs, reused).

@@ -54,7 +54,12 @@ runs as a ``lax.scan``, ``our_tree_tpu/models/aes.py:704-716`` and
 counterpart launch per block step). ``cbc_encrypt_words_seq``,
 ``cfb128_encrypt_words_seq`` and ``cbc_encrypt_words_seq_batch`` are its
 entries; its plain version ``seq_encrypt_plain`` is the per-block loop of
-batched ``bitslice.encrypt_words`` calls.
+batched ``bitslice.encrypt_words`` calls. The kernel has forms by the lanes
+a stream takes (``SEQ_FORMS``): the thread form (one thread a stream,
+``csrc/aes_block.cuh``) and the lane forms (4, 8 or 16 lanes a stream,
+``csrc/aes_lanes.cuh``); the C entry picks one by stream count unless a form
+is asked for, and each launch is counted under its form in
+``seq_encrypt.form_launches``.
 
 One kernel per function serves every layout and engine name of the
 reference (planes, grouped, dense; the layouts only existed for TPU tile
@@ -100,6 +105,10 @@ MK_FORMS = ("auto", "group", "block")
 #: ``ot_ctr_gen_form``), the same codes.
 ECB_FORMS = MK_FORMS
 CTR_GEN_FORMS = MK_FORMS
+#: ``seq_encrypt`` forms by C code (``csrc/seq_form.cuh``): ``"auto"`` lets
+#: the C entry choose by stream count; ``"thread"`` is one thread a stream,
+#: ``"lanesL"`` L lanes a stream.
+SEQ_FORMS = ("auto", "thread", "lanes4", "lanes8", "lanes16")
 
 
 def count_launch(wrapper, form: str | None = None) -> None:
@@ -329,14 +338,27 @@ def seq_encrypt_plain(words: torch.Tensor, ivs: torch.Tensor, rk: torch.Tensor, 
     return torch.stack(outs, dim=1), iv
 
 
+def seq_encrypt_form(s: int, form: str = "auto") -> str:
+    """The form a ``seq_encrypt`` launch of ``s`` streams takes on the card,
+    as the C entry decides it (``form`` one of ``SEQ_FORMS``)."""
+    code = cuda_build.load().ot_seq_encrypt_form(s, SEQ_FORMS.index(form))
+    if not 0 < code < len(SEQ_FORMS):
+        raise RuntimeError(f"ot_seq_encrypt_form({s}, {form!r}) returned {code}")
+    return SEQ_FORMS[code]
+
+
 def seq_encrypt(words: torch.Tensor, ivs: torch.Tensor, rk: torch.Tensor, nr: int,
-                cfb: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                cfb: bool, form: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """S independent chained encrypts of N blocks each, in one launch:
     CBC, C_i = E(P_i ^ C_(i-1)), or with ``cfb`` CFB128, C_i = P_i ^
     E(C_(i-1)); C_(-1) is the stream's IV. ``words``: (S, N, 4) int32 LE
     block words; ``ivs``: (S, 4); ``rk``: (4*(nr+1),) encrypt schedule.
-    Returns (ciphertext (S, N, 4), last ciphertext block per stream (S, 4));
-    N = 0 launches nothing and returns the IVs."""
+    ``form``: one of ``SEQ_FORMS``, the kernel's form on the card
+    (``"auto"``: by stream count); the CPU checks it and runs the plain
+    version. Returns (ciphertext (S, N, 4), last ciphertext block per stream
+    (S, 4)); N = 0 launches nothing and returns the IVs."""
+    if form not in SEQ_FORMS:
+        raise ValueError(f"form must be one of {SEQ_FORMS}, got {form!r}")
     if words.dim() != 3 or words.shape[2] != 4:
         raise ValueError(f"words must be (S, N, 4), got {tuple(words.shape)}")
     s, n = words.shape[0], words.shape[1]
@@ -349,14 +371,15 @@ def seq_encrypt(words: torch.Tensor, ivs: torch.Tensor, rk: torch.Tensor, nr: in
     if any(t.data_ptr() % 16 for t in (words, out, ivs, iv_out)):
         raise ValueError("block words must be 16-byte aligned")
     lib = cuda_build.load()
+    ran = seq_encrypt_form(s, form)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         rc = lib.ot_seq_encrypt(words.data_ptr(), out.data_ptr(), ivs.data_ptr(),
                                 iv_out.data_ptr(), rk.data_ptr(), s, ctypes.c_longlong(n),
-                                int(bool(cfb)), nr, stream)
+                                int(bool(cfb)), nr, SEQ_FORMS.index(ran), stream)
     if rc:
         raise RuntimeError(f"ot_seq_encrypt launch failed: cudaError {rc}")
-    count_launch(seq_encrypt)
+    count_launch(seq_encrypt, ran)
     return out, iv_out
 
 
@@ -391,9 +414,10 @@ ctr_scattered_multikey.launches = 0
 ctr_crypt_words_explicit.launches = 0
 cbc_scattered_multikey.launches = 0
 seq_encrypt.launches = 0
-#: ``ctr_mk``, ECB encrypt and ``ctr_gen`` launches by the form that ran (a
+#: ``ctr_mk``, ECB encrypt, ``ctr_gen`` and ``seq_encrypt`` launches by the form that ran (a
 #: reader may reset them).
 ctr_crypt_words_fused.form_launches = {"group": 0, "block": 0}
 ctr_scattered_multikey.form_launches = {"group": 0, "block": 0}
 ctr_crypt_words_explicit.form_launches = {"group": 0, "block": 0}
 encrypt_words.form_launches = {"group": 0, "block": 0}
+seq_encrypt.form_launches = {f: 0 for f in SEQ_FORMS[1:]}

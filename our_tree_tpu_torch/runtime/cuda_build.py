@@ -7,7 +7,7 @@ shared library with a plain C interface and loads it with ``ctypes``
 ``ot_ecb_encrypt_form`` and ``ot_ecb_decrypt`` from ``ecb.cu``,
 ``ot_ctr_mk`` and ``ot_ctr_mk_form`` from ``ctr_mk.cu``, ``ot_cbc_mk`` and
 its instrumented twin ``ot_cbc_mk_stamped`` from ``cbc_mk.cu``, ``ot_chain`` from
-``chain.cu``, ``ot_seq_encrypt`` from ``seq.cu``, ``ot_arc4_prga`` from
+``chain.cu``, ``ot_seq_encrypt`` and ``ot_seq_encrypt_form`` from ``seq.cu``, ``ot_arc4_prga`` from
 ``arc4.cu``, ``ot_ghash_scan`` and ``ot_ghash_at`` with
 ``ot_ghash_scratch_words`` and ``ot_ghash_plan`` from ``ghash.cu``). Nothing is built at import
 time, and nothing but the sources in the package is compiled. The library
@@ -175,8 +175,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                       ctypes.c_int, vp, vp]
     lib.ot_cbc_mk_stamped.restype = ctypes.c_int
     lib.ot_seq_encrypt.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
-                                   ctypes.c_int, ctypes.c_int, vp]
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
     lib.ot_seq_encrypt.restype = ctypes.c_int
+    lib.ot_seq_encrypt_form.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ot_seq_encrypt_form.restype = ctypes.c_int
     lib.ot_chain.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_uint32, vp]
     lib.ot_chain.restype = ctypes.c_int

@@ -553,19 +553,25 @@ def test_ctr_mk_group_form_clamps_a_bad_slot(card, k):
 @pytest.mark.parametrize("s,n", [(1, 1), (1, 2), (1, 33), (3, 33), (100, 5), (4096, 2),
                                  (1, 4096)])
 def test_seq_kernel_matches_plain(card, bits, cfb, s, n):
+    """Every form (and auto) equal to the plain version, one launch each,
+    counted under the form that ran."""
     rng = np.random.default_rng(bits + s + n + cfb)
     nr, rk = expand_key_enc(rng.integers(0, 256, bits // 8, dtype=np.uint8).tobytes())
     w = rng.integers(0, 2**32, (s, n, 4), dtype=np.uint64).astype(np.uint32)
     iv = rng.integers(0, 2**32, (s, 4), dtype=np.uint64).astype(np.uint32)
     args = (packing.words_tensor(w, card), packing.words_tensor(iv, card),
             packing.words_tensor(rk, card), nr, cfb)
-    before = cuda_aes.seq_encrypt.launches
-    got = cuda_aes.seq_encrypt(*args)
     want = cuda_aes.seq_encrypt_plain(*args)
-    torch.cuda.synchronize()
-    assert cuda_aes.seq_encrypt.launches == before + 1
-    for g, x in zip(got, want):
-        assert torch.equal(g, x)
+    for form in cuda_aes.SEQ_FORMS:
+        ran = cuda_aes.seq_encrypt_form(s, form)
+        before, forms = cuda_aes.seq_encrypt.launches, dict(cuda_aes.seq_encrypt.form_launches)
+        got = cuda_aes.seq_encrypt(*args, form=form)
+        torch.cuda.synchronize()
+        assert cuda_aes.seq_encrypt.launches == before + 1
+        assert cuda_aes.seq_encrypt.form_launches[ran] == forms[ran] + 1
+        assert ran == form or form == "auto"
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), form
 
 
 def test_sequential_encrypts_launch_once_per_call(card):

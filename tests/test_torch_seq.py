@@ -1,10 +1,16 @@
 """The chained CBC/CFB128 encrypts (``SEQ_ENCRYPT``, ``cuda_aes.seq_encrypt``)
 and the ``ctr_mk`` form argument on the CPU: every engine's CBC, CFB128 and
 batched CBC encrypt held bit-exact against the JAX reference on the same
-numpy inputs, CPU tensors taking the plain version without a launch, the
-wrappers' checks, and the build's ``ptxas`` keys for the new kernels. The
+numpy inputs, CPU tensors taking the plain version without a launch in
+every ``seq_encrypt`` form, the wrappers' checks, the auto form's choice by
+stream count (``csrc/seq_form.cuh`` built with g++), and the build's
+``ptxas`` keys for the new kernels. The
 kernels themselves run on the card (``tests/test_torch_cuda.py``) and their
 arithmetic under g++ (``tests/test_torch_seq_host.py``). Tolerance zero."""
+
+import ctypes
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -127,6 +133,74 @@ def test_seq_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_aes.seq_encrypt(w, iv, rk, 12, False)
     with pytest.raises(ValueError, match="no kernel"):
         cuda_aes.seq_encrypt(w.to("meta"), iv.to("meta"), rk.to("meta"), nr, False)
+
+
+@pytest.mark.parametrize("form", cuda_aes.SEQ_FORMS)
+@pytest.mark.parametrize("cfb", [False, True])
+def test_seq_form_on_cpu_runs_the_plain_version(no_kernel, form, cfb):
+    """Every form, asked for on CPU tensors, is the plain version: the
+    same words as the JAX reference and no launch, under no form."""
+    nr, rk, w, iv = _case(192, 3, 4, seed=11 + len(form))
+    got, got_iv = cuda_aes.seq_encrypt(_t(w), _t(iv), _t(rk), nr, cfb, form=form)
+    for j in range(3):
+        ref = jaes.cfb128_encrypt_words if cfb else jaes.cbc_encrypt_words
+        want, want_iv = ref(jnp.asarray(w[j]), jnp.asarray(iv[j]), jnp.asarray(rk), nr)
+        np.testing.assert_array_equal(_n(got[j]), np.asarray(want))
+        np.testing.assert_array_equal(_n(got_iv[j]), np.asarray(want_iv))
+    assert cuda_aes.seq_encrypt.launches == 0
+    assert cuda_aes.seq_encrypt.form_launches.keys() == set(cuda_aes.SEQ_FORMS[1:])
+
+
+def test_seq_wrapper_refuses_an_unknown_form():
+    nr, rk, w, iv = _case(128, 1, 2, seed=12)
+    for form in ("lanes32", "warp", "", None):
+        with pytest.raises(ValueError, match="form"):
+            cuda_aes.seq_encrypt(_t(w), _t(iv), _t(rk), nr, False, form=form)
+
+
+FORM_SOURCE = r"""
+#include "seq_form.cuh"
+extern "C" int form_of(int s, int form) { return seq_form(s, form); }
+extern "C" int lanes_of(int form) { return seq_lanes(form); }
+"""
+
+
+@pytest.fixture(scope="module")
+def form_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the form choice as host C++")
+    out = tmp_path_factory.mktemp("seq_form")
+    (out / "form.cpp").write_text(FORM_SOURCE)
+    so = out / "libform.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+                    "-o", str(so), str(out / "form.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.form_of.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lanes_of.argtypes = [ctypes.c_int]
+    return lib
+
+
+@pytest.mark.parametrize("s, want", [
+    (1, "lanes16"), (32, "lanes16"), (1024, "lanes16"), (1025, "lanes8"), (2048, "lanes8"),
+    (2049, "lanes4"), (4096, "lanes4"), (8192, "lanes4"), (8193, "thread"), (1 << 20, "thread"),
+])
+def test_seq_auto_form_by_stream_count(form_lib, s, want):
+    """The auto form (the C entry's choice) at and beside each crossing, and
+    a named form is taken as asked at any stream count."""
+    assert cuda_aes.SEQ_FORMS[form_lib.form_of(s, 0)] == want
+    for code, form in enumerate(cuda_aes.SEQ_FORMS[1:], start=1):
+        assert form_lib.form_of(s, code) == code, form
+
+
+def test_seq_form_codes_match_the_wrapper(form_lib):
+    """The C codes are the wrapper's: every other code is refused (-1), and
+    each lane form's name says its lanes a stream."""
+    for bad in (-1, len(cuda_aes.SEQ_FORMS), 99):
+        assert form_lib.form_of(1, bad) == -1
+    for code, form in enumerate(cuda_aes.SEQ_FORMS):
+        if form.startswith("lanes"):
+            assert form_lib.lanes_of(code) == int(form[len("lanes"):])
 
 
 @pytest.mark.parametrize("form", cuda_aes.MK_FORMS)

@@ -1,9 +1,12 @@
 """The per-block bitsliced AES core (``csrc/aes_block.cuh``) compiled as host
 C++ with g++: ``encrypt_block`` held bit-exact against the plain torch
 version (``bitslice.encrypt_words``); the chained CBC/CFB128 loop the
-``seq_encrypt`` kernel runs (``chain_stream``) against the JAX package's
-``cbc_encrypt_words``, ``cfb128_encrypt_words`` and
-``cbc_encrypt_words_batch``; and the block form of ``ctr_mk``
+``seq_encrypt`` kernel's thread form runs (``chain_stream``) against the JAX
+package's ``cbc_encrypt_words``, ``cfb128_encrypt_words`` and
+``cbc_encrypt_words_batch``; the lane forms' rounds (``csrc/aes_lanes.cuh``,
+4Q lanes a stream, for Q = 1, 2 and 4) on a host warp whose shuffles are
+every lane writing, then every lane reading, against the same references;
+and the block form of ``ctr_mk``
 (``ctr_block`` under per-slot key planes, slots clamped as the kernel
 clamps them) against ``ctr_scattered_multikey_plain``. The kernels' thread
 layout, shared memory and launch run only on the card
@@ -26,6 +29,7 @@ from our_tree_tpu_torch.utils import packing
 
 HOST_SOURCE = r"""
 #include "aes_block.cuh"
+#include "aes_lanes.cuh"
 
 template <int NR>
 static void planes_of(const uint32_t* rk, uint32_t* kp) {
@@ -73,6 +77,66 @@ static void ctr(const uint32_t* rks, int k, const int32_t* slots, const uint32_t
         make_uint4(c[4 * i], c[4 * i + 1], c[4 * i + 2], c[4 * i + 3]),
         make_uint4(d[4 * i], d[4 * i + 1], d[4 * i + 2], d[4 * i + 3]), kp + sl * 8 * (NR + 1));
     out[4 * i] = o.x; out[4 * i + 1] = o.y; out[4 * i + 2] = o.z; out[4 * i + 3] = o.w;
+  }
+}
+
+// The lane forms' chain (seq.cu's seq_lanes_kernel) on one host warp after
+// another: a warp holds 8/Q streams, lane 4Q g + Q c + q word c of stream g,
+// the lanes of a stream past s run along but neither read nor write, and the
+// lanes with q = 0 write.
+template <int NR, int CFB, int Q>
+static void lanes(const uint32_t* rk, const uint32_t* in, uint32_t* out, const uint32_t* iv,
+                  uint32_t* iv_out, int s, long long n) {
+  using aes_lanes::Warp;
+  Warp lane;
+  for (int l = 0; l < 32; ++l) lane.v[l] = l;
+  aes_lanes::Lane<Q, Warp> ln;
+  aes_lanes::lane_setup<Q>(lane, ln);
+  for (long long first = 0; first < s; first += 8 / Q) {
+    Warp k[NR + 1], chain, p;
+    long long j[32];
+    int c[32];
+    bool live[32];
+    for (int l = 0; l < 32; ++l) {
+      j[l] = first + l / (4 * Q);
+      c[l] = (l / Q) & 3;
+      live[l] = j[l] < s;
+      for (int r = 0; r <= NR; ++r) k[r].v[l] = rk[4 * r + c[l]];
+      chain.v[l] = live[l] ? iv[4 * j[l] + c[l]] : 0u;
+    }
+    for (long long i = 0; i < n; ++i) {
+      for (int l = 0; l < 32; ++l) p.v[l] = live[l] ? in[(j[l] * n + i) * 4 + c[l]] : 0u;
+      chain = aes_lanes::chain_step<NR, CFB>(p, chain, ln, k);
+      for (int l = 0; l < 32; ++l)
+        if (live[l] && l % Q == 0) out[(j[l] * n + i) * 4 + c[l]] = chain.v[l];
+    }
+    for (int l = 0; l < 32; ++l)
+      if (live[l] && l % Q == 0) iv_out[4 * j[l] + c[l]] = chain.v[l];
+  }
+}
+
+template <int NR, int CFB>
+static int lanes_q(int q, const uint32_t* rk, const uint32_t* in, uint32_t* out,
+                   const uint32_t* iv, uint32_t* iv_out, int s, long long n) {
+  switch (q) {
+    case 1: lanes<NR, CFB, 1>(rk, in, out, iv, iv_out, s, n); return 0;
+    case 2: lanes<NR, CFB, 2>(rk, in, out, iv, iv_out, s, n); return 0;
+    case 4: lanes<NR, CFB, 4>(rk, in, out, iv, iv_out, s, n); return 0;
+    default: return 1;
+  }
+}
+
+extern "C" int lanes_seq(const uint32_t* rk, int nr, int cfb, int q, const uint32_t* in,
+                         uint32_t* out, const uint32_t* iv, uint32_t* iv_out, int s,
+                         long long n) {
+  switch (nr * 2 + (cfb ? 1 : 0)) {
+    case 20: return lanes_q<10, 0>(q, rk, in, out, iv, iv_out, s, n);
+    case 21: return lanes_q<10, 1>(q, rk, in, out, iv, iv_out, s, n);
+    case 24: return lanes_q<12, 0>(q, rk, in, out, iv, iv_out, s, n);
+    case 25: return lanes_q<12, 1>(q, rk, in, out, iv, iv_out, s, n);
+    case 28: return lanes_q<14, 0>(q, rk, in, out, iv, iv_out, s, n);
+    case 29: return lanes_q<14, 1>(q, rk, in, out, iv, iv_out, s, n);
+    default: return 1;
   }
 }
 
@@ -127,7 +191,8 @@ def host_lib(tmp_path_factory):
     lib.block_encrypt.argtypes = [vp, ci, vp, ll, vp]
     lib.block_seq.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ll]
     lib.block_ctr.argtypes = [vp, ci, ci, vp, vp, vp, vp, ll]
-    for fn in (lib.block_encrypt, lib.block_seq, lib.block_ctr):
+    lib.lanes_seq.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, ll]
+    for fn in (lib.block_encrypt, lib.block_seq, lib.block_ctr, lib.lanes_seq):
         fn.restype = ci
     return lib
 
@@ -150,6 +215,16 @@ def _host_seq(lib, rk, nr, cfb, w, iv):
     w, iv, rk = _c(w), _c(iv), _c(rk)
     out, iv_out = np.zeros_like(w), np.zeros_like(iv)
     assert lib.block_seq(rk.ctypes.data, nr, int(cfb), w.ctypes.data, out.ctypes.data,
+                         iv.ctypes.data, iv_out.ctypes.data, w.shape[0], w.shape[1]) == 0
+    return out, iv_out
+
+
+def _host_lanes(lib, rk, nr, cfb, q, w, iv):
+    """(S, N, 4) words and (S, 4) IVs through the lane forms' chain, Q lanes
+    a column."""
+    w, iv, rk = _c(w), _c(iv), _c(rk)
+    out, iv_out = np.zeros_like(w), np.zeros_like(iv)
+    assert lib.lanes_seq(rk.ctypes.data, nr, int(cfb), q, w.ctypes.data, out.ctypes.data,
                          iv.ctypes.data, iv_out.ctypes.data, w.shape[0], w.shape[1]) == 0
     return out, iv_out
 
@@ -204,6 +279,56 @@ def test_chained_batch_matches_reference(host_lib, bits, n, s):
     for j in range(s):  # each stream is the single-stream chain
         one, one_iv = jaes.cbc_encrypt_words(jnp.asarray(w[j]), jnp.asarray(iv[j]),
                                              jnp.asarray(rk), nr)
+        np.testing.assert_array_equal(got[j], np.asarray(one))
+        np.testing.assert_array_equal(got_iv[j], np.asarray(one_iv))
+
+
+#: Lanes a column in the lane forms: seq_encrypt's "lanes4", "lanes8" and
+#: "lanes16".
+LANES_Q = [1, 2, 4]
+
+
+@pytest.mark.parametrize("q", LANES_Q)
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("n", [0, 1, 5, 33])
+@pytest.mark.parametrize("mode", ["cbc", "cfb128"])
+def test_lanes_chained_stream_matches_reference(host_lib, q, bits, n, mode):
+    """One stream through the lane forms' rounds, shuffles emulated lane by
+    lane, against the JAX package's single-stream CBC and CFB128."""
+    nr, rk = _key(bits, seed=3 * bits + n + q)
+    rng = np.random.default_rng(bits + n + 17 * q)
+    w, iv = _u32(rng, 1, n, 4), _u32(rng, 1, 4)
+    got, got_iv = _host_lanes(host_lib, rk, nr, mode == "cfb128", q, w, iv)
+    ref = jaes.cbc_encrypt_words if mode == "cbc" else jaes.cfb128_encrypt_words
+    want, want_iv = ref(jnp.asarray(w[0]), jnp.asarray(iv[0]), jnp.asarray(rk), nr)
+    np.testing.assert_array_equal(got[0], np.asarray(want).reshape(n, 4))
+    np.testing.assert_array_equal(got_iv[0], np.asarray(want_iv))
+
+
+@pytest.mark.parametrize("q", LANES_Q)
+@pytest.mark.parametrize("bits", [128, 192, 256])
+@pytest.mark.parametrize("n", [0, 1, 5, 33])
+@pytest.mark.parametrize("s", [1, 3, 33])
+def test_lanes_chained_batch_matches_reference(host_lib, q, bits, n, s):
+    """S streams through the lane forms (several a warp, the last warp part
+    empty at S = 3 and 33) against the JAX package's batched CBC, and each
+    stream's CFB128 against its single-stream CFB128."""
+    nr, rk = _key(bits, seed=5 * bits + n + s + q)
+    rng = np.random.default_rng(7 * bits + n + s + 19 * q)
+    w, iv = _u32(rng, s, n, 4), _u32(rng, s, 4)
+    got, got_iv = _host_lanes(host_lib, rk, nr, False, q, w, iv)
+    if n == 0:
+        # No block step: the reference returns its input and the IVs as given.
+        np.testing.assert_array_equal(got_iv, iv)
+        return
+    want, want_iv = jaes.cbc_encrypt_words_batch(jnp.asarray(w), jnp.asarray(iv),
+                                                 jnp.asarray(rk), nr)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got_iv, np.asarray(want_iv))
+    got, got_iv = _host_lanes(host_lib, rk, nr, True, q, w, iv)
+    for j in range(s):
+        one, one_iv = jaes.cfb128_encrypt_words(jnp.asarray(w[j]), jnp.asarray(iv[j]),
+                                                jnp.asarray(rk), nr)
         np.testing.assert_array_equal(got[j], np.asarray(one))
         np.testing.assert_array_equal(got_iv[j], np.asarray(one_iv))
 
