@@ -20,7 +20,9 @@ frames) and engine selection with the port's entry (``entry()``, the bench's
 probe stage and device lock, the device key schedules, the native serve
 engine, ``ot_bench``) and the routing tier (``python -m
 our_tree_tpu_torch.route.bench``, a consistent-hash router in front of port
-workers on this card), and holds
+workers on this card) and the operator tools (``our_tree_tpu_torch.scripts``:
+the randomized parity fuzz on one device and sharded, and short runs of the
+profile, the stream-axis scaling and the ARC4 keygen), and holds
 every kernel of those paths against its plain torch version on the card. Phases, in order; any failure raises and the exit code
 is not 0:
 
@@ -406,6 +408,23 @@ is not 0:
    ``arc4_prga`` gain ``sharded`` (their launches over every world and
    rank) and ``sharded_by_world``. No run spans two cards: the machine
    has one, and NCCL takes no two ranks on one device;
+19. the operator tools (``tools_phase``; after 18, before 14), in child
+   processes: (a) ``python -m our_tree_tpu_torch.scripts.fuzz_parity
+   --engines cuda --max-bytes 2097152 --seed 25 --deadline 25`` (the oracle
+   the reference C where ``$OT_REFERENCE_DIR`` holds it, else the native C
+   tier): rc 0, at least 100 cases, both forms of ``ctr_gen`` and of ECB
+   encrypt launched; (b) beside it, the same with ``--sharded --deadline
+   10`` under two gloo ranks on this card: rc 0, at least 10 cases, each
+   rank's line, each rank's sharded arm launching kernels, the same as rank
+   0's; (c) meanwhile, one at a time, ``arc4_device_keygen --sizes-kb 64
+   --iters 1``, ``batch_streams_scaling --total-mb 1 --streams 32,2048`` and
+   ``profile_ctr --component ctr-kernel`` and ``--component digest`` at
+   ``OT_PROF_BYTES`` 16 MiB, each rc 0 with its line's keys (the keygen
+   through ``arc4_prga``, each cbc-batch row in the form the C entry picks,
+   one ``ctr_gen`` a ``ctr-kernel`` step). The ``kernels`` line's
+   ``ctr_gen``, ``ecb_encrypt``, ``ecb_decrypt``, ``seq_encrypt`` and
+   ``arc4_prga`` gain ``fuzz``: the cases, the oracle, the kernel's launches
+   and launches by form, and the sharded run's cases and launches by rank;
 14. drive C, drive A's mix at 10,000 requests with ``--profile-window 1:2``
    and ``--ceiling-gbps`` at the probe's ``ctr_mk`` ceiling, gated as A,
    with a ``torch``-tier profile section that validates, cross-check rows
@@ -501,6 +520,23 @@ MULTI_STEP_KERNEL = {"ctr": "ctr_gen", "ecb-dec": "ecb_decrypt", "cbc-dec": "ecb
 MULTI_KERNELS = ("ctr_gen", "ecb_encrypt", "ecb_decrypt", "seq_encrypt", "arc4_prga")
 #: Phase 10's modes under two ranks.
 MULTI_SWEEP_MODES = "ecb,ecb-dec,ctr,cbc-dec,cbc-batch,rc4-batch"
+#: Phase 19: the operator tools. (a) the fuzz on one device, (b) the sharded
+#: fuzz in a 2-rank gloo world on this card, each bounded by its deadline (the
+#: case count by the gates' minimum), (c) one short run of each other tool.
+TOOLS_FUZZ = ["--engines", "cuda", "--max-bytes", "2097152", "--seed", "25",
+              "--iters", "1000000"]
+TOOLS_FUZZ_DEADLINE = {"single": 25, "sharded": 10}
+TOOLS_FUZZ_MIN_CASES = {"single": 100, "sharded": 10}
+TOOLS_FUZZ_RANKS = 2
+TOOLS_RUNS = {
+    "arc4_device_keygen": (["--sizes-kb", "64", "--iters", "1"], {}),
+    "batch_streams_scaling": (["--total-mb", "1", "--streams", "32,2048"], {}),
+    "profile_ctr ctr-kernel": (["--component", "ctr-kernel"], {"OT_PROF_BYTES": str(16 << 20)}),
+    "profile_ctr digest": (["--component", "digest"], {"OT_PROF_BYTES": str(16 << 20)}),
+}
+TOOLS_TIMEOUT = 120
+#: The kernels the fuzz counts (``fuzz_parity._wrappers``).
+FUZZ_KERNELS = ("ctr_gen", "ecb_encrypt", "ecb_decrypt", "seq_encrypt", "arc4_prga")
 #: H100 SXM HBM3 rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer add/logic/shift results per clock per SM on compute
@@ -843,6 +879,147 @@ WRAP_NONCES = [
 #: The script's start: every log line leads with the seconds since it, so a
 #: run's output is its own timeline against the time limit.
 T_START = time.perf_counter()
+
+
+def _json_lines(text: str, key: str | None = None) -> list[dict]:
+    """The JSON objects among ``text``'s lines (those holding ``key``)."""
+    out = []
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("{"):
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if key is None or key in doc:
+                out.append(doc)
+    return out
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 19: the operator tools of ``our_tree_tpu_torch/scripts`` on this
+    card, in child processes. (a) ``fuzz_parity`` on one device and (b) its
+    ``--sharded`` arm in a 2-rank gloo world run beside (c), one short run of
+    each other tool in turn. Gates: (a) rc 0, at least 100 cases, both forms
+    of ``ctr_gen`` and of ECB encrypt launched; (b) rc 0, at least 10 cases,
+    every rank's line, each rank's sharded arm launching kernels, the same
+    ones as rank 0's; (c) rc 0 and each line's keys (the keygen on the card
+    through ``arc4_prga``; each stream count's cbc-batch in the form the C
+    entry picks, and rc4-batch; ``ctr-kernel`` one ``ctr_gen`` launch a step,
+    ``digest`` none). Returns each part's figures."""
+    from our_tree_tpu_torch.ops import cuda_aes
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="ot_tools_")
+    env = {**os.environ, "OT_BENCH_BUSY_FILE": os.path.join(scratch, "busy")}
+    mod = "our_tree_tpu_torch.scripts."
+    results: dict = {}
+
+    def fuzz(name, argv):
+        results[name] = run_group(argv, TOOLS_TIMEOUT, env)
+
+    single = [sys.executable, "-m", mod + "fuzz_parity", *TOOLS_FUZZ,
+              "--deadline", str(TOOLS_FUZZ_DEADLINE["single"])]
+    sharded = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               str(TOOLS_FUZZ_RANKS), "-m", mod + "fuzz_parity", *TOOLS_FUZZ, "--sharded",
+               "--deadline", str(TOOLS_FUZZ_DEADLINE["sharded"])]
+    threads = [threading.Thread(target=fuzz, args=a) for a in (("single", single),
+                                                               ("sharded", sharded))]
+    try:
+        for th in threads:
+            th.start()
+        for name, (args, extra) in TOOLS_RUNS.items():
+            tool = name.split()[0]
+            results[name] = run_group([sys.executable, "-m", mod + tool, *args], TOOLS_TIMEOUT,
+                                      {**env, **extra})
+        for th in threads:
+            th.join()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+
+    def tail(name):
+        res = results[name][0]
+        return f"rc {res.returncode}; stdout {res.stdout[-1500:]!r}; stderr {res.stderr[-2500:]!r}"
+
+    # (a) one device.
+    res_a, wall_a = results["single"]
+    lines_a = _json_lines(res_a.stdout, "fuzz")
+    fa = lines_a[-1]["fuzz"] if lines_a else {}
+    forms = fa.get("launches_by_form", {})
+    oracle_line = next((x for x in res_a.stdout.splitlines() if x.startswith("# oracle:")), "")
+    checks_a = {"rc 0": res_a.returncode == 0, "FUZZ PASS": "FUZZ PASS" in res_a.stdout,
+                f">= {TOOLS_FUZZ_MIN_CASES['single']} cases":
+                    fa.get("cases", 0) >= TOOLS_FUZZ_MIN_CASES["single"],
+                "ctr_gen both forms": all(forms.get("ctr_gen", {}).get(f, 0) > 0
+                                          for f in ("group", "block")),
+                "ecb_encrypt both forms": all(forms.get("ecb_encrypt", {}).get(f, 0) > 0
+                                              for f in ("group", "block"))}
+    log(f"phase 19 (a) fuzz_parity on one device: {wall_a:.1f} s, {fa.get('cases')} cases "
+        f"({oracle_line[2:]}); launches {fa.get('launches')}, by form {forms}; checks "
+        f"{checks_a}; card: {card}")
+    if not all(checks_a.values()):
+        raise SystemExit(f"phase 19 (a): {checks_a}; {tail('single')}")
+
+    # (b) the sharded arm, one line a rank.
+    res_b, wall_b = results["sharded"]
+    ranks = sorted((d["fuzz"] for d in _json_lines(res_b.stdout, "fuzz")),
+                   key=lambda f: f["rank"])
+    lead = ranks[0] if ranks else {}
+    checks_b = {"rc 0": res_b.returncode == 0, "FUZZ PASS": "FUZZ PASS" in res_b.stdout,
+                "every rank's line": [f["rank"] for f in ranks] == list(range(TOOLS_FUZZ_RANKS)),
+                f">= {TOOLS_FUZZ_MIN_CASES['sharded']} cases, each sharded":
+                    lead.get("cases", 0) >= TOOLS_FUZZ_MIN_CASES["sharded"]
+                    and lead.get("sharded_cases") == lead.get("cases"),
+                "each rank launched its kernels": all(
+                    sum(f["sharded_launches"].values()) > 0
+                    and f["sharded_launches"] == lead["sharded_launches"] for f in ranks)}
+    log(f"phase 19 (b) fuzz_parity --sharded, {TOOLS_FUZZ_RANKS} gloo ranks on this card: "
+        f"{wall_b:.1f} s, {lead.get('cases')} cases; sharded launches by rank "
+        + "; ".join(f"r{f['rank']} {f['sharded_launches']}" for f in ranks)
+        + f"; checks {checks_b}; card: {card}")
+    if not all(checks_b.values()):
+        raise SystemExit(f"phase 19 (b): {checks_b}; {tail('sharded')}")
+
+    # (c) the other tools' lines.
+    lines = {name: _json_lines(results[name][0].stdout) for name in TOOLS_RUNS}
+    keygen = {d["what"]: d for d in lines["arc4_device_keygen"]}
+    dev_row = keygen.get("arc4-keygen-device", {})
+    scaling = {(d["what"], d["streams"]): d for d in lines["batch_streams_scaling"]}
+    streams = [int(s) for s in TOOLS_RUNS["batch_streams_scaling"][0][3].split(",")]
+    prof = {name: (lines[name] or [{}])[-1] for name in TOOLS_RUNS if name.startswith("profile")}
+    checks_c = {
+        "rc 0": {name: results[name][0].returncode for name in TOOLS_RUNS} == dict.fromkeys(
+            TOOLS_RUNS, 0),
+        "keygen: card row on arc4_prga, native row": dev_row.get("platform") == "gpu"
+            and dev_row.get("launches", 0) >= 1 and {"bytes", "best_s", "mb_per_s",
+                                                   "s_per_gib_extrapolated"} <= set(dev_row)
+            and "arc4-keygen-native-c" in keygen,
+        "scaling: each row, cbc-batch in its form": all(
+            ("cbc-batch", s) in scaling and ("rc4-batch", s) in scaling
+            and scaling[("cbc-batch", s)]["form"] == cuda_aes.seq_encrypt_form(s)
+            and scaling[("cbc-batch", s)]["launches_per_call"] == {"seq_encrypt": 1.0}
+            and scaling[("rc4-batch", s)]["gb_per_s"] > 0 for s in streams),
+        "profile: ctr-kernel one ctr_gen a step, digest none": all(
+            {"component", "sec", "ms", "gb_per_s", "launches_per_step"} <= set(p)
+            and p.get("platform") == "gpu" for p in prof.values())
+            and prof["profile_ctr ctr-kernel"]["launches_per_step"] == {"ctr_gen": 1.0}
+            and prof["profile_ctr digest"]["launches_per_step"] == {},
+    }
+    log(f"phase 19 (c) arc4_device_keygen: {json.dumps(list(keygen.values()))}; card: {card}")
+    for d in lines["batch_streams_scaling"]:
+        log(f"phase 19 (c) batch_streams_scaling: {json.dumps(d)}; card: {card}")
+    for name, p in prof.items():
+        log(f"phase 19 (c) {name}: {json.dumps(p)}; card: {card}")
+    log(f"phase 19 (c) checks {checks_c}; walls "
+        + ", ".join(f"{name} {results[name][1]:.1f} s" for name in TOOLS_RUNS))
+    if not all(checks_c.values()):
+        raise SystemExit(f"phase 19 (c): {checks_c}; "
+                         + "; ".join(f"{name}: {tail(name)}" for name in TOOLS_RUNS))
+    log(f"phase 19 (operator tools): {wall:.1f} s wall; card: {card}")
+    return {"wall_s": wall, "single": fa, "oracle": fa.get("oracle"), "ranks": ranks,
+            "keygen": list(keygen.values()), "scaling": lines["batch_streams_scaling"],
+            "profile": prof}
 
 
 def tests_module(name: str):
@@ -6419,6 +6596,21 @@ def main() -> int:
             entry["main_path_1gib"] = main_gib
             entry["sharded_ctr_gbps"] = {w: [r["ctr_gbps"] for r in d["ranks"]]
                                          for w, d in multi["worlds"].items()}
+
+    # 19. The operator tools (before 14, which stays last): the parity fuzz on
+    # one device and sharded over two gloo ranks, and short runs of the others.
+    phase("19")
+    tools = tools_phase(card)
+    for entry in kernels:
+        if entry["name"] in FUZZ_KERNELS:
+            name = entry["name"]
+            entry["fuzz"] = {
+                "cases": tools["single"]["cases"], "oracle": tools["oracle"],
+                "launches": tools["single"]["launches"][name],
+                "launches_by_form": tools["single"]["launches_by_form"].get(name),
+                "sharded_cases": tools["ranks"][0]["cases"],
+                "sharded_launches_by_rank": [r["sharded_launches"][name]
+                                             for r in tools["ranks"]]}
 
     phase("14")
     # 14. Drive A's mix once more, profiled (torch tier) and costed against

@@ -30,14 +30,25 @@ vacuously green).
 
 The port wires these points: ``dispatch_fail`` and ``dispatch_hang`` at the
 sweep backend's completion barrier and chained dispatch
-(``harness.backends.GpuBackend``) and, for ``dispatch_hang``, the sweep's
-timed region (``harness.bench._time_us``); ``unit_crash`` at sweep-unit
-execution (``harness.bench``); ``build_fail`` at the native C build
-(``runtime.native``); ``tag_mismatch`` at the serve path's GCM finisher
+(``harness.backends.GpuBackend``), the serve lanes' dispatch
+(``serve.lanes``) and, for ``dispatch_hang``, the sweep's timed region
+(``harness.bench._time_us``), the hex CLI's dispatch (``harness.decrypt``)
+and each case of the parity fuzzer (``scripts.fuzz_parity``), where a firing
+debits the hang from the ``--deadline`` budget without sleeping
+(``watchdog.injected_hang(..., budget=)``); ``unit_crash`` at sweep-unit
+execution (``harness.bench``); ``build_fail`` at the native C builds
+(``runtime.native``); ``lock_busy`` at the card's lock (``utils.devlock``);
+``serve_dispatch``, ``lane_fail``, ``lane_hang`` and ``dispatch_slow`` at
+the serve lanes; ``tag_mismatch`` at the serve path's GCM finisher
 (``serve.server.Server._gcm_finish``: a firing fails one ``gcm-open``
-request's tag check, so it answers ``auth-failed``). The other names belong
-to seams of the JAX package that the port has not ported yet; they parse the
-same.
+request's tag check, so it answers ``auth-failed``); ``chunk_lost``,
+``reassembly_stall`` and ``transfer_abort`` at chunked transfers
+(``serve.transfer``); ``session_stall``, ``keystream_miss`` and
+``session_evict`` at the rc4 sessions (``serve.session``);
+``backend_fail``, ``backend_hang`` and ``pool_stale`` at the router
+(``route.proxy``), ``worker_slow_start`` and ``scale_stall`` at the fleet
+(``route.fleet``). ``init_hang`` belongs to the root ``bench.py``'s PJRT
+probe, which the port does not have; it parses the same.
 
 Determinism: firings consume counts in call order within one process
 (subprocesses re-parse the inherited environment and count on their own;

@@ -49,7 +49,12 @@ def test_port_imports_neither_jax_nor_reference():
                     "our_tree_tpu_torch.models.arc4", "our_tree_tpu_torch.models.rc4",
                     "our_tree_tpu_torch.ops.cuda_arc4", "our_tree_tpu_torch.runtime.native",
                     "our_tree_tpu_torch.harness.backends",
-                    "our_tree_tpu_torch.harness.bench"}
+                    "our_tree_tpu_torch.harness.bench",
+                    "our_tree_tpu_torch.scripts.oracle",
+                    "our_tree_tpu_torch.scripts.fuzz_parity",
+                    "our_tree_tpu_torch.scripts.profile_ctr",
+                    "our_tree_tpu_torch.scripts.batch_streams_scaling",
+                    "our_tree_tpu_torch.scripts.arc4_device_keygen"}
         assert expected <= set(names), sorted(expected - set(names))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

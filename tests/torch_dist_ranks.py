@@ -1,7 +1,8 @@
 """One rank of a gloo world on the CPU for the port's multi-device tests.
 
-Not a test module: ``tests/test_torch_parallel.py`` and
-``tests/test_torch_multihost.py`` launch it, one process a rank:
+Not a test module: ``tests/test_torch_parallel.py``,
+``tests/test_torch_multihost.py`` and ``tests/test_torch_fuzz_parity.py``
+launch it, one process a rank:
 
     python tests/torch_dist_ranks.py MODE RANK WORLD STORE OUT
 
@@ -14,7 +15,8 @@ inputs (``<case>.in.*``), and each expected refusal's message
 neither JAX nor the JAX package was loaded. MODE ``suite`` runs every
 sharded function, ``dryrun_multichip`` and the refusals; ``multihost`` the
 bootstrap: ``global_mesh``, ``host_local_to_global`` and a second
-``initialize``.
+``initialize``; ``fuzz`` the parity fuzzer's ``--sharded`` arm with the
+arguments after OUT, keeping its exit code and output.
 """
 
 import os
@@ -191,6 +193,21 @@ def multihost_cases(rec, world):
                                                       device="cpu"))
 
 
+def fuzz(rec, args):
+    """``scripts/fuzz_parity.py --sharded`` in this world: its exit code and
+    standard output (``fuzz.rc``, ``fuzz.stdout``)."""
+    import contextlib
+    import io
+
+    from our_tree_tpu_torch.scripts import fuzz_parity
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fuzz_parity.main(args)
+    rec.out["fuzz.rc"] = np.asarray(rc)
+    rec.out["fuzz.stdout"] = np.asarray(buf.getvalue())
+
+
 def main():
     mode, rank, world, store, out = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -207,7 +224,10 @@ def main():
     rec = Record(multihost.global_mesh())
     rec.out.update(pre)
     try:
-        (suite if mode == "suite" else multihost_cases)(rec, world)
+        if mode == "fuzz":
+            fuzz(rec, sys.argv[6:])
+        else:
+            (suite if mode == "suite" else multihost_cases)(rec, world)
     finally:
         multihost.shutdown()
     loaded = sorted(m for m in sys.modules
